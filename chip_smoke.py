@@ -19,7 +19,20 @@ Phases (each raises on failure, so the script exits nonzero):
    same configuration through the API in float32 (256 steps) and float64
    (64 steps): the float32 E trace within 1e-5 of float64, mean(U) held,
    every kernel launched on every step; steps/s of steady windows and the
-   per-layer times of one step.
+   per-layer times of one step;
+6. the float64 ozaki route (``transform_backend='ozaki'``):
+   (a) the slice kernel against its plain version at N = 4096, 1000 and
+   512, 4, 6 and 8 slices, three field classes: the same slices to the bit
+   and the same scale, both timed;
+   (b) the canonical run through ``Simulator.solve`` on the level-1 fold
+   route: stop at 1674 with the golden anchors, and the slice kernel
+   launched exactly as often as the route implies (the slice kernel's
+   count in the JSON line comes from this run);
+   (c) the tests/golden/n1024_uniform_stop.json run on the rfold route:
+   stop 1837, E within 1e-10 at every step;
+   (d) N=4096 (rfold, two levels): E over 64 steps within 1e-10 of the
+   native float64 matmul route from the same field, steady steps/s of
+   both routes in turns, and the per-layer times of one ozaki step.
 
 The last two lines of standard output are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``; with ``--out DIR`` every measurement also
@@ -45,8 +58,15 @@ REPLACES = {
     'spectral_update': 'chsimpy_tpu/ops/pallas_kernels.py:113',
     'stats_sums': 'chsimpy_tpu/ops/pallas_kernels.py:288',
     'absdev_sum': 'chsimpy_tpu/ops/pallas_kernels.py:348',
+    'slice_field': 'chsimpy_tpu/ops/ozaki.py:233',
 }
+# the kernels of the matmul route (the ozaki route adds slice_field)
+MATMUL_PATH = ('chemical_potential', 'spectral_update', 'stats_sums',
+               'absdev_sum')
 REPORT_SHAPE = (4096, 'float32')   # the fast-mode shape of the JSON line
+# the slice kernel's row of the JSON line: a full N=4096 field cut into the
+# 4 slices of the trimmed (3, 5) transforms
+SLICE_REPORT = (4096, 4, 'solver')
 
 
 class PhaseError(RuntimeError):
@@ -226,9 +246,11 @@ def default_run():
     check(res['E_last_rel'] <= 1e-10, 'E_last outside 1e-10')
     check(res['E_every_100_max_rel'] <= 1e-10, 'E_every_100 outside 1e-10')
     check(res['argmax_E2'] == g['argmax_E2'], 'argmax E2 differs')
-    for name, n in launches.items():
+    for name in MATMUL_PATH:
+        n = launches[name]
         check(n >= sol.computed_steps - 1,
               f"{name} launched {n} times in {sol.computed_steps} steps")
+    check(launches['slice_field'] == 0, 'the matmul route sliced a field')
     return res
 
 
@@ -251,19 +273,20 @@ def cli_run():
     m = re.search(r'kernel launches: (\{.*\})', proc.stdout)
     check(m is not None, 'CLI printed no kernel launch counts')
     launches = json.loads(m.group(1))
-    for name, n in launches.items():
-        check(n >= 255, f"CLI: {name} launched {n} times in 255 steps")
+    for name in MATMUL_PATH:
+        check(launches[name] >= 255,
+              f"CLI: {name} launched {launches[name]} times in 255 steps")
     print(f"cli run: 256 steps in {seconds:.1f} s (process included), "
           f"launches {launches}", flush=True)
     return {'seconds': seconds, 'launches': launches}
 
 
-def make_solver(N, precision, chunk, full_sim=True):
+def make_solver(N, precision, chunk, full_sim=True, transform='auto'):
     from chsimpy_tpu_torch import Parameters
     from chsimpy_tpu_torch.core.solver import Solver
     p = Parameters(N=N, precision=precision, full_sim=full_sim,
                    generator='uniform', kappa_tilde=KAPPA, chunk_size=chunk,
-                   no_gui=True, device='cuda')
+                   no_gui=True, device='cuda', transform_backend=transform)
     s = Solver(p)
     s.prepare()
     return s
@@ -311,8 +334,10 @@ def fast_mode(card):
     U0_mean = s32.solution.U.double().mean().item()
     sol32 = s32.solve_or_resume(256)
     launches = dict(K.launches)
-    for name, n in launches.items():
-        check(n >= 255, f"API f32: {name} launched {n} times in 255 steps")
+    for name in MATMUL_PATH:
+        check(launches[name] >= 255,
+              f"API f32: {name} launched {launches[name]} times in 255 "
+              f"steps")
     mean32 = sol32.U.double().mean().item()
     out['f32_launches'] = launches
     out['f32_mean_U'] = mean32
@@ -351,6 +376,314 @@ def fast_mode(card):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 6: the float64 ozaki route
+# ----------------------------------------------------------------------
+
+def slice_phase(dev, card):
+    """(a) the slice kernel against its plain version on the card."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    for N in (4096, 1000, 512):
+        rng = np.random.default_rng(N)
+        fields = {'solver': 0.875 + 0.01 * (rng.random((N, N)) - 0.5),
+                  'normal': rng.standard_normal((N, N)),
+                  'zeros': np.zeros((N, N))}
+        for kind, f in fields.items():
+            x = torch.tensor(f, dtype=torch.float64, device=dev)
+            for n in (4, 6, 8):
+                got, scale = K.slice_field(x, n)
+                want, wscale = K.slice_field_ref(x, n)
+                torch.cuda.synchronize()
+                err = (got.int() - want.int()).abs().max().item()
+                ok = err == 0 and scale.item() == wscale.item()
+                row = {'name': 'slice_field', 'N': N, 'n_slices': n,
+                       'field': kind, 'max_abs_err': err,
+                       'scale': scale.item(), 'plain_scale': wscale.item(),
+                       'tolerance': 'bit-identical slices, equal scale',
+                       'ok': ok}
+                if kind == 'solver':
+                    row['ms'] = median_ms(lambda: K.slice_field(x, n))
+                    row['plain_ms'] = median_ms(
+                        lambda: K.slice_field_ref(x, n))
+                    # the wrapper's scale (max|x|, log2, exp2) alone
+                    row['scale_ms'] = median_ms(lambda: K.slice_scale(x))
+                rows.append(row)
+                times = (f"kernel {row['ms']:.4f} ms (scale "
+                         f"{row['scale_ms']:.4f}) plain "
+                         f"{row['plain_ms']:.4f} ms  ({card})"
+                         if 'ms' in row else '')
+                print(f"kernel slice_field N={N:5d} n={n} {kind:6s} "
+                      f"max diff {err} scale {row['scale']!r} "
+                      f"{'ok' if ok else 'FAIL'}  {times}", flush=True)
+                check(ok, f"slice_field N={N} n={n} {kind}: slices differ "
+                          f"by {err} or scale {row['scale']!r} != "
+                          f"{row['plain_scale']!r}")
+    return rows
+
+
+def slices_per_forward(cfg) -> int:
+    """Slice kernel launches of one forward transform of the route (the
+    inverse slices once)."""
+    if cfg.ozaki_rfold_levels:
+        return cfg.ozaki_rfold_levels + 1
+    return 2 if cfg.ozaki_fold else 1
+
+
+def check_ozaki_launches(tag, cfg, launches, steps, chunk, ntmax):
+    """Every kernel launched; K1 once per step iteration the chunks ran;
+    the slice kernel fwd + iterations * (fwd + 1) times (one forward at
+    entry, a forward and an inverse per step)."""
+    iterations = min(ntmax - 1, -(-(steps - 1) // chunk) * chunk)
+    fwd = slices_per_forward(cfg)
+    want = fwd + iterations * (fwd + 1)
+    for name, n in launches.items():
+        check(n > 0, f"{tag}: {name} was never launched")
+    check(launches['chemical_potential'] == iterations,
+          f"{tag}: chemical_potential launched "
+          f"{launches['chemical_potential']} times, not {iterations}")
+    check(launches['slice_field'] == want,
+          f"{tag}: slice_field launched {launches['slice_field']} times, "
+          f"the route implies {want}")
+    return iterations, want
+
+
+def ozaki_default_run():
+    """(b) the canonical N=512 float64 run on the ozaki route (level-1
+    fold): the main path of this slice."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters, Simulator
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    with open(os.path.join(ROOT, 'tests', 'golden',
+                           'default_n512_anchors.json')) as f:
+        g = json.load(f)
+    p = Parameters(no_gui=True, device='cuda', kappa_tilde=KAPPA,
+                   transform_backend='ozaki')
+    sim = Simulator(p)
+    cfg = sim.solver.cfg
+    check(cfg.ozaki_fold and not cfg.ozaki_rfold_levels,
+          'the N=512 ozaki run is not on the level-1 fold route')
+    K.reset_launches()
+    t0 = time.perf_counter()
+    sol = sim.solve()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(K.launches)
+    td = sol.timedata.data()
+    res = {'route': 'fold', 'computed_steps': sol.computed_steps,
+           'stop_reason': sol.stop_reason, 'tau0': sol.tau0, 't0': sol.t0,
+           'seconds': seconds, 'launches': launches,
+           'E_first_rel': abs(td[0, 1] / g['E_first'] - 1),
+           'E_last_rel': abs(td[-1, 1] / g['E_last'] - 1),
+           'E_every_100_max_rel': float(np.max(np.abs(
+               td[::100, 1] / np.asarray(g['E_every_100']) - 1))),
+           'argmax_E2': int(td[:, 2].argmax())}
+    print(f"ozaki default run: {json.dumps(res)}", flush=True)
+    check(tuple(sol.U.shape) == (512, 512) and sol.U.is_cuda
+          and bool(torch.isfinite(sol.U).all()),
+          'ozaki: the field is not a finite (512, 512) tensor on the card')
+    check(sol.computed_steps == 1674, f"ozaki stop step "
+                                      f"{sol.computed_steps} != 1674")
+    check(sol.stop_reason == 'energy', f"ozaki stop reason "
+                                       f"{sol.stop_reason}")
+    check(sol.tau0 == g['tau0'], f"ozaki tau0 {sol.tau0} != {g['tau0']}")
+    check(abs(sol.t0 / g['t0'] - 1) <= 1e-12, 'ozaki t0 outside 1e-12')
+    check(res['E_first_rel'] <= 1e-12, 'ozaki E_first outside 1e-12')
+    check(res['E_last_rel'] <= 1e-10, 'ozaki E_last outside 1e-10')
+    check(res['E_every_100_max_rel'] <= 1e-10,
+          'ozaki E_every_100 outside 1e-10')
+    check(res['argmax_E2'] == g['argmax_E2'], 'ozaki argmax E2 differs')
+    res['iterations'], res['slice_launches_implied'] = check_ozaki_launches(
+        'ozaki default run', cfg, launches, sol.computed_steps,
+        p.chunk_size, p.ntmax)
+    return res
+
+
+def ozaki_golden_n1024():
+    """(c) tests/golden/n1024_uniform_stop.json on the rfold route."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters, Simulator
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    with open(os.path.join(ROOT, 'tests', 'golden',
+                           'n1024_uniform_stop.json')) as f:
+        g = json.load(f)
+    p = Parameters(no_gui=True, device='cuda', kappa_tilde=KAPPA,
+                   transform_backend='ozaki', **g['config'])
+    sim = Simulator(p)
+    cfg = sim.solver.cfg
+    check(cfg.ozaki_rfold_levels == 2 and cfg.ozaki_fwd_pairs == (3, 5)
+          and cfg.ozaki_inv_pairs == (3, 5),
+          'the N=1024 ozaki run is not on the rfold route (L=2, (3, 5))')
+    K.reset_launches()
+    t0 = time.perf_counter()
+    sol = sim.solve()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    td = sol.timedata.data()
+    n = min(len(td), len(g['E']))
+    rel = float(np.max(np.abs(td[:n, 1] / np.asarray(g['E'][:n]) - 1)))
+    res = {'route': 'rfold L=2', 'computed_steps': sol.computed_steps,
+           'stop_reason': sol.stop_reason, 'tau0': sol.tau0,
+           'E_max_rel': rel, 'seconds': seconds,
+           'launches': dict(K.launches)}
+    print(f"ozaki n1024 golden: {json.dumps(res)}", flush=True)
+    check(sol.computed_steps == g['computed_steps'] == 1837,
+          f"ozaki N=1024 stop step {sol.computed_steps} != 1837")
+    check(sol.stop_reason == g['stop_reason'] == 'energy',
+          f"ozaki N=1024 stop reason {sol.stop_reason}")
+    check(sol.tau0 == g['tau0'], f"ozaki N=1024 tau0 {sol.tau0}")
+    check(rel <= 1e-10, f"ozaki N=1024 E {rel:.3e} outside 1e-10")
+    check_ozaki_launches('ozaki N=1024', cfg, res['launches'],
+                         sol.computed_steps, p.chunk_size, p.ntmax)
+    return res
+
+
+class CallRecorder:
+    """Records every call (arguments included) of the wrapped functions
+    during one step; the wrappers are removed on exit."""
+
+    def __init__(self, targets):
+        self.targets = targets      # (module, attribute, label)
+        self.calls = {}
+        self.saved = []
+
+    def __enter__(self):
+        for module, name, label in self.targets:
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+
+            def recorded(*a, _fn=fn, _label=label, **k):
+                self.calls.setdefault(_label, []).append((_fn, a, k))
+                return _fn(*a, **k)
+            setattr(module, name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def replay_ms(calls, reps=3):
+    """Device time of a layer: its recorded calls of one step replayed
+    back to back between two CUDA events (median of ``reps``)."""
+    def run():
+        for fn, a, k in calls:
+            fn(*a, **k)
+    return median_ms(run, reps=reps, warm=1)
+
+
+def ozaki_layer_ms(solver):
+    """Per-layer times of one ozaki step: each layer's calls of one step,
+    recorded and replayed alone; the step itself timed whole."""
+    from chsimpy_tpu_torch.core import stepper
+    from chsimpy_tpu_torch.ops import ozaki as oz
+    cfg, c, s = solver.cfg, solver._consts, solver._state
+    targets = [(oz, 'slice_field', 'slice_kernel'),
+               (oz, 'int8_matmul', 'int8_products'),
+               (oz, '_pair_groups', 'pair_groups'),
+               (oz, '_renorm_to_slices', 'renorm'),
+               (oz, '_horner_f64', 'horner'),
+               (stepper, 'dct2_route', 'forward_transform'),
+               (stepper, 'idct2_route', 'inverse_transform')]
+    with CallRecorder(targets) as rec:
+        stepper._step(cfg, c, s)
+    out = {label: replay_ms(calls) for label, calls in rec.calls.items()}
+    out['whole_step'] = median_ms(lambda: stepper._step(cfg, c, s),
+                                  reps=10, warm=1)
+    out['int32_group_adds'] = out['pair_groups'] - out['int8_products']
+    transforms = out['forward_transform'] + out['inverse_transform']
+    out['transform_rest'] = transforms - (
+        out['slice_kernel'] + out['pair_groups'] + out['renorm']
+        + out['horner'])
+    out['step_rest'] = out['whole_step'] - transforms
+    # int8 operations of the step's products, and their rate
+    ops = sum(2 * a[0].shape[0] * a[0].shape[1] * a[1].shape[1]
+              for _, a, _ in rec.calls['int8_products'])
+    counts = {k: len(v) for k, v in rec.calls.items()}
+    return out, {'int8_ops': ops, 'int8_products': counts['int8_products'],
+                 'int8_TOPS': ops / out['int8_products'] / 1e9,
+                 'calls': counts}
+
+
+def int8_layout_probe(card):
+    """One product of the path's shape, (2048, 2048) @ (2048, 4096), with
+    the right operand row-major and column-major: the rate of each."""
+    import torch
+    dev = torch.device('cuda', torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randint(-64, 65, (2048, 2048), dtype=torch.int8, device=dev,
+                      generator=g)
+    b = torch.randint(-64, 65, (2048, 4096), dtype=torch.int8, device=dev,
+                      generator=g)
+    bc = b.t().contiguous().t()
+    check(torch.equal(torch._int_mm(a, b), torch._int_mm(a, bc)),
+          'int8 product differs between operand layouts')
+    ops = 2 * 2048 * 2048 * 4096
+    out = {}
+    for name, rhs in (('row_major', b), ('column_major', bc)):
+        ms = median_ms(lambda: torch._int_mm(a, rhs))
+        out[name] = {'ms': ms, 'TOPS': ops / ms / 1e9}
+    print("int8 product (2048x2048)@(2048x4096): " + ', '.join(
+        f"right operand {k} {v['ms']:.4f} ms {v['TOPS']:.1f} TOP/s"
+        for k, v in out.items()) + f"  ({card})", flush=True)
+    return out
+
+
+def ozaki_n4096(card):
+    """(d) N=4096 float64: ozaki (rfold) against native float64 matmul."""
+    import numpy as np
+    import torch
+
+    mm = make_solver(4096, 'float64', 64, transform='matmul')
+    oz = make_solver(4096, 'float64', 64, transform='ozaki')
+    check(oz.cfg.ozaki_rfold_levels == 2, 'N=4096 ozaki is not rfold L=2')
+    check(np.array_equal(mm.U_init, oz.U_init), 'different initial fields')
+    # the warm chunk: 64 steps from the same field on both routes
+    Emm = np.array(mm.solve_or_resume(64).timedata.E)
+    Eoz = np.array(oz.solve_or_resume(64).timedata.E)
+    check(len(Emm) == len(Eoz) == 64, 'N=4096: not 64 rows')
+    rel = float(np.max(np.abs(Eoz / Emm - 1)))
+    check(bool(torch.isfinite(oz.solution.U).all()),
+          'N=4096 ozaki field not finite')
+    print(f"N=4096 float64: ozaki E vs matmul max rel {rel:.3e} over 64 "
+          f"steps", flush=True)
+    check(rel <= 1e-10, f"N=4096 ozaki E {rel:.3e} from matmul (1e-10)")
+    rates = {'matmul': [], 'ozaki': []}
+    for name in ('matmul', 'ozaki', 'ozaki', 'matmul'):
+        rates[name].append(rate(mm if name == 'matmul' else oz, 128))
+    for k, v in rates.items():
+        print(f"steps/s N=4096 float64 {k}: " + ', '.join(
+            f"{r:.2f}" for r in v) + f"  ({card})", flush=True)
+    layers, products = ozaki_layer_ms(oz)
+    print("layers N=4096 float64 ozaki: " + ', '.join(
+        f"{n} {t:.4f} ms" for n, t in layers.items()), flush=True)
+    print(f"int8 products per step: {products['int8_products']}, "
+          f"{products['int8_ops'] / 1e12:.3f} T ops, "
+          f"{products['int8_TOPS']:.1f} TOP/s  ({card})", flush=True)
+    torch.cuda.synchronize()
+    return {'E_vs_matmul_max_rel': rel, 'steps_per_s': rates,
+            'layers_ms': layers, 'int8': products,
+            'int8_layout': int8_layout_probe(card),
+            'peak_memory_GB': torch.cuda.max_memory_allocated() / 1e9}
+
+
+def ozaki_phase(dev, card):
+    out = {'slice_kernel': slice_phase(dev, card)}
+    t0 = time.perf_counter()
+    out['default_run'] = ozaki_default_run()
+    out['n1024_golden'] = ozaki_golden_n1024()
+    out['n4096'] = ozaki_n4096(card)
+    out['seconds_b_to_d'] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', help='directory for chip_smoke.json')
@@ -379,6 +712,7 @@ def main(argv=None) -> int:
     detail['kernels'] = kernel_phase(dev, card)
     detail['default_run'] = default_run()
     detail['fast_mode'] = fast_mode(card)
+    detail['ozaki'] = ozaki_phase(dev, card)
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -387,16 +721,24 @@ def main(argv=None) -> int:
 
     summary = []
     for name, replaces in REPLACES.items():
-        row = next(r for r in detail['kernels'] if r['name'] == name
-                   and (r['N'], r['dtype']) == REPORT_SHAPE)
+        if name == 'slice_field':
+            N, n, kind = SLICE_REPORT
+            row = next(r for r in detail['ozaki']['slice_kernel']
+                       if (r['N'], r['n_slices'], r['field']) == SLICE_REPORT)
+            launches = detail['ozaki']['default_run']['launches'][name]
+            extra = {'shape': f"{N}x{N} float64 -> {n} int8 slices"}
+        else:
+            row = next(r for r in detail['kernels'] if r['name'] == name
+                       and (r['N'], r['dtype']) == REPORT_SHAPE)
+            launches = detail['default_run']['launches'][name]
+            extra = {'max_rel_err': row['max_rel_err'],
+                     'shape': f"{REPORT_SHAPE[0]}x{REPORT_SHAPE[0]} "
+                              f"{REPORT_SHAPE[1]}"}
         summary.append({
             'name': name, 'route': 'cuda', 'source': SOURCE,
-            'replaces': replaces,
-            'launches': detail['default_run']['launches'][name],
-            'max_abs_err': row['max_abs_err'],
-            'max_rel_err': row['max_rel_err'], 'ms': row['ms'],
-            'plain_ms': row['plain_ms'],
-            'shape': f"{REPORT_SHAPE[0]}x{REPORT_SHAPE[0]} {REPORT_SHAPE[1]}"})
+            'replaces': replaces, 'launches': launches,
+            'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
+            'plain_ms': row['plain_ms'], **extra})
     print(card)
     print(json.dumps({'kernels': summary}))
     print(json.dumps({'ok': True, 'device': {

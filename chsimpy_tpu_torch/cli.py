@@ -81,10 +81,22 @@ FLAGS = [
          "without a card) or 'cpu' (the plain PyTorch versions)",
          param='device', default='cuda'),
     Flag(('--transform',), 'Device',
-         '2-D DCT route: matmul (auto resolves to matmul; split, fft and '
-         'ozaki are not ported yet)', param='transform_backend',
+         '2-D DCT route: matmul, or ozaki (float64 only: exact int8 '
+         'slice products); auto resolves to matmul; split and fft are '
+         'not ported yet', param='transform_backend',
          choices=['auto', 'matmul', 'split', 'fft', 'ozaki'],
          default='auto'),
+    Flag(('--ozaki-fwd-pairs',), 'Device',
+         'Stage pair cutoffs "S1,S2" for the FORWARD float64 ozaki '
+         'transform (default 3,5 — E at the floor with 2 slots of '
+         'margin; 2,4 = fastest contract-passing; 5,7 = untrimmed)',
+         param='ozaki_fwd_pairs'),
+    Flag(('--ozaki-inv-pairs',), 'Device',
+         'Stage pair cutoffs "S1,S2" for the INVERSE float64 ozaki '
+         'transform, rfold route (default 3,5 — same measured margin '
+         'structure as the forward, all exact-stop goldens hold; '
+         '5,7 = untrimmed)',
+         param='ozaki_inv_pairs'),
     Flag(('-f', '--file-id'), 'Output',
          'Run id ("auto" creates a timestamp)',
          param='file_id', default='auto'),
@@ -106,8 +118,6 @@ _LATER = [
      14),
     (('--fwd-matmul-precision',), 1,
      'the TPU tuning knob --fwd-matmul-precision', 14),
-    (('--ozaki-fwd-pairs',), 1, 'the ozaki int8 transform route', 10),
-    (('--ozaki-inv-pairs',), 1, 'the ozaki int8 transform route', 10),
     (('--inv-band',), 1, 'the TPU tuning knob --inv-band', 14),
     (('--otf-coeffs',), 1, 'the TPU tuning knob --otf-coeffs', 14),
     (('-p', '--parameter-file'), 1, 'YAML parameter files', 13),
@@ -186,6 +196,18 @@ class CLIParser:
                               'temp') and value is None:
                 continue  # keep the Parameters default (incl. derived kappa)
             setattr(params, flag.param, value)
+
+        for pflag in ('ozaki_fwd_pairs', 'ozaki_inv_pairs'):
+            raw = getattr(params, pflag)
+            if isinstance(raw, str):
+                flag = '--' + pflag.replace('_', '-')
+                try:
+                    s1, s2 = (int(v) for v in raw.split(','))
+                except ValueError:
+                    self.parser.error(f'{flag} must look like "3,5"')
+                if not (0 <= s1 <= 7 and 0 <= s2 <= 7):
+                    self.parser.error(f'{flag} cutoffs must be in [0, 7]')
+                setattr(params, pflag, (s1, s2))
 
         errs = solver_scope_errors(params)
         if errs:

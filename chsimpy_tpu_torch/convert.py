@@ -5,7 +5,9 @@ Each function takes plain Python or numpy values (what
 neither jax nor ``chsimpy_tpu``:
 
 * :func:`consts_from_jax` — the output of ``chsimpy_tpu.core.stepper.
-  make_consts`` (C, leig, CHeig, Seig, eaxis, A0, A1, kappa_tilde);
+  make_consts`` (C, leig, CHeig, Seig, eaxis, A0, A1, kappa_tilde, and
+  the ozaki route's int8 slice stacks Cs, CsT, CeS, CoS, CeTS, CoTS and
+  rf);
 * :func:`state_from_jax` — the fields of a ``chsimpy_tpu`` ``SolverState``;
 * :func:`params_from_jax` — ``chsimpy_tpu.Parameters.scalar_dict()``,
   refusing what the port does not run yet.
@@ -22,6 +24,8 @@ from .core.state import SolverState
 from .params import Parameters, check_solver_scope
 
 _CONST_ARRAYS = ('C', 'leig', 'CHeig', 'Seig', 'eaxis')
+# int8 slice stacks of the ozaki routes (empty on the other routes)
+_CONST_SLICES = ('Cs', 'CsT', 'CeS', 'CoS', 'CeTS', 'CoTS')
 _CONST_SCALARS = ('A0', 'A1', 'kappa_tilde')
 _STATE_F64 = ('delt', 'time_delta_sum', 'tau0', 't0', 'E2_first', 'E2_prev')
 _STATE_INT = ('computed_steps', 'stop_reason', 'rows')
@@ -32,8 +36,16 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
 
 
 def consts_from_jax(d: dict, device='cpu') -> dict:
-    """The port's consts dict from the numpy form of the JAX consts."""
+    """The port's consts dict from the numpy form of the JAX consts.  The
+    ozaki stacks may be left out (a matmul-route dict): they are then
+    empty; ``rf`` is a sequence of (block, block^T) stacks."""
     consts = {k: _tensor(d[k], device) for k in _CONST_ARRAYS}
+    empty = np.zeros((0,), np.int8)
+    consts.update({k: _tensor(d.get(k, empty), device, torch.int8)
+                   for k in _CONST_SLICES})
+    consts['rf'] = tuple((_tensor(b, device, torch.int8),
+                          _tensor(bt, device, torch.int8))
+                         for b, bt in d.get('rf', ()))
     consts.update({k: float(np.asarray(d[k])) for k in _CONST_SCALARS})
     return consts
 
@@ -52,7 +64,7 @@ def state_from_jax(d: dict, device='cpu') -> SolverState:
 def params_from_jax(scalar_dict: dict, device='cuda') -> Parameters:
     """Port Parameters from a JAX ``scalar_dict``; raises
     NotImplementedError for settings the port does not run yet (a mesh,
-    the ozaki transform, ...) and ValueError for unknown keys."""
+    the split transform, ...) and ValueError for unknown keys."""
     names = {f.name for f in dataclasses.fields(Parameters)}
     unknown = sorted(set(scalar_dict) - names)
     if unknown:
@@ -61,7 +73,8 @@ def params_from_jax(scalar_dict: dict, device='cuda') -> Parameters:
     for k, v in scalar_dict.items():
         if k == 'version':
             continue
-        if k == 'mesh_shape' and v is not None:
+        if k in ('mesh_shape', 'ozaki_fwd_pairs', 'ozaki_inv_pairs') \
+                and v is not None:
             v = tuple(v)
         setattr(p, k, v)
     p.device = device

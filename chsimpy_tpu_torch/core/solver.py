@@ -34,6 +34,58 @@ from .stepper import (StepConfig, entry_dct2, make_consts, prepare_row0,
                       run_chunk)
 
 
+def resolve_transform(params: Parameters) -> str:
+    """The concrete DCT route: 'matmul' or 'ozaki'.  'auto' stays matmul in
+    the port: the JAX package's TPU choice of ozaki for float64 has to be
+    earned by a measurement on the H100 (ROADMAP.md queue A item 14)."""
+    tb = params.transform_backend or 'auto'
+    if tb == 'auto':
+        return 'matmul'
+    if tb == 'ozaki' and params.precision != 'float64':
+        raise ValueError(
+            "--transform ozaki is the float64 transform (int8 slice "
+            "decomposition of the double-single representation); float32 "
+            "runs use --transform split or matmul")
+    return tb
+
+
+def _resolve_rfold_levels(params: Parameters) -> int:
+    """Fold depth of the recursive permuted ozaki route (0 = the level-1
+    natural fold, or the unfolded route for odd N), as the JAX package
+    resolves it: N >= 1024 folds to depth 2 (1 above N=4096), clamped by
+    divisibility and by the int32 group bound 65*65*8*N*2^L < 2^31
+    (ops/ozaki.py).  The depth changes the bits, so the port keeps it."""
+    if resolve_transform(params) != 'ozaki':
+        return 0
+    N = params.N
+    if N < 1024:
+        return 0
+    max_L = 2 if N <= 4096 else 1
+    L = 0
+    while (L < max_L and N % (2 ** (L + 1)) == 0
+           and N * 2 ** (L + 1) <= 63550):
+        L += 1
+    return L
+
+
+def resolve_ozaki_fwd_pairs(params: Parameters) -> tuple:
+    """Pair cutoffs of the ozaki forward transform (of the nonlinear
+    term, which rides the semi-implicit damping): (3, 5) unless set.  The
+    JAX package's default, measured on the canonical run: E at the
+    float64 floor down to (2, 4), the cliff at (2, 3)."""
+    pairs = params.ozaki_fwd_pairs
+    return (3, 5) if pairs is None else tuple(pairs)
+
+
+def resolve_ozaki_inv_pairs(params: Parameters) -> tuple:
+    """Pair cutoffs of the rfold inverse: (3, 5) unless set (the JAX
+    package's default, measured on the N=1024 golden: exact stop 1837
+    down to (2, 4), stop 1808 at (2, 3)).  The level-1 fold and the
+    unfolded inverses keep (5, 7)."""
+    pairs = params.ozaki_inv_pairs
+    return (3, 5) if pairs is None else tuple(pairs)
+
+
 class Solver:
     """Cahn-Hilliard (CH) integrator: semi-implicit spectral method over the
     2-D DCT, Flory-Huggins energy with linear Redlich-Kister interaction.
@@ -70,6 +122,7 @@ class Solver:
         if params.time_max is not None and params.time_max > 0:
             time_limit = params.time_max * 60.0
 
+        transform = resolve_transform(params)
         d = self.derived
         self.cfg = StepConfig(
             N=N, dtype=params.precision,
@@ -77,7 +130,12 @@ class Solver:
             Amr=d.Amr, L=params.L, delx=d.delx, delx2=d.delx2,
             M_tilde=params.M_tilde, threshold=params.threshold,
             A0=d.A0, A1=d.A1, kappa_tilde=d.kappa_tilde,
-            time_limit=time_limit, full_sim=params.full_sim)
+            time_limit=time_limit, full_sim=params.full_sim,
+            transform_backend=transform,
+            ozaki_fold=transform == 'ozaki' and N % 2 == 0,
+            ozaki_rfold_levels=_resolve_rfold_levels(params),
+            ozaki_fwd_pairs=resolve_ozaki_fwd_pairs(params),
+            ozaki_inv_pairs=resolve_ozaki_inv_pairs(params))
         # chunk size: device steps per host round-trip
         self.chunk_size = max(1, int(params.chunk_size))
         dct_ops.require_full_fp32()
@@ -130,7 +188,8 @@ class Solver:
 
         state = self._state
         # the reference recomputes the spectral image at every (re)entry
-        state = state.replace(hat_U=entry_dct2(state.U, self._consts))
+        state = state.replace(
+            hat_U=entry_dct2(self.cfg, self._consts, state.U))
         if n_iters > 0:
             # re-entering after a stop continues the simulation
             state = state.replace(

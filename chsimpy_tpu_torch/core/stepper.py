@@ -1,13 +1,17 @@
 """The Cahn-Hilliard time step and the chunk runner.
 
-Port of ``chsimpy_tpu/core/stepper.py`` for the slice the port runs: fixed
-``delt``, the matmul DCT route, ``full_sim`` and the energy early stop, the
-``time_max`` limit and the NaN guard.  One step does, in order:
+Port of ``chsimpy_tpu/core/stepper.py`` for the slices the port runs: fixed
+``delt``, the matmul DCT route and the float64 ozaki route on one device,
+``full_sim`` and the energy early stop, the ``time_max`` limit and the NaN
+guard.  One step does, in order:
 
-  nonlinear term (kernel K1) -> forward 2-D DCT (torch.matmul)
-  -> semi-implicit spectral update (K2) -> inverse 2-D DCT (torch.matmul)
+  nonlinear term (kernel K1) -> forward 2-D DCT
+  -> semi-implicit spectral update (K2) -> inverse 2-D DCT
   -> field sums (K3) and Σ|U − mean| (K4), finalized in float64
   -> timedata row and early-stop predicate.
+
+The DCTs are ``torch.matmul`` products on the matmul route; on the ozaki
+route they are exact int8 products (``ops/ozaki.py``, slicing kernel K5).
 
 The JAX package runs a chunk of steps in a ``lax.while_loop`` that exits at
 the stop.  Here a chunk is a Python loop of a fixed number of steps that
@@ -32,6 +36,7 @@ import torch
 from ..ops import coeffs as coeffs_ops
 from ..ops import dct as dct_ops
 from ..ops import kernels as K
+from ..ops import ozaki as ozaki_ops
 from .state import (STOP_ENERGY, STOP_NAN, STOP_NONE, STOP_TIME_LIMIT,
                     SolverState)
 
@@ -58,29 +63,108 @@ class StepConfig:
     kappa_tilde: float = 0.0
     time_limit: Optional[float] = None  # seconds of simulated time
     full_sim: bool = False
+    transform_backend: str = 'matmul'   # 'matmul' | 'ozaki' (float64)
+    # ozaki route layout, resolved by the solver as in the JAX package:
+    # level-1 fold in natural layout (N < 1024), or the recursive fold in
+    # the permuted basis (levels > 0, N >= 1024; overrides ozaki_fold)
+    ozaki_fold: bool = False
+    ozaki_rfold_levels: int = 0
+    # (stage 1, stage 2) pair cutoffs of the forward transform and of the
+    # rfold inverse; None = the untrimmed (5, 7).  The level-1 fold and the
+    # unfolded inverses always keep (5, 7)
+    ozaki_fwd_pairs: Optional[tuple] = None
+    ozaki_inv_pairs: Optional[tuple] = None
 
     @property
     def tdtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
 
 
+_FOLD_KEYS = ('CeS', 'CoS', 'CeTS', 'CoTS')
+
+
 def make_consts(cfg: StepConfig, delt: float, device='cpu') -> dict:
-    """DCT matrix, eigenvalue grid and axis, update coefficient grids, and
-    the physics scalars.  Built on the CPU with the JAX package's
-    operations and order (float64 bit-identical to its ``make_consts``),
-    then moved to ``device``."""
+    """DCT matrix (or, on the ozaki route, its int8 slice stacks),
+    eigenvalue grid and axis, update coefficient grids, and the physics
+    scalars.  Built on the CPU with the JAX package's operations and order
+    (float64 bit-identical to its ``make_consts``, the same keys), then
+    moved to ``device``.  The ozaki rfold route works in the permuted
+    basis, so leig and eaxis are permuted before the grids are made."""
     dtype = cfg.tdtype
     kt = cfg.kappa_tilde
-    leig = coeffs_ops.eigenvalues(cfg.N, dtype)
+    N = cfg.N
+    z8 = torch.zeros((0,), dtype=torch.int8)
+    host = {'C': torch.zeros((0,), dtype=dtype), 'Cs': z8, 'CsT': z8,
+            **{k: z8 for k in _FOLD_KEYS}}
+    rf = ()
+    ozaki = cfg.transform_backend == 'ozaki'
+    L = cfg.ozaki_rfold_levels if ozaki else 0
+    if not ozaki:
+        host['C'] = dct_ops.dct_matrix(N, dtype)
+    elif L:
+        rf = ozaki_ops.dct_rfold_slices(N, L, device)[0]
+    elif cfg.ozaki_fold:
+        fs = ozaki_ops.dct_fold_slices(N)
+        host.update({k: fs[k] for k in _FOLD_KEYS})
+    else:
+        host['Cs'], host['CsT'], _ = ozaki_ops.dct_slices(N)
+    leig = coeffs_ops.eigenvalues(N, dtype)
+    eaxis = coeffs_ops.eigenvalue_axis(N)
+    if L:
+        leig = torch.as_tensor(dct_ops.split_permute_grid(
+            leig.numpy(), N, L)).to(dtype)
+        eaxis = dct_ops.split_permute_axis(eaxis, N, L)
     CHeig, Seig = coeffs_ops.get_coefficients(
         leig, torch.tensor(kt, dtype=dtype), torch.tensor(delt, dtype=dtype),
         cfg.delx2)
-    eaxis = torch.tensor(coeffs_ops.eigenvalue_axis(cfg.N), dtype=dtype)
-    host = {'C': dct_ops.dct_matrix(cfg.N, dtype), 'leig': leig,
-            'eaxis': eaxis, 'CHeig': CHeig, 'Seig': Seig}
+    host.update(leig=leig, eaxis=torch.tensor(eaxis, dtype=dtype),
+                CHeig=CHeig, Seig=Seig)
     consts = {k: v.to(device) for k, v in host.items()}
-    consts.update(A0=float(cfg.A0), A1=float(cfg.A1), kappa_tilde=float(kt))
+    consts.update(A0=float(cfg.A0), A1=float(cfg.A1), kappa_tilde=float(kt),
+                  rf=rf)
     return consts
+
+
+def _pairs(pairs) -> tuple:
+    return tuple(pairs or (ozaki_ops.STAGE1_PAIR, ozaki_ops.STAGE2_PAIR))
+
+
+def _fold_stacks(cfg: StepConfig, consts) -> dict:
+    fs = {k: consts[k] for k in _FOLD_KEYS}
+    fs['scale'] = ozaki_ops.dct_fold_scale(cfg.N)
+    return fs
+
+
+def dct2_route(cfg: StepConfig, consts, U, pairs=None):
+    """Forward 2-D DCT of the configured route (the ozaki routes with the
+    pair cutoffs ``pairs``; None = untrimmed)."""
+    if cfg.transform_backend != 'ozaki':
+        return dct_ops.dct2(U, consts['C'])
+    s1, s2 = _pairs(pairs)
+    N, L = cfg.N, cfg.ozaki_rfold_levels
+    if L:
+        return ozaki_ops.dct2_ozaki_rfold(
+            U, consts['rf'], ozaki_ops.dct_rfold_scale(N, L), L, s1=s1, s2=s2)
+    if cfg.ozaki_fold:
+        return ozaki_ops.dct2_ozaki_fold(U, _fold_stacks(cfg, consts),
+                                         s1=s1, s2=s2)
+    return ozaki_ops.dct2_ozaki(U, consts['Cs'], consts['CsT'],
+                                ozaki_ops.dct_scale(N), s1=s1, s2=s2)
+
+
+def idct2_route(cfg: StepConfig, consts, X):
+    """Inverse 2-D DCT of the configured route."""
+    if cfg.transform_backend != 'ozaki':
+        return dct_ops.idct2(X, consts['C'])
+    N, L = cfg.N, cfg.ozaki_rfold_levels
+    if L:
+        s1, s2 = _pairs(cfg.ozaki_inv_pairs)
+        return ozaki_ops.idct2_ozaki_rfold(
+            X, consts['rf'], ozaki_ops.dct_rfold_scale(N, L), L, s1=s1, s2=s2)
+    if cfg.ozaki_fold:
+        return ozaki_ops.idct2_ozaki_fold(X, _fold_stacks(cfg, consts))
+    return ozaki_ops.idct2_ozaki(X, consts['Cs'], consts['CsT'],
+                                 ozaki_ops.dct_scale(N))
 
 
 def _nonlinear_term(cfg: StepConfig, consts, U):
@@ -119,9 +203,10 @@ def prepare_row0(cfg: StepConfig, consts, U):
     return E, E2, Ra, PS
 
 
-def entry_dct2(U, consts):
-    """Spectral image of U, recomputed at every solve entry."""
-    return dct_ops.dct2(U, consts['C'])
+def entry_dct2(cfg: StepConfig, consts, U):
+    """Spectral image of U, recomputed at every solve entry (the ozaki
+    routes untrimmed: once per entry, accuracy is free here)."""
+    return dct2_route(cfg, consts, U)
 
 
 def _step(cfg: StepConfig, consts, s: SolverState) -> SolverState:
@@ -141,10 +226,12 @@ def _step(cfg: StepConfig, consts, s: SolverState) -> SolverState:
         go = active & ~over
 
     # semi-implicit spectral update, eq. (12) of Ghiass et al. (2016)
-    hat_E = dct_ops.dct2(EnergieEut, consts['C'])
+    # the forward transform of the nonlinear term rides the semi-implicit
+    # damping, so the ozaki routes may trim its pair cutoffs
+    hat_E = dct2_route(cfg, consts, EnergieEut, cfg.ozaki_fwd_pairs)
     hat_U = K.spectral_update(s.hat_U, hat_E, consts['Seig'],
                               consts['CHeig'])
-    U = dct_ops.idct2(hat_U, consts['C'])
+    U = idct2_route(cfg, consts, hat_U)
 
     E, E2, PS, L2, Ra, SA = _stats(cfg, consts, U, EnergieEut)
     domtime = time_passed ** (1.0 / 3.0)

@@ -1,9 +1,11 @@
 // Hand-written Hopper kernels of the Cahn-Hilliard step (sm_90a).
 //
-// Four kernels carry the step's elementwise and reduction work; the two
-// DCT products stay torch.matmul.  Each is templated on the field type and
-// instantiated for float and double: Hopper has native FP64, so the
-// float64 validation mode runs the same kernels as the float32 fast mode.
+// K1-K4 carry the step's elementwise and reduction work; the DCT products
+// stay torch.matmul (or, on the float64 ozaki route, torch._int_mm int8
+// products).  K1-K4 are templated on the field type and instantiated for
+// float and double: Hopper has native FP64, so the float64 validation mode
+// runs the same kernels as the float32 fast mode.  K5 slices a float64
+// field into int8 planes for the ozaki route and exists for double only.
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes by
 // chsimpy_tpu_torch/ops/kernels.py.  Every entry launches on the stream it
@@ -177,6 +179,72 @@ absdev_partials_kernel(const T* __restrict__ U, long long n,
   if (threadIdx.x == 0) partials[blockIdx.x] = acc[0];
 }
 
+// K5 — float64 field -> int8 slices for the ozaki int8 transforms.
+// Replaces slice_field_pallas / _slice_kernel (chsimpy_tpu/ops/ozaki.py:
+// 214-262).  Matches the plain version (ops/kernels.py slice_field_ref) bit
+// for bit: split x into float32 hi = rn(x) and lo = rn(x - hi) (the double
+// subtraction is exact), scale both by the power of two inv (read from
+// device memory: the wrapper computes it from max|x| without a host sync),
+// then run the fixed-point chain v *= 128; s = rint(v); v -= s in float32
+// on each.  rintf rounds half to even, as torch.round and jnp.round do.
+// The lo chain starts at slice 3 (lo * 128^3 / scale < 1/2 rounds to 0 in
+// the first three).  Plane k of out gets int8(s_hi + s_lo).
+//
+// Bound by device-memory bandwidth: 8 bytes read and n_slices bytes written
+// per element, 0.27 GB per call at N=4096 with 8 slices.  The TPU wrapper
+// first writes hi and lo as two float32 arrays; Hopper has native float64,
+// so the field is read once and split in registers.  Each thread takes
+// kSliceElems neighbouring elements, so a warp stores 128 contiguous bytes
+// per plane as one 32-bit word a thread.
+constexpr int kSliceElems = 4;
+
+__global__ void __launch_bounds__(kThreads)
+slice_kernel(const double* __restrict__ x, const float* __restrict__ inv_ptr,
+             signed char* __restrict__ out, long long n, int n_slices) {
+  const long long i0 =
+      ((long long)blockIdx.x * kThreads + threadIdx.x) * kSliceElems;
+  if (i0 >= n) return;
+  const float inv = *inv_ptr;
+  const float inv_lo = inv * 2097152.0f;  // 128^3, exact: a power of two
+  const int lo_skip = n_slices < 3 ? n_slices : 3;
+  const int cnt = n - i0 < kSliceElems ? (int)(n - i0) : kSliceElems;
+  float h[kSliceElems], l[kSliceElems];
+#pragma unroll
+  for (int e = 0; e < kSliceElems; ++e) {
+    const double v = e < cnt ? x[i0 + e] : 0.0;
+    const float hi = __double2float_rn(v);
+    const float lo = __double2float_rn(v - (double)hi);
+    h[e] = hi * inv;
+    l[e] = lo * inv_lo;
+  }
+  // plane k starts at k * n: 4-byte aligned for every k when n % 4 == 0
+  const bool packed = cnt == kSliceElems && n % kSliceElems == 0;
+  for (int k = 0; k < n_slices; ++k) {
+    unsigned int word = 0;
+    signed char s8[kSliceElems];
+#pragma unroll
+    for (int e = 0; e < kSliceElems; ++e) {
+      h[e] = h[e] * 128.0f;
+      float s = rintf(h[e]);
+      h[e] = h[e] - s;
+      if (k >= lo_skip) {
+        l[e] = l[e] * 128.0f;
+        const float t = rintf(l[e]);
+        l[e] = l[e] - t;
+        s = s + t;
+      }
+      s8[e] = (signed char)(int)s;
+      word |= (unsigned int)(unsigned char)s8[e] << (8 * e);
+    }
+    signed char* dst = out + (long long)k * n + i0;
+    if (packed) {
+      *reinterpret_cast<unsigned int*>(dst) = word;
+    } else {
+      for (int e = 0; e < cnt; ++e) dst[e] = s8[e];
+    }
+  }
+}
+
 // Pass 2 of K3 and K4: out[c] = sum over b of partials[b, c], one block,
 // fixed order.
 __global__ void __launch_bounds__(kThreads)
@@ -246,6 +314,17 @@ int launch_absdev(const void* U, long long n, const void* mean,
   return (int)cudaGetLastError();
 }
 
+int launch_slice(const void* x, const void* inv, void* out, long long n,
+                 int n_slices, void* stream) {
+  if (n <= 0 || n_slices < 1 || n_slices > 8)
+    return (int)cudaErrorInvalidValue;
+  const long long per_block = (long long)kThreads * kSliceElems;
+  slice_kernel<<<(unsigned int)((n + per_block - 1) / per_block), kThreads, 0,
+                 (cudaStream_t)stream>>>(
+      (const double*)x, (const float*)inv, (signed char*)out, n, n_slices);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -288,6 +367,12 @@ int ch_absdev_f32(const void* U, long long n, const void* mean,
 int ch_absdev_f64(const void* U, long long n, const void* mean,
                   void* partials, int nblocks, void* sums, void* stream) {
   return launch_absdev<double>(U, n, mean, partials, nblocks, sums, stream);
+}
+
+// float64 only: the ozaki route is the float64 transform
+int ch_slice_f64(const void* x, const void* inv, void* out, long long n,
+                 int n_slices, void* stream) {
+  return launch_slice(x, inv, out, n, n_slices, stream);
 }
 
 }  // extern "C"

@@ -1,1 +1,2 @@
-"""Device ops: coefficient grids, stencil, DCT products and the kernels."""
+"""Device ops: coefficient grids, stencil, DCT products (matmul and the int8
+ozaki route) and the kernels."""

@@ -33,11 +33,14 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
+_BOTH = ('_f32', '_f64')
+# entry -> (argument types, the field-type suffixes it is built for)
 _SIGNATURES = {
-    'ch_mu': (_P, _P, _LL, _D, _D, _D, _D, _P),
-    'ch_update': (_P, _P, _P, _P, _P, _LL, _P),
-    'ch_stats': (_P, _P, _I, _D, _D, _D, _D, _D, _D, _P, _I, _P, _P),
-    'ch_absdev': (_P, _LL, _P, _P, _I, _P, _P),
+    'ch_mu': ((_P, _P, _LL, _D, _D, _D, _D, _P), _BOTH),
+    'ch_update': ((_P, _P, _P, _P, _P, _LL, _P), _BOTH),
+    'ch_stats': ((_P, _P, _I, _D, _D, _D, _D, _D, _D, _P, _I, _P, _P), _BOTH),
+    'ch_absdev': ((_P, _LL, _P, _P, _I, _P, _P), _BOTH),
+    'ch_slice': ((_P, _P, _P, _LL, _I, _P), ('_f64',)),
 }
 
 
@@ -89,8 +92,8 @@ def build() -> dict:
 def load_library() -> ctypes.CDLL:
     """The kernel library with every entry's argument types declared."""
     lib = ctypes.CDLL(build()['path'])
-    for base, argtypes in _SIGNATURES.items():
-        for suffix in ('_f32', '_f64'):
+    for base, (argtypes, suffixes) in _SIGNATURES.items():
+        for suffix in suffixes:
             fn = getattr(lib, base + suffix)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int

@@ -57,3 +57,30 @@ def dct2(U: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
 def idct2(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """Orthonormal 2-D DCT-III, the exact inverse of :func:`dct2`."""
     return torch.matmul(torch.matmul(C.T, X), C)
+
+
+@functools.lru_cache(maxsize=64)
+def _split_permutation_np(N: int, levels: int) -> np.ndarray:
+    """perm with (P·C x)[i] == (C x)[perm[i]] for the permuted block order
+    [E-leaf, O_levels, ..., O_1] of the recursive even/odd fold (the order
+    the ozaki rfold route emits, ops/ozaki.py)."""
+    def rec(n, lv):
+        if lv == 0 or n % 2:
+            return np.arange(n)
+        even = 2 * rec(n // 2, lv - 1)
+        odd = 1 + 2 * np.arange(n // 2)
+        return np.concatenate([even, odd])
+    return rec(N, levels)
+
+
+def split_permute_grid(G: np.ndarray, N: int, levels: int) -> np.ndarray:
+    """Conjugate an (N, N) spectral-space grid into the permuted basis
+    (host-side, at setup)."""
+    p = _split_permutation_np(N, levels)
+    return np.asarray(G)[np.ix_(p, p)]
+
+
+def split_permute_axis(v: np.ndarray, N: int, levels: int) -> np.ndarray:
+    """Permute a 1-D spectral axis into the same block order: the
+    separable factor of :func:`split_permute_grid`."""
+    return np.asarray(v)[_split_permutation_np(N, levels)]

@@ -1,7 +1,9 @@
-"""The step's four kernels: a hand-written CUDA kernel for a tensor on the
-card, its plain PyTorch version for a tensor on the CPU.
+"""The step's kernels: a hand-written CUDA kernel for a tensor on the card,
+its plain PyTorch version for a tensor on the CPU.
 
-Counterpart of ``chsimpy_tpu/ops/pallas_kernels.py``.  Each wrapper
+Counterpart of ``chsimpy_tpu/ops/pallas_kernels.py`` (K1-K4) and of the
+ozaki route's slice kernel in ``chsimpy_tpu/ops/ozaki.py`` (K5).  Each
+wrapper
 
 * runs the plain version (``*_ref``) only when its input lies on the CPU;
 * on a CUDA tensor launches the kernel of ``csrc/ch_kernels.cu`` on the
@@ -24,7 +26,7 @@ from .stencil import gradient2d
 
 # kernel name -> number of launches on the card (see reset_launches)
 launches = {'chemical_potential': 0, 'spectral_update': 0,
-            'stats_sums': 0, 'absdev_sum': 0}
+            'stats_sums': 0, 'absdev_sum': 0, 'slice_field': 0}
 
 # grid of the two reduction kernels: fixed by the shape alone, so the
 # summation order (and the result, to the bit) never depends on the card
@@ -212,3 +214,69 @@ def absdev_sum(U, mean):
           partials.data_ptr(), nblocks, out.data_ptr(), _stream())
     launches['absdev_sum'] += 1
     return out
+
+
+# ----------------------------------------------------------------------
+# K5: float64 field -> int8 slices (replaces ozaki.slice_field_pallas)
+# ----------------------------------------------------------------------
+
+MAX_SLICES = 8      # 7 payload bits each: 56 bits cover a float64's hi/lo
+LO_SKIP = 3         # the lo component's first three slices are zero
+
+
+def slice_scale(x):
+    """The shared power-of-two scale of :func:`slice_field`, on x's device
+    with no host sync: (scale, a 0-d float64 tensor; inv = 2^-e, a
+    float32 tensor of shape (1,)).  e = max(ceil(log2(amax + 1e-30)) + 2,
+    -90): |x| / scale <= 1/4, and an all-zero field keeps a finite
+    scale."""
+    amax = torch.amax(torch.abs(x))
+    e = torch.clamp(torch.ceil(torch.log2(amax + 1e-30)) + 2.0, min=-90.0)
+    return torch.exp2(e), torch.exp2(-e).to(torch.float32).reshape(1)
+
+
+def slice_field_ref(x, n_slices: int = MAX_SLICES):
+    """(int8 [n_slices, *x.shape], scale) with x = scale * Σ_k s_k 2^-7(k+1)
+    to ~2^-48 relative (``chsimpy_tpu/ops/ozaki.py:slice_field``).
+
+    x splits into float32 hi and lo; each runs the fixed-point chain
+    v <- 128 v, s = round(v) (half to even), v <- v - s in float32, which is
+    exact.  The lo chain starts at slice 3: |lo| * 128^3 / scale < 1/2."""
+    scale, inv = slice_scale(x)
+    inv = inv.reshape(())
+    hi0 = x.to(torch.float32)
+    lo0 = (x - hi0.to(x.dtype)).to(torch.float32)
+    lo_skip = min(LO_SKIP, n_slices)
+
+    def chain(v, n):
+        out = []
+        for _ in range(n):
+            v = v * 128.0
+            s = torch.round(v)
+            v = v - s
+            out.append(s)
+        return out
+
+    hs = chain(hi0 * inv, n_slices)
+    ls = chain(lo0 * inv * float(128.0 ** lo_skip), n_slices - lo_skip)
+    sl = [hs[k] if k < lo_skip else hs[k] + ls[k - lo_skip]
+          for k in range(n_slices)]
+    return torch.stack([s.to(torch.int8) for s in sl]), scale
+
+
+def slice_field(x, n_slices: int = MAX_SLICES):
+    if x.dim() != 2 or x.dtype != torch.float64:
+        raise TypeError(f"slice_field takes a 2-D float64 field, got "
+                        f"{tuple(x.shape)} {x.dtype}")
+    if not 1 <= n_slices <= MAX_SLICES:
+        raise ValueError(f"n_slices must be in [1, {MAX_SLICES}], "
+                         f"got {n_slices}")
+    if not _on_card(x):
+        return slice_field_ref(x, n_slices)
+    scale, inv = slice_scale(x)
+    out = torch.empty((n_slices,) + tuple(x.shape), dtype=torch.int8,
+                      device=x.device)
+    _call('ch_slice', x.dtype, x.data_ptr(), inv.data_ptr(), out.data_ptr(),
+          x.numel(), n_slices, _stream())
+    launches['slice_field'] += 1
+    return out, scale

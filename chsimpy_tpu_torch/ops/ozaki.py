@@ -1,0 +1,489 @@
+"""The float64 ozaki route: 2-D DCTs from exact int8 products.
+
+Port of ``chsimpy_tpu/ops/ozaki.py`` (single device).  A float64 operand is
+cut into int8 slices at a shared power-of-two scale,
+
+    x = sx * sum_i X_i 2^{-7(i+1)},  X_i int8, |X_i| <= 64,
+
+the DCT matrix likewise (on the host, once), and each slice pair is one
+exact int8 x int8 -> int32 matrix product.  Products are summed into int32
+groups by i + j, the groups of the first 1-D pass are carry-renormalized
+back into int8 slices (shifts and masks, exact), and one float64 Horner
+pass per 2-D transform puts the result together.
+
+* Slicing is kernel K5 (``ops/kernels.py`` ``slice_field``: CUDA on the
+  card, the plain version on the CPU).
+* The int8 products go to ``torch._int_mm`` (:func:`int8_matmul`), as the
+  JAX package leaves them to XLA.
+* Slices, group sums, renormalized stacks and the Horner sums are integers
+  or exact, so they agree with the JAX package to the bit; a transform
+  differs only through the field's mean, which the two packages sum in
+  different orders.
+
+Three route pairs, chosen by the solver as in the JAX package: unfolded
+(:func:`dct2_ozaki`, odd N), the level-1 fold in natural layout
+(:func:`dct2_ozaki_fold`, N < 1024) and the recursive fold in the permuted
+basis (:func:`dct2_ozaki_rfold`, N >= 1024; conjugate the spectral grids
+with ``dct.split_permute_grid``).  The pair cutoffs (s1, s2) and the int32
+bounds are the JAX package's; see the notes there.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import kernels as K
+from .dct import _dct_matrix_np
+
+N_SLICES = K.MAX_SLICES  # 7 payload bits per slice -> 56 bits
+MAX_PAIR = 7        # keep slice products with i+j <= MAX_PAIR (36 passes)
+STAGE1_PAIR = 5     # contract-validated cutoffs (5, 7): 21 + 36 passes
+STAGE2_PAIR = 7
+RENORM_SHIFT = 14   # two slice slots of headroom for the growth of a 1-D
+                    # transform, |C @ U| <= sqrt(N) max|U|
+
+slice_field = K.slice_field
+
+
+# ----------------------------------------------------------------------
+# host slicing of the constant matrices (numpy, as the JAX package)
+# ----------------------------------------------------------------------
+
+def slice_matrix_host(M: np.ndarray, n_slices: int = N_SLICES,
+                      scale: float = None):
+    """Exact fixed-point slicing of a constant float64 matrix: ``(slices,
+    scale)`` with M = scale * Σ_k slices[k] 2^{-7(k+1)} (+ a tail below
+    2^{-7 n_slices} scale).  scale is a power of two with |M|/scale < 1/4;
+    pass ``scale`` to share it across matrices whose int32 product groups
+    are added."""
+    if scale is None:
+        amax = float(np.max(np.abs(M)))
+        e = int(np.ceil(np.log2(amax))) + 2 if amax > 0 else 0
+        scale = float(2.0 ** e)
+    u = np.asarray(M, np.float64) / scale
+    out = []
+    for _ in range(n_slices):
+        u = u * 128.0
+        s = np.round(u)
+        u = u - s
+        out.append(s.astype(np.int8))
+    return out, scale
+
+
+def _stack(slices, device) -> torch.Tensor:
+    return torch.from_numpy(np.stack(slices)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _dct_slices_np(N: int):
+    C = _dct_matrix_np(N)
+    Cs, sc = slice_matrix_host(C)
+    CsT = [s.T.copy() for s in Cs]
+    return Cs, CsT, sc
+
+
+def dct_slices(N: int, device='cpu'):
+    """int8 slice stacks [S, N, N] of C and C^T, and their scale."""
+    Cs, CsT, sc = _dct_slices_np(N)
+    return _stack(Cs, device), _stack(CsT, device), sc
+
+
+def dct_scale(N: int) -> float:
+    return _dct_slices_np(N)[2]
+
+
+@functools.lru_cache(maxsize=8)
+def _dct_fold_slices_np(N: int):
+    """Level-1 folded blocks Ce = C[0::2, :N/2], Co = C[1::2, :N/2] and
+    their transposes, sliced at ONE shared scale: the inverse adds int32
+    groups across the even and odd branches."""
+    C = _dct_matrix_np(N)
+    h = N // 2
+    Ce = np.ascontiguousarray(C[0::2, :h])
+    Co = np.ascontiguousarray(C[1::2, :h])
+    amax = max(float(np.max(np.abs(Ce))), float(np.max(np.abs(Co))))
+    e = int(np.ceil(np.log2(amax))) + 2 if amax > 0 else 0
+    sc = float(2.0 ** e)
+    CeS, _ = slice_matrix_host(Ce, scale=sc)
+    CoS, _ = slice_matrix_host(Co, scale=sc)
+    return (CeS, CoS, [s.T.copy() for s in CeS], [s.T.copy() for s in CoS],
+            sc)
+
+
+def dct_fold_slices(N: int, device='cpu') -> dict:
+    """int8 stacks [S, N/2, N/2] of Ce, Co, Ce^T, Co^T and the scale."""
+    CeS, CoS, CeTS, CoTS, sc = _dct_fold_slices_np(N)
+    return {'CeS': _stack(CeS, device), 'CoS': _stack(CoS, device),
+            'CeTS': _stack(CeTS, device), 'CoTS': _stack(CoTS, device),
+            'scale': sc}
+
+
+def dct_fold_scale(N: int) -> float:
+    return _dct_fold_slices_np(N)[4]
+
+
+@functools.lru_cache(maxsize=16)
+def _rfold_blocks_np(N: int, levels: int):
+    """Blocks of the recursive fold in branch order [E-leaf, O_levels, ...,
+    O_1], and one shared slice scale."""
+    C = _dct_matrix_np(N)
+
+    def rec(M, lv):
+        n = M.shape[1]
+        if lv == 0 or n % 2:
+            return [np.ascontiguousarray(M)]
+        return rec(M[0::2, :n // 2], lv - 1) + [
+            np.ascontiguousarray(M[1::2, :n // 2])]
+
+    blocks = rec(C, levels)
+    amax = max(float(np.max(np.abs(b))) for b in blocks)
+    e = int(np.ceil(np.log2(amax))) + 2 if amax > 0 else 0
+    return blocks, float(2.0 ** e)
+
+
+@functools.lru_cache(maxsize=16)
+def _dct_rfold_slices_np(N: int, levels: int):
+    blocks, sc = _rfold_blocks_np(N, levels)
+    out = []
+    for b in blocks:
+        S, _ = slice_matrix_host(b, scale=sc)
+        out.append((np.stack(S), np.stack([s.T.copy() for s in S])))
+    return out, sc
+
+
+def dct_rfold_slices(N: int, levels: int, device='cpu'):
+    """((block, block^T) int8 stacks in branch order, shared scale)."""
+    np_blocks, sc = _dct_rfold_slices_np(N, levels)
+    return (tuple((torch.from_numpy(s).to(device),
+                   torch.from_numpy(st).to(device))
+                  for s, st in np_blocks), sc)
+
+
+def dct_rfold_scale(N: int, levels: int) -> float:
+    return _dct_rfold_slices_np(N, levels)[1]
+
+
+# ----------------------------------------------------------------------
+# int8 products, group sums, renormalization, recombination
+# ----------------------------------------------------------------------
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for int8 matrices, the exact int32 product
+    (``torch._int_mm``).  On the card cuBLASLt takes a row-major left
+    operand with more than 16 rows and inner and column counts that are
+    multiples of 8: other shapes are zero-padded (rows to a multiple of 8,
+    at least 24), which changes no sum."""
+    a, b = a.contiguous(), b.contiguous()
+    if a.device.type != 'cuda':
+        return torch._int_mm(a, b)
+    M, Kd = a.shape
+    N = b.shape[1]
+    Mp, Kp, Np = max(_round_up(M, 8), 24), _round_up(Kd, 8), _round_up(N, 8)
+    if (Mp, Kp, Np) == (M, Kd, N):
+        return torch._int_mm(a, b)
+    ap = torch.zeros((Mp, Kp), dtype=torch.int8, device=a.device)
+    bp = torch.zeros((Kp, Np), dtype=torch.int8, device=b.device)
+    ap[:M, :Kd] = a
+    bp[:Kd, :N] = b
+    return torch._int_mm(ap, bp)[:M, :N]
+
+
+def _pair_groups(a_slices, b_slices, max_pair=MAX_PAIR):
+    """All slice products a_i @ b_j with i+j <= max_pair, summed into int32
+    groups by k = i+j (the JAX package's ``_dot_left``/``_dot_right`` are
+    both this product).  Group sums stay < 2^31: each product is <=
+    65*65*N and <= 8 join a group (N <= 2^19)."""
+    Sa, Sb = a_slices.shape[0], b_slices.shape[0]
+    groups = [None] * (max_pair + 1)
+    for i in range(Sa):
+        for j in range(min(Sb, max_pair + 1 - i)):
+            p = int8_matmul(a_slices[i], b_slices[j])
+            k = i + j
+            groups[k] = p if groups[k] is None else groups[k] + p
+    return groups
+
+
+def _renorm_to_slices(groups, n_slices: int = N_SLICES,
+                      shift: int = RENORM_SHIFT):
+    """Carry-renormalize int32 groups into int8 slices, exactly.
+
+    V = Σ_k groups[k] 2^{-7(k+2)} becomes V 2^{-shift} = Σ_j r_j 2^{-7(j+1)}
+    with |r_j| <= 64 (centered mod), group k landing at slot k + shift/7 + 1;
+    slots past n_slices - 1 are dropped.  Shifts and masks on int32 (``>>``
+    is arithmetic on a signed type)."""
+    assert shift % 7 == 0, "shift must be a whole number of slice slots"
+    q = shift // 7
+    n_groups = len(groups)
+    low_slot = n_groups + q         # least significant occupied slot
+    acc = torch.zeros_like(groups[0])
+    slices = {}
+    for j in range(low_slot, -1, -1):
+        k = j - q - 1
+        if 0 <= k < n_groups:
+            acc = acc + groups[k]
+        r = ((acc + 64) & 127) - 64
+        slices[j] = r
+        acc = (acc - r) >> 7
+    zero = torch.zeros_like(groups[0], dtype=torch.int8)
+    return torch.stack([slices[j].to(torch.int8) if j in slices else zero
+                        for j in range(n_slices)])
+
+
+def _horner_f64(groups, dtype=torch.float64):
+    """Σ_k groups[k] 2^{-7(k+2)} in float64 (one Horner pass)."""
+    acc = groups[-1].to(dtype)
+    for k in range(len(groups) - 2, -1, -1):
+        acc = acc * 2.0 ** -7 + groups[k].to(dtype)
+    return acc * 2.0 ** -14
+
+
+def _n_slots(s2=STAGE2_PAIR):
+    q = RENORM_SHIFT // 7
+    return min(N_SLICES + q, s2 + 1)
+
+
+def _n_field(s1=STAGE1_PAIR):
+    return min(N_SLICES, s1 + 1)
+
+
+def _dc_add(Y, v):
+    """Y with v added at [0, 0] (Y is the transform's own output)."""
+    Y[0, 0] += v
+    return Y
+
+
+def _dc_zero(X):
+    """A copy of X with [0, 0] zeroed."""
+    X = X.clone()
+    X[0, 0] = 0
+    return X
+
+
+# ----------------------------------------------------------------------
+# unfolded route (odd N)
+# ----------------------------------------------------------------------
+
+def _transform2d(U, Ms_row, Ms_col, m_scale, s1=STAGE1_PAIR,
+                 s2=STAGE2_PAIR):
+    """M_row @ U @ M_col with both passes in int8/int32; Ms_row, Ms_col are
+    [S, N, N] slice stacks at scale m_scale.  The pair cutoffs bound which
+    slices any product reads, so only those are emitted."""
+    Us, su = slice_field(U, _n_field(s1))
+    g1 = _pair_groups(Ms_row, Us, max_pair=s1)
+    t = _renorm_to_slices(g1, n_slices=_n_slots(s2))
+    g2 = _pair_groups(t, Ms_col, max_pair=s2)
+    z = _horner_f64(g2, U.dtype)
+    # scale: (m_scale * su * 2^RENORM_SHIFT) from pass 1, times m_scale
+    return z * (su * (m_scale * m_scale * 2.0 ** RENORM_SHIFT))
+
+
+def dct2_ozaki(U, Cs, CsT, m_scale, s1=STAGE1_PAIR, s2=STAGE2_PAIR):
+    """Orthonormal 2-D DCT-II (C @ U @ C^T).  The mean goes around the int8
+    path analytically (dct2(ones) = N e00), which shrinks the slice scale
+    to the fluctuation's."""
+    N = U.shape[-1]
+    m = torch.mean(U)
+    Y = _transform2d(U - m, Cs, CsT, m_scale, s1=s1, s2=s2)
+    return _dc_add(Y, m * N)
+
+
+def idct2_ozaki(X, Cs, CsT, m_scale):
+    """Orthonormal 2-D DCT-III (C^T @ X @ C), inverse of :func:`dct2_ozaki`;
+    the DC coefficient goes around (idct2(e00) = ones/N)."""
+    N = X.shape[-1]
+    d = X[0, 0]
+    u = _transform2d(_dc_zero(X), CsT, Cs, m_scale)
+    return u + d / N
+
+
+# ----------------------------------------------------------------------
+# level-1 fold, natural layout (N < 1024)
+# ----------------------------------------------------------------------
+
+def _interleave(a, b, axis):
+    """result[2i] = a[i], result[2i+1] = b[i] along ``axis``."""
+    shape = list(a.shape)
+    shape[axis] *= 2
+    return torch.stack([a, b], dim=axis + 1).reshape(shape)
+
+
+def dct2_ozaki_fold(U, fs, s1=STAGE1_PAIR, s2=STAGE2_PAIR):
+    """Orthonormal 2-D DCT-II via folded int8 passes (half the MACs of
+    :func:`dct2_ozaki`).  ``fs`` is :func:`dct_fold_slices`(N)."""
+    N = U.shape[-1]
+    h = N // 2
+    m = torch.mean(U)
+    X = U - m
+    # row fold in float64
+    bot = torch.flip(X[h:], (0,))
+    u = X[:h] + bot
+    v = X[:h] - bot
+    us, su = slice_field(u, _n_field(s1))
+    vs, sv = slice_field(v, _n_field(s1))
+    # pass 1: T_even = Ce @ u, T_odd = Co @ v
+    ge = _pair_groups(fs['CeS'], us, max_pair=s1)
+    go = _pair_groups(fs['CoS'], vs, max_pair=s1)
+
+    def colfold(gs):
+        p, q = [], []
+        for g in gs:
+            right = torch.flip(g[:, h:], (1,))
+            p.append(g[:, :h] + right)
+            q.append(g[:, :h] - right)
+        return p, q
+
+    pe, qe = colfold(ge)
+    po, qo = colfold(go)
+    ns = _n_slots(s2)
+    f = fs['scale'] * fs['scale'] * 2.0 ** RENORM_SHIFT
+    # pass 2 per quarter; the row-block scales su / sv stay separable
+    quarters = []
+    for grp, mcol, s in ((pe, 'CeTS', su), (qe, 'CoTS', su),
+                         (po, 'CeTS', sv), (qo, 'CoTS', sv)):
+        t = _renorm_to_slices(grp, n_slices=ns)
+        g2 = _pair_groups(t, fs[mcol], max_pair=s2)
+        quarters.append(_horner_f64(g2, U.dtype) * (s * f))
+    zee, zeo, zoe, zoo = quarters
+    Y = _interleave(_interleave(zee, zeo, axis=1),
+                    _interleave(zoe, zoo, axis=1), axis=0)
+    return _dc_add(Y, m * N)
+
+
+def idct2_ozaki_fold(X, fs):
+    """Orthonormal 2-D DCT-III, inverse of :func:`dct2_ozaki_fold`.  The
+    operand is sliced once, so the even/odd sub-stacks share its scale and
+    the fold assemblies stay exact int32 adds."""
+    N = X.shape[-1]
+    h = N // 2
+    d = X[0, 0]
+    ys, sy = slice_field(_dc_zero(X), _n_field())
+    # pass 1: x_top = Ce^T yE + Co^T yO, x_bot = flip(Ce^T yE - Co^T yO)
+    yE = ys[:, 0::2, :].contiguous()
+    yO = ys[:, 1::2, :].contiguous()
+    a = _pair_groups(fs['CeTS'], yE, max_pair=STAGE1_PAIR)
+    b = _pair_groups(fs['CoTS'], yO, max_pair=STAGE1_PAIR)
+    wg = [torch.cat([x + y, torch.flip(x - y, (0,))], dim=0)
+          for x, y in zip(a, b)]
+    t = _renorm_to_slices(wg, n_slices=_n_slots())
+    # pass 2: u_left = wE Ce + wO Co, u_right = flip(wE Ce - wO Co)
+    wE = t[:, :, 0::2].contiguous()
+    wO = t[:, :, 1::2].contiguous()
+    gE = _pair_groups(wE, fs['CeS'], max_pair=STAGE2_PAIR)
+    gO = _pair_groups(wO, fs['CoS'], max_pair=STAGE2_PAIR)
+    gl = [x + y for x, y in zip(gE, gO)]
+    gr = [x - y for x, y in zip(gE, gO)]
+    f = sy * (fs['scale'] * fs['scale'] * 2.0 ** RENORM_SHIFT)
+    ul = _horner_f64(gl, X.dtype) * f
+    ur = torch.flip(_horner_f64(gr, X.dtype), (1,)) * f
+    return torch.cat([ul, ur], dim=1) + d / N
+
+
+# ----------------------------------------------------------------------
+# recursive fold in the permuted basis (N >= 1024)
+# ----------------------------------------------------------------------
+
+def _rfold_field(X, levels):
+    """Row-branch inputs [u_E, v_L, ..., v_1] (float64 adds)."""
+    if levels == 0:
+        return [X]
+    n = X.shape[0]
+    top, bot = X[:n // 2], torch.flip(X[n // 2:], (0,))
+    return _rfold_field(top + bot, levels - 1) + [top - bot]
+
+
+def _rfold_groups_cols(groups, levels):
+    """Column branches of int32 group planes, same order (exact adds)."""
+    if levels == 0:
+        return [groups]
+    h = groups[0].shape[1] // 2
+    plus, minus = [], []
+    for g in groups:
+        bot = torch.flip(g[:, h:], (1,))
+        plus.append(g[:, :h] + bot)
+        minus.append(g[:, :h] - bot)
+    return _rfold_groups_cols(plus, levels - 1) + [minus]
+
+
+def dct2_ozaki_rfold(U, rf, m_scale, levels, s1=STAGE1_PAIR,
+                     s2=STAGE2_PAIR):
+    """Orthonormal 2-D DCT-II via recursive folded int8 passes, in the
+    PERMUTED block order on both axes.  ``rf`` is
+    :func:`dct_rfold_slices`(N, levels)[0].  Each row branch is sliced at
+    its own scale; no int32 sum ever crosses branches."""
+    N = U.shape[-1]
+    m = torch.mean(U)
+    ns = _n_slots(s2)
+    f = m_scale * m_scale * 2.0 ** RENORM_SHIFT
+    row_blocks = []
+    for b, (Bs, _BsT) in zip(_rfold_field(U - m, levels), rf):
+        us, su = slice_field(b, _n_field(s1))
+        g1 = _pair_groups(Bs, us, max_pair=s1)
+        col_blocks = []
+        for gc, (_Cs2, CsT2) in zip(_rfold_groups_cols(g1, levels), rf):
+            t = _renorm_to_slices(gc, n_slices=ns)
+            g2 = _pair_groups(t, CsT2, max_pair=s2)
+            col_blocks.append(_horner_f64(g2, U.dtype) * (su * f))
+        row_blocks.append(torch.cat(col_blocks, dim=1))
+    # the permuted index of spectral (0, 0) is 0
+    return _dc_add(torch.cat(row_blocks, dim=0), m * N)
+
+
+def _rfold_inv_rows(t, rf, levels, row0=0, size=None, s1=STAGE1_PAIR):
+    """Pass 1 of the inverse: int32 groups of C^T X from the sliced
+    permuted operand ``t`` ([S, N, N]); assembles [a + b; flip(a - b)]."""
+    if size is None:
+        size = t.shape[1]
+    h = size // 2
+    if levels == 0:
+        _Bs, BsT = rf[0]
+        sub = t[:, row0:row0 + size, :]
+        return _pair_groups(BsT, sub, max_pair=s1)
+    o_idx = levels  # rf index of this level's odd block: [E, O_L, .., O_1]
+    a = _rfold_inv_rows(t, rf[:o_idx], levels - 1, row0, h, s1=s1)
+    _Bs, BoT = rf[o_idx]
+    sub = t[:, row0 + h:row0 + size, :]
+    b = _pair_groups(BoT, sub, max_pair=s1)
+    return [torch.cat([x + y, torch.flip(x - y, (0,))], dim=0)
+            for x, y in zip(a, b)]
+
+
+def _rfold_inv_cols(t, rf, levels, col0=0, size=None, s2=STAGE2_PAIR):
+    """Pass 2 of the inverse along columns (same recursion, axis 1).  The
+    column sub-stacks are made contiguous once for the products."""
+    if size is None:
+        size = t.shape[2]
+    h = size // 2
+    if levels == 0:
+        Bs, _BsT = rf[0]
+        sub = t[:, :, col0:col0 + size].contiguous()
+        return _pair_groups(sub, Bs, max_pair=s2)
+    o_idx = levels
+    a = _rfold_inv_cols(t, rf[:o_idx], levels - 1, col0, h, s2=s2)
+    Bo, _BoT = rf[o_idx]
+    sub = t[:, :, col0 + h:col0 + size].contiguous()
+    b = _pair_groups(sub, Bo, max_pair=s2)
+    return [torch.cat([x + y, torch.flip(x - y, (1,))], dim=1)
+            for x, y in zip(a, b)]
+
+
+def idct2_ozaki_rfold(X, rf, m_scale, levels, s1=STAGE1_PAIR,
+                      s2=STAGE2_PAIR):
+    """Orthonormal 2-D DCT-III from the permuted basis, inverse of
+    :func:`dct2_ozaki_rfold`: one slicing, one renormalization, contiguous
+    block reads.  (s1, s2) trim the pair cutoffs as the forward's do."""
+    N = X.shape[-1]
+    d = X[0, 0]
+    ys, sy = slice_field(_dc_zero(X), _n_field(s1))
+    g1 = _rfold_inv_rows(ys, rf, levels, s1=s1)
+    t = _renorm_to_slices(g1, n_slices=_n_slots(s2))
+    g2 = _rfold_inv_cols(t, rf, levels, s2=s2)
+    u = _horner_f64(g2, X.dtype) * (
+        sy * (m_scale * m_scale * 2.0 ** RENORM_SHIFT))
+    return u + d / N

@@ -75,12 +75,16 @@ class Parameters:
     kernel_backend: str = 'xla'
     matmul_precision: Optional[str] = None
     fwd_matmul_precision: Optional[str] = None
+    # (stage 1, stage 2) pair cutoffs of the ozaki route's forward and
+    # rfold inverse transforms; None = (3, 5) (core/solver.py)
     ozaki_fwd_pairs: Optional[tuple] = None
     ozaki_inv_pairs: Optional[tuple] = None
     inv_band: Optional[int] = None
     otf_coeffs: Optional[int] = None
     spectral_bf16: bool = False
-    transform_backend: str = 'auto'   # auto | matmul (split/fft/ozaki: later)
+    # auto (= matmul in the port) | matmul | ozaki (float64; split and
+    # fft: later)
+    transform_backend: str = 'auto'
 
     version: str = __version__
 
@@ -139,17 +143,13 @@ def solver_scope_errors(p: Parameters) -> list:
     tb = p.transform_backend
     if tb in ('split', 'fft'):
         errs.append(not_ported(f'the {tb} transform route', 2))
-    elif tb == 'ozaki':
-        errs.append(not_ported('the ozaki int8 transform route', 10))
-    elif tb not in ('auto', 'matmul'):
+    elif tb not in ('auto', 'matmul', 'ozaki'):
         errs.append(f"unknown transform '{tb}'")
     if p.kernel_backend != 'xla':
         errs.append(KERNELS_MSG)
     knobs = {'fold_field': p.fold_field, 'split_levels': p.split_levels,
              'matmul_precision': p.matmul_precision,
              'fwd_matmul_precision': p.fwd_matmul_precision,
-             'ozaki_fwd_pairs': p.ozaki_fwd_pairs,
-             'ozaki_inv_pairs': p.ozaki_inv_pairs,
              'inv_band': p.inv_band or None,
              'otf_coeffs': p.otf_coeffs or None,
              'spectral_bf16': p.spectral_bf16 or None}

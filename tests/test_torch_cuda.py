@@ -1,5 +1,6 @@
 """The CUDA kernels of chsimpy_tpu_torch against their plain PyTorch
-versions, and a short solve on the card against the same solve on the CPU.
+versions, the ozaki transforms and short solves on the card against the
+same on the CPU.
 
 These tests need an NVIDIA card with ``nvcc`` (they build
 ``csrc/ch_kernels.cu``); without one they skip.  They import no jax, so
@@ -15,6 +16,7 @@ import torch
 from chsimpy_tpu_torch import Parameters, Simulator
 from chsimpy_tpu_torch.derived import Derived
 from chsimpy_tpu_torch.ops import kernels as K
+from chsimpy_tpu_torch.ops import ozaki as oz
 
 pytestmark = pytest.mark.cuda
 
@@ -87,7 +89,8 @@ def test_kernels_match_plain_versions(card, dtype, N):
     a_ref = K.absdev_sum_ref(U, mean).item()
     assert abs(a - a_ref) <= _tol(dtype) * abs(a_ref)
     assert K.launches == {'chemical_potential': 1, 'spectral_update': 1,
-                          'stats_sums': 2, 'absdev_sum': 1}
+                          'stats_sums': 2, 'absdev_sum': 1,
+                          'slice_field': 0}
 
 
 def test_stats_sums_are_reproducible(card):
@@ -132,3 +135,87 @@ def test_solve_on_card_matches_cpu(card, kw):
     np.testing.assert_allclose(g.timedata.E, c.timedata.E, rtol=1e-12)
     np.testing.assert_allclose(g.U.cpu().numpy(), c.U.numpy(), rtol=0,
                                atol=1e-12)
+
+
+def _slice_fields(shape, seed=3):
+    rng = np.random.default_rng(seed)
+    return {'solver': 0.875 + 0.01 * (rng.random(shape) - 0.5),
+            'normal': rng.standard_normal(shape), 'zeros': np.zeros(shape)}
+
+
+@pytest.mark.parametrize('shape', [(512, 512), (1000, 1000), (33, 47),
+                                   (5, 3)])
+def test_slice_kernel_matches_plain_version(card, shape):
+    """K5 against its plain version on the card and on the CPU: the same
+    int8 slices to the bit and the same scale, every slice count (the
+    odd shapes take the kernel's unpacked stores)."""
+    K.reset_launches()
+    calls = 0
+    for kind, f in _slice_fields(shape).items():
+        x = torch.tensor(f, device=card)
+        for n in range(1, 9):
+            got, scale = K.slice_field(x, n)
+            calls += 1
+            want, wscale = K.slice_field_ref(x, n)
+            cpu, cscale = K.slice_field_ref(x.cpu(), n)
+            assert got.shape == (n,) + shape and got.dtype == torch.int8
+            assert torch.equal(got, want), (kind, n)
+            assert torch.equal(got.cpu(), cpu), (kind, n)
+            assert float(scale) == float(wscale) == float(cscale), (kind, n)
+    assert K.launches['slice_field'] == calls
+
+
+def _route(N, route, L, device):
+    if route == 'unfold':
+        Cs, CsT, sc = oz.dct_slices(N, device)
+        return (lambda x, s: oz.dct2_ozaki(x, Cs, CsT, sc, *s),
+                lambda y: oz.idct2_ozaki(y, Cs, CsT, sc), 1)
+    if route == 'fold':
+        fs = oz.dct_fold_slices(N, device)
+        return (lambda x, s: oz.dct2_ozaki_fold(x, fs, *s),
+                lambda y: oz.idct2_ozaki_fold(y, fs), 2)
+    rf, sc = oz.dct_rfold_slices(N, L, device)
+    return (lambda x, s: oz.dct2_ozaki_rfold(x, rf, sc, L, *s),
+            lambda y: oz.idct2_ozaki_rfold(y, rf, sc, L), L + 1)
+
+
+@pytest.mark.parametrize('route,N,L', [('unfold', 129, 0), ('fold', 256, 0),
+                                       ('rfold', 1024, 2)])
+def test_ozaki_transform_on_card_matches_cpu(card, route, N, L):
+    """One forward and one inverse on the card against the CPU, within
+    2e-15 max|ref| (the mean is summed in another order); N=129 takes the
+    zero-padded int8 products.  Every transform launches the slice kernel
+    once per sliced operand."""
+    x = 0.875 + 0.01 * (np.random.default_rng(N).random((N, N)) - 0.5)
+    gf, gi, n_fwd = _route(N, route, L, card)
+    cf, ci, _ = _route(N, route, L, 'cpu')
+    K.reset_launches()
+    for pairs in ((5, 7), (3, 5)):
+        y = gf(torch.tensor(x, device=card), pairs)
+        ref = cf(torch.tensor(x), pairs)
+        bound = 2e-15 * ref.abs().max().item()
+        assert (y.cpu() - ref).abs().max().item() <= bound, pairs
+    u = gi(ref.to(card))
+    uref = ci(ref)
+    assert (u.cpu() - uref).abs().max().item() <= \
+        2e-15 * uref.abs().max().item()
+    assert K.launches['slice_field'] == 2 * n_fwd + 1
+
+
+def test_ozaki_solve_on_card_matches_cpu(card):
+    """The float64 ozaki route (level-1 fold, N=64) on the card against
+    the CPU: same steps, E within 1e-12, U within 1e-11 (the route moves
+    slice rounding boundaries on a one-ulp change of its operand), and
+    the slice kernel launched three times per step plus twice at entry."""
+    kw = {'transform_backend': 'ozaki'}
+    K.reset_launches()
+    g = _solve('cuda', **kw)
+    iterations = 119                     # ntmax 120 in chunks of 32
+    assert K.launches['slice_field'] == 2 + 3 * iterations
+    assert K.launches['chemical_potential'] == iterations
+    c = _solve('cpu', **kw)
+    assert (g.computed_steps, g.stop_reason) == (c.computed_steps,
+                                                 c.stop_reason)
+    np.testing.assert_allclose(g.timedata.E, c.timedata.E, rtol=1e-12)
+    np.testing.assert_allclose(g.U.cpu().numpy(), c.U.numpy(), rtol=0,
+                               atol=1e-11)

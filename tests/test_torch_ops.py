@@ -143,9 +143,13 @@ def test_params_carried_from_jax():
     with pytest.raises(NotImplementedError, match='item 11'):
         convert.params_from_jax(d)
     d = jp.scalar_dict()
-    d['transform_backend'] = 'ozaki'
-    with pytest.raises(NotImplementedError, match='item 10'):
+    d['transform_backend'] = 'split'
+    with pytest.raises(NotImplementedError, match='item 2'):
         convert.params_from_jax(d)
+    d = ct.Parameters().scalar_dict()
+    d.update(transform_backend='ozaki', ozaki_fwd_pairs=[2, 4])
+    p = convert.params_from_jax(d, device='cpu')
+    assert (p.transform_backend, p.ozaki_fwd_pairs) == ('ozaki', (2, 4))
     with pytest.raises(ValueError, match='unknown'):
         convert.params_from_jax({'banana': 1})
 
