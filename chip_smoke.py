@@ -32,11 +32,33 @@ Phases (each raises on failure, so the script exits nonzero):
    stop 1837, E within 1e-10 at every step;
    (d) N=4096 (rfold, two levels): E over 64 steps within 1e-10 of the
    native float64 matmul route from the same field, steady steps/s of
-   both routes in turns, and the per-layer times of one ozaki step.
+   both routes in turns, and the per-layer times of one ozaki step;
+7. the split and FFT routes and the DCT bake-off with the GEMM kernel:
+   (a) the GEMM kernel against its plain version (``torch.matmul``, TF32
+   off) at 4096², 1000², 512² and a ragged non-square shape, float32, in
+   all four operand layouts (each operand row-major or a ``.T`` view),
+   both held against the float64 product of the same operands (the
+   kernel's error at most 4x the plain version's and 1e-5 max|ref|), both
+   timed (median of 30) with TFLOP/s; ``dct2_gemm`` and ``idct2_gemm``
+   against the matmul route's ``dct2``/``idct2`` at N=4096 by the same
+   bounds; a float64 input raises;
+   (b) the bake-off through its own functions (``benchmarks/dct_bench.py``,
+   a short ``inner``) at N=4096 float32 and N=2048 float64: every route
+   gives a time and a round-trip error within its arithmetic's bound
+   (``ROUNDTRIP_BOUND``), and the GEMM kernel is launched 4 times per
+   round trip of the ``gemm`` route (its count in the JSON line comes from
+   this run);
+   (c) the canonical run on ``--transform split`` and ``--transform fft``:
+   stop at 1674, the step the JAX package gives on the CPU for both, with
+   the golden anchors;
+   (d) N=4096 float32 ``full_sim`` on split (levels 4) and fft: E over 64
+   steps within 1e-5 of phase 5's float64 run, mean(U) held, steady
+   steps/s in turns with the matmul route, and the per-layer times of one
+   step (transforms, their products or FFTs, and the folds around them).
 
 The last two lines of standard output are the kernels' JSON summary and
-``{"ok": true, "device": {...}}``; with ``--out DIR`` every measurement also
-goes to DIR/chip_smoke.json.
+``{"ok": true, "device": {...}}`` (``count``: the cards the script used);
+with ``--out DIR`` every measurement also goes to DIR/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -59,6 +81,7 @@ REPLACES = {
     'stats_sums': 'chsimpy_tpu/ops/pallas_kernels.py:288',
     'absdev_sum': 'chsimpy_tpu/ops/pallas_kernels.py:348',
     'slice_field': 'chsimpy_tpu/ops/ozaki.py:233',
+    'matmul': 'chsimpy_tpu/ops/pallas_kernels.py:149',
 }
 # the kernels of the matmul route (the ozaki route adds slice_field)
 MATMUL_PATH = ('chemical_potential', 'spectral_update', 'stats_sums',
@@ -67,6 +90,14 @@ REPORT_SHAPE = (4096, 'float32')   # the fast-mode shape of the JSON line
 # the slice kernel's row of the JSON line: a full N=4096 field cut into the
 # 4 slices of the trimmed (3, 5) transforms
 SLICE_REPORT = (4096, 4, 'solver')
+# phase 7 (b): the bake-off's routes and their short protocol
+BAKEOFF = ((4096, 'float32', ('matmul-fp32', 'matmul-tf32', 'fft',
+                              'split4perm-fp32', 'split5permfold-fp32',
+                              'gemm')),
+           (2048, 'float64', ('matmul-fp64', 'split2perm-fp64', 'fft',
+                              'ozaki-rfold2')))
+BAKEOFF_INNER = 4
+BAKEOFF_REPS = 5
 
 
 class PhaseError(RuntimeError):
@@ -76,14 +107,6 @@ class PhaseError(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise PhaseError(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0]
 
 
 def median_ms(fn, reps=30, warm=3):
@@ -206,7 +229,11 @@ def kernel_phase(dev, card):
 # phase 4: the canonical default run (the main path)
 # ----------------------------------------------------------------------
 
-def default_run():
+def default_run(transform='auto'):
+    """The canonical run on ``transform``: the stop step and the golden
+    anchors.  On every route the JAX package stops this run at the
+    golden's 1674 on the CPU (split at levels 2 with fold_field=False, and
+    fft: E every 100 steps within 5.06e-11 of the anchors)."""
     import numpy as np
     import torch
     from chsimpy_tpu_torch import Parameters, Simulator
@@ -215,7 +242,8 @@ def default_run():
     with open(os.path.join(ROOT, 'tests', 'golden',
                            'default_n512_anchors.json')) as f:
         g = json.load(f)
-    p = Parameters(no_gui=True, device='cuda', kappa_tilde=KAPPA)
+    p = Parameters(no_gui=True, device='cuda', kappa_tilde=KAPPA,
+                   transform_backend=transform)
     sim = Simulator(p)
     K.reset_launches()
     t0 = time.perf_counter()
@@ -224,7 +252,8 @@ def default_run():
     seconds = time.perf_counter() - t0
     launches = dict(K.launches)
     td = sol.timedata.data()
-    res = {'computed_steps': sol.computed_steps,
+    res = {'route': sim.solver.cfg.transform_backend,
+           'computed_steps': sol.computed_steps,
            'stop_reason': sol.stop_reason, 'tau0': sol.tau0, 't0': sol.t0,
            'seconds': seconds, 'launches': launches,
            'E_first_rel': abs(td[0, 1] / g['E_first'] - 1),
@@ -232,25 +261,29 @@ def default_run():
            'E_every_100_max_rel': float(np.max(np.abs(
                td[::100, 1] / np.asarray(g['E_every_100']) - 1))),
            'argmax_E2': int(td[:, 2].argmax())}
-    print(f"default run: {json.dumps(res)}", flush=True)
+    tag = f"default run ({res['route']})"
+    print(f"{tag}: {json.dumps(res)}", flush=True)
     check(tuple(sol.U.shape) == (512, 512) and sol.U.is_cuda
           and bool(torch.isfinite(sol.U).all()),
-          'the field is not a finite (512, 512) tensor on the card')
+          f'{tag}: the field is not a finite (512, 512) tensor on the card')
     check(sol.computed_steps == g['computed_steps'] == 1674,
-          f"stop step {sol.computed_steps} != 1674")
+          f"{tag}: stop step {sol.computed_steps} != 1674")
     check(sol.stop_reason == g['stop_reason'] == 'energy',
-          f"stop reason {sol.stop_reason}")
-    check(sol.tau0 == g['tau0'], f"tau0 {sol.tau0} != {g['tau0']}")
-    check(abs(sol.t0 / g['t0'] - 1) <= 1e-12, 't0 outside 1e-12')
-    check(res['E_first_rel'] <= 1e-12, 'E_first outside 1e-12')
-    check(res['E_last_rel'] <= 1e-10, 'E_last outside 1e-10')
-    check(res['E_every_100_max_rel'] <= 1e-10, 'E_every_100 outside 1e-10')
-    check(res['argmax_E2'] == g['argmax_E2'], 'argmax E2 differs')
+          f"{tag}: stop reason {sol.stop_reason}")
+    check(sol.tau0 == g['tau0'], f"{tag}: tau0 {sol.tau0} != {g['tau0']}")
+    check(abs(sol.t0 / g['t0'] - 1) <= 1e-12, f'{tag}: t0 outside 1e-12')
+    check(res['E_first_rel'] <= 1e-12, f'{tag}: E_first outside 1e-12')
+    check(res['E_last_rel'] <= 1e-10, f'{tag}: E_last outside 1e-10')
+    check(res['E_every_100_max_rel'] <= 1e-10,
+          f'{tag}: E_every_100 outside 1e-10')
+    check(res['argmax_E2'] == g['argmax_E2'], f'{tag}: argmax E2 differs')
     for name in MATMUL_PATH:
         n = launches[name]
         check(n >= sol.computed_steps - 1,
-              f"{name} launched {n} times in {sol.computed_steps} steps")
-    check(launches['slice_field'] == 0, 'the matmul route sliced a field')
+              f"{tag}: {name} launched {n} times in {sol.computed_steps} "
+              f"steps")
+    check(launches['slice_field'] == 0 and launches['matmul'] == 0,
+          f'{tag}: the route sliced a field or ran the GEMM kernel')
     return res
 
 
@@ -352,6 +385,7 @@ def fast_mode(card):
     E64 = sol64.timedata.E
     rel = float(np.max(np.abs(E32 / E64 - 1)))
     out['E_f32_vs_f64_max_rel'] = rel
+    out['E_f64_64_steps'] = [float(e) for e in E64]
     print(f"N=4096: f32 E vs f64 max rel {rel:.3e} over 64 steps; "
           f"mean(U) f32 {mean32!r} (initial {U0_mean!r})", flush=True)
     check(rel <= 1e-5, f"f32 E trace {rel:.3e} from f64 (limit 1e-5)")
@@ -434,14 +468,16 @@ def slices_per_forward(cfg) -> int:
 
 
 def check_ozaki_launches(tag, cfg, launches, steps, chunk, ntmax):
-    """Every kernel launched; K1 once per step iteration the chunks ran;
+    """Every kernel of the route launched; K1 once per step iteration the
+    chunks ran;
     the slice kernel fwd + iterations * (fwd + 1) times (one forward at
     entry, a forward and an inverse per step)."""
     iterations = min(ntmax - 1, -(-(steps - 1) // chunk) * chunk)
     fwd = slices_per_forward(cfg)
     want = fwd + iterations * (fwd + 1)
-    for name, n in launches.items():
-        check(n > 0, f"{tag}: {name} was never launched")
+    for name in MATMUL_PATH + ('slice_field',):
+        check(launches[name] > 0, f"{tag}: {name} was never launched")
+    check(launches['matmul'] == 0, f"{tag}: the GEMM kernel was launched")
     check(launches['chemical_potential'] == iterations,
           f"{tag}: chemical_potential launched "
           f"{launches['chemical_potential']} times, not {iterations}")
@@ -684,6 +720,233 @@ def ozaki_phase(dev, card):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 7: the split and FFT routes, the bake-off and the GEMM kernel
+# ----------------------------------------------------------------------
+
+GEMM_SHAPES = ((4096, 4096, 4096), (1000, 1000, 1000), (512, 512, 512),
+               (1000, 1531, 777))   # (M, K, N); the last one ragged
+# (transposed A, transposed B): each operand row-major or the .T view of a
+# row-major matrix; every layout is its own instantiation of the kernel
+GEMM_LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
+GEMM_TOL = '<= 4x the plain error and 1e-5 max|ref|, both vs float64'
+# phase 7 (b): the round-trip error after BAKEOFF_INNER round trips of a
+# [0, 1) field, per arithmetic (measured on the card: fp32 routes <= 2.5e-5,
+# tf32 3.1e-3, float64 <= 4.7e-11); a wrong product gives O(1)
+ROUNDTRIP_BOUND = {'float32': 1e-4, 'tf32': 1e-2, 'float64': 1e-9}
+
+
+def held_to_plain(tag, got, plain, ref, ms, plain_ms, card, **info):
+    """One GEMM row: ``got`` (the kernel) and ``plain`` against the float64
+    ``ref``; the kernel's error at most 4x the plain one and 1e-5
+    max|ref|."""
+    err = (got.double() - ref).abs().max().item()
+    plain_err = (plain.double() - ref).abs().max().item()
+    bound = 1e-5 * ref.abs().max().item()
+    ok = err <= 4 * plain_err and err <= bound
+    row = {'name': 'matmul', **info, 'dtype': 'float32', 'max_abs_err': err,
+           'plain_max_abs_err': plain_err, 'tolerance': GEMM_TOL, 'ok': ok,
+           'ms': ms, 'plain_ms': plain_ms}
+    print(f"kernel {tag} err={err:.3e} plain {plain_err:.3e} "
+          f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  ({card})", flush=True)
+    check(ok, f"{tag}: error {err:.3e} (plain {plain_err:.3e}, bound "
+              f"{bound:.3e})")
+    return row
+
+
+def gemm_phase(dev, card):
+    """(a) the GEMM kernel against its plain version on the card, every
+    operand layout at every shape, and the DCT pair built on it."""
+    import torch
+    from chsimpy_tpu_torch.ops import dct as dct_ops
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    dct_ops.require_full_fp32()
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for M, Kd, N in GEMM_SHAPES:
+        for ta, tb in GEMM_LAYOUTS:
+            A = torch.randn((Kd, M) if ta else (M, Kd), device=dev,
+                            generator=g)
+            B = torch.randn((N, Kd) if tb else (Kd, N), device=dev,
+                            generator=g)
+            A, B = (A.T if ta else A), (B.T if tb else B)
+            layout = ('T' if ta else 'N') + ('T' if tb else 'N')
+            got, plain = K.matmul(A, B), K.matmul_ref(A, B)
+            ref = A.double() @ B.double()
+            torch.cuda.synchronize()
+            row = held_to_plain(
+                f"matmul ({M}x{Kd})@({Kd}x{N}) {layout}", got, plain, ref,
+                median_ms(lambda: K.matmul(A, B)),
+                median_ms(lambda: K.matmul_ref(A, B)), card,
+                M=M, K=Kd, N=N, layout=layout)
+            flop = 2.0 * M * Kd * N
+            row['TFLOPS'] = flop / row['ms'] / 1e9
+            row['plain_TFLOPS'] = flop / row['plain_ms'] / 1e9
+            print(f"kernel matmul ({M}x{Kd})@({Kd}x{N}) {layout}: "
+                  f"{row['TFLOPS']:.2f} TFLOP/s, plain "
+                  f"{row['plain_TFLOPS']:.2f}  ({card})", flush=True)
+            rows.append(row)
+    # the DCT pair of the bake-off's gemm route against the solver's
+    # matmul route (torch.matmul, TF32 off) on the same operands
+    N = 4096
+    C = dct_ops.dct_matrix(N, torch.float32, dev)
+    x = torch.rand((N, N), device=dev, generator=g)
+    C64, x64 = C.double(), x.double()
+    X = K.dct2_gemm(x, C)
+    rows.append(held_to_plain(
+        f"dct2_gemm N={N}", X, dct_ops.dct2(x, C), C64 @ x64 @ C64.T,
+        median_ms(lambda: K.dct2_gemm(x, C)),
+        median_ms(lambda: dct_ops.dct2(x, C)), card, N=N, op='dct2_gemm'))
+    X64 = X.double()
+    rows.append(held_to_plain(
+        f"idct2_gemm N={N}", K.idct2_gemm(X, C), dct_ops.idct2(X, C),
+        C64.T @ X64 @ C64, median_ms(lambda: K.idct2_gemm(X, C)),
+        median_ms(lambda: dct_ops.idct2(X, C)), card, N=N, op='idct2_gemm'))
+    x = torch.ones((8, 8), dtype=torch.float64, device=dev)
+    try:
+        K.matmul(x, x)
+    except TypeError as e:
+        print(f"kernel matmul float64 input raises: {e}", flush=True)
+    else:
+        raise PhaseError('matmul took a float64 CUDA input')
+    return rows
+
+
+def bakeoff_phase(dev, card):
+    """(b) the bake-off's routes through its own functions; the GEMM
+    kernel's launches counted over this run."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch.benchmarks import dct_bench
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    K.reset_launches()
+    gemm_round_trips = 0
+    for N, dtype, routes in BAKEOFF:
+        x = torch.tensor(np.random.default_rng(0).random((N, N)),
+                         dtype=getattr(torch, dtype), device=dev)
+        fns = dct_bench._roundtrip_fns(N, dtype, BAKEOFF_INNER, dev)
+        for name in routes:
+            fn = fns[name]
+            med, best = dct_bench.time_route(fn, x, BAKEOFF_REPS,
+                                             BAKEOFF_INNER)
+            err = dct_bench.accuracy_route(fn, x)
+            if name == 'gemm':
+                # the untimed first call, the timed ones, the accuracy call
+                gemm_round_trips += (BAKEOFF_REPS + 2) * BAKEOFF_INNER
+            bound = ROUNDTRIP_BOUND['tf32' if name.endswith('-tf32')
+                                    else dtype]
+            row = {'N': N, 'dtype': dtype, 'route': name, 'ms_median': med,
+                   'ms_best': best, 'roundtrip_err': err,
+                   'roundtrip_bound': bound, 'inner': BAKEOFF_INNER}
+            rows.append(row)
+            print(f"bake-off N={N} {dtype} {name}: {med:.4f} ms median "
+                  f"({best:.4f} best) per round trip, rt-err {err:.3e} "
+                  f"(bound {bound:g})  ({card})", flush=True)
+            check(np.isfinite(med) and med > 0,
+                  f"bake-off {name}: no time")
+            check(err <= bound, f"bake-off N={N} {dtype} {name}: round-trip "
+                                f"error {err:.3e} above {bound:g}")
+        del fns
+    # the solver's TF32 switch is restored after the tf32 route
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          'TF32 left on after the bake-off')
+    launches = dict(K.launches)
+    check(launches['matmul'] == 4 * gemm_round_trips,
+          f"matmul launched {launches['matmul']} times for "
+          f"{gemm_round_trips} gemm round trips")
+    return {'rows': rows, 'launches': launches,
+            'gemm_round_trips': gemm_round_trips}
+
+
+def route_layer_ms(solver, targets):
+    """Per-layer times of one step of ``solver``'s route: the forward and
+    inverse transforms and each of ``targets`` (their calls of one step,
+    recorded and replayed alone), and the whole step."""
+    from chsimpy_tpu_torch.core import stepper
+    cfg, c, s = solver.cfg, solver._consts, solver._state
+    with CallRecorder([(stepper, 'dct2_route', 'forward_transform'),
+                       (stepper, 'idct2_route', 'inverse_transform'),
+                       *targets]) as rec:
+        stepper._step(cfg, c, s)
+    out = {label: replay_ms(calls) for label, calls in rec.calls.items()}
+    out['whole_step'] = median_ms(lambda: stepper._step(cfg, c, s),
+                                  reps=10, warm=1)
+    transforms = out['forward_transform'] + out['inverse_transform']
+    out['step_rest'] = out['whole_step'] - transforms
+    return out, {k: len(v) for k, v in rec.calls.items()}
+
+
+def routes_n4096(card, E64):
+    """(d) N=4096 float32 on split and fft against phase 5's float64 E,
+    rates in turns with the matmul route, and the layers of one step."""
+    import numpy as np
+    import torch
+
+    solvers = {t: make_solver(4096, 'float32', 64, transform=t)
+               for t in ('matmul', 'split', 'fft')}
+    check(solvers['split'].cfg.split_levels_resolved == 4,
+          'N=4096 split is not at levels 4')
+    out = {'E_vs_f64_max_rel': {}, 'mean_U': {}}
+    for t in ('split', 'fft'):
+        s = solvers[t]
+        U0 = s.solution.U.double().mean().item()
+        E = np.array(s.solve_or_resume(64).timedata.E)
+        check(len(E) == len(E64) == 64, f'N=4096 {t}: not 64 rows')
+        rel = float(np.max(np.abs(E / np.asarray(E64) - 1)))
+        mean = s.solution.U.double().mean().item()
+        out['E_vs_f64_max_rel'][t] = rel
+        out['mean_U'][t] = {'initial': U0, 'after_64': mean}
+        print(f"N=4096 float32 {t}: E vs float64 max rel {rel:.3e} over 64 "
+              f"steps; mean(U) {mean!r} (initial {U0!r})", flush=True)
+        check(bool(torch.isfinite(s.solution.U).all()),
+              f'N=4096 {t}: field not finite')
+        check(rel <= 1e-5, f"N=4096 {t}: E {rel:.3e} from float64 (1e-5)")
+        check(abs(mean - U0) <= 1e-6,
+              f"N=4096 {t}: mean(U) {mean} drifted from {U0}")
+    solvers['matmul'].solve_or_resume(64)          # its warm-up chunk
+    rates = {t: [] for t in solvers}
+    for t in ('matmul', 'split', 'fft', 'fft', 'split', 'matmul'):
+        rates[t].append(rate(solvers[t], 128))
+    for t, v in rates.items():
+        print(f"steps/s N=4096 float32 {t}: " + ', '.join(
+            f"{r:.2f}" for r in v) + f"  ({card})", flush=True)
+    out['steps_per_s'] = rates
+    layers = {}
+    layers['split'], calls_split = route_layer_ms(
+        solvers['split'], [(torch, 'matmul', 'block_products')])
+    layers['split']['folds'] = (layers['split']['forward_transform']
+                                + layers['split']['inverse_transform']
+                                - layers['split']['block_products'])
+    layers['fft'], calls_fft = route_layer_ms(
+        solvers['fft'], [(torch.fft, 'rfft', 'rfft'),
+                         (torch.fft, 'irfft', 'irfft')])
+    layers['fft']['twiddles_and_folds'] = (
+        layers['fft']['forward_transform']
+        + layers['fft']['inverse_transform']
+        - layers['fft']['rfft'] - layers['fft']['irfft'])
+    for t, v in layers.items():
+        print(f"layers N=4096 float32 {t}: " + ', '.join(
+            f"{n} {ms:.4f} ms" for n, ms in v.items()) + f"  ({card})",
+            flush=True)
+    out['layers_ms'] = layers
+    out['calls_per_step'] = {'split': calls_split, 'fft': calls_fft}
+    return out
+
+
+def routes_phase(dev, card, E64):
+    out = {'gemm': gemm_phase(dev, card),
+           'bakeoff': bakeoff_phase(dev, card)}
+    t0 = time.perf_counter()
+    out['default_run'] = {t: default_run(t) for t in ('split', 'fft')}
+    out['n4096'] = routes_n4096(card, E64)
+    out['seconds_c_to_d'] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', help='directory for chip_smoke.json')
@@ -694,6 +957,7 @@ def main(argv=None) -> int:
               "NVIDIA card", file=sys.stderr)
         return 1
     from chsimpy_tpu_torch.ops import cuda_build
+    from chsimpy_tpu_torch.sysinfo import card_line
     card = card_line()
     print(card, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -713,6 +977,8 @@ def main(argv=None) -> int:
     detail['default_run'] = default_run()
     detail['fast_mode'] = fast_mode(card)
     detail['ozaki'] = ozaki_phase(dev, card)
+    detail['routes'] = routes_phase(dev, card,
+                                    detail['fast_mode']['E_f64_64_steps'])
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -727,6 +993,13 @@ def main(argv=None) -> int:
                        if (r['N'], r['n_slices'], r['field']) == SLICE_REPORT)
             launches = detail['ozaki']['default_run']['launches'][name]
             extra = {'shape': f"{N}x{N} float64 -> {n} int8 slices"}
+        elif name == 'matmul':
+            row = detail['routes']['gemm'][0]
+            launches = detail['routes']['bakeoff']['launches'][name]
+            extra = {'shape': f"({row['M']}x{row['K']})@({row['K']}x"
+                              f"{row['N']}) float32",
+                     'TFLOPS': row['TFLOPS'],
+                     'plain_TFLOPS': row['plain_TFLOPS']}
         else:
             row = next(r for r in detail['kernels'] if r['name'] == name
                        and (r['N'], r['dtype']) == REPORT_SHAPE)
@@ -741,9 +1014,10 @@ def main(argv=None) -> int:
             'plain_ms': row['plain_ms'], **extra})
     print(card)
     print(json.dumps({'kernels': summary}))
+    # every phase ran on the one card the script selected
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}))
+        'count': 1}}))
     return 0
 
 

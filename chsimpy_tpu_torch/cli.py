@@ -81,11 +81,16 @@ FLAGS = [
          "without a card) or 'cpu' (the plain PyTorch versions)",
          param='device', default='cuda'),
     Flag(('--transform',), 'Device',
-         '2-D DCT route: matmul, or ozaki (float64 only: exact int8 '
-         'slice products); auto resolves to matmul; split and fft are '
-         'not ported yet', param='transform_backend',
+         '2-D DCT route: matmul (C·U·Cᵀ), split (folded block products '
+         'in a permuted spectral basis, even N), fft (Makhoul rFFT, even '
+         'N), or ozaki (float64 only: exact int8 slice products); auto '
+         'resolves to matmul', param='transform_backend',
          choices=['auto', 'matmul', 'split', 'fft', 'ozaki'],
          default='auto'),
+    Flag(('--split-levels',), 'Device',
+         'Fold depth of the split transform route (N divisible by '
+         '2^levels); default: 4 at N>=4096, 3 at N>=2048, else 2',
+         param='split_levels', type=int, default=None),
     Flag(('--ozaki-fwd-pairs',), 'Device',
          'Stage pair cutoffs "S1,S2" for the FORWARD float64 ozaki '
          'transform (default 3,5 — E at the floor with 2 slots of '
@@ -113,7 +118,6 @@ _LATER = [
     (('--mesh',), 1, 'grid sharding over a device mesh', 11),
     (('--fold-field', '--no-fold-field'), 0, 'the TPU tuning knob '
      '--fold-field', 14),
-    (('--split-levels',), 1, 'the split transform route', 2),
     (('--matmul-precision',), 1, 'the TPU tuning knob --matmul-precision',
      14),
     (('--fwd-matmul-precision',), 1,

@@ -5,9 +5,11 @@ Each function takes plain Python or numpy values (what
 neither jax nor ``chsimpy_tpu``:
 
 * :func:`consts_from_jax` — the output of ``chsimpy_tpu.core.stepper.
-  make_consts`` (C, leig, CHeig, Seig, eaxis, A0, A1, kappa_tilde, and
-  the ozaki route's int8 slice stacks Cs, CsT, CeS, CoS, CeTS, CoTS and
-  rf);
+  make_consts`` (C, leig, CHeig, Seig, eaxis, A0, A1, kappa_tilde, the
+  ozaki route's int8 slice stacks Cs, CsT, CeS, CoS, CeTS, CoTS and rf,
+  and the split route's block tree);
+* :func:`split_tree_from_jax` — a split block tree (``chsimpy_tpu.ops.dct.
+  split_tree``) as nested tensors;
 * :func:`state_from_jax` — the fields of a ``chsimpy_tpu`` ``SolverState``;
 * :func:`params_from_jax` — ``chsimpy_tpu.Parameters.scalar_dict()``,
   refusing what the port does not run yet.
@@ -35,10 +37,20 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
     return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
 
+def split_tree_from_jax(tree, device='cpu'):
+    """The port's split block tree from the JAX one: the same nesting of
+    (even subtree, odd block) pairs, each block a float tensor of the
+    block's own type.  An empty tree (a route without one) stays ()."""
+    if isinstance(tree, tuple):
+        return tuple(split_tree_from_jax(t, device) for t in tree)
+    return _tensor(tree, device)
+
+
 def consts_from_jax(d: dict, device='cpu') -> dict:
     """The port's consts dict from the numpy form of the JAX consts.  The
-    ozaki stacks may be left out (a matmul-route dict): they are then
-    empty; ``rf`` is a sequence of (block, block^T) stacks."""
+    ozaki stacks and the split tree may be left out (a matmul-route dict):
+    they are then empty; ``rf`` is a sequence of (block, block^T)
+    stacks."""
     consts = {k: _tensor(d[k], device) for k in _CONST_ARRAYS}
     empty = np.zeros((0,), np.int8)
     consts.update({k: _tensor(d.get(k, empty), device, torch.int8)
@@ -46,6 +58,7 @@ def consts_from_jax(d: dict, device='cpu') -> dict:
     consts['rf'] = tuple((_tensor(b, device, torch.int8),
                           _tensor(bt, device, torch.int8))
                          for b, bt in d.get('rf', ()))
+    consts['tree'] = split_tree_from_jax(d.get('tree', ()), device)
     consts.update({k: float(np.asarray(d[k])) for k in _CONST_SCALARS})
     return consts
 

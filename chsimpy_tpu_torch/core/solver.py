@@ -35,18 +35,34 @@ from .stepper import (StepConfig, entry_dct2, make_consts, prepare_row0,
 
 
 def resolve_transform(params: Parameters) -> str:
-    """The concrete DCT route: 'matmul' or 'ozaki'.  'auto' stays matmul in
-    the port: the JAX package's TPU choice of ozaki for float64 has to be
-    earned by a measurement on the H100 (ROADMAP.md queue A item 14)."""
+    """The concrete DCT route: 'matmul', 'split', 'fft' or 'ozaki', with
+    the JAX package's single-device guards.  'auto' stays matmul in the
+    port: the JAX package's TPU choices (split for float32 at N >= 1024,
+    ozaki for float64) have to be earned by a measurement on the H100
+    (ROADMAP.md queue A item 14).  JAX's float64-FFT guard holds on a TPU
+    only (no complex128 there): float64 FFT runs on the card."""
     tb = params.transform_backend or 'auto'
     if tb == 'auto':
         return 'matmul'
+    if tb in ('fft', 'split') and params.N % 2:
+        raise ValueError(f"--transform {tb} requires even N "
+                         f"(got {params.N})")
     if tb == 'ozaki' and params.precision != 'float64':
         raise ValueError(
             "--transform ozaki is the float64 transform (int8 slice "
             "decomposition of the double-single representation); float32 "
             "runs use --transform split or matmul")
     return tb
+
+
+def check_split_levels(params: Parameters) -> None:
+    """``split_levels`` is the split route's fold depth: at least 1, and N
+    divisible by 2^levels (the JAX Solver's guard)."""
+    sl = params.split_levels
+    if sl is not None and not (1 <= sl and params.N % (2 ** sl) == 0):
+        raise ValueError(
+            f"--split-levels {sl} needs N divisible by 2^levels "
+            f"(got N={params.N})")
 
 
 def _resolve_rfold_levels(params: Parameters) -> int:
@@ -122,6 +138,7 @@ class Solver:
         if params.time_max is not None and params.time_max > 0:
             time_limit = params.time_max * 60.0
 
+        check_split_levels(params)
         transform = resolve_transform(params)
         d = self.derived
         self.cfg = StepConfig(
@@ -132,6 +149,7 @@ class Solver:
             A0=d.A0, A1=d.A1, kappa_tilde=d.kappa_tilde,
             time_limit=time_limit, full_sim=params.full_sim,
             transform_backend=transform,
+            split_levels=params.split_levels,
             ozaki_fold=transform == 'ozaki' and N % 2 == 0,
             ozaki_rfold_levels=_resolve_rfold_levels(params),
             ozaki_fwd_pairs=resolve_ozaki_fwd_pairs(params),

@@ -1,17 +1,19 @@
 """The Cahn-Hilliard time step and the chunk runner.
 
 Port of ``chsimpy_tpu/core/stepper.py`` for the slices the port runs: fixed
-``delt``, the matmul DCT route and the float64 ozaki route on one device,
-``full_sim`` and the energy early stop, the ``time_max`` limit and the NaN
-guard.  One step does, in order:
+``delt``, the matmul, split and FFT DCT routes and the float64 ozaki route
+on one device, ``full_sim`` and the energy early stop, the ``time_max``
+limit and the NaN guard.  One step does, in order:
 
   nonlinear term (kernel K1) -> forward 2-D DCT
   -> semi-implicit spectral update (K2) -> inverse 2-D DCT
   -> field sums (K3) and Σ|U − mean| (K4), finalized in float64
   -> timedata row and early-stop predicate.
 
-The DCTs are ``torch.matmul`` products on the matmul route; on the ozaki
-route they are exact int8 products (``ops/ozaki.py``, slicing kernel K5).
+The DCTs are ``torch.matmul`` products on the matmul route, folded block
+products in the permuted spectral basis on the split route, real FFTs
+(``torch.fft``) on the FFT route (``ops/dct.py``), and exact int8 products
+on the ozaki route (``ops/ozaki.py``, slicing kernel K5).
 
 The JAX package runs a chunk of steps in a ``lax.while_loop`` that exits at
 the stop.  Here a chunk is a Python loop of a fixed number of steps that
@@ -63,7 +65,13 @@ class StepConfig:
     kappa_tilde: float = 0.0
     time_limit: Optional[float] = None  # seconds of simulated time
     full_sim: bool = False
-    transform_backend: str = 'matmul'   # 'matmul' | 'ozaki' (float64)
+    # 'matmul' | 'split' | 'fft' | 'ozaki' (float64)
+    transform_backend: str = 'matmul'
+    # fold depth of the split route; None resolves by size
+    # (split_levels_resolved).  The port keeps the natural field layout
+    # (the JAX package's fold_field is not ported), so the JAX resolver's
+    # folded-layout branch is never taken
+    split_levels: Optional[int] = None
     # ozaki route layout, resolved by the solver as in the JAX package:
     # level-1 fold in natural layout (N < 1024), or the recursive fold in
     # the permuted basis (levels > 0, N >= 1024; overrides ozaki_fold)
@@ -79,28 +87,52 @@ class StepConfig:
     def tdtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
 
+    @property
+    def split_levels_resolved(self) -> int:
+        """The JAX package's depth table for the natural layout:
+        4 at N >= 4096, 3 at N >= 2048, else 2 (divisibility allowing)."""
+        if self.split_levels is not None:
+            return self.split_levels
+        if self.N >= 4096 and self.N % 16 == 0:
+            return 4
+        if self.N >= 2048 and self.N % 8 == 0:
+            return 3
+        return 2
+
+    @property
+    def spectral_levels(self) -> int:
+        """Depth of the permuted spectral basis (0: natural order)."""
+        if self.transform_backend == 'split':
+            return self.split_levels_resolved
+        if self.transform_backend == 'ozaki':
+            return self.ozaki_rfold_levels
+        return 0
+
 
 _FOLD_KEYS = ('CeS', 'CoS', 'CeTS', 'CoTS')
 
 
 def make_consts(cfg: StepConfig, delt: float, device='cpu') -> dict:
-    """DCT matrix (or, on the ozaki route, its int8 slice stacks),
-    eigenvalue grid and axis, update coefficient grids, and the physics
-    scalars.  Built on the CPU with the JAX package's operations and order
-    (float64 bit-identical to its ``make_consts``, the same keys), then
-    moved to ``device``.  The ozaki rfold route works in the permuted
-    basis, so leig and eaxis are permuted before the grids are made."""
+    """DCT matrix (or, on the ozaki route, its int8 slice stacks), the
+    split route's block tree, eigenvalue grid and axis, update coefficient
+    grids, and the physics scalars.  Built on the CPU with the JAX
+    package's operations and order (float64 bit-identical to its
+    ``make_consts``, the same keys), then moved to ``device``.  The split
+    and ozaki rfold routes work in the permuted basis, so leig and eaxis
+    are permuted before the grids are made."""
     dtype = cfg.tdtype
     kt = cfg.kappa_tilde
     N = cfg.N
     z8 = torch.zeros((0,), dtype=torch.int8)
     host = {'C': torch.zeros((0,), dtype=dtype), 'Cs': z8, 'CsT': z8,
             **{k: z8 for k in _FOLD_KEYS}}
-    rf = ()
+    rf = tree = ()
     ozaki = cfg.transform_backend == 'ozaki'
-    L = cfg.ozaki_rfold_levels if ozaki else 0
+    L = cfg.spectral_levels
     if not ozaki:
         host['C'] = dct_ops.dct_matrix(N, dtype)
+        if cfg.transform_backend == 'split':
+            tree = dct_ops.split_tree(N, L, dtype, device)
     elif L:
         rf = ozaki_ops.dct_rfold_slices(N, L, device)[0]
     elif cfg.ozaki_fold:
@@ -121,7 +153,7 @@ def make_consts(cfg: StepConfig, delt: float, device='cpu') -> dict:
                 CHeig=CHeig, Seig=Seig)
     consts = {k: v.to(device) for k, v in host.items()}
     consts.update(A0=float(cfg.A0), A1=float(cfg.A1), kappa_tilde=float(kt),
-                  rf=rf)
+                  rf=rf, tree=tree)
     return consts
 
 
@@ -138,7 +170,12 @@ def _fold_stacks(cfg: StepConfig, consts) -> dict:
 def dct2_route(cfg: StepConfig, consts, U, pairs=None):
     """Forward 2-D DCT of the configured route (the ozaki routes with the
     pair cutoffs ``pairs``; None = untrimmed)."""
-    if cfg.transform_backend != 'ozaki':
+    tb = cfg.transform_backend
+    if tb == 'split':
+        return dct_ops.dct2_split_perm(U, consts['tree'])
+    if tb == 'fft':
+        return dct_ops.dct2_fft(U)
+    if tb != 'ozaki':
         return dct_ops.dct2(U, consts['C'])
     s1, s2 = _pairs(pairs)
     N, L = cfg.N, cfg.ozaki_rfold_levels
@@ -154,7 +191,12 @@ def dct2_route(cfg: StepConfig, consts, U, pairs=None):
 
 def idct2_route(cfg: StepConfig, consts, X):
     """Inverse 2-D DCT of the configured route."""
-    if cfg.transform_backend != 'ozaki':
+    tb = cfg.transform_backend
+    if tb == 'split':
+        return dct_ops.idct2_split_perm(X, consts['tree'])
+    if tb == 'fft':
+        return dct_ops.idct2_fft(X)
+    if tb != 'ozaki':
         return dct_ops.idct2(X, consts['C'])
     N, L = cfg.N, cfg.ozaki_rfold_levels
     if L:
@@ -204,8 +246,9 @@ def prepare_row0(cfg: StepConfig, consts, U):
 
 
 def entry_dct2(cfg: StepConfig, consts, U):
-    """Spectral image of U, recomputed at every solve entry (the ozaki
-    routes untrimmed: once per entry, accuracy is free here)."""
+    """Spectral image of U, recomputed at every solve entry, in the
+    route's spectral layout (the ozaki routes untrimmed: once per entry,
+    accuracy is free here)."""
     return dct2_route(cfg, consts, U)
 
 

@@ -1,11 +1,13 @@
 // Hand-written Hopper kernels of the Cahn-Hilliard step (sm_90a).
 //
-// K1-K4 carry the step's elementwise and reduction work; the DCT products
-// stay torch.matmul (or, on the float64 ozaki route, torch._int_mm int8
-// products).  K1-K4 are templated on the field type and instantiated for
-// float and double: Hopper has native FP64, so the float64 validation mode
-// runs the same kernels as the float32 fast mode.  K5 slices a float64
-// field into int8 planes for the ozaki route and exists for double only.
+// K1-K4 carry the step's elementwise and reduction work; the solver's DCT
+// products stay torch.matmul / torch.fft (or, on the float64 ozaki route,
+// torch._int_mm int8 products), as the JAX package leaves them to XLA.
+// K1-K4 are templated on the field type and instantiated for float and
+// double: Hopper has native FP64, so the float64 validation mode runs the
+// same kernels as the float32 fast mode.  K5 slices a float64 field into
+// int8 planes for the ozaki route and exists for double only.  K6 is the
+// float32 GEMM of the DCT bake-off's 'gemm' route (ROADMAP.md kernel B5).
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes by
 // chsimpy_tpu_torch/ops/kernels.py.  Every entry launches on the stream it
@@ -17,7 +19,7 @@
 // same bits as their plain versions on the card and the sums differ only in
 // summation order.
 //
-// All four are bound by device-memory bandwidth: a few flops per element
+// K1-K4 are bound by device-memory bandwidth: a few flops per element
 // against 4-8 bytes read per operand.  Byte counts below are per call at
 // N=4096 in float32 (double them for float64).  The designs keep to one
 // pass over each operand; no shifted copies of the field are made.
@@ -245,6 +247,173 @@ slice_kernel(const double* __restrict__ x, const float* __restrict__ inv_ptr,
   }
 }
 
+// K6 — float32 GEMM, C = op(A) · op(B).  Replaces matmul / _matmul_kernel
+// (chsimpy_tpu/ops/pallas_kernels.py:133-174), the product under
+// dct2_pallas / idct2_pallas (:177-183): float32 operands contracted at
+// Precision.HIGHEST with float32 accumulation.  Here every product and sum
+// is one float32 fused multiply-add (__fmaf_rn, called explicitly: the file
+// is built with -fmad=false), in k order; no TF32.
+//
+// Bound by FP32 FMA throughput on the SMs (67 TFLOP/s on an H100 SXM at
+// 700 W): at N=4096 a product is 137 GFLOP against 201 MB of operands and
+// result.  The design keeps the FMA pipes fed from registers:
+// * each 256-thread block owns a 128x128 tile of C and walks K in steps of
+//   8, staging an (8 x 128) slice of A and of B in shared memory (17 KB,
+//   double-buffered: the next slice is loaded into registers while the
+//   current one is multiplied, one barrier per step); two blocks per SM
+//   (128 registers a thread, 82 KB of shared memory a block);
+// * each thread keeps an 8x8 accumulator in registers, split into four 4x4
+//   quadrants 64 rows and 64 columns apart, so its shared-memory reads are
+//   four float4 loads per k whose addresses are contiguous across the warp
+//   (no bank conflicts; the A reads are broadcasts); every 128 k it is
+//   added into the thread's slots of a 64 KB sum in shared memory;
+// * the global loads are coalesced for either operand layout: TA / TB pick
+//   the thread-to-element map at compile time, so a transposed operand (C^T
+//   of the DCT) is read in place, with no copy;
+// * any M, N, K: loads beyond an edge read 0 and stores are masked.
+// Tensor cores (3xTF32 mma/wgmma with TMA-fed tiles) are work for a later
+// change; so is a persistent schedule.
+constexpr int kGemmBM = 128;
+constexpr int kGemmBN = 128;
+constexpr int kGemmBK = 8;
+constexpr int kGemmLoads = kGemmBM * kGemmBK / kThreads;  // per operand
+// rows of the staged tiles are padded by 4 floats: a k-fastest operand
+// (row-major A, transposed B) then stores its 8 k values to 8 different
+// banks, and the float4 reads stay 16-byte aligned
+constexpr int kGemmPad = 4;
+// the register accumulator is added into a per-thread float sum in dynamic
+// shared memory every kGemmFlush steps (128 k) and restarted: rounding then
+// grows with 128 + K/128 serial terms instead of K (a serial k loop alone
+// left ~4x cuBLAS's error at K=512)
+constexpr int kGemmFlush = 16;
+constexpr int kGemmSumBytes = 64 * kThreads * (int)sizeof(float);  // 64 KB
+
+template <bool TA, bool TB>
+__global__ void __launch_bounds__(kThreads, 2)
+matmul_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                  float* __restrict__ C, int M, int N, int K, long long lda,
+                  long long ldb, long long ldc) {
+  __shared__ __align__(16) float As[2][kGemmBK][kGemmBM + kGemmPad];
+  __shared__ __align__(16) float Bs[2][kGemmBK][kGemmBN + kGemmPad];
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int m0 = blockIdx.y * kGemmBM;
+  const int n0 = blockIdx.x * kGemmBN;
+
+  extern __shared__ float sums[];  // 64 slots per thread, each its own
+  // element i of this thread's share of a slice: (row in the tile's m or n
+  // range, k within the step), with the index contiguous in memory fastest
+  // across the threads
+  auto a_at = [&](int i, int& m, int& k) {
+    const int idx = tid + i * kThreads;
+    m = TA ? idx % kGemmBM : idx / kGemmBK;
+    k = TA ? idx / kGemmBM : idx % kGemmBK;
+  };
+  auto b_at = [&](int i, int& n, int& k) {
+    const int idx = tid + i * kThreads;
+    n = TB ? idx / kGemmBK : idx % kGemmBN;
+    k = TB ? idx % kGemmBK : idx / kGemmBN;
+  };
+  float ra[kGemmLoads], rb[kGemmLoads];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kGemmLoads; ++i) {
+      int m, k, n, kb;
+      a_at(i, m, k);
+      b_at(i, n, kb);
+      const int gm = m0 + m, gk = k0 + k, gn = n0 + n, gkb = k0 + kb;
+      ra[i] = (gm < M && gk < K)
+                  ? A[TA ? (long long)gk * lda + gm : (long long)gm * lda + gk]
+                  : 0.0f;
+      rb[i] = (gn < N && gkb < K)
+                  ? B[TB ? (long long)gn * ldb + gkb
+                         : (long long)gkb * ldb + gn]
+                  : 0.0f;
+    }
+  };
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < kGemmLoads; ++i) {
+      int m, k, n, kb;
+      a_at(i, m, k);
+      b_at(i, n, kb);
+      As[buf][k][m] = ra[i];
+      Bs[buf][kb][n] = rb[i];
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[i][j] = 0.0f;
+      sums[(i * 8 + j) * kThreads + tid] = 0.0f;
+    }
+
+  const int steps = (K + kGemmBK - 1) / kGemmBK;
+  load(0);
+  stage(0);
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {
+    const int buf = s & 1;
+    if (s + 1 < steps) load((s + 1) * kGemmBK);
+#pragma unroll
+    for (int kk = 0; kk < kGemmBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
+    }
+    if ((s + 1) % kGemmFlush == 0 && s + 1 < steps) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          sums[(i * 8 + j) * kThreads + tid] += acc[i][j];
+          acc[i][j] = 0.0f;
+        }
+    }
+    if (s + 1 < steps) stage(buf ^ 1);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      acc[i][j] = sums[(i * 8 + j) * kThreads + tid] + acc[i][j];
+
+  // rows ty*4 + {0..3} and 64 + ty*4 + {0..3}; columns likewise with tx
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
+    if (gm >= M) continue;
+    float* row = C + (long long)gm * ldc;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gn = n0 + h * 64 + tx * 4;
+      if (gn + 3 < N && ldc % 4 == 0) {
+        *reinterpret_cast<float4*>(row + gn) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (gn + j < N) row[gn + j] = acc[i][4 * h + j];
+      }
+    }
+  }
+}
+
 // Pass 2 of K3 and K4: out[c] = sum over b of partials[b, c], one block,
 // fixed order.
 __global__ void __launch_bounds__(kThreads)
@@ -325,6 +494,54 @@ int launch_slice(const void* x, const void* inv, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
+template <bool TA, bool TB>
+cudaError_t launch_matmul_tt(const float* A, const float* B, float* C, int M,
+                             int N, int K, long long lda, long long ldb,
+                             long long ldc, cudaStream_t s) {
+  // above 48 KB a block's shared memory must be asked for, and the SM's
+  // carve-out set to hold two such blocks (once per entry and process)
+  static const cudaError_t configured = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        matmul_f32_kernel<TA, TB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSumBytes);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        matmul_f32_kernel<TA, TB>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+  }();
+  if (configured != cudaSuccess) return configured;
+  const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
+  matmul_f32_kernel<TA, TB><<<grid, kThreads, kGemmSumBytes, s>>>(
+      A, B, C, M, N, K, lda, ldb, ldc);
+  return cudaGetLastError();
+}
+
+int launch_matmul(const void* A, int transA, long long lda, const void* B,
+                  int transB, long long ldb, void* C, long long ldc, int M,
+                  int N, int K, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || (M + kGemmBM - 1) / kGemmBM > 65535 ||
+      ldc < N || lda < (transA ? M : K) || ldb < (transB ? K : N))
+    return (int)cudaErrorInvalidValue;
+  const float* a = (const float*)A;
+  const float* b = (const float*)B;
+  float* c = (float*)C;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (transA) {
+    err = transB ? launch_matmul_tt<true, true>(a, b, c, M, N, K, lda, ldb,
+                                                ldc, s)
+                 : launch_matmul_tt<true, false>(a, b, c, M, N, K, lda, ldb,
+                                                 ldc, s);
+  } else {
+    err = transB ? launch_matmul_tt<false, true>(a, b, c, M, N, K, lda, ldb,
+                                                 ldc, s)
+                 : launch_matmul_tt<false, false>(a, b, c, M, N, K, lda, ldb,
+                                                  ldc, s);
+  }
+  return (int)err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -373,6 +590,16 @@ int ch_absdev_f64(const void* U, long long n, const void* mean,
 int ch_slice_f64(const void* x, const void* inv, void* out, long long n,
                  int n_slices, void* stream) {
   return launch_slice(x, inv, out, n, n_slices, stream);
+}
+
+// float32 only: the TPU kernel contracts float32 operands.  A is (M, K),
+// stored row-major with leading dimension lda, or (transA) as the
+// transpose of a row-major (K, M); B likewise; C row-major (M, N).
+int ch_matmul_f32(const void* A, int transA, long long lda, const void* B,
+                  int transB, long long ldb, void* C, long long ldc, int M,
+                  int N, int K, void* stream) {
+  return launch_matmul(A, transA, lda, B, transB, ldb, C, ldc, M, N, K,
+                       stream);
 }
 
 }  // extern "C"

@@ -25,8 +25,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PKG_DIR / 'csrc' / 'ch_kernels.cu'
 BUILD_DIR = PKG_DIR / 'build'
 # -fmad=false: no a*b+c contraction, so each kernel rounds every operation
-# as its plain PyTorch version does (the kernels are bandwidth-bound, the
-# fused multiply-add buys them nothing)
+# as its plain PyTorch version does (those kernels are bandwidth-bound, the
+# fused multiply-add buys them nothing); the GEMM calls __fmaf_rn itself
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-fmad=false', '-shared', '-Xcompiler', '-fPIC', '-Xptxas',
               '-v')
@@ -41,6 +41,8 @@ _SIGNATURES = {
     'ch_stats': ((_P, _P, _I, _D, _D, _D, _D, _D, _D, _P, _I, _P, _P), _BOTH),
     'ch_absdev': ((_P, _LL, _P, _P, _I, _P, _P), _BOTH),
     'ch_slice': ((_P, _P, _P, _LL, _I, _P), ('_f64',)),
+    'ch_matmul': ((_P, _I, _LL, _P, _I, _LL, _P, _LL, _I, _I, _I, _P),
+                  ('_f32',)),
 }
 
 

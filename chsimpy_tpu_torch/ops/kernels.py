@@ -1,9 +1,9 @@
 """The step's kernels: a hand-written CUDA kernel for a tensor on the card,
 its plain PyTorch version for a tensor on the CPU.
 
-Counterpart of ``chsimpy_tpu/ops/pallas_kernels.py`` (K1-K4) and of the
-ozaki route's slice kernel in ``chsimpy_tpu/ops/ozaki.py`` (K5).  Each
-wrapper
+Counterpart of ``chsimpy_tpu/ops/pallas_kernels.py`` (K1-K4, and the
+tiled matmul K6 with the DCTs built on it) and of the ozaki route's slice
+kernel in ``chsimpy_tpu/ops/ozaki.py`` (K5).  Each wrapper
 
 * runs the plain version (``*_ref``) only when its input lies on the CPU;
 * on a CUDA tensor launches the kernel of ``csrc/ch_kernels.cu`` on the
@@ -26,7 +26,7 @@ from .stencil import gradient2d
 
 # kernel name -> number of launches on the card (see reset_launches)
 launches = {'chemical_potential': 0, 'spectral_update': 0,
-            'stats_sums': 0, 'absdev_sum': 0, 'slice_field': 0}
+            'stats_sums': 0, 'absdev_sum': 0, 'slice_field': 0, 'matmul': 0}
 
 # grid of the two reduction kernels: fixed by the shape alone, so the
 # summation order (and the result, to the bit) never depends on the card
@@ -280,3 +280,80 @@ def slice_field(x, n_slices: int = MAX_SLICES):
           x.numel(), n_slices, _stream())
     launches['slice_field'] += 1
     return out, scale
+
+
+# ----------------------------------------------------------------------
+# K6: float32 GEMM (replaces pallas_kernels.matmul, dct2_pallas and
+# idct2_pallas)
+# ----------------------------------------------------------------------
+
+def matmul_ref(A, B):
+    """A @ B in full float32 (TF32 off for the call, as the TPU kernel
+    contracts at ``Precision.HIGHEST``)."""
+    cuda_mm = torch.backends.cuda.matmul
+    prev = cuda_mm.allow_tf32
+    cuda_mm.allow_tf32 = False
+    try:
+        return torch.matmul(A, B)
+    finally:
+        cuda_mm.allow_tf32 = prev
+
+
+def _gemm_operand(X: torch.Tensor):
+    """(transposed, leading dimension) of a 2-D operand stored row-major,
+    or as the transpose of a row-major matrix (a ``.T`` view); raises on
+    any other layout."""
+    r, c = X.shape
+    s0, s1 = X.stride()
+    if s1 == 1 or c == 1:
+        if s0 >= c or r == 1:
+            return 0, max(s0, c)
+    if s0 == 1 or r == 1:
+        if s1 >= r or c == 1:
+            return 1, max(s1, r)
+    raise ValueError(f"matmul takes row-major operands or their "
+                     f"transposes, got strides {X.stride()}")
+
+
+def matmul(A, B):
+    """A @ B for float32 (M, K) and (K, N); either operand may be the
+    ``.T`` view of a row-major matrix (read in place, no copy)."""
+    if A.dim() != 2 or B.dim() != 2 or A.shape[1] != B.shape[0] \
+            or 0 in A.shape + B.shape:
+        raise ValueError(f"matmul takes non-empty (M, K) @ (K, N), got "
+                         f"{tuple(A.shape)} @ {tuple(B.shape)}")
+    if A.device != B.device:
+        raise ValueError(f"matmul inputs on different devices: "
+                         f"{A.device} vs {B.device}")
+    if A.dtype != B.dtype:
+        raise TypeError(f"matmul inputs of different types: "
+                        f"{A.dtype} vs {B.dtype}")
+    if A.device.type == 'cpu':
+        return matmul_ref(A, B)
+    if A.device.type != 'cuda':
+        raise ValueError(f"no kernel for device {A.device}")
+    if A.dtype != torch.float32:
+        raise TypeError(f"the matmul kernel takes float32, got {A.dtype}")
+    if A.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensor on {A.device} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    (M, Kd), N = A.shape, B.shape[1]
+    out = torch.empty((M, N), dtype=A.dtype, device=A.device)
+    ta, lda = _gemm_operand(A)
+    tb, ldb = _gemm_operand(B)
+    _call('ch_matmul', A.dtype, A.data_ptr(), ta, lda, B.data_ptr(), tb, ldb,
+          out.data_ptr(), N, M, N, Kd, _stream())
+    launches['matmul'] += 1
+    return out
+
+
+def dct2_gemm(U, C):
+    """2-D DCT-II C @ U @ C^T through :func:`matmul` (twin of
+    ``dct2_pallas``; C^T is a view)."""
+    return matmul(matmul(C, U), C.T)
+
+
+def idct2_gemm(X, C):
+    """2-D DCT-III C^T @ X @ C through :func:`matmul` (twin of
+    ``idct2_pallas``)."""
+    return matmul(matmul(C.T, X), C)

@@ -69,9 +69,10 @@ class Parameters:
     chunk_size: int = 1024            # device steps per host round-trip
     mesh_shape: Optional[tuple] = None
     jitter_backend: str = 'host'
+    # fold depth of the split transform route; None resolves by size
+    split_levels: Optional[int] = None
     # TPU tuning knobs of the JAX package; the port runs their defaults
     fold_field: Optional[bool] = None
-    split_levels: Optional[int] = None
     kernel_backend: str = 'xla'
     matmul_precision: Optional[str] = None
     fwd_matmul_precision: Optional[str] = None
@@ -82,8 +83,7 @@ class Parameters:
     inv_band: Optional[int] = None
     otf_coeffs: Optional[int] = None
     spectral_bf16: bool = False
-    # auto (= matmul in the port) | matmul | ozaki (float64; split and
-    # fft: later)
+    # auto (= matmul in the port) | matmul | split | fft | ozaki (float64)
     transform_backend: str = 'auto'
 
     version: str = __version__
@@ -140,14 +140,12 @@ def solver_scope_errors(p: Parameters) -> list:
         errs.append(not_ported('checkpoint and restore', 8))
     if p.mesh_shape is not None:
         errs.append(not_ported('grid sharding over a device mesh', 11))
-    tb = p.transform_backend
-    if tb in ('split', 'fft'):
-        errs.append(not_ported(f'the {tb} transform route', 2))
-    elif tb not in ('auto', 'matmul', 'ozaki'):
-        errs.append(f"unknown transform '{tb}'")
+    if p.transform_backend not in ('auto', 'matmul', 'split', 'fft',
+                                   'ozaki'):
+        errs.append(f"unknown transform '{p.transform_backend}'")
     if p.kernel_backend != 'xla':
         errs.append(KERNELS_MSG)
-    knobs = {'fold_field': p.fold_field, 'split_levels': p.split_levels,
+    knobs = {'fold_field': p.fold_field,
              'matmul_precision': p.matmul_precision,
              'fwd_matmul_precision': p.fwd_matmul_precision,
              'inv_band': p.inv_band or None,

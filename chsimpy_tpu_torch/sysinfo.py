@@ -16,3 +16,14 @@ def sec_to_min_if(value, t=60):
     if value > t:
         return str(round(value / 60.0, 1)) + 'min'
     return str(round(value, 1)) + 's'
+
+
+def card_line() -> str:
+    """The first card's name and power limit as ``nvidia-smi`` gives them
+    (``name, power.limit``): the label every time on the card carries."""
+    import subprocess
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0]

@@ -1,6 +1,6 @@
-"""The CUDA kernels of chsimpy_tpu_torch against their plain PyTorch
-versions, the ozaki transforms and short solves on the card against the
-same on the CPU.
+"""The CUDA kernels of chsimpy_tpu_torch (the GEMM included) against their
+plain PyTorch versions, and the ozaki, split and FFT transforms and short
+solves on the card against the same on the CPU.
 
 These tests need an NVIDIA card with ``nvcc`` (they build
 ``csrc/ch_kernels.cu``); without one they skip.  They import no jax, so
@@ -90,7 +90,7 @@ def test_kernels_match_plain_versions(card, dtype, N):
     assert abs(a - a_ref) <= _tol(dtype) * abs(a_ref)
     assert K.launches == {'chemical_potential': 1, 'spectral_update': 1,
                           'stats_sums': 2, 'absdev_sum': 1,
-                          'slice_field': 0}
+                          'slice_field': 0, 'matmul': 0}
 
 
 def test_stats_sums_are_reproducible(card):
@@ -219,3 +219,100 @@ def test_ozaki_solve_on_card_matches_cpu(card):
     np.testing.assert_allclose(g.timedata.E, c.timedata.E, rtol=1e-12)
     np.testing.assert_allclose(g.U.cpu().numpy(), c.U.numpy(), rtol=0,
                                atol=1e-11)
+
+
+@pytest.mark.parametrize('M,Kd,N', [(64, 64, 96), (129, 77, 301),
+                                    (1000, 1000, 1000), (512, 1531, 200)])
+def test_matmul_kernel_matches_plain_version(card, M, Kd, N):
+    """K6 against the float64 product, for every operand layout: at most
+    4x the plain version's error and 1e-5 max|ref|; one launch a call."""
+    g = torch.Generator(device=card).manual_seed(M)
+    K.reset_launches()
+    calls = 0
+    for ta in (False, True):
+        for tb in (False, True):
+            A = torch.randn((Kd, M) if ta else (M, Kd), device=card,
+                            generator=g)
+            B = torch.randn((N, Kd) if tb else (Kd, N), device=card,
+                            generator=g)
+            A, B = (A.T if ta else A), (B.T if tb else B)
+            got = K.matmul(A, B)
+            calls += 1
+            ref = A.double() @ B.double()
+            err = (got.double() - ref).abs().max().item()
+            plain = (K.matmul_ref(A, B).double() - ref).abs().max().item()
+            assert got.shape == (M, N) and got.dtype == torch.float32
+            assert err <= 4 * plain and err <= 1e-5 * ref.abs().max().item()
+    assert K.launches['matmul'] == calls
+    with pytest.raises(TypeError):
+        K.matmul(A.double(), B.double())
+
+
+def test_gemm_dcts_on_card_match_cpu(card):
+    from chsimpy_tpu_torch.ops import dct as D
+    x = np.random.default_rng(5).random((256, 256))
+    C = D.dct_matrix(256, torch.float32)
+    X = K.dct2_gemm(torch.tensor(x, dtype=torch.float32, device=card),
+                    C.to(card))
+    ref = D.dct2(torch.tensor(x), D.dct_matrix(256))
+    assert (X.cpu().double() - ref).abs().max().item() <= 1e-4
+    back = K.idct2_gemm(X, C.to(card))
+    assert (back.cpu().double() - torch.tensor(x)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('route', ['split', 'fft'])
+def test_route_transforms_on_card_match_cpu(card, route, dtype):
+    """The split (permuted, levels 3) and FFT transforms on the card
+    against the CPU: float64 within 1e-12, float32 within 2e-6 max|ref|
+    (cuFFT and cuBLAS sum in other orders than the CPU libraries)."""
+    from chsimpy_tpu_torch.ops import dct as D
+    N = 256
+    x = np.random.default_rng(6).random((N, N))
+    if route == 'split':
+        def run(u, dev):
+            t = D.split_tree(N, 3, dtype, dev)
+            y = D.dct2_split_perm(u, t)
+            return y, D.idct2_split_perm(y, t)
+    else:
+        def run(u, dev):
+            y = D.dct2_fft(u)
+            return y, D.idct2_fft(y)
+    gy, gb = run(torch.tensor(x, dtype=dtype, device=card), card)
+    cy, cb = run(torch.tensor(x, dtype=dtype), 'cpu')
+    tol = 1e-12 if dtype == torch.float64 else 2e-6
+    assert gy.is_contiguous() and gy.dtype == dtype
+    assert (gy.cpu() - cy).abs().max().item() <= tol * cy.abs().max().item()
+    assert (gb.cpu() - cb).abs().max().item() <= tol * N
+
+
+@pytest.mark.parametrize('route', ['split', 'fft'])
+def test_route_solve_on_card_matches_cpu(card, route):
+    """float64 N=64 on the split and FFT routes, card against CPU: same
+    steps, E within 1e-12; the GEMM and slice kernels stay idle."""
+    K.reset_launches()
+    g = _solve('cuda', transform_backend=route, split_levels=3
+               if route == 'split' else None)
+    assert K.launches['matmul'] == K.launches['slice_field'] == 0
+    assert K.launches['chemical_potential'] == 119
+    c = _solve('cpu', transform_backend=route, split_levels=3
+               if route == 'split' else None)
+    assert (g.computed_steps, g.stop_reason) == (c.computed_steps,
+                                                 c.stop_reason)
+    np.testing.assert_allclose(g.timedata.E, c.timedata.E, rtol=1e-12)
+    np.testing.assert_allclose(g.U.cpu().numpy(), c.U.numpy(), rtol=0,
+                               atol=1e-12)
+
+
+def test_bakeoff_gemm_route_launches_the_kernel(card):
+    """The bake-off's gemm route runs 4 GEMM launches per round trip and
+    the tf32 route leaves the solver's TF32 switch off."""
+    from chsimpy_tpu_torch.benchmarks import dct_bench
+    fns = dct_bench._roundtrip_fns(128, 'float32', inner=3, device=card)
+    x = torch.rand((128, 128), device=card)
+    K.reset_launches()
+    y = fns['gemm'](x)
+    assert K.launches['matmul'] == 12
+    assert (y - x).abs().max().item() < 1e-4
+    fns['matmul-tf32'](x)
+    assert not torch.backends.cuda.matmul.allow_tf32

@@ -143,8 +143,11 @@ def test_params_carried_from_jax():
     with pytest.raises(NotImplementedError, match='item 11'):
         convert.params_from_jax(d)
     d = jp.scalar_dict()
-    d['transform_backend'] = 'split'
-    with pytest.raises(NotImplementedError, match='item 2'):
+    d.update(transform_backend='split', split_levels=3)
+    p = convert.params_from_jax(d, device='cpu')
+    assert (p.transform_backend, p.split_levels) == ('split', 3)
+    d['fold_field'] = True
+    with pytest.raises(NotImplementedError, match='item 14'):
         convert.params_from_jax(d)
     d = ct.Parameters().scalar_dict()
     d.update(transform_backend='ozaki', ozaki_fwd_pairs=[2, 4])
@@ -159,7 +162,8 @@ def test_solver_refuses_settings_not_ported():
              'generator': ('sobol', 'item 7'),
              'checkpoint_file': ('x.npz', 'item 8'),
              'mesh_shape': ((2, 2), 'item 11'),
-             'transform_backend': ('split', 'item 2'),
+             'fold_field': (True, 'item 14'),
+             'inv_band': (4, 'item 14'),
              'kernel_backend': ('pallas', 'queue B'),
              'matmul_precision': ('high', 'item 14')}
     for field, (value, item) in cases.items():
@@ -187,6 +191,7 @@ def test_import_brings_in_no_jax():
             "import chsimpy_tpu_torch, chsimpy_tpu_torch.convert\n"
             "import chsimpy_tpu_torch.__main__\n"
             "import chsimpy_tpu_torch.ops.cuda_build\n"
+            "import chsimpy_tpu_torch.benchmarks.dct_bench\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'chsimpy_tpu', 'triton', 'sympy')]\n"
             "assert not bad, bad\n")
@@ -208,7 +213,8 @@ def test_cli_parses_the_slice_and_refuses_the_rest(capsys):
                        (['--no-gui', '--mesh', '2x2'], 'item 11'),
                        (['--no-gui', '--export-csv', 'U'], 'item 13'),
                        (['--no-gui', '-g', 'sobol'], 'item 7'),
-                       (['--no-gui', '--transform', 'fft'], 'item 2'),
+                       (['--no-gui', '--fold-field'], 'item 14'),
+                       (['--no-gui', '--inv-band', '8'], 'item 14'),
                        (['--no-gui', '--kernels', 'pallas'], 'queue B'),
                        (['--no-gui', '--restore', 'x'], 'item 8'),
                        ([], 'item 13')):
