@@ -54,11 +54,39 @@ Phases (each raises on failure, so the script exits nonzero):
    (d) N=4096 float32 ``full_sim`` on split (levels 4) and fft: E over 64
    steps within 1e-5 of phase 5's float64 run, mean(U) held, steady
    steps/s in turns with the matmul route, and the per-layer times of one
-   step (transforms, their products or FFTs, and the folds around them).
+   step (transforms, their products or FFTs, and the folds around them);
+8. the grid-sharded solve (``--mesh``, the matmul route over ranks of a
+   ``torch.distributed`` world):
+   (a) the shard-local statistics kernel K7 against its plain version on
+   every block of 2x2, 1x4 and 4x1 meshes of N=4096 and N=512 fields,
+   float32 and float64, with halos from the neighbour blocks (K3's
+   tolerances), and the blocks' sums in rank order against K3 on the whole
+   field (1e-13 relative in float64, 1e-12 in float32: only the float64
+   summation order differs); K7 and its plain version timed on a 2x2
+   block (median of 30) beside the bound;
+   (b) K8 on a block against K1 on the same block: the same bits;
+   (c) a 2x2 world of 4 ranks on the card (gloo, collectives staged
+   through host memory, as the mesh prints) running the canonical run
+   through ``Simulator.solve``: stop 1674 with the golden anchors, E
+   within 1e-10 of the single-device run at every step, the same rows on
+   every rank, K7 and K8 launched once per step iteration per rank (K7
+   once more for prepare; the JSON line's counts are rank 0's);
+   (d) the same run through ``torchrun`` and the CLI: rank 0 prints the
+   stop line;
+   (e) N=4096 float32 ``full_sim`` over 64 steps in the same world: E
+   within 1e-5 of phase 5's float64 run and 1e-6 of its single-device
+   float32 run, mean(U) held, and steps/s of a 64-step window (4 ranks
+   sharing one card with host-staged collectives: not a scaling figure);
+   (f) with one card per rank, (c) and (e) again on NCCL; otherwise a line
+   saying why it did not run.
 
-The last two lines of standard output are the kernels' JSON summary and
-``{"ok": true, "device": {...}}`` (``count``: the cards the script used);
-with ``--out DIR`` every measurement also goes to DIR/chip_smoke.json.
+The kernels' rows carry ``bound_ms``, the least time the card could take
+for the same work (bytes at 3.35 TB/s or operations at the peak rate of
+their type, whichever is larger), and ``library_ms`` where one PyTorch call
+computes the same function.  The last two lines of standard output are
+the kernels' JSON summary and ``{"ok": true, "device": {...}}``
+(``count``: the cards the script used); with ``--out DIR`` every
+measurement also goes to DIR/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -82,10 +110,14 @@ REPLACES = {
     'absdev_sum': 'chsimpy_tpu/ops/pallas_kernels.py:348',
     'slice_field': 'chsimpy_tpu/ops/ozaki.py:233',
     'matmul': 'chsimpy_tpu/ops/pallas_kernels.py:149',
+    'local_band_sums': 'chsimpy_tpu/ops/pallas_kernels.py:434',
+    'chemical_potential_sharded': 'chsimpy_tpu/ops/pallas_kernels.py:538',
 }
 # the kernels of the matmul route (the ozaki route adds slice_field)
 MATMUL_PATH = ('chemical_potential', 'spectral_update', 'stats_sums',
                'absdev_sum')
+# the grid-sharded route's own kernels (it also runs K2 and K4)
+SHARDED_PATH = ('local_band_sums', 'chemical_potential_sharded')
 REPORT_SHAPE = (4096, 'float32')   # the fast-mode shape of the JSON line
 # the slice kernel's row of the JSON line: a full N=4096 field cut into the
 # 4 slices of the trimmed (3, 5) transforms
@@ -263,6 +295,7 @@ def default_run(transform='auto'):
            'argmax_E2': int(td[:, 2].argmax())}
     tag = f"default run ({res['route']})"
     print(f"{tag}: {json.dumps(res)}", flush=True)
+    res['E'] = [float(e) for e in td[:, 1]]
     check(tuple(sol.U.shape) == (512, 512) and sol.U.is_cuda
           and bool(torch.isfinite(sol.U).all()),
           f'{tag}: the field is not a finite (512, 512) tensor on the card')
@@ -386,6 +419,7 @@ def fast_mode(card):
     rel = float(np.max(np.abs(E32 / E64 - 1)))
     out['E_f32_vs_f64_max_rel'] = rel
     out['E_f64_64_steps'] = [float(e) for e in E64]
+    out['E_f32_64_steps'] = [float(e) for e in E32]
     print(f"N=4096: f32 E vs f64 max rel {rel:.3e} over 64 steps; "
           f"mean(U) f32 {mean32!r} (initial {U0_mean!r})", flush=True)
     check(rel <= 1e-5, f"f32 E trace {rel:.3e} from f64 (limit 1e-5)")
@@ -781,6 +815,9 @@ def gemm_phase(dev, card):
                 median_ms(lambda: K.matmul(A, B)),
                 median_ms(lambda: K.matmul_ref(A, B)), card,
                 M=M, K=Kd, N=N, layout=layout)
+            if not rows:
+                # the one PyTorch call of the same product (cuBLAS)
+                row['library_ms'] = median_ms(lambda: torch.matmul(A, B))
             flop = 2.0 * M * Kd * N
             row['TFLOPS'] = flop / row['ms'] / 1e9
             row['plain_TFLOPS'] = flop / row['plain_ms'] / 1e9
@@ -947,6 +984,403 @@ def routes_phase(dev, card, E64):
     return out
 
 
+# ----------------------------------------------------------------------
+# the least time the card could take for a kernel's work (bound_ms): the
+# larger of its bytes (each input read once, each output written once)
+# over the memory rate and its operations over the peak rate of their type
+# (NVIDIA H100 SXM data sheet, 700 W; float64 outside the tensor cores)
+# ----------------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {'float32': 67e12, 'float64': 34e12}
+# operations per element, counting each arithmetic operation, comparison
+# and log as one
+OPS_PER_ELEM = {'chemical_potential': 13, 'spectral_update': 3,
+                'stats': 27, 'absdev_sum': 3, 'slice_setup': 6,
+                'slice_per_plane': 6}
+
+
+def bound_fields(nbytes, ops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return {'bound_ms': max(t_bytes, t_ops),
+            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+
+
+def mu_bytes_ops(U):
+    n, s = U.numel(), U.element_size()
+    return 2 * n * s, OPS_PER_ELEM['chemical_potential'] * n
+
+
+def stats_bytes_ops(U, halo=True):
+    """K3 on a field, or K7 on a block with its halo: U and E read, five
+    float64 sums written."""
+    n, s = U.numel(), U.element_size()
+    extra = 2 * (U.shape[0] + U.shape[1]) * s if halo else 0
+    return 2 * n * s + extra + 5 * 8, OPS_PER_ELEM['stats'] * n
+
+
+def kernel_bound(name, N, dtype, n_slices=4):
+    """bound_fields of the kernels of phases 3, 6 and 7 at their report
+    shapes (an (N, N) field; the GEMM an (N, N) @ (N, N) float32
+    product)."""
+    n = N * N
+    s = 4 if dtype == 'float32' else 8
+    if name == 'chemical_potential':
+        return bound_fields(2 * n * s, OPS_PER_ELEM[name] * n, dtype)
+    if name == 'spectral_update':
+        return bound_fields(5 * n * s, OPS_PER_ELEM[name] * n, dtype)
+    if name == 'stats_sums':
+        return bound_fields(2 * n * s + 5 * 8, OPS_PER_ELEM['stats'] * n,
+                            dtype)
+    if name == 'absdev_sum':
+        return bound_fields(n * s + 8, OPS_PER_ELEM[name] * n, dtype)
+    if name == 'slice_field':
+        return bound_fields(n * 8 + n * n_slices,
+                            (OPS_PER_ELEM['slice_setup']
+                             + OPS_PER_ELEM['slice_per_plane'] * n_slices)
+                            * n, 'float64')
+    if name == 'matmul':
+        return bound_fields(3 * n * 4, 2.0 * N ** 3, 'float32')
+    raise KeyError(name)
+
+
+# ----------------------------------------------------------------------
+# phase 8: the grid-sharded solve (K7, K8, worlds of ranks)
+# ----------------------------------------------------------------------
+
+# block sums against the plain version: K3's tolerances (count exact); the
+# blocks' sums in rank order against K3 on the whole field (only the
+# float64 summation order differs)
+SHARD_MESHES = ((2, 2), (1, 4), (4, 1))
+SHARD_TOTAL_RTOL = {'float32': 1e-12, 'float64': 1e-13}
+SHARD_NS = (4096, 512)
+SHARD_REPORT = (4096, 'float32', (2, 2))   # the JSON line's K7/K8 rows
+WORLD_SHAPE = (2, 2)
+WORLD_FAST_N = 4096                        # (e)'s field
+
+
+def block_halo(F, i, j, bn, bw):
+    """Block (i, j) of F and its four halo vectors (edge-replicated at the
+    global boundary, as the halo exchange delivers them)."""
+    N = F.shape[0]
+    r0, r1, c0, c1 = i * bn, (i + 1) * bn, j * bw, (j + 1) * bw
+    return (F[r0:r1, c0:c1].contiguous(),
+            (F[max(r0 - 1, 0), c0:c1].contiguous(),
+             F[min(r1, N - 1), c0:c1].contiguous(),
+             F[r0:r1, max(c0 - 1, 0)].contiguous(),
+             F[r0:r1, min(c1, N - 1)].contiguous()))
+
+
+def shard_kernel_phase(dev, card):
+    """(a) K7 against its plain version on every block of 2x2, 1x4 and
+    4x1 meshes, and the blocks' sums against K3 on the whole field; (b) K8
+    against K1 on the same block."""
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    for N in SHARD_NS:
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
+            cfg, c, U, E, _, _ = kernel_inputs(N, dtype, dev)
+            skw = dict(N=N, delx=cfg.delx, RT=cfg.RT, B=cfg.B,
+                       threshold=cfg.threshold)
+            whole = K.stats_sums(U, E, cfg.A0, cfg.A1,
+                                 **{k: v for k, v in skw.items()
+                                    if k != 'N'})
+            rtol = 1e-12 if dtype == torch.float64 else 1e-5
+            for mx, my in SHARD_MESHES:
+                bn, bw = N // mx, N // my
+                total = None
+                err = rel = 0.0
+                for i in range(mx):
+                    for j in range(my):
+                        Ub, halo = block_halo(U, i, j, bn, bw)
+                        Eb = block_halo(E, i, j, bn, bw)[0]
+                        args = (Ub, *halo, Eb, cfg.A0, cfg.A1, i * bn,
+                                j * bw)
+                        got = K.local_band_sums(*args, **skw)
+                        want = K.local_band_sums_ref(*args, **skw)
+                        torch.cuda.synchronize()
+                        d = (got - want).abs()
+                        err = max(err, d.max().item())
+                        rel = max(rel, (d / want.abs()).max().item())
+                        check(got[3].item() == want[3].item(),
+                              f"K7 N={N} {dname} {mx}x{my} block ({i}, "
+                              f"{j}): count {got[3].item()} != "
+                              f"{want[3].item()}")
+                        # the ranks' order: (0, 0), (0, 1), ...
+                        total = got if total is None else total + got
+                total_rel = ((total - whole).abs() / whole.abs()).max().item()
+                row = {'name': 'local_band_sums', 'N': N, 'dtype': dname,
+                       'mesh': f'{mx}x{my}', 'block': f'{bn}x{bw}',
+                       'max_abs_err': err, 'max_rel_err': rel,
+                       'tolerance': f'rtol {rtol:g}, count exact; blocks '
+                                    f'summed vs K3 rtol '
+                                    f'{SHARD_TOTAL_RTOL[dname]:g}',
+                       'total_vs_K3_max_rel': total_rel,
+                       'ok': rel <= rtol
+                       and total_rel <= SHARD_TOTAL_RTOL[dname]}
+                if (mx, my) == (2, 2):
+                    Ub, halo = block_halo(U, 0, 0, bn, bw)
+                    Eb = block_halo(E, 0, 0, bn, bw)[0]
+                    args = (Ub, *halo, Eb, cfg.A0, cfg.A1, 0, 0)
+                    row['ms'] = median_ms(
+                        lambda: K.local_band_sums(*args, **skw))
+                    row['plain_ms'] = median_ms(
+                        lambda: K.local_band_sums_ref(*args, **skw))
+                    row.update(bound_fields(
+                        *stats_bytes_ops(Ub), dname))
+                    # (b) K8 on the same block: K1's kernel, the same bits
+                    b8 = K.chemical_potential_sharded(
+                        None, Ub, cfg.RT, cfg.BRT, cfg.A0, cfg.A1)
+                    k1 = K.chemical_potential(Ub, cfg.RT, cfg.BRT, cfg.A0,
+                                              cfg.A1)
+                    plain = K.chemical_potential_ref(Ub, cfg.RT, cfg.BRT,
+                                                     cfg.A0, cfg.A1)
+                    torch.cuda.synchronize()
+                    same = bool(torch.equal(b8, k1))
+                    mu_row = {
+                        'name': 'chemical_potential_sharded', 'N': N,
+                        'dtype': dname, 'mesh': '2x2', 'block': f'{bn}x{bw}',
+                        'identical_to_K1': same,
+                        'max_abs_err': (b8 - plain).abs().max().item(),
+                        'tolerance': 'identical bits to K1 on the block',
+                        'ok': same,
+                        'ms': median_ms(lambda: K.chemical_potential_sharded(
+                            None, Ub, cfg.RT, cfg.BRT, cfg.A0, cfg.A1)),
+                        'plain_ms': median_ms(
+                            lambda: K.chemical_potential_ref(
+                                Ub, cfg.RT, cfg.BRT, cfg.A0, cfg.A1)),
+                        **bound_fields(*mu_bytes_ops(Ub), dname)}
+                    rows.append(mu_row)
+                    print(f"kernel chemical_potential_sharded N={N} {dname} "
+                          f"block {bn}x{bw}: identical to K1 {same}  kernel "
+                          f"{mu_row['ms']:.4f} ms  plain "
+                          f"{mu_row['plain_ms']:.4f} ms  bound "
+                          f"{mu_row['bound_ms']:.4f} ms  ({card})",
+                          flush=True)
+                    check(same, f"K8 N={N} {dname}: bits differ from K1")
+                rows.append(row)
+                times = (f"  kernel {row['ms']:.4f} ms  plain "
+                         f"{row['plain_ms']:.4f} ms  bound "
+                         f"{row['bound_ms']:.4f} ms  ({card})"
+                         if 'ms' in row else '')
+                print(f"kernel local_band_sums N={N} {dname} {mx}x{my}: "
+                      f"rel {rel:.3e}, blocks vs K3 {total_rel:.3e} "
+                      f"{'ok' if row['ok'] else 'FAIL'}{times}", flush=True)
+                check(row['ok'], f"K7 N={N} {dname} {mx}x{my}: rel {rel:.3e}"
+                                 f", blocks vs K3 {total_rel:.3e}")
+    return rows
+
+
+def world_tasks():
+    """(c) the canonical run through Simulator.solve and (e) N=4096
+    float32 over 64 steps plus a timed window of 64."""
+    canon = {'kappa_tilde': KAPPA}
+    fast = {'N': WORLD_FAST_N, 'precision': 'float32', 'full_sim': True,
+            'generator': 'uniform', 'kappa_tilde': KAPPA, 'chunk_size': 64}
+    return [('solve', {'params': canon, 'return_U': False}),
+            ('solve', {'params': fast, 'steps': 64, 'rate_steps': 64,
+                       'return_U': False}),
+            ('imported', {})]
+
+
+def check_world(tag, res, refs, card):
+    """The world's results: the same bits on every rank; (c) stop 1674
+    with the anchors, E within 1e-10 of the single-device run at every
+    step, K7/K8 once per step per rank (+ prepare for K7); (e) E within
+    1e-5 of float64 and 1e-6 of single-device float32, mean(U) held."""
+    import numpy as np
+    with open(os.path.join(ROOT, 'tests', 'golden',
+                           'default_n512_anchors.json')) as f:
+        g = json.load(f)
+    canon = [r[0] for r in res]
+    fast = [r[1] for r in res]
+    for mods in (r[2] for r in res):
+        check(not {'jax', 'jaxlib', 'chsimpy_tpu'} & set(mods),
+              f"{tag}: a rank imported {mods}")
+    check(all(np.array_equal(r['timedata'], canon[0]['timedata'])
+              for r in canon), f"{tag} (c): ranks differ in their rows")
+    check(all(np.array_equal(r['timedata'], fast[0]['timedata'])
+              for r in fast), f"{tag} (e): ranks differ in their rows")
+    c = canon[0]
+    td = c['timedata']
+    E1 = np.asarray(refs['E_single_n512'])
+    n = min(len(td), len(E1))
+    out = {'mesh': c['mesh'], 'computed_steps': c['computed_steps'],
+           'stop_reason': c['stop_reason'], 'tau0': c['tau0'],
+           'seconds': [r['seconds'] for r in canon],
+           'launches': [r['launches'] for r in canon],
+           'E_vs_single_max_rel': float(np.max(np.abs(td[:n, 1] / E1[:n]
+                                                      - 1))),
+           'E_every_100_max_rel': float(np.max(np.abs(
+               td[::100, 1] / np.asarray(g['E_every_100']) - 1))),
+           'E_last_rel': abs(td[-1, 1] / g['E_last'] - 1),
+           'argmax_E2': int(td[:, 2].argmax())}
+    print(f"{tag} (c) canonical run: " + json.dumps(
+        {k: v for k, v in out.items() if k != 'launches'}), flush=True)
+    check(c['computed_steps'] == 1674 and c['stop_reason'] == 'energy',
+          f"{tag} (c): stop {c['computed_steps']} {c['stop_reason']}")
+    check(len(td) == len(E1), f"{tag} (c): {len(td)} rows, single {len(E1)}")
+    check(tuple(c['U_shape']) == (512, 512) and c['U_finite'],
+          f"{tag} (c): the gathered field is not a finite (512, 512) one")
+    check(c['tau0'] == g['tau0'] and abs(c['t0'] / g['t0'] - 1) <= 1e-12,
+          f"{tag} (c): tau0/t0 differ from the golden")
+    check(out['E_vs_single_max_rel'] <= 1e-10,
+          f"{tag} (c): E {out['E_vs_single_max_rel']:.3e} from single")
+    check(out['E_every_100_max_rel'] <= 1e-10 and out['E_last_rel'] <= 1e-10
+          and out['argmax_E2'] == g['argmax_E2'],
+          f"{tag} (c): golden anchors not held")
+    iterations = min(int(1e6) - 1, -(-(1674 - 1) // 1024) * 1024)
+    for lc in out['launches']:
+        check(lc['chemical_potential_sharded'] == iterations
+              and lc['local_band_sums'] == iterations + 1
+              and lc['spectral_update'] == iterations
+              and lc['chemical_potential'] == 0 and lc['stats_sums'] == 0,
+              f"{tag} (c): launches {lc}, {iterations} step iterations")
+    out['iterations'] = iterations
+    f = fast[0]
+    E = f['timedata'][:, 1]
+    rel64 = float(np.max(np.abs(E / np.asarray(refs['E_f64_4096']) - 1)))
+    rel32 = float(np.max(np.abs(E / np.asarray(refs['E_f32_4096']) - 1)))
+    drift = f['U_mean'] - refs['U0_mean_4096']
+    out['n4096'] = {'E_vs_f64_max_rel': rel64,
+                    'E_vs_single_f32_max_rel': rel32, 'U_mean': f['U_mean'],
+                    'U_mean_drift': drift,
+                    'steps_per_s': [r['steps_per_s'] for r in fast],
+                    'seconds_64_steps': [r['seconds'] for r in fast],
+                    'launches': [r['launches'] for r in fast]}
+    print(f"{tag} (e) N={WORLD_FAST_N} float32 over 64 steps: E vs float64 "
+          f"max rel "
+          f"{rel64:.3e}, vs single-device float32 {rel32:.3e}; mean(U) "
+          f"drift {drift:.3e}", flush=True)
+    print(f"{tag} (e) steps/s N={WORLD_FAST_N} float32: "
+          f"{f['steps_per_s']:.2f} "
+          f"({c['mesh']}; ranks {WORLD_SHAPE[0] * WORLD_SHAPE[1]} on "
+          f"{torch_cards()} card(s) — not a scaling figure)  ({card})",
+          flush=True)
+    check(len(E) == 64 and f['U_finite']
+          and tuple(f['U_shape']) == (WORLD_FAST_N, WORLD_FAST_N),
+          f"{tag} (e): rows or field")
+    check(rel64 <= 1e-5, f"{tag} (e): E {rel64:.3e} from float64 (1e-5)")
+    check(rel32 <= 1e-6, f"{tag} (e): E {rel32:.3e} from float32 (1e-6)")
+    check(abs(drift) <= 1e-6, f"{tag} (e): mean(U) drifted {drift:.3e}")
+    return out
+
+
+def torch_cards() -> int:
+    import torch
+    return torch.cuda.device_count()
+
+
+def world_cli(backend, device):
+    """(d) the canonical run through torchrun and the CLI: rank 0 prints
+    the stop line."""
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           '--nproc-per-node', str(WORLD_SHAPE[0] * WORLD_SHAPE[1]), '-m',
+           'chsimpy_tpu_torch', '--mesh', '%dx%d' % WORLD_SHAPE, '-N', '512',
+           '--no-gui', '-K', repr(KAPPA), '--dist-backend', backend,
+           '--device', device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"torchrun exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+          f"{proc.stderr[-4000:]}")
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith('computed_steps = ')]
+    check(len(lines) == 1, f"torchrun: {len(lines)} stop lines")
+    check(lines[0].startswith('computed_steps = 1674,')
+          and lines[0].endswith('stop reason = energy'),
+          f"torchrun: {lines[0]}")
+    m = re.search(r'kernel launches: (\{.*\})', proc.stdout)
+    check(m is not None, 'torchrun: no kernel launch counts')
+    launches = json.loads(m.group(1))
+    check(launches['local_band_sums'] > 0
+          and launches['chemical_potential_sharded'] > 0,
+          f"torchrun: launches {launches}")
+    mesh_line = next(ln for ln in proc.stdout.splitlines()
+                     if ln.startswith('mesh '))
+    print(f"torchrun {backend}: {lines[0]}; {mesh_line}; "
+          f"{seconds:.1f} s (processes included)", flush=True)
+    return {'stop_line': lines[0], 'mesh': mesh_line, 'seconds': seconds,
+            'launches': launches}
+
+
+def sharded_phase(dev, card, refs):
+    from chsimpy_tpu_torch.parallel.distributed import spawn_grid
+    from chsimpy_tpu_torch.parallel.workers import run_tasks
+
+    out = {'kernels': shard_kernel_phase(dev, card)}
+    t0 = time.perf_counter()
+    res = spawn_grid(run_tasks, WORLD_SHAPE, backend='gloo',
+                     device=dev.type, args=(world_tasks(),), timeout=900)
+    out['gloo'] = check_world('world gloo', res, refs, card)
+    out['gloo']['world_seconds'] = time.perf_counter() - t0
+    out['cli'] = world_cli('gloo', dev.type)
+    if torch_cards() >= WORLD_SHAPE[0] * WORLD_SHAPE[1]:
+        res = spawn_grid(run_tasks, WORLD_SHAPE, backend='nccl',
+                         device='cuda', args=(world_tasks(),), timeout=900)
+        out['nccl'] = check_world('world nccl', res, refs, card)
+    else:
+        out['nccl'] = None
+        print(f"phase 8 (f): the NCCL world did not run: "
+              f"{torch_cards()} card(s), and NCCL takes one card per rank "
+              f"({WORLD_SHAPE[0] * WORLD_SHAPE[1]} needed)", flush=True)
+    return out
+
+
+def summary_rows(detail):
+    """The kernels' JSON line: one row per kernel."""
+    rows = []
+    for name, replaces in REPLACES.items():
+        if name == 'slice_field':
+            N, n, kind = SLICE_REPORT
+            row = next(r for r in detail['ozaki']['slice_kernel']
+                       if (r['N'], r['n_slices'], r['field']) == SLICE_REPORT)
+            launches = detail['ozaki']['default_run']['launches'][name]
+            extra = {'shape': f"{N}x{N} float64 -> {n} int8 slices",
+                     **kernel_bound(name, N, 'float64', n)}
+        elif name == 'matmul':
+            row = detail['routes']['gemm'][0]
+            launches = detail['routes']['bakeoff']['launches'][name]
+            extra = {'shape': f"({row['M']}x{row['K']})@({row['K']}x"
+                              f"{row['N']}) float32",
+                     'TFLOPS': row['TFLOPS'],
+                     'plain_TFLOPS': row['plain_TFLOPS'],
+                     **kernel_bound(name, row['M'], 'float32')}
+        elif name in SHARDED_PATH:
+            N, dtype, mesh = SHARD_REPORT
+            row = next(r for r in detail['sharded']['kernels']
+                       if r['name'] == name and (r['N'], r['dtype'],
+                                                 r['mesh'])
+                       == (N, dtype, '%dx%d' % mesh))
+            launches = detail['sharded']['gloo']['launches'][0][name]
+            extra = {'shape': f"{row['block']} {dtype} block of {N}x{N} on "
+                              f"{row['mesh']}",
+                     'bound_ms': row['bound_ms'], 'bound_by': row['bound_by']}
+            if 'max_rel_err' in row:
+                extra['max_rel_err'] = row['max_rel_err']
+        else:
+            row = next(r for r in detail['kernels'] if r['name'] == name
+                       and (r['N'], r['dtype']) == REPORT_SHAPE)
+            launches = detail['default_run']['launches'][name]
+            extra = {'max_rel_err': row['max_rel_err'],
+                     'shape': f"{REPORT_SHAPE[0]}x{REPORT_SHAPE[0]} "
+                              f"{REPORT_SHAPE[1]}",
+                     **kernel_bound(name, *REPORT_SHAPE)}
+        rows.append({
+            'name': name, 'route': 'cuda', 'source': SOURCE,
+            'replaces': replaces, 'launches': launches,
+            'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
+            'plain_ms': row['plain_ms'],
+            'library_ms': row.get('library_ms'), **extra})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', help='directory for chip_smoke.json')
@@ -972,48 +1406,37 @@ def main(argv=None) -> int:
     dev = torch.device('cuda', torch.cuda.current_device())
 
     detail = {'card': card, 'torch': torch.__version__,
-              'cuda': torch.version.cuda, 'build_seconds': info['seconds']}
-    detail['kernels'] = kernel_phase(dev, card)
-    detail['default_run'] = default_run()
-    detail['fast_mode'] = fast_mode(card)
-    detail['ozaki'] = ozaki_phase(dev, card)
-    detail['routes'] = routes_phase(dev, card,
-                                    detail['fast_mode']['E_f64_64_steps'])
+              'cuda': torch.version.cuda, 'build_seconds': info['seconds'],
+              'phase_seconds': {}}
+
+    def timed(phase, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        detail['phase_seconds'][phase] = time.perf_counter() - t0
+        return out
+
+    detail['kernels'] = timed(3, kernel_phase, dev, card)
+    detail['default_run'] = timed(4, default_run)
+    fm = detail['fast_mode'] = timed(5, fast_mode, card)
+    detail['ozaki'] = timed(6, ozaki_phase, dev, card)
+    detail['routes'] = timed(7, routes_phase, dev, card,
+                             fm['E_f64_64_steps'])
+    refs = {'E_f32_4096': fm['E_f32_64_steps'],
+            'E_f64_4096': fm['E_f64_64_steps'],
+            'U0_mean_4096': fm['f32_mean_U_initial'],
+            'E_single_n512': detail['default_run']['E']}
+    detail['sharded'] = timed(8, sharded_phase, dev, card, refs)
+    print('phase seconds: ' + ', '.join(
+        f"{k} {v:.1f}" for k, v in detail['phase_seconds'].items()),
+        flush=True)
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, 'chip_smoke.json'), 'w') as f:
             json.dump(detail, f, indent=1)
 
-    summary = []
-    for name, replaces in REPLACES.items():
-        if name == 'slice_field':
-            N, n, kind = SLICE_REPORT
-            row = next(r for r in detail['ozaki']['slice_kernel']
-                       if (r['N'], r['n_slices'], r['field']) == SLICE_REPORT)
-            launches = detail['ozaki']['default_run']['launches'][name]
-            extra = {'shape': f"{N}x{N} float64 -> {n} int8 slices"}
-        elif name == 'matmul':
-            row = detail['routes']['gemm'][0]
-            launches = detail['routes']['bakeoff']['launches'][name]
-            extra = {'shape': f"({row['M']}x{row['K']})@({row['K']}x"
-                              f"{row['N']}) float32",
-                     'TFLOPS': row['TFLOPS'],
-                     'plain_TFLOPS': row['plain_TFLOPS']}
-        else:
-            row = next(r for r in detail['kernels'] if r['name'] == name
-                       and (r['N'], r['dtype']) == REPORT_SHAPE)
-            launches = detail['default_run']['launches'][name]
-            extra = {'max_rel_err': row['max_rel_err'],
-                     'shape': f"{REPORT_SHAPE[0]}x{REPORT_SHAPE[0]} "
-                              f"{REPORT_SHAPE[1]}"}
-        summary.append({
-            'name': name, 'route': 'cuda', 'source': SOURCE,
-            'replaces': replaces, 'launches': launches,
-            'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
-            'plain_ms': row['plain_ms'], **extra})
     print(card)
-    print(json.dumps({'kernels': summary}))
+    print(json.dumps({'kernels': summary_rows(detail)}))
     # every phase ran on the one card the script selected
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -2,15 +2,22 @@
 """``python -m chsimpy_tpu_torch`` — single-run CLI entry point.
 
 Parse flags, run the simulation, print the run summary and, for a run on
-the card, how often each kernel was launched."""
+the card, how often each kernel was launched.
+
+With ``--mesh MxN`` the run is one rank of a grid-sharded world: start
+M*N of them with ``torchrun --standalone --nproc-per-node M*N -m
+chsimpy_tpu_torch --mesh MxN ...``.  Each joins the process group torchrun
+describes; only rank 0 prints (its launch counts are its own block's)."""
 
 from __future__ import annotations
 
 import json
+import os
 
 from . import sysinfo
 from .cli import CLIParser
 from .ops import kernels
+from .parallel import distributed
 from .simulator import Simulator
 
 
@@ -23,16 +30,30 @@ def _summarize(solution) -> str:
 
 def main(argv=None):
     parser = CLIParser()
-    parser.print_info()
+    # torchrun's rank (a plain run is rank 0)
+    lead = os.environ.get('RANK', '0') == '0'
+    if lead:
+        parser.print_info()
     params = parser.get_parameters(argv)
-    simulator = Simulator(params)
-    print(str(params).replace(", '", "\n '"))
+    if params.mesh_shape is not None:
+        distributed.initialize(params.dist_backend, params.device)
+    try:
+        simulator = Simulator(params)
+        mesh = simulator.solver.mesh
+        if lead:
+            print(str(params).replace(", '", "\n '"))
+            if mesh is not None:
+                print(mesh.describe())
 
-    kernels.reset_launches()
-    solution = simulator.solve()
-    print(_summarize(solution))
-    if simulator.solver.device.type == 'cuda':
-        print(f"kernel launches: {json.dumps(kernels.launches)}")
+        kernels.reset_launches()
+        solution = simulator.solve()
+        if lead:
+            print(_summarize(solution))
+            if simulator.solver.device.type == 'cuda':
+                print(f"kernel launches: {json.dumps(kernels.launches)}")
+    finally:
+        if params.mesh_shape is not None:
+            distributed.shutdown()
 
 
 if __name__ == '__main__':

@@ -87,6 +87,17 @@ FLAGS = [
          'resolves to matmul', param='transform_backend',
          choices=['auto', 'matmul', 'split', 'fft', 'ozaki'],
          default='auto'),
+    Flag(('--mesh',), 'Device',
+         'Grid mesh of ranks, e.g. "2x2" (rows x cols): the field is '
+         'tiled over mx*my torch.distributed processes, one per mesh '
+         'device (start them with torchrun --nproc-per-node mx*my); '
+         'matmul transform only', param='mesh_shape'),
+    Flag(('--dist-backend',), 'Device',
+         'torch.distributed backend of a --mesh run: nccl (one card per '
+         'rank) or gloo (CPU tensors; ranks may share a card, every '
+         'collective then staged through host memory); default nccl on '
+         'cuda, gloo on cpu', param='dist_backend',
+         choices=['nccl', 'gloo']),
     Flag(('--split-levels',), 'Device',
          'Fold depth of the split transform route (N divisible by '
          '2^levels); default: 4 at N>=4096, 3 at N>=2048, else 2',
@@ -115,7 +126,6 @@ _LATER = [
     (('-a', '--adaptive-time'), 0, 'adaptive time stepping', 7),
     (('-j', '--jitter'), 1, 'per-step jitter', 7),
     (('--jitter-backend',), 1, 'per-step jitter', 7),
-    (('--mesh',), 1, 'grid sharding over a device mesh', 11),
     (('--fold-field', '--no-fold-field'), 0, 'the TPU tuning knob '
      '--fold-field', 14),
     (('--matmul-precision',), 1, 'the TPU tuning knob --matmul-precision',
@@ -200,6 +210,13 @@ class CLIParser:
                               'temp') and value is None:
                 continue  # keep the Parameters default (incl. derived kappa)
             setattr(params, flag.param, value)
+
+        if params.mesh_shape is not None:
+            try:
+                params.mesh_shape = tuple(
+                    int(v) for v in params.mesh_shape.lower().split('x'))
+            except ValueError:
+                self.parser.error('--mesh must look like "2x4"')
 
         for pflag in ('ozaki_fwd_pairs', 'ozaki_inv_pairs'):
             raw = getattr(params, pflag)

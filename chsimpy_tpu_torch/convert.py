@@ -13,6 +13,10 @@ neither jax nor ``chsimpy_tpu``:
 * :func:`state_from_jax` — the fields of a ``chsimpy_tpu`` ``SolverState``;
 * :func:`params_from_jax` — ``chsimpy_tpu.Parameters.scalar_dict()``,
   refusing what the port does not run yet.
+
+With ``mesh`` (a :class:`~chsimpy_tpu_torch.parallel.mesh.GridMesh`) the
+consts and the state come out as this rank's blocks: a sharded JAX array
+read with ``np.asarray`` is whole, and each rank keeps its block of it.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from .core.state import SolverState
+from .parallel.sharding import shard_consts, shard_state
 from .params import Parameters, check_solver_scope
 
 _CONST_ARRAYS = ('C', 'leig', 'CHeig', 'Seig', 'eaxis')
@@ -46,11 +51,11 @@ def split_tree_from_jax(tree, device='cpu'):
     return _tensor(tree, device)
 
 
-def consts_from_jax(d: dict, device='cpu') -> dict:
+def consts_from_jax(d: dict, device='cpu', mesh=None) -> dict:
     """The port's consts dict from the numpy form of the JAX consts.  The
     ozaki stacks and the split tree may be left out (a matmul-route dict):
     they are then empty; ``rf`` is a sequence of (block, block^T)
-    stacks."""
+    stacks.  With ``mesh``, the grids are this rank's blocks."""
     consts = {k: _tensor(d[k], device) for k in _CONST_ARRAYS}
     empty = np.zeros((0,), np.int8)
     consts.update({k: _tensor(d.get(k, empty), device, torch.int8)
@@ -60,18 +65,20 @@ def consts_from_jax(d: dict, device='cpu') -> dict:
                          for b, bt in d.get('rf', ()))
     consts['tree'] = split_tree_from_jax(d.get('tree', ()), device)
     consts.update({k: float(np.asarray(d[k])) for k in _CONST_SCALARS})
-    return consts
+    return consts if mesh is None else shard_consts(consts, mesh)
 
 
-def state_from_jax(d: dict, device='cpu') -> SolverState:
+def state_from_jax(d: dict, device='cpu', mesh=None) -> SolverState:
     """The port's SolverState from the numpy form of the JAX state (its
-    ``rng_key`` belongs to the device jitter and is dropped)."""
+    ``rng_key`` belongs to the device jitter and is dropped).  With
+    ``mesh``, U and hat_U are this rank's blocks."""
     kw = {'U': _tensor(d['U'], device), 'hat_U': _tensor(d['hat_U'], device),
           'skip_check': _tensor(bool(np.asarray(d['skip_check'])), device),
           'rowbuf': _tensor(d['rowbuf'], device, torch.float64)}
     kw.update({k: _tensor(d[k], device, torch.float64) for k in _STATE_F64})
     kw.update({k: _tensor(d[k], device, torch.int64) for k in _STATE_INT})
-    return SolverState(**kw)
+    state = SolverState(**kw)
+    return state if mesh is None else shard_state(state, mesh)
 
 
 def params_from_jax(scalar_dict: dict, device='cuda') -> Parameters:

@@ -12,6 +12,14 @@ maps the stop code.  The reference's iteration-count semantics hold:
   the internal chunks (so the chunk size never shows in the results);
 * ``prepare()`` resets what the reference resets, and NOT time_delta_sum,
   delt or skip_check.
+
+With ``mesh_shape`` the solve is grid-sharded over the ranks of a
+``torch.distributed`` process group (one rank per mesh device, as the JAX
+package's ``--mesh MxN --kernels pallas``): every rank builds the same
+initial field on the host and keeps its block; the step runs K8, the grid
+DCTs, K2 and K7 on the block; every rank holds the same scalars and rows,
+so each syncs, stops and returns the same solution (``solution.U`` is the
+gathered field).
 """
 
 from __future__ import annotations
@@ -25,6 +33,9 @@ from ..derived import Derived
 from ..device import resolve_device
 from ..ops import dct as dct_ops
 from ..params import Parameters, check_solver_scope
+from ..parallel.distributed import resolve_backend
+from ..parallel.mesh import GridMesh
+from ..parallel.sharding import gather_field, shard_consts, shard_field
 from ..rng import FieldGenerator
 from ..solution import Solution
 from ..timedata import TimeData
@@ -42,6 +53,11 @@ def resolve_transform(params: Parameters) -> str:
     (ROADMAP.md queue A item 14).  JAX's float64-FFT guard holds on a TPU
     only (no complex128 there): float64 FFT runs on the card."""
     tb = params.transform_backend or 'auto'
+    if tb == 'fft' and params.mesh_shape is not None:
+        raise ValueError(
+            "--transform fft does not shard under --mesh; the "
+            "distributed transforms are the split (pencil layout), "
+            "matmul and ozaki routes")
     if tb == 'auto':
         return 'matmul'
     if tb in ('fft', 'split') and params.N % 2:
@@ -102,6 +118,18 @@ def resolve_ozaki_inv_pairs(params: Parameters) -> tuple:
     return (3, 5) if pairs is None else tuple(pairs)
 
 
+def check_grid_mesh(params: Parameters) -> None:
+    """The JAX package's guard for its sharded Pallas kernels
+    (``core/solver.py``): N divisible by 8*mx (8-row bands per x-shard, a
+    TPU tile rule kept for parity; ROADMAP.md item 14) and by my."""
+    mx, my = params.mesh_shape
+    N = params.N
+    if N % (mx * 8) or N % my:
+        raise ValueError(
+            f"the sharded kernels with mesh {mx}x{my} need N divisible by "
+            f"{mx * 8} (8-row bands per x-shard) and by {my}; got N={N}")
+
+
 class Solver:
     """Cahn-Hilliard (CH) integrator: semi-implicit spectral method over the
     2-D DCT, Flory-Huggins energy with linear Redlich-Kister interaction.
@@ -140,6 +168,11 @@ class Solver:
 
         check_split_levels(params)
         transform = resolve_transform(params)
+        self.mesh = None
+        if params.mesh_shape is not None:
+            check_grid_mesh(params)
+            resolve_backend(params.dist_backend, self.device)
+            self.mesh = GridMesh(params.mesh_shape, self.device)
         d = self.derived
         self.cfg = StepConfig(
             N=N, dtype=params.precision,
@@ -158,6 +191,8 @@ class Solver:
         self.chunk_size = max(1, int(params.chunk_size))
         dct_ops.require_full_fp32()
         self._consts = make_consts(self.cfg, self.delt, device=self.device)
+        if self.mesh is not None:
+            self._consts = shard_consts(self._consts, self.mesh)
         self._state: Optional[SolverState] = None
 
     # ------------------------------------------------------------------
@@ -165,7 +200,10 @@ class Solver:
         """Initial computations before the simulation loop."""
         U0 = torch.as_tensor(self.U_init).to(device=self.device,
                                              dtype=self.cfg.tdtype)
-        row0 = prepare_row0(self.cfg, self._consts, U0)
+        self.solution.U = U0
+        if self.mesh is not None:
+            U0 = shard_field(U0, self.mesh)[0]
+        row0 = prepare_row0(self.cfg, self._consts, U0, self.mesh)
         E, E2, Ra, PS = torch.stack(row0).tolist()
 
         data = TimeData()
@@ -182,7 +220,6 @@ class Solver:
                                         device=self.device),
             skip_check=torch.tensor(bool(self.skip_check),
                                     device=self.device))
-        self.solution.U = U0
         self.solution.timedata = data
         self.solution.tau0 = 0.0
         self.solution.t0 = 0.0
@@ -207,7 +244,7 @@ class Solver:
         state = self._state
         # the reference recomputes the spectral image at every (re)entry
         state = state.replace(
-            hat_U=entry_dct2(self.cfg, self._consts, state.U))
+            hat_U=entry_dct2(self.cfg, self._consts, state.U, self.mesh))
         if n_iters > 0:
             # re-entering after a stop continues the simulation
             state = state.replace(
@@ -216,12 +253,13 @@ class Solver:
 
         while n_iters > 0 and self.solution.stop_reason == 'None':
             k = min(n_iters, self.chunk_size)
-            state = run_chunk(self.cfg, self._consts, state, k)
+            state = run_chunk(self.cfg, self._consts, state, k, self.mesh)
             n_iters -= k
             state = self._sync(state)
 
         self._state = state
-        self.solution.U = state.U
+        self.solution.U = (state.U if self.mesh is None
+                           else gather_field(state.U, self.mesh))
         return self.solution
 
     def _sync(self, state: SolverState) -> SolverState:

@@ -2,8 +2,10 @@
 
 Port of ``chsimpy_tpu/core/stepper.py`` for the slices the port runs: fixed
 ``delt``, the matmul, split and FFT DCT routes and the float64 ozaki route
-on one device, ``full_sim`` and the energy early stop, the ``time_max``
-limit and the NaN guard.  One step does, in order:
+on one device, the matmul route on a grid mesh of ranks (``mesh``: each
+rank steps its block of the field), ``full_sim`` and the energy early
+stop, the ``time_max`` limit and the NaN guard.  One step does, in
+order:
 
   nonlinear term (kernel K1) -> forward 2-D DCT
   -> semi-implicit spectral update (K2) -> inverse 2-D DCT
@@ -167,9 +169,12 @@ def _fold_stacks(cfg: StepConfig, consts) -> dict:
     return fs
 
 
-def dct2_route(cfg: StepConfig, consts, U, pairs=None):
+def dct2_route(cfg: StepConfig, consts, U, pairs=None, mesh=None):
     """Forward 2-D DCT of the configured route (the ozaki routes with the
-    pair cutoffs ``pairs``; None = untrimmed)."""
+    pair cutoffs ``pairs``; None = untrimmed).  On a grid mesh U is this
+    rank's block and the route is matmul (the solver refuses the rest)."""
+    if mesh is not None:
+        return dct_ops.dct2_grid(U, consts['C'], mesh)
     tb = cfg.transform_backend
     if tb == 'split':
         return dct_ops.dct2_split_perm(U, consts['tree'])
@@ -189,8 +194,10 @@ def dct2_route(cfg: StepConfig, consts, U, pairs=None):
                                 ozaki_ops.dct_scale(N), s1=s1, s2=s2)
 
 
-def idct2_route(cfg: StepConfig, consts, X):
+def idct2_route(cfg: StepConfig, consts, X, mesh=None):
     """Inverse 2-D DCT of the configured route."""
+    if mesh is not None:
+        return dct_ops.idct2_grid(X, consts['C'], mesh)
     tb = cfg.transform_backend
     if tb == 'split':
         return dct_ops.idct2_split_perm(X, consts['tree'])
@@ -209,17 +216,28 @@ def idct2_route(cfg: StepConfig, consts, X):
                                  ozaki_ops.dct_scale(N))
 
 
-def _nonlinear_term(cfg: StepConfig, consts, U):
-    """Shifted nonlinear chemical potential EnergieEut (kernel K1)."""
+def _nonlinear_term(cfg: StepConfig, consts, U, mesh=None):
+    """Shifted nonlinear chemical potential EnergieEut (kernel K1; K8 on
+    a grid mesh's block)."""
+    if mesh is not None:
+        return K.chemical_potential_sharded(mesh, U, cfg.RT, cfg.BRT,
+                                            consts['A0'], consts['A1'])
     return K.chemical_potential(U, cfg.RT, cfg.BRT, consts['A0'],
                                 consts['A1'])
 
 
-def _stats(cfg: StepConfig, consts, U, EnergieEut=None):
+def _stats(cfg: StepConfig, consts, U, EnergieEut=None, mesh=None):
     """Energy functionals and field statistics from the five kernel sums
     (K3) and Σ|U − mean| (K4), finalized in float64 on the device as in
     ``_stats_fast``.  Returns (E, E2, PS, L2, Ra, SA), 0-d float64 tensors;
-    ``EnergieEut=None`` (prepare path) gives L2 = 0."""
+    ``EnergieEut=None`` (prepare path) gives L2 = 0.  On a grid mesh U is
+    this rank's block: K7 and K4 per block, the same values on every rank
+    (``fused_stats_sharded``)."""
+    if mesh is not None:
+        return K.fused_stats_sharded(
+            mesh, U, EnergieEut, consts['A0'], consts['A1'],
+            consts['kappa_tilde'], delx=cfg.delx, RT=cfg.RT, B=cfg.B,
+            Amr=cfg.Amr, L=cfg.L, threshold=cfg.threshold)
     N = cfg.N
     n2 = float(N * N)
     Lsq = cfg.L ** 2
@@ -239,23 +257,28 @@ def _stats(cfg: StepConfig, consts, U, EnergieEut=None):
     return E, E2, PS, L2, Ra, SA
 
 
-def prepare_row0(cfg: StepConfig, consts, U):
+def prepare_row0(cfg: StepConfig, consts, U, mesh=None):
     """Step-0 energies for prepare(): (E, E2, Ra, PS) as 0-d f64 tensors."""
-    E, E2, PS, _, Ra, _ = _stats(cfg, consts, U, None)
+    E, E2, PS, _, Ra, _ = _stats(cfg, consts, U, None, mesh)
     return E, E2, Ra, PS
 
 
-def entry_dct2(cfg: StepConfig, consts, U):
+def entry_dct2(cfg: StepConfig, consts, U, mesh=None):
     """Spectral image of U, recomputed at every solve entry, in the
     route's spectral layout (the ozaki routes untrimmed: once per entry,
     accuracy is free here)."""
-    return dct2_route(cfg, consts, U)
+    return dct2_route(cfg, consts, U, mesh=mesh)
 
 
-def _step(cfg: StepConfig, consts, s: SolverState) -> SolverState:
+def _step(cfg: StepConfig, consts, s: SolverState,
+          mesh=None) -> SolverState:
+    """One step.  On a grid mesh ``s.U`` and ``s.hat_U`` are this
+    rank's blocks, every scalar holds the same bits on every rank, and
+    every collective runs on every step (also after the stop), so all
+    ranks issue the same sequence."""
     f64 = torch.float64
     active = s.stop_reason == STOP_NONE
-    EnergieEut = _nonlinear_term(cfg, consts, s.U)
+    EnergieEut = _nonlinear_term(cfg, consts, s.U, mesh)
 
     # time accumulation; the limit stops BEFORE the field update
     delt = s.delt
@@ -271,12 +294,12 @@ def _step(cfg: StepConfig, consts, s: SolverState) -> SolverState:
     # semi-implicit spectral update, eq. (12) of Ghiass et al. (2016)
     # the forward transform of the nonlinear term rides the semi-implicit
     # damping, so the ozaki routes may trim its pair cutoffs
-    hat_E = dct2_route(cfg, consts, EnergieEut, cfg.ozaki_fwd_pairs)
+    hat_E = dct2_route(cfg, consts, EnergieEut, cfg.ozaki_fwd_pairs, mesh)
     hat_U = K.spectral_update(s.hat_U, hat_E, consts['Seig'],
                               consts['CHeig'])
-    U = idct2_route(cfg, consts, hat_U)
+    U = idct2_route(cfg, consts, hat_U, mesh)
 
-    E, E2, PS, L2, Ra, SA = _stats(cfg, consts, U, EnergieEut)
+    E, E2, PS, L2, Ra, SA = _stats(cfg, consts, U, EnergieEut, mesh)
     domtime = time_passed ** (1.0 / 3.0)
     it = s.computed_steps  # the row stores the pre-increment count
     row = torch.stack([it.to(f64), E, E2, SA, domtime, Ra, L2, PS, delt])
@@ -315,9 +338,9 @@ def _step(cfg: StepConfig, consts, s: SolverState) -> SolverState:
 
 
 def run_chunk(cfg: StepConfig, consts, state: SolverState,
-              n_iters: int) -> SolverState:
+              n_iters: int, mesh=None) -> SolverState:
     """``n_iters`` steps with no host sync; steps after a stop leave the
     state unchanged (see the module docstring)."""
     for _ in range(n_iters):
-        state = _step(cfg, consts, state)
+        state = _step(cfg, consts, state, mesh)
     return state

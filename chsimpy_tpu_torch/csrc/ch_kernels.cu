@@ -8,6 +8,9 @@
 // same kernels as the float32 fast mode.  K5 slices a float64 field into
 // int8 planes for the ozaki route and exists for double only.  K6 is the
 // float32 GEMM of the DCT bake-off's 'gemm' route (ROADMAP.md kernel B5).
+// On a grid mesh (one rank per block of the field) K7 is K3 on a block
+// with halo vectors from the neighbour ranks (kernel B7), and K8 (B8) is
+// K1's mu_kernel launched on the block: it has no source of its own.
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes by
 // chsimpy_tpu_torch/ops/kernels.py.  Every entry launches on the stream it
@@ -149,6 +152,76 @@ stats_partials_kernel(const T* __restrict__ U, const T* __restrict__ E,
       acc[3] += (u < threshold) ? 1.0 : 0.0;
       if (E != nullptr) {
         const T e = E[(long long)r * N + j];
+        acc[4] += (double)(e * e);
+      }
+    }
+  }
+  block_sum<kNStats>(acc);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < kNStats; ++k)
+      partials[(long long)blockIdx.x * kNStats + k] = acc[k];
+  }
+}
+
+// K7 — K3 on one rank's block of a grid-sharded field, pass 1.  Replaces
+// _local_band_sums / _stats_band_kernel_sh (pallas_kernels.py:382-461),
+// which fused_stats_sharded (:489-535) runs per shard.  The block U is
+// (bn, W), its rows starting at global row row_off and its columns at
+// col_off of the (N, N) field.  Where the stencil crosses the block's edge
+// it reads the halo vectors the caller received from the neighbour ranks:
+// up_row / dn_row (W each: the last row of the block above, the first row
+// of the block below) and lf_col / rt_col (bn each).  The TPU caller
+// concatenates four shifted (bn, W) copies of the block for its banded
+// operands; here the halo is read in place, so U and E are each read once
+// from device memory (neighbour rows come from L1/L2): 33.6 MB per call on
+// a 2048 x 2048 float32 block (N=4096 on a 2x2 mesh).  The one-sided
+// differences are keyed on the GLOBAL row and column, so the sums of all
+// blocks are the whole field's.  Same schedule as K3: rows_per_block rows
+// per block, float64 partials, reduce_columns_kernel in a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+local_stats_partials_kernel(const T* __restrict__ U,
+                            const T* __restrict__ up_row,
+                            const T* __restrict__ dn_row,
+                            const T* __restrict__ lf_col,
+                            const T* __restrict__ rt_col,
+                            const T* __restrict__ E, int bn, int W, int N,
+                            int row_off, int col_off, int rows_per_block,
+                            double delx, T RT, T B, T A0, T A1, T threshold,
+                            double* __restrict__ partials) {
+  const T h = T(delx);
+  const T h2 = T(2.0 * delx);
+  double acc[kNStats] = {0.0, 0.0, 0.0, 0.0, 0.0};
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(r0 + rows_per_block, bn);
+  for (int r = r0; r < r1; ++r) {
+    const T* row = U + (long long)r * W;
+    const T* up = r > 0 ? U + (long long)(r - 1) * W : up_row;
+    const T* dn = r < bn - 1 ? U + (long long)(r + 1) * W : dn_row;
+    const int gr = r + row_off;
+    for (int j = threadIdx.x; j < W; j += kThreads) {
+      const T u = row[j];
+      T dux;
+      if (gr == 0) dux = (dn[j] - u) / h;
+      else if (gr == N - 1) dux = (u - up[j]) / h;
+      else dux = (dn[j] - up[j]) / h2;
+      const T left = j > 0 ? row[j - 1] : lf_col[r];
+      const T right = j < W - 1 ? row[j + 1] : rt_col[r];
+      const int gc = j + col_off;
+      T duy;
+      if (gc == 0) duy = (right - u) / h;
+      else if (gc == N - 1) duy = (u - left) / h;
+      else duy = (right - left) / h2;
+      const T uinv = T(1) - u;
+      const T integrand = RT * (u * (flog(u) - B) + uinv * flog(uinv))
+                          + (A0 + A1 * (uinv - u)) * u * uinv;
+      acc[0] += (double)integrand;
+      acc[1] += (double)(dux * dux + duy * duy);
+      acc[2] += (double)u;
+      acc[3] += (u < threshold) ? 1.0 : 0.0;
+      if (E != nullptr) {
+        const T e = E[(long long)r * W + j];
         acc[4] += (double)(e * e);
       }
     }
@@ -470,6 +543,29 @@ int launch_stats(const void* U, const void* E, int N, double delx, double RT,
 }
 
 template <typename T>
+int launch_local_stats(const void* U, const void* up, const void* dn,
+                       const void* lf, const void* rt, const void* E, int bn,
+                       int W, int N, int row_off, int col_off, double delx,
+                       double RT, double B, double A0, double A1,
+                       double threshold, void* partials, int nblocks,
+                       void* sums, void* stream) {
+  if (bn < 1 || W < 1 || N < 2 || nblocks < 1 || row_off < 0 ||
+      col_off < 0 || row_off + bn > N || col_off + W > N)
+    return (int)cudaErrorInvalidValue;
+  const int rows_per_block = (bn + nblocks - 1) / nblocks;
+  cudaStream_t s = (cudaStream_t)stream;
+  local_stats_partials_kernel<T><<<nblocks, kThreads, 0, s>>>(
+      (const T*)U, (const T*)up, (const T*)dn, (const T*)lf, (const T*)rt,
+      (const T*)E, bn, W, N, row_off, col_off, rows_per_block, delx, T(RT),
+      T(B), T(A0), T(A1), T(threshold), (double*)partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_columns_kernel<<<1, kThreads, 0, s>>>(
+      (const double*)partials, nblocks, kNStats, (double*)sums);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_absdev(const void* U, long long n, const void* mean,
                   void* partials, int nblocks, void* sums, void* stream) {
   if (n <= 0 || nblocks < 1) return (int)cudaErrorInvalidValue;
@@ -575,6 +671,28 @@ int ch_stats_f64(const void* U, const void* E, int N, double delx, double RT,
                  void* partials, int nblocks, void* sums, void* stream) {
   return launch_stats<double>(U, E, N, delx, RT, B, A0, A1, threshold,
                               partials, nblocks, sums, stream);
+}
+
+// K7: one block of a grid-sharded field (the halo vectors beside it)
+int ch_local_stats_f32(const void* U, const void* up, const void* dn,
+                       const void* lf, const void* rt, const void* E, int bn,
+                       int W, int N, int row_off, int col_off, double delx,
+                       double RT, double B, double A0, double A1,
+                       double threshold, void* partials, int nblocks,
+                       void* sums, void* stream) {
+  return launch_local_stats<float>(U, up, dn, lf, rt, E, bn, W, N, row_off,
+                                   col_off, delx, RT, B, A0, A1, threshold,
+                                   partials, nblocks, sums, stream);
+}
+int ch_local_stats_f64(const void* U, const void* up, const void* dn,
+                       const void* lf, const void* rt, const void* E, int bn,
+                       int W, int N, int row_off, int col_off, double delx,
+                       double RT, double B, double A0, double A1,
+                       double threshold, void* partials, int nblocks,
+                       void* sums, void* stream) {
+  return launch_local_stats<double>(U, up, dn, lf, rt, E, bn, W, N, row_off,
+                                    col_off, delx, RT, B, A0, A1, threshold,
+                                    partials, nblocks, sums, stream);
 }
 
 int ch_absdev_f32(const void* U, long long n, const void* mean,

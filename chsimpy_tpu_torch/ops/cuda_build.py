@@ -39,6 +39,8 @@ _SIGNATURES = {
     'ch_mu': ((_P, _P, _LL, _D, _D, _D, _D, _P), _BOTH),
     'ch_update': ((_P, _P, _P, _P, _P, _LL, _P), _BOTH),
     'ch_stats': ((_P, _P, _I, _D, _D, _D, _D, _D, _D, _P, _I, _P, _P), _BOTH),
+    'ch_local_stats': ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D,
+                        _D, _D, _D, _D, _P, _I, _P, _P), _BOTH),
     'ch_absdev': ((_P, _LL, _P, _P, _I, _P, _P), _BOTH),
     'ch_slice': ((_P, _P, _P, _LL, _I, _P), ('_f64',)),
     'ch_matmul': ((_P, _I, _LL, _P, _I, _LL, _P, _LL, _I, _I, _I, _P),

@@ -1,6 +1,7 @@
 """2-D DCT-II / DCT-III: the matmul, split and FFT routes.
 
-Port of ``chsimpy_tpu/ops/dct.py`` for one device.
+Port of ``chsimpy_tpu/ops/dct.py`` for one device, and of the matmul
+route on a grid mesh (:func:`dct2_grid`, :func:`idct2_grid`).
 
 * **matmul** — the orthonormal DCT-II along an axis is a product with the
   (N, N) cosine matrix C, so
@@ -54,6 +55,9 @@ import functools
 import numpy as np
 import torch
 
+from ..parallel import collectives as coll
+from ..parallel.sharding import block_slices
+
 
 @functools.lru_cache(maxsize=32)
 def _dct_matrix_np(N: int) -> np.ndarray:
@@ -87,6 +91,46 @@ def dct2(U: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
 def idct2(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """Orthonormal 2-D DCT-III, the exact inverse of :func:`dct2`."""
     return torch.matmul(torch.matmul(C.T, X), C)
+
+
+# ----------------------------------------------------------------------
+# matmul route on a grid mesh: the products GSPMD partitions in the JAX
+# package (core/stepper.py, the matmul branch under P('x', 'y')).  Rank
+# (i, j) holds block (I, J) of the field, |I| = bn = N/mx rows and
+# |J| = bw = N/my columns, and does 1/(mx*my) of the FLOPs:
+#
+#   forward  C U C^T:  T = C[I, :] U[:, J]  (U[:, J]: all-gather over the
+#                      column strip), then hat = T[I, :] C[J, :]^T
+#                      (T[I, :]: all-gather over the row strip)
+#   inverse  C^T X C:  the same with C^T (C's column strips)
+#
+# all_gather concatenates along dim 0, which assembles a column strip
+# (blocks stacked by row) but not a row strip.  So the first product
+# writes its block transposed, T[I, J]^T (bw, bn), straight from transposed
+# views of its operands; the gather stacks those into T[I, :]^T (N, bn),
+# and the second product reads it through a transposed view.  No block is
+# copied for the layout: each 2-D transform moves (mx-1) + (my-1) blocks
+# into each rank, 4 bytes (float32) or 8 per element.
+# ----------------------------------------------------------------------
+
+def dct2_grid(Ub: torch.Tensor, C: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's (bn, bw) block of ``dct2`` of the field whose block is
+    ``Ub`` (a collective: every rank of the mesh calls it)."""
+    I, J = block_slices(mesh, C.shape[0])
+    Ucol = coll.gather_x(mesh, Ub)                           # U[:, J]
+    Tt = torch.matmul(Ucol.T, C[I].T)                        # T[I, J]^T
+    G = coll.gather_y(mesh, Tt)                              # T[I, :]^T
+    return torch.matmul(G.T, C[J].T).contiguous()
+
+
+def idct2_grid(Xb: torch.Tensor, C: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of ``idct2`` of the spectral image whose block
+    is ``Xb`` (a collective)."""
+    I, J = block_slices(mesh, C.shape[0])
+    Xcol = coll.gather_x(mesh, Xb)                           # X[:, J]
+    St = torch.matmul(Xcol.T, C[:, I])                       # S[I, J]^T
+    G = coll.gather_y(mesh, St)                              # S[I, :]^T
+    return torch.matmul(G.T, C[:, J]).contiguous()
 
 
 # ----------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """The step's kernels: a hand-written CUDA kernel for a tensor on the card,
 its plain PyTorch version for a tensor on the CPU.
 
-Counterpart of ``chsimpy_tpu/ops/pallas_kernels.py`` (K1-K4, and the
-tiled matmul K6 with the DCTs built on it) and of the ozaki route's slice
-kernel in ``chsimpy_tpu/ops/ozaki.py`` (K5).  Each wrapper
+Counterpart of ``chsimpy_tpu/ops/pallas_kernels.py`` (K1-K4, the tiled
+matmul K6 with the DCTs built on it, and the grid-sharded K7 and K8) and
+of the ozaki route's slice kernel in ``chsimpy_tpu/ops/ozaki.py`` (K5).
+Each wrapper
 
 * runs the plain version (``*_ref``) only when its input lies on the CPU;
 * on a CUDA tensor launches the kernel of ``csrc/ch_kernels.cu`` on the
@@ -22,11 +23,13 @@ from typing import Optional
 
 import torch
 
+from ..parallel import collectives as coll
 from .stencil import gradient2d
 
 # kernel name -> number of launches on the card (see reset_launches)
 launches = {'chemical_potential': 0, 'spectral_update': 0,
-            'stats_sums': 0, 'absdev_sum': 0, 'slice_field': 0, 'matmul': 0}
+            'stats_sums': 0, 'absdev_sum': 0, 'slice_field': 0, 'matmul': 0,
+            'local_band_sums': 0, 'chemical_potential_sharded': 0}
 
 # grid of the two reduction kernels: fixed by the shape alone, so the
 # summation order (and the result, to the bit) never depends on the card
@@ -93,6 +96,13 @@ def _square(U: torch.Tensor) -> None:
                          f"got {tuple(U.shape)}")
 
 
+def _block(U: torch.Tensor) -> None:
+    """A 2-D block of a field (one rank's share on a grid mesh)."""
+    if U.dim() != 2 or 0 in U.shape:
+        raise ValueError(f"expected a non-empty 2-D block, got "
+                         f"{tuple(U.shape)}")
+
+
 # ----------------------------------------------------------------------
 # K1: chemical potential (replaces pallas_kernels.chemical_potential)
 # ----------------------------------------------------------------------
@@ -110,12 +120,17 @@ def chemical_potential_ref(U, RT, BRT, A0, A1):
             - 2.0 * A1 * U * Uinv)
 
 
-def chemical_potential(U, RT, BRT, A0, A1):
-    if not _on_card(U):
-        return chemical_potential_ref(U, RT, BRT, A0, A1)
+def _launch_mu(U, RT, BRT, A0, A1):
     out = torch.empty_like(U)
     _call('ch_mu', U.dtype, U.data_ptr(), out.data_ptr(), U.numel(),
           float(RT), float(BRT), float(A0), float(A1), _stream())
+    return out
+
+
+def chemical_potential(U, RT, BRT, A0, A1):
+    if not _on_card(U):
+        return chemical_potential_ref(U, RT, BRT, A0, A1)
+    out = _launch_mu(U, RT, BRT, A0, A1)
     launches['chemical_potential'] += 1
     return out
 
@@ -357,3 +372,154 @@ def idct2_gemm(X, C):
     """2-D DCT-III C^T @ X @ C through :func:`matmul` (twin of
     ``idct2_pallas``)."""
     return matmul(matmul(C.T, X), C)
+
+
+# ----------------------------------------------------------------------
+# K7: shard-local field sums with halo vectors (replaces
+# pallas_kernels._local_band_sums under fused_stats_sharded), and K8: the
+# chemical potential of one block (replaces chemical_potential_sharded)
+# ----------------------------------------------------------------------
+
+def _halo_extended(Ub, up_row, dn_row, lf_col, rt_col):
+    """(rows r-1, rows r+1, cols c-1, cols c+1) of the block as (bn, W)
+    views built from the block and its four halo vectors — what the TPU
+    kernel's caller builds with ``_neighbor_views``."""
+    up = torch.cat([up_row.reshape(1, -1), Ub[:-1]], dim=0)
+    dn = torch.cat([Ub[1:], dn_row.reshape(1, -1)], dim=0)
+    lf = torch.cat([lf_col.reshape(-1, 1), Ub[:, :-1]], dim=1)
+    rt = torch.cat([Ub[:, 1:], rt_col.reshape(-1, 1)], dim=1)
+    return up, dn, lf, rt
+
+
+def local_band_sums_ref(Ub, up_row, dn_row, lf_col, rt_col,
+                        Eb: Optional[torch.Tensor], A0, A1, row_off: int,
+                        col_off: int, *, N, delx, RT, B, threshold):
+    """(5,) float64: the sums of :func:`stats_sums_ref` over one block of
+    an (N, N) field, the block's rows starting at global row ``row_off``
+    and its columns at ``col_off``.  The np.gradient stencil reads the
+    halo vectors across the block's edges and keys its one-sided
+    differences on the GLOBAL row and column (``_stats_band_kernel_sh``)."""
+    A0 = _cast(A0, Ub.dtype)
+    A1 = _cast(A1, Ub.dtype)
+    f64 = torch.float64
+    bn, W = Ub.shape
+    up, dn, lf, rt = _halo_extended(Ub, up_row, dn_row, lf_col, rt_col)
+    dev = Ub.device
+    rows = (torch.arange(bn, device=dev) + row_off).reshape(-1, 1)
+    cols = (torch.arange(W, device=dev) + col_off).reshape(1, -1)
+    dux = torch.where(rows == 0, (dn - Ub) / delx,
+                      torch.where(rows == N - 1, (Ub - up) / delx,
+                                  (dn - up) / (2.0 * delx)))
+    duy = torch.where(cols == 0, (rt - Ub) / delx,
+                      torch.where(cols == N - 1, (Ub - lf) / delx,
+                                  (rt - lf) / (2.0 * delx)))
+    du2 = dux * dux + duy * duy
+    Uinv = 1.0 - Ub
+    integrand = (RT * (Ub * (torch.log(Ub) - B) + Uinv * torch.log(Uinv))
+                 + (A0 + A1 * (Uinv - Ub)) * Ub * Uinv)
+    if Eb is None:
+        s_e2 = torch.zeros((), dtype=f64, device=dev)
+    else:
+        s_e2 = (Eb * Eb).to(f64).sum()
+    return torch.stack([integrand.to(f64).sum(), du2.to(f64).sum(),
+                        Ub.to(f64).sum(), (Ub < threshold).to(f64).sum(),
+                        s_e2])
+
+
+def local_band_sums(Ub, up_row, dn_row, lf_col, rt_col,
+                    Eb: Optional[torch.Tensor], A0, A1, row_off: int,
+                    col_off: int, *, N, delx, RT, B, threshold):
+    """K7: :func:`local_band_sums_ref` on the card.  The kernel reads the
+    halo vectors where a stencil crosses the block's edge; no shifted
+    copy of the block is made."""
+    _block(Ub)
+    bn, W = Ub.shape
+    for name, v, n in (('up_row', up_row, W), ('dn_row', dn_row, W),
+                       ('lf_col', lf_col, bn), ('rt_col', rt_col, bn)):
+        if tuple(v.shape) != (n,):
+            raise ValueError(f"{name} must have shape ({n},), got "
+                             f"{tuple(v.shape)}")
+    if not (0 <= row_off and row_off + bn <= N and 0 <= col_off
+            and col_off + W <= N and N >= 2):
+        raise ValueError(f"block {bn}x{W} at ({row_off}, {col_off}) does "
+                         f"not lie in an ({N}, {N}) field")
+    ops = (Ub, up_row, dn_row, lf_col, rt_col)
+    if Eb is not None:
+        if Eb.shape != Ub.shape:
+            raise ValueError("Eb and Ub differ in shape")
+        ops += (Eb,)
+    if not _on_card(*ops):
+        return local_band_sums_ref(Ub, up_row, dn_row, lf_col, rt_col, Eb,
+                                   A0, A1, row_off, col_off, N=N, delx=delx,
+                                   RT=RT, B=B, threshold=threshold)
+    nblocks = -(-bn // STATS_ROWS_PER_BLOCK)
+    partials = torch.empty((nblocks, 5), dtype=torch.float64,
+                           device=Ub.device)
+    sums = torch.empty((5,), dtype=torch.float64, device=Ub.device)
+    _call('ch_local_stats', Ub.dtype, Ub.data_ptr(), up_row.data_ptr(),
+          dn_row.data_ptr(), lf_col.data_ptr(), rt_col.data_ptr(),
+          None if Eb is None else Eb.data_ptr(), bn, W, N, int(row_off),
+          int(col_off), float(delx), float(RT), float(B), float(A0),
+          float(A1), float(threshold), partials.data_ptr(), nblocks,
+          sums.data_ptr(), _stream())
+    launches['local_band_sums'] += 1
+    return sums
+
+
+def fused_stats_sharded(mesh, Ub, Eb: Optional[torch.Tensor], A0, A1,
+                        kappa_tilde, *, delx, RT, B, Amr, L, threshold):
+    """(E, E2, PS, L2, Ra, SA), 0-d float64 tensors, the same bits on
+    every rank, from this rank's block ``Ub`` (and ``Eb``; None on the
+    prepare path gives L2 = 0) of an (N, N) field on a grid mesh.  The
+    counterpart of ``pallas_kernels.fused_stats_sharded``: halo exchange,
+    K7 on the block, the partials of every rank added in rank order, the
+    float64 finalization, then K4 on the block with the global mean.  Ra
+    reads the mid row N//2+1, gathered from its x-shard: the formula of
+    the single-device ``_stats``."""
+    mx, my = mesh.shape
+    bn, W = Ub.shape
+    N = bn * mx
+    if W * my != N:
+        raise ValueError(f"block {bn}x{W} does not tile an (N, N) field "
+                         f"on a {mx}x{my} mesh")
+    i, j = mesh.coords
+    f64 = torch.float64
+    n2 = float(N * N)
+    Lsq = L ** 2
+    up, dn, lf, rt = coll.halo(mesh, Ub)
+    part = local_band_sums(Ub, up, dn, lf, rt, Eb, A0, A1, i * bn, j * W,
+                           N=N, delx=delx, RT=RT, B=B, threshold=threshold)
+    # the mid row's segment travels with the partials (float64 holds a
+    # float32 exactly); ranks off the row send zeros
+    mid_row = N // 2 + 1
+    owner = mid_row // bn
+    if i == owner:
+        seg = Ub[mid_row - owner * bn].to(f64)
+    else:
+        seg = torch.zeros((W,), dtype=f64, device=Ub.device)
+    g = coll.gather_world(mesh, torch.cat([part, seg]))     # (D, 5 + W)
+    tot = coll.rank_sum(g[:, :5])
+    mid = g[owner * my:(owner + 1) * my, 5:].reshape(N).to(Ub.dtype)
+    E2 = 0.5 * Amr * kappa_tilde * Lsq * (tot[1] / n2)
+    E = Amr * Lsq * (tot[0] / n2) + E2
+    SA = tot[3] / n2
+    L2 = torch.sqrt(tot[4]) / n2
+    meanU = (tot[2] / n2).to(Ub.dtype)
+    ps = absdev_sum(Ub, meanU)
+    PS = coll.rank_sum(coll.gather_world(mesh, ps.reshape(1)))[0] / n2
+    Ra = torch.mean(torch.abs(mid - torch.mean(mid))).to(f64)
+    return E, E2, PS, L2, Ra, SA
+
+
+def chemical_potential_sharded(mesh, Ub, RT, BRT, A0, A1):
+    """K8: the chemical potential of this rank's block.  Pointwise, so no
+    halo and no collective (``mesh`` is kept for the JAX signature): the
+    TPU version runs K1's ``pallas_call`` per shard under ``shard_map``,
+    and this wrapper launches K1's ``mu_kernel`` on the block."""
+    del mesh
+    _block(Ub)
+    if not _on_card(Ub):
+        return chemical_potential_ref(Ub, RT, BRT, A0, A1)
+    out = _launch_mu(Ub, RT, BRT, A0, A1)
+    launches['chemical_potential_sharded'] += 1
+    return out

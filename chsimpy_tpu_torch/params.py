@@ -88,9 +88,11 @@ class Parameters:
 
     version: str = __version__
 
-    # the port's own field: where the run lives ('cuda' or 'cpu', never
-    # chosen implicitly — device.resolve_device)
+    # the port's own fields: where the run lives ('cuda' or 'cpu', never
+    # chosen implicitly — device.resolve_device), and the torch.distributed
+    # backend of a --mesh run (None: nccl on 'cuda', gloo on 'cpu')
     device: str = 'cuda'
+    dist_backend: Optional[str] = None
 
     # ------------------------------------------------------------------
     def func_A0(self, temp: float) -> float:
@@ -139,7 +141,15 @@ def solver_scope_errors(p: Parameters) -> list:
             or p.checkpoint_every is not None:
         errs.append(not_ported('checkpoint and restore', 8))
     if p.mesh_shape is not None:
-        errs.append(not_ported('grid sharding over a device mesh', 11))
+        # the grid layout runs the matmul route; the JAX package shards the
+        # split and ozaki routes through the pencil layout (and the ozaki
+        # route through the grid too under --kernels pallas)
+        if p.transform_backend == 'split':
+            errs.append(not_ported('--transform split under --mesh (the '
+                                   'pencil layout)', 11))
+        elif p.transform_backend == 'ozaki':
+            errs.append(not_ported('--transform ozaki under --mesh (the '
+                                   'pencil and grid ozaki routes)', 11))
     if p.transform_backend not in ('auto', 'matmul', 'split', 'fft',
                                    'ozaki'):
         errs.append(f"unknown transform '{p.transform_backend}'")

@@ -1,6 +1,7 @@
-"""The CUDA kernels of chsimpy_tpu_torch (the GEMM included) against their
-plain PyTorch versions, and the ozaki, split and FFT transforms and short
-solves on the card against the same on the CPU.
+"""The CUDA kernels of chsimpy_tpu_torch (the GEMM and the grid-sharded
+K7/K8 included) against their plain PyTorch versions, and the ozaki, split
+and FFT transforms, short solves and a grid-sharded solve of ranks sharing
+the card on the card against the same on the CPU.
 
 These tests need an NVIDIA card with ``nvcc`` (they build
 ``csrc/ch_kernels.cu``); without one they skip.  They import no jax, so
@@ -90,7 +91,9 @@ def test_kernels_match_plain_versions(card, dtype, N):
     assert abs(a - a_ref) <= _tol(dtype) * abs(a_ref)
     assert K.launches == {'chemical_potential': 1, 'spectral_update': 1,
                           'stats_sums': 2, 'absdev_sum': 1,
-                          'slice_field': 0, 'matmul': 0}
+                          'slice_field': 0, 'matmul': 0,
+                          'local_band_sums': 0,
+                          'chemical_potential_sharded': 0}
 
 
 def test_stats_sums_are_reproducible(card):
@@ -316,3 +319,87 @@ def test_bakeoff_gemm_route_launches_the_kernel(card):
     assert (y - x).abs().max().item() < 1e-4
     fns['matmul-tf32'](x)
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+# ----------------------------------------------------------------------
+# the grid-sharded kernels (K7, K8) and a world of ranks on the card
+# ----------------------------------------------------------------------
+
+def _halo(F, i, j, bn, bw):
+    """The edge vectors of block (i, j) of F, edge-replicated at the
+    global boundary, as the halo exchange delivers them."""
+    N = F.shape[0]
+    r0, r1, c0, c1 = i * bn, (i + 1) * bn, j * bw, (j + 1) * bw
+    return (F[max(r0 - 1, 0), c0:c1].contiguous(),
+            F[min(r1, N - 1), c0:c1].contiguous(),
+            F[r0:r1, max(c0 - 1, 0)].contiguous(),
+            F[r0:r1, min(c1, N - 1)].contiguous())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('N,shape', [(256, (2, 2)), (256, (1, 4)),
+                                     (256, (4, 1)), (96, (3, 2))])
+def test_local_band_sums_kernel_matches_plain_version(card, dtype, N,
+                                                       shape):
+    mx, my = shape
+    bn, bw = N // mx, N // my
+    U = _field(N, dtype, card)
+    E = K.chemical_potential_ref(U, PHYS['RT'], PHYS['BRT'], PHYS['A0'],
+                                 PHYS['A1'])
+    kw = dict(N=N, delx=PHYS['delx'], RT=PHYS['RT'], B=PHYS['B'],
+              threshold=PHYS['threshold'])
+    K.reset_launches()
+    total = torch.zeros(5, dtype=torch.float64)
+    for i in range(mx):
+        for j in range(my):
+            Ub = U[i * bn:(i + 1) * bn, j * bw:(j + 1) * bw].contiguous()
+            Eb = E[i * bn:(i + 1) * bn, j * bw:(j + 1) * bw].contiguous()
+            halo = _halo(U, i, j, bn, bw)
+            for e in (Eb, None):
+                args = (Ub, *halo, e, PHYS['A0'], PHYS['A1'], i * bn, j * bw)
+                s = K.local_band_sums(*args, **kw).cpu()
+                s_ref = K.local_band_sums_ref(*args, **kw).cpu()
+                assert s[3] == s_ref[3]
+                torch.testing.assert_close(s, s_ref, rtol=_tol(dtype),
+                                           atol=0)
+            total += K.local_band_sums(Ub, *halo, Eb, PHYS['A0'],
+                                       PHYS['A1'], i * bn, j * bw,
+                                       **kw).cpu()
+    assert K.launches['local_band_sums'] == 3 * mx * my
+    whole = K.stats_sums(U, E, PHYS['A0'], PHYS['A1'], **{
+        k: v for k, v in kw.items() if k != 'N'}).cpu()
+    torch.testing.assert_close(total, whole, rtol=1e-13, atol=0)
+
+
+def test_chemical_potential_sharded_is_k1_on_the_block(card):
+    U = _field(512, torch.float64, card)
+    Ub = U[256:, :256].contiguous()
+    K.reset_launches()
+    got = K.chemical_potential_sharded(None, Ub, PHYS['RT'], PHYS['BRT'],
+                                       PHYS['A0'], PHYS['A1'])
+    want = K.chemical_potential(Ub, PHYS['RT'], PHYS['BRT'], PHYS['A0'],
+                                PHYS['A1'])
+    assert torch.equal(got, want)
+    assert (K.launches['chemical_potential_sharded'],
+            K.launches['chemical_potential']) == (1, 1)
+
+
+def test_sharded_solve_on_card_matches_cpu(card):
+    """A 2x2 world of gloo ranks sharing the card against the
+    single-device solve on the CPU."""
+    from chsimpy_tpu_torch.parallel.distributed import spawn_grid
+    from chsimpy_tpu_torch.parallel.workers import run_tasks
+    kw = dict(N=64, ntmax=40, full_sim=True, generator='lcg',
+              kappa_tilde=KAPPA)
+    res = spawn_grid(run_tasks, (2, 2), backend='gloo', device='cuda',
+                     args=([('solve', dict(params=kw))],), timeout=600)
+    c = _solve('cpu', **kw)
+    for (r,) in res:
+        assert 'staged through host memory' in r['mesh']
+        assert r['computed_steps'] == c.computed_steps
+        np.testing.assert_allclose(r['timedata'][:, 1], c.timedata.E,
+                                   rtol=1e-12)
+        np.testing.assert_allclose(r['U'], c.U.numpy(), rtol=0, atol=1e-12)
+        assert r['launches']['local_band_sums'] == 40
+        assert r['launches']['chemical_potential_sharded'] == 39
+        assert np.array_equal(r['timedata'], res[0][0]['timedata'])

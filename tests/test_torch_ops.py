@@ -140,6 +140,8 @@ def test_params_carried_from_jax():
         (96, True, 'float32', 'cpu')
     d = jp.scalar_dict()
     d['mesh_shape'] = [2, 4]
+    assert convert.params_from_jax(d, device='cpu').mesh_shape == (2, 4)
+    d['transform_backend'] = 'split'
     with pytest.raises(NotImplementedError, match='item 11'):
         convert.params_from_jax(d)
     d = jp.scalar_dict()
@@ -161,7 +163,6 @@ def test_solver_refuses_settings_not_ported():
     cases = {'adaptive_time': (True, 'item 7'), 'jitter': (0.01, 'item 7'),
              'generator': ('sobol', 'item 7'),
              'checkpoint_file': ('x.npz', 'item 8'),
-             'mesh_shape': ((2, 2), 'item 11'),
              'fold_field': (True, 'item 14'),
              'inv_band': (4, 'item 14'),
              'kernel_backend': ('pallas', 'queue B'),
@@ -172,6 +173,11 @@ def test_solver_refuses_settings_not_ported():
         setattr(p, field, value)
         with pytest.raises(NotImplementedError, match=item):
             ctt.Solver(p)
+    # the grid mesh runs the matmul route; the pencil split route is later
+    p = ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA, no_gui=True,
+                       mesh_shape=(2, 2), transform_backend='split')
+    with pytest.raises(NotImplementedError, match='item 11'):
+        ctt.Solver(p)
     with pytest.raises(NotImplementedError, match='item 13'):
         ctt.Simulator(ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA))
 
@@ -192,6 +198,7 @@ def test_import_brings_in_no_jax():
             "import chsimpy_tpu_torch.__main__\n"
             "import chsimpy_tpu_torch.ops.cuda_build\n"
             "import chsimpy_tpu_torch.benchmarks.dct_bench\n"
+            "import chsimpy_tpu_torch.parallel.workers\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'chsimpy_tpu', 'triton', 'sympy')]\n"
             "assert not bad, bad\n")
@@ -210,7 +217,8 @@ def test_cli_parses_the_slice_and_refuses_the_rest(capsys):
                                          KAPPA, 'cpu')
     assert CLIParser().get_parameters(['--no-gui']).device == 'cuda'
     for argv, item in ((['--no-gui', '-a'], 'item 7'),
-                       (['--no-gui', '--mesh', '2x2'], 'item 11'),
+                       (['--no-gui', '--mesh', '2x2', '--transform',
+                         'split'], 'item 11'),
                        (['--no-gui', '--export-csv', 'U'], 'item 13'),
                        (['--no-gui', '-g', 'sobol'], 'item 7'),
                        (['--no-gui', '--fold-field'], 'item 14'),
