@@ -9,8 +9,12 @@ Phases (each raises on failure, so the script exits nonzero):
 1. the card's name and power limit (nvidia-smi); CUDA must be available;
 2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the time;
 3. each kernel against its plain PyTorch version on the card, float32 and
-   float64, at N = 4096, 1000 and 512, with the tolerances stated below,
-   and both timed with CUDA events (median of 30);
+   float64, at N = 4096, 1000, 1001 (no vector width divides it) and 512,
+   with the tolerances stated below; the statistics kernel K3 also gives
+   the same bits in 30 calls; both versions timed (``device_ms``: the
+   device time of one call in a run of back-to-back calls; ``call_ms``:
+   one call alone between two CUDA events, the wrapper's host time
+   included);
 4. the canonical default run (N=512, float64, uniform, seed 2023) through
    ``Simulator.solve``: it must stop at step 1674 and hold the golden
    anchors of tests/golden/default_n512_anchors.json; the kernel launch
@@ -34,12 +38,13 @@ Phases (each raises on failure, so the script exits nonzero):
    native float64 matmul route from the same field, steady steps/s of
    both routes in turns, and the per-layer times of one ozaki step;
 7. the split and FFT routes and the DCT bake-off with the GEMM kernel:
-   (a) the GEMM kernel against its plain version (``torch.matmul``, TF32
-   off) at 4096², 1000², 512² and a ragged non-square shape, float32, in
-   all four operand layouts (each operand row-major or a ``.T`` view),
-   both held against the float64 product of the same operands (the
-   kernel's error at most 4x the plain version's and 1e-5 max|ref|), both
-   timed (median of 30) with TFLOP/s; ``dct2_gemm`` and ``idct2_gemm``
+   (a) the GEMM kernel (3xTF32 on the tensor cores) against its plain
+   version (``torch.matmul``, TF32 off) at 4096², 1000², 512² and a
+   ragged non-square shape, float32, in all four operand layouts (each
+   operand row-major or a ``.T`` view), both held against the float64
+   product of the same operands (the kernel's error at most 4x the plain
+   version's and 1e-5 max|ref|), both timed with TFLOP/s; ``dct2_gemm``
+   and ``idct2_gemm``
    against the matmul route's ``dct2``/``idct2`` at N=4096 by the same
    bounds; a float64 input raises;
    (b) the bake-off through its own functions (``benchmarks/dct_bench.py``,
@@ -63,7 +68,7 @@ Phases (each raises on failure, so the script exits nonzero):
    tolerances), and the blocks' sums in rank order against K3 on the whole
    field (1e-13 relative in float64, 1e-12 in float32: only the float64
    summation order differs); K7 and its plain version timed on a 2x2
-   block (median of 30) beside the bound;
+   block beside the bound;
    (b) K8 on a block against K1 on the same block: the same bits;
    (c) a 2x2 world of 4 ranks on the card (gloo, collectives staged
    through host memory, as the mesh prints) running the canonical run
@@ -87,6 +92,11 @@ computes the same function.  The last two lines of standard output are
 the kernels' JSON summary and ``{"ok": true, "device": {...}}``
 (``count``: the cards the script used); with ``--out DIR`` every
 measurement also goes to DIR/chip_smoke.json.
+
+    python3 chip_smoke.py --kernels-only
+
+runs phases 1-3 and the kernel parts of 6-8 ((a); (a)-(b) of 8) only, and
+prints the kernels' table instead of the two last lines.
 """
 
 from __future__ import annotations
@@ -103,6 +113,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KAPPA = 0.00029891134208698706   # derived kappa_tilde of the default run
 SOURCE = 'chsimpy_tpu_torch/csrc/ch_kernels.cu'
+GEMM_SOURCE = 'chsimpy_tpu_torch/csrc/gemm_sm90.cu'
 REPLACES = {
     'chemical_potential': 'chsimpy_tpu/ops/pallas_kernels.py:81',
     'spectral_update': 'chsimpy_tpu/ops/pallas_kernels.py:113',
@@ -122,6 +133,7 @@ REPORT_SHAPE = (4096, 'float32')   # the fast-mode shape of the JSON line
 # the slice kernel's row of the JSON line: a full N=4096 field cut into the
 # 4 slices of the trimmed (3, 5) transforms
 SLICE_REPORT = (4096, 4, 'solver')
+SLICE_NS = (4096, 1000, 512)
 # phase 7 (b): the bake-off's routes and their short protocol
 BAKEOFF = ((4096, 'float32', ('matmul-fp32', 'matmul-tf32', 'fft',
                               'split4perm-fp32', 'split5permfold-fp32',
@@ -141,7 +153,10 @@ def check(cond, msg):
         raise PhaseError(msg)
 
 
-def median_ms(fn, reps=30, warm=3):
+def call_ms(fn, reps=30, warm=3):
+    """One call alone between two CUDA events on an idle card (median of
+    ``reps``): the device time plus the host time the card waits for the
+    wrapper (argument checks, allocations, the launch)."""
     import torch
     for _ in range(warm):
         fn()
@@ -155,6 +170,47 @@ def median_ms(fn, reps=30, warm=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+DEVICE_CALLS = 20     # back-to-back calls per timed window
+SLEEP_CYCLES_PER_S = 2e9   # the SM clock is at most 1.98 GHz on an H100
+
+
+def device_ms(fn, calls=DEVICE_CALLS, reps=5):
+    """Device time of one call: ``calls`` back-to-back calls between two
+    CUDA events, over ``calls`` (median of ``reps`` windows, after a
+    warm-up).  A sleep kernel holds the card while the host queues the
+    window, twice as long as the host took to queue one call times
+    ``calls``, so the window holds the device's work and not the wrapper's
+    host time.  At N=4096 the fields exceed the 50 MB L2: each call reads
+    its operands from device memory, as on the solver's path."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(max(2e-3, 2 * enqueue * calls) * SLEEP_CYCLES_PER_S)
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def timed_row(kern, ref):
+    """'ms' (device time), 'call_ms' and 'plain_ms' (device time) of a
+    kernel's wrapper and its plain version."""
+    return {'ms': device_ms(kern), 'call_ms': call_ms(kern),
+            'plain_ms': device_ms(ref)}
 
 
 # ----------------------------------------------------------------------
@@ -187,12 +243,18 @@ def kernel_inputs(N, dtype, dev):
     return cfg, consts, U, E, hat_U, hat_E
 
 
+# phase 3's field sizes: 1001 is divisible by no vector width (K3's scalar
+# path); K3's calls that must give the same bits
+KERNEL_NS = (4096, 1000, 1001, 512)
+DETERMINISM_CALLS = 30
+
+
 def kernel_phase(dev, card):
     import torch
     from chsimpy_tpu_torch.ops import kernels as K
 
     rows = []
-    for N in (4096, 1000, 512):
+    for N in KERNEL_NS:
         for dtype in (torch.float32, torch.float64):
             f64 = dtype == torch.float64
             cfg, c, U, E, hat_U, hat_E = kernel_inputs(N, dtype, dev)
@@ -239,19 +301,26 @@ def kernel_phase(dev, card):
                     ok = bool((diff <= rtol * scale).all())
                     tol = f'rtol {rtol:g}'
                     if name == 'stats_sums':
-                        ok = ok and got[3].item() == want[3].item()
-                        tol += ', count exact'
-                ms = median_ms(kern)
-                plain_ms = median_ms(ref)
-                row = {'name': name, 'N': N, 'dtype': str(dtype)[6:],
+                        # fixed-order sums: the same bits every call
+                        same = all(torch.equal(kern(), got)
+                                   for _ in range(DETERMINISM_CALLS - 1))
+                        ok = ok and got[3].item() == want[3].item() and same
+                        tol += (f', count exact, the same bits in '
+                                f'{DETERMINISM_CALLS} calls')
+                dname = str(dtype)[6:]
+                row = {'name': name, 'N': N, 'dtype': dname,
                        'max_abs_err': err, 'max_rel_err': rel,
-                       'tolerance': tol, 'ok': ok, 'ms': ms,
-                       'plain_ms': plain_ms}
+                       'tolerance': tol, 'ok': ok, **timed_row(kern, ref),
+                       **kernel_bound(name, N, dname)}
+                row['bound_share'] = row['bound_ms'] / row['ms']
                 rows.append(row)
-                print(f"kernel {name:18s} N={N:5d} {row['dtype']:8s} "
+                print(f"kernel {name:18s} N={N:5d} {dname:8s} "
                       f"err={err:.3e} rel={rel:.3e} ({tol}) "
-                      f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  "
-                      f"plain {plain_ms:.4f} ms  ({card})", flush=True)
+                      f"{'ok' if ok else 'FAIL'}  kernel {row['ms']:.4f} ms "
+                      f"(one call {row['call_ms']:.4f})  plain "
+                      f"{row['plain_ms']:.4f} ms  bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_share']:.0%})"
+                      f"  ({card})", flush=True)
                 check(ok, f"{name} N={N} {dtype}: error {err:.3e} "
                           f"outside {tol}")
     return rows
@@ -376,15 +445,15 @@ def layer_ms(solver):
     E = stepper._nonlinear_term(cfg, c, s.U)
     hat_E = dct_ops.dct2(E, c['C'])
     return {
-        'nonlinear_K1': median_ms(
+        'nonlinear_K1': call_ms(
             lambda: stepper._nonlinear_term(cfg, c, s.U)),
-        'forward_dct': median_ms(lambda: dct_ops.dct2(E, c['C'])),
-        'update_K2': median_ms(lambda: stepper.K.spectral_update(
+        'forward_dct': call_ms(lambda: dct_ops.dct2(E, c['C'])),
+        'update_K2': call_ms(lambda: stepper.K.spectral_update(
             s.hat_U, hat_E, c['Seig'], c['CHeig'])),
-        'inverse_dct': median_ms(lambda: dct_ops.idct2(s.hat_U, c['C'])),
-        'stats_K3_K4_finalize': median_ms(
+        'inverse_dct': call_ms(lambda: dct_ops.idct2(s.hat_U, c['C'])),
+        'stats_K3_K4_finalize': call_ms(
             lambda: stepper._stats(cfg, c, s.U, E)),
-        'whole_step': median_ms(lambda: stepper._step(cfg, c, s), reps=20),
+        'whole_step': call_ms(lambda: stepper._step(cfg, c, s), reps=20),
     }
 
 
@@ -455,7 +524,7 @@ def slice_phase(dev, card):
     from chsimpy_tpu_torch.ops import kernels as K
 
     rows = []
-    for N in (4096, 1000, 512):
+    for N in SLICE_NS:
         rng = np.random.default_rng(N)
         fields = {'solver': 0.875 + 0.01 * (rng.random((N, N)) - 0.5),
                   'normal': rng.standard_normal((N, N)),
@@ -474,11 +543,10 @@ def slice_phase(dev, card):
                        'tolerance': 'bit-identical slices, equal scale',
                        'ok': ok}
                 if kind == 'solver':
-                    row['ms'] = median_ms(lambda: K.slice_field(x, n))
-                    row['plain_ms'] = median_ms(
-                        lambda: K.slice_field_ref(x, n))
+                    row.update(timed_row(lambda: K.slice_field(x, n),
+                                         lambda: K.slice_field_ref(x, n)))
                     # the wrapper's scale (max|x|, log2, exp2) alone
-                    row['scale_ms'] = median_ms(lambda: K.slice_scale(x))
+                    row['scale_ms'] = device_ms(lambda: K.slice_scale(x))
                 rows.append(row)
                 times = (f"kernel {row['ms']:.4f} ms (scale "
                          f"{row['scale_ms']:.4f}) plain "
@@ -646,7 +714,7 @@ def replay_ms(calls, reps=3):
     def run():
         for fn, a, k in calls:
             fn(*a, **k)
-    return median_ms(run, reps=reps, warm=1)
+    return call_ms(run, reps=reps, warm=1)
 
 
 def ozaki_layer_ms(solver):
@@ -665,8 +733,8 @@ def ozaki_layer_ms(solver):
     with CallRecorder(targets) as rec:
         stepper._step(cfg, c, s)
     out = {label: replay_ms(calls) for label, calls in rec.calls.items()}
-    out['whole_step'] = median_ms(lambda: stepper._step(cfg, c, s),
-                                  reps=10, warm=1)
+    out['whole_step'] = call_ms(lambda: stepper._step(cfg, c, s),
+                                reps=10, warm=1)
     out['int32_group_adds'] = out['pair_groups'] - out['int8_products']
     transforms = out['forward_transform'] + out['inverse_transform']
     out['transform_rest'] = transforms - (
@@ -698,7 +766,7 @@ def int8_layout_probe(card):
     ops = 2 * 2048 * 2048 * 4096
     out = {}
     for name, rhs in (('row_major', b), ('column_major', bc)):
-        ms = median_ms(lambda: torch._int_mm(a, rhs))
+        ms = call_ms(lambda: torch._int_mm(a, rhs))
         out[name] = {'ms': ms, 'TOPS': ops / ms / 1e9}
     print("int8 product (2048x2048)@(2048x4096): " + ', '.join(
         f"right operand {k} {v['ms']:.4f} ms {v['TOPS']:.1f} TOP/s"
@@ -764,26 +832,28 @@ GEMM_SHAPES = ((4096, 4096, 4096), (1000, 1000, 1000), (512, 512, 512),
 # row-major matrix; every layout is its own instantiation of the kernel
 GEMM_LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
 GEMM_TOL = '<= 4x the plain error and 1e-5 max|ref|, both vs float64'
+GEMM_DCT_N = 4096
 # phase 7 (b): the round-trip error after BAKEOFF_INNER round trips of a
 # [0, 1) field, per arithmetic (measured on the card: fp32 routes <= 2.5e-5,
 # tf32 3.1e-3, float64 <= 4.7e-11); a wrong product gives O(1)
 ROUNDTRIP_BOUND = {'float32': 1e-4, 'tf32': 1e-2, 'float64': 1e-9}
 
 
-def held_to_plain(tag, got, plain, ref, ms, plain_ms, card, **info):
+def held_to_plain(tag, got, plain, ref, times, card, **info):
     """One GEMM row: ``got`` (the kernel) and ``plain`` against the float64
     ``ref``; the kernel's error at most 4x the plain one and 1e-5
-    max|ref|."""
+    max|ref|.  ``times``: :func:`timed_row`'s."""
     err = (got.double() - ref).abs().max().item()
     plain_err = (plain.double() - ref).abs().max().item()
     bound = 1e-5 * ref.abs().max().item()
     ok = err <= 4 * plain_err and err <= bound
     row = {'name': 'matmul', **info, 'dtype': 'float32', 'max_abs_err': err,
            'plain_max_abs_err': plain_err, 'tolerance': GEMM_TOL, 'ok': ok,
-           'ms': ms, 'plain_ms': plain_ms}
+           **times}
     print(f"kernel {tag} err={err:.3e} plain {plain_err:.3e} "
-          f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
-          f"{plain_ms:.4f} ms  ({card})", flush=True)
+          f"{'ok' if ok else 'FAIL'}  kernel {row['ms']:.4f} ms (one call "
+          f"{row['call_ms']:.4f})  plain {row['plain_ms']:.4f} ms  ({card})",
+          flush=True)
     check(ok, f"{tag}: error {err:.3e} (plain {plain_err:.3e}, bound "
               f"{bound:.3e})")
     return row
@@ -812,12 +882,12 @@ def gemm_phase(dev, card):
             torch.cuda.synchronize()
             row = held_to_plain(
                 f"matmul ({M}x{Kd})@({Kd}x{N}) {layout}", got, plain, ref,
-                median_ms(lambda: K.matmul(A, B)),
-                median_ms(lambda: K.matmul_ref(A, B)), card,
+                timed_row(lambda: K.matmul(A, B),
+                          lambda: K.matmul_ref(A, B)), card,
                 M=M, K=Kd, N=N, layout=layout)
             if not rows:
                 # the one PyTorch call of the same product (cuBLAS)
-                row['library_ms'] = median_ms(lambda: torch.matmul(A, B))
+                row['library_ms'] = device_ms(lambda: torch.matmul(A, B))
             flop = 2.0 * M * Kd * N
             row['TFLOPS'] = flop / row['ms'] / 1e9
             row['plain_TFLOPS'] = flop / row['plain_ms'] / 1e9
@@ -827,20 +897,21 @@ def gemm_phase(dev, card):
             rows.append(row)
     # the DCT pair of the bake-off's gemm route against the solver's
     # matmul route (torch.matmul, TF32 off) on the same operands
-    N = 4096
+    N = GEMM_DCT_N
     C = dct_ops.dct_matrix(N, torch.float32, dev)
     x = torch.rand((N, N), device=dev, generator=g)
     C64, x64 = C.double(), x.double()
     X = K.dct2_gemm(x, C)
     rows.append(held_to_plain(
         f"dct2_gemm N={N}", X, dct_ops.dct2(x, C), C64 @ x64 @ C64.T,
-        median_ms(lambda: K.dct2_gemm(x, C)),
-        median_ms(lambda: dct_ops.dct2(x, C)), card, N=N, op='dct2_gemm'))
+        timed_row(lambda: K.dct2_gemm(x, C), lambda: dct_ops.dct2(x, C)),
+        card, N=N, op='dct2_gemm'))
     X64 = X.double()
     rows.append(held_to_plain(
         f"idct2_gemm N={N}", K.idct2_gemm(X, C), dct_ops.idct2(X, C),
-        C64.T @ X64 @ C64, median_ms(lambda: K.idct2_gemm(X, C)),
-        median_ms(lambda: dct_ops.idct2(X, C)), card, N=N, op='idct2_gemm'))
+        C64.T @ X64 @ C64,
+        timed_row(lambda: K.idct2_gemm(X, C), lambda: dct_ops.idct2(X, C)),
+        card, N=N, op='idct2_gemm'))
     x = torch.ones((8, 8), dtype=torch.float64, device=dev)
     try:
         K.matmul(x, x)
@@ -910,8 +981,8 @@ def route_layer_ms(solver, targets):
                        *targets]) as rec:
         stepper._step(cfg, c, s)
     out = {label: replay_ms(calls) for label, calls in rec.calls.items()}
-    out['whole_step'] = median_ms(lambda: stepper._step(cfg, c, s),
-                                  reps=10, warm=1)
+    out['whole_step'] = call_ms(lambda: stepper._step(cfg, c, s),
+                                reps=10, warm=1)
     transforms = out['forward_transform'] + out['inverse_transform']
     out['step_rest'] = out['whole_step'] - transforms
     return out, {k: len(v) for k, v in rec.calls.items()}
@@ -992,7 +1063,9 @@ def routes_phase(dev, card, E64):
 # ----------------------------------------------------------------------
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {'float32': 67e12, 'float64': 34e12}
+# float32 and float64 outside the tensor cores; TF32 on them (dense)
+PEAK_OPS_PER_S = {'float32': 67e12, 'float64': 34e12, 'tf32': 495e12}
+TF32_PASSES = 3     # the GEMM's float32-class product: 3xTF32
 # operations per element, counting each arithmetic operation, comparison
 # and log as one
 OPS_PER_ELEM = {'chemical_potential': 13, 'spectral_update': 3,
@@ -1041,7 +1114,12 @@ def kernel_bound(name, N, dtype, n_slices=4):
                              + OPS_PER_ELEM['slice_per_plane'] * n_slices)
                             * n, 'float64')
     if name == 'matmul':
-        return bound_fields(3 * n * 4, 2.0 * N ** 3, 'float32')
+        # the float32-class product in TF32 passes on the tensor cores;
+        # beside it the bound on the FP32 pipes the kernel left
+        out = bound_fields(3 * n * 4, TF32_PASSES * 2.0 * N ** 3, 'tf32')
+        out['bound_fp32_ms'] = bound_fields(3 * n * 4, 2.0 * N ** 3,
+                                            'float32')['bound_ms']
+        return out
     raise KeyError(name)
 
 
@@ -1126,10 +1204,9 @@ def shard_kernel_phase(dev, card):
                     Ub, halo = block_halo(U, 0, 0, bn, bw)
                     Eb = block_halo(E, 0, 0, bn, bw)[0]
                     args = (Ub, *halo, Eb, cfg.A0, cfg.A1, 0, 0)
-                    row['ms'] = median_ms(
-                        lambda: K.local_band_sums(*args, **skw))
-                    row['plain_ms'] = median_ms(
-                        lambda: K.local_band_sums_ref(*args, **skw))
+                    row.update(timed_row(
+                        lambda: K.local_band_sums(*args, **skw),
+                        lambda: K.local_band_sums_ref(*args, **skw)))
                     row.update(bound_fields(
                         *stats_bytes_ops(Ub), dname))
                     # (b) K8 on the same block: K1's kernel, the same bits
@@ -1148,9 +1225,9 @@ def shard_kernel_phase(dev, card):
                         'max_abs_err': (b8 - plain).abs().max().item(),
                         'tolerance': 'identical bits to K1 on the block',
                         'ok': same,
-                        'ms': median_ms(lambda: K.chemical_potential_sharded(
-                            None, Ub, cfg.RT, cfg.BRT, cfg.A0, cfg.A1)),
-                        'plain_ms': median_ms(
+                        **timed_row(
+                            lambda: K.chemical_potential_sharded(
+                                None, Ub, cfg.RT, cfg.BRT, cfg.A0, cfg.A1),
                             lambda: K.chemical_potential_ref(
                                 Ub, cfg.RT, cfg.BRT, cfg.A0, cfg.A1)),
                         **bound_fields(*mu_bytes_ops(Ub), dname)}
@@ -1373,17 +1450,51 @@ def summary_rows(detail):
                               f"{REPORT_SHAPE[1]}",
                      **kernel_bound(name, *REPORT_SHAPE)}
         rows.append({
-            'name': name, 'route': 'cuda', 'source': SOURCE,
+            'name': name, 'route': 'cuda',
+            'source': GEMM_SOURCE if name == 'matmul' else SOURCE,
             'replaces': replaces, 'launches': launches,
             'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
-            'plain_ms': row['plain_ms'],
+            'call_ms': row['call_ms'], 'plain_ms': row['plain_ms'],
             'library_ms': row.get('library_ms'), **extra})
     return rows
+
+
+def kernels_only(detail, dev, card, out_dir) -> int:
+    """The kernel parts of phases 6-8 after phase 3, and a table of every
+    kernel at its report shape (no main path, so no launch counts and no
+    closing lines)."""
+    detail['slice_kernel'] = slice_phase(dev, card)
+    detail['gemm'] = gemm_phase(dev, card)
+    detail['shard_kernels'] = shard_kernel_phase(dev, card)
+    report = [r for r in detail['kernels'] if r['N'] == REPORT_SHAPE[0]]
+    report += [r for r in detail['slice_kernel'] if 'ms' in r
+               and (r['N'], r['n_slices'], r['field']) == SLICE_REPORT]
+    report += [dict(detail['gemm'][0],
+                    **kernel_bound('matmul', detail['gemm'][0]['M'],
+                                   'float32'))]
+    report += [r for r in detail['shard_kernels'] if 'ms' in r
+               and r['N'] == SHARD_REPORT[0]]
+    for r in report:
+        if 'bound_ms' not in r:     # the slice kernel's row
+            r.update(kernel_bound(r['name'], r['N'], 'float64'))
+        print(f"kernels-only {r['name']:26s} {r.get('dtype', ''):8s} "
+              f"device {r['ms']:.4f} ms  one call {r['call_ms']:.4f} ms  "
+              f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_ms'] / r['ms']:.0%})  ({card})", flush=True)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, 'chip_smoke_kernels.json'),
+                  'w') as f:
+            json.dump(detail, f, indent=1)
+    return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', help='directory for chip_smoke.json')
+    ap.add_argument('--kernels-only', action='store_true',
+                    help='only the kernels against their plain versions, '
+                         'and their times')
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1416,6 +1527,8 @@ def main(argv=None) -> int:
         return out
 
     detail['kernels'] = timed(3, kernel_phase, dev, card)
+    if args.kernels_only:
+        return kernels_only(detail, dev, card, args.out)
     detail['default_run'] = timed(4, default_run)
     fm = detail['fast_mode'] = timed(5, fast_mode, card)
     detail['ozaki'] = timed(6, ozaki_phase, dev, card)

@@ -8,7 +8,7 @@ or exact int8 slice products on the float64 ozaki route) and the energy
 early stop, and the DCT bake-off (``benchmarks/dct_bench.py``).  The
 package imports torch and never jax.  Every run names its device
 (``Parameters.device``): on 'cuda' the step runs the kernels of
-``csrc/ch_kernels.cu``, on 'cpu' their plain PyTorch versions.
+``csrc/``, on 'cpu' their plain PyTorch versions.
 """
 
 from .params import Parameters  # noqa: F401

@@ -6,11 +6,12 @@
 // K1-K4 are templated on the field type and instantiated for float and
 // double: Hopper has native FP64, so the float64 validation mode runs the
 // same kernels as the float32 fast mode.  K5 slices a float64 field into
-// int8 planes for the ozaki route and exists for double only.  K6 is the
-// float32 GEMM of the DCT bake-off's 'gemm' route (ROADMAP.md kernel B5).
-// On a grid mesh (one rank per block of the field) K7 is K3 on a block
-// with halo vectors from the neighbour ranks (kernel B7), and K8 (B8) is
-// K1's mu_kernel launched on the block: it has no source of its own.
+// int8 planes for the ozaki route and exists for double only.  K6, the
+// float32 GEMM of the DCT bake-off's 'gemm' route (ROADMAP.md kernel B5),
+// lives in gemm_sm90.cu (tensor cores, 3xTF32).  On a grid mesh (one rank
+// per block of the field) K7 is K3 on a block with halo vectors from the
+// neighbour ranks (kernel B7), and K8 (B8) is K1's mu_kernel launched on
+// the block: it has no source of its own.
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes by
 // chsimpy_tpu_torch/ops/kernels.py.  Every entry launches on the stream it
@@ -105,62 +106,164 @@ update_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
   out[i] = (hat_U[i] + Seig[i] * hat_E[i]) / CHeig[i];
 }
 
-// K3 — fused field statistics, pass 1.  Replaces stats_band_sums /
+// K3 — fused field statistics in one launch.  Replaces stats_band_sums /
 // _stats_band_kernel (pallas_kernels.py:205-258, 288-321).
 // Five full-field sums: the Flory-Huggins integrand, |grad U|^2 with the
 // np.gradient edge_order=1 stencil, sum U, #(U < threshold), and
 // sum EnergieEut^2 (zero when E is null: the prepare path).  Terms are
-// formed in the field type and accumulated in double, as the float32 stop
-// predicate needs.  Reads U once from device memory (neighbour rows come
-// from L1/L2) and E once: 134 MB per call at N=4096 f32.
+// formed in the field type, with the plain version's true quotients, and
+// accumulated in double, as the float32 stop predicate needs.
 //
-// The TPU kernel carried its sums across a sequential grid; here blocks run
-// in any order, so block b owns rows [b*rpb, (b+1)*rpb) and writes its five
-// sums to partials[b], and reduce_columns_kernel adds the partials in a
-// fixed order.  No atomics: the sums are the same on every run.
-template <typename T>
+// Its byte bound: U and E read once, 134 MB per call at N=4096 f32.  Per
+// element it also takes two logs, two true divisions and four float64
+// conversions and adds, which on the H100 cost about as much time as the
+// bytes (K1, one log and one division per element over the same bytes,
+// runs nearer its bound).  A row sweep keeps the bytes to one pass:
+// * each thread owns V contiguous columns (a float4 in float32, a double2
+//   in float64; V=1 where N or an address does not allow the vector) and
+//   walks down a band of kStatsRowsV / V rows (16 with the vector) with the
+//   rows above, at and below in registers, so a U element is loaded once,
+//   plus three halo rows per band; every load is issued one row before the
+//   row that uses it (a deeper prefetch, more rows a band, fewer
+//   registers for more blocks an SM or float2 in float32 were slower on
+//   the H100);
+// * the column neighbours come from the adjacent lanes (shuffles); lanes 0
+//   and 31 load the one value beyond the warp's columns;
+// * the one-sided edges (rows 0 and N-1, columns 0 and N-1) are decided per
+//   row and per thread, not per element;
+// * one launch: every block writes its five float64 sums to partials, and
+//   the last block to finish (an atomic ticket after __threadfence) adds
+//   all partials in a fixed order and resets the ticket to 0 for the next
+//   call.  The grid depends on N (and V) alone, never on the card: every
+//   run gives the same bits.
+constexpr int kStatsRowsV = 64;        // rows per band times V
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, T (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const double2 q = *reinterpret_cast<const double2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-stats_partials_kernel(const T* __restrict__ U, const T* __restrict__ E,
-                      int N, int rows_per_block, double delx, T RT, T B,
-                      T A0, T A1, T threshold,
-                      double* __restrict__ partials) {
+stats_kernel(const T* __restrict__ U, const T* __restrict__ E, int N,
+             double delx, T RT, T B, T A0, T A1, T threshold,
+             double* __restrict__ partials, unsigned int* __restrict__ ticket,
+             double* __restrict__ sums) {
   const T h = T(delx);
   const T h2 = T(2.0 * delx);
+  const int lane = threadIdx.x & 31;
+  const int c0 = (blockIdx.x * kThreads + threadIdx.x) * V;
+  const int wc0 = (blockIdx.x * kThreads + (threadIdx.x & ~31)) * V;
+  const int wc1 = wc0 + 32 * V;          // one past the warp's columns
+  const bool active = c0 < N;            // N % V == 0: all V columns exist
+  const bool first_col = c0 == 0;
+  const bool last_col = c0 + V - 1 == N - 1;
+  const int r0 = blockIdx.y * (kStatsRowsV / V);
+  const int r1 = min(r0 + kStatsRowsV / V, N);
+  const bool has_e = E != nullptr;
+  // the one value beyond the warp's columns that a row needs: lane 0 the
+  // left one, lane 31 the right one
+  const bool edge_lane = (lane == 0 && active && wc0 > 0) ||
+                         (lane == 31 && wc1 < N);
+  const int edge_col = lane == 0 ? wc0 - 1 : wc1;
+  auto below = [&](int r) { return r < N - 1 ? r + 1 : N - 1; };
+  auto load_row = [&](const T* F, int r, T (&v)[V]) {
+    if (active) {
+      load_vec<T, V>(F + (long long)r * N + c0, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = T(0);
+    }
+  };
+  auto load_edge = [&](int r) {
+    return edge_lane ? U[(long long)r * N + edge_col] : T(0);
+  };
   double acc[kNStats] = {0.0, 0.0, 0.0, 0.0, 0.0};
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(r0 + rows_per_block, N);
+  int count = 0;
+  // rows r-1, r, r+1 of U, row r of E and row r's edge value; the loop
+  // loads row r+2 of U and row r+1 of the others before it computes row r
+  T up[V], cur[V], dn[V], e[V];
+  load_row(U, r0 > 0 ? r0 - 1 : 0, up);
+  load_row(U, r0, cur);
+  load_row(U, below(r0), dn);
+  if (has_e) load_row(E, r0, e);
+  T edge = load_edge(r0);
   for (int r = r0; r < r1; ++r) {
-    const T* row = U + (long long)r * N;
-    const T* up = U + (long long)(r > 0 ? r - 1 : 0) * N;
-    const T* dn = U + (long long)(r < N - 1 ? r + 1 : N - 1) * N;
-    for (int j = threadIdx.x; j < N; j += kThreads) {
-      const T u = row[j];
-      T dux;
-      if (r == 0) dux = (dn[j] - u) / h;
-      else if (r == N - 1) dux = (u - up[j]) / h;
-      else dux = (dn[j] - up[j]) / h2;
-      T duy;
-      if (j == 0) duy = (row[1] - u) / h;
-      else if (j == N - 1) duy = (u - row[N - 2]) / h;
-      else duy = (row[j + 1] - row[j - 1]) / h2;
-      const T uinv = T(1) - u;
-      const T integrand = RT * (u * (flog(u) - B) + uinv * flog(uinv))
-                          + (A0 + A1 * (uinv - u)) * u * uinv;
-      acc[0] += (double)integrand;
-      acc[1] += (double)(dux * dux + duy * duy);
-      acc[2] += (double)u;
-      acc[3] += (u < threshold) ? 1.0 : 0.0;
-      if (E != nullptr) {
-        const T e = E[(long long)r * N + j];
-        acc[4] += (double)(e * e);
+    T un[V], en[V];
+    load_row(U, below(below(r)), un);
+    if (has_e) load_row(E, below(r), en);
+    const T edge_n = load_edge(below(r));
+    T left = __shfl_up_sync(0xffffffffu, cur[V - 1], 1);
+    T right = __shfl_down_sync(0xffffffffu, cur[0], 1);
+    if (lane == 0) left = edge;
+    if (lane == 31) right = edge;
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const T u = cur[j];
+        T dux;
+        if (r == 0) dux = (dn[j] - u) / h;
+        else if (r == N - 1) dux = (u - up[j]) / h;
+        else dux = (dn[j] - up[j]) / h2;
+        const T l = j == 0 ? left : cur[j > 0 ? j - 1 : 0];
+        const T rt = j == V - 1 ? right : cur[j < V - 1 ? j + 1 : 0];
+        T duy;
+        if (j == 0 && first_col) duy = (rt - u) / h;
+        else if (j == V - 1 && last_col) duy = (u - l) / h;
+        else duy = (rt - l) / h2;
+        const T uinv = T(1) - u;
+        const T integrand = RT * (u * (flog(u) - B) + uinv * flog(uinv))
+                            + (A0 + A1 * (uinv - u)) * u * uinv;
+        acc[0] += (double)integrand;
+        acc[1] += (double)(dux * dux + duy * duy);
+        acc[2] += (double)u;
+        count += u < threshold;
+        if (has_e) acc[4] += (double)(e[j] * e[j]);
       }
     }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      up[j] = cur[j];
+      cur[j] = dn[j];
+      dn[j] = un[j];
+      e[j] = en[j];
+    }
+    edge = edge_n;
   }
+  acc[3] = (double)count;
   block_sum<kNStats>(acc);
+  const unsigned int nblocks = gridDim.x * gridDim.y;
+  const unsigned int b = blockIdx.y * gridDim.x + blockIdx.x;
+  __shared__ bool last;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int k = 0; k < kNStats; ++k)
-      partials[(long long)blockIdx.x * kNStats + k] = acc[k];
+      partials[(long long)b * kNStats + k] = acc[k];
+    __threadfence();                     // the partials before the ticket
+    last = atomicAdd(ticket, 1u) == nblocks - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  double tot[kNStats] = {0.0, 0.0, 0.0, 0.0, 0.0};
+  for (unsigned int i = threadIdx.x; i < nblocks; i += kThreads) {
+#pragma unroll
+    for (int k = 0; k < kNStats; ++k)
+      tot[k] += __ldcg(partials + (long long)i * kNStats + k);
+  }
+  block_sum<kNStats>(tot);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < kNStats; ++k) sums[k] = tot[k];
+    *ticket = 0u;
   }
 }
 
@@ -177,8 +280,9 @@ stats_partials_kernel(const T* __restrict__ U, const T* __restrict__ E,
 // from device memory (neighbour rows come from L1/L2): 33.6 MB per call on
 // a 2048 x 2048 float32 block (N=4096 on a 2x2 mesh).  The one-sided
 // differences are keyed on the GLOBAL row and column, so the sums of all
-// blocks are the whole field's.  Same schedule as K3: rows_per_block rows
-// per block, float64 partials, reduce_columns_kernel in a fixed order.
+// blocks are the whole field's.  rows_per_block rows per block, one
+// element per thread and step, float64 partials, reduce_columns_kernel in
+// a fixed order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 local_stats_partials_kernel(const T* __restrict__ U,
@@ -320,174 +424,7 @@ slice_kernel(const double* __restrict__ x, const float* __restrict__ inv_ptr,
   }
 }
 
-// K6 — float32 GEMM, C = op(A) · op(B).  Replaces matmul / _matmul_kernel
-// (chsimpy_tpu/ops/pallas_kernels.py:133-174), the product under
-// dct2_pallas / idct2_pallas (:177-183): float32 operands contracted at
-// Precision.HIGHEST with float32 accumulation.  Here every product and sum
-// is one float32 fused multiply-add (__fmaf_rn, called explicitly: the file
-// is built with -fmad=false), in k order; no TF32.
-//
-// Bound by FP32 FMA throughput on the SMs (67 TFLOP/s on an H100 SXM at
-// 700 W): at N=4096 a product is 137 GFLOP against 201 MB of operands and
-// result.  The design keeps the FMA pipes fed from registers:
-// * each 256-thread block owns a 128x128 tile of C and walks K in steps of
-//   8, staging an (8 x 128) slice of A and of B in shared memory (17 KB,
-//   double-buffered: the next slice is loaded into registers while the
-//   current one is multiplied, one barrier per step); two blocks per SM
-//   (128 registers a thread, 82 KB of shared memory a block);
-// * each thread keeps an 8x8 accumulator in registers, split into four 4x4
-//   quadrants 64 rows and 64 columns apart, so its shared-memory reads are
-//   four float4 loads per k whose addresses are contiguous across the warp
-//   (no bank conflicts; the A reads are broadcasts); every 128 k it is
-//   added into the thread's slots of a 64 KB sum in shared memory;
-// * the global loads are coalesced for either operand layout: TA / TB pick
-//   the thread-to-element map at compile time, so a transposed operand (C^T
-//   of the DCT) is read in place, with no copy;
-// * any M, N, K: loads beyond an edge read 0 and stores are masked.
-// Tensor cores (3xTF32 mma/wgmma with TMA-fed tiles) are work for a later
-// change; so is a persistent schedule.
-constexpr int kGemmBM = 128;
-constexpr int kGemmBN = 128;
-constexpr int kGemmBK = 8;
-constexpr int kGemmLoads = kGemmBM * kGemmBK / kThreads;  // per operand
-// rows of the staged tiles are padded by 4 floats: a k-fastest operand
-// (row-major A, transposed B) then stores its 8 k values to 8 different
-// banks, and the float4 reads stay 16-byte aligned
-constexpr int kGemmPad = 4;
-// the register accumulator is added into a per-thread float sum in dynamic
-// shared memory every kGemmFlush steps (128 k) and restarted: rounding then
-// grows with 128 + K/128 serial terms instead of K (a serial k loop alone
-// left ~4x cuBLAS's error at K=512)
-constexpr int kGemmFlush = 16;
-constexpr int kGemmSumBytes = 64 * kThreads * (int)sizeof(float);  // 64 KB
-
-template <bool TA, bool TB>
-__global__ void __launch_bounds__(kThreads, 2)
-matmul_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                  float* __restrict__ C, int M, int N, int K, long long lda,
-                  long long ldb, long long ldc) {
-  __shared__ __align__(16) float As[2][kGemmBK][kGemmBM + kGemmPad];
-  __shared__ __align__(16) float Bs[2][kGemmBK][kGemmBN + kGemmPad];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int m0 = blockIdx.y * kGemmBM;
-  const int n0 = blockIdx.x * kGemmBN;
-
-  extern __shared__ float sums[];  // 64 slots per thread, each its own
-  // element i of this thread's share of a slice: (row in the tile's m or n
-  // range, k within the step), with the index contiguous in memory fastest
-  // across the threads
-  auto a_at = [&](int i, int& m, int& k) {
-    const int idx = tid + i * kThreads;
-    m = TA ? idx % kGemmBM : idx / kGemmBK;
-    k = TA ? idx / kGemmBM : idx % kGemmBK;
-  };
-  auto b_at = [&](int i, int& n, int& k) {
-    const int idx = tid + i * kThreads;
-    n = TB ? idx / kGemmBK : idx % kGemmBN;
-    k = TB ? idx % kGemmBK : idx / kGemmBN;
-  };
-  float ra[kGemmLoads], rb[kGemmLoads];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kGemmLoads; ++i) {
-      int m, k, n, kb;
-      a_at(i, m, k);
-      b_at(i, n, kb);
-      const int gm = m0 + m, gk = k0 + k, gn = n0 + n, gkb = k0 + kb;
-      ra[i] = (gm < M && gk < K)
-                  ? A[TA ? (long long)gk * lda + gm : (long long)gm * lda + gk]
-                  : 0.0f;
-      rb[i] = (gn < N && gkb < K)
-                  ? B[TB ? (long long)gn * ldb + gkb
-                         : (long long)gkb * ldb + gn]
-                  : 0.0f;
-    }
-  };
-  auto stage = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < kGemmLoads; ++i) {
-      int m, k, n, kb;
-      a_at(i, m, k);
-      b_at(i, n, kb);
-      As[buf][k][m] = ra[i];
-      Bs[buf][kb][n] = rb[i];
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      acc[i][j] = 0.0f;
-      sums[(i * 8 + j) * kThreads + tid] = 0.0f;
-    }
-
-  const int steps = (K + kGemmBK - 1) / kGemmBK;
-  load(0);
-  stage(0);
-  __syncthreads();
-  for (int s = 0; s < steps; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < steps) load((s + 1) * kGemmBK);
-#pragma unroll
-    for (int kk = 0; kk < kGemmBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
-    }
-    if ((s + 1) % kGemmFlush == 0 && s + 1 < steps) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          sums[(i * 8 + j) * kThreads + tid] += acc[i][j];
-          acc[i][j] = 0.0f;
-        }
-    }
-    if (s + 1 < steps) stage(buf ^ 1);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      acc[i][j] = sums[(i * 8 + j) * kThreads + tid] + acc[i][j];
-
-  // rows ty*4 + {0..3} and 64 + ty*4 + {0..3}; columns likewise with tx
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-    if (gm >= M) continue;
-    float* row = C + (long long)gm * ldc;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gn = n0 + h * 64 + tx * 4;
-      if (gn + 3 < N && ldc % 4 == 0) {
-        *reinterpret_cast<float4*>(row + gn) =
-            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                        acc[i][4 * h + 3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (gn + j < N) row[gn + j] = acc[i][4 * h + j];
-      }
-    }
-  }
-}
-
-// Pass 2 of K3 and K4: out[c] = sum over b of partials[b, c], one block,
+// Pass 2 of K7 and K4: out[c] = sum over b of partials[b, c], one block,
 // fixed order.
 __global__ void __launch_bounds__(kThreads)
 reduce_columns_kernel(const double* __restrict__ partials, int nrows,
@@ -525,21 +462,38 @@ int launch_update(const void* hat_U, const void* hat_E, const void* Seig,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int V>
+int launch_stats_v(const void* U, const void* E, int N, double delx,
+                   double RT, double B, double A0, double A1,
+                   double threshold, void* partials, int nblocks,
+                   void* ticket, void* sums, cudaStream_t s) {
+  const dim3 grid((N + kThreads * V - 1) / (kThreads * V),
+                  (N + kStatsRowsV / V - 1) / (kStatsRowsV / V));
+  if ((long long)grid.x * grid.y != nblocks || grid.y > 65535)
+    return (int)cudaErrorInvalidValue;
+  stats_kernel<T, V><<<grid, kThreads, 0, s>>>(
+      (const T*)U, (const T*)E, N, delx, T(RT), T(B), T(A0), T(A1),
+      T(threshold), (double*)partials, (unsigned int*)ticket, (double*)sums);
+  return (int)cudaGetLastError();
+}
+
+// vec: 16 / sizeof(T) (the wrapper checks N and the addresses) or 1;
+// nblocks: the grid the wrapper sized partials for
 template <typename T>
 int launch_stats(const void* U, const void* E, int N, double delx, double RT,
                  double B, double A0, double A1, double threshold,
-                 void* partials, int nblocks, void* sums, void* stream) {
-  if (N < 2 || nblocks < 1) return (int)cudaErrorInvalidValue;
-  const int rows_per_block = (N + nblocks - 1) / nblocks;
+                 void* partials, int nblocks, int vec, void* ticket,
+                 void* sums, void* stream) {
+  if (N < 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  stats_partials_kernel<T><<<nblocks, kThreads, 0, s>>>(
-      (const T*)U, (const T*)E, N, rows_per_block, delx, T(RT), T(B), T(A0),
-      T(A1), T(threshold), (double*)partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_columns_kernel<<<1, kThreads, 0, s>>>(
-      (const double*)partials, nblocks, kNStats, (double*)sums);
-  return (int)cudaGetLastError();
+  constexpr int kVec = 16 / (int)sizeof(T);
+  if (vec == kVec)
+    return launch_stats_v<T, kVec>(U, E, N, delx, RT, B, A0, A1, threshold,
+                                   partials, nblocks, ticket, sums, s);
+  if (vec == 1)
+    return launch_stats_v<T, 1>(U, E, N, delx, RT, B, A0, A1, threshold,
+                                partials, nblocks, ticket, sums, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -590,54 +544,6 @@ int launch_slice(const void* x, const void* inv, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
-template <bool TA, bool TB>
-cudaError_t launch_matmul_tt(const float* A, const float* B, float* C, int M,
-                             int N, int K, long long lda, long long ldb,
-                             long long ldc, cudaStream_t s) {
-  // above 48 KB a block's shared memory must be asked for, and the SM's
-  // carve-out set to hold two such blocks (once per entry and process)
-  static const cudaError_t configured = [] {
-    cudaError_t e = cudaFuncSetAttribute(
-        matmul_f32_kernel<TA, TB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSumBytes);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(
-        matmul_f32_kernel<TA, TB>,
-        cudaFuncAttributePreferredSharedMemoryCarveout,
-        (int)cudaSharedmemCarveoutMaxShared);
-  }();
-  if (configured != cudaSuccess) return configured;
-  const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
-  matmul_f32_kernel<TA, TB><<<grid, kThreads, kGemmSumBytes, s>>>(
-      A, B, C, M, N, K, lda, ldb, ldc);
-  return cudaGetLastError();
-}
-
-int launch_matmul(const void* A, int transA, long long lda, const void* B,
-                  int transB, long long ldb, void* C, long long ldc, int M,
-                  int N, int K, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || (M + kGemmBM - 1) / kGemmBM > 65535 ||
-      ldc < N || lda < (transA ? M : K) || ldb < (transB ? K : N))
-    return (int)cudaErrorInvalidValue;
-  const float* a = (const float*)A;
-  const float* b = (const float*)B;
-  float* c = (float*)C;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (transA) {
-    err = transB ? launch_matmul_tt<true, true>(a, b, c, M, N, K, lda, ldb,
-                                                ldc, s)
-                 : launch_matmul_tt<true, false>(a, b, c, M, N, K, lda, ldb,
-                                                 ldc, s);
-  } else {
-    err = transB ? launch_matmul_tt<false, true>(a, b, c, M, N, K, lda, ldb,
-                                                 ldc, s)
-                 : launch_matmul_tt<false, false>(a, b, c, M, N, K, lda, ldb,
-                                                  ldc, s);
-  }
-  return (int)err;
-}
-
 }  // namespace
 
 extern "C" {
@@ -660,17 +566,20 @@ int ch_update_f64(const void* hat_U, const void* hat_E, const void* Seig,
   return launch_update<double>(hat_U, hat_E, Seig, CHeig, out, n, stream);
 }
 
+// ticket: an unsigned int that is 0 between calls (the kernel resets it)
 int ch_stats_f32(const void* U, const void* E, int N, double delx, double RT,
                  double B, double A0, double A1, double threshold,
-                 void* partials, int nblocks, void* sums, void* stream) {
+                 void* partials, int nblocks, int vec, void* ticket,
+                 void* sums, void* stream) {
   return launch_stats<float>(U, E, N, delx, RT, B, A0, A1, threshold,
-                             partials, nblocks, sums, stream);
+                             partials, nblocks, vec, ticket, sums, stream);
 }
 int ch_stats_f64(const void* U, const void* E, int N, double delx, double RT,
                  double B, double A0, double A1, double threshold,
-                 void* partials, int nblocks, void* sums, void* stream) {
+                 void* partials, int nblocks, int vec, void* ticket,
+                 void* sums, void* stream) {
   return launch_stats<double>(U, E, N, delx, RT, B, A0, A1, threshold,
-                              partials, nblocks, sums, stream);
+                              partials, nblocks, vec, ticket, sums, stream);
 }
 
 // K7: one block of a grid-sharded field (the halo vectors beside it)
@@ -708,16 +617,6 @@ int ch_absdev_f64(const void* U, long long n, const void* mean,
 int ch_slice_f64(const void* x, const void* inv, void* out, long long n,
                  int n_slices, void* stream) {
   return launch_slice(x, inv, out, n, n_slices, stream);
-}
-
-// float32 only: the TPU kernel contracts float32 operands.  A is (M, K),
-// stored row-major with leading dimension lda, or (transA) as the
-// transpose of a row-major (K, M); B likewise; C row-major (M, N).
-int ch_matmul_f32(const void* A, int transA, long long lda, const void* B,
-                  int transB, long long ldb, void* C, long long ldc, int M,
-                  int N, int K, void* stream) {
-  return launch_matmul(A, transA, lda, B, transB, ldb, C, ldc, M, N, K,
-                       stream);
 }
 
 }  // extern "C"

@@ -7,8 +7,9 @@ of the ozaki route's slice kernel in ``chsimpy_tpu/ops/ozaki.py`` (K5).
 Each wrapper
 
 * runs the plain version (``*_ref``) only when its input lies on the CPU;
-* on a CUDA tensor launches the kernel of ``csrc/ch_kernels.cu`` on the
-  current stream or raises — there is no fallback;
+* on a CUDA tensor launches its kernel (``csrc/ch_kernels.cu``; the GEMM
+  ``csrc/gemm_sm90.cu``) on the current stream or raises — there is no
+  fallback;
 * adds one to ``launches[name]`` where it launches the kernel, and nowhere
   else (the CPU path does not count).
 
@@ -31,11 +32,17 @@ launches = {'chemical_potential': 0, 'spectral_update': 0,
             'stats_sums': 0, 'absdev_sum': 0, 'slice_field': 0, 'matmul': 0,
             'local_band_sums': 0, 'chemical_potential_sharded': 0}
 
-# grid of the two reduction kernels: fixed by the shape alone, so the
-# summation order (and the result, to the bit) never depends on the card
-STATS_ROWS_PER_BLOCK = 4
+# grids of the reduction kernels: fixed by the shape (and, for K3, the
+# vector width) alone, so the summation order (and the result, to the bit)
+# never depends on the card
+STATS_THREADS = 256             # K3: threads per block, V columns each
+STATS_ROWS_X_VEC = 64           # K3: rows per band times V (kStatsRowsV)
+STATS_ROWS_PER_BLOCK = 4        # K7
 ABSDEV_ELEMS_PER_BLOCK = 8 * 256
 ABSDEV_MAX_BLOCKS = 4096
+
+# K3's ticket counters, one per (device, stream): 0 between calls
+_TICKETS: dict = {}
 
 _SUFFIX = {torch.float32: '_f32', torch.float64: '_f64'}
 
@@ -183,6 +190,28 @@ def stats_sums_ref(U, EnergieEut: Optional[torch.Tensor], A0, A1, *,
                         s_e2])
 
 
+def stats_grid(N: int, itemsize: int, *addresses: int):
+    """(V, blocks) of K3 on an (N, N) field: V = 16 / itemsize columns a
+    thread (a float4 or double2) where N and every address allow the
+    vector, else 1; blocks of STATS_THREADS * V columns and
+    STATS_ROWS_X_VEC / V rows."""
+    vec = 16 // itemsize
+    if N % vec or any(a % 16 for a in addresses):
+        vec = 1
+    cols, rows = STATS_THREADS * vec, STATS_ROWS_X_VEC // vec
+    return vec, -(-N // cols) * -(-N // rows)
+
+
+def _ticket(device: torch.device) -> torch.Tensor:
+    """K3's ticket on ``device`` for the current stream: one counter that
+    is 0 between calls (the kernel's last block resets it)."""
+    key = (device.index, _stream())
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
 def stats_sums(U, EnergieEut: Optional[torch.Tensor], A0, A1, *,
                delx, RT, B, threshold):
     _square(U)
@@ -193,15 +222,16 @@ def stats_sums(U, EnergieEut: Optional[torch.Tensor], A0, A1, *,
     if EnergieEut is not None and EnergieEut.shape != U.shape:
         raise ValueError("EnergieEut and U differ in shape")
     N = U.shape[0]
-    nblocks = -(-N // STATS_ROWS_PER_BLOCK)
+    vec, nblocks = stats_grid(N, U.element_size(),
+                              *(t.data_ptr() for t in ops))
     partials = torch.empty((nblocks, 5), dtype=torch.float64,
                            device=U.device)
     sums = torch.empty((5,), dtype=torch.float64, device=U.device)
     _call('ch_stats', U.dtype, U.data_ptr(),
           None if EnergieEut is None else EnergieEut.data_ptr(), N,
           float(delx), float(RT), float(B), float(A0), float(A1),
-          float(threshold), partials.data_ptr(), nblocks, sums.data_ptr(),
-          _stream())
+          float(threshold), partials.data_ptr(), nblocks, vec,
+          _ticket(U.device).data_ptr(), sums.data_ptr(), _stream())
     launches['stats_sums'] += 1
     return sums
 
@@ -299,12 +329,14 @@ def slice_field(x, n_slices: int = MAX_SLICES):
 
 # ----------------------------------------------------------------------
 # K6: float32 GEMM (replaces pallas_kernels.matmul, dct2_pallas and
-# idct2_pallas)
+# idct2_pallas): 3xTF32 on the tensor cores (csrc/gemm_sm90.cu)
 # ----------------------------------------------------------------------
 
 def matmul_ref(A, B):
     """A @ B in full float32 (TF32 off for the call, as the TPU kernel
-    contracts at ``Precision.HIGHEST``)."""
+    contracts at ``Precision.HIGHEST``).  The kernel computes the same
+    product in three TF32 passes (hi/lo operand split), in the float32
+    class: within 4x this version's error against float64."""
     cuda_mm = torch.backends.cuda.matmul
     prev = cuda_mm.allow_tf32
     cuda_mm.allow_tf32 = False
@@ -332,7 +364,9 @@ def _gemm_operand(X: torch.Tensor):
 
 def matmul(A, B):
     """A @ B for float32 (M, K) and (K, N); either operand may be the
-    ``.T`` view of a row-major matrix (read in place, no copy)."""
+    ``.T`` view of a row-major matrix.  On the card the kernel first writes
+    hi/lo TF32 copies of both operands, K-major and tiled, into a scratch
+    buffer allocated here."""
     if A.dim() != 2 or B.dim() != 2 or A.shape[1] != B.shape[0] \
             or 0 in A.shape + B.shape:
         raise ValueError(f"matmul takes non-empty (M, K) @ (K, N), got "
@@ -356,8 +390,11 @@ def matmul(A, B):
     out = torch.empty((M, N), dtype=A.dtype, device=A.device)
     ta, lda = _gemm_operand(A)
     tb, ldb = _gemm_operand(B)
+    from .cuda_build import load_library
+    ws = torch.empty((load_library().ch_matmul_workspace_f32(M, N, Kd),),
+                     dtype=torch.float32, device=A.device)
     _call('ch_matmul', A.dtype, A.data_ptr(), ta, lda, B.data_ptr(), tb, ldb,
-          out.data_ptr(), N, M, N, Kd, _stream())
+          out.data_ptr(), N, M, N, Kd, ws.data_ptr(), _stream())
     launches['matmul'] += 1
     return out
 

@@ -3,8 +3,8 @@ K7/K8 included) against their plain PyTorch versions, and the ozaki, split
 and FFT transforms, short solves and a grid-sharded solve of ranks sharing
 the card on the card against the same on the CPU.
 
-These tests need an NVIDIA card with ``nvcc`` (they build
-``csrc/ch_kernels.cu``); without one they skip.  They import no jax, so
+These tests need an NVIDIA card with ``nvcc`` (they build the kernels of
+``csrc/``); without one they skip.  They import no jax, so
 they run where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -52,7 +52,7 @@ def _tol(dtype):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-@pytest.mark.parametrize('N', [2, 3, 33, 1000])
+@pytest.mark.parametrize('N', [2, 3, 33, 1000, 1001])
 def test_kernels_match_plain_versions(card, dtype, N):
     U = _field(N, dtype, card)
     p = PHYS
@@ -105,6 +105,28 @@ def test_stats_sums_are_reproducible(card):
     for _ in range(5):
         assert torch.equal(K.stats_sums(U, U, PHYS['A0'], PHYS['A1'], **kw),
                            first)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_stats_sums_scalar_path_on_an_unaligned_field(card, dtype):
+    """A field that starts 1 element past a 16-byte boundary takes K3's
+    one-column path (the vector loads need aligned rows) and gives the
+    vector path's sums, up to the float64 summation order."""
+    N = 512
+    U = _field(N, dtype, card)
+    store = torch.empty(N * N + 1, dtype=dtype, device=card)
+    Uo = store[1:].view(N, N)
+    Uo.copy_(U)
+    assert K.stats_grid(N, U.element_size(), Uo.data_ptr())[0] == 1
+    assert K.stats_grid(N, U.element_size(), U.data_ptr())[0] > 1
+    kw = dict(delx=PHYS['delx'], RT=PHYS['RT'], B=PHYS['B'],
+              threshold=PHYS['threshold'])
+    got = K.stats_sums(Uo, None, PHYS['A0'], PHYS['A1'], **kw)
+    vec = K.stats_sums(U, None, PHYS['A0'], PHYS['A1'], **kw)
+    ref = K.stats_sums_ref(U, None, PHYS['A0'], PHYS['A1'], **kw)
+    assert got[3] == ref[3]
+    torch.testing.assert_close(got, ref, rtol=_tol(dtype), atol=0)
+    torch.testing.assert_close(got, vec, rtol=1e-13, atol=0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

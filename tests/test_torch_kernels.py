@@ -188,3 +188,20 @@ def test_wrappers_refuse_other_devices_and_mixed_inputs():
     with pytest.raises(ValueError, match='N >= 2'):
         K.stats_sums(torch.ones((1, 1), dtype=torch.float64), None, 0, 0,
                      delx=1.0, RT=1.0, B=1.0, threshold=0.5)
+
+
+@pytest.mark.parametrize('N,itemsize,addr,want', [
+    (4096, 4, 0, (4, 4 * 256)),        # float4 columns, 16-row bands
+    (4096, 8, 0, (2, 8 * 128)),        # double2 columns, 32-row bands
+    (1000, 4, 256, (4, 1 * 63)),
+    (1001, 4, 0, (1, 4 * 16)),         # no vector width divides 1001
+    (1001, 8, 0, (1, 4 * 16)),
+    (4096, 4, 4, (1, 16 * 64)),        # a field 4 B past a 16-B boundary
+    (2, 8, 0, (2, 1)),
+])
+def test_stats_grid_depends_on_the_shape_alone(N, itemsize, addr, want):
+    """K3's (vector width, blocks): fixed by N, the element size and the
+    alignment of the field, so every run on every card sums the same
+    partials in the same order."""
+    assert K.stats_grid(N, itemsize, addr) == want
+    assert K.stats_grid(N, itemsize, addr, addr + 16 * N) == want
