@@ -26,8 +26,11 @@ Phases (each raises on failure, so the script exits nonzero):
    per-layer times of one step;
 6. the float64 ozaki route (``transform_backend='ozaki'``):
    (a) the slice kernel against its plain version at N = 4096, 1000 and
-   512, 4, 6 and 8 slices, three field classes: the same slices to the bit
-   and the same scale, both timed;
+   512, 4, 6 and 8 slices, three field classes and a field whose max|x|
+   lies one ulp above a power of two (the scale's log2/ceil formula, not
+   frexp's exponent): the same slices to the bit, the same scale and one
+   count a call, both timed, and each of the kernel's two launches (the
+   max pass that writes the scale, the slice pass) timed alone;
    (b) the canonical run through ``Simulator.solve`` on the level-1 fold
    route: stop at 1674 with the golden anchors, and the slice kernel
    launched exactly as often as the route implies (the slice kernel's
@@ -67,7 +70,11 @@ Phases (each raises on failure, so the script exits nonzero):
    float32 and float64, with halos from the neighbour blocks (K3's
    tolerances), and the blocks' sums in rank order against K3 on the whole
    field (1e-13 relative in float64, 1e-12 in float32: only the float64
-   summation order differs); K7 and its plain version timed on a 2x2
+   summation order differs); K7 on the whole field as one block (offsets
+   0, edge-replicated halos) gives K3's sums to the bit; K7 gives the same
+   bits in 30 calls on a 2x2 block; a block whose W no vector width
+   divides and a block with an unaligned halo row (K7's one-column path)
+   against the plain version; K7 and its plain version timed on a 2x2
    block beside the bound;
    (b) K8 on a block against K1 on the same block: the same bits;
    (c) a 2x2 world of 4 ranks on the card (gloo, collectives staged
@@ -517,6 +524,20 @@ def fast_mode(card):
 # phase 6: the float64 ozaki route
 # ----------------------------------------------------------------------
 
+# phase 6 (a): max|x| of the 'ulp' field, one ulp above 2^SLICE_ULP_EXP,
+# where ceil(log2(.)) and frexp's exponent differ by one
+SLICE_ULP_EXP = 8
+
+
+def slice_launch_ms(K, x, n):
+    """Device time of each launch of the slice kernel alone: the max pass
+    that writes the scale, and the slice pass."""
+    _, inv = K._slice_scale_launch(x)
+    return {'slice_scale_kernel': device_ms(lambda: K._slice_scale_launch(x)),
+            'slice_kernel': device_ms(
+                lambda: K._slice_planes_launch(x, inv, n))}
+
+
 def slice_phase(dev, card):
     """(a) the slice kernel against its plain version on the card."""
     import numpy as np
@@ -529,35 +550,44 @@ def slice_phase(dev, card):
         fields = {'solver': 0.875 + 0.01 * (rng.random((N, N)) - 0.5),
                   'normal': rng.standard_normal((N, N)),
                   'zeros': np.zeros((N, N))}
+        ulp = np.clip(rng.standard_normal((N, N)) * 20.0, -120.0, 120.0)
+        ulp[N // 3, N // 2] = -np.nextafter(2.0 ** SLICE_ULP_EXP, np.inf)
+        fields['ulp'] = ulp
         for kind, f in fields.items():
             x = torch.tensor(f, dtype=torch.float64, device=dev)
             for n in (4, 6, 8):
+                K.reset_launches()
                 got, scale = K.slice_field(x, n)
+                counted = K.launches['slice_field']
                 want, wscale = K.slice_field_ref(x, n)
                 torch.cuda.synchronize()
                 err = (got.int() - want.int()).abs().max().item()
-                ok = err == 0 and scale.item() == wscale.item()
+                ok = err == 0 and scale.item() == wscale.item() \
+                    and counted == 1
+                if kind == 'ulp':
+                    # the plain formula's exponent, not frexp's
+                    ok = ok and scale.item() == 2.0 ** (SLICE_ULP_EXP + 2)
                 row = {'name': 'slice_field', 'N': N, 'n_slices': n,
                        'field': kind, 'max_abs_err': err,
                        'scale': scale.item(), 'plain_scale': wscale.item(),
-                       'tolerance': 'bit-identical slices, equal scale',
+                       'tolerance': 'bit-identical slices, equal scale, one '
+                                    'count a call',
                        'ok': ok}
                 if kind == 'solver':
                     row.update(timed_row(lambda: K.slice_field(x, n),
                                          lambda: K.slice_field_ref(x, n)))
-                    # the wrapper's scale (max|x|, log2, exp2) alone
-                    row['scale_ms'] = device_ms(lambda: K.slice_scale(x))
+                    row['launch_ms'] = slice_launch_ms(K, x, n)
                 rows.append(row)
-                times = (f"kernel {row['ms']:.4f} ms (scale "
-                         f"{row['scale_ms']:.4f}) plain "
-                         f"{row['plain_ms']:.4f} ms  ({card})"
-                         if 'ms' in row else '')
+                times = (f"kernel {row['ms']:.4f} ms (" + ', '.join(
+                    f"{k} {v:.4f}" for k, v in row['launch_ms'].items())
+                    + f") plain {row['plain_ms']:.4f} ms  ({card})"
+                    if 'ms' in row else '')
                 print(f"kernel slice_field N={N:5d} n={n} {kind:6s} "
                       f"max diff {err} scale {row['scale']!r} "
                       f"{'ok' if ok else 'FAIL'}  {times}", flush=True)
                 check(ok, f"slice_field N={N} n={n} {kind}: slices differ "
                           f"by {err} or scale {row['scale']!r} != "
-                          f"{row['plain_scale']!r}")
+                          f"{row['plain_scale']!r} ({counted} counts)")
     return rows
 
 
@@ -1204,6 +1234,14 @@ def shard_kernel_phase(dev, card):
                     Ub, halo = block_halo(U, 0, 0, bn, bw)
                     Eb = block_halo(E, 0, 0, bn, bw)[0]
                     args = (Ub, *halo, Eb, cfg.A0, cfg.A1, 0, 0)
+                    # fixed-order sums: the same bits every call
+                    first = K.local_band_sums(*args, **skw)
+                    row['same_bits_calls'] = DETERMINISM_CALLS
+                    row['ok'] = row['ok'] and all(
+                        torch.equal(K.local_band_sums(*args, **skw), first)
+                        for _ in range(DETERMINISM_CALLS - 1))
+                    row['tolerance'] += (f'; the same bits in '
+                                         f'{DETERMINISM_CALLS} calls')
                     row.update(timed_row(
                         lambda: K.local_band_sums(*args, **skw),
                         lambda: K.local_band_sums_ref(*args, **skw)))
@@ -1249,6 +1287,64 @@ def shard_kernel_phase(dev, card):
                       f"{'ok' if row['ok'] else 'FAIL'}{times}", flush=True)
                 check(row['ok'], f"K7 N={N} {dname} {mx}x{my}: rel {rel:.3e}"
                                  f", blocks vs K3 {total_rel:.3e}")
+            rows += shard_whole_and_scalar(K, U, E, cfg, skw, whole, dname)
+    return rows
+
+
+def shard_whole_and_scalar(K, U, E, cfg, skw, whole, dname):
+    """K7 on the whole field as one block against K3 (the same bits), and
+    K7's one-column path against its plain version: a block whose W no
+    vector width divides and a block whose up row starts 8 bytes past a
+    16-byte boundary."""
+    import torch
+    N = U.shape[0]
+    rows = []
+    Ub, halo = block_halo(U, 0, 0, N, N)
+    got = K.local_band_sums(Ub, *halo, E, cfg.A0, cfg.A1, 0, 0, **skw)
+    torch.cuda.synchronize()
+    same = torch.equal(got, whole)
+    rows.append({'name': 'local_band_sums', 'N': N, 'dtype': dname,
+                 'mesh': '1x1', 'block': f'{N}x{N}', 'identical_to_K3': same,
+                 'max_abs_err': (got - whole).abs().max().item(),
+                 'tolerance': "K3's bits", 'ok': same})
+    print(f"kernel local_band_sums N={N} {dname} whole field as one block: "
+          f"identical to K3 {same}", flush=True)
+    check(same, f"K7 N={N} {dname} on the whole field: bits differ from K3")
+    h = N // 2
+    # a (h, h - 1) block at (0, h + 1): the global right edge, W odd
+    odd = (U[:h, h + 1:].contiguous(),
+           (U[0, h + 1:].contiguous(), U[h, h + 1:].contiguous(),
+            U[:h, h].contiguous(), U[:h, N - 1].contiguous()),
+           E[:h, h + 1:].contiguous(), 0, h + 1, 'odd W')
+    # the (h, h) block at (h, 0) with its up row in an unaligned copy
+    store = torch.empty(h + 1, dtype=U.dtype, device=U.device)
+    up = store[1:]
+    up.copy_(U[h - 1, :h])
+    Ub, halo = block_halo(U, 1, 0, h, h)
+    unaligned = (Ub, (up,) + halo[1:], block_halo(E, 1, 0, h, h)[0], h, 0,
+                 'unaligned up row')
+    rtol = 1e-12 if dname == 'float64' else 1e-5
+    for Ub, halo, Eb, r0, c0, what in (odd, unaligned):
+        vec = K.local_stats_grid(*Ub.shape, N, r0, c0, Ub.element_size(),
+                                 *(t.data_ptr()
+                                   for t in (Ub, halo[0], halo[1], Eb)))[0]
+        args = (Ub, *halo, Eb, cfg.A0, cfg.A1, r0, c0)
+        got = K.local_band_sums(*args, **skw)
+        want = K.local_band_sums_ref(*args, **skw)
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        rel = (d / want.abs()).max().item()
+        ok = vec == 1 and rel <= rtol and got[3].item() == want[3].item()
+        rows.append({'name': 'local_band_sums', 'N': N, 'dtype': dname,
+                     'mesh': what, 'block': '%dx%d' % tuple(Ub.shape),
+                     'vec': vec, 'max_abs_err': d.max().item(),
+                     'max_rel_err': rel,
+                     'tolerance': f'one-column path, rtol {rtol:g}, count '
+                                  f'exact', 'ok': ok})
+        print(f"kernel local_band_sums N={N} {dname} {what} block "
+              f"{rows[-1]['block']} at ({r0}, {c0}): V={vec} rel {rel:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"K7 N={N} {dname} {what}: V={vec}, rel {rel:.3e}")
     return rows
 
 
@@ -1420,6 +1516,7 @@ def summary_rows(detail):
                        if (r['N'], r['n_slices'], r['field']) == SLICE_REPORT)
             launches = detail['ozaki']['default_run']['launches'][name]
             extra = {'shape': f"{N}x{N} float64 -> {n} int8 slices",
+                     'launch_ms': row['launch_ms'],
                      **kernel_bound(name, N, 'float64', n)}
         elif name == 'matmul':
             row = detail['routes']['gemm'][0]
@@ -1456,6 +1553,7 @@ def summary_rows(detail):
             'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
             'call_ms': row['call_ms'], 'plain_ms': row['plain_ms'],
             'library_ms': row.get('library_ms'), **extra})
+        rows[-1]['bound_share'] = rows[-1]['bound_ms'] / row['ms']
     return rows
 
 
@@ -1477,10 +1575,13 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     for r in report:
         if 'bound_ms' not in r:     # the slice kernel's row
             r.update(kernel_bound(r['name'], r['N'], 'float64'))
+        launches = ''.join(f"  {k} {v:.4f} ms"
+                           for k, v in r.get('launch_ms', {}).items())
         print(f"kernels-only {r['name']:26s} {r.get('dtype', ''):8s} "
               f"device {r['ms']:.4f} ms  one call {r['call_ms']:.4f} ms  "
               f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_ms'] / r['ms']:.0%})  ({card})", flush=True)
+              f"({r['bound_ms'] / r['ms']:.1%}){launches}  ({card})",
+              flush=True)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, 'chip_smoke_kernels.json'),

@@ -9,9 +9,10 @@
 // int8 planes for the ozaki route and exists for double only.  K6, the
 // float32 GEMM of the DCT bake-off's 'gemm' route (ROADMAP.md kernel B5),
 // lives in gemm_sm90.cu (tensor cores, 3xTF32).  On a grid mesh (one rank
-// per block of the field) K7 is K3 on a block with halo vectors from the
-// neighbour ranks (kernel B7), and K8 (B8) is K1's mu_kernel launched on
-// the block: it has no source of its own.
+// per block of the field) K7 is K3's stats_kernel on a block with halo
+// vectors from the neighbour ranks (kernel B7): one body, the halo a
+// compile-time flag.  K8 (B8) is K1's mu_kernel launched on the block: it
+// has no source of its own.
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes by
 // chsimpy_tpu_torch/ops/kernels.py.  Every entry launches on the stream it
@@ -106,21 +107,39 @@ update_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
   out[i] = (hat_U[i] + Seig[i] * hat_E[i]) / CHeig[i];
 }
 
-// K3 — fused field statistics in one launch.  Replaces stats_band_sums /
-// _stats_band_kernel (pallas_kernels.py:205-258, 288-321).
-// Five full-field sums: the Flory-Huggins integrand, |grad U|^2 with the
-// np.gradient edge_order=1 stencil, sum U, #(U < threshold), and
-// sum EnergieEut^2 (zero when E is null: the prepare path).  Terms are
-// formed in the field type, with the plain version's true quotients, and
-// accumulated in double, as the float32 stop predicate needs.
+// K3 and K7 — fused field statistics in one launch.  K3 replaces
+// stats_band_sums / _stats_band_kernel (pallas_kernels.py:205-258,
+// 288-321) on the whole field; K7 replaces _local_band_sums /
+// _stats_band_kernel_sh (pallas_kernels.py:382-461), which
+// fused_stats_sharded (:489-535) runs on each rank's block of a
+// grid-sharded field.  Both are stats_kernel: K3 with HALO false (the
+// field is the block, the compiler sees the offsets as 0), K7 with HALO
+// true.
+// Five sums: the Flory-Huggins integrand, |grad U|^2 with the np.gradient
+// edge_order=1 stencil, sum U, #(U < threshold), and sum EnergieEut^2
+// (zero when E is null: the prepare path).  Terms are formed in the field
+// type, with the plain version's true quotients, and accumulated in
+// double, as the float32 stop predicate needs.
 //
-// Its byte bound: U and E read once, 134 MB per call at N=4096 f32.  Per
-// element it also takes two logs, two true divisions and four float64
-// conversions and adds, which on the H100 cost about as much time as the
-// bytes (K1, one log and one division per element over the same bytes,
-// runs nearer its bound).  A row sweep keeps the bytes to one pass:
+// K7's block U is (bn, W) with row stride W, its rows starting at global
+// row row_off and its columns at col_off of the (N, N) field.  Where the
+// stencil crosses the block's edge it reads the halo vectors the caller
+// received from the neighbour ranks: up_row / dn_row (W each: the last row
+// of the block above, the first row of the block below) as rows -1 and bn
+// of the sweep, and lf_col / rt_col (bn each) as the values beyond the
+// block's first and last column.  The one-sided differences test the
+// GLOBAL row and column, so the sums of all blocks are the whole field's.
+// The TPU caller concatenates four shifted copies of the block for its
+// banded operands; here the halo is read in place.
+//
+// Its byte bound: U and E read once, 134 MB per call at N=4096 f32 (33.6
+// MB on a 2048 x 2048 block).  Per element it also takes two logs, two true
+// divisions and four float64 conversions and adds, which on the H100 cost
+// about as much time as the bytes (K1, one log and one division per
+// element over the same bytes, runs nearer its bound).  A row sweep keeps
+// the bytes to one pass:
 // * each thread owns V contiguous columns (a float4 in float32, a double2
-//   in float64; V=1 where N or an address does not allow the vector) and
+//   in float64; V=1 where W or an address does not allow the vector) and
 //   walks down a band of kStatsRowsV / V rows (16 with the vector) with the
 //   rows above, at and below in registers, so a U element is loaded once,
 //   plus three halo rows per band; every load is issued one row before the
@@ -128,14 +147,17 @@ update_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
 //   registers for more blocks an SM or float2 in float32 were slower on
 //   the H100);
 // * the column neighbours come from the adjacent lanes (shuffles); lanes 0
-//   and 31 load the one value beyond the warp's columns;
-// * the one-sided edges (rows 0 and N-1, columns 0 and N-1) are decided per
-//   row and per thread, not per element;
+//   and 31 load the one value beyond the warp's columns (lane 0 at the
+//   block's left edge: lf_col), and under HALO the thread that holds column
+//   W-1 reads rt_col;
+// * the one-sided edges (global rows 0 and N-1, columns 0 and N-1) are
+//   decided per row and per thread, not per element;
 // * one launch: every block writes its five float64 sums to partials, and
 //   the last block to finish (an atomic ticket after __threadfence) adds
 //   all partials in a fixed order and resets the ticket to 0 for the next
-//   call.  The grid depends on N (and V) alone, never on the card: every
-//   run gives the same bits.
+//   call.  The grid depends on (bn, W) and V alone, never on the card or
+//   the offsets: every run gives the same bits, and K7 on the whole field
+//   gives K3's.
 constexpr int kStatsRowsV = 64;        // rows per band times V
 
 template <typename T, int V>
@@ -151,74 +173,97 @@ __device__ __forceinline__ void load_vec(const T* p, T (&v)[V]) {
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, bool HALO>
 __global__ void __launch_bounds__(kThreads)
-stats_kernel(const T* __restrict__ U, const T* __restrict__ E, int N,
-             double delx, T RT, T B, T A0, T A1, T threshold,
-             double* __restrict__ partials, unsigned int* __restrict__ ticket,
-             double* __restrict__ sums) {
+stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
+             const T* __restrict__ up_row, const T* __restrict__ dn_row,
+             const T* __restrict__ lf_col, const T* __restrict__ rt_col,
+             int block_rows, int block_cols, int N, int block_row_off,
+             int block_col_off, double delx, T RT, T B, T A0, T A1,
+             T threshold, double* __restrict__ partials,
+             unsigned int* __restrict__ ticket, double* __restrict__ sums) {
+  const int bn = HALO ? block_rows : N;
+  const int W = HALO ? block_cols : N;
+  const int row_off = HALO ? block_row_off : 0;
+  const int col_off = HALO ? block_col_off : 0;
   const T h = T(delx);
   const T h2 = T(2.0 * delx);
   const int lane = threadIdx.x & 31;
   const int c0 = (blockIdx.x * kThreads + threadIdx.x) * V;
   const int wc0 = (blockIdx.x * kThreads + (threadIdx.x & ~31)) * V;
   const int wc1 = wc0 + 32 * V;          // one past the warp's columns
-  const bool active = c0 < N;            // N % V == 0: all V columns exist
-  const bool first_col = c0 == 0;
-  const bool last_col = c0 + V - 1 == N - 1;
+  const bool active = c0 < W;            // W % V == 0: all V columns exist
+  const bool first_col = c0 + col_off == 0;
+  const bool last_col = c0 + col_off + V - 1 == N - 1;
   const int r0 = blockIdx.y * (kStatsRowsV / V);
-  const int r1 = min(r0 + kStatsRowsV / V, N);
+  const int r1 = min(r0 + kStatsRowsV / V, bn);
   const bool has_e = E != nullptr;
   // the one value beyond the warp's columns that a row needs: lane 0 the
-  // left one, lane 31 the right one
-  const bool edge_lane = (lane == 0 && active && wc0 > 0) ||
-                         (lane == 31 && wc1 < N);
-  const int edge_col = lane == 0 ? wc0 - 1 : wc1;
-  auto below = [&](int r) { return r < N - 1 ? r + 1 : N - 1; };
+  // left one, lane 31 the right one; under HALO, the value right of column
+  // W-1 (rt_col) goes to the thread that holds it, whichever lane that is
+  const bool edge_lane = (lane == 0 && active && (HALO || wc0 > 0)) ||
+                         (lane == 31 && wc1 < W);
+  const bool left_halo = HALO && lane == 0 && wc0 == 0;
+  const T* edge_base = left_halo ? lf_col : U + (lane == 0 ? wc0 - 1 : wc1);
+  const long long edge_stride = left_halo ? 1 : W;
+  const bool tail = HALO && active && c0 + V == W;
+  // rows -1 and bn of the sweep are the halo rows; K3 clamps to the field
+  // (the one-sided differences at its edges never read the clamped row)
+  const int last_row = HALO ? bn : N - 1;
+  auto below = [&](int r) { return r < last_row ? r + 1 : last_row; };
+  // the next row of E and of the edge values stays in the block
+  auto below_in = [&](int r) { return r < bn - 1 ? r + 1 : bn - 1; };
   auto load_row = [&](const T* F, int r, T (&v)[V]) {
+    const T* row = HALO && r < 0 ? up_row
+                   : HALO && r == bn ? dn_row : F + (long long)r * W;
     if (active) {
-      load_vec<T, V>(F + (long long)r * N + c0, v);
+      load_vec<T, V>(row + c0, v);
     } else {
 #pragma unroll
       for (int j = 0; j < V; ++j) v[j] = T(0);
     }
   };
   auto load_edge = [&](int r) {
-    return edge_lane ? U[(long long)r * N + edge_col] : T(0);
+    return edge_lane ? edge_base[(long long)r * edge_stride] : T(0);
   };
+  auto load_tail = [&](int r) { return tail ? rt_col[r] : T(0); };
   double acc[kNStats] = {0.0, 0.0, 0.0, 0.0, 0.0};
   int count = 0;
-  // rows r-1, r, r+1 of U, row r of E and row r's edge value; the loop
+  // rows r-1, r, r+1 of U, row r of E and row r's edge values; the loop
   // loads row r+2 of U and row r+1 of the others before it computes row r
   T up[V], cur[V], dn[V], e[V];
-  load_row(U, r0 > 0 ? r0 - 1 : 0, up);
+  load_row(U, HALO ? r0 - 1 : (r0 > 0 ? r0 - 1 : 0), up);
   load_row(U, r0, cur);
   load_row(U, below(r0), dn);
   if (has_e) load_row(E, r0, e);
   T edge = load_edge(r0);
+  T rt = HALO ? load_tail(r0) : T(0);
   for (int r = r0; r < r1; ++r) {
     T un[V], en[V];
     load_row(U, below(below(r)), un);
-    if (has_e) load_row(E, below(r), en);
-    const T edge_n = load_edge(below(r));
+    if (has_e) load_row(E, below_in(r), en);
+    const T edge_n = load_edge(below_in(r));
+    const T rt_n = HALO ? load_tail(below_in(r)) : T(0);
     T left = __shfl_up_sync(0xffffffffu, cur[V - 1], 1);
     T right = __shfl_down_sync(0xffffffffu, cur[0], 1);
     if (lane == 0) left = edge;
     if (lane == 31) right = edge;
+    if (tail) right = rt;
+    const int gr = r + row_off;
     if (active) {
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const T u = cur[j];
         T dux;
-        if (r == 0) dux = (dn[j] - u) / h;
-        else if (r == N - 1) dux = (u - up[j]) / h;
+        if (gr == 0) dux = (dn[j] - u) / h;
+        else if (gr == N - 1) dux = (u - up[j]) / h;
         else dux = (dn[j] - up[j]) / h2;
         const T l = j == 0 ? left : cur[j > 0 ? j - 1 : 0];
-        const T rt = j == V - 1 ? right : cur[j < V - 1 ? j + 1 : 0];
+        const T rv = j == V - 1 ? right : cur[j < V - 1 ? j + 1 : 0];
         T duy;
-        if (j == 0 && first_col) duy = (rt - u) / h;
+        if (j == 0 && first_col) duy = (rv - u) / h;
         else if (j == V - 1 && last_col) duy = (u - l) / h;
-        else duy = (rt - l) / h2;
+        else duy = (rv - l) / h2;
         const T uinv = T(1) - u;
         const T integrand = RT * (u * (flog(u) - B) + uinv * flog(uinv))
                             + (A0 + A1 * (uinv - u)) * u * uinv;
@@ -237,6 +282,7 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E, int N,
       e[j] = en[j];
     }
     edge = edge_n;
+    rt = rt_n;
   }
   acc[3] = (double)count;
   block_sum<kNStats>(acc);
@@ -267,77 +313,6 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E, int N,
   }
 }
 
-// K7 — K3 on one rank's block of a grid-sharded field, pass 1.  Replaces
-// _local_band_sums / _stats_band_kernel_sh (pallas_kernels.py:382-461),
-// which fused_stats_sharded (:489-535) runs per shard.  The block U is
-// (bn, W), its rows starting at global row row_off and its columns at
-// col_off of the (N, N) field.  Where the stencil crosses the block's edge
-// it reads the halo vectors the caller received from the neighbour ranks:
-// up_row / dn_row (W each: the last row of the block above, the first row
-// of the block below) and lf_col / rt_col (bn each).  The TPU caller
-// concatenates four shifted (bn, W) copies of the block for its banded
-// operands; here the halo is read in place, so U and E are each read once
-// from device memory (neighbour rows come from L1/L2): 33.6 MB per call on
-// a 2048 x 2048 float32 block (N=4096 on a 2x2 mesh).  The one-sided
-// differences are keyed on the GLOBAL row and column, so the sums of all
-// blocks are the whole field's.  rows_per_block rows per block, one
-// element per thread and step, float64 partials, reduce_columns_kernel in
-// a fixed order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-local_stats_partials_kernel(const T* __restrict__ U,
-                            const T* __restrict__ up_row,
-                            const T* __restrict__ dn_row,
-                            const T* __restrict__ lf_col,
-                            const T* __restrict__ rt_col,
-                            const T* __restrict__ E, int bn, int W, int N,
-                            int row_off, int col_off, int rows_per_block,
-                            double delx, T RT, T B, T A0, T A1, T threshold,
-                            double* __restrict__ partials) {
-  const T h = T(delx);
-  const T h2 = T(2.0 * delx);
-  double acc[kNStats] = {0.0, 0.0, 0.0, 0.0, 0.0};
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(r0 + rows_per_block, bn);
-  for (int r = r0; r < r1; ++r) {
-    const T* row = U + (long long)r * W;
-    const T* up = r > 0 ? U + (long long)(r - 1) * W : up_row;
-    const T* dn = r < bn - 1 ? U + (long long)(r + 1) * W : dn_row;
-    const int gr = r + row_off;
-    for (int j = threadIdx.x; j < W; j += kThreads) {
-      const T u = row[j];
-      T dux;
-      if (gr == 0) dux = (dn[j] - u) / h;
-      else if (gr == N - 1) dux = (u - up[j]) / h;
-      else dux = (dn[j] - up[j]) / h2;
-      const T left = j > 0 ? row[j - 1] : lf_col[r];
-      const T right = j < W - 1 ? row[j + 1] : rt_col[r];
-      const int gc = j + col_off;
-      T duy;
-      if (gc == 0) duy = (right - u) / h;
-      else if (gc == N - 1) duy = (u - left) / h;
-      else duy = (right - left) / h2;
-      const T uinv = T(1) - u;
-      const T integrand = RT * (u * (flog(u) - B) + uinv * flog(uinv))
-                          + (A0 + A1 * (uinv - u)) * u * uinv;
-      acc[0] += (double)integrand;
-      acc[1] += (double)(dux * dux + duy * duy);
-      acc[2] += (double)u;
-      acc[3] += (u < threshold) ? 1.0 : 0.0;
-      if (E != nullptr) {
-        const T e = E[(long long)r * W + j];
-        acc[4] += (double)(e * e);
-      }
-    }
-  }
-  block_sum<kNStats>(acc);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < kNStats; ++k)
-      partials[(long long)blockIdx.x * kNStats + k] = acc[k];
-  }
-}
-
 // K4 — sum |U - mean|, pass 1.  Replaces absdev_band_sums /
 // _absdev_band_kernel (pallas_kernels.py:261-273, 348-369).
 // The mean is read from device memory (written by the step's own
@@ -358,74 +333,192 @@ absdev_partials_kernel(const T* __restrict__ U, long long n,
   if (threadIdx.x == 0) partials[blockIdx.x] = acc[0];
 }
 
-// K5 — float64 field -> int8 slices for the ozaki int8 transforms.
-// Replaces slice_field_pallas / _slice_kernel (chsimpy_tpu/ops/ozaki.py:
-// 214-262).  Matches the plain version (ops/kernels.py slice_field_ref) bit
-// for bit: split x into float32 hi = rn(x) and lo = rn(x - hi) (the double
-// subtraction is exact), scale both by the power of two inv (read from
-// device memory: the wrapper computes it from max|x| without a host sync),
-// then run the fixed-point chain v *= 128; s = rint(v); v -= s in float32
-// on each.  rintf rounds half to even, as torch.round and jnp.round do.
-// The lo chain starts at slice 3 (lo * 128^3 / scale < 1/2 rounds to 0 in
-// the first three).  Plane k of out gets int8(s_hi + s_lo).
+// K5 — float64 field -> int8 slices for the ozaki int8 transforms, scale
+// included.  Replaces slice_field_pallas / _slice_kernel
+// (chsimpy_tpu/ops/ozaki.py:214-262) and the scale before it.  Two
+// launches on the caller's stream, no host sync and no torch arithmetic:
 //
-// Bound by device-memory bandwidth: 8 bytes read and n_slices bytes written
-// per element, 0.27 GB per call at N=4096 with 8 slices.  The TPU wrapper
-// first writes hi and lo as two float32 arrays; Hopper has native float64,
-// so the field is read once and split in registers.  Each thread takes
-// kSliceElems neighbouring elements, so a warp stores 128 contiguous bytes
-// per plane as one 32-bit word a thread.
-constexpr int kSliceElems = 4;
+// 1. slice_scale_kernel: max|x| over the field, then the shared power of
+//    two of the plain version (ops/kernels.py slice_scale), to the bit:
+//    e = max(ceil(log2(amax + 1e-30)) + 2, -90) in float64 with CUDA's log2
+//    and ceil (what torch computes on the card; frexp would differ when
+//    amax lies just above a power of two), scale = exp2(e) and
+//    inv = float(exp2(-e)), exact at an integer e.  Each block takes the
+//    max of |x| as the bits of a non-negative double (their integer order
+//    is the numbers' order, a NaN above +inf, so a NaN propagates as in
+//    torch.amax), the last block to finish (K3's ticket) takes the max of
+//    the blocks' and writes scale and inv.  Max is order-free: the grid
+//    does not change the result.
+// 2. slice_kernel: split x into float32 hi = rn(x) and lo = rn(x - hi) (the
+//    double subtraction is exact), scale both by inv (read from device
+//    memory), then run the fixed-point chain v *= 128; s = rint(v); v -= s
+//    in float32 on each.  rintf rounds half to even, as torch.round and
+//    jnp.round do.  The lo chain starts at slice 3 (lo * 128^3 / scale <
+//    1/2 rounds to 0 in the first three).  Plane k of out gets
+//    int8(s_hi + s_lo): the plain version's bits.
+//
+// Bound by device-memory bandwidth: the field is read by both launches
+// (8 bytes an element each; at N=4096 the 134 MB field exceeds the 50 MB
+// L2) and n_slices bytes an element are written, 0.34 GB per call at
+// N=4096 with 4 slices.  The slice pass runs its blocks in reverse, so the
+// first to run read the end of the field, which the max pass read last and
+// L2 may still hold.  A warp takes 512 neighbouring elements, 16 a thread,
+// with double2 loads that read 512 contiguous bytes each; its bytes of a
+// plane go through shared memory so that each thread stores 16 contiguous
+// bytes (512 a warp per plane).  A field that is not 16-byte aligned, a
+// plane length n % 16 != 0 and the ragged last warp take scalar loads and
+// byte stores instead.
+constexpr int kSliceElems = 16;                       // a thread's elements
+constexpr int kSliceWarpTile = 32 * kSliceElems;      // a warp's
+constexpr int kSliceBlockTile = kThreads * kSliceElems;
+constexpr int kScaleLoads = 4;      // double2 loads a thread has in flight
+
+__device__ __forceinline__ unsigned long long abs_bits(double v) {
+  return (unsigned long long)__double_as_longlong(fabs(v));
+}
+
+__global__ void __launch_bounds__(kThreads)
+slice_scale_kernel(const double* __restrict__ x, long long n, bool vec,
+                   unsigned long long* __restrict__ partials,
+                   unsigned int* __restrict__ ticket,
+                   double* __restrict__ scale, float* __restrict__ inv) {
+  __shared__ unsigned long long sh[kWarps];
+  __shared__ bool last;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long t0 = (long long)blockIdx.x * kThreads + threadIdx.x;
+  unsigned long long m = 0;
+  if (vec) {
+    const double2* x2 = reinterpret_cast<const double2*>(x);
+    const long long n2 = n / 2;
+    long long i = t0;
+    for (; i + (kScaleLoads - 1) * stride < n2; i += kScaleLoads * stride) {
+      double2 q[kScaleLoads];
+#pragma unroll
+      for (int k = 0; k < kScaleLoads; ++k) q[k] = x2[i + k * stride];
+#pragma unroll
+      for (int k = 0; k < kScaleLoads; ++k)
+        m = max(m, max(abs_bits(q[k].x), abs_bits(q[k].y)));
+    }
+    for (; i < n2; i += stride) {
+      const double2 q = x2[i];
+      m = max(m, max(abs_bits(q.x), abs_bits(q.y)));
+    }
+    if ((n & 1) && t0 == 0) m = max(m, abs_bits(x[n - 1]));
+  } else {
+    for (long long i = t0; i < n; i += stride) m = max(m, abs_bits(x[i]));
+  }
+  auto block_max = [&](unsigned long long v) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v = max(v, __shfl_down_sync(0xffffffffu, v, off));
+    if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int w = 1; w < kWarps; ++w) v = max(v, sh[w]);
+    __syncthreads();
+    return v;                           // the block's max in thread 0
+  };
+  m = block_max(m);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = m;
+    __threadfence();                     // the partial before the ticket
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  m = 0;
+  for (unsigned int b = threadIdx.x; b < gridDim.x; b += kThreads)
+    m = max(m, __ldcg(partials + b));
+  m = block_max(m);
+  if (threadIdx.x == 0) {
+    const double amax = __longlong_as_double((long long)m);
+    double e = ceil(log2(amax + 1e-30)) + 2.0;
+    if (e < -90.0) e = -90.0;            // a NaN stays NaN, as in torch.clamp
+    *scale = exp2(e);
+    *inv = __double2float_rn(exp2(-e));
+    *ticket = 0u;
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 slice_kernel(const double* __restrict__ x, const float* __restrict__ inv_ptr,
-             signed char* __restrict__ out, long long n, int n_slices) {
-  const long long i0 =
-      ((long long)blockIdx.x * kThreads + threadIdx.x) * kSliceElems;
-  if (i0 >= n) return;
+             signed char* __restrict__ out, long long n, int n_slices,
+             bool vec) {
+  __shared__ __align__(16) unsigned char stage[kWarps][kSliceWarpTile];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long tile =
+      (long long)(gridDim.x - 1 - blockIdx.x) * kSliceBlockTile +
+      (long long)warp * kSliceWarpTile;
+  if (tile >= n) return;                // the whole warp
+  const bool full = vec && tile + kSliceWarpTile <= n;   // warp-uniform
   const float inv = *inv_ptr;
   const float inv_lo = inv * 2097152.0f;  // 128^3, exact: a power of two
   const int lo_skip = n_slices < 3 ? n_slices : 3;
-  const int cnt = n - i0 < kSliceElems ? (int)(n - i0) : kSliceElems;
+  // element 2k+b of the thread lies at tile + 64k + 2 lane + b
   float h[kSliceElems], l[kSliceElems];
 #pragma unroll
-  for (int e = 0; e < kSliceElems; ++e) {
-    const double v = e < cnt ? x[i0 + e] : 0.0;
-    const float hi = __double2float_rn(v);
-    const float lo = __double2float_rn(v - (double)hi);
-    h[e] = hi * inv;
-    l[e] = lo * inv_lo;
+  for (int k = 0; k < kSliceElems / 2; ++k) {
+    const long long i = tile + 64 * k + 2 * lane;
+    double v[2];
+    if (full) {
+      const double2 q = *reinterpret_cast<const double2*>(x + i);
+      v[0] = q.x;
+      v[1] = q.y;
+    } else {
+      v[0] = i < n ? x[i] : 0.0;
+      v[1] = i + 1 < n ? x[i + 1] : 0.0;
+    }
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const float hi = __double2float_rn(v[b]);
+      const float lo = __double2float_rn(v[b] - (double)hi);
+      h[2 * k + b] = hi * inv;
+      l[2 * k + b] = lo * inv_lo;
+    }
   }
-  // plane k starts at k * n: 4-byte aligned for every k when n % 4 == 0
-  const bool packed = cnt == kSliceElems && n % kSliceElems == 0;
-  for (int k = 0; k < n_slices; ++k) {
-    unsigned int word = 0;
+  for (int p = 0; p < n_slices; ++p) {
     signed char s8[kSliceElems];
 #pragma unroll
     for (int e = 0; e < kSliceElems; ++e) {
       h[e] = h[e] * 128.0f;
       float s = rintf(h[e]);
       h[e] = h[e] - s;
-      if (k >= lo_skip) {
+      if (p >= lo_skip) {
         l[e] = l[e] * 128.0f;
         const float t = rintf(l[e]);
         l[e] = l[e] - t;
         s = s + t;
       }
       s8[e] = (signed char)(int)s;
-      word |= (unsigned int)(unsigned char)s8[e] << (8 * e);
     }
-    signed char* dst = out + (long long)k * n + i0;
-    if (packed) {
-      *reinterpret_cast<unsigned int*>(dst) = word;
+    signed char* dst = out + (long long)p * n + tile;
+    if (full) {
+      // plane p starts at p * n, 16-byte aligned for every p (vec holds
+      // n % 16 == 0): two bytes a load into the warp's stage, then 16
+      // contiguous bytes a thread
+#pragma unroll
+      for (int k = 0; k < kSliceElems / 2; ++k)
+        *reinterpret_cast<unsigned short*>(&stage[warp][64 * k + 2 * lane]) =
+            (unsigned short)((unsigned char)s8[2 * k] |
+                             (unsigned)(unsigned char)s8[2 * k + 1] << 8);
+      __syncwarp();
+      const uint4 q = *reinterpret_cast<const uint4*>(&stage[warp][16 * lane]);
+      __syncwarp();                      // read before the next plane writes
+      *reinterpret_cast<uint4*>(dst + 16 * lane) = q;
     } else {
-      for (int e = 0; e < cnt; ++e) dst[e] = s8[e];
+#pragma unroll
+      for (int e = 0; e < kSliceElems; ++e) {
+        const int idx = 64 * (e / 2) + 2 * lane + (e % 2);
+        if (tile + idx < n) dst[idx] = s8[e];
+      }
     }
   }
 }
 
-// Pass 2 of K7 and K4: out[c] = sum over b of partials[b, c], one block,
-// fixed order.
+// Pass 2 of K4: out[c] = sum over b of partials[b, c], one block, fixed
+// order.
 __global__ void __launch_bounds__(kThreads)
 reduce_columns_kernel(const double* __restrict__ partials, int nrows,
                       int ncols, double* __restrict__ out) {
@@ -462,61 +555,60 @@ int launch_update(const void* hat_U, const void* hat_E, const void* Seig,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int V>
-int launch_stats_v(const void* U, const void* E, int N, double delx,
+template <typename T, int V, bool HALO>
+int launch_stats_v(const void* U, const void* E, const void* up,
+                   const void* dn, const void* lf, const void* rt, int bn,
+                   int W, int N, int row_off, int col_off, double delx,
                    double RT, double B, double A0, double A1,
                    double threshold, void* partials, int nblocks,
                    void* ticket, void* sums, cudaStream_t s) {
-  const dim3 grid((N + kThreads * V - 1) / (kThreads * V),
-                  (N + kStatsRowsV / V - 1) / (kStatsRowsV / V));
+  const dim3 grid((W + kThreads * V - 1) / (kThreads * V),
+                  (bn + kStatsRowsV / V - 1) / (kStatsRowsV / V));
   if ((long long)grid.x * grid.y != nblocks || grid.y > 65535)
     return (int)cudaErrorInvalidValue;
-  stats_kernel<T, V><<<grid, kThreads, 0, s>>>(
-      (const T*)U, (const T*)E, N, delx, T(RT), T(B), T(A0), T(A1),
-      T(threshold), (double*)partials, (unsigned int*)ticket, (double*)sums);
+  stats_kernel<T, V, HALO><<<grid, kThreads, 0, s>>>(
+      (const T*)U, (const T*)E, (const T*)up, (const T*)dn, (const T*)lf,
+      (const T*)rt, bn, W, N, row_off, col_off, delx, T(RT), T(B), T(A0),
+      T(A1), T(threshold), (double*)partials, (unsigned int*)ticket,
+      (double*)sums);
   return (int)cudaGetLastError();
 }
 
-// vec: 16 / sizeof(T) (the wrapper checks N and the addresses) or 1;
-// nblocks: the grid the wrapper sized partials for
-template <typename T>
-int launch_stats(const void* U, const void* E, int N, double delx, double RT,
-                 double B, double A0, double A1, double threshold,
+inline bool aligned16(const void* p) {
+  return ((unsigned long long)p & 15u) == 0;
+}
+
+// K3 (HALO false: the (N, N) field, no halo pointers) and K7 (a (bn, W)
+// block at (row_off, col_off) with its halo vectors).  vec: 16 / sizeof(T)
+// (the wrapper's local_stats_grid checks W and the addresses; checked again
+// here) or 1; nblocks: the grid the wrapper sized partials for
+template <typename T, bool HALO>
+int launch_stats(const void* U, const void* E, const void* up,
+                 const void* dn, const void* lf, const void* rt, int bn,
+                 int W, int N, int row_off, int col_off, double delx,
+                 double RT, double B, double A0, double A1, double threshold,
                  void* partials, int nblocks, int vec, void* ticket,
                  void* sums, void* stream) {
-  if (N < 2) return (int)cudaErrorInvalidValue;
+  if (bn < 1 || W < 1 || N < 2 || row_off < 0 || col_off < 0 ||
+      row_off + bn > N || col_off + W > N || U == nullptr ||
+      (HALO && (up == nullptr || dn == nullptr || lf == nullptr ||
+                rt == nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   constexpr int kVec = 16 / (int)sizeof(T);
-  if (vec == kVec)
-    return launch_stats_v<T, kVec>(U, E, N, delx, RT, B, A0, A1, threshold,
-                                   partials, nblocks, ticket, sums, s);
+  if (vec == kVec) {
+    if (W % kVec || !aligned16(U) || (E != nullptr && !aligned16(E)) ||
+        (HALO && (!aligned16(up) || !aligned16(dn))))
+      return (int)cudaErrorMisalignedAddress;
+    return launch_stats_v<T, kVec, HALO>(
+        U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, delx, RT, B, A0,
+        A1, threshold, partials, nblocks, ticket, sums, s);
+  }
   if (vec == 1)
-    return launch_stats_v<T, 1>(U, E, N, delx, RT, B, A0, A1, threshold,
-                                partials, nblocks, ticket, sums, s);
+    return launch_stats_v<T, 1, HALO>(
+        U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, delx, RT, B, A0,
+        A1, threshold, partials, nblocks, ticket, sums, s);
   return (int)cudaErrorInvalidValue;
-}
-
-template <typename T>
-int launch_local_stats(const void* U, const void* up, const void* dn,
-                       const void* lf, const void* rt, const void* E, int bn,
-                       int W, int N, int row_off, int col_off, double delx,
-                       double RT, double B, double A0, double A1,
-                       double threshold, void* partials, int nblocks,
-                       void* sums, void* stream) {
-  if (bn < 1 || W < 1 || N < 2 || nblocks < 1 || row_off < 0 ||
-      col_off < 0 || row_off + bn > N || col_off + W > N)
-    return (int)cudaErrorInvalidValue;
-  const int rows_per_block = (bn + nblocks - 1) / nblocks;
-  cudaStream_t s = (cudaStream_t)stream;
-  local_stats_partials_kernel<T><<<nblocks, kThreads, 0, s>>>(
-      (const T*)U, (const T*)up, (const T*)dn, (const T*)lf, (const T*)rt,
-      (const T*)E, bn, W, N, row_off, col_off, rows_per_block, delx, T(RT),
-      T(B), T(A0), T(A1), T(threshold), (double*)partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_columns_kernel<<<1, kThreads, 0, s>>>(
-      (const double*)partials, nblocks, kNStats, (double*)sums);
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -533,14 +625,32 @@ int launch_absdev(const void* U, long long n, const void* mean,
   return (int)cudaGetLastError();
 }
 
+// K5's first launch.  partials: max_blocks 64-bit words of scratch; the
+// grid is at most max_blocks blocks of 8 elements a thread
+int launch_slice_scale(const void* x, long long n, void* partials,
+                       int max_blocks, void* ticket, void* scale, void* inv,
+                       void* stream) {
+  if (n <= 0 || max_blocks < 1) return (int)cudaErrorInvalidValue;
+  const long long per_block = (long long)kThreads * 2 * kScaleLoads;
+  const long long want = (n + per_block - 1) / per_block;
+  const unsigned int blocks =
+      (unsigned int)(want < max_blocks ? want : max_blocks);
+  slice_scale_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const double*)x, n, aligned16(x), (unsigned long long*)partials,
+      (unsigned int*)ticket, (double*)scale, (float*)inv);
+  return (int)cudaGetLastError();
+}
+
+// K5's second launch: n_slices planes of n bytes into out
 int launch_slice(const void* x, const void* inv, void* out, long long n,
                  int n_slices, void* stream) {
   if (n <= 0 || n_slices < 1 || n_slices > 8)
     return (int)cudaErrorInvalidValue;
-  const long long per_block = (long long)kThreads * kSliceElems;
-  slice_kernel<<<(unsigned int)((n + per_block - 1) / per_block), kThreads, 0,
-                 (cudaStream_t)stream>>>(
-      (const double*)x, (const float*)inv, (signed char*)out, n, n_slices);
+  const bool vec = n % 16 == 0 && aligned16(x) && aligned16(out);
+  slice_kernel<<<(unsigned int)((n + kSliceBlockTile - 1) / kSliceBlockTile),
+                 kThreads, 0, (cudaStream_t)stream>>>(
+      (const double*)x, (const float*)inv, (signed char*)out, n, n_slices,
+      vec);
   return (int)cudaGetLastError();
 }
 
@@ -571,37 +681,40 @@ int ch_stats_f32(const void* U, const void* E, int N, double delx, double RT,
                  double B, double A0, double A1, double threshold,
                  void* partials, int nblocks, int vec, void* ticket,
                  void* sums, void* stream) {
-  return launch_stats<float>(U, E, N, delx, RT, B, A0, A1, threshold,
-                             partials, nblocks, vec, ticket, sums, stream);
+  return launch_stats<float, false>(
+      U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, delx, RT, B,
+      A0, A1, threshold, partials, nblocks, vec, ticket, sums, stream);
 }
 int ch_stats_f64(const void* U, const void* E, int N, double delx, double RT,
                  double B, double A0, double A1, double threshold,
                  void* partials, int nblocks, int vec, void* ticket,
                  void* sums, void* stream) {
-  return launch_stats<double>(U, E, N, delx, RT, B, A0, A1, threshold,
-                              partials, nblocks, vec, ticket, sums, stream);
+  return launch_stats<double, false>(
+      U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, delx, RT, B,
+      A0, A1, threshold, partials, nblocks, vec, ticket, sums, stream);
 }
 
-// K7: one block of a grid-sharded field (the halo vectors beside it)
+// K7: one block of a grid-sharded field (the halo vectors beside it); the
+// same ticket as K3
 int ch_local_stats_f32(const void* U, const void* up, const void* dn,
                        const void* lf, const void* rt, const void* E, int bn,
                        int W, int N, int row_off, int col_off, double delx,
                        double RT, double B, double A0, double A1,
                        double threshold, void* partials, int nblocks,
-                       void* sums, void* stream) {
-  return launch_local_stats<float>(U, up, dn, lf, rt, E, bn, W, N, row_off,
-                                   col_off, delx, RT, B, A0, A1, threshold,
-                                   partials, nblocks, sums, stream);
+                       int vec, void* ticket, void* sums, void* stream) {
+  return launch_stats<float, true>(
+      U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, delx, RT, B, A0, A1,
+      threshold, partials, nblocks, vec, ticket, sums, stream);
 }
 int ch_local_stats_f64(const void* U, const void* up, const void* dn,
                        const void* lf, const void* rt, const void* E, int bn,
                        int W, int N, int row_off, int col_off, double delx,
                        double RT, double B, double A0, double A1,
                        double threshold, void* partials, int nblocks,
-                       void* sums, void* stream) {
-  return launch_local_stats<double>(U, up, dn, lf, rt, E, bn, W, N, row_off,
-                                    col_off, delx, RT, B, A0, A1, threshold,
-                                    partials, nblocks, sums, stream);
+                       int vec, void* ticket, void* sums, void* stream) {
+  return launch_stats<double, true>(
+      U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, delx, RT, B, A0, A1,
+      threshold, partials, nblocks, vec, ticket, sums, stream);
 }
 
 int ch_absdev_f32(const void* U, long long n, const void* mean,
@@ -613,7 +726,15 @@ int ch_absdev_f64(const void* U, long long n, const void* mean,
   return launch_absdev<double>(U, n, mean, partials, nblocks, sums, stream);
 }
 
-// float64 only: the ozaki route is the float64 transform
+// float64 only: the ozaki route is the float64 transform.  K5 is
+// ch_slice_scale then ch_slice on one stream (scale: a double, inv: a
+// float, both written by the first; ticket: K3's)
+int ch_slice_scale_f64(const void* x, long long n, void* partials,
+                       int max_blocks, void* ticket, void* scale, void* inv,
+                       void* stream) {
+  return launch_slice_scale(x, n, partials, max_blocks, ticket, scale, inv,
+                            stream);
+}
 int ch_slice_f64(const void* x, const void* inv, void* out, long long n,
                  int n_slices, void* stream) {
   return launch_slice(x, inv, out, n, n_slices, stream);

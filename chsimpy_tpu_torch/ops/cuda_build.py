@@ -43,8 +43,9 @@ _SIGNATURES = {
     'ch_stats': ((_P, _P, _I, _D, _D, _D, _D, _D, _D, _P, _I, _I, _P, _P,
                   _P), _BOTH),
     'ch_local_stats': ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D,
-                        _D, _D, _D, _D, _P, _I, _P, _P), _BOTH),
+                        _D, _D, _D, _D, _P, _I, _I, _P, _P, _P), _BOTH),
     'ch_absdev': ((_P, _LL, _P, _P, _I, _P, _P), _BOTH),
+    'ch_slice_scale': ((_P, _LL, _P, _I, _P, _P, _P, _P), ('_f64',)),
     'ch_slice': ((_P, _P, _P, _LL, _I, _P), ('_f64',)),
     'ch_matmul': ((_P, _I, _LL, _P, _I, _LL, _P, _LL, _I, _I, _I, _P, _P),
                   ('_f32',)),

@@ -32,16 +32,17 @@ launches = {'chemical_potential': 0, 'spectral_update': 0,
             'stats_sums': 0, 'absdev_sum': 0, 'slice_field': 0, 'matmul': 0,
             'local_band_sums': 0, 'chemical_potential_sharded': 0}
 
-# grids of the reduction kernels: fixed by the shape (and, for K3, the
-# vector width) alone, so the summation order (and the result, to the bit)
-# never depends on the card
-STATS_THREADS = 256             # K3: threads per block, V columns each
-STATS_ROWS_X_VEC = 64           # K3: rows per band times V (kStatsRowsV)
-STATS_ROWS_PER_BLOCK = 4        # K7
+# grids of the reduction kernels: fixed by the shape (and, for K3 and K7,
+# the vector width) alone, so the summation order (and the result, to the
+# bit) never depends on the card
+STATS_THREADS = 256             # K3/K7: threads per block, V columns each
+STATS_ROWS_X_VEC = 64           # K3/K7: rows per band times V (kStatsRowsV)
 ABSDEV_ELEMS_PER_BLOCK = 8 * 256
 ABSDEV_MAX_BLOCKS = 4096
+SLICE_MAX_BLOCKS = 1024         # K5's max pass: blocks at most
 
-# K3's ticket counters, one per (device, stream): 0 between calls
+# the ticket counters of K3, K5 and K7, one per (device, stream): 0 between
+# calls
 _TICKETS: dict = {}
 
 _SUFFIX = {torch.float32: '_f32', torch.float64: '_f64'}
@@ -190,21 +191,39 @@ def stats_sums_ref(U, EnergieEut: Optional[torch.Tensor], A0, A1, *,
                         s_e2])
 
 
-def stats_grid(N: int, itemsize: int, *addresses: int):
-    """(V, blocks) of K3 on an (N, N) field: V = 16 / itemsize columns a
-    thread (a float4 or double2) where N and every address allow the
-    vector, else 1; blocks of STATS_THREADS * V columns and
-    STATS_ROWS_X_VEC / V rows."""
+def _check_block(bn: int, W: int, N: int, row_off: int, col_off: int):
+    if not (bn >= 1 and W >= 1 and N >= 2 and 0 <= row_off
+            and row_off + bn <= N and 0 <= col_off and col_off + W <= N):
+        raise ValueError(f"block {bn}x{W} at ({row_off}, {col_off}) does "
+                         f"not lie in an ({N}, {N}) field")
+
+
+def local_stats_grid(bn: int, W: int, N: int, row_off: int, col_off: int,
+                     itemsize: int, *addresses: int):
+    """(V, blocks) of the statistics kernel on a (bn, W) block at
+    (row_off, col_off) of an (N, N) field: V = 16 / itemsize columns a
+    thread (a float4 or double2) where W and every address (the block, E
+    and the halo rows) allow the vector, else 1; blocks of
+    STATS_THREADS * V columns and STATS_ROWS_X_VEC / V rows.  The offsets
+    only have to place the block in the field: the grid, and with it the
+    summation order, is the same wherever the block lies."""
+    _check_block(bn, W, N, row_off, col_off)
     vec = 16 // itemsize
-    if N % vec or any(a % 16 for a in addresses):
+    if W % vec or any(a % 16 for a in addresses):
         vec = 1
     cols, rows = STATS_THREADS * vec, STATS_ROWS_X_VEC // vec
-    return vec, -(-N // cols) * -(-N // rows)
+    return vec, -(-W // cols) * -(-bn // rows)
+
+
+def stats_grid(N: int, itemsize: int, *addresses: int):
+    """(V, blocks) of K3: the whole (N, N) field as one block."""
+    return local_stats_grid(N, N, N, 0, 0, itemsize, *addresses)
 
 
 def _ticket(device: torch.device) -> torch.Tensor:
-    """K3's ticket on ``device`` for the current stream: one counter that
-    is 0 between calls (the kernel's last block resets it)."""
+    """The ticket of K3, K5 and K7 on ``device`` for the current stream:
+    one counter that is 0 between calls (each kernel's last block resets
+    it; kernels on one stream never overlap)."""
     key = (device.index, _stream())
     t = _TICKETS.get(key)
     if t is None:
@@ -270,11 +289,11 @@ LO_SKIP = 3         # the lo component's first three slices are zero
 
 
 def slice_scale(x):
-    """The shared power-of-two scale of :func:`slice_field`, on x's device
-    with no host sync: (scale, a 0-d float64 tensor; inv = 2^-e, a
+    """The shared power-of-two scale of :func:`slice_field_ref`, on x's
+    device with no host sync: (scale, a 0-d float64 tensor; inv = 2^-e, a
     float32 tensor of shape (1,)).  e = max(ceil(log2(amax + 1e-30)) + 2,
     -90): |x| / scale <= 1/4, and an all-zero field keeps a finite
-    scale."""
+    scale.  K5's first launch computes the same bits on the card."""
     amax = torch.amax(torch.abs(x))
     e = torch.clamp(torch.ceil(torch.log2(amax + 1e-30)) + 2.0, min=-90.0)
     return torch.exp2(e), torch.exp2(-e).to(torch.float32).reshape(1)
@@ -309,7 +328,33 @@ def slice_field_ref(x, n_slices: int = MAX_SLICES):
     return torch.stack([s.to(torch.int8) for s in sl]), scale
 
 
+def _slice_scale_launch(x):
+    """K5's first launch: (scale, inv) of :func:`slice_scale`, computed on
+    the card from max|x| (``slice_scale_kernel``)."""
+    scale = torch.empty((), dtype=torch.float64, device=x.device)
+    inv = torch.empty((1,), dtype=torch.float32, device=x.device)
+    partials = torch.empty((SLICE_MAX_BLOCKS,), dtype=torch.int64,
+                           device=x.device)
+    _call('ch_slice_scale', x.dtype, x.data_ptr(), x.numel(),
+          partials.data_ptr(), SLICE_MAX_BLOCKS,
+          _ticket(x.device).data_ptr(), scale.data_ptr(), inv.data_ptr(),
+          _stream())
+    return scale, inv
+
+
+def _slice_planes_launch(x, inv, n_slices: int):
+    """K5's second launch: the int8 planes of x under ``inv``
+    (``slice_kernel``)."""
+    out = torch.empty((n_slices,) + tuple(x.shape), dtype=torch.int8,
+                      device=x.device)
+    _call('ch_slice', x.dtype, x.data_ptr(), inv.data_ptr(), out.data_ptr(),
+          x.numel(), n_slices, _stream())
+    return out
+
+
 def slice_field(x, n_slices: int = MAX_SLICES):
+    """On the card: the scale and the planes by two kernel launches, with
+    no torch arithmetic between them (one count a call)."""
     if x.dim() != 2 or x.dtype != torch.float64:
         raise TypeError(f"slice_field takes a 2-D float64 field, got "
                         f"{tuple(x.shape)} {x.dtype}")
@@ -318,11 +363,8 @@ def slice_field(x, n_slices: int = MAX_SLICES):
                          f"got {n_slices}")
     if not _on_card(x):
         return slice_field_ref(x, n_slices)
-    scale, inv = slice_scale(x)
-    out = torch.empty((n_slices,) + tuple(x.shape), dtype=torch.int8,
-                      device=x.device)
-    _call('ch_slice', x.dtype, x.data_ptr(), inv.data_ptr(), out.data_ptr(),
-          x.numel(), n_slices, _stream())
+    scale, inv = _slice_scale_launch(x)
+    out = _slice_planes_launch(x, inv, n_slices)
     launches['slice_field'] += 1
     return out, scale
 
@@ -466,9 +508,9 @@ def local_band_sums_ref(Ub, up_row, dn_row, lf_col, rt_col,
 def local_band_sums(Ub, up_row, dn_row, lf_col, rt_col,
                     Eb: Optional[torch.Tensor], A0, A1, row_off: int,
                     col_off: int, *, N, delx, RT, B, threshold):
-    """K7: :func:`local_band_sums_ref` on the card.  The kernel reads the
-    halo vectors where a stencil crosses the block's edge; no shifted
-    copy of the block is made."""
+    """K7: :func:`local_band_sums_ref` on the card, K3's kernel on the
+    block.  The kernel reads the halo vectors where a stencil crosses the
+    block's edge; no shifted copy of the block is made."""
     _block(Ub)
     bn, W = Ub.shape
     for name, v, n in (('up_row', up_row, W), ('dn_row', dn_row, W),
@@ -476,10 +518,7 @@ def local_band_sums(Ub, up_row, dn_row, lf_col, rt_col,
         if tuple(v.shape) != (n,):
             raise ValueError(f"{name} must have shape ({n},), got "
                              f"{tuple(v.shape)}")
-    if not (0 <= row_off and row_off + bn <= N and 0 <= col_off
-            and col_off + W <= N and N >= 2):
-        raise ValueError(f"block {bn}x{W} at ({row_off}, {col_off}) does "
-                         f"not lie in an ({N}, {N}) field")
+    _check_block(bn, W, N, row_off, col_off)
     ops = (Ub, up_row, dn_row, lf_col, rt_col)
     if Eb is not None:
         if Eb.shape != Ub.shape:
@@ -489,7 +528,10 @@ def local_band_sums(Ub, up_row, dn_row, lf_col, rt_col,
         return local_band_sums_ref(Ub, up_row, dn_row, lf_col, rt_col, Eb,
                                    A0, A1, row_off, col_off, N=N, delx=delx,
                                    RT=RT, B=B, threshold=threshold)
-    nblocks = -(-bn // STATS_ROWS_PER_BLOCK)
+    rows = (Ub, up_row, dn_row) + (() if Eb is None else (Eb,))
+    vec, nblocks = local_stats_grid(bn, W, N, row_off, col_off,
+                                    Ub.element_size(),
+                                    *(t.data_ptr() for t in rows))
     partials = torch.empty((nblocks, 5), dtype=torch.float64,
                            device=Ub.device)
     sums = torch.empty((5,), dtype=torch.float64, device=Ub.device)
@@ -497,8 +539,8 @@ def local_band_sums(Ub, up_row, dn_row, lf_col, rt_col,
           dn_row.data_ptr(), lf_col.data_ptr(), rt_col.data_ptr(),
           None if Eb is None else Eb.data_ptr(), bn, W, N, int(row_off),
           int(col_off), float(delx), float(RT), float(B), float(A0),
-          float(A1), float(threshold), partials.data_ptr(), nblocks,
-          sums.data_ptr(), _stream())
+          float(A1), float(threshold), partials.data_ptr(), nblocks, vec,
+          _ticket(Ub.device).data_ptr(), sums.data_ptr(), _stream())
     launches['local_band_sums'] += 1
     return sums
 

@@ -190,6 +190,24 @@ def test_slice_kernel_matches_plain_version(card, shape):
     assert K.launches['slice_field'] == calls
 
 
+@pytest.mark.parametrize('shape', [(1000, 1000), (64, 64), (33, 47)])
+def test_slice_kernel_one_ulp_above_a_power_of_two(card, shape):
+    """max|x| = 2^8 (1 + 2^-52): the kernel's scale is the plain version's
+    exp2(ceil(log2(amax + 1e-30)) + 2) on the card, not frexp's, and the
+    slices are the same bits; one count per call."""
+    rng = np.random.default_rng(17)
+    f = np.clip(rng.standard_normal(shape) * 20.0, -120.0, 120.0)
+    f[shape[0] // 3, shape[1] // 2] = -np.nextafter(256.0, np.inf)
+    x = torch.tensor(f, device=card)
+    K.reset_launches()
+    for n in (4, 6, 8):
+        got, scale = K.slice_field(x, n)
+        want, wscale = K.slice_field_ref(x, n)
+        assert torch.equal(got, want), n
+        assert float(scale) == float(wscale), n
+    assert K.launches['slice_field'] == 3
+
+
 def _route(N, route, L, device):
     if route == 'unfold':
         Cs, CsT, sc = oz.dct_slices(N, device)
@@ -391,6 +409,75 @@ def test_local_band_sums_kernel_matches_plain_version(card, dtype, N,
     whole = K.stats_sums(U, E, PHYS['A0'], PHYS['A1'], **{
         k: v for k, v in kw.items() if k != 'N'}).cpu()
     torch.testing.assert_close(total, whole, rtol=1e-13, atol=0)
+
+
+def _stats_kw(N):
+    return dict(N=N, delx=PHYS['delx'], RT=PHYS['RT'], B=PHYS['B'],
+                threshold=PHYS['threshold'])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('N', [1000, 1001, 512])
+def test_local_band_sums_on_the_whole_field_gives_k3s_bits(card, dtype, N):
+    """K7 with the whole field as its block (offsets 0, edge-replicated
+    halos) runs K3's grid in K3's order: the same bits, with E and
+    without; and the same bits in repeated calls."""
+    U = _field(N, dtype, card)
+    E = K.chemical_potential_ref(U, PHYS['RT'], PHYS['BRT'], PHYS['A0'],
+                                 PHYS['A1'])
+    kw = _stats_kw(N)
+    halo = _halo(U, 0, 0, N, N)
+    K.reset_launches()
+    for e in (E, None):
+        k7 = K.local_band_sums(U, *halo, e, PHYS['A0'], PHYS['A1'], 0, 0,
+                               **kw)
+        k3 = K.stats_sums(U, e, PHYS['A0'], PHYS['A1'], **{
+            k: v for k, v in kw.items() if k != 'N'})
+        assert torch.equal(k7, k3)
+    assert K.launches['local_band_sums'] == 2
+    first = K.local_band_sums(U, *halo, E, PHYS['A0'], PHYS['A1'], 0, 0,
+                              **kw)
+    for _ in range(10):
+        assert torch.equal(K.local_band_sums(U, *halo, E, PHYS['A0'],
+                                             PHYS['A1'], 0, 0, **kw), first)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_local_band_sums_one_column_path(card, dtype):
+    """K7's V=1 instantiation: a block whose W no vector width divides,
+    and an aligned block whose up row starts 8 bytes past a 16-byte
+    boundary; both against the plain version."""
+    N = 97
+    U = _field(N, dtype, card)
+    E = K.chemical_potential_ref(U, PHYS['RT'], PHYS['BRT'], PHYS['A0'],
+                                 PHYS['A1'])
+    kw = _stats_kw(N)
+    cases = []
+    # a 64x33 block at (0, 64): W = 33
+    Ub = U[:64, 64:].contiguous()
+    cases.append((Ub, (U[0, 64:].contiguous(), U[64, 64:].contiguous(),
+                       U[:64, 63].contiguous(), U[:64, 96].contiguous()),
+                  E[:64, 64:].contiguous(), 0, 64))
+    # a 32x32 block at (32, 32) whose up row is an unaligned view
+    Ub = U[32:64, 32:64].contiguous()
+    store = torch.empty(33, dtype=dtype, device=card)
+    up = store[1:]
+    up.copy_(U[31, 32:64])
+    assert K.local_stats_grid(32, 32, N, 32, 32, U.element_size(),
+                              up.data_ptr())[0] == 1
+    cases.append((Ub, (up, U[64, 32:64].contiguous(),
+                       U[32:64, 31].contiguous(), U[32:64, 64].contiguous()),
+                  E[32:64, 32:64].contiguous(), 32, 32))
+    for Ub, halo, Eb, r0, c0 in cases:
+        assert K.local_stats_grid(*Ub.shape, N, r0, c0, U.element_size(),
+                                  *(t.data_ptr() for t in (Ub, *halo[:2],
+                                                           Eb)))[0] == 1
+        for e in (Eb, None):
+            args = (Ub, *halo, e, PHYS['A0'], PHYS['A1'], r0, c0)
+            s = K.local_band_sums(*args, **kw).cpu()
+            s_ref = K.local_band_sums_ref(*args, **kw).cpu()
+            assert s[3] == s_ref[3]
+            torch.testing.assert_close(s, s_ref, rtol=_tol(dtype), atol=0)
 
 
 def test_chemical_potential_sharded_is_k1_on_the_block(card):
