@@ -63,6 +63,10 @@ Phases (each raises on failure, so the script exits nonzero):
    steps within 1e-5 of phase 5's float64 run, mean(U) held, steady
    steps/s in turns with the matmul route, and the per-layer times of one
    step (transforms, their products or FFTs, and the folds around them);
+   (e) the stop goldens tests/golden/n1024_uniform_stop.json (stop 1837)
+   and n2048_uniform_stop.json (2040) on the matmul, split and fft routes
+   (exact stop step, E within 1e-10 at every step), and n1024_lcg_60 on
+   matmul (E within 1e-12);
 8. the grid-sharded solve (``--mesh``, the matmul route over ranks of a
    ``torch.distributed`` world):
    (a) the shard-local statistics kernel K7 against its plain version on
@@ -83,14 +87,36 @@ Phases (each raises on failure, so the script exits nonzero):
    within 1e-10 of the single-device run at every step, the same rows on
    every rank, K7 and K8 launched once per step iteration per rank (K7
    once more for prepare; the JSON line's counts are rank 0's);
-   (d) the same run through ``torchrun`` and the CLI: rank 0 prints the
-   stop line;
+   (d) N=512 through ``torchrun`` and the CLI, cut to 256 steps (the
+   canonical stop is (c)'s) with the device Sobol jitter: rank 0 prints
+   the one summary line, K7, K8 and K9 launched on every step;
    (e) N=4096 float32 ``full_sim`` over 64 steps in the same world: E
    within 1e-5 of phase 5's float64 run and 1e-6 of its single-device
    float32 run, mean(U) held, and steps/s of a 64-step window (4 ranks
    sharing one card with host-staged collectives: not a scaling figure);
+   the same world also runs phase 9 (d);
    (f) with one card per rank, (c) and (e) again on NCCL; otherwise a line
-   saying why it did not run.
+   saying why it did not run;
+9. adaptive time stepping, per-step jitter, the sobol and simplex
+   generators and the Sobol jitter kernel K9:
+   (a) K9 against its plain version, to the bit, at N = 4096, 1000 and
+   512, float32 and float64, at draw bases 0, N and N/2 below 2^32 (the
+   walk wraps), on the field and on a 2x2 mesh's (1, 1) block; both timed;
+   (b) the seven item 7 goldens (N=64, float64: n64_sobol_100, the three
+   adaptive ones, the uniform, sobol and simplex jitter), n64_adaptive_600
+   also on split, fft and ozaki (untrimmed forward pairs), with the
+   tolerances of tests/test_golden.py and tests/test_golden_extra.py, and
+   the device Sobol jitter's U and rows equal to the host stream's;
+   (c) N=4096 float32 ``full_sim`` on matmul: steps/s over steps 513-768
+   with -a (delt_max from (c0), see ITEM7_DELT_RATIO), with the device Sobol
+   jitter and with the device uniform jitter, beside phase 5's fixed-delt
+   rate; delt moved after step 500 only and mean(U) held under -a; the
+   layer times of one step (adaptive delt, coefficient rebuild, jitter);
+   (c0), before (c): -a with the default delt_max stops with 'nan' after
+   step 500; the column sum at step 501 sets (c)'s delt_max;
+   (d) in phase 8's 2x2 world: -a over 520 steps (N=32) and the device
+   Sobol jitter over 100, against one device: delt within 1e-9, E within
+   1e-10, the same rows on every rank.
 
 The kernels' rows carry ``bound_ms``, the least time the card could take
 for the same work (bytes at 3.35 TB/s or operations at the peak rate of
@@ -102,7 +128,7 @@ measurement also goes to DIR/chip_smoke.json.
 
     python3 chip_smoke.py --kernels-only
 
-runs phases 1-3 and the kernel parts of 6-8 ((a); (a)-(b) of 8) only, and
+runs phases 1-3 and the kernel parts of 6-9 ((a); (a)-(b) of 8) only, and
 prints the kernels' table instead of the two last lines.
 """
 
@@ -130,6 +156,8 @@ REPLACES = {
     'matmul': 'chsimpy_tpu/ops/pallas_kernels.py:149',
     'local_band_sums': 'chsimpy_tpu/ops/pallas_kernels.py:434',
     'chemical_potential_sharded': 'chsimpy_tpu/ops/pallas_kernels.py:538',
+    # no Pallas counterpart: the XLA-fused Sobol points of the JAX step
+    'sobol_jitter': 'chsimpy_tpu/ops/sobol.py:46',
 }
 # the kernels of the matmul route (the ozaki route adds slice_field)
 MATMUL_PATH = ('chemical_potential', 'spectral_update', 'stats_sums',
@@ -1075,6 +1103,58 @@ def routes_n4096(card, E64):
     return out
 
 
+# phase 7 (e): (golden, routes, E bound at every step: tests/test_golden.py)
+STOP_GOLDENS = (('n1024_uniform_stop', ('matmul', 'split', 'fft'), 1e-10),
+                ('n2048_uniform_stop', ('matmul', 'split', 'fft'), 1e-10),
+                ('n1024_lcg_60', ('matmul',), 1e-12))
+
+
+def load_golden(name):
+    with open(os.path.join(ROOT, 'tests', 'golden', name + '.json')) as f:
+        return json.load(f)
+
+
+def stop_goldens():
+    """(e) the N=1024 and N=2048 stop goldens on the matmul, split and fft
+    routes (exact stop step, E at every step) and n1024_lcg_60."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters, Simulator
+
+    out = []
+    for name, routes, rtol in STOP_GOLDENS:
+        g = load_golden(name)
+        for route in routes:
+            p = Parameters(no_gui=True, device='cuda', kappa_tilde=KAPPA,
+                           transform_backend=route, **g['config'])
+            t0 = time.perf_counter()
+            sim = Simulator(p)
+            sol = sim.solve()
+            torch.cuda.synchronize()
+            td = sol.timedata.data()
+            n = min(len(td), len(g['E']))
+            rel = float(np.max(np.abs(td[:n, 1] / np.asarray(g['E'][:n])
+                                      - 1)))
+            res = {'golden': name, 'route': route,
+                   'levels': sim.solver.cfg.spectral_levels,
+                   'computed_steps': sol.computed_steps,
+                   'stop_reason': sol.stop_reason, 'tau0': sol.tau0,
+                   'E_max_rel': rel, 'E_bound': rtol,
+                   'seconds': time.perf_counter() - t0}
+            out.append(res)
+            print(f"stop golden {name} on {route}: {json.dumps(res)}",
+                  flush=True)
+            check(sol.computed_steps == g['computed_steps']
+                  and sol.stop_reason == g['stop_reason']
+                  and sol.tau0 == g['tau0'],
+                  f"{name} on {route}: stop {sol.computed_steps} "
+                  f"{sol.stop_reason} tau0 {sol.tau0}, golden "
+                  f"{g['computed_steps']} {g['stop_reason']} {g['tau0']}")
+            check(len(td) == len(g['E']) and rel <= rtol,
+                  f"{name} on {route}: E {rel:.3e} (bound {rtol:g})")
+    return out
+
+
 def routes_phase(dev, card, E64):
     out = {'gemm': gemm_phase(dev, card),
            'bakeoff': bakeoff_phase(dev, card)}
@@ -1082,6 +1162,9 @@ def routes_phase(dev, card, E64):
     out['default_run'] = {t: default_run(t) for t in ('split', 'fft')}
     out['n4096'] = routes_n4096(card, E64)
     out['seconds_c_to_d'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out['stop_goldens'] = stop_goldens()
+    out['seconds_e'] = time.perf_counter() - t0
     return out
 
 
@@ -1100,7 +1183,7 @@ TF32_PASSES = 3     # the GEMM's float32-class product: 3xTF32
 # and log as one
 OPS_PER_ELEM = {'chemical_potential': 13, 'spectral_update': 3,
                 'stats': 27, 'absdev_sum': 3, 'slice_setup': 6,
-                'slice_per_plane': 6}
+                'slice_per_plane': 6, 'sobol_jitter': 6}
 
 
 def bound_fields(nbytes, ops, dtype):
@@ -1150,6 +1233,11 @@ def kernel_bound(name, N, dtype, n_slices=4):
         out['bound_fp32_ms'] = bound_fields(3 * n * 4, 2.0 * N ** 3,
                                             'float32')['bound_ms']
         return out
+    if name == 'sobol_jitter':
+        # U read and written; the (N, 30) direction numbers, the N shifts
+        # (int64) and the base read
+        return bound_fields(2 * n * s + N * 31 * 8 + 8,
+                            OPS_PER_ELEM[name] * n, dtype)
     raise KeyError(name)
 
 
@@ -1348,16 +1436,29 @@ def shard_whole_and_scalar(K, U, E, cfg, skw, whole, dname):
     return rows
 
 
+# phase 9 (d), run in phase 8's world: tests/test_combined_features.py's
+# adaptive configuration, and the device Sobol jitter
+ITEM7_WORLD = {
+    'adaptive': {'N': 32, 'ntmax': 520, 'full_sim': True, 'generator': 'lcg',
+                 'kappa_tilde': 2.98911291966116e-4, 'adaptive_time': True},
+    'sobol_device': {'N': 32, 'ntmax': 100, 'full_sim': True,
+                     'generator': 'sobol', 'jitter': 0.01,
+                     'jitter_backend': 'device',
+                     'kappa_tilde': 2.98911291966116e-4},
+}
+
+
 def world_tasks():
-    """(c) the canonical run through Simulator.solve and (e) N=4096
-    float32 over 64 steps plus a timed window of 64."""
+    """(c) the canonical run through Simulator.solve, (e) N=4096 float32
+    over 64 steps plus a timed window of 64, and phase 9 (d)'s runs."""
     canon = {'kappa_tilde': KAPPA}
     fast = {'N': WORLD_FAST_N, 'precision': 'float32', 'full_sim': True,
             'generator': 'uniform', 'kappa_tilde': KAPPA, 'chunk_size': 64}
     return [('solve', {'params': canon, 'return_U': False}),
             ('solve', {'params': fast, 'steps': 64, 'rate_steps': 64,
                        'return_U': False}),
-            ('imported', {})]
+            ('imported', {})] + [('solve', {'params': p})
+                                 for p in ITEM7_WORLD.values()]
 
 
 def check_world(tag, res, refs, card):
@@ -1448,12 +1549,20 @@ def torch_cards() -> int:
     return torch.cuda.device_count()
 
 
+# (d)'s depth: the canonical 1674 steps through torchrun took 80-117 s of
+# host-staged collectives; (c) holds the stop in the same world
+WORLD_CLI_STEPS = 256
+
+
 def world_cli(backend, device):
-    """(d) the canonical run through torchrun and the CLI: rank 0 prints
-    the stop line."""
+    """(d) N=512 through torchrun and the CLI, 256 steps with the device
+    Sobol jitter: rank 0 prints the one summary line; K7, K8 and K9
+    launched on every step."""
     cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
            '--nproc-per-node', str(WORLD_SHAPE[0] * WORLD_SHAPE[1]), '-m',
            'chsimpy_tpu_torch', '--mesh', '%dx%d' % WORLD_SHAPE, '-N', '512',
+           '-n', str(WORLD_CLI_STEPS), '-z', '-g', 'sobol', '-j', '0.01',
+           '--jitter-backend', 'device',
            '--no-gui', '-K', repr(KAPPA), '--dist-backend', backend,
            '--device', device]
     t0 = time.perf_counter()
@@ -1466,14 +1575,15 @@ def world_cli(backend, device):
     lines = [ln for ln in proc.stdout.splitlines()
              if ln.startswith('computed_steps = ')]
     check(len(lines) == 1, f"torchrun: {len(lines)} stop lines")
-    check(lines[0].startswith('computed_steps = 1674,')
-          and lines[0].endswith('stop reason = energy'),
+    check(lines[0].startswith(f'computed_steps = {WORLD_CLI_STEPS},')
+          and lines[0].endswith('stop reason = None'),
           f"torchrun: {lines[0]}")
     m = re.search(r'kernel launches: (\{.*\})', proc.stdout)
     check(m is not None, 'torchrun: no kernel launch counts')
     launches = json.loads(m.group(1))
-    check(launches['local_band_sums'] > 0
-          and launches['chemical_potential_sharded'] > 0,
+    check(launches['local_band_sums'] >= WORLD_CLI_STEPS - 1
+          and launches['chemical_potential_sharded'] >= WORLD_CLI_STEPS - 1
+          and launches['sobol_jitter'] == WORLD_CLI_STEPS - 1,
           f"torchrun: launches {launches}")
     mesh_line = next(ln for ln in proc.stdout.splitlines()
                      if ln.startswith('mesh '))
@@ -1493,16 +1603,391 @@ def sharded_phase(dev, card, refs):
                      device=dev.type, args=(world_tasks(),), timeout=900)
     out['gloo'] = check_world('world gloo', res, refs, card)
     out['gloo']['world_seconds'] = time.perf_counter() - t0
+    out['item7_world'] = check_item7_world('world gloo', res)
     out['cli'] = world_cli('gloo', dev.type)
     if torch_cards() >= WORLD_SHAPE[0] * WORLD_SHAPE[1]:
         res = spawn_grid(run_tasks, WORLD_SHAPE, backend='nccl',
                          device='cuda', args=(world_tasks(),), timeout=900)
         out['nccl'] = check_world('world nccl', res, refs, card)
+        out['nccl']['item7'] = check_item7_world('world nccl', res)
     else:
         out['nccl'] = None
         print(f"phase 8 (f): the NCCL world did not run: "
               f"{torch_cards()} card(s), and NCCL takes one card per rank "
               f"({WORLD_SHAPE[0] * WORLD_SHAPE[1]} needed)", flush=True)
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 9: adaptive time stepping, per-step jitter, the sobol and simplex
+# generators, and the Sobol jitter kernel K9
+# ----------------------------------------------------------------------
+
+SOBOL_NS = (4096, 1000, 512)
+SOBOL_JITTER = 0.01
+SOBOL_REPORT = (4096, 'float32', 'zero')   # the JSON line's K9 row
+
+
+def sobol_bases(N):
+    """Draw bases of (a): the first point, the step after one draw of N
+    points, and N/2 rows before 2^32 (the walk wraps inside the field)."""
+    return {'zero': 0, 'one_draw': N, 'wrap': 2 ** 32 - N // 2}
+
+
+def sobol_phase(dev, card):
+    """(a) K9 against its plain version to the bit, on the field and on
+    the (1, 1) block of a 2x2 mesh (offsets N/2, N/2), one count a call;
+    both timed at base 0."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+    from chsimpy_tpu_torch.ops import sobol
+
+    rows = []
+    for N in SOBOL_NS:
+        sv_np, sh_np = sobol.sobol_tables(N, 2023)
+        sv = torch.tensor(sv_np.astype(np.int64), device=dev)
+        sh = torch.tensor(sh_np.astype(np.int64), device=dev)
+        h = N // 2
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
+            U = torch.tensor(0.875 + 0.01 * (np.random.default_rng(N).random(
+                (N, N)) - 0.5), dtype=dtype, device=dev)
+            blk = U[h:, h:].contiguous()
+            for where, base in sobol_bases(N).items():
+                b = torch.tensor(base, device=dev)
+                K.reset_launches()
+                got = K.sobol_jitter(U.clone(), sv, sh, b, SOBOL_JITTER)
+                gblk = K.sobol_jitter(blk.clone(), sv, sh, b, SOBOL_JITTER,
+                                      h, h)
+                counted = K.launches['sobol_jitter']
+                want = K.sobol_jitter_ref(U.clone(), sv, sh, b, SOBOL_JITTER)
+                wblk = K.sobol_jitter_ref(blk.clone(), sv, sh, b,
+                                          SOBOL_JITTER, h, h)
+                torch.cuda.synchronize()
+                err = max((got - want).abs().max().item(),
+                          (gblk - wblk).abs().max().item())
+                ok = (torch.equal(got, want) and torch.equal(gblk, wblk)
+                      and counted == 2)
+                row = {'name': 'sobol_jitter', 'N': N, 'dtype': dname,
+                       'base': base, 'where': where, 'max_abs_err': err,
+                       'tolerance': 'bit-identical field and (1, 1) block '
+                                    'of a 2x2 mesh, one count a call',
+                       'ok': ok}
+                if where == 'zero':
+                    V = U.clone()   # K9 is in place: the timed calls add up
+                    row.update(timed_row(
+                        lambda: K.sobol_jitter(V, sv, sh, b, SOBOL_JITTER),
+                        lambda: K.sobol_jitter_ref(V, sv, sh, b,
+                                                   SOBOL_JITTER)))
+                    row.update(kernel_bound('sobol_jitter', N, dname))
+                    row['bound_share'] = row['bound_ms'] / row['ms']
+                rows.append(row)
+                times = (f"  kernel {row['ms']:.4f} ms (one call "
+                         f"{row['call_ms']:.4f})  plain {row['plain_ms']:.4f}"
+                         f" ms  bound {row['bound_ms']:.4f} ms "
+                         f"({row['bound_share']:.0%})  ({card})"
+                         if 'ms' in row else '')
+                print(f"kernel sobol_jitter N={N:5d} {dname:8s} base "
+                      f"{base} ({where}): max diff {err:.3e} "
+                      f"{'ok' if ok else 'FAIL'}{times}", flush=True)
+                check(ok, f"sobol_jitter N={N} {dname} base {base}: differs "
+                          f"by {err:.3e} ({counted} counts)")
+    return rows
+
+
+# (b): name, route, rtol E, delt, E2 (tests/test_golden.py:46-62); the
+# jitter goldens hold tests/test_golden_extra.py's E 1e-11 (sobol: E2 1e-4)
+ITEM7_GOLDENS = (
+    ('n64_sobol_100', 'matmul', 1e-11, 1e-12, 1e-6),
+    ('n64_adaptive_400', 'matmul', 1e-11, 1e-11, 1e-6),
+    ('n64_adaptive_floor_600', 'matmul', 1e-11, 1e-12, 1e-6),
+    ('n64_adaptive_600', 'matmul', 1e-8, 1e-6, 1e-4),
+    ('n64_adaptive_600', 'split', 1e-8, 1e-6, 1e-4),
+    ('n64_adaptive_600', 'fft', 1e-8, 1e-6, 1e-4),
+    # untrimmed forward pairs: the default trim lands 1.6e-7 from this
+    # chaotic golden in the JAX package too
+    ('n64_adaptive_600', 'ozaki', 1e-8, 1e-6, 1e-4),
+    ('n64_jitter_100', 'matmul', 1e-11, None, None),
+    ('n64_sobol_jitter_100', 'matmul', 1e-11, None, 1e-4),
+    ('n64_simplex_jitter_100', 'matmul', 1e-11, None, None),
+)
+
+
+def item7_run(name, **extra):
+    import torch
+    from chsimpy_tpu_torch import Parameters, Simulator
+    g = load_golden(name)
+    p = Parameters(no_gui=True, device='cuda', kappa_tilde=KAPPA,
+                   **g['config'])
+    for k, v in extra.items():
+        setattr(p, k, v)
+    sim = Simulator(p)
+    sol = sim.solve()
+    torch.cuda.synchronize()
+    return g, sim, sol
+
+
+def item7_goldens():
+    """(b) the seven goldens of item 7 on the card (float64), the chaotic
+    one on every route, and the device Sobol jitter against the host
+    stream, U and rows to the bit."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    out = []
+    for name, route, rE, rdelt, rE2 in ITEM7_GOLDENS:
+        extra = {'transform_backend': route}
+        if route == 'ozaki':
+            extra['ozaki_fwd_pairs'] = (5, 7)
+        g, sim, sol = item7_run(name, **extra)
+        td = sol.timedata.data()
+        U = sol.U.cpu().numpy()
+        rel = {'E': float(np.max(np.abs(td[:, 1] / np.asarray(g['E']) - 1)))}
+        if rdelt is not None:
+            rel['delt'] = float(np.max(np.abs(td[:, 8]
+                                              / np.asarray(g['delt']) - 1)))
+        if rE2 is not None:
+            rel['E2'] = float(np.max(np.abs(td[:, 2] / np.asarray(g['E2'])
+                                            - 1)))
+        rel['U_sum'] = abs(float(np.sum(U)) / g['U_sum'] - 1)
+        bounds = {'E': rE, 'delt': rdelt, 'E2': rE2, 'U_sum': 1e-12}
+        ok = (sol.computed_steps == g['computed_steps']
+              and len(td) == len(g['E'])
+              and all(v <= bounds[k] for k, v in rel.items()))
+        if rdelt is not None:
+            ok = ok and (sol.stop_reason == g['stop_reason']
+                         and sol.tau0 == g['tau0']
+                         and np.array_equal(td[:, 0], np.asarray(g['it'])))
+        if name in ('n64_sobol_100', 'n64_sobol_jitter_100') \
+                or rdelt is not None:
+            rel['U_corner'] = float(np.max(np.abs(
+                U[:2, :2] / np.asarray(g['U_corner']) - 1)))
+            ok = ok and rel['U_corner'] <= 1e-5
+        res = {'golden': name, 'route': route,
+               'jitter_mode': sim.solver.cfg.jitter_mode,
+               'computed_steps': sol.computed_steps, 'max_rel': rel,
+               'bounds': bounds, 'ok': ok}
+        out.append(res)
+        print(f"item 7 golden {name} on {route}: {json.dumps(res)}",
+              flush=True)
+        check(ok, f"item 7 golden {name} on {route}: {rel} (bounds "
+                  f"{bounds}), {sol.computed_steps} steps")
+    g, _, host = item7_run('n64_sobol_jitter_100')
+    K.reset_launches()
+    _, sim, dev = item7_run('n64_sobol_jitter_100', jitter_backend='device')
+    n = K.launches['sobol_jitter']
+    same = (torch.equal(dev.U, host.U)
+            and np.array_equal(dev.timedata.data(), host.timedata.data()))
+    res = {'golden': 'n64_sobol_jitter_100', 'route': 'matmul',
+           'jitter_mode': sim.solver.cfg.jitter_mode,
+           'U_and_rows_equal_host': same, 'sobol_jitter_launches': n}
+    out.append(res)
+    print(f"item 7 device Sobol jitter vs host stream: {json.dumps(res)}",
+          flush=True)
+    check(sim.solver.cfg.jitter_mode == 'device_sobol' and same
+          and n == g['computed_steps'] - 1,
+          f"device Sobol jitter: bits equal {same}, {n} launches")
+    return out
+
+
+# the adaptive delt is a column SUM over N rows of delt_max / sqrt(1 +
+# α·E²), so it grows with N: with the default delt_max the first adapted
+# step takes a delt hundreds of times the base from N=128 on and the next
+# steps drive the field to NaN (the port and the JAX package alike; on the
+# CPU at N=128-512 float32 the sum is ~0.45·N·delt_max).  (c0) runs the
+# default to that NaN stop and measures the sum at step 501, and (c) runs
+# -a with the delt_max that makes the first adapted delt ITEM7_DELT_RATIO
+# times the base (> 1.15: the blend branch)
+ITEM7_DELT_RATIO = 1.5
+ITEM7_N4096 = {
+    '-a': {'adaptive_time': True},     # delt_max from (c0)
+    '-j 0.01 -g sobol --jitter-backend device': {
+        'jitter': 0.01, 'generator': 'sobol', 'jitter_backend': 'device'},
+    '-j 0.01 --jitter-backend device': {
+        'jitter': 0.01, 'jitter_backend': 'device'},
+}
+ITEM7_WARM = 512          # steps before the window: adaptation starts at 501
+ITEM7_WINDOW = 256
+
+
+def item7_layers(solver):
+    """Per-layer times of one step (CUDA events, one call): the adaptive
+    delt, the coefficient rebuild, the jitter, the whole step."""
+    from chsimpy_tpu_torch.core import stepper
+    cfg, c, s = solver.cfg, solver._consts, solver._state
+    E = stepper._nonlinear_term(cfg, c, s.U)
+    out = {}
+    if cfg.adaptive_time:
+        delt = stepper.adapted_delt(cfg, s, E)
+        out['adaptive_delt'] = call_ms(
+            lambda: stepper.adapted_delt(cfg, s, E))
+        out['coefficient_rebuild'] = call_ms(
+            lambda: stepper.rebuilt_coefficients(cfg, c, delt))
+    if cfg.jitter_mode != 'none':
+        V = s.U.clone()
+        out['jitter_' + cfg.jitter_mode] = call_ms(
+            lambda: stepper._jitter(cfg, c, s, V, None, solver._jitter_gen))
+    out['whole_step'] = call_ms(
+        lambda: stepper._step(cfg, c, s, None, None, solver._jitter_gen),
+        reps=20)
+    return out
+
+
+def item7_n4096(card, fixed_rate):
+    """(c) N=4096 float32 full_sim on the matmul route: steps/s of a
+    window of 256 steps after step 512 with -a, with the device Sobol
+    jitter and with the device uniform jitter, beside phase 5's fixed-delt
+    rate; delt moved after step 500 and mean(U) held under -a; K9 launched
+    on every step of the Sobol run (its count in the JSON line)."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters
+    from chsimpy_tpu_torch.core.solver import Solver
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    out = {'fixed_delt_steps_per_s_phase5': fixed_rate}
+    c0 = out['-a default delt_max'] = item7_default_delt_max(card)
+    delt_max = ITEM7_DELT_RATIO * 3e-8 / c0['column_sum_min_step_501']
+    for tag, kw in ITEM7_N4096.items():
+        p = Parameters(N=4096, precision='float32', full_sim=True,
+                       generator='uniform', kappa_tilde=KAPPA,
+                       chunk_size=ITEM7_WINDOW, no_gui=True, device='cuda')
+        for k, v in kw.items():
+            setattr(p, k, v)
+        if p.adaptive_time:
+            p.delt_max = delt_max
+        s = Solver(p)
+        s.prepare()
+        U0 = s.solution.U.double().mean().item()
+        K.reset_launches()
+        s.solve_or_resume(ITEM7_WARM)
+        r = rate(s, ITEM7_WINDOW)
+        launches = dict(K.launches)
+        td = s.solution.timedata.data()
+        mean = s.solution.U.double().mean().item()
+        iterations = ITEM7_WARM - 1 + ITEM7_WINDOW
+        res = {'steps_per_s': r, 'window': ITEM7_WINDOW,
+               'window_after_step': ITEM7_WARM,
+               'jitter_mode': s.cfg.jitter_mode,
+               'delt_first': float(td[0, 8]), 'delt_last': float(td[-1, 8]),
+               'U_mean_initial': U0, 'U_mean': mean, 'launches': launches,
+               'iterations': iterations, 'layers_ms': item7_layers(s)}
+        if p.adaptive_time:
+            res['delt_max'] = delt_max
+        out[tag] = res
+        print(f"N=4096 float32 {tag}: {r:.2f} steps/s over steps "
+              f"{ITEM7_WARM + 1}-{ITEM7_WARM + ITEM7_WINDOW} (fixed delt, "
+              f"phase 5: {fixed_rate:.2f}); delt {td[0, 8]:.6e} -> "
+              f"{td[-1, 8]:.6e}; mean(U) {mean!r} (initial {U0!r}); layers "
+              + ', '.join(f"{k} {v:.4f} ms"
+                          for k, v in res['layers_ms'].items())
+              + f"  ({card})", flush=True)
+        check(len(td) == iterations + 1
+              and bool(torch.isfinite(s.solution.U).all()),
+              f"N=4096 {tag}: rows or field")
+        for name in MATMUL_PATH:
+            check(launches[name] >= iterations,
+                  f"N=4096 {tag}: {name} launched {launches[name]} times")
+        if kw.get('adaptive_time'):
+            check(np.any(td[ITEM7_WARM - 10:, 8] != td[0, 8])
+                  and np.all(td[:500, 8] == td[0, 8]),
+                  f"N=4096 -a: delt did not move after step 500 only")
+            check(abs(mean - U0) <= 1e-6,
+                  f"N=4096 -a: mean(U) drifted {mean - U0:.3e}")
+        expect = iterations if s.cfg.jitter_mode == 'device_sobol' else 0
+        check(launches['sobol_jitter'] == expect,
+              f"N=4096 {tag}: sobol_jitter launched "
+              f"{launches['sobol_jitter']} times, not {expect}")
+        del s
+        torch.cuda.empty_cache()
+    return out
+
+
+def item7_default_delt_max(card):
+    """(c0) -a with the default delt_max at N=4096 float32: 500 steps at
+    the base delt, then the minimum column sum of 1 / sqrt(1 + α·E²) of
+    the field there (the adapted delt is delt_max times it), then the NaN
+    guard stops the run within the first chunk after step 500."""
+    import torch
+    from chsimpy_tpu_torch import Parameters
+    from chsimpy_tpu_torch.core import stepper
+    from chsimpy_tpu_torch.core.solver import Solver
+    p = Parameters(N=4096, precision='float32', full_sim=True,
+                   generator='uniform', kappa_tilde=KAPPA, chunk_size=32,
+                   no_gui=True, device='cuda', adaptive_time=True)
+    s = Solver(p)
+    s.prepare()
+    s.solve_or_resume(500)
+    E = stepper._nonlinear_term(s.cfg, s._consts, s._state.U).double()
+    colsum = torch.min(torch.sum(
+        1.0 / torch.sqrt(1.0 + stepper.ADAPT_ALPHA * E * E), dim=0)).item()
+    try:
+        s.solve_or_resume(ITEM7_WARM + 64 - 500)
+        raised = False
+    except FloatingPointError:
+        raised = True
+    td = s.solution.timedata.data()
+    res = {'column_sum_min_step_501': colsum,
+           'first_adapted_delt_over_base': p.delt_max * colsum / p.delt,
+           'stop_reason': s.solution.stop_reason,
+           'computed_steps': s.solution.computed_steps,
+           'rows_kept': len(td), 'delt_last_kept': float(td[-1, 8])}
+    print(f"N=4096 float32 -a, default delt_max: {json.dumps(res)}  "
+          f"({card})", flush=True)
+    # the chunk that holds the NaN row is not kept: the rows before it
+    check(raised and s.solution.stop_reason == 'nan'
+          and 500 <= len(td) <= ITEM7_WARM + 1,
+          f"N=4096 -a default delt_max: {res}")
+    del s
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_item7_world(tag, res):
+    """(d) phase 9's runs in phase 8's world against one device on the
+    card: delt within 1e-9, E within 1e-10, the same rows on every rank."""
+    import numpy as np
+    from chsimpy_tpu_torch import Parameters, Simulator
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    out = {}
+    for k, (case, params) in enumerate(ITEM7_WORLD.items()):
+        ranks = [r[3 + k] for r in res]
+        K.reset_launches()
+        single = Simulator(Parameters(no_gui=True, device='cuda',
+                                      **params)).solve()
+        td, td1 = ranks[0]['timedata'], single.timedata.data()
+        same = all(np.array_equal(r['timedata'], td) for r in ranks)
+        rel = {'delt': float(np.max(np.abs(td[:, 8] / td1[:, 8] - 1))),
+               'E': float(np.max(np.abs(td[:, 1] / td1[:, 1] - 1))),
+               'U': float(np.max(np.abs(ranks[0]['U']
+                                        - single.U.cpu().numpy())))}
+        res_k = {'case': case, 'computed_steps': ranks[0]['computed_steps'],
+                 'max_rel_vs_single': rel, 'same_rows_every_rank': same,
+                 'delt_moved': bool(td[-1, 8] != td[0, 8]),
+                 'launches_rank0': ranks[0]['launches'],
+                 'seconds': [r['seconds'] for r in ranks]}
+        out[case] = res_k
+        print(f"{tag} phase 9 (d) {case}: {json.dumps(res_k)}", flush=True)
+        check(same and len(td) == len(td1) and rel['delt'] <= 1e-9
+              and rel['E'] <= 1e-10,
+              f"{tag} phase 9 (d) {case}: {rel}, same rows {same}")
+        if case == 'adaptive':
+            check(res_k['delt_moved'], f"{tag} (d): delt never moved")
+        else:
+            check(ranks[0]['launches']['sobol_jitter'] == params['ntmax'] - 1,
+                  f"{tag} (d): K9 launches {ranks[0]['launches']}")
+    return out
+
+
+def item7_phase(dev, card, fixed_rate):
+    out = {'sobol_kernel': sobol_phase(dev, card)}
+    t0 = time.perf_counter()
+    out['goldens'] = item7_goldens()
+    out['n4096'] = item7_n4096(card, fixed_rate)
+    out['seconds_b_to_c'] = time.perf_counter() - t0
     return out
 
 
@@ -1538,6 +2023,17 @@ def summary_rows(detail):
                      'bound_ms': row['bound_ms'], 'bound_by': row['bound_by']}
             if 'max_rel_err' in row:
                 extra['max_rel_err'] = row['max_rel_err']
+        elif name == 'sobol_jitter':
+            N, dtype, where = SOBOL_REPORT
+            row = next(r for r in detail['item7']['sobol_kernel']
+                       if (r['N'], r['dtype'], r['where']) == SOBOL_REPORT)
+            run = detail['item7']['n4096'][
+                '-j 0.01 -g sobol --jitter-backend device']
+            launches = run['launches'][name]
+            extra = {'shape': f"{N}x{N} {dtype}, in place",
+                     'note': 'no Pallas counterpart: the XLA-fused '
+                             'sobol_points of the JAX step',
+                     'bound_ms': row['bound_ms'], 'bound_by': row['bound_by']}
         else:
             row = next(r for r in detail['kernels'] if r['name'] == name
                        and (r['N'], r['dtype']) == REPORT_SHAPE)
@@ -1564,7 +2060,10 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     detail['slice_kernel'] = slice_phase(dev, card)
     detail['gemm'] = gemm_phase(dev, card)
     detail['shard_kernels'] = shard_kernel_phase(dev, card)
+    detail['sobol_kernel'] = sobol_phase(dev, card)
     report = [r for r in detail['kernels'] if r['N'] == REPORT_SHAPE[0]]
+    report += [r for r in detail['sobol_kernel'] if 'ms' in r
+               and r['N'] == SOBOL_REPORT[0]]
     report += [r for r in detail['slice_kernel'] if 'ms' in r
                and (r['N'], r['n_slices'], r['field']) == SLICE_REPORT]
     report += [dict(detail['gemm'][0],
@@ -1640,6 +2139,8 @@ def main(argv=None) -> int:
             'U0_mean_4096': fm['f32_mean_U_initial'],
             'E_single_n512': detail['default_run']['E']}
     detail['sharded'] = timed(8, sharded_phase, dev, card, refs)
+    detail['item7'] = timed(9, item7_phase, dev, card,
+                            fm['steps_per_s']['N=4096 float32'])
     print('phase seconds: ' + ', '.join(
         f"{k} {v:.1f}" for k, v in detail['phase_seconds'].items()),
         flush=True)

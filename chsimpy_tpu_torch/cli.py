@@ -42,6 +42,9 @@ FLAGS = [
     Flag(('-z', '--full-sim'), 'Simulation',
          'Do not stop simulation early when energy falls',
          param='full_sim', action='store_true'),
+    Flag(('-a', '--adaptive-time'), 'Simulation',
+         'Use adaptive-time stepping (approximation, experimental)',
+         param='adaptive_time', action='store_true'),
     Flag(('--cinit',), 'Simulation',
          'Initial mean mole fraction of silica',
          param='XXX', type=float, default=0.875, valid_range=(0.85, 0.95)),
@@ -62,13 +65,15 @@ FLAGS = [
     Flag(('--dt',), 'Simulation', 'Time delta of simulation',
          param='delt', type=float, default=3e-8, valid_range=(1e-12, 1e-6)),
     Flag(('-g', '--generator'), 'Simulation',
-         'Generator for initial random deviations in concentration '
-         '(sobol and simplex are not ported yet)',
+         'Generator for initial random deviations in concentration',
          param='generator', choices=['uniform', 'simplex', 'sobol', 'lcg'],
          default='uniform'),
     Flag(('-s', '--seed'), 'Simulation',
          'Start seed for random number generators',
          param='seed', type=int, default=2023),
+    Flag(('-j', '--jitter'), 'Simulation',
+         'Adds noise based on -g in every step by provided factor '
+         '[0, 0.1) (much slower)', param='jitter', type=float),
     Flag(('--precision',), 'Device',
          'float64 = validation mode (matches reference <=1e-10); '
          'float32 = fast mode',
@@ -92,6 +97,13 @@ FLAGS = [
          'tiled over mx*my torch.distributed processes, one per mesh '
          'device (start them with torchrun --nproc-per-node mx*my); '
          'matmul transform only', param='mesh_shape'),
+    Flag(('--jitter-backend',), 'Device',
+         'host = bit-exact RNG streamed per chunk; device = on-device '
+         'draws without the per-chunk slab uploads (-g sobol: the Sobol '
+         'jitter kernel, BIT-exact with the scipy stream; -g uniform: '
+         'torch.rand, not reference-exact)',
+         param='jitter_backend', choices=['host', 'device'],
+         default='host'),
     Flag(('--dist-backend',), 'Device',
          'torch.distributed backend of a --mesh run: nccl (one card per '
          'rank) or gloo (CPU tensors; ranks may share a card, every '
@@ -123,9 +135,6 @@ FLAGS = [
 
 # flags of the JAX CLI that the port refuses: names, value count, what
 _LATER = [
-    (('-a', '--adaptive-time'), 0, 'adaptive time stepping', 7),
-    (('-j', '--jitter'), 1, 'per-step jitter', 7),
-    (('--jitter-backend',), 1, 'per-step jitter', 7),
     (('--fold-field', '--no-fold-field'), 0, 'the TPU tuning knob '
      '--fold-field', 14),
     (('--matmul-precision',), 1, 'the TPU tuning knob --matmul-precision',

@@ -7,12 +7,17 @@ neither jax nor ``chsimpy_tpu``:
 * :func:`consts_from_jax` — the output of ``chsimpy_tpu.core.stepper.
   make_consts`` (C, leig, CHeig, Seig, eaxis, A0, A1, kappa_tilde, the
   ozaki route's int8 slice stacks Cs, CsT, CeS, CoS, CeTS, CoTS and rf,
-  and the split route's block tree);
+  and the split route's block tree), and the Sobol jitter's sobol_sv,
+  sobol_shift and sobol_base where the JAX solver added them;
 * :func:`split_tree_from_jax` — a split block tree (``chsimpy_tpu.ops.dct.
   split_tree``) as nested tensors;
 * :func:`state_from_jax` — the fields of a ``chsimpy_tpu`` ``SolverState``;
 * :func:`params_from_jax` — ``chsimpy_tpu.Parameters.scalar_dict()``,
   refusing what the port does not run yet.
+
+A generator's stream position carries across as plain data:
+``chsimpy_tpu.rng.FieldGenerator.state_dict()`` restores in
+:meth:`chsimpy_tpu_torch.rng.FieldGenerator.from_state`.
 
 With ``mesh`` (a :class:`~chsimpy_tpu_torch.parallel.mesh.GridMesh`) the
 consts and the state come out as this rank's blocks: a sharded JAX array
@@ -34,6 +39,7 @@ _CONST_ARRAYS = ('C', 'leig', 'CHeig', 'Seig', 'eaxis')
 # int8 slice stacks of the ozaki routes (empty on the other routes)
 _CONST_SLICES = ('Cs', 'CsT', 'CeS', 'CoS', 'CeTS', 'CoTS')
 _CONST_SCALARS = ('A0', 'A1', 'kappa_tilde')
+_CONST_SOBOL = ('sobol_sv', 'sobol_shift', 'sobol_base')
 _STATE_F64 = ('delt', 'time_delta_sum', 'tau0', 't0', 'E2_first', 'E2_prev')
 _STATE_INT = ('computed_steps', 'stop_reason', 'rows')
 
@@ -65,12 +71,17 @@ def consts_from_jax(d: dict, device='cpu', mesh=None) -> dict:
                          for b, bt in d.get('rf', ()))
     consts['tree'] = split_tree_from_jax(d.get('tree', ()), device)
     consts.update({k: float(np.asarray(d[k])) for k in _CONST_SCALARS})
+    # the device_sobol jitter's tables and draw base (uint32 in JAX),
+    # int64 here
+    consts.update({k: _tensor(np.asarray(d[k]).astype(np.int64), device)
+                   for k in _CONST_SOBOL if k in d})
     return consts if mesh is None else shard_consts(consts, mesh)
 
 
 def state_from_jax(d: dict, device='cpu', mesh=None) -> SolverState:
     """The port's SolverState from the numpy form of the JAX state (its
-    ``rng_key`` belongs to the device jitter and is dropped).  With
+    ``rng_key`` is the JAX device jitter's stream, which the port's does
+    not continue: it is dropped).  With
     ``mesh``, U and hat_U are this rank's blocks."""
     kw = {'U': _tensor(d['U'], device), 'hat_U': _tensor(d['hat_U'], device),
           'skip_check': _tensor(bool(np.asarray(d['skip_check'])), device),

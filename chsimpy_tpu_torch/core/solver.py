@@ -20,6 +20,16 @@ initial field on the host and keeps its block; the step runs K8, the grid
 DCTs, K2 and K7 on the block; every rank holds the same scalars and rows,
 so each syncs, stops and returns the same solution (``solution.U`` is the
 gathered field).
+
+Per-step jitter (``0 < jitter < 0.1``) takes its mode from the generator
+and ``jitter_backend`` as in the JAX package: ``static`` for simplex,
+``device_sobol`` (kernel K9, bit-equal to the host stream) for sobol on
+the device backend, ``device`` (``torch.rand`` on a generator the solver
+holds, seeded with ``seed``; not reference-exact) for uniform on the
+device backend, else ``stream``: the chunk's slabs drawn from the host
+generator before it runs, at most 64 MB of them (``chunk_size`` shrinks to
+fit).  On a mesh every rank draws what one device would and keeps its
+block.
 """
 
 from __future__ import annotations
@@ -32,10 +42,12 @@ import torch
 from ..derived import Derived
 from ..device import resolve_device
 from ..ops import dct as dct_ops
+from ..ops import sobol as sobol_ops
 from ..params import Parameters, check_solver_scope
 from ..parallel.distributed import resolve_backend
 from ..parallel.mesh import GridMesh
-from ..parallel.sharding import gather_field, shard_consts, shard_field
+from ..parallel.sharding import (block_slices, gather_field, shard_consts,
+                                 shard_field)
 from ..rng import FieldGenerator
 from ..solution import Solution
 from ..timedata import TimeData
@@ -43,6 +55,28 @@ from . import state as state_mod
 from .state import STOP_NAN, STOP_NONE, STOP_STRINGS, SolverState
 from .stepper import (StepConfig, entry_dct2, make_consts, prepare_row0,
                       run_chunk)
+
+_JITTER_BUF_BYTES = 64 << 20  # cap on the per-chunk host jitter pre-draw
+
+
+def resolve_jitter_mode(params: Parameters, has_U_init: bool = False) -> str:
+    """The jitter mode of ``params`` (``core/stepper.py`` JITTER_MODES):
+    'none' unless 0 < jitter < 0.1 (the reference applies it only there);
+    the 'lcg' generator has no stream, so jitter with it raises unless U
+    came from the caller (``chsimpy_tpu/core/solver.py:384-405``)."""
+    if params.jitter is None or not 0.0 < params.jitter < 0.1:
+        return 'none'
+    if params.generator == 'lcg' and not has_U_init:
+        raise ValueError("jitter requires a sample stream; the 'lcg' "
+                         "generator has none (matches reference)")
+    if params.generator == 'simplex':
+        return 'static'
+    if params.jitter_backend == 'device':
+        if params.generator == 'sobol':
+            return 'device_sobol'
+        if params.generator == 'uniform':
+            return 'device'
+    return 'stream'
 
 
 def resolve_transform(params: Parameters) -> str:
@@ -150,7 +184,9 @@ class Solver:
         self._prepared = False
         self.delt = params.delt
 
-        # initial field: host-side, bit-exact generators
+        # initial field: host-side, bit-exact generators; the jitter
+        # stream continues the generator that built it
+        self.generator: Optional[FieldGenerator] = None
         if U_init is not None:
             U_init = np.asarray(U_init)
             if U_init.shape != (N, N):
@@ -159,8 +195,9 @@ class Solver:
                     f"must be ({N}, {N})")
             self.U_init = np.asarray(U_init, dtype=np.float64)
         else:
-            gen = FieldGenerator(params.generator, N, params.seed)
-            self.U_init = gen.initial_field(params.XXX)
+            self.generator = FieldGenerator(params.generator, N, params.seed)
+            self.U_init = self.generator.initial_field(params.XXX)
+        jitter_mode = resolve_jitter_mode(params, U_init is not None)
 
         time_limit = None
         if params.time_max is not None and params.time_max > 0:
@@ -180,7 +217,11 @@ class Solver:
             Amr=d.Amr, L=params.L, delx=d.delx, delx2=d.delx2,
             M_tilde=params.M_tilde, threshold=params.threshold,
             A0=d.A0, A1=d.A1, kappa_tilde=d.kappa_tilde,
+            delt_base=params.delt, delt_max=params.delt_max,
+            adaptive_time=params.adaptive_time,
             time_limit=time_limit, full_sim=params.full_sim,
+            jitter=params.jitter if jitter_mode != 'none' else None,
+            jitter_mode=jitter_mode,
             transform_backend=transform,
             split_levels=params.split_levels,
             ozaki_fold=transform == 'ozaki' and N % 2 == 0,
@@ -189,10 +230,26 @@ class Solver:
             ozaki_inv_pairs=resolve_ozaki_inv_pairs(params))
         # chunk size: device steps per host round-trip
         self.chunk_size = max(1, int(params.chunk_size))
+        if jitter_mode == 'stream':
+            self.chunk_size = max(1, min(self.chunk_size,
+                                         _JITTER_BUF_BYTES // (N * N * 8)))
         dct_ops.require_full_fp32()
         self._consts = make_consts(self.cfg, self.delt, device=self.device)
+        if jitter_mode == 'device_sobol':
+            sv, sh = sobol_ops.sobol_tables(N, params.seed)
+            self._consts.update(
+                sobol_sv=torch.tensor(sv.astype(np.int64), device=self.device),
+                sobol_shift=torch.tensor(sh.astype(np.int64),
+                                         device=self.device))
         if self.mesh is not None:
             self._consts = shard_consts(self._consts, self.mesh)
+        # the 'device' jitter's stream (the JAX package's threefry key)
+        self._jitter_gen = None
+        if jitter_mode == 'device':
+            self._jitter_gen = torch.Generator(device=self.device)
+            self._jitter_gen.manual_seed(params.seed)
+        # the simplex slab, drawn at first use
+        self._static_jbuf = None
         self._state: Optional[SolverState] = None
 
     # ------------------------------------------------------------------
@@ -228,6 +285,41 @@ class Solver:
         self._prepared = True
 
     # ------------------------------------------------------------------
+    def _ensure_generator(self) -> FieldGenerator:
+        """The jitter's host stream: the generator that built U0, or, when
+        U came from the caller, one built from (generator, N, seed)."""
+        if self.generator is None:
+            self.generator = FieldGenerator(
+                self.params.generator, self.params.N, self.params.seed)
+        return self.generator
+
+    def _to_device(self, slabs: np.ndarray) -> torch.Tensor:
+        """Host slabs (..., N, N) in the field's type on the device; on a
+        mesh this rank's block of each."""
+        t = torch.as_tensor(slabs)
+        if self.mesh is not None:
+            rows, cols = block_slices(self.mesh, self.params.N)
+            t = t[..., rows, cols]
+        return t.to(device=self.device, dtype=self.cfg.tdtype)
+
+    def _draw_jitter_buf(self, k: int):
+        """The chunk's jitter slabs (``stream``: k draws of the host
+        stream; ``static``: the one simplex slab), or None."""
+        mode = self.cfg.jitter_mode
+        if mode == 'stream':
+            gen = self._ensure_generator()
+            N = self.params.N
+            slabs = np.empty((k, N, N), dtype=np.float64)
+            for i in range(k):
+                slabs[i] = gen.next_sample()
+            return self._to_device(slabs)
+        if mode == 'static':
+            if self._static_jbuf is None:
+                self._static_jbuf = self._to_device(
+                    self._ensure_generator().next_sample())
+            return self._static_jbuf
+        return None
+
     def solve_or_resume(self, nsteps: Optional[int] = None) -> Solution:
         """Run (or continue) the simulation; returns the Solution."""
         if not self._prepared:
@@ -242,6 +334,14 @@ class Solver:
             n_iters = nsteps
 
         state = self._state
+        if self.cfg.jitter_mode == 'device_sobol':
+            # draws consumed before step 1: the initial field's N points
+            # when this generator built U0 (0 after a caller's U).  The
+            # host engine never advances in this mode, so its position is
+            # that base at every entry; the step adds its own offset
+            self._consts['sobol_base'] = torch.tensor(
+                self._ensure_generator().sobol_position, dtype=torch.int64,
+                device=self.device)
         # the reference recomputes the spectral image at every (re)entry
         state = state.replace(
             hat_U=entry_dct2(self.cfg, self._consts, state.U, self.mesh))
@@ -253,7 +353,8 @@ class Solver:
 
         while n_iters > 0 and self.solution.stop_reason == 'None':
             k = min(n_iters, self.chunk_size)
-            state = run_chunk(self.cfg, self._consts, state, k, self.mesh)
+            state = run_chunk(self.cfg, self._consts, state, k, self.mesh,
+                              self._draw_jitter_buf(k), self._jitter_gen)
             n_iters -= k
             state = self._sync(state)
 

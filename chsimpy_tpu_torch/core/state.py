@@ -4,8 +4,9 @@ The fields of ``chsimpy_tpu/core/state.py`` as torch tensors on the run's
 device: the concentration field and its spectral image, the scalar
 time/step counters and early-stop bookkeeping as 0-d tensors (so a chunk of
 steps never waits for the host), and a chunk-local timedata row buffer.
-The JAX package's ``rng_key`` belongs to the device jitter, which is not
-ported yet.
+The JAX package's ``rng_key`` (its device jitter's stream) has no field
+here: the port's ``device`` jitter draws from a ``torch.Generator`` that
+the solver holds.
 """
 
 from __future__ import annotations

@@ -1,14 +1,16 @@
 """The Cahn-Hilliard time step and the chunk runner.
 
 Port of ``chsimpy_tpu/core/stepper.py`` for the slices the port runs: fixed
-``delt``, the matmul, split and FFT DCT routes and the float64 ozaki route
-on one device, the matmul route on a grid mesh of ranks (``mesh``: each
-rank steps its block of the field), ``full_sim`` and the energy early
-stop, the ``time_max`` limit and the NaN guard.  One step does, in
-order:
+or adaptive ``delt``, per-step jitter, the matmul, split and FFT DCT routes
+and the float64 ozaki route on one device, the matmul route on a grid mesh
+of ranks (``mesh``: each rank steps its block of the field), ``full_sim``
+and the energy early stop, the ``time_max`` limit and the NaN guard.  One
+step does, in order:
 
-  nonlinear term (kernel K1) -> forward 2-D DCT
-  -> semi-implicit spectral update (K2) -> inverse 2-D DCT
+  nonlinear term (kernel K1)
+  -> adaptive delt and coefficient grids rebuilt (``adaptive_time``)
+  -> forward 2-D DCT -> semi-implicit spectral update (K2)
+  -> inverse 2-D DCT -> jitter (the Sobol points by K9 on the card)
   -> field sums (K3) and Σ|U − mean| (K4), finalized in float64
   -> timedata row and early-stop predicate.
 
@@ -27,7 +29,10 @@ row counters advance by ``go``.  After the trigger the rest of the chunk
 computes steps whose results are thrown away, leaving ``U``, ``hat_U``, the
 counters, the bookkeeping and the rows unchanged.  The row buffer is
 written in place at index ``rows`` on every step; a discarded step's row
-lands beyond the rows the host reads.
+lands beyond the rows the host reads.  A discarded step still takes its
+jitter slab (the host drew the chunk's slabs before it ran, as the JAX
+package does) and, in the ``device`` mode, still draws from the
+generator, which the JAX package's loop, having exited, does not.
 """
 
 from __future__ import annotations
@@ -41,10 +46,18 @@ from ..ops import coeffs as coeffs_ops
 from ..ops import dct as dct_ops
 from ..ops import kernels as K
 from ..ops import ozaki as ozaki_ops
+from ..ops.sobol import MASK32
+from ..parallel import collectives as coll
+from ..parallel.sharding import block_slices
 from .state import (STOP_ENERGY, STOP_NAN, STOP_NONE, STOP_TIME_LIMIT,
                     SolverState)
 
 _DTYPES = {'float32': torch.float32, 'float64': torch.float64}
+
+ADAPT_ALPHA = 500.0 / 2 ** 3  # chsimpy/solver.py:182 of the reference
+# none | stream (host, reference-exact) | static (simplex) | device
+# (torch.rand, not reference-exact) | device_sobol (K9, bit-equal to stream)
+JITTER_MODES = ('none', 'stream', 'static', 'device', 'device_sobol')
 
 
 @dataclass(frozen=True)
@@ -65,8 +78,15 @@ class StepConfig:
     A0: float = 0.0
     A1: float = 0.0
     kappa_tilde: float = 0.0
+    # stepping: params.delt is the floor of the adaptive delt
+    delt_base: float = 3e-8
+    delt_max: float = 9e-8
+    adaptive_time: bool = False
     time_limit: Optional[float] = None  # seconds of simulated time
     full_sim: bool = False
+    # per-step jitter amplitude (None: off) and its source (JITTER_MODES)
+    jitter: Optional[float] = None
+    jitter_mode: str = 'none'
     # 'matmul' | 'split' | 'fft' | 'ozaki' (float64)
     transform_backend: str = 'matmul'
     # fold depth of the split route; None resolves by size
@@ -270,18 +290,87 @@ def entry_dct2(cfg: StepConfig, consts, U, mesh=None):
     return dct2_route(cfg, consts, U, mesh=mesh)
 
 
-def _step(cfg: StepConfig, consts, s: SolverState,
-          mesh=None) -> SolverState:
-    """One step.  On a grid mesh ``s.U`` and ``s.hat_U`` are this
-    rank's blocks, every scalar holds the same bits on every rank, and
-    every collective runs on every step (also after the stop), so all
-    ranks issue the same sequence."""
+def adapted_delt(cfg: StepConfig, s: SolverState, EnergieEut, mesh=None):
+    """The adaptive time step (``chsimpy_tpu/core/stepper.py:538-566``), a
+    0-d float64 tensor: after step 500, on even steps, the smallest column
+    sum of delt_max / sqrt(1 + α·|E|²) (the matrix ord=-1 norm of the
+    reference), at least ``delt_base``, and blended 3:1 with the old delt
+    where it would grow by more than 15%; otherwise the old delt.  The
+    column sums run in the field's type.  On a grid mesh each rank sums
+    its block's columns, the column strip's partials are added in rank
+    order and the minimum is taken over every rank: the same bits on all
+    of them (not the single device's summation order)."""
+    a = EnergieEut.abs()
+    x = cfg.delt_max / torch.sqrt(1.0 + ADAPT_ALPHA * (a * a))
+    colsum = torch.sum(x, dim=0)
+    if mesh is not None:
+        colsum = coll.rank_sum(coll.gather_x(mesh, colsum.reshape(1, -1)))
+    low = torch.min(colsum)
+    if mesh is not None:
+        low = torch.min(coll.gather_world(mesh, low))
+    delt_new = torch.clamp(low.to(torch.float64), min=cfg.delt_base)
+    delt = s.delt
+    blended = torch.where(delt_new / delt > 1.15,
+                          0.75 * delt + 0.25 * delt_new, delt_new)
+    do_adapt = (s.computed_steps > 500) & (s.computed_steps % 2 == 0)
+    return torch.where(do_adapt, blended, delt)
+
+
+def rebuilt_coefficients(cfg: StepConfig, consts, delt):
+    """(CHeig, Seig) at ``delt`` from ``consts['leig']`` as stored (already
+    permuted on the split and rfold routes; this rank's block on a mesh),
+    in the field's type, on the device."""
+    return coeffs_ops.get_coefficients(
+        consts['leig'], K._cast(consts['kappa_tilde'], cfg.tdtype),
+        delt.to(cfg.tdtype), cfg.delx2)
+
+
+def _jitter(cfg: StepConfig, consts, s: SolverState, U, slab, generator,
+            mesh=None):
+    """U plus the step's jitter, jitter·(2r − 1) with r from the mode's
+    source (``chsimpy_tpu/core/stepper.py:731-757``): the chunk's host
+    slab (``stream``; ``static``: the one simplex slab), the Sobol points
+    of the draws consumed before this step (``device_sobol``: K9, in
+    place), or ``torch.rand`` on the solver's generator (``device``; on a
+    mesh every rank draws the whole field and keeps its block)."""
+    mode = cfg.jitter_mode
+    if mode == 'none':
+        return U
+    if mode in ('stream', 'static'):
+        return U + cfg.jitter * (2.0 * slab - 1.0)
+    rows, cols = ((slice(None), slice(None)) if mesh is None
+                  else block_slices(mesh, cfg.N))
+    if mode == 'device_sobol':
+        base = (consts['sobol_base'] + (s.computed_steps - 1) * cfg.N) \
+            & MASK32
+        return K.sobol_jitter(U.contiguous(), consts['sobol_sv'],
+                              consts['sobol_shift'], base, cfg.jitter,
+                              rows.start or 0, cols.start or 0)
+    r = torch.rand((cfg.N, cfg.N), generator=generator, dtype=U.dtype,
+                   device=U.device)[rows, cols]
+    return U + cfg.jitter * (2.0 * r - 1.0)
+
+
+def _step(cfg: StepConfig, consts, s: SolverState, mesh=None, slab=None,
+          generator=None) -> SolverState:
+    """One step.  ``slab``: this step's host jitter slab (``stream`` and
+    ``static`` modes); ``generator``: the ``device`` mode's.  On a grid
+    mesh ``s.U`` and ``s.hat_U`` are this rank's blocks, every scalar
+    holds the same bits on every rank, and every collective runs on every
+    step (also after the stop), so all ranks issue the same sequence."""
     f64 = torch.float64
     active = s.stop_reason == STOP_NONE
     EnergieEut = _nonlinear_term(cfg, consts, s.U, mesh)
 
+    if cfg.adaptive_time:
+        # rebuilt on every step, as the JAX step does
+        delt = adapted_delt(cfg, s, EnergieEut, mesh)
+        CHeig, Seig = rebuilt_coefficients(cfg, consts, delt)
+    else:
+        delt = s.delt
+        CHeig, Seig = consts['CHeig'], consts['Seig']
+
     # time accumulation; the limit stops BEFORE the field update
-    delt = s.delt
     tds = s.time_delta_sum + delt
     time_passed = tds / cfg.M_tilde
     if cfg.time_limit is None:
@@ -295,9 +384,9 @@ def _step(cfg: StepConfig, consts, s: SolverState,
     # the forward transform of the nonlinear term rides the semi-implicit
     # damping, so the ozaki routes may trim its pair cutoffs
     hat_E = dct2_route(cfg, consts, EnergieEut, cfg.ozaki_fwd_pairs, mesh)
-    hat_U = K.spectral_update(s.hat_U, hat_E, consts['Seig'],
-                              consts['CHeig'])
+    hat_U = K.spectral_update(s.hat_U, hat_E, Seig, CHeig)
     U = idct2_route(cfg, consts, hat_U, mesh)
+    U = _jitter(cfg, consts, s, U, slab, generator, mesh)
 
     E, E2, PS, L2, Ra, SA = _stats(cfg, consts, U, EnergieEut, mesh)
     domtime = time_passed ** (1.0 / 3.0)
@@ -327,6 +416,9 @@ def _step(cfg: StepConfig, consts, s: SolverState,
     return s.replace(
         U=torch.where(go, U, s.U),
         hat_U=torch.where(go, hat_U, s.hat_U),
+        # the time-limited step keeps its delt, as JAX's abort does
+        delt=(torch.where(active, delt, s.delt) if cfg.adaptive_time
+              else s.delt),
         time_delta_sum=torch.where(active, tds, s.time_delta_sum),
         computed_steps=s.computed_steps + go,
         skip_check=skip_check,
@@ -338,9 +430,15 @@ def _step(cfg: StepConfig, consts, s: SolverState,
 
 
 def run_chunk(cfg: StepConfig, consts, state: SolverState,
-              n_iters: int, mesh=None) -> SolverState:
+              n_iters: int, mesh=None, jitter_buf=None,
+              generator=None) -> SolverState:
     """``n_iters`` steps with no host sync; steps after a stop leave the
-    state unchanged (see the module docstring)."""
-    for _ in range(n_iters):
-        state = _step(cfg, consts, state, mesh)
+    state unchanged (see the module docstring).  ``jitter_buf``: the
+    ``stream`` mode's (n_iters, ...) slabs, step i taking slab i, or the
+    ``static`` mode's one slab (``chsimpy_tpu/core/stepper.py:808-825``);
+    ``generator``: the ``device`` mode's."""
+    for i in range(n_iters):
+        slab = (jitter_buf[i] if cfg.jitter_mode == 'stream'
+                else jitter_buf)
+        state = _step(cfg, consts, state, mesh, slab, generator)
     return state

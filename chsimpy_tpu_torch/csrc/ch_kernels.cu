@@ -517,6 +517,80 @@ slice_kernel(const double* __restrict__ x, const float* __restrict__ inv_ptr,
   }
 }
 
+// K9 — per-step Sobol jitter, U += jitter * (2 r - 1) in place.  It has no
+// Pallas counterpart: the JAX package adds the points of
+// chsimpy_tpu/ops/sobol.py:46 sobol_points (30 XOR-select passes that XLA
+// fuses into one) in its step (core/stepper.py:734-748).  r[i, j] is point
+// base + row_off + i (mod 2^32), dimension col_off + j of scipy's scrambled
+// Sobol sequence: the XOR of shift[j] and of sv[j, k] over the set bits
+// k < 30 of gray(n) = n ^ (n >> 1), times 2^-30, formed in double (exact)
+// and cast to the field type; the rest runs in the field type in the plain
+// version's order (-fmad=false), so the result is its bits.  base is read
+// from device memory (the step computes it on the card: no host sync).
+//
+// Bound by device-memory bandwidth: U is read and written once, 134 MB per
+// call at N=4096 f32.  A block of 32 x 8 threads takes 32 columns and 8
+// strips of kSobolRows rows: a warp is 32 neighbouring columns of one row,
+// so each load and store of U is coalesced.  The block first copies the 32
+// columns' direction numbers (sv rows, contiguous) into shared memory,
+// padded so that neither the copy nor the reads conflict.  A thread forms
+// its first point in full (at most 30 XORs), then steps one row with one
+// XOR: gray(n+1) ^ gray(n) = 1 << ctz(n+1).  ctz(n+1) >= 30 changes
+// nothing, as bits 30 and 31 never enter (JAX's loop stops at 30), and the
+// wrap n+1 = 0 flips bit 31 only.  Each thread loads kSobolBatch rows
+// before it stores any, so that many loads are in flight.
+constexpr int kSobolBits = 30;
+constexpr int kSobolCols = 32;          // columns a block (one warp wide)
+constexpr int kSobolStrips = kThreads / kSobolCols;
+constexpr int kSobolRows = 32;          // rows a thread
+constexpr int kSobolBatch = 8;          // rows loaded before the first store
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sobol_jitter_kernel(T* __restrict__ U, int bn, int W,
+                    const long long* __restrict__ sv,
+                    const long long* __restrict__ shift,
+                    const long long* __restrict__ base_ptr, int row_off,
+                    int col_off, T jitter) {
+  __shared__ unsigned int tab[kSobolBits][kSobolCols + 1];
+  const int tx = threadIdx.x % kSobolCols;
+  const int ty = threadIdx.x / kSobolCols;
+  const int c0 = blockIdx.x * kSobolCols;
+  const int ncols = min(kSobolCols, W - c0);
+  const long long* src = sv + (long long)(col_off + c0) * kSobolBits;
+  for (int i = threadIdx.x; i < ncols * kSobolBits; i += kThreads)
+    tab[i % kSobolBits][i / kSobolBits] = (unsigned int)src[i];
+  __syncthreads();
+  const int r0 = (blockIdx.y * kSobolStrips + ty) * kSobolRows;
+  const int r1 = min(r0 + kSobolRows, bn);
+  if (tx >= ncols || r0 >= r1) return;
+  const int j = c0 + tx;
+  unsigned int n = (unsigned int)(*base_ptr) + (unsigned int)(row_off + r0);
+  const unsigned int g = n ^ (n >> 1);
+  unsigned int acc = (unsigned int)shift[col_off + j];
+  for (int k = 0; k < kSobolBits; ++k)
+    if ((g >> k) & 1u) acc ^= tab[k][tx];
+  T* col = U + j;
+  for (int r = r0; r < r1; r += kSobolBatch) {
+    T u[kSobolBatch];
+#pragma unroll
+    for (int b = 0; b < kSobolBatch; ++b)
+      if (r + b < r1) u[b] = col[(long long)(r + b) * W];
+#pragma unroll
+    for (int b = 0; b < kSobolBatch; ++b) {
+      if (r + b < r1) {
+        const T rv = (T)((double)acc * 9.313225746154785e-10);  // 2^-30
+        const T two_r = T(2) * rv;
+        const T centred = two_r - T(1);
+        col[(long long)(r + b) * W] = u[b] + jitter * centred;
+        ++n;                                  // the next row's point
+        const int k = __ffs((int)n) - 1;      // ctz(n); -1 at the wrap
+        if (k >= 0 && k < kSobolBits) acc ^= tab[k][tx];
+      }
+    }
+  }
+}
+
 // Pass 2 of K4: out[c] = sum over b of partials[b, c], one block, fixed
 // order.
 __global__ void __launch_bounds__(kThreads)
@@ -654,6 +728,26 @@ int launch_slice(const void* x, const void* inv, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
+// K9: U (bn, W), row stride W, a block at (row_off, col_off) of the
+// sequence's points and dimensions; sv (d, 30) and shift (d,) as int64, base
+// a 0-d int64 on the card
+template <typename T>
+int launch_sobol_jitter(void* U, int bn, int W, const void* sv,
+                        const void* shift, const void* base, int row_off,
+                        int col_off, double jitter, void* stream) {
+  if (bn < 1 || W < 1 || row_off < 0 || col_off < 0 || U == nullptr ||
+      sv == nullptr || shift == nullptr || base == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + kSobolCols - 1) / kSobolCols,
+                  (bn + kSobolStrips * kSobolRows - 1) /
+                      (kSobolStrips * kSobolRows));
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  sobol_jitter_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (T*)U, bn, W, (const long long*)sv, (const long long*)shift,
+      (const long long*)base, row_off, col_off, T(jitter));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -738,6 +832,20 @@ int ch_slice_scale_f64(const void* x, long long n, void* partials,
 int ch_slice_f64(const void* x, const void* inv, void* out, long long n,
                  int n_slices, void* stream) {
   return launch_slice(x, inv, out, n, n_slices, stream);
+}
+
+// K9, in place on U
+int ch_sobol_jitter_f32(void* U, int bn, int W, const void* sv,
+                        const void* shift, const void* base, int row_off,
+                        int col_off, double jitter, void* stream) {
+  return launch_sobol_jitter<float>(U, bn, W, sv, shift, base, row_off,
+                                    col_off, jitter, stream);
+}
+int ch_sobol_jitter_f64(void* U, int bn, int W, const void* sv,
+                        const void* shift, const void* base, int row_off,
+                        int col_off, double jitter, void* stream) {
+  return launch_sobol_jitter<double>(U, bn, W, sv, shift, base, row_off,
+                                     col_off, jitter, stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@ its plain PyTorch version for a tensor on the CPU.
 Counterpart of ``chsimpy_tpu/ops/pallas_kernels.py`` (K1-K4, the tiled
 matmul K6 with the DCTs built on it, and the grid-sharded K7 and K8) and
 of the ozaki route's slice kernel in ``chsimpy_tpu/ops/ozaki.py`` (K5).
-Each wrapper
+K9, the per-step Sobol jitter, has no Pallas counterpart: it adds the
+points of ``chsimpy_tpu/ops/sobol.py`` (which XLA fuses there) to the
+field.  Each wrapper
 
 * runs the plain version (``*_ref``) only when its input lies on the CPU;
 * on a CUDA tensor launches its kernel (``csrc/ch_kernels.cu``; the GEMM
@@ -25,12 +27,14 @@ from typing import Optional
 import torch
 
 from ..parallel import collectives as coll
+from .sobol import SOBOL_BITS, sobol_points_ref
 from .stencil import gradient2d
 
 # kernel name -> number of launches on the card (see reset_launches)
 launches = {'chemical_potential': 0, 'spectral_update': 0,
             'stats_sums': 0, 'absdev_sum': 0, 'slice_field': 0, 'matmul': 0,
-            'local_band_sums': 0, 'chemical_potential_sharded': 0}
+            'local_band_sums': 0, 'chemical_potential_sharded': 0,
+            'sobol_jitter': 0}
 
 # grids of the reduction kernels: fixed by the shape (and, for K3 and K7,
 # the vector width) alone, so the summation order (and the result, to the
@@ -602,3 +606,54 @@ def chemical_potential_sharded(mesh, Ub, RT, BRT, A0, A1):
     out = _launch_mu(Ub, RT, BRT, A0, A1)
     launches['chemical_potential_sharded'] += 1
     return out
+
+
+# ----------------------------------------------------------------------
+# K9: per-step Sobol jitter (no Pallas counterpart; the JAX package's
+# XLA-fused ops/sobol.py:46 sobol_points added in core/stepper.py:734-748)
+# ----------------------------------------------------------------------
+
+def sobol_jitter_ref(U, sv, shift, base, jitter, row_off: int = 0,
+                     col_off: int = 0):
+    """U += jitter * (2 r - 1) in place and returns U, where r[i, j] is
+    point ``base + row_off + i`` (mod 2^32), dimension ``col_off + j`` of
+    the scrambled Sobol sequence (:func:`~.sobol.sobol_points_ref`), cast
+    to U's type; ``jitter`` is rounded to U's type, as the JAX step's
+    Python scalar is."""
+    bn, W = U.shape
+    r = sobol_points_ref(sv[col_off:col_off + W], shift[col_off:col_off + W],
+                         base + row_off, bn).to(U.dtype)
+    U += jitter * (2.0 * r - 1.0)
+    return U
+
+
+def sobol_jitter(U, sv, shift, base, jitter, row_off: int = 0,
+                 col_off: int = 0):
+    """K9: :func:`sobol_jitter_ref` on the card, in place, with ``base``
+    (a 0-d int64 tensor) read by the kernel from device memory.  ``sv``
+    (d, 30) and ``shift`` (d,) are int64 tables (``sobol.sobol_tables``);
+    U is a (bn, W) block whose columns are dimensions col_off.. of them."""
+    _block(U)
+    bn, W = U.shape
+    if sv.dim() != 2 or sv.shape[1] != SOBOL_BITS \
+            or tuple(shift.shape) != (sv.shape[0],) or base.dim() != 0:
+        raise ValueError(f"sobol_jitter takes sv (d, {SOBOL_BITS}), shift "
+                         f"(d,) and a 0-d base, got {tuple(sv.shape)}, "
+                         f"{tuple(shift.shape)}, {tuple(base.shape)}")
+    if not (0 <= row_off and 0 <= col_off and col_off + W <= sv.shape[0]):
+        raise ValueError(f"a ({bn}, {W}) block at ({row_off}, {col_off}) "
+                         f"does not lie in {sv.shape[0]} dimensions")
+    for name, t in (('sv', sv), ('shift', shift), ('base', base)):
+        if t.dtype != torch.int64:
+            raise TypeError(f"{name} must be int64, got {t.dtype}")
+        if t.device != U.device:
+            raise ValueError(f"{name} on {t.device}, U on {U.device}")
+    if not _on_card(U):
+        return sobol_jitter_ref(U, sv, shift, base, jitter, row_off, col_off)
+    if not (sv.is_contiguous() and shift.is_contiguous()):
+        raise ValueError("the kernels take contiguous tensors")
+    _call('ch_sobol_jitter', U.dtype, U.data_ptr(), bn, W, sv.data_ptr(),
+          shift.data_ptr(), base.data_ptr(), int(row_off), int(col_off),
+          float(jitter), _stream())
+    launches['sobol_jitter'] += 1
+    return U

@@ -48,7 +48,7 @@ class Parameters:
     full_sim: bool = False
     compress_csv: bool = False
     time_max: Optional[float] = None  # minutes of simulated time
-    generator: str = 'uniform'        # uniform | lcg (sobol | simplex: later)
+    generator: str = 'uniform'        # uniform | lcg | sobol | simplex
     adaptive_time: bool = False
     jitter: Optional[float] = None
     update_every: Optional[int] = 100
@@ -127,16 +127,10 @@ def not_ported(what: str, item) -> str:
 def solver_scope_errors(p: Parameters) -> list:
     """Why the solver cannot run ``p`` yet (empty: it can)."""
     errs = []
-    if p.adaptive_time:
-        errs.append(not_ported('adaptive time stepping', 7))
-    if p.jitter is not None:
-        errs.append(not_ported('per-step jitter (--jitter)', 7))
-    if p.jitter_backend != 'host':
-        errs.append(not_ported('--jitter-backend device', 7))
-    if p.generator in ('sobol', 'simplex'):
-        errs.append(not_ported(f"the '{p.generator}' generator", 7))
-    elif p.generator not in ('uniform', 'lcg'):
+    if p.generator not in ('uniform', 'lcg', 'sobol', 'simplex'):
         errs.append(f"unknown generator '{p.generator}'")
+    if p.jitter_backend not in ('host', 'device'):
+        errs.append(f"unknown jitter backend '{p.jitter_backend}'")
     if p.restore_file is not None or p.checkpoint_file is not None \
             or p.checkpoint_every is not None:
         errs.append(not_ported('checkpoint and restore', 8))

@@ -1,14 +1,19 @@
-"""Random-field generation for the initial condition.
+"""Random-field generation for the initial condition and per-step jitter.
 
-Host-side and bit-exact with ``chsimpy_tpu/rng.py`` for the two generators
-of this slice, each on an explicit numpy generator (torch's global RNG is
-never used):
+Host-side and bit-exact with ``chsimpy_tpu/rng.py``, each generator on an
+explicit stream of its own (torch's global RNG is never used):
 
 * ``lcg``     — MATLAB-style float64 LCG, column-major placement (the
                 plain numpy loop of the JAX package's fallback);
-* ``uniform`` — numpy PCG64 stream.
+* ``uniform`` — numpy PCG64 stream;
+* ``sobol``   — scipy ``qmc.Sobol(d=N, seed)`` stream (scipy imported when
+                this generator is built);
+* ``simplex`` — OpenSimplex noise over ``linspace(0, 48, N)`` (noise.py;
+                deterministic, unseeded).
 
-``sobol`` and ``simplex`` come with ROADMAP.md queue A item 7.
+Per-step jitter draws from the same stream (``next_sample``).  The
+device-side streams of the jitter (``jitter_backend='device'``) live in
+the solver.
 """
 
 from __future__ import annotations
@@ -37,19 +42,25 @@ def matlab_lcg_sample(n1: int, n2: int, seed) -> np.ndarray:
 
 
 class FieldGenerator:
-    """Host-side random-field source: ``initial_field(XXX)`` builds U0."""
+    """Host-side random-field source: ``initial_field(XXX)`` builds U0,
+    ``next_sample()`` draws the next (N, N) sample of the same stream."""
 
     def __init__(self, kind: str, N: int, seed: int):
         self.kind = kind
         self.N = N
         self.seed = seed
+        self._qrng = None
         self._rng = None
-        if kind == 'uniform':
+        self._simplex_field = None
+        if kind == 'sobol':
+            from scipy.stats import qmc
+            self._qrng = qmc.Sobol(d=N, seed=seed)
+        elif kind == 'uniform':
             self._rng = np.random.Generator(np.random.PCG64(seed))
-        elif kind in ('sobol', 'simplex'):
-            raise NotImplementedError(
-                f"the '{kind}' generator is not ported to chsimpy_tpu_torch "
-                "yet (ROADMAP.md queue A item 7)")
+        elif kind == 'simplex':
+            from . import noise
+            lin = np.linspace(0, 48, N)
+            self._simplex_field = noise.noise2array(lin, lin)
         elif kind != 'lcg':
             raise ValueError(f"unknown generator '{kind}'")
 
@@ -57,7 +68,51 @@ class FieldGenerator:
         """Next (N, N) sample from the stream."""
         if self.kind == 'uniform':
             return self._rng.random((self.N, self.N))
+        if self.kind == 'sobol':
+            return self._qrng.random(self.N)
+        if self.kind == 'simplex':
+            return self._simplex_field  # deterministic: same field each draw
         raise ValueError("the 'lcg' generator has no sample stream")
+
+    @property
+    def sobol_position(self) -> int:
+        """Points the sobol engine has drawn (0 for the other kinds)."""
+        return 0 if self._qrng is None else int(self._qrng.num_generated)
+
+    # -- the stream position as plain data (no pickle) ------------------
+
+    def state_dict(self) -> dict:
+        """JSON-serializable stream position (see :meth:`from_state`): the
+        PCG64 words for 'uniform', the draw count for 'sobol'."""
+        d = {'kind': self.kind, 'N': self.N, 'seed': self.seed}
+        if self.kind == 'uniform':
+            st = self._rng.bit_generator.state
+            # 128-bit ints as strings: survives any JSON reader
+            d['pcg64'] = {'state': str(st['state']['state']),
+                          'inc': str(st['state']['inc']),
+                          'has_uint32': int(st['has_uint32']),
+                          'uinteger': int(st['uinteger'])}
+        elif self.kind == 'sobol':
+            d['sobol_num_generated'] = self.sobol_position
+        return d
+
+    @classmethod
+    def from_state(cls, d: dict) -> 'FieldGenerator':
+        """A generator at the stream position captured by
+        :meth:`state_dict` (bit-exact continuation)."""
+        gen = cls(d['kind'], int(d['N']), d['seed'])
+        if d['kind'] == 'uniform':
+            p = d['pcg64']
+            gen._rng.bit_generator.state = {
+                'bit_generator': 'PCG64',
+                'state': {'state': int(p['state']), 'inc': int(p['inc'])},
+                'has_uint32': int(p['has_uint32']),
+                'uinteger': int(p['uinteger'])}
+        elif d['kind'] == 'sobol':
+            n = int(d['sobol_num_generated'])
+            if n:
+                gen._qrng.fast_forward(n)
+        return gen
 
     def initial_field(self, XXX: float) -> np.ndarray:
         """U0 from mean concentration XXX and 1% relative deviations."""

@@ -1,8 +1,15 @@
-"""Host utilities the simulator uses (file id, human-readable times)."""
+"""Host utilities: the file id, human-readable times, and the host and
+device descriptions the bench writes into its artifact."""
 
 from __future__ import annotations
 
+import os
+import platform
+import sys
+import time
 from datetime import datetime
+
+from .version import __version__
 
 
 def get_or_create_file_id(file_id):
@@ -27,3 +34,36 @@ def card_line() -> str:
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def get_system_info() -> list:
+    """The host, as "key, value" lines (``chsimpy_tpu/sysinfo.py``'s
+    keys without psutil's core and clock counts: the card's machine has
+    no psutil)."""
+    uname = platform.uname()
+    return [
+        f"system, {uname.system}",
+        f"nodename, {uname.node}",
+        f"kernel-release, {uname.release}",
+        f"kernel-version, {uname.version}",
+        f"machine, {uname.machine}",
+        f"cores_total, {os.cpu_count()}",
+        f"localtime, {time.strftime('%Y-%m-%d %H:%M:%S %Z')}",
+        f"argv, '{' '.join(sys.argv)}'",
+        f"chsimpy-tpu-torch-version, {__version__}",
+    ]
+
+
+def get_device_info(device) -> list:
+    """The run's device as "key, value" lines: on the card its name and
+    power limit (:func:`card_line`) and the card count, then the torch and
+    CUDA versions."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == 'cuda':
+        info = [f"card, {card_line()}",
+                f"device-count, {torch.cuda.device_count()}"]
+    else:
+        info = [f"device, {dev.type}"]
+    return info + [f"torch, {torch.__version__}",
+                   f"cuda, {torch.version.cuda}"]

@@ -1,5 +1,6 @@
-"""The CUDA kernels of chsimpy_tpu_torch (the GEMM and the grid-sharded
-K7/K8 included) against their plain PyTorch versions, and the ozaki, split
+"""The CUDA kernels of chsimpy_tpu_torch (the GEMM, the grid-sharded
+K7/K8 and the Sobol jitter K9 included) against their plain PyTorch
+versions, and the ozaki, split
 and FFT transforms, short solves and a grid-sharded solve of ranks sharing
 the card on the card against the same on the CPU.
 
@@ -93,7 +94,8 @@ def test_kernels_match_plain_versions(card, dtype, N):
                           'stats_sums': 2, 'absdev_sum': 1,
                           'slice_field': 0, 'matmul': 0,
                           'local_band_sums': 0,
-                          'chemical_potential_sharded': 0}
+                          'chemical_potential_sharded': 0,
+                          'sobol_jitter': 0}
 
 
 def test_stats_sums_are_reproducible(card):
@@ -512,3 +514,61 @@ def test_sharded_solve_on_card_matches_cpu(card):
         assert r['launches']['local_band_sums'] == 40
         assert r['launches']['chemical_potential_sharded'] == 39
         assert np.array_equal(r['timedata'], res[0][0]['timedata'])
+
+
+# ----------------------------------------------------------------------
+# the Sobol jitter (K9), adaptive time stepping and jitter on the card
+# ----------------------------------------------------------------------
+
+def _sobol_tables(N, device):
+    from chsimpy_tpu_torch.ops import sobol
+    sv, sh = sobol.sobol_tables(N, 2023)
+    return (torch.tensor(sv.astype(np.int64), device=device),
+            torch.tensor(sh.astype(np.int64), device=device))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('N', [64, 37, 1000])
+@pytest.mark.parametrize('where', ['zero', 'one_draw', 'wrap'])
+def test_sobol_jitter_kernel_matches_plain_version(card, dtype, N, where):
+    """K9 against its plain version to the bit: the whole field and a
+    block with offsets, at base 0, N and within N rows of 2^32."""
+    base = {'zero': 0, 'one_draw': N, 'wrap': 2 ** 32 - N // 2}[where]
+    sv, sh = _sobol_tables(N, card)
+    b = torch.tensor(base, device=card)
+    U = _field(N, dtype, card)
+    K.reset_launches()
+    got = K.sobol_jitter(U.clone(), sv, sh, b, 0.01)
+    want = K.sobol_jitter_ref(U.clone(), sv, sh, b, 0.01)
+    assert torch.equal(got, want)
+    h = N // 2
+    blk = U[h:, 3:h + 3].contiguous()
+    got = K.sobol_jitter(blk.clone(), sv, sh, b, 0.01, h, 3)
+    want = K.sobol_jitter_ref(blk.clone(), sv, sh, b, 0.01, h, 3)
+    assert torch.equal(got, want)
+    assert K.launches['sobol_jitter'] == 2
+
+
+def test_sobol_device_jitter_equals_host_stream_on_the_card(card):
+    """n64_sobol_jitter_100 on the card: the device backend (K9 on every
+    step) gives the host stream's U and rows to the bit."""
+    kw = dict(N=64, ntmax=100, full_sim=True, generator='sobol',
+              jitter=0.01)
+    host = _solve('cuda', **kw)
+    K.reset_launches()
+    dev = _solve('cuda', jitter_backend='device', **kw)
+    assert K.launches['sobol_jitter'] == 99
+    assert torch.equal(dev.U, host.U)
+    assert np.array_equal(dev.timedata.data(), host.timedata.data())
+
+
+def test_adaptive_solve_on_card_matches_cpu(card):
+    """float64 N=64 with -a over 520 steps, card against CPU: delt and E
+    in the chaotic golden's class (the coefficient rebuild divides by a
+    scalar as a reciprocal product on the card)."""
+    kw = dict(ntmax=520, full_sim=True, adaptive_time=True, chunk_size=128)
+    g = _solve('cuda', **kw)
+    c = _solve('cpu', **kw)
+    np.testing.assert_allclose(g.timedata.delt, c.timedata.delt, rtol=1e-9)
+    np.testing.assert_allclose(g.timedata.E, c.timedata.E, rtol=1e-10)
+    assert g.timedata.delt[-1] != g.timedata.delt[0]

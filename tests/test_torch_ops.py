@@ -86,9 +86,15 @@ def test_generators_bit_exact_with_jax(kind):
 
 
 def test_generators_not_ported_name_their_roadmap_item():
+    """sobol and simplex, refused until item 7 was ported, now give the
+    JAX package's fields and streams to the bit; an unknown kind is still
+    refused."""
     for kind in ('sobol', 'simplex'):
-        with pytest.raises(NotImplementedError, match='item 7'):
-            rng.FieldGenerator(kind, 8, 1)
+        ours = rng.FieldGenerator(kind, 48, 2023)
+        ref = jrng.FieldGenerator(kind, 48, 2023)
+        assert np.array_equal(ours.initial_field(0.875),
+                              ref.initial_field(0.875))
+        assert np.array_equal(ours.next_sample(), ref.next_sample())
     with pytest.raises(ValueError):
         rng.FieldGenerator('banana', 8, 1)
 
@@ -160,8 +166,8 @@ def test_params_carried_from_jax():
 
 
 def test_solver_refuses_settings_not_ported():
-    cases = {'adaptive_time': (True, 'item 7'), 'jitter': (0.01, 'item 7'),
-             'generator': ('sobol', 'item 7'),
+    cases = {'restore_file': ('x.npz', 'item 8'),
+             'checkpoint_every': (10, 'item 8'),
              'checkpoint_file': ('x.npz', 'item 8'),
              'fold_field': (True, 'item 14'),
              'inv_band': (4, 'item 14'),
@@ -173,6 +179,14 @@ def test_solver_refuses_settings_not_ported():
         setattr(p, field, value)
         with pytest.raises(NotImplementedError, match=item):
             ctt.Solver(p)
+    # item 7's settings run (ROADMAP.md queue A item 7, done)
+    for field, value in (('adaptive_time', True), ('jitter', 0.01),
+                         ('generator', 'sobol'), ('generator', 'simplex'),
+                         ('jitter_backend', 'device')):
+        p = ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA,
+                           no_gui=True)
+        setattr(p, field, value)
+        ctt.Solver(p)
     # the grid mesh runs the matmul route; the pencil split route is later
     p = ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA, no_gui=True,
                        mesh_shape=(2, 2), transform_backend='split')
@@ -198,6 +212,8 @@ def test_import_brings_in_no_jax():
             "import chsimpy_tpu_torch.__main__\n"
             "import chsimpy_tpu_torch.ops.cuda_build\n"
             "import chsimpy_tpu_torch.benchmarks.dct_bench\n"
+            "import chsimpy_tpu_torch.benchmarks.bench\n"
+            "import chsimpy_tpu_torch.ops.sobol, chsimpy_tpu_torch.noise\n"
             "import chsimpy_tpu_torch.parallel.workers\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'chsimpy_tpu', 'triton', 'sympy')]\n"
@@ -216,11 +232,16 @@ def test_cli_parses_the_slice_and_refuses_the_rest(capsys):
             p.kappa_tilde, p.device) == (64, 10, True, 'float32', 'lcg',
                                          KAPPA, 'cpu')
     assert CLIParser().get_parameters(['--no-gui']).device == 'cuda'
-    for argv, item in ((['--no-gui', '-a'], 'item 7'),
+    # item 7's flags parse
+    p = CLIParser().get_parameters(['--no-gui', '-a', '-j', '0.01', '-g',
+                                    'sobol', '--jitter-backend', 'device'])
+    assert (p.adaptive_time, p.jitter, p.generator, p.jitter_backend) == \
+        (True, 0.01, 'sobol', 'device')
+    for argv, item in ((['--no-gui', '--checkpoint-every', '5'], 'item 8'),
                        (['--no-gui', '--mesh', '2x2', '--transform',
                          'split'], 'item 11'),
                        (['--no-gui', '--export-csv', 'U'], 'item 13'),
-                       (['--no-gui', '-g', 'sobol'], 'item 7'),
+                       (['--no-gui', '--yaml'], 'item 13'),
                        (['--no-gui', '--fold-field'], 'item 14'),
                        (['--no-gui', '--inv-band', '8'], 'item 14'),
                        (['--no-gui', '--kernels', 'pallas'], 'queue B'),

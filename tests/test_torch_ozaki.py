@@ -452,11 +452,15 @@ def test_ozaki_scope_matches_jax():
         jsolver.resolve_transform(_jax_params(precision='float32',
                                               transform_backend='ozaki'))
     for field, value, item in (('mesh_shape', (2, 2), 'item 11'),
-                               ('adaptive_time', True, 'item 7')):
+                               ('restore_file', 'x.npz', 'item 8')):
         p = _port_params(N=16, kappa_tilde=KAPPA, transform_backend='ozaki')
         setattr(p, field, value)
         with pytest.raises(NotImplementedError, match=item):
             ctt.Solver(p)
+    # adaptive time stepping runs on the ozaki route (item 7)
+    p = _port_params(N=16, kappa_tilde=KAPPA, transform_backend='ozaki',
+                     adaptive_time=True)
+    assert ctt.Solver(p).cfg.adaptive_time
 
 
 def test_cli_parses_the_ozaki_flags(capsys):

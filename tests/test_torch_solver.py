@@ -55,6 +55,8 @@ def U_np(sol):
     ('n64_lcg_200', 1e-11, 1e-12, 1e-6),
     ('n128_uniform_300', 1e-11, 1e-12, 1e-6),
     ('n64_timemax', 1e-11, 1e-12, 1e-6),
+    # N=1024, 60 steps (~11 s here): tests/test_golden.py's tolerances
+    ('n1024_lcg_60', 1e-12, 1e-12, 1e-6),
 ])
 def test_golden_trace(name, rtol_E, rtol_delt, rtol_E2):
     g = load(name)
