@@ -87,9 +87,8 @@ Phases (each raises on failure, so the script exits nonzero):
    within 1e-10 of the single-device run at every step, the same rows on
    every rank, K7 and K8 launched once per step iteration per rank (K7
    once more for prepare; the JSON line's counts are rank 0's);
-   (d) N=512 through ``torchrun`` and the CLI, cut to 256 steps (the
-   canonical stop is (c)'s) with the device Sobol jitter: rank 0 prints
-   the one summary line, K7, K8 and K9 launched on every step;
+   (d) the same run through ``torchrun`` and the CLI: rank 0 prints the
+   stop line (1674, energy), K7 and K8 launched on every step;
    (e) N=4096 float32 ``full_sim`` over 64 steps in the same world: E
    within 1e-5 of phase 5's float64 run and 1e-6 of its single-device
    float32 run, mean(U) held, and steps/s of a 64-step window (4 ranks
@@ -108,12 +107,11 @@ Phases (each raises on failure, so the script exits nonzero):
    tolerances of tests/test_golden.py and tests/test_golden_extra.py, and
    the device Sobol jitter's U and rows equal to the host stream's;
    (c) N=4096 float32 ``full_sim`` on matmul: steps/s over steps 513-768
-   with -a (delt_max from (c0), see ITEM7_DELT_RATIO), with the device Sobol
-   jitter and with the device uniform jitter, beside phase 5's fixed-delt
-   rate; delt moved after step 500 only and mean(U) held under -a; the
-   layer times of one step (adaptive delt, coefficient rebuild, jitter);
-   (c0), before (c): -a with the default delt_max stops with 'nan' after
-   step 500; the column sum at step 501 sets (c)'s delt_max;
+   with -a (delt_max ITEM7_DELT_MAX; the column sum at step 501 recorded),
+   with the device Sobol jitter and with the device uniform jitter, beside
+   phase 5's fixed-delt rate; delt moved after step 500 only and mean(U)
+   held under -a; the layer times of one step (adaptive delt, coefficient
+   rebuild, jitter);
    (d) in phase 8's 2x2 world: -a over 520 steps (N=32) and the device
    Sobol jitter over 100, against one device: delt within 1e-9, E within
    1e-10, the same rows on every rank.
@@ -1549,20 +1547,16 @@ def torch_cards() -> int:
     return torch.cuda.device_count()
 
 
-# (d)'s depth: the canonical 1674 steps through torchrun took 80-117 s of
-# host-staged collectives; (c) holds the stop in the same world
-WORLD_CLI_STEPS = 256
+# (d)'s canonical stop: N=512 from the seeded uniform field
+WORLD_CLI_STOP = 1674
 
 
 def world_cli(backend, device):
-    """(d) N=512 through torchrun and the CLI, 256 steps with the device
-    Sobol jitter: rank 0 prints the one summary line; K7, K8 and K9
-    launched on every step."""
+    """(d) the canonical run through torchrun and the CLI: rank 0 prints
+    the stop line; K7 and K8 launched on every step."""
     cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
            '--nproc-per-node', str(WORLD_SHAPE[0] * WORLD_SHAPE[1]), '-m',
            'chsimpy_tpu_torch', '--mesh', '%dx%d' % WORLD_SHAPE, '-N', '512',
-           '-n', str(WORLD_CLI_STEPS), '-z', '-g', 'sobol', '-j', '0.01',
-           '--jitter-backend', 'device',
            '--no-gui', '-K', repr(KAPPA), '--dist-backend', backend,
            '--device', device]
     t0 = time.perf_counter()
@@ -1575,15 +1569,14 @@ def world_cli(backend, device):
     lines = [ln for ln in proc.stdout.splitlines()
              if ln.startswith('computed_steps = ')]
     check(len(lines) == 1, f"torchrun: {len(lines)} stop lines")
-    check(lines[0].startswith(f'computed_steps = {WORLD_CLI_STEPS},')
-          and lines[0].endswith('stop reason = None'),
+    check(lines[0].startswith(f'computed_steps = {WORLD_CLI_STOP},')
+          and lines[0].endswith('stop reason = energy'),
           f"torchrun: {lines[0]}")
     m = re.search(r'kernel launches: (\{.*\})', proc.stdout)
     check(m is not None, 'torchrun: no kernel launch counts')
     launches = json.loads(m.group(1))
-    check(launches['local_band_sums'] >= WORLD_CLI_STEPS - 1
-          and launches['chemical_potential_sharded'] >= WORLD_CLI_STEPS - 1
-          and launches['sobol_jitter'] == WORLD_CLI_STEPS - 1,
+    check(launches['local_band_sums'] >= WORLD_CLI_STOP - 1
+          and launches['chemical_potential_sharded'] >= WORLD_CLI_STOP - 1,
           f"torchrun: launches {launches}")
     mesh_line = next(ln for ln in proc.stdout.splitlines()
                      if ln.startswith('mesh '))
@@ -1792,17 +1785,17 @@ def item7_goldens():
     return out
 
 
-# the adaptive delt is a column SUM over N rows of delt_max / sqrt(1 +
-# α·E²), so it grows with N: with the default delt_max the first adapted
-# step takes a delt hundreds of times the base from N=128 on and the next
-# steps drive the field to NaN (the port and the JAX package alike; on the
-# CPU at N=128-512 float32 the sum is ~0.45·N·delt_max).  (c0) runs the
-# default to that NaN stop and measures the sum at step 501, and (c) runs
-# -a with the delt_max that makes the first adapted delt ITEM7_DELT_RATIO
-# times the base (> 1.15: the blend branch)
-ITEM7_DELT_RATIO = 1.5
+# the adaptive delt is delt_max times a column SUM over N rows of
+# 1 / sqrt(1 + α·E²), so it grows with N: with the default delt_max (9e-8)
+# the first adapted step of this run would take thousands of times the
+# base delt and the field turns NaN after step 500, in the JAX package
+# too (ROADMAP.md queue C).  (c) runs -a with a delt_max that puts the
+# first adapted delt ~1.5 times the base (> 1.15: the blend branch; the
+# column sum there is recorded); the steps run the same passes whatever
+# delt is
+ITEM7_DELT_MAX = 2.4e-11
 ITEM7_N4096 = {
-    '-a': {'adaptive_time': True},     # delt_max from (c0)
+    '-a': {'adaptive_time': True, 'delt_max': ITEM7_DELT_MAX},
     '-j 0.01 -g sobol --jitter-backend device': {
         'jitter': 0.01, 'generator': 'sobol', 'jitter_backend': 'device'},
     '-j 0.01 --jitter-backend device': {
@@ -1848,21 +1841,20 @@ def item7_n4096(card, fixed_rate):
     from chsimpy_tpu_torch.ops import kernels as K
 
     out = {'fixed_delt_steps_per_s_phase5': fixed_rate}
-    c0 = out['-a default delt_max'] = item7_default_delt_max(card)
-    delt_max = ITEM7_DELT_RATIO * 3e-8 / c0['column_sum_min_step_501']
     for tag, kw in ITEM7_N4096.items():
         p = Parameters(N=4096, precision='float32', full_sim=True,
                        generator='uniform', kappa_tilde=KAPPA,
                        chunk_size=ITEM7_WINDOW, no_gui=True, device='cuda')
         for k, v in kw.items():
             setattr(p, k, v)
-        if p.adaptive_time:
-            p.delt_max = delt_max
         s = Solver(p)
         s.prepare()
         U0 = s.solution.U.double().mean().item()
         K.reset_launches()
-        s.solve_or_resume(ITEM7_WARM)
+        # to step 501, the column sum there, then to the window's start
+        s.solve_or_resume(501)
+        colsum = item7_column_sum(s) if p.adaptive_time else None
+        s.solve_or_resume(ITEM7_WARM - 501)
         r = rate(s, ITEM7_WINDOW)
         launches = dict(K.launches)
         td = s.solution.timedata.data()
@@ -1875,7 +1867,10 @@ def item7_n4096(card, fixed_rate):
                'U_mean_initial': U0, 'U_mean': mean, 'launches': launches,
                'iterations': iterations, 'layers_ms': item7_layers(s)}
         if p.adaptive_time:
-            res['delt_max'] = delt_max
+            res.update(delt_max=p.delt_max, column_sum_min_step_501=colsum,
+                       delt_step_502_over_base=float(td[502, 8] / td[0, 8]),
+                       default_delt_max_first_delt_over_base=(
+                           Parameters().delt_max * colsum / p.delt))
         out[tag] = res
         print(f"N=4096 float32 {tag}: {r:.2f} steps/s over steps "
               f"{ITEM7_WARM + 1}-{ITEM7_WARM + ITEM7_WINDOW} (fixed delt, "
@@ -1905,44 +1900,15 @@ def item7_n4096(card, fixed_rate):
     return out
 
 
-def item7_default_delt_max(card):
-    """(c0) -a with the default delt_max at N=4096 float32: 500 steps at
-    the base delt, then the minimum column sum of 1 / sqrt(1 + α·E²) of
-    the field there (the adapted delt is delt_max times it), then the NaN
-    guard stops the run within the first chunk after step 500."""
+def item7_column_sum(solver):
+    """The least column sum of 1 / sqrt(1 + α·E²) of the solver's field,
+    in float64: the adapted delt of the next even step over delt_max."""
     import torch
-    from chsimpy_tpu_torch import Parameters
     from chsimpy_tpu_torch.core import stepper
-    from chsimpy_tpu_torch.core.solver import Solver
-    p = Parameters(N=4096, precision='float32', full_sim=True,
-                   generator='uniform', kappa_tilde=KAPPA, chunk_size=32,
-                   no_gui=True, device='cuda', adaptive_time=True)
-    s = Solver(p)
-    s.prepare()
-    s.solve_or_resume(500)
-    E = stepper._nonlinear_term(s.cfg, s._consts, s._state.U).double()
-    colsum = torch.min(torch.sum(
+    E = stepper._nonlinear_term(solver.cfg, solver._consts,
+                                solver._state.U).double()
+    return torch.min(torch.sum(
         1.0 / torch.sqrt(1.0 + stepper.ADAPT_ALPHA * E * E), dim=0)).item()
-    try:
-        s.solve_or_resume(ITEM7_WARM + 64 - 500)
-        raised = False
-    except FloatingPointError:
-        raised = True
-    td = s.solution.timedata.data()
-    res = {'column_sum_min_step_501': colsum,
-           'first_adapted_delt_over_base': p.delt_max * colsum / p.delt,
-           'stop_reason': s.solution.stop_reason,
-           'computed_steps': s.solution.computed_steps,
-           'rows_kept': len(td), 'delt_last_kept': float(td[-1, 8])}
-    print(f"N=4096 float32 -a, default delt_max: {json.dumps(res)}  "
-          f"({card})", flush=True)
-    # the chunk that holds the NaN row is not kept: the rows before it
-    check(raised and s.solution.stop_reason == 'nan'
-          and 500 <= len(td) <= ITEM7_WARM + 1,
-          f"N=4096 -a default delt_max: {res}")
-    del s
-    torch.cuda.empty_cache()
-    return res
 
 
 def check_item7_world(tag, res):

@@ -243,11 +243,11 @@ class Solver:
                                          device=self.device))
         if self.mesh is not None:
             self._consts = shard_consts(self._consts, self.mesh)
-        # the 'device' jitter's stream (the JAX package's threefry key)
+        # the 'device' jitter's stream (the JAX package's threefry key),
+        # seeded in prepare()
         self._jitter_gen = None
         if jitter_mode == 'device':
             self._jitter_gen = torch.Generator(device=self.device)
-            self._jitter_gen.manual_seed(params.seed)
         # the simplex slab, drawn at first use
         self._static_jbuf = None
         self._state: Optional[SolverState] = None
@@ -277,6 +277,10 @@ class Solver:
                                         device=self.device),
             skip_check=torch.tensor(bool(self.skip_check),
                                     device=self.device))
+        # the 'device' jitter restarts from the seed, as the JAX package's
+        # init_state resets its threefry key
+        if self._jitter_gen is not None:
+            self._jitter_gen.manual_seed(self.params.seed)
         self.solution.timedata = data
         self.solution.tau0 = 0.0
         self.solution.t0 = 0.0

@@ -41,6 +41,7 @@ from chsimpy_tpu_torch.ops import kernels as K
 from chsimpy_tpu_torch.ops import sobol
 from chsimpy_tpu_torch.parallel.distributed import spawn_grid
 from chsimpy_tpu_torch.parallel.workers import run_tasks
+from chsimpy_tpu_torch.timedata import COLUMNS
 
 torch.set_num_threads(2)
 
@@ -419,6 +420,32 @@ def test_adaptive_steps_from_a_carried_jax_state(precision):
     assert changed >= 10        # delt moved on the even steps after 500
 
 
+def test_default_delt_max_diverges_at_n128_as_in_jax():
+    """-a with the default delt_max at N=128: the adapted delt is a column
+    sum over N rows, so the first adapted steps take tens of times the
+    base delt and the field turns NaN at step 508, in the JAX package and
+    in the port alike (ROADMAP.md queue C).  One step a chunk, so the NaN
+    guard stops both on the same step with the same rows before it."""
+    kw = dict(N=128, ntmax=520, full_sim=True, generator='lcg',
+              adaptive_time=True, chunk_size=1)
+    out = {}
+    for name, solver in (('port', ctt.Solver(port_params(**kw))),
+                         ('jax', ct.Solver(jax_params(**kw)))):
+        solver.prepare()
+        with pytest.raises(FloatingPointError):
+            solver.solve_or_resume()
+        out[name] = solver.solution
+    port, ref = out['port'], out['jax']
+    assert port.stop_reason == ref.stop_reason == 'nan'
+    assert port.computed_steps == ref.computed_steps == 508
+    td, tj = port.timedata.data(), ref.timedata.data()
+    assert len(td) == len(tj) == 508
+    np.testing.assert_array_equal(td[:, 0], tj[:, 0])
+    np.testing.assert_allclose(td[:, 8], tj[:, 8], rtol=1e-9)
+    np.testing.assert_allclose(td[:, 1], tj[:, 1], rtol=1e-8)
+    assert np.all(tj[:501, 8] == 3e-8) and tj[-1, 8] > 10 * 3e-8
+
+
 # ----------------------------------------------------------------------
 # the 2x2 world (tests/test_combined_features.py's configuration)
 # ----------------------------------------------------------------------
@@ -481,6 +508,30 @@ def test_device_jitter_reproducible_and_not_reference_exact():
     assert torch.equal(ua, ub)              # same seed, same stream
     assert not torch.allclose(ua, none.U)
     assert not torch.equal(ua, host.U)
+
+
+def test_device_jitter_restarts_from_the_seed_at_prepare():
+    """Two prepare+solve cycles of one Solver give the same rows and
+    field, as in the JAX package, whose prepare() resets the key.  Only
+    domtime moves on: prepare() keeps time_delta_sum (the reference's
+    quirk) in both."""
+    runs = {}
+    for name, solver in (
+            ('port', ctt.Solver(port_params(**JIT, jitter=0.01,
+                                            jitter_backend='device'))),
+            ('jax', ct.Solver(jax_params(**JIT, jitter=0.01,
+                                         jitter_backend='device')))):
+        assert solver.cfg.jitter_mode == 'device'
+        runs[name] = []
+        for _ in range(2):
+            solver.prepare()
+            sol = solver.solve_or_resume()
+            runs[name].append((sol.timedata.data().copy(),
+                               np.array(sol.U, copy=True)))
+    keep = [i for i, c in enumerate(COLUMNS) if c != 'domtime']
+    for (td_a, U_a), (td_b, U_b) in runs.values():
+        np.testing.assert_array_equal(td_a[:, keep], td_b[:, keep])
+        np.testing.assert_array_equal(U_a, U_b)
 
 
 @pytest.mark.parametrize('jitter', [0.5, 0.0, -0.01])
