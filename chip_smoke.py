@@ -114,7 +114,33 @@ Phases (each raises on failure, so the script exits nonzero):
    rebuild, jitter);
    (d) in phase 8's 2x2 world: -a over 520 steps (N=32) and the device
    Sobol jitter over 100, against one device: delt within 1e-9, E within
-   1e-10, the same rows on every rank.
+   1e-10, the same rows on every rank;
+10. the member-batched ensemble (``EnsembleSolver``: K1-K4 launched once a
+   step for R members), checkpoints and the CLI's exports:
+   (a) each batched kernel against its plain version (phase 3's
+   tolerances) and member by member against the single-field launch on
+   the member's field with its scalars (the same bits), at R=16 N=512
+   float64 and R=4 N=4096 float32 and float64, one count a call; device ms
+   of the batched launch and of R single launches, the plain version's,
+   and the bound;
+   (b) the canonical UQ batch (R=16, N=512 float64, the JAX experiment's
+   A factors from seed 85972, each member's kappa passed as ``kappas=``):
+   every member's stop step equals the port's single run of the member on
+   the card, E within 1e-10 at every row; member-steps/s beside the single
+   runs' steps/s; the batched kernels' counts in the JSON line come from
+   this run;
+   (c) R=4 N=4096 float32 ``full_sim`` over 256 steps on matmul, split and
+   fft: member-steps/s after a 16-step warm-up beside the single runs',
+   mean(U) held to 1e-6, each member's E within 1e-6 of its single run
+   at every row and U within 1e-5 (the float32 class);
+   (d) the canonical run through the CLI to step 1025 (its
+   --checkpoint-every 1024 save), then --restore: it stops at 1674, its
+   rows are those of the in-memory run that re-enters the solve at 1025
+   to the bit and within 1e-10 of phase 4's uninterrupted run; an
+   ensemble saved mid-batch and restored ends bit-equal; a run with the
+   device jitter resumes its torch.Generator stream to the bit;
+   (e) the restored CLI run also exports U, E and E2 as bz2 CSV and the
+   solution's YAML: read back, they equal the solution.
 
 The kernels' rows carry ``bound_ms``, the least time the card could take
 for the same work (bytes at 3.35 TB/s or operations at the peak rate of
@@ -126,8 +152,8 @@ measurement also goes to DIR/chip_smoke.json.
 
     python3 chip_smoke.py --kernels-only
 
-runs phases 1-3 and the kernel parts of 6-9 ((a); (a)-(b) of 8) only, and
-prints the kernels' table instead of the two last lines.
+runs phases 1-3 and the kernel parts of 6-10 ((a); (a)-(b) of 8) only,
+and prints the kernels' table instead of the two last lines.
 """
 
 from __future__ import annotations
@@ -1957,6 +1983,476 @@ def item7_phase(dev, card, fixed_rate):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 10: the member-batched ensemble (K1-K4 for R members in one
+# launch each), checkpoints and the CLI's exports
+# ----------------------------------------------------------------------
+
+# the member-batched kernels and the single-field kernel each one extends
+# (the JAX ensemble vmaps the same Pallas kernels over its member axis)
+MEMBER_KERNELS = {'chemical_potential_members': 'chemical_potential',
+                  'spectral_update_members': 'spectral_update',
+                  'stats_sums_members': 'stats_sums',
+                  'absdev_sum_members': 'absdev_sum'}
+# (a): (R, N, dtype) of the batched launches; the JSON line's rows are the
+# canonical batch's shape
+MEMBER_SHAPES = ((16, 512, 'float64'), (4, 4096, 'float32'),
+                 (4, 4096, 'float64'))
+MEMBER_REPORT = (16, 512, 'float64')
+# (b): the canonical UQ batch of the JAX experiment (A factors in
+# [0.995, 1.005] from PCG64(85972), chsimpy_tpu/experiment.py:153-180,
+# 464-468) and the members' kappa_tilde, the sympy common-tangent solve of
+# each (A0, A1) (pinned by tests/test_torch_ensemble.py: the card's
+# machine has no sympy)
+CANONICAL_A_SEED = 85972
+CANONICAL_KAPPAS = (0.00031265939230567846, 0.00029492551257139036,
+                    0.00026709268342122003, 0.0003123359193314077,
+                    0.0003865912887370596, 0.00029681491195003606,
+                    0.00031215609936870354, 0.00026274837504202054,
+                    0.000351306290558011, 0.0002604288804095901,
+                    0.00034803164344450493, 0.00035838595210251984,
+                    0.00034111541458706007, 0.00031366579393963276,
+                    0.00025791626846952473, 0.00032044238344307595)
+# (c): members, steps (a warm-up of ENS_WARM, then the timed window)
+ENS_4096 = (4, 256)
+ENS_WARM = 16
+
+
+def canonical_pairs(runs=16):
+    """The canonical batch's (A0, A1) pairs: the JAX experiment's uniform
+    factors times the default A0(T), A1(T)."""
+    import numpy as np
+    from chsimpy_tpu_torch import Parameters
+    p = Parameters()
+    rng = np.random.Generator(np.random.PCG64(CANONICAL_A_SEED))
+    f = np.transpose(rng.uniform(0.995, 1.005, size=(runs, 2)))
+    return np.stack([f[0] * p.func_A0(p.temp), f[1] * p.func_A1(p.temp)],
+                    axis=1)
+
+
+def member_bound(name, R, N, dtype):
+    """bound_fields of a batched launch: R fields, each member's scalars
+    (A0/A1, the mean) and results; K2's shared Seig read once."""
+    n = N * N
+    s = 4 if dtype == 'float32' else 8
+    if name == 'chemical_potential_members':
+        return bound_fields(2 * R * n * s + 2 * R * 8,
+                            OPS_PER_ELEM['chemical_potential'] * R * n, dtype)
+    if name == 'spectral_update_members':
+        return bound_fields((4 * R + 1) * n * s,
+                            OPS_PER_ELEM['spectral_update'] * R * n, dtype)
+    if name == 'stats_sums_members':
+        return bound_fields(2 * R * n * s + R * (2 * 8 + 5 * 8),
+                            OPS_PER_ELEM['stats'] * R * n, dtype)
+    if name == 'absdev_sum_members':
+        return bound_fields(R * n * s + R * s + R * 8,
+                            OPS_PER_ELEM['absdev_sum'] * R * n, dtype)
+    raise KeyError(name)
+
+
+def member_inputs(R, N, dtype, dev):
+    """Seeded member fields and operands on the card: U (R, N, N) near
+    the mean concentration, the canonical pairs' A0/A1, EnergieEut, random
+    spectral operands, the members' CHeig and the shared Seig."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters
+    from chsimpy_tpu_torch.core.stepper import StepConfig, make_members_consts
+    from chsimpy_tpu_torch.derived import Derived
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    p = Parameters(N=N, kappa_tilde=KAPPA)
+    d = Derived.from_params(p)
+    cfg = StepConfig(N=N, dtype=str(dtype)[6:], RT=d.RT, BRT=d.BRT, B=p.B,
+                     Amr=d.Amr, L=p.L, delx=d.delx, delx2=d.delx2,
+                     M_tilde=p.M_tilde, threshold=p.threshold)
+    pairs = canonical_pairs(R)
+    c = make_members_consts(cfg, p.delt, pairs[:, 0], pairs[:, 1],
+                            np.asarray(CANONICAL_KAPPAS[:R]), device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(N + R)
+    U = 0.875 + 0.01 * (torch.rand((R, N, N), generator=g, dtype=dtype,
+                                   device=dev) - 0.5)
+    hat_U = torch.randn((R, N, N), generator=g, dtype=dtype, device=dev)
+    hat_E = torch.randn((R, N, N), generator=g, dtype=dtype, device=dev)
+    E = K.chemical_potential_members_ref(U, cfg.RT, cfg.BRT, c['A0'],
+                                         c['A1'])
+    mean = (U.double().sum((1, 2)) / (N * N)).to(dtype)
+    return cfg, c, U, E, hat_U, hat_E, mean
+
+
+def member_kernel_phase(dev, card):
+    """(a) each batched kernel against its plain version (phase 3's
+    tolerances) and, member by member, against the single-field launch on
+    the member's field with its scalars: the same bits; one count a
+    batched call; device ms of the batched launch and of R single
+    launches, the plain version's, and the bound."""
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    for R, N, dname in MEMBER_SHAPES:
+        dtype = getattr(torch, dname)
+        f64 = dtype == torch.float64
+        cfg, c, U, E, hat_U, hat_E, mean = member_inputs(R, N, dtype, dev)
+        skw = dict(delx=cfg.delx, RT=cfg.RT, B=cfg.B,
+                   threshold=cfg.threshold)
+        A0s, A1s = c['A0'], c['A1']
+        a0 = A0s.tolist()
+        a1 = A1s.tolist()
+        CH, S = c['CHeig'], c['Seig']
+        cases = {
+            'chemical_potential_members': (
+                lambda: K.chemical_potential_members(U, cfg.RT, cfg.BRT,
+                                                     A0s, A1s),
+                lambda: K.chemical_potential_members_ref(U, cfg.RT, cfg.BRT,
+                                                         A0s, A1s),
+                lambda r: K.chemical_potential(U[r], cfg.RT, cfg.BRT, a0[r],
+                                               a1[r])),
+            'spectral_update_members': (
+                lambda: K.spectral_update_members(hat_U, hat_E, S, CH),
+                lambda: K.spectral_update_members_ref(hat_U, hat_E, S, CH),
+                lambda r: K.spectral_update(hat_U[r], hat_E[r], S, CH[r])),
+            'stats_sums_members': (
+                lambda: K.stats_sums_members(U, E, A0s, A1s, **skw),
+                lambda: K.stats_sums_members_ref(U, E, A0s, A1s, **skw),
+                lambda r: K.stats_sums(U[r], E[r], a0[r], a1[r], **skw)),
+            'absdev_sum_members': (
+                lambda: K.absdev_sum_members(U, mean),
+                lambda: K.absdev_sum_members_ref(U, mean),
+                lambda r: K.absdev_sum(U[r], mean[r])),
+        }
+        for name, (kern, ref, single) in cases.items():
+            K.reset_launches()
+            got = kern()
+            counted = K.launches[name]
+            want = ref()
+            torch.cuda.synchronize()
+            same = all(torch.equal(got[r], single(r)) for r in range(R))
+            diff = (got.double() - want.double()).abs()
+            err = diff.max().item()
+            scale = want.double().abs()
+            rel = err / scale.max().item()
+            if name == 'chemical_potential_members':
+                bound = 1e-12 * scale.max().item() if f64 else 1e-4
+                ok = err <= bound
+                tol = '1e-12 x max|ref|' if f64 else 'atol 1e-4'
+            else:
+                rtol = 1e-12 if f64 else (
+                    1e-6 if name == 'spectral_update_members' else 1e-5)
+                ok = bool((diff <= rtol * scale).all())
+                tol = f'rtol {rtol:g}'
+            ok = ok and same and counted == 1
+            tol += (', each member the single launch\'s bits, one count a '
+                    'call')
+            row = {'name': name, 'R': R, 'N': N, 'dtype': dname,
+                   'max_abs_err': err, 'max_rel_err': rel,
+                   'members_equal_single_launch': same, 'tolerance': tol,
+                   'ok': ok, **timed_row(kern, ref),
+                   'single_launches_ms': device_ms(
+                       lambda: [single(r) for r in range(R)]),
+                   **member_bound(name, R, N, dname)}
+            row['bound_share'] = row['bound_ms'] / row['ms']
+            rows.append(row)
+            print(f"kernel {name:27s} R={R:2d} N={N:5d} {dname:8s} "
+                  f"err={err:.3e} rel={rel:.3e} members=single "
+                  f"{'yes' if same else 'NO'} ({tol}) "
+                  f"{'ok' if ok else 'FAIL'}  kernel {row['ms']:.4f} ms "
+                  f"(one call {row['call_ms']:.4f}; {R} single launches "
+                  f"{row['single_launches_ms']:.4f})  plain "
+                  f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms"
+                  f" ({row['bound_share']:.0%})  ({card})", flush=True)
+            check(ok, f"{name} R={R} N={N} {dname}: error {err:.3e} "
+                      f"outside {tol}, members equal {same}, {counted} "
+                      f"counts")
+        del U, E, hat_U, hat_E, c
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _single_member_run(p, A0, A1, kappa, steps=None, warm=0):
+    """The port's single run of one member on the card: (solution,
+    steps/s of the solve after ``warm`` steps)."""
+    import torch
+    from chsimpy_tpu_torch.core.solver import Solver
+    q = p.deepcopy()
+    q.A0_const, q.A1_const, q.kappa_tilde = float(A0), float(A1), kappa
+    s = Solver(q)
+    s.prepare()
+    if warm:
+        s.solve_or_resume(warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = s.solve_or_resume(steps)
+    torch.cuda.synchronize()
+    done = sol.computed_steps - (warm or 1)
+    return sol, done / (time.perf_counter() - t0)
+
+
+def _ensemble_run(p, pairs, kappas, steps=None, warm=0):
+    """(ensemble, solutions, member-steps/s of the solve after ``warm``
+    steps, launches of that solve)."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch.ensemble import EnsembleSolver
+    from chsimpy_tpu_torch.ops import kernels as K
+    ens = EnsembleSolver(p, pairs, kappas=np.asarray(kappas))
+    ens.prepare()
+    if warm:
+        ens.solve_or_resume(warm)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    sols = ens.solve_or_resume(steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(K.launches)
+    done = sum(s.computed_steps - (warm or 1) for s in sols)
+    return ens, sols, done / seconds, launches
+
+
+def canonical_batch(card):
+    """(b) the canonical R=16 N=512 float64 batch through
+    ``EnsembleSolver`` (the main path: its launch counts are the JSON
+    line's): each member's stop step equals the port's single run of the
+    member on the card, E within 1e-10 at every row; member-steps/s beside
+    the single runs' steps/s."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters
+
+    pairs = canonical_pairs()
+    p = Parameters(no_gui=True, device='cuda')
+    ens, sols, rate_b, launches = _ensemble_run(p, pairs, CANONICAL_KAPPAS)
+    stops = [s.computed_steps for s in sols]
+    iterations = max(stops) - 1
+    single_rates, E_rel = [], []
+    for r, s in enumerate(sols):
+        ref, rate_1 = _single_member_run(p, *pairs[r], CANONICAL_KAPPAS[r])
+        single_rates.append(rate_1)
+        a, b = s.timedata.data(), ref.timedata.data()
+        check(s.computed_steps == ref.computed_steps
+              and s.stop_reason == ref.stop_reason == 'energy'
+              and a.shape == b.shape,
+              f"canonical batch member {r}: stop {s.computed_steps} "
+              f"({s.stop_reason}), single run {ref.computed_steps} "
+              f"({ref.stop_reason})")
+        E_rel.append(float(np.max(np.abs(a[:, 1] / b[:, 1] - 1))))
+        check(E_rel[-1] <= 1e-10, f"canonical batch member {r}: E "
+                                  f"{E_rel[-1]:.3e} off its single run")
+        check(bool(torch.isfinite(s.U).all()), f"member {r}: field")
+    res = {'R': 16, 'N': 512, 'dtype': 'float64', 'stop_steps': stops,
+           'member_steps_per_s': rate_b,
+           'single_steps_per_s': single_rates,
+           'E_max_rel_vs_single': E_rel, 'launches': launches,
+           'iterations': iterations}
+    print(f"canonical batch R=16 N=512 float64: stops {stops}; "
+          f"{rate_b:.1f} member-steps/s, single runs "
+          f"{min(single_rates):.1f}-{max(single_rates):.1f} steps/s; E vs "
+          f"single <= {max(E_rel):.3e}; launches {launches}  ({card})",
+          flush=True)
+    for name, single in MEMBER_KERNELS.items():
+        check(launches[name] >= iterations,
+              f"canonical batch: {name} launched {launches[name]} times "
+              f"in {iterations} step iterations")
+        check(launches[single] == 0,
+              f"canonical batch: the single-field {single} launched")
+    del ens
+    torch.cuda.empty_cache()
+    return res
+
+
+def ensemble_n4096(card):
+    """(c) R=4 N=4096 float32 full_sim over ENS_4096 steps on matmul,
+    split and fft: member-steps/s of the steps after the warm-up beside
+    the single runs' steps/s, mean(U) held to 1e-6, each member's E within
+    1e-6 of its single run at every row (the members' batched products
+    and the single runs' round differently) and U within the float32
+    class, 1e-5 (tests/test_torch_solver.py's bound against JAX)."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters
+
+    R, steps = ENS_4096
+    pairs = canonical_pairs(R)
+    kappas = CANONICAL_KAPPAS[:R]
+    out = {}
+    for route in ('matmul', 'split', 'fft'):
+        p = Parameters(N=4096, precision='float32', full_sim=True,
+                       generator='uniform', no_gui=True, device='cuda',
+                       transform_backend=route)
+        ens, sols, rate_b, launches = _ensemble_run(
+            p, pairs, kappas, steps - ENS_WARM, ENS_WARM)
+        U0 = float(np.mean(ens.U_init))
+        means = [s.U.double().mean().item() for s in sols]
+        single_rates, E_rel, U_diff = [], [], []
+        for r, s in enumerate(sols):
+            ref, rate_1 = _single_member_run(p, *pairs[r], kappas[r],
+                                             steps - ENS_WARM, ENS_WARM)
+            single_rates.append(rate_1)
+            a, b = s.timedata.data(), ref.timedata.data()
+            check(a.shape == b.shape == (steps, 9),
+                  f"N=4096 {route} member {r}: rows {a.shape}")
+            E_rel.append(float(np.max(np.abs(a[:, 1] / b[:, 1] - 1))))
+            U_diff.append((s.U - ref.U).abs().max().item())
+            del ref
+        res = {'R': R, 'steps': steps, 'warm': ENS_WARM,
+               'member_steps_per_s': rate_b,
+               'single_steps_per_s': single_rates,
+               'E_max_rel_vs_single': E_rel, 'U_max_diff_vs_single': U_diff,
+               'U_mean': means, 'U_mean_initial': U0, 'launches': launches}
+        out[route] = res
+        print(f"N=4096 float32 R={R} {route}: {rate_b:.2f} member-steps/s, "
+              f"single runs {min(single_rates):.2f}-{max(single_rates):.2f} "
+              f"steps/s; E vs single <= {max(E_rel):.3e}, U <= "
+              f"{max(U_diff):.3e}; mean(U) drift "
+              f"{max(abs(m - U0) for m in means):.3e}  ({card})", flush=True)
+        check(max(abs(m - U0) for m in means) <= 1e-6,
+              f"N=4096 {route}: mean(U) drifted")
+        check(max(E_rel) <= 1e-6 and max(U_diff) <= 1e-5,
+              f"N=4096 {route}: members off their single runs "
+              f"(E {max(E_rel):.3e}, U {max(U_diff):.3e})")
+        for name in MEMBER_KERNELS:
+            check(launches[name] >= steps - ENS_WARM,
+                  f"N=4096 {route}: {name} launched {launches[name]} times")
+        del ens, sols
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cli(*args, cwd):
+    cmd = [sys.executable, '-m', 'chsimpy_tpu_torch', '--no-gui', *args]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
+                          timeout=600, env=env)
+    check(proc.returncode == 0,
+          f"CLI {' '.join(args)} exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def checkpoint_phase(card, E_single):
+    """(d) checkpoints and (e) the CLI's exports: the canonical run through
+    the CLI to step CKPT_STEP (a --checkpoint-every save there), then
+    --restore with --export-csv U,E,E2 -C --yaml: it stops at 1674; its
+    rows (read back from the exports, repr-exact) are the in-memory run
+    that re-enters the solve at CKPT_STEP to the bit (a resume recomputes
+    the spectral image at the entry, the reference's semantics) and within
+    1e-10 of the uninterrupted run (phase 4's E); U and the YAML scalars
+    read back equal the solution.  An ensemble saved mid-batch and
+    restored ends bit-equal to the in-memory re-entry, and a run with the
+    device jitter resumes its torch.Generator stream to the bit."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters, Simulator, checkpoint
+    from chsimpy_tpu_torch.io import csvio, yamlio
+
+    out = {}
+    work = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
+    try:
+        ck = os.path.join(work, 'canon.npz')
+        kappa = ['-K', repr(KAPPA)]
+        _cli('-n', str(CKPT_STEP), '--checkpoint-file', ck,
+             '--checkpoint-every', '1024', *kappa, cwd=work)
+        text = _cli('--restore', ck, '--export-csv', 'U,E,E2', '-C',
+                    '--yaml', '-f', 'restored', cwd=work)
+        m = re.search(r'computed_steps = (\d+).*stop reason = (\w+)', text)
+        check(m is not None and m.group(1) == '1674'
+              and m.group(2) == 'energy',
+              f"restored CLI run: {text[-500:]}")
+        sim = Simulator(Parameters(no_gui=True, device='cuda',
+                                   kappa_tilde=KAPPA, ntmax=CKPT_STEP))
+        sim.solve()
+        sol = sim.solver.solve_or_resume(int(1e6))
+        td = sol.timedata.data()
+        stem = os.path.join(work, 'restored.solution')
+        E = csvio.csv_import_matrix(stem + '.E.csv.bz2')[:, 0]
+        E2 = csvio.csv_import_matrix(stem + '.E2.csv.bz2')[:, 0]
+        U = csvio.csv_import_matrix(stem + '.U.csv.bz2')
+        data = yamlio.import_scalars(stem + '.yaml')
+        res = {'checkpoint_step': CKPT_STEP,
+               'stop': int(m.group(1)),
+               'rows_equal_reentry': bool(np.array_equal(E, td[:, 1])
+                                          and np.array_equal(E2, td[:, 2])),
+               'U_equal': bool(np.array_equal(U, sol.U.cpu().numpy())),
+               'yaml_equal': sol.is_scalarwise_equal_with(data),
+               'E_max_rel_vs_uninterrupted': float(np.max(np.abs(
+                   E / np.asarray(E_single) - 1)))}
+        out['cli_restore'] = res
+        print(f"checkpoint (d)+(e): {json.dumps(res)}", flush=True)
+        check(res['rows_equal_reentry'] and res['U_equal']
+              and res['yaml_equal'] and len(E) == 1674
+              and res['E_max_rel_vs_uninterrupted'] <= 1e-10,
+              f"checkpoint (d)/(e): {res}")
+
+        # the ensemble, saved mid-batch
+        pairs = canonical_pairs(4)
+        p = Parameters(no_gui=True, device='cuda')
+        first, then = 800, 400
+
+        def ens_first():
+            from chsimpy_tpu_torch.ensemble import EnsembleSolver
+            e = EnsembleSolver(p, pairs, kappas=np.asarray(
+                CANONICAL_KAPPAS[:4]))
+            e.prepare()
+            e.solve_or_resume(first)
+            return e
+        e = ens_first()
+        ek = os.path.join(work, 'ens.npz')
+        checkpoint.save_ensemble_checkpoint(ek, e)
+        ref = e.solve_or_resume(then)
+        got = checkpoint.restore_ensemble(ek).solve_or_resume(then)
+        same = all(np.array_equal(a.timedata.data(), b.timedata.data())
+                   and torch.equal(a.U, b.U) for a, b in zip(got, ref))
+        out['ensemble'] = {'R': 4, 'saved_at': first, 'then': then,
+                           'equal': same}
+        print(f"checkpoint (d) ensemble R=4 N=512 saved at {first}, "
+              f"{then} more steps: {'bit-equal' if same else 'DIFFERS'}",
+              flush=True)
+        check(same, 'the restored ensemble differs')
+        del e, ref, got
+
+        # the device jitter's torch.Generator stream
+        jk = os.path.join(work, 'jit.npz')
+        q = Parameters(no_gui=True, device='cuda', kappa_tilde=KAPPA,
+                       jitter=0.01, jitter_backend='device', ntmax=200,
+                       checkpoint_file=jk)
+        s = Simulator(q)
+        s.solve()
+        ref = s.solver.solve_or_resume(100)
+        q2 = Parameters(no_gui=True, device='cuda', restore_file=jk,
+                        ntmax=100)
+        got = Simulator(q2).solve()
+        same = bool(np.array_equal(got.timedata.data(), ref.timedata.data())
+                    and torch.equal(got.U, ref.U))
+        out['device_jitter'] = {'saved_at': 200, 'then': 100, 'equal': same}
+        print(f"checkpoint (d) device jitter: resumed stream "
+              f"{'bit-equal' if same else 'DIFFERS'}", flush=True)
+        check(same, 'the device jitter stream did not resume')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+CKPT_STEP = 1025    # the first --checkpoint-every 1024 save of a fresh run
+
+
+def ensemble_phase(dev, card, E_single):
+    out = {'member_kernels': member_kernel_phase(dev, card)}
+    t0 = time.perf_counter()
+    out['canonical'] = canonical_batch(card)
+    out['seconds_b'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out['n4096'] = ensemble_n4096(card)
+    out['seconds_c'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out['checkpoint'] = checkpoint_phase(card, E_single)
+    out['seconds_d_e'] = time.perf_counter() - t0
+    return out
+
+
 def summary_rows(detail):
     """The kernels' JSON line: one row per kernel."""
     rows = []
@@ -2016,6 +2512,25 @@ def summary_rows(detail):
             'call_ms': row['call_ms'], 'plain_ms': row['plain_ms'],
             'library_ms': row.get('library_ms'), **extra})
         rows[-1]['bound_share'] = rows[-1]['bound_ms'] / row['ms']
+    # the member-batched kernels at the canonical batch's shape, counted
+    # on phase 10 (b)'s run
+    R, N, dtype = MEMBER_REPORT
+    for name, single in MEMBER_KERNELS.items():
+        row = next(r for r in detail['ensemble']['member_kernels']
+                   if r['name'] == name
+                   and (r['R'], r['N'], r['dtype']) == MEMBER_REPORT)
+        rows.append({
+            'name': name, 'route': 'cuda', 'source': SOURCE,
+            'replaces': REPLACES[single] + ' (vmapped over the member '
+                                           'axis, chsimpy_tpu/ensemble.py)',
+            'launches': detail['ensemble']['canonical']['launches'][name],
+            'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
+            'call_ms': row['call_ms'], 'plain_ms': row['plain_ms'],
+            'library_ms': None, 'bound_ms': row['bound_ms'],
+            'bound_by': row['bound_by'], 'max_rel_err': row['max_rel_err'],
+            'single_launches_ms': row['single_launches_ms'],
+            'shape': f"{R} members of {N}x{N} {dtype}",
+            'bound_share': row['bound_ms'] / row['ms']})
     return rows
 
 
@@ -2027,6 +2542,7 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     detail['gemm'] = gemm_phase(dev, card)
     detail['shard_kernels'] = shard_kernel_phase(dev, card)
     detail['sobol_kernel'] = sobol_phase(dev, card)
+    detail['member_kernels'] = member_kernel_phase(dev, card)
     report = [r for r in detail['kernels'] if r['N'] == REPORT_SHAPE[0]]
     report += [r for r in detail['sobol_kernel'] if 'ms' in r
                and r['N'] == SOBOL_REPORT[0]]
@@ -2037,12 +2553,14 @@ def kernels_only(detail, dev, card, out_dir) -> int:
                                    'float32'))]
     report += [r for r in detail['shard_kernels'] if 'ms' in r
                and r['N'] == SHARD_REPORT[0]]
+    report += detail['member_kernels']
     for r in report:
         if 'bound_ms' not in r:     # the slice kernel's row
             r.update(kernel_bound(r['name'], r['N'], 'float64'))
         launches = ''.join(f"  {k} {v:.4f} ms"
                            for k, v in r.get('launch_ms', {}).items())
         print(f"kernels-only {r['name']:26s} {r.get('dtype', ''):8s} "
+              f"{'R=%d N=%d ' % (r['R'], r['N']) if 'R' in r else ''}"
               f"device {r['ms']:.4f} ms  one call {r['call_ms']:.4f} ms  "
               f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
               f"({r['bound_ms'] / r['ms']:.1%}){launches}  ({card})",
@@ -2107,6 +2625,8 @@ def main(argv=None) -> int:
     detail['sharded'] = timed(8, sharded_phase, dev, card, refs)
     detail['item7'] = timed(9, item7_phase, dev, card,
                             fm['steps_per_s']['N=4096 float32'])
+    detail['ensemble'] = timed(10, ensemble_phase, dev, card,
+                               detail['default_run']['E'])
     print('phase seconds: ' + ', '.join(
         f"{k} {v:.1f}" for k, v in detail['phase_seconds'].items()),
         flush=True)

@@ -5,7 +5,9 @@ A port of the JAX package ``chsimpy_tpu`` (which stays the reference): the
 single-device solve of the Cahn-Hilliard equation with a Flory-Huggins
 energy, semi-implicit DCT-spectral steps (matmul, split-tree or FFT DCTs,
 or exact int8 slice products on the float64 ozaki route) and the energy
-early stop, and the DCT bake-off (``benchmarks/dct_bench.py``).  The
+early stop, the member-batched Monte-Carlo ensemble (``ensemble.py``),
+the JAX package's checkpoints, CSV and YAML files (``checkpoint.py``,
+``io/``), and the DCT bake-off (``benchmarks/dct_bench.py``).  The
 package imports torch and never jax.  Every run names its device
 (``Parameters.device``): on 'cuda' the step runs the kernels of
 ``csrc/``, on 'cpu' their plain PyTorch versions.

@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """``python -m chsimpy_tpu_torch`` — single-run CLI entry point.
 
-Parse flags, run the simulation, print the run summary and, for a run on
-the card, how often each kernel was launched.
+Parse flags, run the simulation, export the requested files, print the
+run summary and, for a run on the card, how often each kernel was
+launched.
 
 With ``--mesh MxN`` the run is one rank of a grid-sharded world: start
 M*N of them with ``torchrun --standalone --nproc-per-node M*N -m
@@ -21,11 +22,14 @@ from .parallel import distributed
 from .simulator import Simulator
 
 
-def _summarize(solution) -> str:
+def _summarize(simulator: Simulator, solution) -> str:
     t0_human = sysinfo.sec_to_min_if(solution.t0)
-    return (f"computed_steps = {solution.computed_steps}, "
-            f"t0 = {solution.t0:g} s ({t0_human}), "
-            f"stop reason = {solution.stop_reason}")
+    lines = [f"computed_steps = {solution.computed_steps}, "
+             f"t0 = {solution.t0:g} s ({t0_human}), "
+             f"stop reason = {solution.stop_reason}"]
+    if simulator.export_requested():
+        lines.append(f"File ID = {simulator.solution_file_id}")
+    return "\n".join(lines)
 
 
 def main(argv=None):
@@ -48,7 +52,8 @@ def main(argv=None):
         kernels.reset_launches()
         solution = simulator.solve()
         if lead:
-            print(_summarize(solution))
+            simulator.export()
+            print(_summarize(simulator, solution))
             if simulator.solver.device.type == 'cuda':
                 print(f"kernel launches: {json.dumps(kernels.launches)}")
     finally:

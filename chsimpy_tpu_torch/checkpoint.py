@@ -1,0 +1,328 @@
+"""On-disk checkpoint / resume, in the JAX package's format.
+
+Port of ``chsimpy_tpu/checkpoint.py``: one ``.npz`` (format version 2)
+with a JSON header (counters, delt, early-stop bookkeeping, the parameters'
+``scalar_dict`` and the host generator's stream position as structured
+JSON — restoring never runs code from the file) beside the arrays U,
+timedata, rng_key and U_init.  A resumed run continues the exact
+trajectory: the spectral image is recomputed from U at every solve entry,
+so a restore is an in-memory re-entry.
+
+Files cross between the packages both ways:
+
+* ``rng_key`` holds what ``jax.random.PRNGKey(seed)`` holds (threefry,
+  64-bit seeds: the seed's high and low 32-bit words), computed here
+  without jax (:func:`jax_prng_key`);
+* the port's ``device`` jitter draws from a ``torch.Generator``; its
+  state goes under a key of its own, ``torch_jitter_generator``, which the
+  JAX loader ignores.  That stream does not carry across packages: a
+  JAX-written checkpoint restored here with that jitter mode raises, and a
+  port-written one restored by the JAX package continues on the JAX
+  package's own key (PRNGKey(seed));
+* the port's own parameters (``device``, ``dist_backend``) ride in the
+  header's params, which the JAX loader skips; on restore the caller's
+  ``device`` wins;
+* a checkpoint saved with ``kernel_backend='pallas'`` restores onto the
+  port's kernel path (the hand-written kernels are the port's only path);
+  any mode this build does not have (``'pallas-fused'``) fails loudly.
+
+Ensemble runs have their own pair (:func:`save_ensemble_checkpoint` /
+:func:`restore_ensemble`) covering every member and the shared stream;
+the restore takes the members' kappas from the file (the values the JAX
+package derives with sympy, which the card's machine lacks).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+from .params import TUPLE_FIELDS, Parameters, not_ported
+
+FORMAT_VERSION = 2
+
+# the port's device jitter stream (torch.Generator.get_state bytes)
+TORCH_GENERATOR_KEY = 'torch_jitter_generator'
+
+
+def jax_prng_key(seed: int) -> np.ndarray:
+    """``np.asarray(jax.random.PRNGKey(seed))`` under 64-bit JAX: the
+    threefry key [seed >> 32, seed & 0xFFFFFFFF] of the seed's two's
+    complement 64-bit word, as uint32."""
+    s = int(seed) % (1 << 64)
+    return np.array([s >> 32, s & 0xFFFFFFFF], dtype=np.uint32)
+
+
+def _atomic_savez(fname: str, **arrays) -> None:
+    """Crash-safe ``np.savez_compressed``: written to a temp file beside
+    the target, fsynced, then renamed over it (a kill mid-write never
+    corrupts the previous checkpoint).  Writing through a file object
+    also keeps numpy from appending '.npz' to an extensionless name."""
+    fname = os.fspath(fname)
+    d = os.path.dirname(os.path.abspath(fname)) or '.'
+    fd, tmp = tempfile.mkstemp(dir=d,
+                               prefix=os.path.basename(fname) + '.tmp.')
+    try:
+        with os.fdopen(fd, 'wb') as f:
+            np.savez_compressed(f, **arrays)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, fname)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def _params_from_header(header: dict, device='cuda') -> Parameters:
+    """Parameters from a checkpoint header, validated against this
+    build's mode choices (the JAX package's checks): a mode since deleted
+    (``kernel_backend='pallas-fused'``) fails loudly instead of restoring
+    onto another compute path.  ``device`` is the caller's."""
+    params = Parameters()
+    names = {f.name for f in dataclasses.fields(params)}
+    for k, v in header['params'].items():
+        if k in names and k != 'version':
+            if k in TUPLE_FIELDS and v is not None:
+                v = tuple(v)
+            setattr(params, k, v)
+    kb = params.kernel_backend
+    if kb not in ('xla', 'pallas'):
+        raise ValueError(
+            f"checkpoint requests kernel_backend={kb!r}, which this build "
+            "does not provide (choices: xla, pallas; 'pallas-fused' was "
+            "removed in round 3)")
+    # both are the hand-written kernels here
+    params.kernel_backend = 'xla'
+    tb = params.transform_backend
+    if tb not in ('auto', 'matmul', 'split', 'fft', 'ozaki'):
+        raise ValueError(
+            f"checkpoint requests transform_backend={tb!r}, which this "
+            "build does not provide")
+    params.device = device
+    return params
+
+
+def _header_bytes(header: dict) -> np.ndarray:
+    return np.frombuffer(json.dumps(header).encode(), dtype=np.uint8)
+
+
+def _load(fname: str):
+    z = np.load(fname, allow_pickle=False)
+    header = json.loads(bytes(z['header']).decode())
+    if header['format_version'] != FORMAT_VERSION:
+        raise ValueError(f"unsupported checkpoint version "
+                         f"{header['format_version']}")
+    return z, header
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+# ----------------------------------------------------------------------
+# single run
+# ----------------------------------------------------------------------
+
+def save_checkpoint(fname: str, solver) -> None:
+    """Serialize a Solver's resumable state."""
+    if solver.mesh is not None:
+        raise NotImplementedError(not_ported(
+            'checkpoint and restore under --mesh', 11))
+    sol = solver.solution
+    header = {
+        'format_version': FORMAT_VERSION,
+        'computed_steps': sol.computed_steps,
+        'tau0': sol.tau0,
+        't0': sol.t0,
+        'stop_reason': sol.stop_reason,
+        'skip_check': solver.skip_check,
+        'time_delta_sum': solver.time_delta_sum,
+        'delt': solver.delt,
+        'params': solver.params.scalar_dict(),
+        'generator_state': (solver.generator.state_dict()
+                            if solver.generator is not None else None),
+    }
+    arrays = dict(
+        header=_header_bytes(header),
+        U=_host(solver._state.U).astype(np.float64),
+        timedata=sol.timedata.data(),
+        rng_key=jax_prng_key(solver.params.seed),
+        U_init=np.asarray(solver.U_init, dtype=np.float64),
+    )
+    if solver._jitter_gen is not None:
+        arrays[TORCH_GENERATOR_KEY] = solver._jitter_gen.get_state().numpy()
+    _atomic_savez(fname, **arrays)
+
+
+def load_checkpoint(fname: str, device='cuda'):
+    """(params, payload dict) — build a Solver via :func:`restore_solver`."""
+    z, header = _load(fname)
+    params = _params_from_header(header, device)
+    payload = {
+        'header': header,
+        'U': z['U'],
+        'timedata': z['timedata'],
+        'rng_key': z['rng_key'],
+        'generator_state': header.get('generator_state'),
+        'U_init': z['U_init'],
+        'torch_generator': (z[TORCH_GENERATOR_KEY]
+                            if TORCH_GENERATOR_KEY in z.files else None),
+    }
+    return params, payload
+
+
+def restore_solver(fname: str, device='cuda'):
+    """A prepared Solver on ``device``, mid-run, from a checkpoint written
+    by either package."""
+    from .core.solver import Solver
+    from .rng import FieldGenerator
+    from .timedata import TimeData
+
+    params, payload = load_checkpoint(fname, device)
+    h = payload['header']
+    solver = Solver(params, U_init=payload['U_init'])
+    if solver._jitter_gen is not None and payload['torch_generator'] is None:
+        raise ValueError(
+            f"{fname} holds no torch.Generator state for the 'device' "
+            "jitter (a checkpoint of the JAX package, whose threefry "
+            "stream does not carry across packages); restore it with the "
+            "host jitter backend or in the JAX package")
+    if payload['generator_state'] is not None:
+        solver.generator = FieldGenerator.from_state(
+            payload['generator_state'])
+    solver.skip_check = h['skip_check']
+    solver.time_delta_sum = h['time_delta_sum']
+    solver.time_passed = h['time_delta_sum'] / params.M_tilde
+    solver.delt = h['delt']
+    solver.prepare()
+    if solver._jitter_gen is not None:
+        # after prepare(), which reseeds the stream
+        solver._jitter_gen.set_state(
+            torch.as_tensor(payload['torch_generator'], dtype=torch.uint8))
+
+    td = TimeData()
+    td.insert_block(payload['timedata'])
+    sol = solver.solution
+    sol.timedata = td
+    sol.computed_steps = h['computed_steps']
+    sol.tau0 = h['tau0']
+    sol.t0 = h['t0']
+    sol.stop_reason = h['stop_reason']
+
+    dev = solver.device
+    f64 = torch.float64
+    rows = payload['timedata']
+    U = torch.as_tensor(payload['U']).to(device=dev,
+                                         dtype=solver.cfg.tdtype)
+    sol.U = U
+
+    def f(x):
+        return torch.tensor(float(x), dtype=f64, device=dev)
+
+    solver._state = solver._state.replace(
+        U=U,
+        delt=f(h['delt']),
+        time_delta_sum=f(h['time_delta_sum']),
+        computed_steps=torch.tensor(int(h['computed_steps']),
+                                    dtype=torch.int64, device=dev),
+        skip_check=torch.tensor(bool(h['skip_check']), device=dev),
+        tau0=f(h['tau0']),
+        t0=f(h['t0']),
+        E2_first=f(rows[0, 2]),
+        E2_prev=f(rows[-1, 2]),
+    )
+    return solver
+
+
+# ----------------------------------------------------------------------
+# ensemble
+# ----------------------------------------------------------------------
+
+# per-member leaves and their dtypes in the JAX package's files
+_ENS_LEAVES = {'delt': np.float64, 'time_delta_sum': np.float64,
+               'computed_steps': np.int32, 'skip_check': np.bool_,
+               'stop_reason': np.int32, 'tau0': np.float64,
+               't0': np.float64, 'E2_first': np.float64,
+               'E2_prev': np.float64}
+
+
+def save_ensemble_checkpoint(fname: str, ens, extra_header: dict = None
+                             ) -> None:
+    """Serialize an EnsembleSolver's resumable state: every member's
+    field, counters and trace, the (A0, A1) pairs, the kappas, and the
+    shared host generator's stream position.  ``extra_header`` lets a
+    caller (the UQ experiment) keep its own JSON-serializable progress in
+    the header."""
+    s = ens._states
+    header = {
+        'format_version': FORMAT_VERSION,
+        'kind': 'ensemble',
+        'R': ens.R,
+        'params': ens.params.scalar_dict(),
+        'row_counts': [len(td) for td in ens.timedatas],
+        'generator_state': (ens.generator.state_dict()
+                            if ens.generator is not None else None),
+        'extra': extra_header,
+    }
+    _atomic_savez(
+        fname,
+        header=_header_bytes(header),
+        U=_host(s.U).astype(np.float64),
+        rng_key=np.tile(jax_prng_key(ens.params.seed), (ens.R, 1)),
+        A_pairs=np.stack([ens.A0s, ens.A1s], axis=1),
+        kappas=np.asarray(ens.kappas),
+        timedata=np.concatenate([td.data() for td in ens.timedatas],
+                                axis=0),
+        U_init=np.asarray(ens.U_init, dtype=np.float64),
+        **{f'm_{n}': _host(getattr(s, n)).astype(dt)
+           for n, dt in _ENS_LEAVES.items()},
+    )
+
+
+def restore_ensemble(fname: str, mesh=None, device='cuda'):
+    """A prepared EnsembleSolver on ``device``, mid-run, from an ensemble
+    checkpoint written by either package."""
+    from .ensemble import EnsembleSolver
+    from .rng import FieldGenerator
+    from .timedata import TimeData
+
+    z, header = _load(fname)
+    if header.get('kind') != 'ensemble':
+        raise ValueError(f"{fname} is not an ensemble checkpoint")
+    params = _params_from_header(header, device)
+    ens = EnsembleSolver(params, np.asarray(z['A_pairs']),
+                         U_init=np.asarray(z['U_init']), mesh=mesh,
+                         kappas=np.asarray(z['kappas']))
+    if header.get('generator_state') is not None:
+        ens.generator = FieldGenerator.from_state(header['generator_state'])
+    ens.prepare()
+
+    rows = np.asarray(z['timedata'])
+    offs = np.cumsum([0] + list(header['row_counts']))
+    ens.timedatas = []
+    for r in range(header['R']):
+        td = TimeData()
+        td.insert_block(rows[offs[r]:offs[r + 1]])
+        ens.timedatas.append(td)
+
+    s = ens._states
+    dev = ens.device
+    repl = {'U': torch.as_tensor(np.asarray(z['U'])).to(
+        device=dev, dtype=ens.cfg.tdtype)}
+    for n in _ENS_LEAVES:
+        ref = getattr(s, n)
+        repl[n] = torch.as_tensor(np.asarray(z[f'm_{n}'])).to(
+            device=dev, dtype=ref.dtype)
+    ens._states = s.replace(**repl)
+    ens._stop = np.asarray(z['m_stop_reason'], np.int64)
+    ens._ckpt_extra = header.get('extra')
+    return ens

@@ -1,9 +1,10 @@
 """Command-line interface.
 
 The flags of the JAX CLI (``chsimpy_tpu/cli.py``) that the port runs, with
-the same names, defaults and range checks, plus ``--device``.  Every other
-flag of the JAX CLI is still recognized, and refused with an error that
-names the ROADMAP item that ports it.
+the same names, defaults, range checks and cross-flag errors, plus
+``--device``; a ``-p`` YAML file wins over the command line, as there.
+Every other flag of the JAX CLI is still recognized, and refused with an
+error that names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ class Flag:
     names: Sequence[str]            # CLI option strings
     group: str                      # argument group title
     help: str
-    param: str                      # Parameters field to assign
+    param: Optional[str] = None     # Parameters field to assign (None: skip)
     type: Any = None
     default: Any = None
     action: Optional[str] = None    # e.g. 'store_true'
@@ -125,12 +126,42 @@ FLAGS = [
          'structure as the forward, all exact-stop goldens hold; '
          '5,7 = untrimmed)',
          param='ozaki_inv_pairs'),
+    Flag(('-p', '--parameter-file'), 'Input',
+         'Input yaml file with parameter values (overwrites CLI '
+         'parameters)'),
+    Flag(('--Uinit-file',), 'Input',
+         'Initial U matrix file (csv or bz2 format).',
+         param='Uinit_file'),
+    Flag(('--restore',), 'Input',
+         'Resume from a checkpoint file (see --checkpoint-file; one '
+         'written by either package): continues the exact trajectory — '
+         "field, trace, counters, RNG stream. The checkpoint's physics "
+         'parameters win; run-control flags (-n, output flags, --device) '
+         'come from this command line.', param='restore_file'),
     Flag(('-f', '--file-id'), 'Output',
-         'Run id ("auto" creates a timestamp)',
+         'Filenames have an id like "<ID>...yaml" ("auto" creates a '
+         'timestamp). Existing files will be OVERWRITTEN!',
          param='file_id', default='auto'),
     Flag(('--no-gui',), 'Output',
          'Do not show a plot window (required: the live view is not '
          'ported yet)', param='no_gui', action='store_true'),
+    Flag(('--yaml',), 'Output',
+         'Export the solution scalars to a yaml file (see --file-id).',
+         param='yaml', action='store_true'),
+    Flag(('--export-csv',), 'Output',
+         'Solution matrix names to be exported to csv (e.g. ...="U,E2")',
+         param='export_csv'),
+    Flag(('-C', '--compress-csv'), 'Output',
+         'Compress csv files with bz2',
+         param='compress_csv', action='store_true'),
+    Flag(('--checkpoint-file',), 'Output',
+         'Save the full resumable solver state (npz: field, trace, '
+         'counters, RNG stream position) here at the end of the run '
+         '(and periodically with --checkpoint-every); resume with '
+         '--restore.', param='checkpoint_file'),
+    Flag(('--checkpoint-every',), 'Output',
+         'Also save the checkpoint about every n steps (snapped to '
+         'device-chunk boundaries).', param='checkpoint_every', type=int),
 ]
 
 # flags of the JAX CLI that the port refuses: names, value count, what
@@ -143,16 +174,8 @@ _LATER = [
      'the TPU tuning knob --fwd-matmul-precision', 14),
     (('--inv-band',), 1, 'the TPU tuning knob --inv-band', 14),
     (('--otf-coeffs',), 1, 'the TPU tuning knob --otf-coeffs', 14),
-    (('-p', '--parameter-file'), 1, 'YAML parameter files', 13),
-    (('--Uinit-file',), 1, '--Uinit-file (CSV import)', 13),
-    (('--restore',), 1, 'checkpoint and restore', 8),
-    (('--checkpoint-file',), 1, 'checkpoint and restore', 8),
-    (('--checkpoint-every',), 1, 'checkpoint and restore', 8),
     (('--png',), 0, 'the live view and PNG output', 13),
     (('--png-anim',), 0, 'the live view and PNG output', 13),
-    (('--yaml',), 0, 'CSV and YAML export', 13),
-    (('--export-csv',), 1, 'CSV and YAML export', 13),
-    (('-C', '--compress-csv'), 0, 'CSV and YAML export', 13),
     (('--update-every',), 1, 'the live view and PNG output', 13),
     (('--no-diagrams',), 0, 'the live view and PNG output', 13),
 ]
@@ -210,6 +233,8 @@ class CLIParser:
         params = Parameters()
 
         for flag in FLAGS:
+            if flag.param is None:
+                continue
             dest = flag.names[-1].lstrip('-').replace('-', '_')
             value = getattr(self.args, dest)
             if flag.valid_range is not None:
@@ -238,6 +263,24 @@ class CLIParser:
                 if not (0 <= s1 <= 7 and 0 <= s2 <= 7):
                     self.parser.error(f'{flag} cutoffs must be in [0, 7]')
                 setattr(params, pflag, (s1, s2))
+
+        # cross-flag validation (reference cli_parser.py:146-153)
+        if params.export_csv is not None and (
+                params.export_csv == ''
+                or params.export_csv.lower() == 'none'):
+            self.parser.error('--export-csv does not contain valid entries.')
+        if params.compress_csv and params.export_csv is None:
+            self.parser.error('--compress-csv has no effect '
+                              '(no --export-csv given).')
+        if params.checkpoint_every is not None \
+                and params.checkpoint_file is None:
+            self.parser.error('--checkpoint-every has no effect '
+                              '(no --checkpoint-file given).')
+
+        # YAML parameter file overrides CLI (reference order,
+        # cli_parser.py:155-156)
+        if self.args.parameter_file is not None:
+            params.yaml_import_scalars(self.args.parameter_file)
 
         errs = solver_scope_errors(params)
         if errs:

@@ -13,7 +13,12 @@ neither jax nor ``chsimpy_tpu``:
   split_tree``) as nested tensors;
 * :func:`state_from_jax` — the fields of a ``chsimpy_tpu`` ``SolverState``;
 * :func:`params_from_jax` — ``chsimpy_tpu.Parameters.scalar_dict()``,
-  refusing what the port does not run yet.
+  refusing what the port does not run yet;
+* :func:`members_consts_from_jax` and :func:`members_state_from_jax` —
+  the ensemble's batched consts (A0, A1, kappa_tilde (R,) and CHeig
+  (R, N, N) beside the shared operands) and its batched state (every leaf
+  with a leading member axis), as ``chsimpy_tpu.ensemble.EnsembleSolver``
+  holds them.
 
 A generator's stream position carries across as plain data:
 ``chsimpy_tpu.rng.FieldGenerator.state_dict()`` restores in
@@ -90,6 +95,32 @@ def state_from_jax(d: dict, device='cpu', mesh=None) -> SolverState:
     kw.update({k: _tensor(d[k], device, torch.int64) for k in _STATE_INT})
     state = SolverState(**kw)
     return state if mesh is None else shard_state(state, mesh)
+
+
+def members_consts_from_jax(d: dict, device='cpu') -> dict:
+    """The ensemble's consts (``EnsembleSolver._consts`` of the port) from
+    the numpy form of the JAX ensemble's: the member scalars as (R,)
+    float64 tensors, CHeig (R, N, N), the rest as :func:`consts_from_jax`
+    makes it."""
+    consts = consts_from_jax({**d, **{k: 0.0 for k in _CONST_SCALARS}},
+                             device)
+    consts.update({k: _tensor(d[k], device, torch.float64)
+                   for k in _CONST_SCALARS})
+    consts['members'] = torch.arange(consts['A0'].shape[0], device=device)
+    return consts
+
+
+def members_state_from_jax(d: dict, device='cpu') -> SolverState:
+    """The ensemble's state from the numpy form of the JAX ensemble's
+    (``EnsembleSolver._states``: every leaf with a leading member axis;
+    its ``rng_key`` is dropped, as in :func:`state_from_jax`)."""
+    kw = {'U': _tensor(d['U'], device), 'hat_U': _tensor(d['hat_U'], device),
+          'skip_check': _tensor(np.asarray(d['skip_check'], dtype=bool),
+                                device),
+          'rowbuf': _tensor(d['rowbuf'], device, torch.float64)}
+    kw.update({k: _tensor(d[k], device, torch.float64) for k in _STATE_F64})
+    kw.update({k: _tensor(d[k], device, torch.int64) for k in _STATE_INT})
+    return SolverState(**kw)
 
 
 def params_from_jax(scalar_dict: dict, device='cuda') -> Parameters:

@@ -21,6 +21,12 @@ DCTs, K2 and K7 on the block; every rank holds the same scalars and rows,
 so each syncs, stops and returns the same solution (``solution.U`` is the
 gathered field).
 
+With ``checkpoint_file`` and ``checkpoint_every`` the solve saves a
+checkpoint (``checkpoint.py``) at the first chunk boundary at least
+``checkpoint_every`` steps after the last save, a cadence that survives
+re-entry; ``checkpoint.restore_solver`` rebuilds a prepared solver from
+one.
+
 Per-step jitter (``0 < jitter < 0.1``) takes its mode from the generator
 and ``jitter_backend`` as in the JAX package: ``static`` for simplex,
 ``device_sobol`` (kernel K9, bit-equal to the host stream) for sobol on
@@ -286,6 +292,7 @@ class Solver:
         self.solution.t0 = 0.0
         self.solution.stop_reason = 'None'
         self.solution.computed_steps = 1
+        self._ckpt_last_saved = None
         self._prepared = True
 
     # ------------------------------------------------------------------
@@ -355,12 +362,26 @@ class Solver:
                 stop_reason=torch.full_like(state.stop_reason, STOP_NONE))
             self.solution.stop_reason = 'None'
 
+        every = self.params.checkpoint_every
+        ckpt = self.params.checkpoint_file
+        # the save cadence survives re-entry (a caller may step in slices
+        # far smaller than checkpoint_every)
+        if self._ckpt_last_saved is None:
+            self._ckpt_last_saved = self.solution.computed_steps
         while n_iters > 0 and self.solution.stop_reason == 'None':
             k = min(n_iters, self.chunk_size)
             state = run_chunk(self.cfg, self._consts, state, k, self.mesh,
                               self._draw_jitter_buf(k), self._jitter_gen)
             n_iters -= k
             state = self._sync(state)
+            if (ckpt and every and self.solution.computed_steps
+                    - self._ckpt_last_saved >= every):
+                # a resumable snapshot at the chunk boundary
+                self._state = state
+                self.solution.U = state.U
+                from ..checkpoint import save_checkpoint
+                save_checkpoint(ckpt, self)
+                self._ckpt_last_saved = self.solution.computed_steps
 
         self._state = state
         self.solution.U = (state.U if self.mesh is None

@@ -7,6 +7,11 @@ steps never waits for the host), and a chunk-local timedata row buffer.
 The JAX package's ``rng_key`` (its device jitter's stream) has no field
 here: the port's ``device`` jitter draws from a ``torch.Generator`` that
 the solver holds.
+
+The ensemble (``ensemble.py``) carries the same dataclass with a leading
+member axis, as the JAX package's ``vmap`` batches every leaf: fields
+(R, N, N), counters and stop bookkeeping (R,), ``rowbuf`` (R, cap, 9)
+(:func:`init_members_state`).
 """
 
 from __future__ import annotations
@@ -69,4 +74,34 @@ def init_state(U0: torch.Tensor, hat_U0: torch.Tensor, delt: float,
         E2_prev=f64(E2_first),
         rows=i64(0),
         rowbuf=torch.zeros((chunk_cap, 9), dtype=torch.float64, device=dev),
+    )
+
+
+def init_members_state(U0: torch.Tensor, delt: float, E2_first: torch.Tensor,
+                       chunk_cap: int) -> SolverState:
+    """The state of R members from their fields U0 (R, N, N) and their
+    row-0 E2 (R,): every leaf of :func:`init_state` with a leading member
+    axis, each its own buffer."""
+    dev = U0.device
+    R = U0.shape[0]
+    f64 = torch.float64
+
+    def full(x, dtype):
+        return torch.full((R,), x, dtype=dtype, device=dev)
+
+    E2 = E2_first.to(device=dev, dtype=f64)
+    return SolverState(
+        U=U0,
+        hat_U=torch.zeros_like(U0),
+        delt=full(delt, f64),
+        time_delta_sum=full(0.0, f64),
+        computed_steps=full(1, torch.int64),
+        skip_check=full(False, torch.bool),
+        stop_reason=full(STOP_NONE, torch.int64),
+        tau0=full(0.0, f64),
+        t0=full(0.0, f64),
+        E2_first=E2.clone(),
+        E2_prev=E2.clone(),
+        rows=full(0, torch.int64),
+        rowbuf=torch.zeros((R, chunk_cap, 9), dtype=f64, device=dev),
     )

@@ -442,3 +442,174 @@ def run_chunk(cfg: StepConfig, consts, state: SolverState,
                 else jitter_buf)
         state = _step(cfg, consts, state, mesh, slab, generator)
     return state
+
+
+# ----------------------------------------------------------------------
+# the member-batched step of the ensemble: the counterpart of
+# make_ensemble_runner / make_ensemble_prepare
+# (chsimpy_tpu/core/stepper.py:847-923), which vmap the chunk over a
+# leading member axis with A0, A1, kappa_tilde and CHeig batched and the
+# transform operands, Seig and the jitter stream shared.  Here every field
+# is an (R, N, N) stack and every counter an (R,) tensor; each kernel is
+# launched once per step for all members (K1-K4 ``*_members``), the DCTs
+# are batched products (or FFTs) over the member axis.  A member that has
+# stopped is frozen by the per-member selects, as the vmapped while_loop's
+# predicate select freezes it; the chunk runs while any member is active
+# (the host loop in ensemble.py).
+# ----------------------------------------------------------------------
+
+def make_members_consts(cfg: StepConfig, delt: float, A0s, A1s, kappas,
+                        device='cpu') -> dict:
+    """:func:`make_consts` with the member scalars as (R,) float64 tensors
+    ('A0', 'A1', 'kappa_tilde') and CHeig (R, N, N) from each member's
+    kappa; the transform operands, leig and Seig are shared.  CHeig is
+    built on the CPU with make_consts' operations and order, so member r's
+    grid is the single run's with kappa r, to the bit."""
+    consts = make_consts(cfg, delt, device=device)
+    dtype = cfg.tdtype
+    f64 = torch.float64
+    kt = torch.as_tensor(kappas, dtype=f64)
+    leig = consts['leig'].cpu()
+    CHeig, _ = coeffs_ops.get_coefficients(
+        leig, kt.to(dtype).reshape(-1, 1, 1), torch.tensor(delt, dtype=dtype),
+        cfg.delx2)
+    consts.update(
+        CHeig=CHeig.to(device),
+        A0=torch.as_tensor(A0s, dtype=f64).to(device),
+        A1=torch.as_tensor(A1s, dtype=f64).to(device),
+        kappa_tilde=kt.to(device),
+        members=torch.arange(kt.shape[0], device=device))
+    return consts
+
+
+def _members_stats(cfg: StepConfig, consts, U, EnergieEut=None):
+    """:func:`_stats` of every member, each an (R,) float64 tensor, from
+    the batched K3 sums and the batched K4 with each member's mean; the
+    float64 finish in the single run's operations and order."""
+    N = cfg.N
+    n2 = float(N * N)
+    Lsq = cfg.L ** 2
+    f64 = torch.float64
+    sums = K.stats_sums_members(U, EnergieEut, consts['A0'], consts['A1'],
+                                delx=cfg.delx, RT=cfg.RT, B=cfg.B,
+                                threshold=cfg.threshold)
+    E2 = 0.5 * cfg.Amr * consts['kappa_tilde'] * Lsq * (sums[:, 1] / n2)
+    E = cfg.Amr * Lsq * (sums[:, 0] / n2) + E2
+    SA = sums[:, 3] / n2
+    L2 = torch.sqrt(sums[:, 4]) / n2
+    meanU = (sums[:, 2] / n2).to(U.dtype)
+    PS = K.absdev_sum_members(U, meanU) / n2
+    mid = U[:, N // 2 + 1, :]
+    Ra = torch.mean(torch.abs(mid - torch.mean(mid, dim=-1, keepdim=True)),
+                    dim=-1).to(f64)
+    return E, E2, PS, L2, Ra, SA
+
+
+def prepare_members_row0(cfg: StepConfig, consts, U):
+    """Step-0 (E, E2, Ra, PS) of every member, (R,) float64 tensors."""
+    E, E2, PS, _, Ra, _ = _members_stats(cfg, consts, U, None)
+    return E, E2, Ra, PS
+
+
+def adapted_members_delt(cfg: StepConfig, s: SolverState, EnergieEut):
+    """:func:`adapted_delt` of every member from its own field: its
+    column sums' minimum, the blend with its own delt, (R,) float64."""
+    a = EnergieEut.abs()
+    x = cfg.delt_max / torch.sqrt(1.0 + ADAPT_ALPHA * (a * a))
+    low = torch.amin(torch.sum(x, dim=-2), dim=-1)
+    delt_new = torch.clamp(low.to(torch.float64), min=cfg.delt_base)
+    delt = s.delt
+    blended = torch.where(delt_new / delt > 1.15,
+                          0.75 * delt + 0.25 * delt_new, delt_new)
+    do_adapt = (s.computed_steps > 500) & (s.computed_steps % 2 == 0)
+    return torch.where(do_adapt, blended, delt)
+
+
+def rebuilt_members_coefficients(cfg: StepConfig, consts, delt):
+    """(CHeig, Seig), each (R, N, N), of every member at its own delt and
+    kappa: :func:`rebuilt_coefficients` member by member."""
+    dtype = cfg.tdtype
+    return coeffs_ops.get_coefficients(
+        consts['leig'], consts['kappa_tilde'].to(dtype).reshape(-1, 1, 1),
+        delt.to(dtype).reshape(-1, 1, 1), cfg.delx2)
+
+
+def _members_step(cfg: StepConfig, consts, s: SolverState,
+                  slab=None) -> SolverState:
+    """One step of every member; ``slab`` is the step's host jitter slab
+    (``stream``; ``static``: the one simplex slab), shared by all members
+    as the JAX ensemble shares its jitter stream."""
+    f64 = torch.float64
+    active = s.stop_reason == STOP_NONE
+    EnergieEut = K.chemical_potential_members(s.U, cfg.RT, cfg.BRT,
+                                              consts['A0'], consts['A1'])
+    if cfg.adaptive_time:
+        delt = adapted_members_delt(cfg, s, EnergieEut)
+        CHeig, Seig = rebuilt_members_coefficients(cfg, consts, delt)
+    else:
+        delt = s.delt
+        CHeig, Seig = consts['CHeig'], consts['Seig']
+
+    tds = s.time_delta_sum + delt
+    time_passed = tds / cfg.M_tilde
+    if cfg.time_limit is None:
+        over = None
+        go = active
+    else:
+        over = time_passed > cfg.time_limit
+        go = active & ~over
+
+    hat_E = dct2_route(cfg, consts, EnergieEut, cfg.ozaki_fwd_pairs)
+    hat_U = K.spectral_update_members(s.hat_U, hat_E, Seig, CHeig)
+    U = idct2_route(cfg, consts, hat_U)
+    if cfg.jitter_mode in ('stream', 'static'):
+        U = U + cfg.jitter * (2.0 * slab - 1.0)
+
+    E, E2, PS, L2, Ra, SA = _members_stats(cfg, consts, U, EnergieEut)
+    domtime = time_passed ** (1.0 / 3.0)
+    it = s.computed_steps
+    row = torch.stack([it.to(f64), E, E2, SA, domtime, Ra, L2, PS, delt],
+                      dim=-1)
+    s.rowbuf[consts['members'], s.rows] = row
+    steps_new = it + 1
+    has_nan = torch.isnan(row).any(dim=-1)
+
+    falls = (s.E2_prev > E2) & (E2 > s.E2_first)
+    trigger = falls & ~s.skip_check
+    fire = go & trigger
+    if cfg.full_sim:
+        skip_check = s.skip_check | fire
+        stop = torch.full_like(s.stop_reason, STOP_NONE)
+    else:
+        skip_check = s.skip_check
+        stop = torch.where(trigger, STOP_ENERGY, STOP_NONE)
+    stop = torch.where(has_nan, STOP_NAN, stop)
+    stop = torch.where(go, stop, s.stop_reason)
+    if over is not None:
+        stop = torch.where(active & over, STOP_TIME_LIMIT, stop)
+
+    go3 = go.reshape(-1, 1, 1)
+    return s.replace(
+        U=torch.where(go3, U, s.U),
+        hat_U=torch.where(go3, hat_U, s.hat_U),
+        delt=(torch.where(active, delt, s.delt) if cfg.adaptive_time
+              else s.delt),
+        time_delta_sum=torch.where(active, tds, s.time_delta_sum),
+        computed_steps=s.computed_steps + go,
+        skip_check=skip_check,
+        stop_reason=stop.to(s.stop_reason.dtype),
+        tau0=torch.where(fire, steps_new.to(f64), s.tau0),
+        t0=torch.where(fire, time_passed, s.t0),
+        E2_prev=torch.where(go, E2, s.E2_prev),
+        rows=s.rows + go)
+
+
+def run_members_chunk(cfg: StepConfig, consts, state: SolverState,
+                      n_iters: int, jitter_buf=None) -> SolverState:
+    """``n_iters`` member-batched steps with no host sync (``jitter_buf``
+    as in :func:`run_chunk`)."""
+    for i in range(n_iters):
+        slab = (jitter_buf[i] if cfg.jitter_mode == 'stream'
+                else jitter_buf)
+        state = _members_step(cfg, consts, state, slab)
+    return state

@@ -19,6 +19,17 @@
 // is given, allocates nothing (the Python wrapper passes outputs and
 // scratch), and returns cudaGetLastError().
 //
+// Member-batched launches (the ensemble, chsimpy_tpu/ensemble.py, whose
+// vmap batches B1-B4 over a leading member axis): K1-K4 take a member count
+// R and run member r on field r of a contiguous (R, N, N) stack, with its
+// own A0/A1 (K1, K3: float64 device arrays, cast to the field type on the
+// card as the host casts the single launch's scalars), its own mean (K4)
+// and its own sums (K3: (R, 5); K4: (R,)).  Member r of one batched launch
+// does the arithmetic, in the order and on the grid, of a single launch on
+// field r: the member index only offsets the pointers (blockIdx.y for K1,
+// K2 and K4, blockIdx.z for K3).  R = 1 with no member arrays is the single
+// launch.
+//
 // Built with -fmad=false (ops/cuda_build.py): every operation is rounded on
 // its own, in the order of the plain PyTorch version, so K1 and K2 give the
 // same bits as their plain versions on the card and the sums differ only in
@@ -80,31 +91,42 @@ __device__ __forceinline__ void block_sum(double (&v)[NV]) {
 //              - 2*A1*U*(1-U), in the field type, one log of the ratio as
 // in the TPU kernel.  Reads U and writes the result: 134 MB per call at
 // N=4096 f32.  One element per thread; any N.
+// Member r (blockIdx.y) takes A0s[r], A1s[r] where those are given.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mu_kernel(const T* __restrict__ U, T* __restrict__ out, long long n,
-          T RT, T BRT, T A0, T A1) {
+          T RT, T BRT, T A0_in, T A1_in, const double* __restrict__ A0s,
+          const double* __restrict__ A1s) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  const T u = U[i];
+  const long long m = (long long)blockIdx.y * n;
+  const T A0 = A0s != nullptr ? T(A0s[blockIdx.y]) : A0_in;
+  const T A1 = A1s != nullptr ? T(A1s[blockIdx.y]) : A1_in;
+  const T u = U[m + i];
   const T uinv = T(1) - u;
   const T u2inv = uinv - u;
-  out[i] = RT * flog(u / uinv) - BRT + (A0 + A1 * u2inv) * u2inv
-           - T(2) * A1 * u * uinv;
+  out[m + i] = RT * flog(u / uinv) - BRT + (A0 + A1 * u2inv) * u2inv
+               - T(2) * A1 * u * uinv;
 }
 
 // K2 — semi-implicit spectral update (eq. 12 of Ghiass et al. 2016).
 // Replaces spectral_update / _update_kernel (pallas_kernels.py:108-126).
 // out = (hat_U + Seig*hat_E) / CHeig.  Reads four fields and writes one:
-// 336 MB per call at N=4096 f32.
+// 336 MB per call at N=4096 f32.  Member r (blockIdx.y) reads Seig and
+// CHeig at r * seig_stride and r * cheig_stride: n for a grid per member,
+// 0 for one grid shared by all members (the ensemble's Seig at a fixed
+// delt).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 update_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
               const T* __restrict__ Seig, const T* __restrict__ CHeig,
-              T* __restrict__ out, long long n) {
+              T* __restrict__ out, long long n, long long seig_stride,
+              long long cheig_stride) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  out[i] = (hat_U[i] + Seig[i] * hat_E[i]) / CHeig[i];
+  const long long m = (long long)blockIdx.y * n;
+  out[m + i] = (hat_U[m + i] + Seig[blockIdx.y * seig_stride + i]
+                * hat_E[m + i]) / CHeig[blockIdx.y * cheig_stride + i];
 }
 
 // K3 and K7 — fused field statistics in one launch.  K3 replaces
@@ -179,9 +201,22 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
              const T* __restrict__ up_row, const T* __restrict__ dn_row,
              const T* __restrict__ lf_col, const T* __restrict__ rt_col,
              int block_rows, int block_cols, int N, int block_row_off,
-             int block_col_off, double delx, T RT, T B, T A0, T A1,
+             int block_col_off, double delx, T RT, T B, T A0_in, T A1_in,
+             const double* __restrict__ A0s, const double* __restrict__ A1s,
              T threshold, double* __restrict__ partials,
              unsigned int* __restrict__ ticket, double* __restrict__ sums) {
+  // member r = blockIdx.z (K3 only): its field, A0/A1, partials, ticket and
+  // sums; the grid of (x, y) blocks is each member's
+  {
+    const long long moff = (long long)blockIdx.z * N * N;
+    U += moff;
+    if (E != nullptr) E += moff;
+    partials += (long long)blockIdx.z * gridDim.x * gridDim.y * kNStats;
+    ticket += blockIdx.z;
+    sums += (long long)blockIdx.z * kNStats;
+  }
+  const T A0 = A0s != nullptr ? T(A0s[blockIdx.z]) : A0_in;
+  const T A1 = A1s != nullptr ? T(A1s[blockIdx.z]) : A1_in;
   const int bn = HALO ? block_rows : N;
   const int W = HALO ? block_cols : N;
   const int row_off = HALO ? block_row_off : 0;
@@ -318,19 +353,22 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
 // The mean is read from device memory (written by the step's own
 // finalization), so no host round trip per step.  Grid-stride over the
 // flat field with a grid fixed by the caller: reads 67 MB per call at
-// N=4096 f32.
+// N=4096 f32.  Member r (blockIdx.y) sums field r with mean[r] into column
+// r of the (blocks, R) partials, which pass 2 reduces column by column.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 absdev_partials_kernel(const T* __restrict__ U, long long n,
                        const T* __restrict__ mean,
                        double* __restrict__ partials) {
-  const T m = *mean;
+  U += (long long)blockIdx.y * n;
+  const T m = mean[blockIdx.y];
   double acc[1] = {0.0};
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += (long long)gridDim.x * kThreads)
     acc[0] += (double)fabsT(U[i] - m);
   block_sum<1>(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = acc[0];
+  if (threadIdx.x == 0)
+    partials[(long long)blockIdx.x * gridDim.y + blockIdx.y] = acc[0];
 }
 
 // K5 — float64 field -> int8 slices for the ozaki int8 transforms, scale
@@ -609,42 +647,54 @@ inline unsigned int elementwise_blocks(long long n) {
   return (unsigned int)((n + kThreads - 1) / kThreads);
 }
 
+inline bool bad_members(int R) { return R < 1 || R > 65535; }
+
+// K1 on R fields of n elements; A0s / A1s: R doubles on the card, or null
+// (R = 1) for the scalars A0 / A1
 template <typename T>
-int launch_mu(const void* U, void* out, long long n, double RT, double BRT,
-              double A0, double A1, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  mu_kernel<T><<<elementwise_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)U, (T*)out, n, T(RT), T(BRT), T(A0), T(A1));
+int launch_mu(const void* U, void* out, long long n, int R, double RT,
+              double BRT, double A0, double A1, const void* A0s,
+              const void* A1s, void* stream) {
+  if (n <= 0 || bad_members(R) || (R > 1 && (A0s == nullptr ||
+                                             A1s == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(elementwise_blocks(n), R);
+  mu_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)U, (T*)out, n, T(RT), T(BRT), T(A0), T(A1),
+      (const double*)A0s, (const double*)A1s);
   return (int)cudaGetLastError();
 }
 
+// K2 on R fields of n elements; Seig / CHeig per member (1) or shared (0)
 template <typename T>
 int launch_update(const void* hat_U, const void* hat_E, const void* Seig,
-                  const void* CHeig, void* out, long long n, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  update_kernel<T><<<elementwise_blocks(n), kThreads, 0,
-                     (cudaStream_t)stream>>>(
+                  const void* CHeig, void* out, long long n, int R,
+                  int seig_per_member, int cheig_per_member, void* stream) {
+  if (n <= 0 || bad_members(R)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(elementwise_blocks(n), R);
+  update_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const T*)hat_U, (const T*)hat_E, (const T*)Seig, (const T*)CHeig,
-      (T*)out, n);
+      (T*)out, n, seig_per_member ? n : 0, cheig_per_member ? n : 0);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int V, bool HALO>
 int launch_stats_v(const void* U, const void* E, const void* up,
                    const void* dn, const void* lf, const void* rt, int bn,
-                   int W, int N, int row_off, int col_off, double delx,
-                   double RT, double B, double A0, double A1,
-                   double threshold, void* partials, int nblocks,
-                   void* ticket, void* sums, cudaStream_t s) {
+                   int W, int N, int row_off, int col_off, int R,
+                   double delx, double RT, double B, double A0, double A1,
+                   const void* A0s, const void* A1s, double threshold,
+                   void* partials, int nblocks, void* ticket, void* sums,
+                   cudaStream_t s) {
   const dim3 grid((W + kThreads * V - 1) / (kThreads * V),
-                  (bn + kStatsRowsV / V - 1) / (kStatsRowsV / V));
+                  (bn + kStatsRowsV / V - 1) / (kStatsRowsV / V), R);
   if ((long long)grid.x * grid.y != nblocks || grid.y > 65535)
     return (int)cudaErrorInvalidValue;
   stats_kernel<T, V, HALO><<<grid, kThreads, 0, s>>>(
       (const T*)U, (const T*)E, (const T*)up, (const T*)dn, (const T*)lf,
       (const T*)rt, bn, W, N, row_off, col_off, delx, T(RT), T(B), T(A0),
-      T(A1), T(threshold), (double*)partials, (unsigned int*)ticket,
-      (double*)sums);
+      T(A1), (const double*)A0s, (const double*)A1s, T(threshold),
+      (double*)partials, (unsigned int*)ticket, (double*)sums);
   return (int)cudaGetLastError();
 }
 
@@ -652,50 +702,62 @@ inline bool aligned16(const void* p) {
   return ((unsigned long long)p & 15u) == 0;
 }
 
-// K3 (HALO false: the (N, N) field, no halo pointers) and K7 (a (bn, W)
-// block at (row_off, col_off) with its halo vectors).  vec: 16 / sizeof(T)
-// (the wrapper's local_stats_grid checks W and the addresses; checked again
-// here) or 1; nblocks: the grid the wrapper sized partials for
+// K3 (HALO false: the (N, N) field, or R members' fields of a contiguous
+// (R, N, N) stack, no halo pointers) and K7 (a (bn, W) block at (row_off,
+// col_off) with its halo vectors; R = 1).  vec: 16 / sizeof(T) (the
+// wrapper's local_stats_grid checks W and the addresses; checked again
+// here, for every member's field) or 1; nblocks: the grid of one member
+// that the wrapper sized partials for (R * nblocks rows); ticket: R
+// counters; A0s / A1s: R doubles on the card, or null (R = 1)
 template <typename T, bool HALO>
 int launch_stats(const void* U, const void* E, const void* up,
                  const void* dn, const void* lf, const void* rt, int bn,
-                 int W, int N, int row_off, int col_off, double delx,
-                 double RT, double B, double A0, double A1, double threshold,
-                 void* partials, int nblocks, int vec, void* ticket,
-                 void* sums, void* stream) {
+                 int W, int N, int row_off, int col_off, int R, double delx,
+                 double RT, double B, double A0, double A1, const void* A0s,
+                 const void* A1s, double threshold, void* partials,
+                 int nblocks, int vec, void* ticket, void* sums,
+                 void* stream) {
   if (bn < 1 || W < 1 || N < 2 || row_off < 0 || col_off < 0 ||
       row_off + bn > N || col_off + W > N || U == nullptr ||
+      bad_members(R) || (R > 1 && (HALO || A0s == nullptr ||
+                                   A1s == nullptr)) ||
       (HALO && (up == nullptr || dn == nullptr || lf == nullptr ||
                 rt == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   constexpr int kVec = 16 / (int)sizeof(T);
   if (vec == kVec) {
+    // a member's field starts N * N elements after the last: aligned with
+    // the first where W % kVec == 0 (then N is even)
     if (W % kVec || !aligned16(U) || (E != nullptr && !aligned16(E)) ||
-        (HALO && (!aligned16(up) || !aligned16(dn))))
+        (HALO && (!aligned16(up) || !aligned16(dn))) ||
+        (R > 1 && ((long long)N * N * (long long)sizeof(T)) % 16))
       return (int)cudaErrorMisalignedAddress;
     return launch_stats_v<T, kVec, HALO>(
-        U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, delx, RT, B, A0,
-        A1, threshold, partials, nblocks, ticket, sums, s);
+        U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, delx, RT, B,
+        A0, A1, A0s, A1s, threshold, partials, nblocks, ticket, sums, s);
   }
   if (vec == 1)
     return launch_stats_v<T, 1, HALO>(
-        U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, delx, RT, B, A0,
-        A1, threshold, partials, nblocks, ticket, sums, s);
+        U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, delx, RT, B,
+        A0, A1, A0s, A1s, threshold, partials, nblocks, ticket, sums, s);
   return (int)cudaErrorInvalidValue;
 }
 
+// K4 on R fields of n elements with R means; partials: nblocks * R
+// doubles; sums: R doubles
 template <typename T>
-int launch_absdev(const void* U, long long n, const void* mean,
+int launch_absdev(const void* U, long long n, int R, const void* mean,
                   void* partials, int nblocks, void* sums, void* stream) {
-  if (n <= 0 || nblocks < 1) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || nblocks < 1 || bad_members(R))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  absdev_partials_kernel<T><<<nblocks, kThreads, 0, s>>>(
+  absdev_partials_kernel<T><<<dim3(nblocks, R), kThreads, 0, s>>>(
       (const T*)U, n, (const T*)mean, (double*)partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_columns_kernel<<<1, kThreads, 0, s>>>(
-      (const double*)partials, nblocks, 1, (double*)sums);
+      (const double*)partials, nblocks, R, (double*)sums);
   return (int)cudaGetLastError();
 }
 
@@ -754,20 +816,52 @@ extern "C" {
 
 int ch_mu_f32(const void* U, void* out, long long n, double RT, double BRT,
               double A0, double A1, void* stream) {
-  return launch_mu<float>(U, out, n, RT, BRT, A0, A1, stream);
+  return launch_mu<float>(U, out, n, 1, RT, BRT, A0, A1, nullptr, nullptr,
+                          stream);
 }
 int ch_mu_f64(const void* U, void* out, long long n, double RT, double BRT,
               double A0, double A1, void* stream) {
-  return launch_mu<double>(U, out, n, RT, BRT, A0, A1, stream);
+  return launch_mu<double>(U, out, n, 1, RT, BRT, A0, A1, nullptr, nullptr,
+                           stream);
+}
+// member-batched K1: n elements a member, A0s / A1s R doubles on the card
+int ch_mu_members_f32(const void* U, void* out, long long n, int R,
+                      double RT, double BRT, const void* A0s,
+                      const void* A1s, void* stream) {
+  return launch_mu<float>(U, out, n, R, RT, BRT, 0.0, 0.0, A0s, A1s,
+                          stream);
+}
+int ch_mu_members_f64(const void* U, void* out, long long n, int R,
+                      double RT, double BRT, const void* A0s,
+                      const void* A1s, void* stream) {
+  return launch_mu<double>(U, out, n, R, RT, BRT, 0.0, 0.0, A0s, A1s,
+                           stream);
 }
 
 int ch_update_f32(const void* hat_U, const void* hat_E, const void* Seig,
                   const void* CHeig, void* out, long long n, void* stream) {
-  return launch_update<float>(hat_U, hat_E, Seig, CHeig, out, n, stream);
+  return launch_update<float>(hat_U, hat_E, Seig, CHeig, out, n, 1, 0, 0,
+                              stream);
 }
 int ch_update_f64(const void* hat_U, const void* hat_E, const void* Seig,
                   const void* CHeig, void* out, long long n, void* stream) {
-  return launch_update<double>(hat_U, hat_E, Seig, CHeig, out, n, stream);
+  return launch_update<double>(hat_U, hat_E, Seig, CHeig, out, n, 1, 0, 0,
+                               stream);
+}
+// member-batched K2: Seig / CHeig (R, n) (flag 1) or one shared (n,) grid
+int ch_update_members_f32(const void* hat_U, const void* hat_E,
+                          const void* Seig, const void* CHeig, void* out,
+                          long long n, int R, int seig_per_member,
+                          int cheig_per_member, void* stream) {
+  return launch_update<float>(hat_U, hat_E, Seig, CHeig, out, n, R,
+                              seig_per_member, cheig_per_member, stream);
+}
+int ch_update_members_f64(const void* hat_U, const void* hat_E,
+                          const void* Seig, const void* CHeig, void* out,
+                          long long n, int R, int seig_per_member,
+                          int cheig_per_member, void* stream) {
+  return launch_update<double>(hat_U, hat_E, Seig, CHeig, out, n, R,
+                               seig_per_member, cheig_per_member, stream);
 }
 
 // ticket: an unsigned int that is 0 between calls (the kernel resets it)
@@ -776,16 +870,40 @@ int ch_stats_f32(const void* U, const void* E, int N, double delx, double RT,
                  void* partials, int nblocks, int vec, void* ticket,
                  void* sums, void* stream) {
   return launch_stats<float, false>(
-      U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, delx, RT, B,
-      A0, A1, threshold, partials, nblocks, vec, ticket, sums, stream);
+      U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, 1, delx, RT,
+      B, A0, A1, nullptr, nullptr, threshold, partials, nblocks, vec, ticket,
+      sums, stream);
 }
 int ch_stats_f64(const void* U, const void* E, int N, double delx, double RT,
                  double B, double A0, double A1, double threshold,
                  void* partials, int nblocks, int vec, void* ticket,
                  void* sums, void* stream) {
   return launch_stats<double, false>(
-      U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, delx, RT, B,
-      A0, A1, threshold, partials, nblocks, vec, ticket, sums, stream);
+      U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, 1, delx, RT,
+      B, A0, A1, nullptr, nullptr, threshold, partials, nblocks, vec, ticket,
+      sums, stream);
+}
+// member-batched K3: R fields (N, N); nblocks: one member's grid; ticket:
+// R counters; sums: (R, 5)
+int ch_stats_members_f32(const void* U, const void* E, int N, int R,
+                         double delx, double RT, double B, const void* A0s,
+                         const void* A1s, double threshold, void* partials,
+                         int nblocks, int vec, void* ticket, void* sums,
+                         void* stream) {
+  return launch_stats<float, false>(
+      U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, R, delx, RT,
+      B, 0.0, 0.0, A0s, A1s, threshold, partials, nblocks, vec, ticket, sums,
+      stream);
+}
+int ch_stats_members_f64(const void* U, const void* E, int N, int R,
+                         double delx, double RT, double B, const void* A0s,
+                         const void* A1s, double threshold, void* partials,
+                         int nblocks, int vec, void* ticket, void* sums,
+                         void* stream) {
+  return launch_stats<double, false>(
+      U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, R, delx, RT,
+      B, 0.0, 0.0, A0s, A1s, threshold, partials, nblocks, vec, ticket, sums,
+      stream);
 }
 
 // K7: one block of a grid-sharded field (the halo vectors beside it); the
@@ -797,8 +915,9 @@ int ch_local_stats_f32(const void* U, const void* up, const void* dn,
                        double threshold, void* partials, int nblocks,
                        int vec, void* ticket, void* sums, void* stream) {
   return launch_stats<float, true>(
-      U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, delx, RT, B, A0, A1,
-      threshold, partials, nblocks, vec, ticket, sums, stream);
+      U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, 1, delx, RT, B, A0,
+      A1, nullptr, nullptr, threshold, partials, nblocks, vec, ticket, sums,
+      stream);
 }
 int ch_local_stats_f64(const void* U, const void* up, const void* dn,
                        const void* lf, const void* rt, const void* E, int bn,
@@ -807,17 +926,34 @@ int ch_local_stats_f64(const void* U, const void* up, const void* dn,
                        double threshold, void* partials, int nblocks,
                        int vec, void* ticket, void* sums, void* stream) {
   return launch_stats<double, true>(
-      U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, delx, RT, B, A0, A1,
-      threshold, partials, nblocks, vec, ticket, sums, stream);
+      U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, 1, delx, RT, B, A0,
+      A1, nullptr, nullptr, threshold, partials, nblocks, vec, ticket, sums,
+      stream);
 }
 
 int ch_absdev_f32(const void* U, long long n, const void* mean,
                   void* partials, int nblocks, void* sums, void* stream) {
-  return launch_absdev<float>(U, n, mean, partials, nblocks, sums, stream);
+  return launch_absdev<float>(U, n, 1, mean, partials, nblocks, sums,
+                              stream);
 }
 int ch_absdev_f64(const void* U, long long n, const void* mean,
                   void* partials, int nblocks, void* sums, void* stream) {
-  return launch_absdev<double>(U, n, mean, partials, nblocks, sums, stream);
+  return launch_absdev<double>(U, n, 1, mean, partials, nblocks, sums,
+                               stream);
+}
+// member-batched K4: R fields of n elements, R means in the field type,
+// partials nblocks * R doubles, sums R doubles
+int ch_absdev_members_f32(const void* U, long long n, int R,
+                          const void* mean, void* partials, int nblocks,
+                          void* sums, void* stream) {
+  return launch_absdev<float>(U, n, R, mean, partials, nblocks, sums,
+                              stream);
+}
+int ch_absdev_members_f64(const void* U, long long n, int R,
+                          const void* mean, void* partials, int nblocks,
+                          void* sums, void* stream) {
+  return launch_absdev<double>(U, n, R, mean, partials, nblocks, sums,
+                               stream);
 }
 
 // float64 only: the ozaki route is the float64 transform.  K5 is

@@ -39,12 +39,17 @@ _BOTH = ('_f32', '_f64')
 # result type]); every kernel entry returns a cudaError_t as an int
 _SIGNATURES = {
     'ch_mu': ((_P, _P, _LL, _D, _D, _D, _D, _P), _BOTH),
+    'ch_mu_members': ((_P, _P, _LL, _I, _D, _D, _P, _P, _P), _BOTH),
     'ch_update': ((_P, _P, _P, _P, _P, _LL, _P), _BOTH),
+    'ch_update_members': ((_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P), _BOTH),
     'ch_stats': ((_P, _P, _I, _D, _D, _D, _D, _D, _D, _P, _I, _I, _P, _P,
                   _P), _BOTH),
+    'ch_stats_members': ((_P, _P, _I, _I, _D, _D, _D, _P, _P, _D, _P, _I,
+                          _I, _P, _P, _P), _BOTH),
     'ch_local_stats': ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D,
                         _D, _D, _D, _D, _P, _I, _I, _P, _P, _P), _BOTH),
     'ch_absdev': ((_P, _LL, _P, _P, _I, _P, _P), _BOTH),
+    'ch_absdev_members': ((_P, _LL, _I, _P, _P, _I, _P, _P), _BOTH),
     'ch_slice_scale': ((_P, _LL, _P, _I, _P, _P, _P, _P), ('_f64',)),
     'ch_slice': ((_P, _P, _P, _LL, _I, _P), ('_f64',)),
     'ch_sobol_jitter': ((_P, _I, _I, _P, _P, _P, _I, _I, _D, _P), _BOTH),

@@ -31,7 +31,10 @@ views: ``_mm_nt`` is ``x @ m.T`` with no copy.  ``x[n//2:][::-1]`` has no
 torch view, so every reversal is a ``torch.flip`` (a copy).  The 2-D
 transforms return contiguous tensors: the kernels take nothing else.
 
-The solver runs the permuted forms and the FFT route.  The natural-layout
+The solver runs the permuted forms and the FFT route.  These and the
+matmul route's :func:`dct2` / :func:`idct2` also take a stack of fields
+(R, N, N), each transformed over its last two axes: the ensemble's step
+(``torch.matmul`` broadcasts the (N, N) matrices over the member axis).  The natural-layout
 pair and the folded pair are reached only from the bake-off
 (``benchmarks/dct_bench.py``): the solver's folded field layout
 (``fold_field``, the JAX ``fold1_np``) is item 14.
@@ -210,13 +213,14 @@ def idct1d_fft(X: torch.Tensor) -> torch.Tensor:
 
 
 def dct2_fft(U: torch.Tensor) -> torch.Tensor:
-    """Orthonormal 2-D DCT-II via row then column rFFTs."""
-    return dct1d_fft(dct1d_fft(U).T).T.contiguous()
+    """Orthonormal 2-D DCT-II via row then column rFFTs (over the last two
+    axes: a field or a stack of fields)."""
+    return dct1d_fft(dct1d_fft(U).mT).mT.contiguous()
 
 
 def idct2_fft(X: torch.Tensor) -> torch.Tensor:
     """Orthonormal 2-D DCT-III, the exact inverse of :func:`dct2_fft`."""
-    return idct1d_fft(idct1d_fft(X).T).T.contiguous()
+    return idct1d_fft(idct1d_fft(X).mT).mT.contiguous()
 
 
 # ----------------------------------------------------------------------
@@ -252,7 +256,8 @@ def split_tree(N: int, levels: int, dtype=torch.float64, device='cpu'):
 
 
 def _flip0(x):
-    return torch.flip(x, (0,))
+    """Reverse the row axis (-2: 0 of a field)."""
+    return torch.flip(x, (-2,))
 
 
 def _flip1(x):
@@ -298,24 +303,25 @@ def idct2_split(X, tree):
 # outputs stay in block order and the solver's grids are conjugated once.
 
 def _apply_split_perm(tree, x):
-    """P · C_block @ x: :func:`_apply_split` without the interleave."""
+    """P · C_block @ x: :func:`_apply_split` without the interleave (over
+    the row axis -2, so x may be a stack of fields)."""
     if not isinstance(tree, tuple):
         return torch.matmul(tree, x)
-    n = x.shape[0]
-    top, bot = x[:n // 2], _flip0(x[n // 2:])
+    n = x.shape[-2]
+    top, bot = x[..., :n // 2, :], _flip0(x[..., n // 2:, :])
     even = _apply_split_perm(tree[0], top + bot)
     odd = torch.matmul(tree[1], top - bot)
-    return torch.cat([even, odd], dim=0)
+    return torch.cat([even, odd], dim=-2)
 
 
 def _apply_split_t_perm(tree, y):
     """C_block^T · P^T @ y, the inverse of :func:`_apply_split_perm`."""
     if not isinstance(tree, tuple):
         return torch.matmul(tree.T, y)
-    n2 = y.shape[0] // 2
-    u = _apply_split_t_perm(tree[0], y[:n2])
-    v = torch.matmul(tree[1].T, y[n2:])
-    return torch.cat([u + v, _flip0(u - v)], dim=0)
+    n2 = y.shape[-2] // 2
+    u = _apply_split_t_perm(tree[0], y[..., :n2, :])
+    v = torch.matmul(tree[1].T, y[..., n2:, :])
+    return torch.cat([u + v, _flip0(u - v)], dim=-2)
 
 
 @functools.lru_cache(maxsize=64)

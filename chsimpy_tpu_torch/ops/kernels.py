@@ -6,7 +6,11 @@ matmul K6 with the DCTs built on it, and the grid-sharded K7 and K8) and
 of the ozaki route's slice kernel in ``chsimpy_tpu/ops/ozaki.py`` (K5).
 K9, the per-step Sobol jitter, has no Pallas counterpart: it adds the
 points of ``chsimpy_tpu/ops/sobol.py`` (which XLA fuses there) to the
-field.  Each wrapper
+field.  K1-K4 also come member-batched (``*_members``) for the ensemble,
+where the JAX package ``vmap``s B1-B4 over a leading member axis with
+per-member A0/A1 (``chsimpy_tpu/ensemble.py``): one launch for R fields of
+an (R, N, N) stack, member r giving the single launch's bits on field r
+with its own scalars.  Each wrapper
 
 * runs the plain version (``*_ref``) only when its input lies on the CPU;
 * on a CUDA tensor launches its kernel (``csrc/ch_kernels.cu``; the GEMM
@@ -34,7 +38,9 @@ from .stencil import gradient2d
 launches = {'chemical_potential': 0, 'spectral_update': 0,
             'stats_sums': 0, 'absdev_sum': 0, 'slice_field': 0, 'matmul': 0,
             'local_band_sums': 0, 'chemical_potential_sharded': 0,
-            'sobol_jitter': 0}
+            'sobol_jitter': 0, 'chemical_potential_members': 0,
+            'spectral_update_members': 0, 'stats_sums_members': 0,
+            'absdev_sum_members': 0}
 
 # grids of the reduction kernels: fixed by the shape (and, for K3 and K7,
 # the vector width) alone, so the summation order (and the result, to the
@@ -45,8 +51,8 @@ ABSDEV_ELEMS_PER_BLOCK = 8 * 256
 ABSDEV_MAX_BLOCKS = 4096
 SLICE_MAX_BLOCKS = 1024         # K5's max pass: blocks at most
 
-# the ticket counters of K3, K5 and K7, one per (device, stream): 0 between
-# calls
+# the ticket counters of K3, K5 and K7, one set per (device, stream), one
+# counter per member of a batched K3: 0 between calls
 _TICKETS: dict = {}
 
 _SUFFIX = {torch.float32: '_f32', torch.float64: '_f64'}
@@ -224,14 +230,17 @@ def stats_grid(N: int, itemsize: int, *addresses: int):
     return local_stats_grid(N, N, N, 0, 0, itemsize, *addresses)
 
 
-def _ticket(device: torch.device) -> torch.Tensor:
-    """The ticket of K3, K5 and K7 on ``device`` for the current stream:
-    one counter that is 0 between calls (each kernel's last block resets
-    it; kernels on one stream never overlap)."""
+def _ticket(device: torch.device, count: int = 1) -> torch.Tensor:
+    """The tickets of K3, K5 and K7 on ``device`` for the current stream:
+    at least ``count`` counters (a batched K3 takes one a member), each 0
+    between calls (each kernel's last block resets its own; kernels on one
+    stream never overlap, and a replaced buffer goes back to the stream's
+    allocator only behind the launches that use it)."""
     key = (device.index, _stream())
     t = _TICKETS.get(key)
-    if t is None:
-        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    if t is None or t.numel() < count:
+        t = _TICKETS[key] = torch.zeros(max(count, 1), dtype=torch.int32,
+                                        device=device)
     return t
 
 
@@ -657,3 +666,175 @@ def sobol_jitter(U, sv, shift, base, jitter, row_off: int = 0,
           float(jitter), _stream())
     launches['sobol_jitter'] += 1
     return U
+
+
+# ----------------------------------------------------------------------
+# K1-K4 member-batched (the ensemble's B1-B4 under vmap): one launch for
+# the R fields of an (R, N, N) stack
+# ----------------------------------------------------------------------
+
+def _members(U: torch.Tensor) -> int:
+    """R of an (R, N, N) stack of fields (N >= 2); raises otherwise."""
+    if U.dim() != 3 or U.shape[0] < 1 or U.shape[1] != U.shape[2] \
+            or U.shape[1] < 2:
+        raise ValueError(f"expected an (R, N, N) stack of fields with "
+                         f"N >= 2, got {tuple(U.shape)}")
+    return U.shape[0]
+
+
+def _member_vector(name: str, v: torch.Tensor, R: int, U: torch.Tensor,
+                   dtype: torch.dtype) -> None:
+    """``v`` must be an (R,) tensor of ``dtype`` on U's device."""
+    if tuple(v.shape) != (R,) or v.dtype != dtype:
+        raise ValueError(f"{name} must be an ({R},) {dtype} tensor, got "
+                         f"{tuple(v.shape)} {v.dtype}")
+    if v.device != U.device:
+        raise ValueError(f"{name} on {v.device}, the fields on {U.device}")
+    if U.device.type == 'cuda' and not v.is_contiguous():
+        raise ValueError("the kernels take contiguous tensors")
+
+
+def _per_member(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An (R,) float64 vector cast to the field type, shaped to broadcast
+    over (R, N, N): each member's scalar as ``_cast`` rounds it."""
+    return v.to(dtype).reshape(-1, 1, 1)
+
+
+def chemical_potential_members_ref(U, RT, BRT, A0s, A1s):
+    """:func:`chemical_potential_ref` of each field of U (R, N, N) with
+    its member's A0s[r], A1s[r] ((R,) float64)."""
+    A0 = _per_member(A0s, U.dtype)
+    A1 = _per_member(A1s, U.dtype)
+    Uinv = 1.0 - U
+    U1Uinv = U / Uinv
+    U2inv = Uinv - U
+    return (RT * torch.log(U1Uinv) - BRT
+            + (A0 + A1 * U2inv) * U2inv
+            - 2.0 * A1 * U * Uinv)
+
+
+def chemical_potential_members(U, RT, BRT, A0s, A1s):
+    """K1 on every field of U in one launch (``mu_kernel``, member r on
+    grid row r), A0s/A1s read on the card."""
+    R = _members(U)
+    _member_vector('A0s', A0s, R, U, torch.float64)
+    _member_vector('A1s', A1s, R, U, torch.float64)
+    if not _on_card(U):
+        return chemical_potential_members_ref(U, RT, BRT, A0s, A1s)
+    out = torch.empty_like(U)
+    N = U.shape[1]
+    _call('ch_mu_members', U.dtype, U.data_ptr(), out.data_ptr(), N * N, R,
+          float(RT), float(BRT), A0s.data_ptr(), A1s.data_ptr(), _stream())
+    launches['chemical_potential_members'] += 1
+    return out
+
+
+def spectral_update_members_ref(hat_U, hat_E, Seig, CHeig):
+    """:func:`spectral_update_ref` of each member; Seig and CHeig are
+    (R, N, N) or one (N, N) grid for all members."""
+    return (hat_U + Seig * hat_E) / CHeig
+
+
+def spectral_update_members(hat_U, hat_E, Seig, CHeig):
+    """K2 on every member in one launch; a shared (N, N) Seig or CHeig is
+    read by every member (stride 0), not copied."""
+    R = _members(hat_U)
+    N = hat_U.shape[1]
+    if hat_E.shape != hat_U.shape:
+        raise ValueError("hat_E and hat_U differ in shape")
+    flags = []
+    for name, g in (('Seig', Seig), ('CHeig', CHeig)):
+        if tuple(g.shape) == (R, N, N):
+            flags.append(1)
+        elif tuple(g.shape) == (N, N):
+            flags.append(0)
+        else:
+            raise ValueError(f"{name} must be ({R}, {N}, {N}) or ({N}, {N}),"
+                             f" got {tuple(g.shape)}")
+    if not _on_card(hat_U, hat_E, Seig, CHeig):
+        return spectral_update_members_ref(hat_U, hat_E, Seig, CHeig)
+    out = torch.empty_like(hat_U)
+    _call('ch_update_members', hat_U.dtype, hat_U.data_ptr(),
+          hat_E.data_ptr(), Seig.data_ptr(), CHeig.data_ptr(), out.data_ptr(),
+          N * N, R, flags[0], flags[1], _stream())
+    launches['spectral_update_members'] += 1
+    return out
+
+
+def stats_sums_members_ref(U, EnergieEut: Optional[torch.Tensor], A0s, A1s,
+                           *, delx, RT, B, threshold):
+    """(R, 5) float64: :func:`stats_sums_ref` of each field of U with its
+    member's A0s[r], A1s[r]."""
+    A0 = _per_member(A0s, U.dtype)
+    A1 = _per_member(A1s, U.dtype)
+    f64 = torch.float64
+    dims = (-2, -1)
+    DUx, DUy = gradient2d(U, delx)
+    du2 = DUx * DUx + DUy * DUy
+    Uinv = 1.0 - U
+    integrand = (RT * (U * (torch.log(U) - B) + Uinv * torch.log(Uinv))
+                 + (A0 + A1 * (Uinv - U)) * U * Uinv)
+    if EnergieEut is None:
+        s_e2 = torch.zeros(U.shape[0], dtype=f64, device=U.device)
+    else:
+        s_e2 = (EnergieEut * EnergieEut).to(f64).sum(dims)
+    return torch.stack([integrand.to(f64).sum(dims), du2.to(f64).sum(dims),
+                        U.to(f64).sum(dims),
+                        (U < threshold).to(f64).sum(dims), s_e2], dim=-1)
+
+
+def stats_sums_members(U, EnergieEut: Optional[torch.Tensor], A0s, A1s, *,
+                       delx, RT, B, threshold):
+    """K3 on every member in one launch: member r on grid layer r with
+    the grid a single (N, N) field gets (:func:`stats_grid` of N and the
+    stack's addresses: where N allows the vector, every member's field
+    starts a multiple of 16 bytes after the first, so a contiguous stack
+    and a fresh field take the same vector width), its own ticket and its
+    own fixed-order finish."""
+    R = _members(U)
+    _member_vector('A0s', A0s, R, U, torch.float64)
+    _member_vector('A1s', A1s, R, U, torch.float64)
+    ops = (U,) if EnergieEut is None else (U, EnergieEut)
+    if EnergieEut is not None and EnergieEut.shape != U.shape:
+        raise ValueError("EnergieEut and U differ in shape")
+    if not _on_card(*ops):
+        return stats_sums_members_ref(U, EnergieEut, A0s, A1s, delx=delx,
+                                      RT=RT, B=B, threshold=threshold)
+    N = U.shape[1]
+    vec, nblocks = stats_grid(N, U.element_size(),
+                              *(t.data_ptr() for t in ops))
+    partials = torch.empty((R * nblocks, 5), dtype=torch.float64,
+                           device=U.device)
+    sums = torch.empty((R, 5), dtype=torch.float64, device=U.device)
+    _call('ch_stats_members', U.dtype, U.data_ptr(),
+          None if EnergieEut is None else EnergieEut.data_ptr(), N, R,
+          float(delx), float(RT), float(B), A0s.data_ptr(), A1s.data_ptr(),
+          float(threshold), partials.data_ptr(), nblocks, vec,
+          _ticket(U.device, R).data_ptr(), sums.data_ptr(), _stream())
+    launches['stats_sums_members'] += 1
+    return sums
+
+
+def absdev_sum_members_ref(U, mean):
+    """(R,) float64: Σ|U[r] − mean[r]|, ``mean`` (R,) in U's dtype."""
+    return (U - mean.reshape(-1, 1, 1)).abs().to(torch.float64).sum((-2, -1))
+
+
+def absdev_sum_members(U, mean):
+    """K4 on every member: one partials launch (member r on grid row r,
+    the single launch's blocks) and one reduce over the (blocks, R)
+    partials, column r in the single launch's order."""
+    R = _members(U)
+    _member_vector('mean', mean, R, U, U.dtype)
+    if not _on_card(U, mean):
+        return absdev_sum_members_ref(U, mean)
+    n = U.shape[1] * U.shape[2]
+    nblocks = int(min(ABSDEV_MAX_BLOCKS,
+                      max(1, -(-n // ABSDEV_ELEMS_PER_BLOCK))))
+    partials = torch.empty((nblocks, R), dtype=torch.float64,
+                           device=U.device)
+    out = torch.empty((R,), dtype=torch.float64, device=U.device)
+    _call('ch_absdev_members', U.dtype, U.data_ptr(), n, R, mean.data_ptr(),
+          partials.data_ptr(), nblocks, out.data_ptr(), _stream())
+    launches['absdev_sum_members'] += 1
+    return out

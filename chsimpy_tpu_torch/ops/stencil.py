@@ -12,15 +12,17 @@ from __future__ import annotations
 import torch
 
 
-def _gradient_axis0(U: torch.Tensor, delx: float) -> torch.Tensor:
-    interior = (U[2:, :] - U[:-2, :]) / (2.0 * delx)
-    first = (U[1:2, :] - U[0:1, :]) / delx
-    last = (U[-1:, :] - U[-2:-1, :]) / delx
-    return torch.cat([first, interior, last], dim=0)
+def _gradient_rows(U: torch.Tensor, delx: float) -> torch.Tensor:
+    """The derivative along the row axis (-2)."""
+    interior = (U[..., 2:, :] - U[..., :-2, :]) / (2.0 * delx)
+    first = (U[..., 1:2, :] - U[..., 0:1, :]) / delx
+    last = (U[..., -1:, :] - U[..., -2:-1, :]) / delx
+    return torch.cat([first, interior, last], dim=-2)
 
 
 def gradient2d(U: torch.Tensor, delx: float):
-    """(dU/dx, dU/dy) with edge_order=1."""
-    dux = _gradient_axis0(U, delx)
-    duy = _gradient_axis0(U.T, delx).T
+    """(dU/dx, dU/dy) with edge_order=1 over the last two axes (a field,
+    or a stack of fields)."""
+    dux = _gradient_rows(U, delx)
+    duy = _gradient_rows(U.mT, delx).mT
     return dux, duy

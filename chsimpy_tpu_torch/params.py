@@ -1,15 +1,19 @@
 """Simulation parameters.
 
 The same fields and defaults as ``chsimpy_tpu/params.py`` (so a
-``scalar_dict`` carries across, see convert.py), plus ``device``.  Fields
-that select parts of the JAX package the port does not run yet keep their
-defaults; :func:`check_solver_scope` and :func:`check_output_scope` refuse
-any other value with an error that names the ROADMAP item that ports it.
-YAML import/export is one of those parts (queue A item 13).
+``scalar_dict`` carries across, see convert.py), plus the port's own
+``device`` and ``dist_backend``.  Fields that select parts of the JAX
+package the port does not run yet keep their defaults;
+:func:`check_solver_scope` and :func:`check_output_scope` refuse any other
+value with an error that names the ROADMAP item that ports it.
+
+YAML files (``yaml_export_scalars`` / ``yaml_import_scalars``) are the JAX
+package's, byte for byte: the port's own fields stay out of them.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
@@ -106,13 +110,57 @@ class Parameters:
             return float(self.A1_const)
         return material.A1(temp) * self.A1_factor
 
+    def deepcopy(self) -> 'Parameters':
+        return copy.deepcopy(self)
+
     def scalar_dict(self) -> dict:
         d = dataclasses.asdict(self)
         d['mesh_shape'] = list(self.mesh_shape) if self.mesh_shape else None
         return d
 
+    def is_scalarwise_equal_with(self, other: 'Parameters') -> bool:
+        """Equality over scalar fields, ignoring version (reference:
+        ``parameters.py:105-115``)."""
+        if not isinstance(other, Parameters):
+            return False
+        sd, od = self.scalar_dict(), other.scalar_dict()
+        sd.pop('version', None)
+        od.pop('version', None)
+        return sd == od
+
     def __str__(self):
         return str(dict(sorted(self.scalar_dict().items())))
+
+    # ------------------------------------------------------------------
+    def yaml_export_scalars(self, fname: str) -> None:
+        """The JAX package's parameter file (without ``PORT_FIELDS``)."""
+        from .io import yamlio
+        d = self.scalar_dict()
+        for k in PORT_FIELDS:
+            d.pop(k)
+        yamlio.export_scalars(fname, d, tag='Parameters')
+
+    def yaml_import_scalars(self, fname: str) -> None:
+        """Load scalar fields from a YAML file (own format or reference's);
+        unknown keys, ``version`` and callables-as-strings are skipped
+        (reference: ``parameters.py:91-101``)."""
+        from .io import yamlio
+        data = yamlio.import_scalars(fname)
+        names = {f.name for f in dataclasses.fields(self)}
+        for k, v in data.items():
+            if k not in names or k == 'version':
+                continue
+            if isinstance(v, str) and v.startswith('lambda'):
+                continue
+            if k in TUPLE_FIELDS and v is not None:
+                v = tuple(v)
+            setattr(self, k, v)
+
+
+# the port's own fields (not in the JAX package's Parameters)
+PORT_FIELDS = ('device', 'dist_backend')
+# fields held as tuples (lists in YAML and JSON)
+TUPLE_FIELDS = ('mesh_shape', 'ozaki_fwd_pairs', 'ozaki_inv_pairs')
 
 
 KERNELS_MSG = ("--kernels has no counterpart in the port: on a CUDA tensor "
@@ -131,10 +179,11 @@ def solver_scope_errors(p: Parameters) -> list:
         errs.append(f"unknown generator '{p.generator}'")
     if p.jitter_backend not in ('host', 'device'):
         errs.append(f"unknown jitter backend '{p.jitter_backend}'")
-    if p.restore_file is not None or p.checkpoint_file is not None \
-            or p.checkpoint_every is not None:
-        errs.append(not_ported('checkpoint and restore', 8))
     if p.mesh_shape is not None:
+        if p.restore_file is not None or p.checkpoint_file is not None \
+                or p.checkpoint_every is not None:
+            errs.append(not_ported('checkpoint and restore under --mesh',
+                                   11))
         # the grid layout runs the matmul route; the JAX package shards the
         # split and ozaki routes through the pencil layout (and the ozaki
         # route through the grid too under --kernels pallas)
@@ -170,10 +219,6 @@ def output_scope_errors(p: Parameters) -> list:
     if not p.no_gui or p.png or p.png_anim:
         errs.append(not_ported('the live view and PNG output '
                                '(pass --no-gui)', 13))
-    if p.export_csv is not None or p.compress_csv or p.yaml:
-        errs.append(not_ported('CSV and YAML export', 13))
-    if p.Uinit_file is not None:
-        errs.append(not_ported('--Uinit-file (CSV import)', 13))
     return errs
 
 

@@ -95,7 +95,10 @@ def test_kernels_match_plain_versions(card, dtype, N):
                           'slice_field': 0, 'matmul': 0,
                           'local_band_sums': 0,
                           'chemical_potential_sharded': 0,
-                          'sobol_jitter': 0}
+                          'sobol_jitter': 0,
+                          'chemical_potential_members': 0,
+                          'spectral_update_members': 0,
+                          'stats_sums_members': 0, 'absdev_sum_members': 0}
 
 
 def test_stats_sums_are_reproducible(card):
@@ -572,3 +575,89 @@ def test_adaptive_solve_on_card_matches_cpu(card):
     np.testing.assert_allclose(g.timedata.delt, c.timedata.delt, rtol=1e-9)
     np.testing.assert_allclose(g.timedata.E, c.timedata.E, rtol=1e-10)
     assert g.timedata.delt[-1] != g.timedata.delt[0]
+
+
+# ----------------------------------------------------------------------
+# member-batched K1-K4 (the ensemble) and the ensemble's solve
+# ----------------------------------------------------------------------
+
+def _members(N, R, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    U = torch.tensor(0.875 + 0.01 * (rng.random((R, N, N)) - 0.5),
+                     dtype=dtype, device=device)
+    A0s = torch.tensor([PHYS['A0'] * (1 + 0.001 * r) for r in range(R)],
+                       dtype=torch.float64, device=device)
+    A1s = torch.tensor([PHYS['A1'] * (1 - 0.002 * r) for r in range(R)],
+                       dtype=torch.float64, device=device)
+    return U, A0s, A1s
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('N,R', [(64, 3), (1000, 2), (1001, 2), (33, 5)])
+def test_member_kernels_give_single_launch_bits(card, dtype, N, R):
+    """Member r of one batched launch = the single launch on field r with
+    its scalars, to the bit; and the plain versions' tolerances."""
+    p = PHYS
+    U, A0s, A1s = _members(N, R, dtype, card)
+    K.reset_launches()
+    mu = K.chemical_potential_members(U, p['RT'], p['BRT'], A0s, A1s)
+    rng = np.random.default_rng(2)
+    hE = torch.tensor(rng.random((R, N, N)), dtype=dtype, device=card)
+    S = torch.tensor(rng.random((N, N)), dtype=dtype, device=card)
+    CH = torch.tensor(1 + rng.random((R, N, N)), dtype=dtype, device=card)
+    upd = K.spectral_update_members(U, hE, S, CH)
+    kw = dict(delx=p['delx'], RT=p['RT'], B=p['B'],
+              threshold=p['threshold'])
+    sums = K.stats_sums_members(U, mu, A0s, A1s, **kw)
+    mean = (sums[:, 2] / (N * N)).to(dtype)
+    ps = K.absdev_sum_members(U, mean)
+    assert [K.launches[k] for k in (
+        'chemical_potential_members', 'spectral_update_members',
+        'stats_sums_members', 'absdev_sum_members')] == [1, 1, 1, 1]
+    for r in range(R):
+        a0, a1 = A0s[r].item(), A1s[r].item()
+        assert torch.equal(mu[r], K.chemical_potential(
+            U[r].contiguous(), p['RT'], p['BRT'], a0, a1))
+        assert torch.equal(upd[r], K.spectral_update(
+            U[r].contiguous(), hE[r].contiguous(), S, CH[r].contiguous()))
+        assert torch.equal(sums[r], K.stats_sums(
+            U[r].clone(), mu[r].clone(), a0, a1, **kw))
+        assert torch.equal(ps[r], K.absdev_sum(U[r].clone(), mean[r]))
+    ref = K.stats_sums_members_ref(U, mu, A0s, A1s, **kw)
+    torch.testing.assert_close(sums, ref, rtol=_tol(dtype), atol=0)
+    torch.testing.assert_close(ps, K.absdev_sum_members_ref(U, mean),
+                               rtol=_tol(dtype), atol=0)
+    torch.testing.assert_close(upd, K.spectral_update_members_ref(
+        U, hE, S, CH), rtol=1e-12 if dtype == torch.float64 else 1e-6,
+        atol=0)
+
+
+def test_member_wrappers_refuse_what_the_kernels_do_not_take(card):
+    U, A0s, A1s = _members(16, 2, torch.float64, card)
+    with pytest.raises(ValueError, match='A0s'):
+        K.chemical_potential_members(U, 1.0, 1.0, A0s.cpu(), A1s)
+    with pytest.raises(ValueError, match='contiguous'):
+        K.chemical_potential_members(U, 1.0, 1.0, A0s, A1s.repeat(2)[::2])
+    with pytest.raises(ValueError, match='contiguous'):
+        K.absdev_sum_members(U.transpose(1, 2), U.mean((1, 2)))
+
+
+@pytest.mark.parametrize('transform', ['matmul', 'split', 'fft'])
+def test_ensemble_on_card_matches_single_runs(card, transform):
+    from chsimpy_tpu_torch.ensemble import EnsembleSolver
+    pairs = np.array([[PHYS['A0'] * f, PHYS['A1'] / f]
+                      for f in (1.0, 1.004, 0.996)])
+    kw = dict(N=64, ntmax=40, full_sim=True, generator='uniform',
+              kappa_tilde=KAPPA, no_gui=True, transform_backend=transform)
+    K.reset_launches()
+    ens = EnsembleSolver(Parameters(device='cuda', **kw), pairs)
+    ens.prepare()
+    sols = ens.solve_or_resume(40)
+    assert K.launches['chemical_potential_members'] == 39
+    assert K.launches['stats_sums_members'] == 40
+    for (A0, A1), s in zip(pairs, sols):
+        ref = Simulator(Parameters(device='cuda', A0_const=float(A0),
+                                   A1_const=float(A1), **kw)).solve()
+        assert s.computed_steps == ref.computed_steps
+        np.testing.assert_allclose(s.timedata.data()[:, 1],
+                                   ref.timedata.data()[:, 1], rtol=1e-12)

@@ -166,10 +166,7 @@ def test_params_carried_from_jax():
 
 
 def test_solver_refuses_settings_not_ported():
-    cases = {'restore_file': ('x.npz', 'item 8'),
-             'checkpoint_every': (10, 'item 8'),
-             'checkpoint_file': ('x.npz', 'item 8'),
-             'fold_field': (True, 'item 14'),
+    cases = {'fold_field': (True, 'item 14'),
              'inv_band': (4, 'item 14'),
              'kernel_backend': ('pallas', 'queue B'),
              'matmul_precision': ('high', 'item 14')}
@@ -179,14 +176,25 @@ def test_solver_refuses_settings_not_ported():
         setattr(p, field, value)
         with pytest.raises(NotImplementedError, match=item):
             ctt.Solver(p)
-    # item 7's settings run (ROADMAP.md queue A item 7, done)
+    # item 7's settings run (ROADMAP.md queue A item 7, done), and item
+    # 8's checkpoint settings (done): restore_file is the Simulator's
     for field, value in (('adaptive_time', True), ('jitter', 0.01),
                          ('generator', 'sobol'), ('generator', 'simplex'),
-                         ('jitter_backend', 'device')):
+                         ('jitter_backend', 'device'),
+                         ('restore_file', 'x.npz'), ('checkpoint_every', 10),
+                         ('checkpoint_file', 'x.npz')):
         p = ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA,
                            no_gui=True)
         setattr(p, field, value)
         ctt.Solver(p)
+    # the checkpoint under a grid mesh is item 11
+    for field, value in (('restore_file', 'x.npz'), ('checkpoint_every', 10),
+                         ('checkpoint_file', 'x.npz')):
+        p = ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA,
+                           no_gui=True, mesh_shape=(2, 2))
+        setattr(p, field, value)
+        with pytest.raises(NotImplementedError, match='item 11'):
+            ctt.Solver(p)
     # the grid mesh runs the matmul route; the pencil split route is later
     p = ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA, no_gui=True,
                        mesh_shape=(2, 2), transform_backend='split')
@@ -215,8 +223,11 @@ def test_import_brings_in_no_jax():
             "import chsimpy_tpu_torch.benchmarks.bench\n"
             "import chsimpy_tpu_torch.ops.sobol, chsimpy_tpu_torch.noise\n"
             "import chsimpy_tpu_torch.parallel.workers\n"
+            "import chsimpy_tpu_torch.ensemble, chsimpy_tpu_torch.checkpoint\n"
+            "import chsimpy_tpu_torch.validate, chsimpy_tpu_torch.io.yamlio\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'chsimpy_tpu', 'triton', 'sympy')]\n"
+            "('jax', 'jaxlib', 'chsimpy_tpu', 'triton', 'sympy', 'pandas', "
+            "'yaml')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ)
     env['PYTHONPATH'] = ROOT
@@ -237,15 +248,29 @@ def test_cli_parses_the_slice_and_refuses_the_rest(capsys):
                                     'sobol', '--jitter-backend', 'device'])
     assert (p.adaptive_time, p.jitter, p.generator, p.jitter_backend) == \
         (True, 0.01, 'sobol', 'device')
-    for argv, item in ((['--no-gui', '--checkpoint-every', '5'], 'item 8'),
+    # item 8's and item 13's flags parse (done), but for the live view
+    # and PNG output
+    p = CLIParser().get_parameters(
+        ['--no-gui', '--checkpoint-file', 'c.npz', '--checkpoint-every',
+         '5', '--export-csv', 'U', '-C', '--yaml', '--restore', 'x',
+         '--Uinit-file', 'u.csv'])
+    assert (p.checkpoint_file, p.checkpoint_every, p.export_csv,
+            p.compress_csv, p.yaml, p.restore_file, p.Uinit_file) == \
+        ('c.npz', 5, 'U', True, True, 'x', 'u.csv')
+    for argv, item in ((['--no-gui', '--checkpoint-every', '5'],
+                        'no --checkpoint-file'),
                        (['--no-gui', '--mesh', '2x2', '--transform',
                          'split'], 'item 11'),
-                       (['--no-gui', '--export-csv', 'U'], 'item 13'),
-                       (['--no-gui', '--yaml'], 'item 13'),
+                       (['--no-gui', '--export-csv', 'none'],
+                        'valid entries'),
+                       (['--no-gui', '-C'], 'no --export-csv'),
+                       (['--no-gui', '--png'], 'item 13'),
+                       (['--no-gui', '--update-every', '10'], 'item 13'),
                        (['--no-gui', '--fold-field'], 'item 14'),
                        (['--no-gui', '--inv-band', '8'], 'item 14'),
                        (['--no-gui', '--kernels', 'pallas'], 'queue B'),
-                       (['--no-gui', '--restore', 'x'], 'item 8'),
+                       (['--no-gui', '--mesh', '2x2', '--restore', 'x'],
+                        'item 11'),
                        ([], 'item 13')):
         with pytest.raises(SystemExit) as exc:
             CLIParser().get_parameters(argv)

@@ -451,12 +451,15 @@ def test_ozaki_scope_matches_jax():
     with pytest.raises(ValueError, match='float64'):
         jsolver.resolve_transform(_jax_params(precision='float32',
                                               transform_backend='ozaki'))
-    for field, value, item in (('mesh_shape', (2, 2), 'item 11'),
-                               ('restore_file', 'x.npz', 'item 8')):
+    for field, value, item in (('mesh_shape', (2, 2), 'item 11'),):
         p = _port_params(N=16, kappa_tilde=KAPPA, transform_backend='ozaki')
         setattr(p, field, value)
         with pytest.raises(NotImplementedError, match=item):
             ctt.Solver(p)
+    # the checkpoint settings run on the ozaki route (item 8, done)
+    p = _port_params(N=16, kappa_tilde=KAPPA, transform_backend='ozaki',
+                     restore_file='x.npz', checkpoint_file='y.npz')
+    ctt.Solver(p)
     # adaptive time stepping runs on the ozaki route (item 7)
     p = _port_params(N=16, kappa_tilde=KAPPA, transform_backend='ozaki',
                      adaptive_time=True)
