@@ -97,10 +97,16 @@ Phases (each raises on failure, so the script exits nonzero):
    (f) with one card per rank, (c) and (e) again on NCCL; otherwise a line
    saying why it did not run;
 9. adaptive time stepping, per-step jitter, the sobol and simplex
-   generators and the Sobol jitter kernel K9:
+   generators, the Sobol jitter kernel K9 and the threefry jitter kernel
+   K10:
    (a) K9 against its plain version, to the bit, at N = 4096, 1000 and
    512, float32 and float64, at draw bases 0, N and N/2 below 2^32 (the
    walk wraps), on the field and on a 2x2 mesh's (1, 1) block; both timed;
+   K10 against its plain version, to the bit (the field, the next key),
+   at N = 4096, 1000, 1001 and 512, float32 and float64, on the field and
+   on a 2x2 mesh's (1, 1) block, its values at steps 1 and 2 of seed 2023
+   against jax.random's (K10_LITERALS), both timed at N=4096 beside a
+   bound taken at the INT32 rate (132 SMs x 64 lanes x 1.98 GHz);
    (b) the seven item 7 goldens (N=64, float64: n64_sobol_100, the three
    adaptive ones, the uniform, sobol and simplex jitter), n64_adaptive_600
    also on split, fft and ozaki (untrimmed forward pairs), with the
@@ -108,10 +114,10 @@ Phases (each raises on failure, so the script exits nonzero):
    the device Sobol jitter's U and rows equal to the host stream's;
    (c) N=4096 float32 ``full_sim`` on matmul: steps/s over steps 513-768
    with -a (delt_max ITEM7_DELT_MAX; the column sum at step 501 recorded),
-   with the device Sobol jitter and with the device uniform jitter, beside
-   phase 5's fixed-delt rate; delt moved after step 500 only and mean(U)
-   held under -a; the layer times of one step (adaptive delt, coefficient
-   rebuild, jitter);
+   with the device Sobol jitter (K9 on every step) and with the device
+   uniform jitter (K10 on every step), beside phase 5's fixed-delt rate;
+   delt moved after step 500 only and mean(U) held under -a; the layer
+   times of one step (adaptive delt, coefficient rebuild, jitter);
    (d) in phase 8's 2x2 world: -a over 520 steps (N=32) and the device
    Sobol jitter over 100, against one device: delt within 1e-9, E within
    1e-10, the same rows on every rank;
@@ -138,9 +144,27 @@ Phases (each raises on failure, so the script exits nonzero):
    rows are those of the in-memory run that re-enters the solve at 1025
    to the bit and within 1e-10 of phase 4's uninterrupted run; an
    ensemble saved mid-batch and restored ends bit-equal; a run with the
-   device jitter resumes its torch.Generator stream to the bit;
+   device jitter resumes its threefry stream (the key in the file) to the
+   bit;
    (e) the restored CLI run also exports U, E and E2 as bz2 CSV and the
-   solution's YAML: read back, they equal the solution.
+   solution's YAML: read back, they equal the solution;
+11. the UQ experiment (``experiment.main``, in-process, the member-batched
+   K1-K4 on the card; the port's three sympy solves replaced by lookups in
+   SOBOL_MATERIAL, since the card's machine has no sympy):
+   (a) the paper's design (R=16 sobol, A-seed 85972, N=512, cinit =
+   threshold = 0.89) in float64: A0, A1, the factors, ca, cb, sa, sb,
+   tau0, tsep and id equal to the bit, t0 within 1e-12, of the JAX
+   package's on-chip float64 run (artifacts/r5/uq_f64/tpu64-*); tau0 and
+   tsep equal the reference's run (artifacts/r4/uq/ref-results.csv);
+   results-agg.csv byte-equal in every row whose inputs are bit-equal;
+   each member's E2 at every row within 1e-10 plus tpu64's own distance
+   from the JAX package's CPU float64 run (TPU64_E2_OWN_REL: the TPU's
+   float64 E2 lies up to ~1e-9 from it) of tpu64-run*.solution.E2.csv,
+   its YAML scalars equal (t0 to 1e-12); the batched kernels'
+   counts (read on this run); wall, solve and host-pipeline seconds and
+   member-steps/s;
+   (b) the same design in float32: tau0, t0 and tsep within 6e-3 of the
+   reference's run per member, their means within 3e-3.
 
 The kernels' rows carry ``bound_ms``, the least time the card could take
 for the same work (bytes at 3.35 TB/s or operations at the peak rate of
@@ -152,8 +176,9 @@ measurement also goes to DIR/chip_smoke.json.
 
     python3 chip_smoke.py --kernels-only
 
-runs phases 1-3 and the kernel parts of 6-10 ((a); (a)-(b) of 8) only,
-and prints the kernels' table instead of the two last lines.
+runs phases 1-3 and the kernel parts of 6-10 ((a); (a)-(b) of 8; K9
+and K10 of 9) only, and prints the kernels' table instead of the two last
+lines.
 """
 
 from __future__ import annotations
@@ -182,6 +207,8 @@ REPLACES = {
     'chemical_potential_sharded': 'chsimpy_tpu/ops/pallas_kernels.py:538',
     # no Pallas counterpart: the XLA-fused Sobol points of the JAX step
     'sobol_jitter': 'chsimpy_tpu/ops/sobol.py:46',
+    # no Pallas counterpart: jax.random.split and uniform in the JAX step
+    'threefry_jitter': 'chsimpy_tpu/core/stepper.py:750-751',
 }
 # the kernels of the matmul route (the ozaki route adds slice_field)
 MATMUL_PATH = ('chemical_potential', 'spectral_update', 'stats_sums',
@@ -1200,17 +1227,26 @@ def routes_phase(dev, card, E64):
 # ----------------------------------------------------------------------
 
 HBM_BYTES_PER_S = 3.35e12
-# float32 and float64 outside the tensor cores; TF32 on them (dense)
-PEAK_OPS_PER_S = {'float32': 67e12, 'float64': 34e12, 'tf32': 495e12}
+# float32 and float64 outside the tensor cores; TF32 on them (dense);
+# 32-bit integer operations: 132 SMs x 64 lanes x 1.98 GHz (the H100
+# SXM's top SM clock)
+INT32_CLOCK_HZ = 1.98e9
+PEAK_OPS_PER_S = {'float32': 67e12, 'float64': 34e12, 'tf32': 495e12,
+                  'int32': 132 * 64 * INT32_CLOCK_HZ}
 TF32_PASSES = 3     # the GEMM's float32-class product: 3xTF32
 # operations per element, counting each arithmetic operation, comparison
 # and log as one
 OPS_PER_ELEM = {'chemical_potential': 13, 'spectral_update': 3,
                 'stats': 27, 'absdev_sum': 3, 'slice_setup': 6,
-                'slice_per_plane': 6, 'sobol_jitter': 6}
+                'slice_per_plane': 6, 'sobol_jitter': 6,
+                # 32-bit integer operations: threefry2x32's 20 rounds of
+                # add, rotate, xor and its 6 key injections, the counter
+                # and the float bits
+                'threefry_jitter': 80}
 
 
 def bound_fields(nbytes, ops, dtype):
+    """``ops`` at the peak rate of ``dtype`` (a PEAK_OPS_PER_S key)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return {'bound_ms': max(t_bytes, t_ops),
@@ -1262,6 +1298,11 @@ def kernel_bound(name, N, dtype, n_slices=4):
         # (int64) and the base read
         return bound_fields(2 * n * s + N * 31 * 8 + 8,
                             OPS_PER_ELEM[name] * n, dtype)
+    if name == 'threefry_jitter':
+        # U read and written, the key read, the next key written; its
+        # hashes are 32-bit integer work
+        return bound_fields(2 * n * s + 4 * 8, OPS_PER_ELEM[name] * n,
+                            'int32')
     raise KeyError(name)
 
 
@@ -1715,6 +1756,102 @@ def sobol_phase(dev, card):
     return rows
 
 
+THREEFRY_NS = (4096, 1000, 1001, 512)
+THREEFRY_REPORT = (4096, 'float32')         # the JSON line's K10 row
+# K10 on a zero field with jitter 0.5 (r - 0.5, exact) at N=4096, steps 1
+# and 2 of seed 2023: the first and the last value, jax.random's
+# (pinned by tests/test_torch_experiment.py)
+K10_LITERAL_N = 4096
+K10_LITERALS = {
+    1: {'float32': (0.49181878566741943, 0.23713326454162598),
+        'float64': (0.20596503892135498, 0.09468211888864819)},
+    2: {'float32': (-0.2964421510696411, 0.3008319139480591),
+        'float64': (-0.3081856423477558, 0.2612592445365276)},
+}
+
+
+def threefry_phase(dev, card):
+    """(a) K10 against its plain version to the bit, on the field and on
+    the (1, 1) block of a 2x2 mesh (offsets N//2), the next key too, one
+    count a call; its values at steps 1 and 2 of seed 2023 against
+    jax.random's (K10_LITERALS); both versions timed at N=4096."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch.core.state import jax_prng_key
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    key = torch.tensor(jax_prng_key(2023).astype(np.int64), device=dev)
+    rows = []
+    for N in THREEFRY_NS:
+        h = N // 2
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
+            U = torch.tensor(0.875 + 0.01 * (np.random.default_rng(N).random(
+                (N, N)) - 0.5), dtype=dtype, device=dev)
+            blk = U[h:, h:].contiguous()
+            k1, k2, w1, w2 = (torch.empty_like(key) for _ in range(4))
+            K.reset_launches()
+            got = K.threefry_jitter(U.clone(), key, k1, SOBOL_JITTER, N)
+            gblk = K.threefry_jitter(blk.clone(), key, k2, SOBOL_JITTER, N,
+                                     h, h)
+            counted = K.launches['threefry_jitter']
+            want = K.threefry_jitter_ref(U.clone(), key, w1, SOBOL_JITTER, N)
+            wblk = K.threefry_jitter_ref(blk.clone(), key, w2, SOBOL_JITTER,
+                                         N, h, h)
+            torch.cuda.synchronize()
+            err = max((got - want).abs().max().item(),
+                      (gblk - wblk).abs().max().item())
+            ok = (torch.equal(got, want) and torch.equal(gblk, wblk)
+                  and torch.equal(k1, w1) and torch.equal(k2, w1)
+                  and counted == 2)
+            row = {'name': 'threefry_jitter', 'N': N, 'dtype': dname,
+                   'max_abs_err': err,
+                   'tolerance': 'bit-identical field, (1, 1) block of a 2x2 '
+                                'mesh and next key, one count a call',
+                   'ok': ok}
+            if N == K10_LITERAL_N:
+                # steps 1 and 2 from PRNGKey(2023) on a zero field
+                prev, vals = key, {}
+                for step in (1, 2):
+                    nxt = torch.empty_like(key)
+                    Z = K.threefry_jitter(torch.zeros_like(U), prev, nxt,
+                                          0.5, N)
+                    vals[step] = (Z[0, 0].item(), Z[-1, -1].item())
+                    prev = nxt
+                lit = {st: K10_LITERALS[st][dname] for st in (1, 2)}
+                row['literals_steps_1_2'] = vals
+                row['literals_ok'] = vals == lit
+                ok = ok and row['literals_ok']
+                V = U.clone()   # K10 is in place: the timed calls add up
+                row.update(timed_row(
+                    lambda: K.threefry_jitter(V, key, k1, SOBOL_JITTER, N),
+                    lambda: K.threefry_jitter_ref(V, key, w1, SOBOL_JITTER,
+                                                  N)))
+                row.update(kernel_bound('threefry_jitter', N, dname))
+                row['bound_share'] = row['bound_ms'] / row['ms']
+                row['int32_clock_hz'] = INT32_CLOCK_HZ
+                # what the device jitter ran before K10: torch.rand and
+                # the update's eager passes (another stream)
+                row['before_ms'] = device_ms(
+                    lambda: V + SOBOL_JITTER * (2.0 * torch.rand(
+                        (N, N), dtype=dtype, device=dev) - 1.0))
+            rows.append(row)
+            times = (f"  kernel {row['ms']:.4f} ms (one call "
+                     f"{row['call_ms']:.4f})  plain {row['plain_ms']:.4f} ms"
+                     f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                     f"{row['bound_share']:.0%}); before (torch.rand and "
+                     f"passes) {row['before_ms']:.4f} ms; steps 1-2 = "
+                     f"jax.random: "
+                     f"{row['literals_ok']}  ({card})"
+                     if 'ms' in row else '')
+            print(f"kernel threefry_jitter N={N:5d} {dname:8s}: max diff "
+                  f"{err:.3e} {'ok' if ok else 'FAIL'}{times}", flush=True)
+            check(ok, f"threefry_jitter N={N} {dname}: differs by {err:.3e} "
+                      f"({counted} counts), literals "
+                      f"{row.get('literals_steps_1_2')}")
+    return rows
+
+
 # (b): name, route, rtol E, delt, E2 (tests/test_golden.py:46-62); the
 # jitter goldens hold tests/test_golden_extra.py's E 1e-11 (sobol: E2 1e-4)
 ITEM7_GOLDENS = (
@@ -1846,11 +1983,10 @@ def item7_layers(solver):
             lambda: stepper.rebuilt_coefficients(cfg, c, delt))
     if cfg.jitter_mode != 'none':
         V = s.U.clone()
+        go = s.stop_reason == 0
         out['jitter_' + cfg.jitter_mode] = call_ms(
-            lambda: stepper._jitter(cfg, c, s, V, None, solver._jitter_gen))
-    out['whole_step'] = call_ms(
-        lambda: stepper._step(cfg, c, s, None, None, solver._jitter_gen),
-        reps=20)
+            lambda: stepper._jitter(cfg, c, s, V, None, go))
+    out['whole_step'] = call_ms(lambda: stepper._step(cfg, c, s), reps=20)
     return out
 
 
@@ -1859,7 +1995,8 @@ def item7_n4096(card, fixed_rate):
     window of 256 steps after step 512 with -a, with the device Sobol
     jitter and with the device uniform jitter, beside phase 5's fixed-delt
     rate; delt moved after step 500 and mean(U) held under -a; K9 launched
-    on every step of the Sobol run (its count in the JSON line)."""
+    on every step of the Sobol run, K10 on every step of the uniform one
+    (their counts in the JSON line)."""
     import numpy as np
     import torch
     from chsimpy_tpu_torch import Parameters
@@ -1917,10 +2054,12 @@ def item7_n4096(card, fixed_rate):
                   f"N=4096 -a: delt did not move after step 500 only")
             check(abs(mean - U0) <= 1e-6,
                   f"N=4096 -a: mean(U) drifted {mean - U0:.3e}")
-        expect = iterations if s.cfg.jitter_mode == 'device_sobol' else 0
-        check(launches['sobol_jitter'] == expect,
-              f"N=4096 {tag}: sobol_jitter launched "
-              f"{launches['sobol_jitter']} times, not {expect}")
+        for name, mode in (('sobol_jitter', 'device_sobol'),
+                           ('threefry_jitter', 'device')):
+            expect = iterations if s.cfg.jitter_mode == mode else 0
+            check(launches[name] == expect,
+                  f"N=4096 {tag}: {name} launched {launches[name]} times, "
+                  f"not {expect}")
         del s
         torch.cuda.empty_cache()
     return out
@@ -1975,7 +2114,8 @@ def check_item7_world(tag, res):
 
 
 def item7_phase(dev, card, fixed_rate):
-    out = {'sobol_kernel': sobol_phase(dev, card)}
+    out = {'sobol_kernel': sobol_phase(dev, card),
+           'threefry_kernel': threefry_phase(dev, card)}
     t0 = time.perf_counter()
     out['goldens'] = item7_goldens()
     out['n4096'] = item7_n4096(card, fixed_rate)
@@ -2341,7 +2481,7 @@ def checkpoint_phase(card, E_single):
     1e-10 of the uninterrupted run (phase 4's E); U and the YAML scalars
     read back equal the solution.  An ensemble saved mid-batch and
     restored ends bit-equal to the in-memory re-entry, and a run with the
-    device jitter resumes its torch.Generator stream to the bit."""
+    device jitter resumes its threefry stream to the bit."""
     import shutil
     import tempfile
     import numpy as np
@@ -2414,7 +2554,7 @@ def checkpoint_phase(card, E_single):
         check(same, 'the restored ensemble differs')
         del e, ref, got
 
-        # the device jitter's torch.Generator stream
+        # the device jitter's threefry stream (the key in the file)
         jk = os.path.join(work, 'jit.npz')
         q = Parameters(no_gui=True, device='cuda', kappa_tilde=KAPPA,
                        jitter=0.01, jitter_backend='device', ntmax=200,
@@ -2450,6 +2590,314 @@ def ensemble_phase(dev, card, E_single):
     t0 = time.perf_counter()
     out['checkpoint'] = checkpoint_phase(card, E_single)
     out['seconds_d_e'] = time.perf_counter() - t0
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 11: the UQ experiment (experiment.main) on the card
+# ----------------------------------------------------------------------
+
+# the JAX package's on-chip float64 run of the paper's UQ design
+# (scripts/probes/uq_tpu_f64_run.py) and the reference's own run
+UQ64_DIR = 'artifacts/r5/uq_f64'
+UQ_REF_DIR = 'artifacts/r4/uq'
+UQ_ARGV = ['-R', '16', '--A-source', 'sobol', '--A-seed', '85972', '-N',
+           '512', '--cinit', '0.89', '--threshold', '0.89', '--export-csv',
+           'E2', '--host-procs', '1', '--device', 'cuda']
+# the sympy values of the design's 16 (A0, A1) pairs (cinit 0.89): (ca,
+# cb) of the miscibility gap, (sa, sb) the EPP roots, and kappa_tilde.
+# The card's machine has no sympy; phase 11 looks these up instead of
+# solving (a miss raises), and tests/test_torch_experiment.py pins them to
+# the port's sympy solves and to tpu64-results.csv and
+# tpu64-run*.solution.yaml, to the bit
+SOBOL_MATERIAL = {
+    (-151.87576441553873, -85.52227802797925):
+        (0.8162315040826797, 0.9710404276847839,
+         0.8570077513584462, 0.9481731848319069, 0.0003093641995360705),
+    (-150.9080095764055, -85.89228190012857):
+        (0.8073931187391281, 0.9739690944552422,
+         0.8518224752564517, 0.9502020655831758, 0.0004221420018242648),
+    (-150.77636994397903, -85.3404879420829):
+        (0.8126952350139618, 0.9720800518989563,
+         0.8548714718934353, 0.9488291347185329, 0.0003487157622523389),
+    (-151.3456578533421, -85.6995169102154):
+        (0.8116062507033348, 0.9725993424654007,
+         0.8542939947520909, 0.9492436294099279, 0.00036541673487657563),
+    (-151.620656057502, -85.21640680808606):
+        (0.8183944225311279, 0.9701677933335304,
+         0.8582304848944693, 0.9475399137906533, 0.0002834363007348547),
+    (-150.68876389584088, -85.82281750317429):
+        (0.8070631995797157, 0.9740333929657936,
+         0.8516124270186912, 0.9502327719412499, 0.00042587831115345297),
+    (-151.20744390399696, -85.41146933197494):
+        (0.8140802308917046, 0.9716772064566612,
+         0.8557084862711543, 0.9485743470002095, 0.0003329588895467177),
+    (-151.76376804468302, -86.00231005509494):
+        (0.8103972002863884, 0.9731197208166122,
+         0.8536331675354852, 0.9496492237643757, 0.0003836348715088714),
+    (-151.66646283744896, -85.3901851673904):
+        (0.8166518211364746, 0.9708350375294685,
+         0.8572312121222669, 0.94801245791108, 0.00030360570543424187),
+    (-151.1156492050405, -85.64649544394506):
+        (0.8110416531562805, 0.9727476015686989,
+         0.8539477802054373, 0.9493330291239639, 0.00037194099825368134),
+    (-150.5914529071683, -85.58294852437254):
+        (0.8091405853629112, 0.9732968285679817,
+         0.852803802943992, 0.9496902575506011, 0.00039559829632703506),
+    (-151.52891327879382, -85.82828716277245):
+        (0.8111166730523109, 0.9728140905499458,
+         0.8540277146718873, 0.9494116003107107, 0.0003727814112882081),
+    (-151.44883714301275, -85.45219120284072):
+        (0.8148476853966713, 0.9714522436261177,
+         0.8561723596339874, 0.9484326649460771, 0.0003244304546318499),
+    (-150.86224450057813, -85.95826394326633):
+        (0.8064770922064781, 0.9742702394723892,
+         0.8512890101001509, 0.9504186249204453, 0.00043544703256680173),
+    (-151.01126388953898, -85.27270028385111):
+        (0.8146329149603844, 0.9714296162128448,
+         0.8560095091774679, 0.9483836716816171, 0.0003253245749258373),
+    (-151.96161013256426, -85.7631997864464):
+        (0.8139819428324699, 0.9718861505389214,
+         0.8557188749965416, 0.9487795384667489, 0.00033726871764646997),
+}
+# (a): the largest relative distance, over its rows, of each member's E2
+# in tpu64-run{r}.solution.E2.csv from the JAX package's float64 run of
+# the member on the CPU (the TPU's float64 arithmetic; pinned by
+# tests/test_torch_uq_artifact.py).  A member's E2 on the card is held to
+# that distance plus the float64 contract's 1e-10
+TPU64_E2_OWN_REL = (
+    8.017604358201424e-10, 2.9450542005093894e-10, 8.469662748922246e-10,
+    1.041957187197795e-09, 6.92008228497798e-10, 4.0439407378300984e-10,
+    4.799889374851318e-10, 1.297951301992839e-09, 9.141787327138218e-10,
+    1.2129772741786837e-09, 1.0632950075972758e-09, 8.344132051973929e-10,
+    5.6816817917138e-10, 4.71313210681501e-10, 6.039753142061954e-10,
+    6.84565071296106e-10)
+UQ_E2_RTOL = 1e-10
+# (b): the reference's float32 ladder (tests/test_uq_artifact.py:69-78)
+UQ_F32_RTOL, UQ_F32_MEAN_RTOL = 6e-3, 3e-3
+
+
+class _MaterialTable:
+    """The experiment's three sympy solves replaced by lookups in
+    SOBOL_MATERIAL for the ``with`` block: material.get_miscibility_gap,
+    material.get_roots_of_EPP and ensemble.derive_member_constants (the
+    member kappa).  A pair outside the table raises."""
+
+    def __enter__(self):
+        from chsimpy_tpu_torch import ensemble, material
+
+        def entry(a0, a1):
+            key = (float(a0), float(a1))
+            if key not in SOBOL_MATERIAL:
+                raise KeyError(f"(A0, A1) = {key} is not in SOBOL_MATERIAL "
+                               "(no sympy on this machine)")
+            return SOBOL_MATERIAL[key]
+
+        self._saved = [(material, 'get_miscibility_gap'),
+                       (material, 'get_roots_of_EPP'),
+                       (ensemble, 'derive_member_constants')]
+        self._saved = [(m, n, getattr(m, n)) for m, n in self._saved]
+        material.get_miscibility_gap = \
+            lambda R, T, B, a0, a1: entry(a0, a1)[:2]
+        material.get_roots_of_EPP = \
+            lambda R, T, a0, a1: list(entry(a0, a1)[2:4])
+        ensemble.derive_member_constants = \
+            lambda params, a0, a1: entry(a0, a1)[4]
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, f in self._saved:
+            setattr(m, n, f)
+
+
+def read_results(path):
+    """A results.csv's rows, read exactly: id -> {column: value} (tau0,
+    tsep and id ints, the rest Python floats, empty cells None)."""
+    lines = open(path).read().splitlines()
+    cols = lines[0].split(',')[1:]
+    out = {}
+    for line in lines[1:]:
+        cells = line.split(',')[1:]
+        row = {c: (None if v == '' else int(v) if c in ('tau0', 'tsep', 'id')
+                   else float(v)) for c, v in zip(cols, cells)}
+        out[row['id']] = row
+    return out
+
+
+def _experiment_run(precision, tag, work):
+    """experiment.main on the card in ``work`` with the material table:
+    (files dir, wall s, solve s, host-pipeline s, launches, member
+    steps)."""
+    import torch
+    from chsimpy_tpu_torch import ensemble, experiment
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    timers = {'solve': 0.0, 'host': 0.0}
+    solve0 = ensemble.EnsembleSolver.solve_or_resume
+    host0 = experiment._host_member_task
+
+    def solve(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sols = solve0(self, *a, **kw)
+        torch.cuda.synchronize()
+        timers['solve'] += time.perf_counter() - t0
+        return sols
+
+    def host(*a):
+        t0 = time.perf_counter()
+        row = host0(*a)
+        timers['host'] += time.perf_counter() - t0
+        return row
+
+    cwd = os.getcwd()
+    os.makedirs(work)
+    os.chdir(work)
+    ensemble.EnsembleSolver.solve_or_resume = solve
+    experiment._host_member_task = host
+    try:
+        with _MaterialTable():
+            K.reset_launches()
+            t0 = time.perf_counter()
+            experiment.main(UQ_ARGV + ['--precision', precision, '-f', tag])
+            wall = time.perf_counter() - t0
+            launches = dict(K.launches)
+    finally:
+        ensemble.EnsembleSolver.solve_or_resume = solve0
+        experiment._host_member_task = host0
+        os.chdir(cwd)
+    return wall, timers, launches
+
+
+def _yaml_scalars(path):
+    from chsimpy_tpu_torch.io import yamlio
+    return yamlio.import_scalars(path)
+
+
+def experiment_f64(card, work):
+    """(a) the paper's UQ design in float64 through experiment.main (the
+    main path: its member-batched kernel counts are read here): every
+    member against the JAX package's on-chip float64 run (tpu64-*) and
+    the reference's own run."""
+    import numpy as np
+
+    print("phase 11: the three sympy solves are lookups in SOBOL_MATERIAL "
+          "(no sympy on this machine)", flush=True)
+    wall, timers, launches = _experiment_run('float64', 'uq64', work)
+    got = read_results(os.path.join(work, 'uq64-results.csv'))
+    want = read_results(os.path.join(ROOT, UQ64_DIR, 'tpu64-results.csv'))
+    ref = read_results(os.path.join(ROOT, UQ_REF_DIR, 'ref-results.csv'))
+    check(sorted(got) == sorted(want) == list(range(16)),
+          f"phase 11 (a): ids {sorted(got)}")
+    exact = ('A0', 'A1', 'fac_A0', 'fac_A1', 'ca', 'cb', 'sa', 'sb', 'tau0',
+             'tsep', 'id')
+    t0_rel, E2_rel, yaml_diff = [], [], []
+    for r in range(16):
+        g, w = got[r], want[r]
+        bad = [c for c in exact if g[c] != w[c]]
+        check(not bad, f"phase 11 (a) member {r}: {bad} differ: {g} vs {w}")
+        t0_rel.append(abs(g['t0'] / w['t0'] - 1))
+        check((g['tau0'], g['tsep']) == (ref[r]['tau0'], ref[r]['tsep']),
+              f"phase 11 (a) member {r}: tau0/tsep {g['tau0']}/{g['tsep']}"
+              f", the reference's {ref[r]['tau0']}/{ref[r]['tsep']}")
+        e2 = np.loadtxt(os.path.join(work, f'uq64-run{r}.solution.E2.csv'))
+        e2w = np.loadtxt(os.path.join(ROOT, UQ64_DIR,
+                                      f'tpu64-run{r}.solution.E2.csv'))
+        check(e2.shape == e2w.shape, f"member {r}: E2 rows {e2.shape} vs "
+                                     f"{e2w.shape}")
+        E2_rel.append(float(np.max(np.abs(e2 / e2w - 1))))
+        check(E2_rel[-1] <= TPU64_E2_OWN_REL[r] + UQ_E2_RTOL,
+              f"phase 11 (a) member {r}: E2 {E2_rel[-1]:.3e} from tpu64, "
+              f"whose own distance from the JAX package's CPU run is "
+              f"{TPU64_E2_OWN_REL[r]:.3e} (+ {UQ_E2_RTOL})")
+        ys = _yaml_scalars(os.path.join(work, f'uq64-run{r}.solution.yaml'))
+        yw = _yaml_scalars(os.path.join(ROOT, UQ64_DIR,
+                                        f'tpu64-run{r}.solution.yaml'))
+        check(sorted(ys) == sorted(yw), f"member {r}: YAML keys differ")
+        yaml_diff += [(r, k) for k in ys if k != 't0' and ys[k] != yw[k]]
+        check(abs(ys['t0'] / yw['t0'] - 1) <= 1e-12,
+              f"member {r}: YAML t0 {ys['t0']!r} vs {yw['t0']!r}")
+    check(max(t0_rel) <= 1e-12, f"phase 11 (a): t0 off by {max(t0_rel)}")
+    check(not yaml_diff, f"phase 11 (a): YAML scalars differ: {yaml_diff}")
+    # results-agg.csv: byte-equal in every row whose 16 inputs are the
+    # artifact's to the bit
+    agg = open(os.path.join(work, 'uq64-results-agg.csv')).read()
+    aggw = open(os.path.join(ROOT, UQ64_DIR, 'tpu64-results-agg.csv')).read()
+    rows, rows_w = agg.splitlines(), aggw.splitlines()
+    check(len(rows) == len(rows_w) and rows[0] == rows_w[0],
+          "phase 11 (a): results-agg.csv layout")
+    compared, differ = [], []
+    for line, line_w in zip(rows[1:], rows_w[1:]):
+        col = line.split(',')[0]
+        if all(got[r][col] == want[r][col] for r in range(16)):
+            compared.append(col)
+            if line != line_w:
+                differ.append(col)
+    check(not differ, f"phase 11 (a): agg rows {differ} differ")
+    steps = sum(got[r]['tau0'] for r in range(16))
+    iterations = max(got[r]['tau0'] for r in range(16)) - 1
+    for name, single in MEMBER_KERNELS.items():
+        check(launches[name] >= iterations,
+              f"phase 11 (a): {name} launched {launches[name]} times in "
+              f"{iterations} step iterations")
+        check(launches[single] == 0,
+              f"phase 11 (a): the single-field {single} launched")
+    res = {'members': 16, 'N': 512, 'dtype': 'float64',
+           'tau0': [got[r]['tau0'] for r in range(16)],
+           't0_max_rel': max(t0_rel), 'E2_rel_per_member': E2_rel,
+           'E2_rel_over_tpu64_own': max(
+               e - TPU64_E2_OWN_REL[r] for r, e in enumerate(E2_rel)),
+           'agg_rows_byte_equal': compared, 'launches': launches,
+           'wall_s': wall, 'solve_s': timers['solve'],
+           'host_pipeline_s': timers['host'],
+           'member_steps_per_s': steps / timers['solve']}
+    print(f"phase 11 (a) UQ R=16 N=512 float64 sobol: tau0 = tpu64 = ref "
+          f"{res['tau0']}; t0 within {res['t0_max_rel']:.2e}, E2 within "
+          f"{max(E2_rel):.2e} of tpu64 (at most "
+          f"{res['E2_rel_over_tpu64_own']:.2e} beyond tpu64's own distance "
+          f"from the JAX CPU run); agg rows byte-equal {compared}; wall "
+          f"{wall:.2f} s (solve {timers['solve']:.2f}, host pipeline "
+          f"{timers['host']:.2f}), {res['member_steps_per_s']:.1f} "
+          f"member-steps/s; launches {launches}  ({card})", flush=True)
+    return res
+
+
+def experiment_f32(card, work):
+    """(b) the same design in float32: tau0, t0 and tsep per member within
+    6e-3 of the reference's run, their means within 3e-3."""
+    import numpy as np
+
+    wall, timers, launches = _experiment_run('float32', 'uq32', work)
+    got = read_results(os.path.join(work, 'uq32-results.csv'))
+    ref = read_results(os.path.join(ROOT, UQ_REF_DIR, 'ref-results.csv'))
+    res = {'members': 16, 'N': 512, 'dtype': 'float32', 'wall_s': wall,
+           'solve_s': timers['solve'], 'host_pipeline_s': timers['host'],
+           'launches': launches}
+    for col in ('tau0', 't0', 'tsep'):
+        a = np.array([got[r][col] for r in range(16)], dtype=np.float64)
+        b = np.array([ref[r][col] for r in range(16)], dtype=np.float64)
+        res[col] = {'max_rel': float(np.max(np.abs(a / b - 1))),
+                    'mean_rel': float(abs(a.mean() / b.mean() - 1))}
+        check(res[col]['max_rel'] <= UQ_F32_RTOL
+              and res[col]['mean_rel'] <= UQ_F32_MEAN_RTOL,
+              f"phase 11 (b): {col} {res[col]} outside the float32 ladder")
+    res['tau0_values'] = [got[r]['tau0'] for r in range(16)]
+    print(f"phase 11 (b) UQ R=16 N=512 float32: tau0 {res['tau0_values']}; "
+          f"vs ref: " + ', '.join(f"{c} {res[c]}" for c in
+                                  ('tau0', 't0', 'tsep'))
+          + f"; wall {wall:.2f} s  ({card})", flush=True)
+    return res
+
+
+def experiment_phase(card):
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix='chip_smoke_uq_')
+    try:
+        out = {'f64': experiment_f64(card, os.path.join(work, 'f64'))}
+        out['f32'] = experiment_f32(card, os.path.join(work, 'f32'))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -2495,6 +2943,17 @@ def summary_rows(detail):
             extra = {'shape': f"{N}x{N} {dtype}, in place",
                      'note': 'no Pallas counterpart: the XLA-fused '
                              'sobol_points of the JAX step',
+                     'bound_ms': row['bound_ms'], 'bound_by': row['bound_by']}
+        elif name == 'threefry_jitter':
+            N, dtype = THREEFRY_REPORT
+            row = next(r for r in detail['item7']['threefry_kernel']
+                       if (r['N'], r['dtype']) == THREEFRY_REPORT)
+            run = detail['item7']['n4096']['-j 0.01 --jitter-backend device']
+            launches = run['launches'][name]
+            extra = {'shape': f"{N}x{N} {dtype}, in place",
+                     'note': 'no Pallas counterpart: jax.random.split and '
+                             'uniform of the JAX step',
+                     'before_ms': row['before_ms'],
                      'bound_ms': row['bound_ms'], 'bound_by': row['bound_by']}
         else:
             row = next(r for r in detail['kernels'] if r['name'] == name
@@ -2542,10 +3001,12 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     detail['gemm'] = gemm_phase(dev, card)
     detail['shard_kernels'] = shard_kernel_phase(dev, card)
     detail['sobol_kernel'] = sobol_phase(dev, card)
+    detail['threefry_kernel'] = threefry_phase(dev, card)
     detail['member_kernels'] = member_kernel_phase(dev, card)
     report = [r for r in detail['kernels'] if r['N'] == REPORT_SHAPE[0]]
     report += [r for r in detail['sobol_kernel'] if 'ms' in r
                and r['N'] == SOBOL_REPORT[0]]
+    report += [r for r in detail['threefry_kernel'] if 'ms' in r]
     report += [r for r in detail['slice_kernel'] if 'ms' in r
                and (r['N'], r['n_slices'], r['field']) == SLICE_REPORT]
     report += [dict(detail['gemm'][0],
@@ -2627,6 +3088,7 @@ def main(argv=None) -> int:
                             fm['steps_per_s']['N=4096 float32'])
     detail['ensemble'] = timed(10, ensemble_phase, dev, card,
                                detail['default_run']['E'])
+    detail['experiment'] = timed(11, experiment_phase, card)
     print('phase seconds: ' + ', '.join(
         f"{k} {v:.1f}" for k, v in detail['phase_seconds'].items()),
         flush=True)

@@ -10,15 +10,15 @@ so a restore is an in-memory re-entry.
 
 Files cross between the packages both ways:
 
-* ``rng_key`` holds what ``jax.random.PRNGKey(seed)`` holds (threefry,
-  64-bit seeds: the seed's high and low 32-bit words), computed here
-  without jax (:func:`jax_prng_key`);
-* the port's ``device`` jitter draws from a ``torch.Generator``; its
-  state goes under a key of its own, ``torch_jitter_generator``, which the
-  JAX loader ignores.  That stream does not carry across packages: a
-  JAX-written checkpoint restored here with that jitter mode raises, and a
-  port-written one restored by the JAX package continues on the JAX
-  package's own key (PRNGKey(seed));
+* ``rng_key`` holds the run's live threefry key, the ``device`` jitter's
+  stream: the two packages draw the same stream from it (the port's K10,
+  the JAX package's ``jax.random``), so a run of that mode continues the
+  same stream after a restore in either package.  A fresh run's key is
+  ``jax.random.PRNGKey(seed)`` (the seed's high and low 32-bit words),
+  computed here without jax (:func:`jax_prng_key`);
+* files of an earlier version of the port kept a ``torch.Generator``
+  state of its ``device`` jitter under ``torch_jitter_generator``: that
+  stream is gone, and such a file is refused;
 * the port's own parameters (``device``, ``dist_backend``) ride in the
   header's params, which the JAX loader skips; on restore the caller's
   ``device`` wins;
@@ -27,7 +27,8 @@ Files cross between the packages both ways:
   any mode this build does not have (``'pallas-fused'``) fails loudly.
 
 Ensemble runs have their own pair (:func:`save_ensemble_checkpoint` /
-:func:`restore_ensemble`) covering every member and the shared stream;
+:func:`restore_ensemble`) covering every member (and its key) and the
+shared host stream;
 the restore takes the members' kappas from the file (the values the JAX
 package derives with sympy, which the card's machine lacks).
 """
@@ -42,20 +43,14 @@ import tempfile
 import numpy as np
 import torch
 
+from .core.state import jax_prng_key, key_tensor  # noqa: F401
 from .params import TUPLE_FIELDS, Parameters, not_ported
 
 FORMAT_VERSION = 2
 
-# the port's device jitter stream (torch.Generator.get_state bytes)
+# the array of the port's former device jitter stream (torch.Generator
+# state bytes), which files of that version hold
 TORCH_GENERATOR_KEY = 'torch_jitter_generator'
-
-
-def jax_prng_key(seed: int) -> np.ndarray:
-    """``np.asarray(jax.random.PRNGKey(seed))`` under 64-bit JAX: the
-    threefry key [seed >> 32, seed & 0xFFFFFFFF] of the seed's two's
-    complement 64-bit word, as uint32."""
-    s = int(seed) % (1 << 64)
-    return np.array([s >> 32, s & 0xFFFFFFFF], dtype=np.uint32)
 
 
 def _atomic_savez(fname: str, **arrays) -> None:
@@ -120,6 +115,13 @@ def _load(fname: str):
     if header['format_version'] != FORMAT_VERSION:
         raise ValueError(f"unsupported checkpoint version "
                          f"{header['format_version']}")
+    if TORCH_GENERATOR_KEY in z.files:
+        raise ValueError(
+            f"{fname} holds a torch.Generator state for the 'device' "
+            "jitter ('torch_jitter_generator'): the port's device jitter "
+            "stream has changed since that file was written (it is now "
+            "the JAX package's threefry stream, carried in rng_key), so "
+            "the run cannot continue its stream; restart it")
     return z, header
 
 
@@ -155,11 +157,9 @@ def save_checkpoint(fname: str, solver) -> None:
         header=_header_bytes(header),
         U=_host(solver._state.U).astype(np.float64),
         timedata=sol.timedata.data(),
-        rng_key=jax_prng_key(solver.params.seed),
+        rng_key=_host(solver._state.rng_key).astype(np.uint32),
         U_init=np.asarray(solver.U_init, dtype=np.float64),
     )
-    if solver._jitter_gen is not None:
-        arrays[TORCH_GENERATOR_KEY] = solver._jitter_gen.get_state().numpy()
     _atomic_savez(fname, **arrays)
 
 
@@ -174,8 +174,6 @@ def load_checkpoint(fname: str, device='cuda'):
         'rng_key': z['rng_key'],
         'generator_state': header.get('generator_state'),
         'U_init': z['U_init'],
-        'torch_generator': (z[TORCH_GENERATOR_KEY]
-                            if TORCH_GENERATOR_KEY in z.files else None),
     }
     return params, payload
 
@@ -190,12 +188,6 @@ def restore_solver(fname: str, device='cuda'):
     params, payload = load_checkpoint(fname, device)
     h = payload['header']
     solver = Solver(params, U_init=payload['U_init'])
-    if solver._jitter_gen is not None and payload['torch_generator'] is None:
-        raise ValueError(
-            f"{fname} holds no torch.Generator state for the 'device' "
-            "jitter (a checkpoint of the JAX package, whose threefry "
-            "stream does not carry across packages); restore it with the "
-            "host jitter backend or in the JAX package")
     if payload['generator_state'] is not None:
         solver.generator = FieldGenerator.from_state(
             payload['generator_state'])
@@ -204,10 +196,6 @@ def restore_solver(fname: str, device='cuda'):
     solver.time_passed = h['time_delta_sum'] / params.M_tilde
     solver.delt = h['delt']
     solver.prepare()
-    if solver._jitter_gen is not None:
-        # after prepare(), which reseeds the stream
-        solver._jitter_gen.set_state(
-            torch.as_tensor(payload['torch_generator'], dtype=torch.uint8))
 
     td = TimeData()
     td.insert_block(payload['timedata'])
@@ -239,6 +227,8 @@ def restore_solver(fname: str, device='cuda'):
         t0=f(h['t0']),
         E2_first=f(rows[0, 2]),
         E2_prev=f(rows[-1, 2]),
+        # after prepare(), which resets the key
+        rng_key=key_tensor(payload['rng_key'], dev),
     )
     return solver
 
@@ -277,7 +267,7 @@ def save_ensemble_checkpoint(fname: str, ens, extra_header: dict = None
         fname,
         header=_header_bytes(header),
         U=_host(s.U).astype(np.float64),
-        rng_key=np.tile(jax_prng_key(ens.params.seed), (ens.R, 1)),
+        rng_key=_host(s.rng_key).astype(np.uint32),
         A_pairs=np.stack([ens.A0s, ens.A1s], axis=1),
         kappas=np.asarray(ens.kappas),
         timedata=np.concatenate([td.data() for td in ens.timedatas],
@@ -317,7 +307,8 @@ def restore_ensemble(fname: str, mesh=None, device='cuda'):
     s = ens._states
     dev = ens.device
     repl = {'U': torch.as_tensor(np.asarray(z['U'])).to(
-        device=dev, dtype=ens.cfg.tdtype)}
+        device=dev, dtype=ens.cfg.tdtype),
+        'rng_key': key_tensor(z['rng_key'], dev)}
     for n in _ENS_LEAVES:
         ref = getattr(s, n)
         repl[n] = torch.as_tensor(np.asarray(z[f'm_{n}'])).to(

@@ -189,7 +189,11 @@ def _refusal(message: str) -> type:
 
 
 class CLIParser:
-    def __init__(self, progname='chsimpy-tpu-torch'):
+    """``require_no_gui=False`` is for a caller that forces ``no_gui``
+    itself (the UQ experiment, as the reference forces it there)."""
+
+    def __init__(self, progname='chsimpy-tpu-torch', require_no_gui=True):
+        self.require_no_gui = require_no_gui
         self.parser = argparse.ArgumentParser(
             prog=progname,
             description='Simulation of Phase Separation in Na2O-SiO2 '
@@ -285,7 +289,7 @@ class CLIParser:
         errs = solver_scope_errors(params)
         if errs:
             self.parser.error('; '.join(errs))
-        if not params.no_gui:
+        if self.require_no_gui and not params.no_gui:
             self.parser.error('the live view is not ported to '
                               'chsimpy_tpu_torch yet (ROADMAP.md queue A '
                               'item 13): pass --no-gui')

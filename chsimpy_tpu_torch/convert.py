@@ -36,7 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .core.state import SolverState
+from .core.state import SolverState, jax_prng_key, key_tensor
 from .parallel.sharding import shard_consts, shard_state
 from .params import Parameters, check_solver_scope
 
@@ -85,12 +85,13 @@ def consts_from_jax(d: dict, device='cpu', mesh=None) -> dict:
 
 def state_from_jax(d: dict, device='cpu', mesh=None) -> SolverState:
     """The port's SolverState from the numpy form of the JAX state (its
-    ``rng_key`` is the JAX device jitter's stream, which the port's does
-    not continue: it is dropped).  With
-    ``mesh``, U and hat_U are this rank's blocks."""
+    ``rng_key``, the device jitter's threefry key, carried as the port
+    holds it; PRNGKey(0) where ``d`` has none, as for a run without that
+    jitter).  With ``mesh``, U and hat_U are this rank's blocks."""
     kw = {'U': _tensor(d['U'], device), 'hat_U': _tensor(d['hat_U'], device),
           'skip_check': _tensor(bool(np.asarray(d['skip_check'])), device),
-          'rowbuf': _tensor(d['rowbuf'], device, torch.float64)}
+          'rowbuf': _tensor(d['rowbuf'], device, torch.float64),
+          'rng_key': key_tensor(d.get('rng_key', jax_prng_key(0)), device)}
     kw.update({k: _tensor(d[k], device, torch.float64) for k in _STATE_F64})
     kw.update({k: _tensor(d[k], device, torch.int64) for k in _STATE_INT})
     state = SolverState(**kw)
@@ -112,12 +113,14 @@ def members_consts_from_jax(d: dict, device='cpu') -> dict:
 
 def members_state_from_jax(d: dict, device='cpu') -> SolverState:
     """The ensemble's state from the numpy form of the JAX ensemble's
-    (``EnsembleSolver._states``: every leaf with a leading member axis;
-    its ``rng_key`` is dropped, as in :func:`state_from_jax`)."""
+    (``EnsembleSolver._states``: every leaf with a leading member axis,
+    ``rng_key`` (R, 2) included where ``d`` has it)."""
     kw = {'U': _tensor(d['U'], device), 'hat_U': _tensor(d['hat_U'], device),
           'skip_check': _tensor(np.asarray(d['skip_check'], dtype=bool),
                                 device),
-          'rowbuf': _tensor(d['rowbuf'], device, torch.float64)}
+          'rowbuf': _tensor(d['rowbuf'], device, torch.float64),
+          'rng_key': key_tensor(d.get('rng_key', np.tile(
+              jax_prng_key(0), (len(d['delt']), 1))), device)}
     kw.update({k: _tensor(d[k], device, torch.float64) for k in _STATE_F64})
     kw.update({k: _tensor(d[k], device, torch.int64) for k in _STATE_INT})
     return SolverState(**kw)

@@ -30,12 +30,12 @@ one.
 Per-step jitter (``0 < jitter < 0.1``) takes its mode from the generator
 and ``jitter_backend`` as in the JAX package: ``static`` for simplex,
 ``device_sobol`` (kernel K9, bit-equal to the host stream) for sobol on
-the device backend, ``device`` (``torch.rand`` on a generator the solver
-holds, seeded with ``seed``; not reference-exact) for uniform on the
-device backend, else ``stream``: the chunk's slabs drawn from the host
-generator before it runs, at most 64 MB of them (``chunk_size`` shrinks to
-fit).  On a mesh every rank draws what one device would and keeps its
-block.
+the device backend, ``device`` (kernel K10: the JAX package's threefry
+stream from ``jax.random.PRNGKey(seed)``, the key carried in the state;
+not reference-exact) for uniform on the device backend, else ``stream``:
+the chunk's slabs drawn from the host generator before it runs, at most
+64 MB of them (``chunk_size`` shrinks to fit).  On a mesh every rank
+draws its block of what one device would.
 """
 
 from __future__ import annotations
@@ -249,11 +249,6 @@ class Solver:
                                          device=self.device))
         if self.mesh is not None:
             self._consts = shard_consts(self._consts, self.mesh)
-        # the 'device' jitter's stream (the JAX package's threefry key),
-        # seeded in prepare()
-        self._jitter_gen = None
-        if jitter_mode == 'device':
-            self._jitter_gen = torch.Generator(device=self.device)
         # the simplex slab, drawn at first use
         self._static_jbuf = None
         self._state: Optional[SolverState] = None
@@ -275,18 +270,16 @@ class Solver:
 
         state = state_mod.init_state(
             U0=U0, hat_U0=torch.zeros_like(U0),  # rebuilt at solve entry
-            delt=self.delt, E2_first=E2, chunk_cap=self.chunk_size)
-        # quirk parity: prepare() does NOT reset time_delta_sum/skip_check
+            delt=self.delt, E2_first=E2, chunk_cap=self.chunk_size,
+            seed=self.params.seed)
+        # quirk parity: prepare() does NOT reset time_delta_sum/skip_check;
+        # it does reset the device jitter's key (init_state), as JAX's does
         self._state = state.replace(
             time_delta_sum=torch.tensor(self.time_delta_sum,
                                         dtype=torch.float64,
                                         device=self.device),
             skip_check=torch.tensor(bool(self.skip_check),
                                     device=self.device))
-        # the 'device' jitter restarts from the seed, as the JAX package's
-        # init_state resets its threefry key
-        if self._jitter_gen is not None:
-            self._jitter_gen.manual_seed(self.params.seed)
         self.solution.timedata = data
         self.solution.tau0 = 0.0
         self.solution.t0 = 0.0
@@ -371,7 +364,7 @@ class Solver:
         while n_iters > 0 and self.solution.stop_reason == 'None':
             k = min(n_iters, self.chunk_size)
             state = run_chunk(self.cfg, self._consts, state, k, self.mesh,
-                              self._draw_jitter_buf(k), self._jitter_gen)
+                              self._draw_jitter_buf(k))
             n_iters -= k
             state = self._sync(state)
             if (ckpt and every and self.solution.computed_steps

@@ -3,10 +3,10 @@
 The fields of ``chsimpy_tpu/core/state.py`` as torch tensors on the run's
 device: the concentration field and its spectral image, the scalar
 time/step counters and early-stop bookkeeping as 0-d tensors (so a chunk of
-steps never waits for the host), and a chunk-local timedata row buffer.
-The JAX package's ``rng_key`` (its device jitter's stream) has no field
-here: the port's ``device`` jitter draws from a ``torch.Generator`` that
-the solver holds.
+steps never waits for the host), a chunk-local timedata row buffer, and
+``rng_key``, the ``device`` jitter's threefry key: ``jax.random.PRNGKey
+(seed)``'s two uint32 words in an int64 tensor on the run's device, split
+on the card at every step of that mode (kernel K10).
 
 The ensemble (``ensemble.py``) carries the same dataclass with a leading
 member axis, as the JAX package's ``vmap`` batches every leaf: fields
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
 # stop_reason codes (host maps to the reference's strings)
@@ -45,13 +46,29 @@ class SolverState:
     E2_prev: torch.Tensor         # f64: E2 of the previous inserted row
     rows: torch.Tensor            # int64: rows written into rowbuf
     rowbuf: torch.Tensor          # (chunk_cap, 9) f64 timedata rows
+    rng_key: torch.Tensor         # (2,) int64: the device jitter's key
 
     def replace(self, **kw) -> 'SolverState':
         return replace(self, **kw)
 
 
+def jax_prng_key(seed: int) -> np.ndarray:
+    """``np.asarray(jax.random.PRNGKey(seed))`` under 64-bit JAX: the
+    threefry key [seed >> 32, seed & 0xFFFFFFFF] of the seed's two's
+    complement 64-bit word, as uint32."""
+    s = int(seed) % (1 << 64)
+    return np.array([s >> 32, s & 0xFFFFFFFF], dtype=np.uint32)
+
+
+def key_tensor(key, device) -> torch.Tensor:
+    """A threefry key (uint32 words, any leading shape) as the state's
+    int64 tensor on ``device``."""
+    return torch.as_tensor(np.asarray(key, dtype=np.uint32).astype(
+        np.int64)).to(device)
+
+
 def init_state(U0: torch.Tensor, hat_U0: torch.Tensor, delt: float,
-               E2_first: float, chunk_cap: int) -> SolverState:
+               E2_first: float, chunk_cap: int, seed: int) -> SolverState:
     dev = U0.device
 
     def f64(x):
@@ -74,14 +91,17 @@ def init_state(U0: torch.Tensor, hat_U0: torch.Tensor, delt: float,
         E2_prev=f64(E2_first),
         rows=i64(0),
         rowbuf=torch.zeros((chunk_cap, 9), dtype=torch.float64, device=dev),
+        rng_key=key_tensor(jax_prng_key(seed), dev),
     )
 
 
 def init_members_state(U0: torch.Tensor, delt: float, E2_first: torch.Tensor,
-                       chunk_cap: int) -> SolverState:
+                       chunk_cap: int, seed: int) -> SolverState:
     """The state of R members from their fields U0 (R, N, N) and their
     row-0 E2 (R,): every leaf of :func:`init_state` with a leading member
-    axis, each its own buffer."""
+    axis, each its own buffer (the key the same for every member, as the
+    JAX package's vmapped state holds it; the ensemble draws no device
+    jitter)."""
     dev = U0.device
     R = U0.shape[0]
     f64 = torch.float64
@@ -104,4 +124,5 @@ def init_members_state(U0: torch.Tensor, delt: float, E2_first: torch.Tensor,
         E2_prev=E2.clone(),
         rows=full(0, torch.int64),
         rowbuf=torch.zeros((R, chunk_cap, 9), dtype=f64, device=dev),
+        rng_key=key_tensor(np.tile(jax_prng_key(seed), (R, 1)), dev),
     )

@@ -10,7 +10,8 @@ step does, in order:
   nonlinear term (kernel K1)
   -> adaptive delt and coefficient grids rebuilt (``adaptive_time``)
   -> forward 2-D DCT -> semi-implicit spectral update (K2)
-  -> inverse 2-D DCT -> jitter (the Sobol points by K9 on the card)
+  -> inverse 2-D DCT -> jitter (the Sobol points by K9, the threefry
+     stream by K10 on the card)
   -> field sums (K3) and Σ|U − mean| (K4), finalized in float64
   -> timedata row and early-stop predicate.
 
@@ -31,8 +32,9 @@ counters, the bookkeeping and the rows unchanged.  The row buffer is
 written in place at index ``rows`` on every step; a discarded step's row
 lands beyond the rows the host reads.  A discarded step still takes its
 jitter slab (the host drew the chunk's slabs before it ran, as the JAX
-package does) and, in the ``device`` mode, still draws from the
-generator, which the JAX package's loop, having exited, does not.
+package does); in the ``device`` mode it keeps its key (K10 writes the
+key back unsplit where ``go`` is false), so the stream advances only on
+the steps the JAX package's loop runs.
 """
 
 from __future__ import annotations
@@ -56,7 +58,8 @@ _DTYPES = {'float32': torch.float32, 'float64': torch.float64}
 
 ADAPT_ALPHA = 500.0 / 2 ** 3  # chsimpy/solver.py:182 of the reference
 # none | stream (host, reference-exact) | static (simplex) | device
-# (torch.rand, not reference-exact) | device_sobol (K9, bit-equal to stream)
+# (K10, the JAX package's threefry stream, not reference-exact) |
+# device_sobol (K9, bit-equal to stream)
 JITTER_MODES = ('none', 'stream', 'static', 'device', 'device_sobol')
 
 
@@ -325,19 +328,20 @@ def rebuilt_coefficients(cfg: StepConfig, consts, delt):
         delt.to(cfg.tdtype), cfg.delx2)
 
 
-def _jitter(cfg: StepConfig, consts, s: SolverState, U, slab, generator,
-            mesh=None):
-    """U plus the step's jitter, jitter·(2r − 1) with r from the mode's
-    source (``chsimpy_tpu/core/stepper.py:731-757``): the chunk's host
-    slab (``stream``; ``static``: the one simplex slab), the Sobol points
-    of the draws consumed before this step (``device_sobol``: K9, in
-    place), or ``torch.rand`` on the solver's generator (``device``; on a
-    mesh every rank draws the whole field and keeps its block)."""
+def _jitter(cfg: StepConfig, consts, s: SolverState, U, slab, go,
+            key_out=None, mesh=None):
+    """(U plus the step's jitter, the next key): jitter·(2r − 1) with r
+    from the mode's source (``chsimpy_tpu/core/stepper.py:731-757``): the
+    chunk's host slab (``stream``; ``static``: the one simplex slab), the
+    Sobol points of the draws consumed before this step (``device_sobol``:
+    K9, in place), or the threefry stream of ``s.rng_key`` (``device``:
+    K10, in place, the next key into ``key_out``, kept where ``go`` is
+    false; on a mesh each rank draws its block)."""
     mode = cfg.jitter_mode
     if mode == 'none':
-        return U
+        return U, s.rng_key
     if mode in ('stream', 'static'):
-        return U + cfg.jitter * (2.0 * slab - 1.0)
+        return U + cfg.jitter * (2.0 * slab - 1.0), s.rng_key
     rows, cols = ((slice(None), slice(None)) if mesh is None
                   else block_slices(mesh, cfg.N))
     if mode == 'device_sobol':
@@ -345,16 +349,19 @@ def _jitter(cfg: StepConfig, consts, s: SolverState, U, slab, generator,
             & MASK32
         return K.sobol_jitter(U.contiguous(), consts['sobol_sv'],
                               consts['sobol_shift'], base, cfg.jitter,
-                              rows.start or 0, cols.start or 0)
-    r = torch.rand((cfg.N, cfg.N), generator=generator, dtype=U.dtype,
-                   device=U.device)[rows, cols]
-    return U + cfg.jitter * (2.0 * r - 1.0)
+                              rows.start or 0, cols.start or 0), s.rng_key
+    if key_out is None:
+        key_out = torch.empty_like(s.rng_key)
+    U = K.threefry_jitter(U.contiguous(), s.rng_key, key_out, cfg.jitter,
+                          cfg.N, rows.start or 0, cols.start or 0, go)
+    return U, key_out
 
 
 def _step(cfg: StepConfig, consts, s: SolverState, mesh=None, slab=None,
-          generator=None) -> SolverState:
+          key_out=None) -> SolverState:
     """One step.  ``slab``: this step's host jitter slab (``stream`` and
-    ``static`` modes); ``generator``: the ``device`` mode's.  On a grid
+    ``static`` modes); ``key_out``: the ``device`` mode's buffer for the
+    next key (another than ``s.rng_key``; None: a new one).  On a grid
     mesh ``s.U`` and ``s.hat_U`` are this rank's blocks, every scalar
     holds the same bits on every rank, and every collective runs on every
     step (also after the stop), so all ranks issue the same sequence."""
@@ -370,9 +377,11 @@ def _step(cfg: StepConfig, consts, s: SolverState, mesh=None, slab=None,
         delt = s.delt
         CHeig, Seig = consts['CHeig'], consts['Seig']
 
-    # time accumulation; the limit stops BEFORE the field update
+    # time accumulation; the limit stops BEFORE the field update.  XLA
+    # turns the JAX step's division by the static M_tilde into a product
+    # with its reciprocal: the port does the same, for the same t0 bits
     tds = s.time_delta_sum + delt
-    time_passed = tds / cfg.M_tilde
+    time_passed = tds * (1.0 / cfg.M_tilde)
     if cfg.time_limit is None:
         over = None
         go = active
@@ -386,7 +395,7 @@ def _step(cfg: StepConfig, consts, s: SolverState, mesh=None, slab=None,
     hat_E = dct2_route(cfg, consts, EnergieEut, cfg.ozaki_fwd_pairs, mesh)
     hat_U = K.spectral_update(s.hat_U, hat_E, Seig, CHeig)
     U = idct2_route(cfg, consts, hat_U, mesh)
-    U = _jitter(cfg, consts, s, U, slab, generator, mesh)
+    U, rng_key = _jitter(cfg, consts, s, U, slab, go, key_out, mesh)
 
     E, E2, PS, L2, Ra, SA = _stats(cfg, consts, U, EnergieEut, mesh)
     domtime = time_passed ** (1.0 / 3.0)
@@ -426,21 +435,26 @@ def _step(cfg: StepConfig, consts, s: SolverState, mesh=None, slab=None,
         tau0=torch.where(fire, steps_new.to(f64), s.tau0),
         t0=torch.where(fire, time_passed, s.t0),
         E2_prev=torch.where(go, E2, s.E2_prev),
-        rows=s.rows + go)
+        rows=s.rows + go,
+        rng_key=rng_key)
 
 
 def run_chunk(cfg: StepConfig, consts, state: SolverState,
-              n_iters: int, mesh=None, jitter_buf=None,
-              generator=None) -> SolverState:
+              n_iters: int, mesh=None, jitter_buf=None) -> SolverState:
     """``n_iters`` steps with no host sync; steps after a stop leave the
     state unchanged (see the module docstring).  ``jitter_buf``: the
     ``stream`` mode's (n_iters, ...) slabs, step i taking slab i, or the
-    ``static`` mode's one slab (``chsimpy_tpu/core/stepper.py:808-825``);
-    ``generator``: the ``device`` mode's."""
+    ``static`` mode's one slab (``chsimpy_tpu/core/stepper.py:808-825``).
+    The ``device`` mode's keys alternate between the two rows of a buffer
+    of the chunk by step parity: a step reads one and writes the other."""
+    keys = (torch.empty((2, 2), dtype=torch.int64,
+                        device=state.rng_key.device)
+            if cfg.jitter_mode == 'device' else None)
     for i in range(n_iters):
         slab = (jitter_buf[i] if cfg.jitter_mode == 'stream'
                 else jitter_buf)
-        state = _step(cfg, consts, state, mesh, slab, generator)
+        state = _step(cfg, consts, state, mesh, slab,
+                      None if keys is None else keys[i % 2])
     return state
 
 
@@ -551,7 +565,7 @@ def _members_step(cfg: StepConfig, consts, s: SolverState,
         CHeig, Seig = consts['CHeig'], consts['Seig']
 
     tds = s.time_delta_sum + delt
-    time_passed = tds / cfg.M_tilde
+    time_passed = tds * (1.0 / cfg.M_tilde)     # as in _step
     if cfg.time_limit is None:
         over = None
         go = active

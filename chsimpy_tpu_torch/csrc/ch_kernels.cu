@@ -12,7 +12,9 @@
 // per block of the field) K7 is K3's stats_kernel on a block with halo
 // vectors from the neighbour ranks (kernel B7): one body, the halo a
 // compile-time flag.  K8 (B8) is K1's mu_kernel launched on the block: it
-// has no source of its own.
+// has no source of its own.  K9 and K10 add the step's jitter on the card
+// (the Sobol points, the device jitter's threefry stream): neither has a
+// Pallas counterpart.
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes by
 // chsimpy_tpu_torch/ops/kernels.py.  Every entry launches on the stream it
@@ -629,6 +631,103 @@ sobol_jitter_kernel(T* __restrict__ U, int bn, int W,
   }
 }
 
+// K10 — the device jitter's threefry stream, U += jitter * (2 r - 1) in
+// place.  It has no Pallas counterpart: the JAX step draws r with
+// jax.random (chsimpy_tpu/core/stepper.py:750-751, `rng_key, sub =
+// split(rng_key)`, `uniform(sub, (N, N), dtype)`) and XLA fuses the hash.
+// Threefry-2x32 with 20 rounds (Salmon et al., SC'11; JAX's threefry2x32,
+// the Random123 rotation constants), under JAX's partitionable defaults:
+// split hashes the counters (0, 0) -> next key and (0, 1) -> sub, and
+// element (i, j) of the (N, N) draw hashes the counter (idx >> 32,
+// idx & 0xFFFFFFFF) of idx = i*N + j under sub.  float takes the top 23 bits
+// of bits1 ^ bits2, double the top 52 of (bits1 << 32) | bits2, as the
+// mantissa of a number in [1, 2), minus 1: the bits of jax.random.uniform.
+// The update runs in the field type in the plain version's order
+// (-fmad=false).  On a grid mesh a rank's block at (row_off, col_off) hashes
+// only its own counters: the partitionable counters make the block the
+// whole draw's, to the bit.
+//
+// The key lives in device memory (two uint32 words in int64s): every block
+// derives sub from it (thread 0, into shared memory), and block (0, 0)
+// writes the next key into key_out, another buffer than key_in, so no
+// thread reads a key that another writes; go (a bool on the card, or null)
+// keeps the key where the step is thrown away.  No host sync.
+//
+// Bound by integer operations: ~80 32-bit operations an element (20 rounds
+// of add, rotate, xor, 6 key injections, the counter and the float bits)
+// against 8 or 16 bytes of U read and written.  One element a thread, a
+// row of 256 columns a block: a warp's loads and stores are coalesced.
+__device__ __forceinline__ void threefry2x32(unsigned int k0,
+                                             unsigned int k1,
+                                             unsigned int& x0,
+                                             unsigned int& x1) {
+  const unsigned int ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  constexpr int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = __funnelshift_l(x1, x1, kRot[i & 1][j]);   // rotate left
+      x1 ^= x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (unsigned int)(i + 1);
+  }
+}
+
+__device__ __forceinline__ float threefry_unit(unsigned int b0,
+                                               unsigned int b1, float) {
+  return __uint_as_float(((b0 ^ b1) >> 9) | 0x3F800000u) - 1.0f;
+}
+__device__ __forceinline__ double threefry_unit(unsigned int b0,
+                                                unsigned int b1, double) {
+  const unsigned long long m = ((unsigned long long)b0 << 20) | (b1 >> 12);
+  return __longlong_as_double((long long)(m | 0x3FF0000000000000ull)) - 1.0;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+threefry_jitter_kernel(T* __restrict__ U, int bn, int W, long long N,
+                       int row_off, int col_off,
+                       const long long* __restrict__ key_in,
+                       long long* __restrict__ key_out,
+                       const unsigned char* __restrict__ go, T jitter) {
+  __shared__ unsigned int sub[2];
+  if (threadIdx.x == 0) {
+    const unsigned int k0 = (unsigned int)key_in[0];
+    const unsigned int k1 = (unsigned int)key_in[1];
+    unsigned int s0 = 0u, s1 = 1u;
+    threefry2x32(k0, k1, s0, s1);
+    sub[0] = s0;
+    sub[1] = s1;
+    if (blockIdx.x == 0 && blockIdx.y == 0) {
+      unsigned int n0 = 0u, n1 = 0u;
+      threefry2x32(k0, k1, n0, n1);
+      const bool advance = go == nullptr || *go != 0;
+      key_out[0] = advance ? n0 : k0;
+      key_out[1] = advance ? n1 : k1;
+    }
+  }
+  __syncthreads();
+  const int col = blockIdx.x * kThreads + threadIdx.x;
+  const int row = blockIdx.y;
+  if (col >= W || row >= bn) return;
+  const unsigned long long idx =
+      (unsigned long long)(row_off + row) * (unsigned long long)N +
+      (unsigned long long)(col_off + col);
+  unsigned int x0 = (unsigned int)(idx >> 32);
+  unsigned int x1 = (unsigned int)idx;
+  threefry2x32(sub[0], sub[1], x0, x1);
+  const T r = threefry_unit(x0, x1, T(0));
+  const T two_r = T(2) * r;
+  const T centred = two_r - T(1);
+  T* p = U + (long long)row * W + col;
+  *p = *p + jitter * centred;
+}
+
 // Pass 2 of K4: out[c] = sum over b of partials[b, c], one block, fixed
 // order.
 __global__ void __launch_bounds__(kThreads)
@@ -810,6 +909,26 @@ int launch_sobol_jitter(void* U, int bn, int W, const void* sv,
   return (int)cudaGetLastError();
 }
 
+// K10: U (bn, W), row stride W, the block at (row_off, col_off) of an
+// (N, N) draw; key_in, key_out two int64 each on the card (distinct), go a
+// bool on the card or null
+template <typename T>
+int launch_threefry_jitter(void* U, int bn, int W, long long N, int row_off,
+                           int col_off, const void* key_in, void* key_out,
+                           const void* go, double jitter, void* stream) {
+  if (bn < 1 || W < 1 || row_off < 0 || col_off < 0 ||
+      (long long)row_off + bn > N || (long long)col_off + W > N ||
+      U == nullptr || key_in == nullptr || key_out == nullptr ||
+      key_in == key_out)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + kThreads - 1) / kThreads, bn);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  threefry_jitter_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (T*)U, bn, W, N, row_off, col_off, (const long long*)key_in,
+      (long long*)key_out, (const unsigned char*)go, T(jitter));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -982,6 +1101,20 @@ int ch_sobol_jitter_f64(void* U, int bn, int W, const void* sv,
                         int col_off, double jitter, void* stream) {
   return launch_sobol_jitter<double>(U, bn, W, sv, shift, base, row_off,
                                      col_off, jitter, stream);
+}
+
+// K10, in place on U; the next key into key_out
+int ch_threefry_jitter_f32(void* U, int bn, int W, long long N, int row_off,
+                           int col_off, const void* key_in, void* key_out,
+                           const void* go, double jitter, void* stream) {
+  return launch_threefry_jitter<float>(U, bn, W, N, row_off, col_off,
+                                       key_in, key_out, go, jitter, stream);
+}
+int ch_threefry_jitter_f64(void* U, int bn, int W, long long N, int row_off,
+                           int col_off, const void* key_in, void* key_out,
+                           const void* go, double jitter, void* stream) {
+  return launch_threefry_jitter<double>(U, bn, W, N, row_off, col_off,
+                                        key_in, key_out, go, jitter, stream);
 }
 
 }  // extern "C"

@@ -185,7 +185,8 @@ class EnsembleSolver:
         row0 = prepare_members_row0(self.cfg, self._consts, U0_b)
         E, E2, Ra, PS = torch.stack(row0).cpu().numpy()
         self._states = init_members_state(
-            U0_b, self.params.delt, torch.as_tensor(E2), self.chunk_size)
+            U0_b, self.params.delt, torch.as_tensor(E2), self.chunk_size,
+            self.params.seed)
         self.timedatas = [TimeData() for _ in range(R)]
         for r in range(R):
             self.timedatas[r].insert(it=0, delt=self.params.delt, E=E[r],

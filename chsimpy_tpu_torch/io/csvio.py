@@ -59,6 +59,16 @@ def csv_import_matrix(fname: str) -> np.ndarray:
     return np.array(rows, dtype=np.float64)
 
 
+def csv_export_list(fname: str, lines) -> None:
+    """Write ``lines`` (one string, or an iterable of strings) as they
+    are."""
+    with open(fname, 'w') as f:
+        if isinstance(lines, str):
+            f.write(lines)
+        else:
+            f.writelines(lines)
+
+
 def validate_solution_files(file_new: str, file_truth: str) -> bool:
     """Line-diff two solution files (reference ``utils.py:94-104``)."""
     with open(file_new) as fnew, open(file_truth) as ftruth:

@@ -8,7 +8,8 @@ common-tangent analysis that derives the gradient-energy parameter kappa.
 ``sympy`` is imported inside the solvers only.  Runs that pass
 ``kappa_tilde`` (``-K``) never need it, which is how runs go on machines
 without sympy: the solve uses ``nsolve(prec=7)``, so no other solver gives
-the same kappa to the last digit.
+the same kappa to the last digit.  The UQ experiment's post-processing
+(the miscibility gap and the spinodal roots of each member) needs it too.
 """
 
 from __future__ import annotations
@@ -65,3 +66,17 @@ def get_distance_common_tangent(R: float, T: float, B: float, a0: float,
     m = (E.subs(x, cb) - E.subs(x, ca)) / (cb - ca)
     dist = (E - m * (x - ca) - E.subs(x, ca)).subs(x, at)
     return float(np.float64(dist))
+
+
+@functools.lru_cache(maxsize=256)
+def get_roots_of_EPP(R: float, T: float, a0: float, a1: float):
+    """Spinodal points: roots of the rational EPP expression on (0, 1)
+    (reference ``chsimpy/utils.py:176-180``), as sympy's ``solveset``
+    orders them."""
+    import sympy as sym
+    x = sym.Symbol('x', real=True, positive=True)
+    c = x
+    EPP = (-2 * a0 * c**2 + 2 * a0 * c + 12 * a1 * c**3
+           - 18 * a1 * c**2 + 6 * a1 * c - R * T) / (c**2 - c)
+    roots = sym.solveset(EPP, x, domain=sym.Interval(0, 1))
+    return [float(r) for r in roots]

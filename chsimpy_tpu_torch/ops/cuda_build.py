@@ -53,6 +53,8 @@ _SIGNATURES = {
     'ch_slice_scale': ((_P, _LL, _P, _I, _P, _P, _P, _P), ('_f64',)),
     'ch_slice': ((_P, _P, _P, _LL, _I, _P), ('_f64',)),
     'ch_sobol_jitter': ((_P, _I, _I, _P, _P, _P, _I, _I, _D, _P), _BOTH),
+    'ch_threefry_jitter': ((_P, _I, _I, _LL, _I, _I, _P, _P, _P, _D, _P),
+                           _BOTH),
     'ch_matmul': ((_P, _I, _LL, _P, _I, _LL, _P, _LL, _I, _I, _I, _P, _P),
                   ('_f32',)),
     'ch_matmul_workspace': ((_I, _I, _I), ('_f32',), _LL),

@@ -6,11 +6,13 @@ matmul K6 with the DCTs built on it, and the grid-sharded K7 and K8) and
 of the ozaki route's slice kernel in ``chsimpy_tpu/ops/ozaki.py`` (K5).
 K9, the per-step Sobol jitter, has no Pallas counterpart: it adds the
 points of ``chsimpy_tpu/ops/sobol.py`` (which XLA fuses there) to the
-field.  K1-K4 also come member-batched (``*_members``) for the ensemble,
-where the JAX package ``vmap``s B1-B4 over a leading member axis with
-per-member A0/A1 (``chsimpy_tpu/ensemble.py``): one launch for R fields of
-an (R, N, N) stack, member r giving the single launch's bits on field r
-with its own scalars.  Each wrapper
+field; nor has K10, the ``device`` jitter, which draws the JAX step's
+``jax.random`` threefry stream on the card.  K1-K4 also come
+member-batched (``*_members``) for the ensemble, where the JAX package
+``vmap``s B1-B4 over a leading member axis with per-member A0/A1
+(``chsimpy_tpu/ensemble.py``): one launch for R fields of an (R, N, N)
+stack, member r giving the single launch's bits on field r with its own
+scalars.  Each wrapper
 
 * runs the plain version (``*_ref``) only when its input lies on the CPU;
 * on a CUDA tensor launches its kernel (``csrc/ch_kernels.cu``; the GEMM
@@ -31,7 +33,7 @@ from typing import Optional
 import torch
 
 from ..parallel import collectives as coll
-from .sobol import SOBOL_BITS, sobol_points_ref
+from .sobol import MASK32, SOBOL_BITS, sobol_points_ref
 from .stencil import gradient2d
 
 # kernel name -> number of launches on the card (see reset_launches)
@@ -40,7 +42,7 @@ launches = {'chemical_potential': 0, 'spectral_update': 0,
             'local_band_sums': 0, 'chemical_potential_sharded': 0,
             'sobol_jitter': 0, 'chemical_potential_members': 0,
             'spectral_update_members': 0, 'stats_sums_members': 0,
-            'absdev_sum_members': 0}
+            'absdev_sum_members': 0, 'threefry_jitter': 0}
 
 # grids of the reduction kernels: fixed by the shape (and, for K3 and K7,
 # the vector width) alone, so the summation order (and the result, to the
@@ -665,6 +667,121 @@ def sobol_jitter(U, sv, shift, base, jitter, row_off: int = 0,
           shift.data_ptr(), base.data_ptr(), int(row_off), int(col_off),
           float(jitter), _stream())
     launches['sobol_jitter'] += 1
+    return U
+
+
+# ----------------------------------------------------------------------
+# K10: the device jitter's threefry stream (no Pallas counterpart; the JAX
+# step draws it with jax.random.split and jax.random.uniform,
+# chsimpy_tpu/core/stepper.py:750-751).  A key is two uint32 words held in
+# an int64 tensor of shape (2,); every word is masked to 32 bits after each
+# add and shift (torch's uint32 arithmetic is partial), as ops/sobol.py
+# does.  JAX's defaults (jax_threefry_partitionable): the counter of
+# element i of a flat draw is the pair (i >> 32, i & 0xFFFFFFFF).
+# ----------------------------------------------------------------------
+
+THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+THREEFRY_PARITY = 0x1BD11BDA
+
+
+def threefry2x32_ref(k0, k1, x0, x1):
+    """Threefry-2x32, 20 rounds (Salmon et al., SC'11; JAX's
+    ``threefry2x32``): the hash of the counter pairs (x0, x1) under the key
+    (k0, k1), int64 tensors holding uint32 words, broadcast together."""
+    ks = (k0 & MASK32, k1 & MASK32, (k0 ^ k1 ^ THREEFRY_PARITY) & MASK32)
+    x0 = (x0 + ks[0]) & MASK32
+    x1 = (x1 + ks[1]) & MASK32
+    for i in range(5):
+        for r in THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & MASK32
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK32
+    return x0, x1
+
+
+def threefry_split_ref(key):
+    """``jax.random.split(key)`` as (next key, subkey): the hashes of the
+    counters (0, 0) and (0, 1)."""
+    ctr = torch.arange(2, dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32_ref(key[0], key[1], torch.zeros_like(ctr), ctr)
+    return torch.stack([b0[0], b1[0]]), torch.stack([b0[1], b1[1]])
+
+
+def threefry_uniform_ref(sub, N: int, dtype, row_off: int = 0,
+                         col_off: int = 0, bn: Optional[int] = None,
+                         W: Optional[int] = None):
+    """The (bn, W) block at (row_off, col_off) of
+    ``jax.random.uniform(sub, (N, N), dtype)``: element (i, j) hashes the
+    counter of its flat index i·N + j; float32 keeps the top 23 bits of
+    bits1 ^ bits2, float64 the top 52 of (bits1 << 32) | bits2, as the
+    mantissa of a number in [1, 2), minus 1."""
+    bn = N if bn is None else bn
+    W = N if W is None else W
+    dev = sub.device
+    i = torch.arange(row_off, row_off + bn, dtype=torch.int64, device=dev)
+    j = torch.arange(col_off, col_off + W, dtype=torch.int64, device=dev)
+    idx = i[:, None] * N + j[None, :]
+    b0, b1 = threefry2x32_ref(sub[0], sub[1], idx >> 32, idx & MASK32)
+    if dtype == torch.float32:
+        m = ((b0 ^ b1) >> 9) | 0x3F800000
+        return m.to(torch.int32).view(torch.float32) - 1.0
+    if dtype == torch.float64:
+        m = (b0 << 20) | (b1 >> 12) | 0x3FF0000000000000
+        return m.view(torch.float64) - 1.0
+    raise TypeError(f"uniform draws float32 or float64, got {dtype}")
+
+
+def threefry_jitter_ref(U, key, key_out, jitter, N: int, row_off: int = 0,
+                        col_off: int = 0, go=None):
+    """One step of the ``device`` jitter: ``key, sub = split(key)``, then
+    U += jitter·(2r − 1) in place with r the (row_off, col_off) block of
+    ``uniform(sub, (N, N))`` in U's type (``jitter`` rounded to U's type,
+    as the JAX step's Python scalar is).  The next key goes into
+    ``key_out``, or the key itself where the 0-d bool ``go`` is false (a
+    step that is thrown away draws nothing).  Returns U."""
+    nxt, sub = threefry_split_ref(key)
+    bn, W = U.shape
+    r = threefry_uniform_ref(sub, N, U.dtype, row_off, col_off, bn, W)
+    U += jitter * (2.0 * r - 1.0)
+    key_out.copy_(nxt if go is None else torch.where(go, nxt, key))
+    return U
+
+
+def threefry_jitter(U, key, key_out, jitter, N: int, row_off: int = 0,
+                    col_off: int = 0, go=None):
+    """K10: :func:`threefry_jitter_ref` on the card, in place on U, with
+    the key read from device memory and the next key written to
+    ``key_out``, a buffer other than ``key`` (no thread reads a key that
+    another writes); ``go``, a 0-d bool on the card, is read there too: no
+    host sync.  U is a (bn, W) block of an (N, N) field."""
+    _block(U)
+    bn, W = U.shape
+    if not (0 <= row_off and 0 <= col_off and row_off + bn <= N
+            and col_off + W <= N):
+        raise ValueError(f"a ({bn}, {W}) block at ({row_off}, {col_off}) "
+                         f"does not lie in an ({N}, {N}) field")
+    for name, t in (('key', key), ('key_out', key_out)):
+        if tuple(t.shape) != (2,) or t.dtype != torch.int64:
+            raise ValueError(f"{name} must be a (2,) int64 tensor, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != U.device:
+            raise ValueError(f"{name} on {t.device}, U on {U.device}")
+    if go is not None and (go.dim() != 0 or go.dtype != torch.bool
+                           or go.device != U.device):
+        raise ValueError("go must be a 0-d bool tensor on U's device")
+    if key_out.data_ptr() == key.data_ptr():
+        raise ValueError("key_out must be another buffer than key")
+    if not _on_card(U):
+        return threefry_jitter_ref(U, key, key_out, jitter, N, row_off,
+                                   col_off, go)
+    if not (key.is_contiguous() and key_out.is_contiguous()):
+        raise ValueError("the kernels take contiguous tensors")
+    _call('ch_threefry_jitter', U.dtype, U.data_ptr(), bn, W, int(N),
+          int(row_off), int(col_off), key.data_ptr(), key_out.data_ptr(),
+          0 if go is None else go.data_ptr(), float(jitter), _stream())
+    launches['threefry_jitter'] += 1
     return U
 
 

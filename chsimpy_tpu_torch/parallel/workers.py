@@ -20,7 +20,7 @@ from ..ops import dct as dct_ops
 from ..ops import kernels as K
 from ..params import Parameters
 from ..simulator import Simulator
-from .sharding import gather_field, shard_field
+from .sharding import block_slices, gather_field, shard_field
 
 _DTYPES = {'float32': torch.float32, 'float64': torch.float64}
 
@@ -117,6 +117,19 @@ def dcts(mesh, U, dtype: str) -> tuple:
             _np(gather_field(dct_ops.idct2_grid(Ub, C, mesh), mesh)))
 
 
+def threefry_jitter(mesh, U, key, jitter: float, dtype: str) -> tuple:
+    """K10 (``ops/kernels.py`` ``threefry_jitter``) on this rank's block
+    of the whole field U with the key ``key`` (uint32 words): (the field
+    with the jitter, gathered whole; the next key)."""
+    N = np.asarray(U).shape[0]
+    Ub = _block(mesh, U, dtype)
+    k = torch.as_tensor(np.asarray(key, dtype=np.int64), device=mesh.device)
+    out = torch.empty_like(k)
+    rows, cols = block_slices(mesh, N)
+    K.threefry_jitter(Ub, k, out, jitter, N, rows.start, cols.start)
+    return _np(gather_field(Ub, mesh)), _np(out)
+
+
 def imported(mesh) -> list:
     """The top-level packages this rank has imported (a rank of the
     port imports no jax)."""
@@ -125,7 +138,7 @@ def imported(mesh) -> list:
 
 TASKS = {'solve': solve, 'fused_stats': fused_stats,
          'chemical_potential': chemical_potential, 'dcts': dcts,
-         'imported': imported}
+         'threefry_jitter': threefry_jitter, 'imported': imported}
 
 
 def run_tasks(mesh, tasks) -> list:

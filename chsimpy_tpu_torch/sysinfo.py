@@ -1,5 +1,7 @@
-"""Host utilities: the file id, human-readable times, and the host and
-device descriptions the bench writes into its artifact."""
+"""Host utilities: the file id, human-readable times, the host and device
+descriptions the bench and the experiment write into their files, the
+process's peak memory, and an object's attributes as "key, value"
+lines (``chsimpy_tpu/sysinfo.py``'s, without psutil)."""
 
 from __future__ import annotations
 
@@ -34,6 +36,29 @@ def card_line() -> str:
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def get_mem_usage_all() -> str:
+    """Peak resident memory of this process and its waited-for children
+    (``resource``'s maxrss, KiB on Linux) in MiB."""
+    import resource
+    kib = (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+           + resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss)
+    return f"{kib / 1024:0.2f}MiB"
+
+
+def vars_to_list(obj) -> list:
+    """The public, non-callable attributes of ``obj`` as "name, value"
+    lines, in ``dir`` order."""
+    attribs = []
+    for x in dir(obj):
+        if x.startswith('_') or not hasattr(obj, x):
+            continue
+        v = getattr(obj, x)
+        if callable(v):
+            continue
+        attribs.append(f"{x}, {v}")
+    return attribs
 
 
 def get_system_info() -> list:

@@ -365,7 +365,7 @@ def test_adapted_delt_of_one_field_matches_jax(precision):
         E = r.standard_normal((N, N)) * 10 ** r.uniform(-1, 1.5)
         delt = float(r.choice([3e-8, 4e-7]))
         s = init_state(torch.zeros(N, N), torch.zeros(N, N), delt, 0.0,
-                       1).replace(computed_steps=torch.tensor(502))
+                       1, seed).replace(computed_steps=torch.tensor(502))
         got = float(tst.adapted_delt(cfg, s, torch.tensor(E.astype(dt))))
         want = float(jf(jnp.asarray(E, dt), jnp.asarray(delt)))
         # 2 ulps of the type (the blend runs in float64 after it)

@@ -34,7 +34,8 @@ BASE = dict(N=32, ntmax=60, full_sim=True, generator='uniform',
 MODES = {'plain': dict(), 'stream_jitter': dict(jitter=0.01),
          'adaptive': dict(adaptive_time=True, delt=1e-6, delt_max=2e-6),
          'sobol_device_jitter': dict(generator='sobol', jitter=0.01,
-                                     jitter_backend='device')}
+                                     jitter_backend='device'),
+         'device_jitter': dict(jitter=0.01, jitter_backend='device')}
 
 
 def jax_params(**kw):
@@ -112,22 +113,59 @@ def test_checkpoints_cross_packages(mode, tmp_path):
     np.testing.assert_allclose(sol.U.numpy(), U, rtol=0, atol=1e-12)
 
 
-def test_device_jitter_stream_does_not_cross_packages(tmp_path):
+def _key(solver):
+    return np.asarray(solver._state.rng_key).astype(np.int64)
+
+
+def test_device_jitter_stream_crosses_packages(tmp_path):
+    """The device jitter's threefry key rides in rng_key: a file of either
+    package continues the same stream in the other.  The restored run's
+    key ends where the restoring package's uninterrupted run's does, to
+    the bit, and its rows hold that run's to 1e-12 (a stream that differed
+    would move them by ~1e-3)."""
     kw = dict(jitter=0.01, jitter_backend='device')
+    # port -> JAX
     f = str(tmp_path / 'port.npz')
-    ctt.Simulator(port_params(ntmax=30, checkpoint_file=f, **kw)).solve()
-    assert tck.TORCH_GENERATOR_KEY in np.load(f).files
-    # the port resumes its torch.Generator stream
-    sol = ctt.Simulator(port_params(restore_file=f, ntmax=30, **kw)).solve()
-    rows, _ = port_reentry(kw)
-    assert np.array_equal(sol.timedata.data(), rows)
-    # the JAX package ignores the port's key and runs on its own stream
-    jck.restore_solver(f).solve_or_resume(2)
-    # a JAX-written checkpoint holds no torch stream: the port refuses it
+    sim = ctt.Simulator(port_params(ntmax=30, checkpoint_file=f, **kw))
+    sim.solve()
+    z = np.load(f)
+    assert tck.TORCH_GENERATOR_KEY not in z.files
+    assert np.array_equal(z['rng_key'].astype(np.int64), _key(sim.solver))
+    js = jck.restore_solver(f)
+    jrows = js.solve_or_resume(30).timedata.data()
+    ref = ct.Simulator(jax_params(ntmax=30, **kw))
+    ref.solve()
+    rows = ref.solver.solve_or_resume(30).timedata.data()
+    assert np.array_equal(_key(js), _key(ref.solver))
+    np.testing.assert_allclose(jrows, rows, rtol=1e-12, atol=1e-300)
+    # JAX -> port
     g = str(tmp_path / 'jax.npz')
-    ct.Simulator(jax_params(ntmax=10, checkpoint_file=g, **kw)).solve()
-    with pytest.raises(ValueError, match='does not carry across'):
-        tck.restore_solver(g, device='cpu')
+    ct.Simulator(jax_params(ntmax=30, checkpoint_file=g, **kw)).solve()
+    back = ctt.Simulator(port_params(restore_file=g, ntmax=30, **kw))
+    sol = back.solve()
+    ref = ctt.Simulator(port_params(ntmax=30, **kw))
+    ref.solve()
+    rows = ref.solver.solve_or_resume(30).timedata.data()
+    assert sol.computed_steps == 60
+    assert np.array_equal(_key(back.solver), _key(ref.solver))
+    np.testing.assert_allclose(sol.timedata.data(), rows, rtol=1e-12,
+                               atol=1e-300)
+
+
+def test_torch_generator_checkpoint_is_refused(tmp_path):
+    """A file of the port's former device jitter (a torch.Generator state
+    under 'torch_jitter_generator') cannot continue its stream: refused,
+    single and ensemble."""
+    kw = dict(jitter=0.01, jitter_backend='device')
+    f = str(tmp_path / 'old.npz')
+    ctt.Simulator(port_params(ntmax=10, checkpoint_file=f, **kw)).solve()
+    arrays = dict(np.load(f))
+    arrays[tck.TORCH_GENERATOR_KEY] = np.zeros(16, dtype=np.uint8)
+    np.savez(f, **arrays)
+    with pytest.raises(ValueError, match='stream has changed'):
+        tck.restore_solver(f, device='cpu')
+    with pytest.raises(ValueError, match='stream has changed'):
+        tck.restore_ensemble(f, device='cpu')
 
 
 def test_header_modes_are_validated(tmp_path):

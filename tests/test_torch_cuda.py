@@ -1,5 +1,5 @@
 """The CUDA kernels of chsimpy_tpu_torch (the GEMM, the grid-sharded
-K7/K8 and the Sobol jitter K9 included) against their plain PyTorch
+K7/K8, the Sobol jitter K9 and the threefry jitter K10 included) against their plain PyTorch
 versions, and the ozaki, split
 and FFT transforms, short solves and a grid-sharded solve of ranks sharing
 the card on the card against the same on the CPU.
@@ -98,7 +98,8 @@ def test_kernels_match_plain_versions(card, dtype, N):
                           'sobol_jitter': 0,
                           'chemical_potential_members': 0,
                           'spectral_update_members': 0,
-                          'stats_sums_members': 0, 'absdev_sum_members': 0}
+                          'stats_sums_members': 0, 'absdev_sum_members': 0,
+                          'threefry_jitter': 0}
 
 
 def test_stats_sums_are_reproducible(card):
@@ -563,6 +564,49 @@ def test_sobol_device_jitter_equals_host_stream_on_the_card(card):
     assert K.launches['sobol_jitter'] == 99
     assert torch.equal(dev.U, host.U)
     assert np.array_equal(dev.timedata.data(), host.timedata.data())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('N', [64, 37, 1000])
+def test_threefry_jitter_kernel_matches_plain_version(card, dtype, N):
+    """K10 against its plain version to the bit: the whole field and a
+    block with offsets; the next key, and the key kept where go is
+    false."""
+    from chsimpy_tpu_torch.core.state import jax_prng_key
+    key = torch.tensor(jax_prng_key(2023).astype(np.int64), device=card)
+    U = _field(N, dtype, card)
+    K.reset_launches()
+    out, ref = torch.empty_like(key), torch.empty_like(key)
+    got = K.threefry_jitter(U.clone(), key, out, 0.01, N)
+    want = K.threefry_jitter_ref(U.clone(), key, ref, 0.01, N)
+    assert torch.equal(got, want) and torch.equal(out, ref)
+    h = N // 2
+    blk = U[h:, 3:h + 3].contiguous()
+    stay = torch.tensor(False, device=card)
+    got = K.threefry_jitter(blk.clone(), key, out, 0.01, N, h, 3, stay)
+    want = K.threefry_jitter_ref(blk.clone(), key, ref, 0.01, N, h, 3, stay)
+    assert torch.equal(got, want) and torch.equal(out, key)
+    assert K.launches['threefry_jitter'] == 2
+
+
+def test_device_jitter_solve_on_card_matches_cpu(card):
+    """-j 0.01 --jitter-backend device, N=64 float64, 60 steps: K10 on
+    every step; the same stream as the CPU (the key to the bit), E within
+    1e-12 (float64 matmul orders differ)."""
+    kw = dict(N=64, ntmax=60, full_sim=True, generator='uniform',
+              jitter=0.01, jitter_backend='device')
+    cpu = Simulator(Parameters(device='cpu', kappa_tilde=KAPPA,
+                               no_gui=True, **kw))
+    c = cpu.solve()
+    K.reset_launches()
+    sim = Simulator(Parameters(device='cuda', kappa_tilde=KAPPA,
+                               no_gui=True, **kw))
+    g = sim.solve()
+    assert K.launches['threefry_jitter'] == 59
+    assert torch.equal(sim.solver._state.rng_key.cpu(),
+                       cpu.solver._state.rng_key)
+    np.testing.assert_allclose(g.timedata.data()[:, 1],
+                               c.timedata.data()[:, 1], rtol=1e-12)
 
 
 def test_adaptive_solve_on_card_matches_cpu(card):
