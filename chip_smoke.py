@@ -135,7 +135,7 @@ Phases (each raises on failure, so the script exits nonzero):
    the card, E within 1e-10 at every row; member-steps/s beside the single
    runs' steps/s; the batched kernels' counts in the JSON line come from
    this run;
-   (c) R=4 N=4096 float32 ``full_sim`` over 256 steps on matmul, split and
+   (c) R=4 N=4096 float32 ``full_sim`` over 128 steps on matmul, split and
    fft: member-steps/s after a 16-step warm-up beside the single runs',
    mean(U) held to 1e-6, each member's E within 1e-6 of its single run
    at every row and U within 1e-5 (the float32 class);
@@ -165,6 +165,38 @@ Phases (each raises on failure, so the script exits nonzero):
    member-steps/s;
    (b) the same design in float32: tau0, t0 and tsep within 6e-3 of the
    reference's run per member, their means within 3e-3.
+12. the float64 ozaki route under the ensemble (K5_members: K5 with a
+   member axis, one launch a pass for all members), the experiment's
+   ``--transform ozaki`` and the ozaki profile:
+   (a) K5_members against its plain version and, member by member,
+   against the single K5 launch on the member's field (planes and scales
+   to the bit, one count a call) at R=16 N=512, R=4 N=4096, R=3 N=1001
+   (the scalar path, members off the vector alignment) and R=2 N=1000,
+   4 and 6 slices, a member 1000x smaller than the rest and an all-zero
+   one; device ms of the batched call, of R single launches, of the
+   copy of its planes into the products' layout and of the plain
+   version, and the bound;
+   (b) the canonical UQ batch of phase 10 (b) on the ozaki route (level-1
+   fold) to every stop, then all 16 single ozaki runs to their stops
+   (four processes on the card side by side): every member's stop step
+   equals its single ozaki run's, E within 1e-10 at every row, and its
+   rows (Ra, a batched row mean, within 1e-12) and final U equal the
+   single run's to the bit; the stops equal phase 10 (b)'s matmul
+   batch's; member-steps/s beside that matmul batch's; K5_members
+   launched as often as the route implies, the single-field K5 never
+   (the JSON line's K5_members count comes from this run);
+   (c) R=4 N=4096 float64 ``full_sim`` over 64 steps on ozaki (rfold,
+   two levels) beside matmul: member-steps/s after a 16-step warm-up, E
+   within 1e-10 of the matmul members at every row, mean(U) held, the
+   peak memory of each batch;
+   (d) phase 11 (a) with ``--transform ozaki``: the same checks and
+   bounds (tau0 and tsep equal tpu64's and the reference's, t0 within
+   1e-12, E2 within 1e-10 plus TPU64_E2_OWN_REL), K5_members on its
+   path; wall, solve and host-pipeline seconds;
+   (e) ``benchmarks/ozaki_profile.py`` at N=4096: ms of the prefixes
+   P1-P4 (slice, + stage-1 products, + renorm, the full forward).
+   Phase 3's kernel window is bracketed by nvidia-smi's SM clock,
+   temperature and power draw.
 
 The kernels' rows carry ``bound_ms``, the least time the card could take
 for the same work (bytes at 3.35 TB/s or operations at the peak rate of
@@ -176,9 +208,9 @@ measurement also goes to DIR/chip_smoke.json.
 
     python3 chip_smoke.py --kernels-only
 
-runs phases 1-3 and the kernel parts of 6-10 ((a); (a)-(b) of 8; K9
-and K10 of 9) only, and prints the kernels' table instead of the two last
-lines.
+runs phases 1-3 and the kernel parts of 6-12 ((a); (a)-(b) of 8; K9
+and K10 of 9; (a) of 10 and 12) only, and prints the kernels' table
+instead of the two last lines.
 """
 
 from __future__ import annotations
@@ -2724,10 +2756,10 @@ def read_results(path):
     return out
 
 
-def _experiment_run(precision, tag, work):
-    """experiment.main on the card in ``work`` with the material table:
-    (files dir, wall s, solve s, host-pipeline s, launches, member
-    steps)."""
+def _experiment_run(precision, tag, work, extra=()):
+    """experiment.main on the card in ``work`` with the material table
+    (UQ_ARGV, then ``extra``): (wall s, {solve s, host-pipeline s},
+    launches)."""
     import torch
     from chsimpy_tpu_torch import ensemble, experiment
     from chsimpy_tpu_torch.ops import kernels as K
@@ -2759,7 +2791,8 @@ def _experiment_run(precision, tag, work):
         with _MaterialTable():
             K.reset_launches()
             t0 = time.perf_counter()
-            experiment.main(UQ_ARGV + ['--precision', precision, '-f', tag])
+            experiment.main(UQ_ARGV + ['--precision', precision, '-f', tag,
+                                       *extra])
             wall = time.perf_counter() - t0
             launches = dict(K.launches)
     finally:
@@ -2774,58 +2807,64 @@ def _yaml_scalars(path):
     return yamlio.import_scalars(path)
 
 
-def experiment_f64(card, work):
+def experiment_f64(card, work, transform=None):
     """(a) the paper's UQ design in float64 through experiment.main (the
     main path: its member-batched kernel counts are read here): every
     member against the JAX package's on-chip float64 run (tpu64-*) and
-    the reference's own run."""
+    the reference's own run.  ``transform='ozaki'`` (phase 12 (d)) runs
+    it with ``--transform ozaki``: K5_members on every transform, the
+    single-field K5 never."""
     import numpy as np
 
-    print("phase 11: the three sympy solves are lookups in SOBOL_MATERIAL "
+    tag, extra, label = 'uq64', (), 'phase 11 (a)'
+    if transform is not None:
+        tag, extra = 'uq64' + transform, ('--transform', transform)
+        label = f'phase 12 (d) --transform {transform}'
+    print(f"{label}: the three sympy solves are lookups in SOBOL_MATERIAL "
           "(no sympy on this machine)", flush=True)
-    wall, timers, launches = _experiment_run('float64', 'uq64', work)
-    got = read_results(os.path.join(work, 'uq64-results.csv'))
+    wall, timers, launches = _experiment_run('float64', tag, work, extra)
+    got = read_results(os.path.join(work, f'{tag}-results.csv'))
     want = read_results(os.path.join(ROOT, UQ64_DIR, 'tpu64-results.csv'))
     ref = read_results(os.path.join(ROOT, UQ_REF_DIR, 'ref-results.csv'))
     check(sorted(got) == sorted(want) == list(range(16)),
-          f"phase 11 (a): ids {sorted(got)}")
+          f"{label}: ids {sorted(got)}")
     exact = ('A0', 'A1', 'fac_A0', 'fac_A1', 'ca', 'cb', 'sa', 'sb', 'tau0',
              'tsep', 'id')
     t0_rel, E2_rel, yaml_diff = [], [], []
     for r in range(16):
         g, w = got[r], want[r]
         bad = [c for c in exact if g[c] != w[c]]
-        check(not bad, f"phase 11 (a) member {r}: {bad} differ: {g} vs {w}")
+        check(not bad, f"{label} member {r}: {bad} differ: {g} vs {w}")
         t0_rel.append(abs(g['t0'] / w['t0'] - 1))
         check((g['tau0'], g['tsep']) == (ref[r]['tau0'], ref[r]['tsep']),
-              f"phase 11 (a) member {r}: tau0/tsep {g['tau0']}/{g['tsep']}"
+              f"{label} member {r}: tau0/tsep {g['tau0']}/{g['tsep']}"
               f", the reference's {ref[r]['tau0']}/{ref[r]['tsep']}")
-        e2 = np.loadtxt(os.path.join(work, f'uq64-run{r}.solution.E2.csv'))
+        e2 = np.loadtxt(os.path.join(work, f'{tag}-run{r}.solution.E2.csv'))
         e2w = np.loadtxt(os.path.join(ROOT, UQ64_DIR,
                                       f'tpu64-run{r}.solution.E2.csv'))
         check(e2.shape == e2w.shape, f"member {r}: E2 rows {e2.shape} vs "
                                      f"{e2w.shape}")
         E2_rel.append(float(np.max(np.abs(e2 / e2w - 1))))
         check(E2_rel[-1] <= TPU64_E2_OWN_REL[r] + UQ_E2_RTOL,
-              f"phase 11 (a) member {r}: E2 {E2_rel[-1]:.3e} from tpu64, "
+              f"{label} member {r}: E2 {E2_rel[-1]:.3e} from tpu64, "
               f"whose own distance from the JAX package's CPU run is "
               f"{TPU64_E2_OWN_REL[r]:.3e} (+ {UQ_E2_RTOL})")
-        ys = _yaml_scalars(os.path.join(work, f'uq64-run{r}.solution.yaml'))
+        ys = _yaml_scalars(os.path.join(work, f'{tag}-run{r}.solution.yaml'))
         yw = _yaml_scalars(os.path.join(ROOT, UQ64_DIR,
                                         f'tpu64-run{r}.solution.yaml'))
         check(sorted(ys) == sorted(yw), f"member {r}: YAML keys differ")
         yaml_diff += [(r, k) for k in ys if k != 't0' and ys[k] != yw[k]]
         check(abs(ys['t0'] / yw['t0'] - 1) <= 1e-12,
               f"member {r}: YAML t0 {ys['t0']!r} vs {yw['t0']!r}")
-    check(max(t0_rel) <= 1e-12, f"phase 11 (a): t0 off by {max(t0_rel)}")
-    check(not yaml_diff, f"phase 11 (a): YAML scalars differ: {yaml_diff}")
+    check(max(t0_rel) <= 1e-12, f"{label}: t0 off by {max(t0_rel)}")
+    check(not yaml_diff, f"{label}: YAML scalars differ: {yaml_diff}")
     # results-agg.csv: byte-equal in every row whose 16 inputs are the
     # artifact's to the bit
-    agg = open(os.path.join(work, 'uq64-results-agg.csv')).read()
+    agg = open(os.path.join(work, f'{tag}-results-agg.csv')).read()
     aggw = open(os.path.join(ROOT, UQ64_DIR, 'tpu64-results-agg.csv')).read()
     rows, rows_w = agg.splitlines(), aggw.splitlines()
     check(len(rows) == len(rows_w) and rows[0] == rows_w[0],
-          "phase 11 (a): results-agg.csv layout")
+          f"{label}: results-agg.csv layout")
     compared, differ = [], []
     for line, line_w in zip(rows[1:], rows_w[1:]):
         col = line.split(',')[0]
@@ -2833,16 +2872,23 @@ def experiment_f64(card, work):
             compared.append(col)
             if line != line_w:
                 differ.append(col)
-    check(not differ, f"phase 11 (a): agg rows {differ} differ")
+    check(not differ, f"{label}: agg rows {differ} differ")
     steps = sum(got[r]['tau0'] for r in range(16))
     iterations = max(got[r]['tau0'] for r in range(16)) - 1
     for name, single in MEMBER_KERNELS.items():
         check(launches[name] >= iterations,
-              f"phase 11 (a): {name} launched {launches[name]} times in "
+              f"{label}: {name} launched {launches[name]} times in "
               f"{iterations} step iterations")
         check(launches[single] == 0,
-              f"phase 11 (a): the single-field {single} launched")
+              f"{label}: the single-field {single} launched")
+    if transform == 'ozaki':
+        check(launches['slice_field_members'] >= iterations
+              and launches['slice_field'] == 0,
+              f"{label}: slice_field_members launched "
+              f"{launches['slice_field_members']} times, slice_field "
+              f"{launches['slice_field']}, in {iterations} step iterations")
     res = {'members': 16, 'N': 512, 'dtype': 'float64',
+           'transform': transform or 'auto',
            'tau0': [got[r]['tau0'] for r in range(16)],
            't0_max_rel': max(t0_rel), 'E2_rel_per_member': E2_rel,
            'E2_rel_over_tpu64_own': max(
@@ -2851,7 +2897,7 @@ def experiment_f64(card, work):
            'wall_s': wall, 'solve_s': timers['solve'],
            'host_pipeline_s': timers['host'],
            'member_steps_per_s': steps / timers['solve']}
-    print(f"phase 11 (a) UQ R=16 N=512 float64 sobol: tau0 = tpu64 = ref "
+    print(f"{label} UQ R=16 N=512 float64 sobol: tau0 = tpu64 = ref "
           f"{res['tau0']}; t0 within {res['t0_max_rel']:.2e}, E2 within "
           f"{max(E2_rel):.2e} of tpu64 (at most "
           f"{res['E2_rel_over_tpu64_own']:.2e} beyond tpu64's own distance "
@@ -2899,6 +2945,380 @@ def experiment_phase(card):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+# ----------------------------------------------------------------------
+# phase 12: the ozaki route under the ensemble (K5_members), the
+# experiment's --transform ozaki and the ozaki profile
+# ----------------------------------------------------------------------
+
+# (a): (R, N) of the batched slice launches, with the slice counts of the
+# route (4: the trimmed (3, 5) forward, 6: the untrimmed inverse); the
+# JSON line's row is the canonical batch's shape with 4 slices
+SLICE_MEMBER_SHAPES = ((16, 512), (4, 4096), (3, 1001), (2, 1000))
+SLICE_MEMBER_REPORT = (16, 512, 4)
+# (b): the worker processes that run the 16 single ozaki runs to their
+# stops side by side (one alone runs ~56 steps/s at N=512, ~30 s to its
+# stop: one after another they would take 8 minutes, four side by side
+# take 3)
+OZ_SINGLE_PROCS = 4
+# (c): members, steps (a warm-up of ENS_WARM, then the timed window)
+OZ_ENS_4096 = (4, 64)
+# (e): the profiled field size
+OZ_PROFILE_N = 4096
+
+
+def member_slice_bound(R, N, n_slices):
+    """bound_fields of K5_members: R fields read once, R x n_slices int8
+    planes, R scales and inverses written."""
+    n = N * N
+    return bound_fields(R * (n * 8 + n * n_slices + 12),
+                        (OPS_PER_ELEM['slice_setup']
+                         + OPS_PER_ELEM['slice_per_plane'] * n_slices)
+                        * R * n, 'float64')
+
+
+def member_slice_inputs(R, N, dev):
+    """R seeded solver-class members; member 1 is 1000x smaller than the
+    rest (its own scale) and, for R > 2, the last one is all zero."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(R * N)
+    x = 0.875 + 0.01 * (torch.rand((R, N, N), generator=g,
+                                   dtype=torch.float64, device=dev) - 0.5)
+    x[1] *= 1e-3
+    if R > 2:
+        x[-1] = 0.0
+    return x
+
+
+def member_slice_phase(dev, card):
+    """(a) K5_members against its plain version and, member by member,
+    against the single K5 launch on the member's field: the same int8
+    planes and scales to the bit, one count a call; device ms of the
+    batched call, of R single launches and of the plain version, and the
+    bound."""
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    for R, N in SLICE_MEMBER_SHAPES:
+        x = member_slice_inputs(R, N, dev)
+        for n in (4, 6):
+            K.reset_launches()
+            got, scale = K.slice_field_members(x, n)
+            counted = K.launches['slice_field_members']
+            want, wscale = K.slice_field_members_ref(x, n)
+            singles = [K.slice_field(x[r], n) for r in range(R)]
+            torch.cuda.synchronize()
+            err = (got.int() - want.int()).abs().max().item()
+            same = all(torch.equal(got[:, r], a) and torch.equal(scale[r], b)
+                       for r, (a, b) in enumerate(singles))
+            ok = (err == 0 and torch.equal(scale, wscale) and same
+                  and counted == 1 and tuple(got.shape) == (n, R, N, N))
+            row = {'name': 'slice_field_members', 'R': R, 'N': N,
+                   'n_slices': n, 'dtype': 'float64', 'max_abs_err': err,
+                   'members_equal_single_launch': same,
+                   'scales': scale.tolist(),
+                   'tolerance': 'bit-identical planes and scales, each '
+                                'member the single launch\'s, one count a '
+                                'call',
+                   'ok': ok}
+            if (R, N) in ((16, 512), (4, 4096)):
+                row.update(timed_row(
+                    lambda: K.slice_field_members(x, n),
+                    lambda: K.slice_field_members_ref(x, n)))
+                row['single_launches_ms'] = device_ms(
+                    lambda: [K.slice_field(x[r], n) for r in range(R)])
+                # ops/ozaki.py's _slice: the planes in the products'
+                # (S, rows, R, cols) layout, a copy the route pays a slice
+                row['relayout_ms'] = device_ms(
+                    lambda: got.transpose(1, 2).contiguous())
+                row.update(member_slice_bound(R, N, n))
+                row['bound_share'] = row['bound_ms'] / row['ms']
+            rows.append(row)
+            times = (f"kernel {row['ms']:.4f} ms (one call "
+                     f"{row['call_ms']:.4f}; {R} single launches "
+                     f"{row['single_launches_ms']:.4f}; relayout "
+                     f"{row['relayout_ms']:.4f}) plain "
+                     f"{row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f}"
+                     f" ms ({row['bound_share']:.0%})  ({card})"
+                     if 'ms' in row else '')
+            print(f"kernel slice_field_members R={R:2d} N={N:5d} n={n} "
+                  f"max diff {err} members=single "
+                  f"{'yes' if same else 'NO'} {'ok' if ok else 'FAIL'}  "
+                  f"{times}", flush=True)
+            check(ok, f"slice_field_members R={R} N={N} n={n}: planes "
+                      f"differ by {err}, members equal {same}, {counted} "
+                      f"counts")
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_members_ozaki_launches(tag, cfg, launches):
+    """The ozaki ensemble's path: K1-K4 and K5_members for all members,
+    never a single-field kernel; K5_members fwd + iterations * (fwd + 1)
+    times (one forward at the solve's entry, a forward and an inverse a
+    step; K1 counts the step iterations)."""
+    iterations = launches['chemical_potential_members']
+    fwd = slices_per_forward(cfg)
+    want = fwd + iterations * (fwd + 1)
+    for name, single in MEMBER_KERNELS.items():
+        check(launches[name] >= iterations > 0,
+              f"{tag}: {name} launched {launches[name]} times")
+        check(launches[single] == 0, f"{tag}: the single-field {single} "
+                                     f"launched")
+    check(launches['slice_field_members'] == want
+          and launches['slice_field'] == 0,
+          f"{tag}: slice_field_members launched "
+          f"{launches['slice_field_members']} times (the route implies "
+          f"{want}), slice_field {launches['slice_field']}")
+    return iterations, want
+
+
+def _ozaki_params():
+    from chsimpy_tpu_torch import Parameters
+    return Parameters(no_gui=True, device='cuda', transform_backend='ozaki')
+
+
+def ozaki_single_worker(members, path):
+    """A worker of (b): the single ozaki runs of the canonical batch's
+    ``members`` to their stops, saved to ``path`` (.npz: each member's
+    rows, final U, stop, stop reason and steps/s)."""
+    import numpy as np
+    pairs = canonical_pairs()
+    out = {}
+    for r in members:
+        sol, rate = _single_member_run(_ozaki_params(), *pairs[r],
+                                       CANONICAL_KAPPAS[r])
+        out[f'rows{r}'] = sol.timedata.data()
+        out[f'U{r}'] = sol.U.cpu().numpy()
+        out[f'meta{r}'] = np.array(json.dumps(
+            {'stop': sol.computed_steps, 'reason': sol.stop_reason,
+             'steps_per_s': rate}))
+    np.savez(path, **out)
+    return 0
+
+
+def ozaki_single_runs(R, procs=OZ_SINGLE_PROCS, timeout=900):
+    """The single ozaki runs of the canonical batch's R members to their
+    stops, in ``procs`` processes on the card side by side (member r in
+    process r % procs): {r: (rows, U, meta)} and the wall seconds."""
+    import shutil
+    import tempfile
+    import numpy as np
+    work = tempfile.mkdtemp(prefix='chip_smoke_oz_single_')
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    jobs = []
+    t0 = time.perf_counter()
+    try:
+        for w in range(procs):
+            path = os.path.join(work, f'w{w}.npz')
+            members = ','.join(str(r) for r in range(w, R, procs))
+            jobs.append((path, subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, 'chip_smoke.py'),
+                 '--ozaki-singles', members, '--out', path], cwd=ROOT,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        runs = {}
+        for path, proc in jobs:
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            log, _ = proc.communicate(timeout=left)
+            check(proc.returncode == 0, f"single ozaki worker exited "
+                                        f"{proc.returncode}:\n{log[-2000:]}")
+            with np.load(path) as z:
+                for key in z.files:
+                    if key.startswith('meta'):
+                        r = int(key[4:])
+                        runs[r] = (z[f'rows{r}'], z[f'U{r}'],
+                                   json.loads(str(z[key])))
+        return runs, time.perf_counter() - t0
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def ozaki_canonical_batch(card, matmul_batch):
+    """(b) the canonical R=16 N=512 float64 batch on the ozaki route (the
+    main path of this slice: the JSON line's K5_members count is read
+    here) to every stop, then every member's single ozaki run to its stop
+    (OZ_SINGLE_PROCS processes side by side): the same stop step, E
+    within 1e-10 at every row, and beyond that the same rows (Ra aside: a
+    batched row mean, within 1e-12) and the same final U to the bit; the
+    stops equal those of phase 10 (b)'s matmul batch (``matmul_batch``,
+    run in the same call), whose member-steps/s stand beside the ozaki
+    batch's."""
+    import numpy as np
+    import torch
+
+    pairs = canonical_pairs()
+    ens, sols, rate_oz, launches = _ensemble_run(_ozaki_params(), pairs,
+                                                 CANONICAL_KAPPAS)
+    check(ens.cfg.ozaki_fold and not ens.cfg.ozaki_rfold_levels
+          and ens.cfg.ozaki_inv_pairs is None,
+          'the N=512 ozaki batch is not on the level-1 fold route')
+    iterations, implied = check_members_ozaki_launches(
+        'ozaki batch', ens.cfg, launches)
+    stops = [s.computed_steps for s in sols]
+    check(stops == matmul_batch['stop_steps'],
+          f"ozaki batch stops {stops}, the matmul batch's "
+          f"{matmul_batch['stop_steps']}")
+    del ens
+    torch.cuda.empty_cache()
+    # every member's single ozaki run to its stop
+    singles, single_s = ozaki_single_runs(len(pairs))
+    check(sorted(singles) == list(range(len(pairs))),
+          f"single ozaki runs of members {sorted(singles)}")
+    E_rel, single_rates = [], []
+    for r, s in enumerate(sols):
+        b, U, meta = singles[r]
+        a = s.timedata.data()
+        check(s.computed_steps == meta['stop']
+              and s.stop_reason == meta['reason'] == 'energy'
+              and a.shape == b.shape,
+              f"ozaki batch member {r}: stop {s.computed_steps} "
+              f"({s.stop_reason}), its single ozaki run {meta['stop']} "
+              f"({meta['reason']})")
+        E_rel.append(float(np.max(np.abs(a[:, 1] / b[:, 1] - 1))))
+        check(E_rel[-1] <= 1e-10, f"ozaki batch member {r}: E "
+                                  f"{E_rel[-1]:.3e} off its single run")
+        check(bool(torch.isfinite(s.U).all()), f"member {r}: field")
+        cols = [c for c in range(a.shape[1]) if c != 5]
+        check(np.array_equal(a[:, cols], b[:, cols])
+              and np.allclose(a[:, 5], b[:, 5], rtol=1e-12, atol=0)
+              and np.array_equal(s.U.cpu().numpy(), U),
+              f"ozaki batch member {r}: not its single ozaki run's bits")
+        single_rates.append(meta['steps_per_s'])
+    res = {'R': 16, 'N': 512, 'dtype': 'float64', 'route': 'fold',
+           'stop_steps': stops, 'member_steps_per_s': rate_oz,
+           'matmul_member_steps_per_s': matmul_batch['member_steps_per_s'],
+           'E_max_rel_vs_single': E_rel,
+           'single_procs': OZ_SINGLE_PROCS, 'single_runs_seconds': single_s,
+           'single_steps_per_s_side_by_side': single_rates,
+           'launches': launches, 'iterations': iterations,
+           'slice_launches_implied': implied}
+    print(f"ozaki batch R=16 N=512 float64: stops {stops} = its single "
+          f"ozaki runs' and the matmul batch's; {rate_oz:.1f} "
+          f"member-steps/s beside matmul's "
+          f"{matmul_batch['member_steps_per_s']:.1f} (phase 10 (b)); every "
+          f"member's rows and U = its single ozaki run's to the bit (E "
+          f"<= {max(E_rel):.3e}); 16 single runs in {OZ_SINGLE_PROCS} "
+          f"processes {single_s:.1f} s ({min(single_rates):.1f}-"
+          f"{max(single_rates):.1f} steps/s each); launches {launches}  "
+          f"({card})", flush=True)
+    del sols
+    torch.cuda.empty_cache()
+    return res
+
+
+def ozaki_ensemble_n4096(card):
+    """(c) R=4 N=4096 float64 full_sim over OZ_ENS_4096 steps on the
+    ozaki route (rfold, two levels) beside matmul: member-steps/s of the
+    steps after the warm-up, each member's E within 1e-10 of its matmul
+    member at every row, mean(U) held, and the peak memory of each
+    batch."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters
+
+    R, steps = OZ_ENS_4096
+    pairs = canonical_pairs(R)
+    kappas = CANONICAL_KAPPAS[:R]
+    out = {}
+    sols = {}
+    for route in ('matmul', 'ozaki'):
+        p = Parameters(N=4096, precision='float64', full_sim=True,
+                       generator='uniform', no_gui=True, device='cuda',
+                       transform_backend=route)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ens, sols[route], rate_b, launches = _ensemble_run(
+            p, pairs, kappas, steps - ENS_WARM, ENS_WARM)
+        peak = torch.cuda.max_memory_allocated()
+        U0 = float(np.mean(ens.U_init))
+        drift = max(abs(s.U.double().mean().item() - U0)
+                    for s in sols[route])
+        out[route] = {'R': R, 'steps': steps, 'warm': ENS_WARM,
+                      'member_steps_per_s': rate_b,
+                      'peak_memory_GB': peak / 1e9,
+                      'memory_before_GB': base / 1e9,
+                      'mean_U_drift': drift, 'launches': launches}
+        if route == 'ozaki':
+            check(ens.cfg.ozaki_rfold_levels == 2,
+                  'the N=4096 ozaki batch is not rfold L=2')
+            check_members_ozaki_launches('ozaki N=4096 batch', ens.cfg,
+                                         launches)
+        check(drift <= 1e-12, f"N=4096 {route}: mean(U) drifted {drift}")
+        del ens
+    E_rel = [float(np.max(np.abs(a.timedata.data()[:, 1]
+                                 / b.timedata.data()[:, 1] - 1)))
+             for a, b in zip(sols['ozaki'], sols['matmul'])]
+    out['E_max_rel_ozaki_vs_matmul'] = E_rel
+    print(f"N=4096 float64 R={R}: ozaki {out['ozaki']['member_steps_per_s']:.2f}"
+          f" member-steps/s (peak {out['ozaki']['peak_memory_GB']:.2f} GB), "
+          f"matmul {out['matmul']['member_steps_per_s']:.2f} (peak "
+          f"{out['matmul']['peak_memory_GB']:.2f} GB); E ozaki vs matmul <= "
+          f"{max(E_rel):.3e}  ({card})", flush=True)
+    check(all(len(s.timedata) == steps for s in sols['ozaki']),
+          'N=4096 ozaki batch: not every member has its rows')
+    check(max(E_rel) <= 1e-10, f"N=4096 ozaki batch E {max(E_rel):.3e} "
+                               f"from matmul (1e-10)")
+    del sols
+    torch.cuda.empty_cache()
+    return out
+
+
+def ozaki_profile_phase(card):
+    """(e) benchmarks/ozaki_profile.py at N=4096 on the card: the four
+    cumulative prefixes P1-P4, ms per call."""
+    from chsimpy_tpu_torch.benchmarks import ozaki_profile
+    res = ozaki_profile.main(['-N', str(OZ_PROFILE_N), '--reps', '3'])
+    check([r['pipeline'] for r in res['results']]
+          == list(ozaki_profile.build_pipelines())
+          and all(r['ms_median'] > 0 for r in res['results']),
+          f"ozaki_profile: {res}")
+    print(f"ozaki_profile N={OZ_PROFILE_N}: " + ', '.join(
+        f"{r['pipeline']} {r['ms_median']:.4f} ms" for r in res['results'])
+        + f"  ({card})", flush=True)
+    return res
+
+
+def ozaki_ensemble_phase(dev, card, matmul_batch):
+    out = {'slice_members': member_slice_phase(dev, card)}
+    for key, fn, a in (('canonical', ozaki_canonical_batch, (matmul_batch,)),
+                       ('n4096', ozaki_ensemble_n4096, ())):
+        t0 = time.perf_counter()
+        out[key] = fn(card, *a)
+        out[f'seconds_{key}'] = time.perf_counter() - t0
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix='chip_smoke_uq_ozaki_')
+    t0 = time.perf_counter()
+    try:
+        out['experiment'] = experiment_f64(card, os.path.join(work, 'f64'),
+                                           transform='ozaki')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out['seconds_experiment'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out['profile'] = ozaki_profile_phase(card)
+    out['seconds_profile'] = time.perf_counter() - t0
+    return out
+
+
+def gpu_clocks():
+    """The card's SM clock, temperature and power draw (nvidia-smi)."""
+    proc = subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.sm,temperature.gpu,power.draw',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60)
+    return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 \
+        else f'nvidia-smi exited {proc.returncode}'
 
 
 def summary_rows(detail):
@@ -2990,6 +3410,24 @@ def summary_rows(detail):
             'single_launches_ms': row['single_launches_ms'],
             'shape': f"{R} members of {N}x{N} {dtype}",
             'bound_share': row['bound_ms'] / row['ms']})
+    # K5_members at the canonical batch's shape, counted on phase 12 (b)'s
+    # run of the ozaki batch
+    R, N, n = SLICE_MEMBER_REPORT
+    row = next(r for r in detail['ozaki_ensemble']['slice_members']
+               if (r['R'], r['N'], r['n_slices']) == SLICE_MEMBER_REPORT)
+    rows.append({
+        'name': 'slice_field_members', 'route': 'cuda', 'source': SOURCE,
+        'replaces': REPLACES['slice_field'] + ' (vmapped over the member '
+                                              'axis, chsimpy_tpu/ensemble.py)',
+        'launches': detail['ozaki_ensemble']['canonical']['launches'][
+            'slice_field_members'],
+        'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
+        'call_ms': row['call_ms'], 'plain_ms': row['plain_ms'],
+        'library_ms': None, 'bound_ms': row['bound_ms'],
+        'bound_by': row['bound_by'],
+        'single_launches_ms': row['single_launches_ms'],
+        'shape': f"{R} members of {N}x{N} float64 -> {n} int8 slices",
+        'bound_share': row['bound_ms'] / row['ms']})
     return rows
 
 
@@ -3003,6 +3441,7 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     detail['sobol_kernel'] = sobol_phase(dev, card)
     detail['threefry_kernel'] = threefry_phase(dev, card)
     detail['member_kernels'] = member_kernel_phase(dev, card)
+    detail['slice_members'] = member_slice_phase(dev, card)
     report = [r for r in detail['kernels'] if r['N'] == REPORT_SHAPE[0]]
     report += [r for r in detail['sobol_kernel'] if 'ms' in r
                and r['N'] == SOBOL_REPORT[0]]
@@ -3015,6 +3454,7 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     report += [r for r in detail['shard_kernels'] if 'ms' in r
                and r['N'] == SHARD_REPORT[0]]
     report += detail['member_kernels']
+    report += [r for r in detail['slice_members'] if 'ms' in r]
     for r in report:
         if 'bound_ms' not in r:     # the slice kernel's row
             r.update(kernel_bound(r['name'], r['N'], 'float64'))
@@ -3040,12 +3480,17 @@ def main(argv=None) -> int:
     ap.add_argument('--kernels-only', action='store_true',
                     help='only the kernels against their plain versions, '
                          'and their times')
+    # a worker of phase 12 (b): single ozaki runs, saved to --out
+    ap.add_argument('--ozaki-singles', help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA card", file=sys.stderr)
         return 1
+    if args.ozaki_singles:
+        return ozaki_single_worker(
+            [int(r) for r in args.ozaki_singles.split(',')], args.out)
     from chsimpy_tpu_torch.ops import cuda_build
     from chsimpy_tpu_torch.sysinfo import card_line
     card = card_line()
@@ -3071,7 +3516,14 @@ def main(argv=None) -> int:
         detail['phase_seconds'][phase] = time.perf_counter() - t0
         return out
 
+    # the SM clock beside phase 3's kernel window (B1 and B8 read slower in
+    # some runs with the code unchanged)
+    detail['clocks_before_phase3'] = gpu_clocks()
     detail['kernels'] = timed(3, kernel_phase, dev, card)
+    detail['clocks_after_phase3'] = gpu_clocks()
+    print(f"clocks.sm, temperature.gpu, power.draw: before phase 3 "
+          f"{detail['clocks_before_phase3']}, after "
+          f"{detail['clocks_after_phase3']}", flush=True)
     if args.kernels_only:
         return kernels_only(detail, dev, card, args.out)
     detail['default_run'] = timed(4, default_run)
@@ -3089,6 +3541,8 @@ def main(argv=None) -> int:
     detail['ensemble'] = timed(10, ensemble_phase, dev, card,
                                detail['default_run']['E'])
     detail['experiment'] = timed(11, experiment_phase, card)
+    detail['ozaki_ensemble'] = timed(12, ozaki_ensemble_phase, dev, card,
+                                     detail['ensemble']['canonical'])
     print('phase seconds: ' + ', '.join(
         f"{k} {v:.1f}" for k, v in detail['phase_seconds'].items()),
         flush=True)

@@ -28,7 +28,8 @@ Files cross between the packages both ways:
 
 Ensemble runs have their own pair (:func:`save_ensemble_checkpoint` /
 :func:`restore_ensemble`) covering every member (and its key) and the
-shared host stream;
+shared host stream, on every route the ensemble runs (the float64 ozaki
+route included);
 the restore takes the members' kappas from the file (the values the JAX
 package derives with sympy, which the card's machine lacks).
 """

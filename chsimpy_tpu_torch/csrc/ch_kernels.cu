@@ -6,7 +6,8 @@
 // K1-K4 are templated on the field type and instantiated for float and
 // double: Hopper has native FP64, so the float64 validation mode runs the
 // same kernels as the float32 fast mode.  K5 slices a float64 field into
-// int8 planes for the ozaki route and exists for double only.  K6, the
+// int8 planes for the ozaki route and exists for double only (K5_members:
+// the same two kernels over R members' fields).  K6, the
 // float32 GEMM of the DCT bake-off's 'gemm' route (ROADMAP.md kernel B5),
 // lives in gemm_sm90.cu (tensor cores, 3xTF32).  On a grid mesh (one rank
 // per block of the field) K7 is K3's stats_kernel on a block with halo
@@ -22,15 +23,16 @@
 // scratch), and returns cudaGetLastError().
 //
 // Member-batched launches (the ensemble, chsimpy_tpu/ensemble.py, whose
-// vmap batches B1-B4 over a leading member axis): K1-K4 take a member count
-// R and run member r on field r of a contiguous (R, N, N) stack, with its
-// own A0/A1 (K1, K3: float64 device arrays, cast to the field type on the
-// card as the host casts the single launch's scalars), its own mean (K4)
-// and its own sums (K3: (R, 5); K4: (R,)).  Member r of one batched launch
-// does the arithmetic, in the order and on the grid, of a single launch on
-// field r: the member index only offsets the pointers (blockIdx.y for K1,
-// K2 and K4, blockIdx.z for K3).  R = 1 with no member arrays is the single
-// launch.
+// vmap batches B1-B4 and, on the ozaki route, B6 over a leading member
+// axis): K1-K5 take a member count R and run member r on field r of a
+// contiguous (R, ...) stack, with its own A0/A1 (K1, K3: float64 device
+// arrays, cast to the field type on the card as the host casts the single
+// launch's scalars), its own mean (K4), its own sums (K3: (R, 5); K4: (R,))
+// and its own scale (K5: (R,) scales and inverses, planes (S, R, ...)).
+// Member r of one batched launch does the arithmetic, in the order and on
+// the grid, of a single launch on field r: the member index only offsets
+// the pointers (blockIdx.y for K1, K2, K4 and K5, blockIdx.z for K3).
+// R = 1 with no member arrays is the single launch.
 //
 // Built with -fmad=false (ops/cuda_build.py): every operation is rounded on
 // its own, in the order of the plain PyTorch version, so K1 and K2 give the
@@ -397,6 +399,12 @@ absdev_partials_kernel(const T* __restrict__ U, long long n,
 //    1/2 rounds to 0 in the first three).  Plane k of out gets
 //    int8(s_hi + s_lo): the plain version's bits.
 //
+// K5_members (the JAX ensemble vmaps B6, so each member has its own
+// scale): both kernels with member r on grid row r of an (R, ...) stack of
+// fields, member r's planes at plane k, row r of an (n_slices, R, ...)
+// output.  Each member's max, scale and planes are the single launch's on
+// its field, to the bit (the max is exact; the planes are elementwise).
+//
 // Bound by device-memory bandwidth: the field is read by both launches
 // (8 bytes an element each; at N=4096 the 134 MB field exceeds the 50 MB
 // L2) and n_slices bytes an element are written, 0.34 GB per call at
@@ -424,6 +432,13 @@ slice_scale_kernel(const double* __restrict__ x, long long n, bool vec,
                    double* __restrict__ scale, float* __restrict__ inv) {
   __shared__ unsigned long long sh[kWarps];
   __shared__ bool last;
+  // member r (blockIdx.y): its field, partials, ticket, scale and inverse
+  const int r = blockIdx.y;
+  x += (long long)r * n;
+  partials += (long long)r * gridDim.x;
+  ticket += r;
+  scale += r;
+  inv += r;
   const long long stride = (long long)gridDim.x * kThreads;
   const long long t0 = (long long)blockIdx.x * kThreads + threadIdx.x;
   unsigned long long m = 0;
@@ -486,6 +501,13 @@ slice_kernel(const double* __restrict__ x, const float* __restrict__ inv_ptr,
              signed char* __restrict__ out, long long n, int n_slices,
              bool vec) {
   __shared__ __align__(16) unsigned char stage[kWarps][kSliceWarpTile];
+  // member r (blockIdx.y) of R (gridDim.y): its field and inverse; its
+  // plane p at (p R + r) n of the (n_slices, R, n) output
+  const long long r = blockIdx.y;
+  const long long plane_stride = (long long)gridDim.y * n;
+  x += r * n;
+  inv_ptr += r;
+  out += r * n;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long tile =
@@ -533,11 +555,11 @@ slice_kernel(const double* __restrict__ x, const float* __restrict__ inv_ptr,
       }
       s8[e] = (signed char)(int)s;
     }
-    signed char* dst = out + (long long)p * n + tile;
+    signed char* dst = out + (long long)p * plane_stride + tile;
     if (full) {
-      // plane p starts at p * n, 16-byte aligned for every p (vec holds
-      // n % 16 == 0): two bytes a load into the warp's stage, then 16
-      // contiguous bytes a thread
+      // plane p of member r starts at (p R + r) n, 16-byte aligned for
+      // every p and r (vec holds n % 16 == 0): two bytes a load into the
+      // warp's stage, then 16 contiguous bytes a thread
 #pragma unroll
       for (int k = 0; k < kSliceElems / 2; ++k)
         *reinterpret_cast<unsigned short*>(&stage[warp][64 * k + 2 * lane]) =
@@ -860,30 +882,36 @@ int launch_absdev(const void* U, long long n, int R, const void* mean,
   return (int)cudaGetLastError();
 }
 
-// K5's first launch.  partials: max_blocks 64-bit words of scratch; the
-// grid is at most max_blocks blocks of 8 elements a thread
-int launch_slice_scale(const void* x, long long n, void* partials,
+// K5's first launch on R fields of n elements.  partials: R * max_blocks
+// 64-bit words of scratch; ticket, scale, inv: R each; each member's grid
+// is the single launch's, at most max_blocks blocks of 8 elements a thread
+// (the max is exact, so the double2 loads, taken where every member's
+// field is 16-byte aligned, change no bit)
+int launch_slice_scale(const void* x, long long n, int R, void* partials,
                        int max_blocks, void* ticket, void* scale, void* inv,
                        void* stream) {
-  if (n <= 0 || max_blocks < 1) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || max_blocks < 1 || bad_members(R))
+    return (int)cudaErrorInvalidValue;
   const long long per_block = (long long)kThreads * 2 * kScaleLoads;
   const long long want = (n + per_block - 1) / per_block;
-  const unsigned int blocks =
-      (unsigned int)(want < max_blocks ? want : max_blocks);
-  slice_scale_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const double*)x, n, aligned16(x), (unsigned long long*)partials,
-      (unsigned int*)ticket, (double*)scale, (float*)inv);
+  const dim3 grid((unsigned int)(want < max_blocks ? want : max_blocks), R);
+  slice_scale_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const double*)x, n, aligned16(x) && (R == 1 || n % 2 == 0),
+      (unsigned long long*)partials, (unsigned int*)ticket, (double*)scale,
+      (float*)inv);
   return (int)cudaGetLastError();
 }
 
-// K5's second launch: n_slices planes of n bytes into out
+// K5's second launch on R fields of n elements with R inverses:
+// n_slices * R planes of n bytes into out, (n_slices, R, n)
 int launch_slice(const void* x, const void* inv, void* out, long long n,
-                 int n_slices, void* stream) {
-  if (n <= 0 || n_slices < 1 || n_slices > 8)
+                 int R, int n_slices, void* stream) {
+  if (n <= 0 || n_slices < 1 || n_slices > 8 || bad_members(R))
     return (int)cudaErrorInvalidValue;
   const bool vec = n % 16 == 0 && aligned16(x) && aligned16(out);
-  slice_kernel<<<(unsigned int)((n + kSliceBlockTile - 1) / kSliceBlockTile),
-                 kThreads, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned int)((n + kSliceBlockTile - 1) / kSliceBlockTile),
+                  R);
+  slice_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const double*)x, (const float*)inv, (signed char*)out, n, n_slices,
       vec);
   return (int)cudaGetLastError();
@@ -1081,12 +1109,24 @@ int ch_absdev_members_f64(const void* U, long long n, int R,
 int ch_slice_scale_f64(const void* x, long long n, void* partials,
                        int max_blocks, void* ticket, void* scale, void* inv,
                        void* stream) {
-  return launch_slice_scale(x, n, partials, max_blocks, ticket, scale, inv,
-                            stream);
+  return launch_slice_scale(x, n, 1, partials, max_blocks, ticket, scale,
+                            inv, stream);
 }
 int ch_slice_f64(const void* x, const void* inv, void* out, long long n,
                  int n_slices, void* stream) {
-  return launch_slice(x, inv, out, n, n_slices, stream);
+  return launch_slice(x, inv, out, n, 1, n_slices, stream);
+}
+// K5_members: R fields of n elements; partials R * max_blocks words,
+// ticket R counters, scale R doubles, inv R floats; out (n_slices, R, n)
+int ch_slice_scale_members_f64(const void* x, long long n, int R,
+                               void* partials, int max_blocks, void* ticket,
+                               void* scale, void* inv, void* stream) {
+  return launch_slice_scale(x, n, R, partials, max_blocks, ticket, scale,
+                            inv, stream);
+}
+int ch_slice_members_f64(const void* x, const void* inv, void* out,
+                         long long n, int R, int n_slices, void* stream) {
+  return launch_slice(x, inv, out, n, R, n_slices, stream);
 }
 
 // K9, in place on U

@@ -7,19 +7,26 @@ scalars (A0, A1 and the kappa_tilde each pair implies) are per-member (R,)
 tensors; per-member early stop freezes a stopped member while the others
 run on.  Each step launches each of K1-K4 once for all members
 (``ops/kernels.py`` ``*_members``); the DCTs are products (or FFTs)
-batched over the member axis.
+batched over the member axis.  On the float64 ozaki route each slicing
+is one K5_members call for all members (each member its own scale, as
+the JAX ensemble's ``vmap`` gives it) and each int8 product serves all
+members (``ops/ozaki.py``).
 
 All members share the initial field (the reference re-uses the same seed
 for every run, ``experiment.py:87-89``) and, with per-step jitter, the host
 stream (``stream``; ``static`` for simplex), as in the JAX package.
 
+The ozaki layout is resolved as the JAX ensemble resolves it off the
+TPU: the level-1 fold for even N at every R, the recursive fold at
+N >= 1024, the forward pair cutoffs as the single solver's, the rfold
+inverse's pin-only (None: untrimmed).  The JAX package's TPU batch-width
+gates (``_warn_wide_f64_batch``, the ozaki ``R > 4`` unfold, and the
+experiment's four-wide clamp) have no counterpart: they guard a TPU
+compiler fault.
+
 Refused, each with its ROADMAP.md item: a ``mesh`` (the ensemble over an
-'ens' mesh of cards) and ``--mesh`` (item 11), the ozaki route (item 10:
-member-batched K5 and the JAX package's batch-width fold gates).  The
-JAX ensemble has no device jitter, so ``jitter_backend='device'`` is
-refused too.  The JAX package's TPU batch-width gates
-(``_warn_wide_f64_batch``, the ozaki ``R > 4`` unfold) have no
-counterpart: they guard a TPU compiler fault.
+'ens' mesh of cards) and ``--mesh`` (item 11).  The JAX ensemble has no
+device jitter, so ``jitter_backend='device'`` is refused too.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ import numpy as np
 import torch
 
 from . import material
-from .core.solver import (_JITTER_BUF_BYTES, check_split_levels,
+from .core.solver import (_JITTER_BUF_BYTES, _resolve_rfold_levels,
+                          check_split_levels, resolve_ozaki_fwd_pairs,
                           resolve_transform)
 from .core.state import STOP_NAN, STOP_NONE, STOP_STRINGS, init_members_state
 from .core.stepper import (StepConfig, entry_dct2, make_members_consts,
@@ -67,9 +75,6 @@ def ensemble_scope_errors(params: Parameters, mesh=None) -> list:
     if params.mesh_shape is not None:
         errs.append(not_ported('the ensemble with grid-sharded member '
                                'fields (--mesh)', 11))
-    if params.transform_backend == 'ozaki':
-        errs.append(not_ported('the ozaki route under the ensemble '
-                               '(member-batched K5)', 10))
     return errs
 
 
@@ -146,6 +151,8 @@ class EnsembleSolver:
         if dp.kappa_tilde is None:
             dp.kappa_tilde = float(self.kappas[0])
         d = Derived.from_params(dp)
+        transform = resolve_transform(params)
+        inv_pairs = params.ozaki_inv_pairs
         self.cfg = StepConfig(
             N=N, dtype=params.precision,
             RT=d.RT, BRT=d.BRT, B=params.B,
@@ -157,8 +164,13 @@ class EnsembleSolver:
             time_limit=time_limit, full_sim=params.full_sim,
             jitter=params.jitter if jitter_on else None,
             jitter_mode=jitter_mode,
-            transform_backend=resolve_transform(params),
-            split_levels=params.split_levels)
+            transform_backend=transform,
+            split_levels=params.split_levels,
+            ozaki_fold=transform == 'ozaki' and N % 2 == 0,
+            ozaki_rfold_levels=_resolve_rfold_levels(params),
+            ozaki_fwd_pairs=resolve_ozaki_fwd_pairs(params),
+            # pin-only under the ensemble, as in the JAX package
+            ozaki_inv_pairs=tuple(inv_pairs) if inv_pairs else None)
 
         self.chunk_size = max(1, int(params.chunk_size))
         if jitter_mode == 'stream':

@@ -10,7 +10,8 @@ gap, spinodal EPP roots, separation time) and aggregates to
 byte for byte.
 
 The runs go through :class:`~chsimpy_tpu_torch.ensemble.EnsembleSolver` on
-the run's device (the member-batched K1-K4 on the card), at most
+the run's device (the member-batched K1-K4 on the card, and K5 on the
+float64 ``--transform ozaki`` route), at most
 ``-P/--processes`` members per batch.  The per-member host work (CSV/YAML
 export and the sympy post-processing) runs in a spawn-based process pool
 (:class:`HostPipeline`, ``--host-procs``), overlapped with the next batch's
@@ -20,8 +21,10 @@ writes it.
 
 Refused, each naming its ROADMAP.md queue A item: ``--coordinator``,
 ``--num-processes`` and ``--process-id`` (the multi-process 'ens' mesh,
-item 11), ``--live-view`` and ``--png`` (item 13), ``--transform ozaki``
-(item 10).
+item 11), ``--live-view`` and ``--png`` (item 13).  The JAX package's
+four-wide batch clamp for float64 ozaki (``_resolve_batch_width``) guards
+a TPU compiler fault and has no counterpart: the auto width is
+:func:`_auto_batch_width`'s on every route.
 
     python -m chsimpy_tpu_torch.experiment -R 16 --A-source sobol -N 512 \\
         --cinit 0.89 --threshold 0.89 --export-csv E2 -f uq

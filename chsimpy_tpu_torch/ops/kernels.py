@@ -12,7 +12,8 @@ member-batched (``*_members``) for the ensemble, where the JAX package
 ``vmap``s B1-B4 over a leading member axis with per-member A0/A1
 (``chsimpy_tpu/ensemble.py``): one launch for R fields of an (R, N, N)
 stack, member r giving the single launch's bits on field r with its own
-scalars.  Each wrapper
+scalars; so does K5 on the ozaki route (``slice_field_members``, B6 under
+``vmap``: each member its own scale).  Each wrapper
 
 * runs the plain version (``*_ref``) only when its input lies on the CPU;
 * on a CUDA tensor launches its kernel (``csrc/ch_kernels.cu``; the GEMM
@@ -42,7 +43,8 @@ launches = {'chemical_potential': 0, 'spectral_update': 0,
             'local_band_sums': 0, 'chemical_potential_sharded': 0,
             'sobol_jitter': 0, 'chemical_potential_members': 0,
             'spectral_update_members': 0, 'stats_sums_members': 0,
-            'absdev_sum_members': 0, 'threefry_jitter': 0}
+            'absdev_sum_members': 0, 'threefry_jitter': 0,
+            'slice_field_members': 0}
 
 # grids of the reduction kernels: fixed by the shape (and, for K3 and K7,
 # the vector width) alone, so the summation order (and the result, to the
@@ -370,17 +372,59 @@ def _slice_planes_launch(x, inv, n_slices: int):
 def slice_field(x, n_slices: int = MAX_SLICES):
     """On the card: the scale and the planes by two kernel launches, with
     no torch arithmetic between them (one count a call)."""
-    if x.dim() != 2 or x.dtype != torch.float64:
-        raise TypeError(f"slice_field takes a 2-D float64 field, got "
-                        f"{tuple(x.shape)} {x.dtype}")
-    if not 1 <= n_slices <= MAX_SLICES:
-        raise ValueError(f"n_slices must be in [1, {MAX_SLICES}], "
-                         f"got {n_slices}")
+    _slice_args(x, n_slices, 2)
     if not _on_card(x):
         return slice_field_ref(x, n_slices)
     scale, inv = _slice_scale_launch(x)
     out = _slice_planes_launch(x, inv, n_slices)
     launches['slice_field'] += 1
+    return out, scale
+
+
+def _slice_args(x, n_slices: int, dim: int) -> None:
+    if x.dim() != dim or x.dtype != torch.float64 or 0 in x.shape:
+        what = 'field' if dim == 2 else '(R, rows, cols) stack of fields'
+        raise TypeError(f"expected a non-empty {dim}-D float64 {what}, got "
+                        f"{tuple(x.shape)} {x.dtype}")
+    if not 1 <= n_slices <= MAX_SLICES:
+        raise ValueError(f"n_slices must be in [1, {MAX_SLICES}], "
+                         f"got {n_slices}")
+
+
+def slice_field_members_ref(x, n_slices: int = MAX_SLICES):
+    """(int8 [n_slices, R, rows, cols], (R,) float64 scales): member r's
+    planes and scale are :func:`slice_field_ref` of x[r] (the JAX
+    ensemble's ``vmap`` of ``slice_field``: a scale per member)."""
+    parts = [slice_field_ref(m, n_slices) for m in x]
+    return (torch.stack([s for s, _ in parts], dim=1),
+            torch.stack([sc for _, sc in parts]))
+
+
+def slice_field_members(x, n_slices: int = MAX_SLICES):
+    """K5 on every member of an (R, rows, cols) float64 stack: one max
+    pass for all members (a ticket, a scale and a float32 inverse each,
+    kept on the card) and one slice pass (``slice_scale_kernel`` and
+    ``slice_kernel`` with member r on grid row r); one count a call.
+    Member r's planes and scale are the single launch's on x[r], to the
+    bit."""
+    _slice_args(x, n_slices, 3)
+    if not _on_card(x):
+        return slice_field_members_ref(x, n_slices)
+    R = x.shape[0]
+    n = x[0].numel()
+    scale = torch.empty((R,), dtype=torch.float64, device=x.device)
+    inv = torch.empty((R,), dtype=torch.float32, device=x.device)
+    partials = torch.empty((R * SLICE_MAX_BLOCKS,), dtype=torch.int64,
+                           device=x.device)
+    _call('ch_slice_scale_members', x.dtype, x.data_ptr(), n, R,
+          partials.data_ptr(), SLICE_MAX_BLOCKS,
+          _ticket(x.device, R).data_ptr(), scale.data_ptr(), inv.data_ptr(),
+          _stream())
+    out = torch.empty((n_slices,) + tuple(x.shape), dtype=torch.int8,
+                      device=x.device)
+    _call('ch_slice_members', x.dtype, x.data_ptr(), inv.data_ptr(),
+          out.data_ptr(), n, R, n_slices, _stream())
+    launches['slice_field_members'] += 1
     return out, scale
 
 

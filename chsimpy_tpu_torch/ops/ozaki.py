@@ -12,7 +12,12 @@ back into int8 slices (shifts and masks, exact), and one float64 Horner
 pass per 2-D transform puts the result together.
 
 * Slicing is kernel K5 (``ops/kernels.py`` ``slice_field``: CUDA on the
-  card, the plain version on the CPU).
+  card, the plain version on the CPU); K5_members (``slice_field_members``)
+  for an ensemble's (R, N, N) stack of members.
+* Every transform takes one (N, N) field or an (R, N, N) stack of
+  members (the JAX ensemble ``vmap``s the same functions): member r gets
+  the single transform's bits on its field, each product serving all
+  members (see "one field or an ensemble's members" below).
 * The int8 products go to ``torch._int_mm`` (:func:`int8_matmul`), as the
   JAX package leaves them to XLA.
 * Slices, group sums, renormalized stacks and the Horner sums are integers
@@ -46,6 +51,7 @@ RENORM_SHIFT = 14   # two slice slots of headroom for the growth of a 1-D
                     # transform, |C @ U| <= sqrt(N) max|U|
 
 slice_field = K.slice_field
+slice_field_members = K.slice_field_members
 
 
 # ----------------------------------------------------------------------
@@ -195,16 +201,34 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(ap, bp)[:M, :N]
 
 
-def _pair_groups(a_slices, b_slices, max_pair=MAX_PAIR):
-    """All slice products a_i @ b_j with i+j <= max_pair, summed into int32
-    groups by k = i+j (the JAX package's ``_dot_left``/``_dot_right`` are
-    both this product).  Group sums stay < 2^31: each product is <=
-    65*65*N and <= 8 join a group (N <= 2^19)."""
+def _left(M, X):
+    """M @ X[:, r, :] for every member r: M (m, rows), X (rows, R, cols)
+    -> (m, R, cols), ONE product with the members side by side as
+    columns."""
+    rows, R, cols = X.shape
+    return int8_matmul(M, X.reshape(rows, R * cols)).reshape(-1, R, cols)
+
+
+def _right(X, M):
+    """X[:, r, :] @ M for every member r: X (rows, R, cols), M (cols, m)
+    -> (rows, R, m), ONE product with the members' rows stacked."""
+    rows, R, cols = X.shape
+    return int8_matmul(X.reshape(rows * R, cols), M).reshape(rows, R, -1)
+
+
+def _pair_groups(a_slices, b_slices, max_pair=MAX_PAIR, dot=None):
+    """All slice products dot(a_i, b_j) with i+j <= max_pair, summed into
+    int32 groups by k = i+j (``dot``: :func:`int8_matmul` by default, or
+    the transforms' :func:`_left` / :func:`_right`; the JAX package's
+    ``_dot_left``/``_dot_right``).  Group sums stay < 2^31: each product
+    is <= 65*65*N and <= 8 join a group (N <= 2^19); stacking members
+    changes neither bound."""
+    dot = dot or int8_matmul
     Sa, Sb = a_slices.shape[0], b_slices.shape[0]
     groups = [None] * (max_pair + 1)
     for i in range(Sa):
         for j in range(min(Sb, max_pair + 1 - i)):
-            p = int8_matmul(a_slices[i], b_slices[j])
+            p = dot(a_slices[i], b_slices[j])
             k = i + j
             groups[k] = p if groups[k] is None else groups[k] + p
     return groups
@@ -253,16 +277,81 @@ def _n_field(s1=STAGE1_PAIR):
     return min(N_SLICES, s1 + 1)
 
 
+# ----------------------------------------------------------------------
+# one field (rows, cols) or an ensemble's members (R, rows, cols)
+#
+# Every transform takes either.  Field arithmetic (mean, folds, DC) runs
+# in the field's own layout; the int8/int32 side runs in the products'
+# layout (rows, R, cols) (R = 1 for one field, a free view), where one
+# product serves all members: a left product takes the members side by
+# side as columns, a right product their rows stacked.  The int32 sums
+# are exact, so member r gets the single transform's bits on its field,
+# with its own slice scale (K5_members), as the JAX ensemble's vmap does.
+# ----------------------------------------------------------------------
+
+# PyTorch's CUDA caching allocator hands out blocks at multiples of 512
+# bytes (c10/cuda/CUDACachingAllocator.cpp, kMinBlockSize): a single
+# transform's field always starts on such a boundary
+_ALLOC_ALIGN = 512
+
+
+def _mean(U):
+    """The field's mean (0-d), or each member's ((R,)), each taken as the
+    single transform takes it: ``torch.mean`` of one field that starts
+    where a new allocation would.  A reduction over the member stack may
+    add in another order, and the card's reduction picks its vector width
+    (and so its order) from the pointer's alignment, so a member that
+    starts off _ALLOC_ALIGN (odd N) is copied first.  One reduction a
+    member: R reductions a forward transform instead of one."""
+    if U.dim() == 2:
+        return torch.mean(U)
+    means = []
+    for u in U:
+        if u.data_ptr() % _ALLOC_ALIGN:
+            u = u.clone()
+        means.append(torch.mean(u))
+    return torch.stack(means)
+
+
+def _bcast(v):
+    """A 0-d or (R,) value shaped to broadcast over the field(s)."""
+    return v.reshape(v.shape + (1, 1))
+
+
+def _mid(v):
+    """A 0-d or (R,) value shaped to broadcast over (rows, R, cols)."""
+    return v.reshape(1, -1, 1)
+
+
+def _slice(x, n_slices):
+    """K5 on a field, or K5_members on each member of a stack: (planes in
+    the products' layout (S, rows, R, cols), scale 0-d or (R,))."""
+    if x.dim() == 2:
+        s, sc = slice_field(x, n_slices)
+        return s.unsqueeze(2), sc
+    s, sc = slice_field_members(x, n_slices)
+    return s.transpose(1, 2).contiguous(), sc
+
+
+def _field(Y, like):
+    """(rows, R, cols) back to ``like``'s layout: (rows, cols) for a
+    field, (R, rows, cols) for members."""
+    if like.dim() == 2:
+        return Y.squeeze(1)
+    return Y.transpose(0, 1).contiguous()
+
+
 def _dc_add(Y, v):
-    """Y with v added at [0, 0] (Y is the transform's own output)."""
-    Y[0, 0] += v
+    """Y with v added at [0, 0] of each field (Y is the transform's own
+    output)."""
+    Y[..., 0, 0] += v
     return Y
 
 
 def _dc_zero(X):
-    """A copy of X with [0, 0] zeroed."""
+    """A copy of X with [0, 0] of each field zeroed."""
     X = X.clone()
-    X[0, 0] = 0
+    X[..., 0, 0] = 0
     return X
 
 
@@ -275,13 +364,14 @@ def _transform2d(U, Ms_row, Ms_col, m_scale, s1=STAGE1_PAIR,
     """M_row @ U @ M_col with both passes in int8/int32; Ms_row, Ms_col are
     [S, N, N] slice stacks at scale m_scale.  The pair cutoffs bound which
     slices any product reads, so only those are emitted."""
-    Us, su = slice_field(U, _n_field(s1))
-    g1 = _pair_groups(Ms_row, Us, max_pair=s1)
+    Us, su = _slice(U, _n_field(s1))
+    g1 = _pair_groups(Ms_row, Us, max_pair=s1, dot=_left)
     t = _renorm_to_slices(g1, n_slices=_n_slots(s2))
-    g2 = _pair_groups(t, Ms_col, max_pair=s2)
+    g2 = _pair_groups(t, Ms_col, max_pair=s2, dot=_right)
     z = _horner_f64(g2, U.dtype)
     # scale: (m_scale * su * 2^RENORM_SHIFT) from pass 1, times m_scale
-    return z * (su * (m_scale * m_scale * 2.0 ** RENORM_SHIFT))
+    return _field(z * _mid(su * (m_scale * m_scale * 2.0 ** RENORM_SHIFT)),
+                  U)
 
 
 def dct2_ozaki(U, Cs, CsT, m_scale, s1=STAGE1_PAIR, s2=STAGE2_PAIR):
@@ -289,8 +379,8 @@ def dct2_ozaki(U, Cs, CsT, m_scale, s1=STAGE1_PAIR, s2=STAGE2_PAIR):
     path analytically (dct2(ones) = N e00), which shrinks the slice scale
     to the fluctuation's."""
     N = U.shape[-1]
-    m = torch.mean(U)
-    Y = _transform2d(U - m, Cs, CsT, m_scale, s1=s1, s2=s2)
+    m = _mean(U)
+    Y = _transform2d(U - _bcast(m), Cs, CsT, m_scale, s1=s1, s2=s2)
     return _dc_add(Y, m * N)
 
 
@@ -298,9 +388,9 @@ def idct2_ozaki(X, Cs, CsT, m_scale):
     """Orthonormal 2-D DCT-III (C^T @ X @ C), inverse of :func:`dct2_ozaki`;
     the DC coefficient goes around (idct2(e00) = ones/N)."""
     N = X.shape[-1]
-    d = X[0, 0]
+    d = X[..., 0, 0]
     u = _transform2d(_dc_zero(X), CsT, Cs, m_scale)
-    return u + d / N
+    return u + _bcast(d / N)
 
 
 # ----------------------------------------------------------------------
@@ -319,24 +409,24 @@ def dct2_ozaki_fold(U, fs, s1=STAGE1_PAIR, s2=STAGE2_PAIR):
     :func:`dct2_ozaki`).  ``fs`` is :func:`dct_fold_slices`(N)."""
     N = U.shape[-1]
     h = N // 2
-    m = torch.mean(U)
-    X = U - m
+    m = _mean(U)
+    X = U - _bcast(m)
     # row fold in float64
-    bot = torch.flip(X[h:], (0,))
-    u = X[:h] + bot
-    v = X[:h] - bot
-    us, su = slice_field(u, _n_field(s1))
-    vs, sv = slice_field(v, _n_field(s1))
+    bot = torch.flip(X[..., h:, :], (-2,))
+    u = X[..., :h, :] + bot
+    v = X[..., :h, :] - bot
+    us, su = _slice(u, _n_field(s1))
+    vs, sv = _slice(v, _n_field(s1))
     # pass 1: T_even = Ce @ u, T_odd = Co @ v
-    ge = _pair_groups(fs['CeS'], us, max_pair=s1)
-    go = _pair_groups(fs['CoS'], vs, max_pair=s1)
+    ge = _pair_groups(fs['CeS'], us, max_pair=s1, dot=_left)
+    go = _pair_groups(fs['CoS'], vs, max_pair=s1, dot=_left)
 
     def colfold(gs):
         p, q = [], []
         for g in gs:
-            right = torch.flip(g[:, h:], (1,))
-            p.append(g[:, :h] + right)
-            q.append(g[:, :h] - right)
+            right = torch.flip(g[..., h:], (-1,))
+            p.append(g[..., :h] + right)
+            q.append(g[..., :h] - right)
         return p, q
 
     pe, qe = colfold(ge)
@@ -348,12 +438,12 @@ def dct2_ozaki_fold(U, fs, s1=STAGE1_PAIR, s2=STAGE2_PAIR):
     for grp, mcol, s in ((pe, 'CeTS', su), (qe, 'CoTS', su),
                          (po, 'CeTS', sv), (qo, 'CoTS', sv)):
         t = _renorm_to_slices(grp, n_slices=ns)
-        g2 = _pair_groups(t, fs[mcol], max_pair=s2)
-        quarters.append(_horner_f64(g2, U.dtype) * (s * f))
+        g2 = _pair_groups(t, fs[mcol], max_pair=s2, dot=_right)
+        quarters.append(_horner_f64(g2, U.dtype) * _mid(s * f))
     zee, zeo, zoe, zoo = quarters
-    Y = _interleave(_interleave(zee, zeo, axis=1),
-                    _interleave(zoe, zoo, axis=1), axis=0)
-    return _dc_add(Y, m * N)
+    Y = _interleave(_interleave(zee, zeo, axis=2),
+                    _interleave(zoe, zoo, axis=2), axis=0)
+    return _dc_add(_field(Y, U), m * N)
 
 
 def idct2_ozaki_fold(X, fs):
@@ -361,28 +451,27 @@ def idct2_ozaki_fold(X, fs):
     operand is sliced once, so the even/odd sub-stacks share its scale and
     the fold assemblies stay exact int32 adds."""
     N = X.shape[-1]
-    h = N // 2
-    d = X[0, 0]
-    ys, sy = slice_field(_dc_zero(X), _n_field())
+    d = X[..., 0, 0]
+    ys, sy = _slice(_dc_zero(X), _n_field())
     # pass 1: x_top = Ce^T yE + Co^T yO, x_bot = flip(Ce^T yE - Co^T yO)
-    yE = ys[:, 0::2, :].contiguous()
-    yO = ys[:, 1::2, :].contiguous()
-    a = _pair_groups(fs['CeTS'], yE, max_pair=STAGE1_PAIR)
-    b = _pair_groups(fs['CoTS'], yO, max_pair=STAGE1_PAIR)
+    yE = ys[:, 0::2].contiguous()
+    yO = ys[:, 1::2].contiguous()
+    a = _pair_groups(fs['CeTS'], yE, max_pair=STAGE1_PAIR, dot=_left)
+    b = _pair_groups(fs['CoTS'], yO, max_pair=STAGE1_PAIR, dot=_left)
     wg = [torch.cat([x + y, torch.flip(x - y, (0,))], dim=0)
           for x, y in zip(a, b)]
     t = _renorm_to_slices(wg, n_slices=_n_slots())
     # pass 2: u_left = wE Ce + wO Co, u_right = flip(wE Ce - wO Co)
-    wE = t[:, :, 0::2].contiguous()
-    wO = t[:, :, 1::2].contiguous()
-    gE = _pair_groups(wE, fs['CeS'], max_pair=STAGE2_PAIR)
-    gO = _pair_groups(wO, fs['CoS'], max_pair=STAGE2_PAIR)
+    wE = t[..., 0::2].contiguous()
+    wO = t[..., 1::2].contiguous()
+    gE = _pair_groups(wE, fs['CeS'], max_pair=STAGE2_PAIR, dot=_right)
+    gO = _pair_groups(wO, fs['CoS'], max_pair=STAGE2_PAIR, dot=_right)
     gl = [x + y for x, y in zip(gE, gO)]
     gr = [x - y for x, y in zip(gE, gO)]
-    f = sy * (fs['scale'] * fs['scale'] * 2.0 ** RENORM_SHIFT)
+    f = _mid(sy * (fs['scale'] * fs['scale'] * 2.0 ** RENORM_SHIFT))
     ul = _horner_f64(gl, X.dtype) * f
-    ur = torch.flip(_horner_f64(gr, X.dtype), (1,)) * f
-    return torch.cat([ul, ur], dim=1) + d / N
+    ur = torch.flip(_horner_f64(gr, X.dtype), (-1,)) * f
+    return _field(torch.cat([ul, ur], dim=-1), X) + _bcast(d / N)
 
 
 # ----------------------------------------------------------------------
@@ -393,8 +482,8 @@ def _rfold_field(X, levels):
     """Row-branch inputs [u_E, v_L, ..., v_1] (float64 adds)."""
     if levels == 0:
         return [X]
-    n = X.shape[0]
-    top, bot = X[:n // 2], torch.flip(X[n // 2:], (0,))
+    n = X.shape[-2]
+    top, bot = X[..., :n // 2, :], torch.flip(X[..., n // 2:, :], (-2,))
     return _rfold_field(top + bot, levels - 1) + [top - bot]
 
 
@@ -402,12 +491,12 @@ def _rfold_groups_cols(groups, levels):
     """Column branches of int32 group planes, same order (exact adds)."""
     if levels == 0:
         return [groups]
-    h = groups[0].shape[1] // 2
+    h = groups[0].shape[-1] // 2
     plus, minus = [], []
     for g in groups:
-        bot = torch.flip(g[:, h:], (1,))
-        plus.append(g[:, :h] + bot)
-        minus.append(g[:, :h] - bot)
+        bot = torch.flip(g[..., h:], (-1,))
+        plus.append(g[..., :h] + bot)
+        minus.append(g[..., :h] - bot)
     return _rfold_groups_cols(plus, levels - 1) + [minus]
 
 
@@ -418,58 +507,58 @@ def dct2_ozaki_rfold(U, rf, m_scale, levels, s1=STAGE1_PAIR,
     :func:`dct_rfold_slices`(N, levels)[0].  Each row branch is sliced at
     its own scale; no int32 sum ever crosses branches."""
     N = U.shape[-1]
-    m = torch.mean(U)
+    m = _mean(U)
     ns = _n_slots(s2)
     f = m_scale * m_scale * 2.0 ** RENORM_SHIFT
     row_blocks = []
-    for b, (Bs, _BsT) in zip(_rfold_field(U - m, levels), rf):
-        us, su = slice_field(b, _n_field(s1))
-        g1 = _pair_groups(Bs, us, max_pair=s1)
+    for b, (Bs, _BsT) in zip(_rfold_field(U - _bcast(m), levels), rf):
+        us, su = _slice(b, _n_field(s1))
+        g1 = _pair_groups(Bs, us, max_pair=s1, dot=_left)
         col_blocks = []
         for gc, (_Cs2, CsT2) in zip(_rfold_groups_cols(g1, levels), rf):
             t = _renorm_to_slices(gc, n_slices=ns)
-            g2 = _pair_groups(t, CsT2, max_pair=s2)
-            col_blocks.append(_horner_f64(g2, U.dtype) * (su * f))
-        row_blocks.append(torch.cat(col_blocks, dim=1))
+            g2 = _pair_groups(t, CsT2, max_pair=s2, dot=_right)
+            col_blocks.append(_horner_f64(g2, U.dtype) * _mid(su * f))
+        row_blocks.append(torch.cat(col_blocks, dim=-1))
     # the permuted index of spectral (0, 0) is 0
-    return _dc_add(torch.cat(row_blocks, dim=0), m * N)
+    return _dc_add(_field(torch.cat(row_blocks, dim=0), U), m * N)
 
 
 def _rfold_inv_rows(t, rf, levels, row0=0, size=None, s1=STAGE1_PAIR):
     """Pass 1 of the inverse: int32 groups of C^T X from the sliced
-    permuted operand ``t`` ([S, N, N]); assembles [a + b; flip(a - b)]."""
+    permuted operand ``t`` ([S, N, R, N]); assembles [a + b; flip(a - b)]."""
     if size is None:
         size = t.shape[1]
     h = size // 2
     if levels == 0:
         _Bs, BsT = rf[0]
-        sub = t[:, row0:row0 + size, :]
-        return _pair_groups(BsT, sub, max_pair=s1)
+        sub = t[:, row0:row0 + size]
+        return _pair_groups(BsT, sub, max_pair=s1, dot=_left)
     o_idx = levels  # rf index of this level's odd block: [E, O_L, .., O_1]
     a = _rfold_inv_rows(t, rf[:o_idx], levels - 1, row0, h, s1=s1)
     _Bs, BoT = rf[o_idx]
-    sub = t[:, row0 + h:row0 + size, :]
-    b = _pair_groups(BoT, sub, max_pair=s1)
+    sub = t[:, row0 + h:row0 + size]
+    b = _pair_groups(BoT, sub, max_pair=s1, dot=_left)
     return [torch.cat([x + y, torch.flip(x - y, (0,))], dim=0)
             for x, y in zip(a, b)]
 
 
 def _rfold_inv_cols(t, rf, levels, col0=0, size=None, s2=STAGE2_PAIR):
-    """Pass 2 of the inverse along columns (same recursion, axis 1).  The
-    column sub-stacks are made contiguous once for the products."""
+    """Pass 2 of the inverse along columns (same recursion, last axis).
+    The column sub-stacks are made contiguous once for the products."""
     if size is None:
-        size = t.shape[2]
+        size = t.shape[-1]
     h = size // 2
     if levels == 0:
         Bs, _BsT = rf[0]
-        sub = t[:, :, col0:col0 + size].contiguous()
-        return _pair_groups(sub, Bs, max_pair=s2)
+        sub = t[..., col0:col0 + size].contiguous()
+        return _pair_groups(sub, Bs, max_pair=s2, dot=_right)
     o_idx = levels
     a = _rfold_inv_cols(t, rf[:o_idx], levels - 1, col0, h, s2=s2)
     Bo, _BoT = rf[o_idx]
-    sub = t[:, :, col0 + h:col0 + size].contiguous()
-    b = _pair_groups(sub, Bo, max_pair=s2)
-    return [torch.cat([x + y, torch.flip(x - y, (1,))], dim=1)
+    sub = t[..., col0 + h:col0 + size].contiguous()
+    b = _pair_groups(sub, Bo, max_pair=s2, dot=_right)
+    return [torch.cat([x + y, torch.flip(x - y, (-1,))], dim=-1)
             for x, y in zip(a, b)]
 
 
@@ -479,11 +568,11 @@ def idct2_ozaki_rfold(X, rf, m_scale, levels, s1=STAGE1_PAIR,
     :func:`dct2_ozaki_rfold`: one slicing, one renormalization, contiguous
     block reads.  (s1, s2) trim the pair cutoffs as the forward's do."""
     N = X.shape[-1]
-    d = X[0, 0]
-    ys, sy = slice_field(_dc_zero(X), _n_field(s1))
+    d = X[..., 0, 0]
+    ys, sy = _slice(_dc_zero(X), _n_field(s1))
     g1 = _rfold_inv_rows(ys, rf, levels, s1=s1)
     t = _renorm_to_slices(g1, n_slices=_n_slots(s2))
     g2 = _rfold_inv_cols(t, rf, levels, s2=s2)
-    u = _horner_f64(g2, X.dtype) * (
+    u = _horner_f64(g2, X.dtype) * _mid(
         sy * (m_scale * m_scale * 2.0 ** RENORM_SHIFT))
-    return u + d / N
+    return _field(u, X) + _bcast(d / N)

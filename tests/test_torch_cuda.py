@@ -99,7 +99,7 @@ def test_kernels_match_plain_versions(card, dtype, N):
                           'chemical_potential_members': 0,
                           'spectral_update_members': 0,
                           'stats_sums_members': 0, 'absdev_sum_members': 0,
-                          'threefry_jitter': 0}
+                          'threefry_jitter': 0, 'slice_field_members': 0}
 
 
 def test_stats_sums_are_reproducible(card):
@@ -676,6 +676,28 @@ def test_member_kernels_give_single_launch_bits(card, dtype, N, R):
         atol=0)
 
 
+@pytest.mark.parametrize('N,R', [(64, 3), (1000, 2), (1001, 3), (33, 5),
+                                 (5, 2)])
+def test_slice_members_kernel_gives_single_launch_bits(card, N, R):
+    """K5_members: member r's planes and scale = the single K5 launch on
+    field r and the plain version, to the bit (a member 1000x smaller,
+    an all-zero one; odd N takes the scalar path); one count a call."""
+    U = _members(N, R, torch.float64, card)[0]
+    U[1] *= 1e-3
+    U[-1] = 0.0
+    K.reset_launches()
+    for n in range(1, 9):
+        got, scale = K.slice_field_members(U, n)
+        want, wscale = K.slice_field_members_ref(U, n)
+        assert got.shape == (n, R, N, N) and got.dtype == torch.int8
+        assert torch.equal(got, want) and torch.equal(scale, wscale), n
+        for r in range(R):
+            s, sc = K.slice_field(U[r].clone(), n)
+            assert torch.equal(got[:, r], s) and float(scale[r]) == float(sc)
+    assert K.launches['slice_field_members'] == 8
+    assert float(scale[-1]) == 2.0 ** -90 and not got[:, -1].any()
+
+
 def test_member_wrappers_refuse_what_the_kernels_do_not_take(card):
     U, A0s, A1s = _members(16, 2, torch.float64, card)
     with pytest.raises(ValueError, match='A0s'):
@@ -686,7 +708,7 @@ def test_member_wrappers_refuse_what_the_kernels_do_not_take(card):
         K.absdev_sum_members(U.transpose(1, 2), U.mean((1, 2)))
 
 
-@pytest.mark.parametrize('transform', ['matmul', 'split', 'fft'])
+@pytest.mark.parametrize('transform', ['matmul', 'split', 'fft', 'ozaki'])
 def test_ensemble_on_card_matches_single_runs(card, transform):
     from chsimpy_tpu_torch.ensemble import EnsembleSolver
     pairs = np.array([[PHYS['A0'] * f, PHYS['A1'] / f]
@@ -699,6 +721,11 @@ def test_ensemble_on_card_matches_single_runs(card, transform):
     sols = ens.solve_or_resume(40)
     assert K.launches['chemical_potential_members'] == 39
     assert K.launches['stats_sums_members'] == 40
+    # the ozaki route (level-1 fold): K5_members twice at entry and three
+    # times a step, the single-field K5 never
+    assert K.launches['slice_field_members'] == \
+        (2 + 3 * 39 if transform == 'ozaki' else 0)
+    assert K.launches['slice_field'] == 0
     for (A0, A1), s in zip(pairs, sols):
         ref = Simulator(Parameters(device='cuda', A0_const=float(A0),
                                    A1_const=float(A1), **kw)).solve()

@@ -25,6 +25,7 @@ from chsimpy_tpu import experiment as jexp
 import chsimpy_tpu_torch as ctt
 from chsimpy_tpu_torch import checkpoint as tck
 from chsimpy_tpu_torch import ensemble, experiment as texp, material
+from test_torch_ensemble_ozaki import STOP_DRIFT
 
 torch.set_num_threads(2)
 
@@ -112,6 +113,34 @@ def test_experiment_files_equal_jax(case, tmp_path, monkeypatch):
     assert all(0 < t < 60 for t in tau0)      # every member stopped
     if case == 'file_source':
         assert rows[1].endswith(',0,,')       # None factors: empty cells
+
+
+@pytest.mark.parametrize('source', ['sobol', 'uniform'])
+def test_ozaki_experiment_files_equal_jax(source, tmp_path, monkeypatch):
+    """``--transform ozaki`` (float64, the member-batched route): the
+    results, the aggregate and every per-run YAML byte-equal to the JAX
+    package's.  Each member's E2 is held to the drift the two packages'
+    single ozaki runs show at this stiff delt (STOP_DRIFT,
+    tests/test_torch_ensemble_ozaki.py)."""
+    argv = RUN + ['-R', '2', '--A-source', source, '-K', repr(KAPPA),
+                  '--precision', 'float64', '--transform', 'ozaki', '-f',
+                  'uq']
+    port = _port(argv, str(tmp_path / 'port'), monkeypatch)
+    jax_ = _jax(argv, str(tmp_path / 'jax'), monkeypatch)
+    assert sorted(port) == sorted(jax_)
+    runs = sorted(f for f in port if f.endswith('.yaml'))
+    assert len(runs) == 2
+    for name, data in port.items():
+        if name.endswith('E2.csv'):
+            a, b = (np.loadtxt(str(tmp_path / d / name))
+                    for d in ('port', 'jax'))
+            assert a.shape == b.shape
+            assert np.max(np.abs(a / b - 1)) <= STOP_DRIFT[0], name
+        elif not name.endswith('metadata.csv'):
+            assert data == jax_[name], name
+    rows = port['uq-results.csv'].decode().splitlines()
+    tau0 = [int(r.split(',')[7]) for r in rows[1:]]
+    assert all(0 < t < 60 for t in tau0)      # every member stopped
 
 
 def test_host_pool_gives_the_same_bytes(tmp_path, monkeypatch):
@@ -218,7 +247,6 @@ def test_aggregate_equals_pandas(kind, tmp_path, monkeypatch):
     (['--process-id', '0'], 11),
     (['--live-view'], 13),
     (['--png'], 13),
-    (['--transform', 'ozaki'], 10),
 ])
 def test_refusals_name_their_items(flags, item, capsys):
     with pytest.raises(SystemExit):

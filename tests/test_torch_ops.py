@@ -221,6 +221,8 @@ def test_import_brings_in_no_jax():
             "import chsimpy_tpu_torch.ops.cuda_build\n"
             "import chsimpy_tpu_torch.benchmarks.dct_bench\n"
             "import chsimpy_tpu_torch.benchmarks.bench\n"
+            "import chsimpy_tpu_torch.benchmarks.ozaki_profile\n"
+            "import chsimpy_tpu_torch.experiment\n"
             "import chsimpy_tpu_torch.ops.sobol, chsimpy_tpu_torch.noise\n"
             "import chsimpy_tpu_torch.parallel.workers\n"
             "import chsimpy_tpu_torch.ensemble, chsimpy_tpu_torch.checkpoint\n"
