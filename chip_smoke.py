@@ -194,7 +194,32 @@ Phases (each raises on failure, so the script exits nonzero):
    1e-12, E2 within 1e-10 plus TPU64_E2_OWN_REL), K5_members on its
    path; wall, solve and host-pipeline seconds;
    (e) ``benchmarks/ozaki_profile.py`` at N=4096: ms of the prefixes
-   P1-P4 (slice, + stage-1 products, + renorm, the full forward).
+   P1-P4 (slice, + stage-1 products, + renorm, the full forward);
+13. the live loop of the views (``Simulator``'s chunked solve, the
+   experiment's live view), with a stand-in view class patched over
+   ``viz.plotview.PlotView`` and ``viz.mapview.MapView`` (the card's
+   machine has no matplotlib; it records each refresh's host arrays and
+   titles and writes a small file in ``render_to``):
+   (a) the canonical run through ``Simulator.solve`` with ``png``,
+   ``no_gui`` and ``update_every=100``: stop at 1674 with the golden
+   anchors, its rows and U equal to the bit to a Solver resumed at the
+   same 100-step boundaries, one refresh per chunk (17), one host copy of
+   U per refresh shared by the panels, one ``render_to``; K1-K4 launched
+   on every step of it;
+   (b) N=4096 float32 matmul ``full_sim`` after 256 warm-up steps: steps/s
+   of 1024 steps as one ``solve_or_resume`` and through the live loop
+   with a refresh every 256 steps, in turns (live, straight, live), and
+   the host time of one ``push_solution_view`` (its one copy of U);
+   (c) the canonical R=16 batch of phase 10 (b) with the experiment's
+   live-view hook and chunk (``update_every`` 100) beside the batch at
+   chunk 1024: every member's stop, rows and final U to the bit, the
+   member-0 previews 512² host arrays, member-steps/s and step
+   iterations of both, the batched kernels launched once a step
+   iteration;
+   (d) ``python -m chsimpy_tpu_torch -N 64 -n 10 --png`` in a subprocess
+   (started first, read after (a)): without matplotlib it exits nonzero
+   with an error naming matplotlib and --no-gui and writes no PNG; with
+   matplotlib it says so and must write the PNG.
    Phase 3's kernel window is bracketed by nvidia-smi's SM clock,
    temperature and power draw.
 
@@ -209,8 +234,8 @@ measurement also goes to DIR/chip_smoke.json.
     python3 chip_smoke.py --kernels-only
 
 runs phases 1-3 and the kernel parts of 6-12 ((a); (a)-(b) of 8; K9
-and K10 of 9; (a) of 10 and 12) only, and prints the kernels' table
-instead of the two last lines.
+and K10 of 9; (a) of 10 and 12) only (phase 13 has no kernel of its own),
+and prints the kernels' table instead of the two last lines.
 """
 
 from __future__ import annotations
@@ -3311,6 +3336,391 @@ def ozaki_ensemble_phase(dev, card, matmul_batch):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 13: the live loop on the card (the views' chunked solve)
+# ----------------------------------------------------------------------
+
+# (b): N=4096 float32 matmul full_sim: warm-up steps, the window, the live
+# loop's refresh cadence in it, and the windows' order
+LIVE_WARM, LIVE_WINDOW, LIVE_EVERY = 256, 1024, 256
+LIVE_TURNS = ('live', 'straight', 'live')
+# (a), (c): the refresh cadence of the canonical run and batch
+LIVE_CANONICAL_EVERY = 100
+
+
+class StandInView:
+    """A view without matplotlib (the card's machine has none), patched
+    over ``viz.plotview.PlotView`` and ``viz.mapview.MapView``: it keeps
+    each refresh's titles and the shape and identity of the host arrays
+    it was handed, and ``render_to`` writes a small JSON file."""
+    made = []
+
+    def __init__(self, N, XXX=None):
+        self.N = N
+        self.refreshes = 0          # draw() calls: one per live chunk
+        self.calls = []             # (panel, id of U or None, title)
+        self.shapes = set()         # shapes and types of the U arrays
+        self.rendered = []
+        StandInView.made.append(self)
+
+    def prepare(self, show=True):
+        pass
+
+    def imode_on(self):
+        pass
+
+    def imode_off(self):
+        pass
+
+    def imode_default(self):
+        pass
+
+    def show(self, block=False):
+        pass
+
+    def finish(self):
+        pass
+
+    def draw(self):
+        self.refreshes += 1
+
+    def render_to(self, fname):
+        with open(fname, 'w') as f:
+            json.dump({'refreshes': self.refreshes,
+                       'titles': [c[2] for c in self.calls[-6:]]}, f)
+        self.rendered.append(fname)
+
+    def _keep(self, panel, U, title):
+        if U is not None:
+            self.shapes.add((type(U).__module__, type(U).__name__,
+                             tuple(U.shape)))
+        self.calls.append((panel, None if U is None else id(U), title))
+
+    def set_Umap(self, U, threshold, title):
+        self._keep('Umap', U, title)
+
+    def set_Uline(self, U, title):
+        self._keep('Uline', U, title)
+
+    def set_Eline(self, E, it_range, title, computed_steps):
+        self._keep('Eline', None, title)
+
+    def set_Eline_delt(self, E, it_range, delt, title, computed_steps):
+        self._keep('Eline', None, title)
+
+    def set_SAlines(self, domtime, SA, title, computed_steps, x2, t0):
+        self._keep('SAlines', None, title)
+
+    def set_E2line(self, E2, it_range, title, computed_steps, tau0, t0):
+        self._keep('E2line', None, title)
+
+    def set_Uhist(self, U, title):
+        self._keep('Uhist', U, title)
+
+    def copies_per_refresh(self) -> set:
+        """The number of distinct U arrays in each refresh of the six
+        panels (one host copy: {1})."""
+        out = set()
+        for k in range(0, len(self.calls) - 5, 6):
+            ids = {c[1] for c in self.calls[k:k + 6] if c[1] is not None}
+            out.add(len(ids))
+        return out
+
+
+class stand_in_views:
+    """Context manager: ``StandInView`` in place of both view classes."""
+
+    def __enter__(self):
+        from chsimpy_tpu_torch.viz import mapview, plotview
+        self.saved = (plotview, plotview.PlotView, mapview, mapview.MapView)
+        plotview.PlotView = mapview.MapView = StandInView
+        StandInView.made = []
+        return StandInView
+
+    def __exit__(self, *exc):
+        plotview, pv, mapview, mv = self.saved
+        plotview.PlotView, mapview.MapView = pv, mv
+        return False
+
+
+def start_no_fallback(work):
+    """(d), started first and read after (a): the CLI with --png and the
+    GUI on a machine without matplotlib must fail and name it."""
+    env = dict(os.environ, PYTHONPATH=ROOT, MPLBACKEND='Agg')
+    return subprocess.Popen(
+        [sys.executable, '-m', 'chsimpy_tpu_torch', '-N', '64', '-n', '10',
+         '--png', '-K', repr(KAPPA)], cwd=work, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_no_fallback(proc, work):
+    import importlib.util
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    pngs = sorted(f for f in os.listdir(work) if f.endswith('.png'))
+    has_mpl = importlib.util.find_spec('matplotlib') is not None
+    res = {'matplotlib_importable': has_mpl, 'returncode': proc.returncode,
+           'pngs': pngs, 'error_tail': err.strip().splitlines()[-1:]}
+    print(f"live (d) --png without matplotlib: {json.dumps(res)}",
+          flush=True)
+    if has_mpl:
+        print("live (d): matplotlib is importable on this machine: the "
+              "run must write its PNG", flush=True)
+        check(proc.returncode == 0 and len(pngs) == 1,
+              f"live (d): exit {proc.returncode}, PNGs {pngs}:\n{err}")
+    else:
+        check(proc.returncode != 0 and 'matplotlib' in err
+              and '--no-gui' in err and not pngs,
+              f"live (d): exit {proc.returncode}, PNGs {pngs}, the error "
+              f"does not name matplotlib and --no-gui:\n{out}\n{err}")
+    return res
+
+
+def check_live_anchors(tag, sol, g):
+    """The golden anchors of the canonical run (phase 4's bounds)."""
+    import numpy as np
+    td = sol.timedata.data()
+    check(sol.computed_steps == g['computed_steps'] == 1674
+          and sol.stop_reason == g['stop_reason'] == 'energy'
+          and sol.tau0 == g['tau0'],
+          f"{tag}: stop {sol.computed_steps} ({sol.stop_reason}), tau0 "
+          f"{sol.tau0}")
+    check(abs(sol.t0 / g['t0'] - 1) <= 1e-12, f'{tag}: t0 outside 1e-12')
+    check(abs(td[0, 1] / g['E_first'] - 1) <= 1e-12,
+          f'{tag}: E_first outside 1e-12')
+    check(abs(td[-1, 1] / g['E_last'] - 1) <= 1e-10,
+          f'{tag}: E_last outside 1e-10')
+    rel = float(np.max(np.abs(td[::100, 1] / np.asarray(g['E_every_100'])
+                              - 1)))
+    check(rel <= 1e-10, f'{tag}: E_every_100 outside 1e-10')
+    check(int(td[:, 2].argmax()) == g['argmax_E2'],
+          f'{tag}: argmax E2 differs')
+    return rel
+
+
+def live_canonical(work):
+    """(a) the canonical run through ``Simulator.solve`` with ``png``,
+    ``no_gui`` and ``update_every=100``: the stop and the anchors, the
+    rows and U of a Solver resumed at the same boundaries to the bit, one
+    refresh per chunk and one ``render_to``."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters, Simulator, Solver
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    with open(os.path.join(ROOT, 'tests', 'golden',
+                           'default_n512_anchors.json')) as f:
+        g = json.load(f)
+    every = LIVE_CANONICAL_EVERY
+    p = Parameters(no_gui=True, png=True, update_every=every,
+                   device='cuda', kappa_tilde=KAPPA,
+                   file_id=os.path.join(work, 'live'))
+    with stand_in_views():
+        sim = Simulator(p)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        sol = sim.solve()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(K.launches)
+        sim.render()
+    view = sim.view
+    tag = 'live (a) canonical run, update_every 100'
+    rel = check_live_anchors(tag, sol, g)
+    ref = Solver(Parameters(no_gui=True, device='cuda', kappa_tilde=KAPPA))
+    ref.prepare()
+    while ref.solution.stop_reason == 'None':
+        ref.solve_or_resume(every)
+    same_rows = np.array_equal(sol.timedata.data(),
+                               ref.solution.timedata.data())
+    same_U = bool(torch.equal(sol.U, ref.solution.U))
+    chunks = -(-sol.computed_steps // every)
+    res = {'computed_steps': sol.computed_steps,
+           'stop_reason': sol.stop_reason, 'tau0': sol.tau0,
+           'E_every_100_max_rel': rel, 'seconds': seconds,
+           'steps_per_s': (sol.computed_steps - 1) / seconds,
+           'refreshes': view.refreshes, 'chunks': chunks,
+           'rendered': [os.path.basename(f) for f in view.rendered],
+           'arrays': sorted(map(str, view.shapes)),
+           'copies_per_refresh': sorted(view.copies_per_refresh()),
+           'rows_equal_resumed': same_rows, 'U_equal_resumed': same_U,
+           'launches': launches}
+    print(f"{tag}: {json.dumps(res)}", flush=True)
+    check(same_rows and same_U,
+          f"{tag}: rows equal {same_rows}, U equal {same_U} to the Solver "
+          f"resumed every {every} steps")
+    check(view.refreshes == chunks == 17,
+          f"{tag}: {view.refreshes} refreshes for {chunks} chunks (17)")
+    check(len(view.rendered) == 1 and os.path.exists(view.rendered[0]),
+          f"{tag}: render_to {view.rendered}")
+    check(view.shapes == {('numpy', 'ndarray', (512, 512))}
+          and view.copies_per_refresh() == {1},
+          f"{tag}: the panels got {view.shapes}, "
+          f"{view.copies_per_refresh()} copies a refresh")
+    for name in MATMUL_PATH:
+        check(launches[name] >= sol.computed_steps - 1,
+              f"{tag}: {name} launched {launches[name]} times in "
+              f"{sol.computed_steps} steps")
+    return res
+
+
+def live_rate(card, work):
+    """(b) N=4096 float32 matmul full_sim after LIVE_WARM steps: steps/s
+    of LIVE_WINDOW steps as one solve_or_resume and through the live loop
+    (a refresh every LIVE_EVERY steps), in turns; the host time of one
+    push_solution_view (its one copy of U)."""
+    import torch
+    from chsimpy_tpu_torch import Parameters, Simulator
+    from chsimpy_tpu_torch.simulator import (push_solution_view,
+                                             solution_time_total)
+
+    p = Parameters(N=4096, precision='float32', full_sim=True,
+                   generator='uniform', kappa_tilde=KAPPA, chunk_size=1024,
+                   no_gui=True, png=True, update_every=LIVE_EVERY,
+                   ntmax=LIVE_WINDOW, device='cuda',
+                   file_id=os.path.join(work, 'rate'))
+    rates = {'straight': [], 'live': []}
+    with stand_in_views():
+        sim = Simulator(p)
+        solver = sim.solver
+        solver.prepare()
+        solver.solve_or_resume(LIVE_WARM)
+        for turn in LIVE_TURNS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if turn == 'straight':
+                solver.solve_or_resume(LIVE_WINDOW)
+            else:
+                sim.steps_total = 0
+                sim._live_solve()
+            torch.cuda.synchronize()
+            rates[turn].append(LIVE_WINDOW / (time.perf_counter() - t0))
+        push_ms = []
+        sol = solver.solution
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            push_solution_view(sim.view, p, sol, solution_time_total(p, sol))
+            push_ms.append((time.perf_counter() - t0) * 1e3)
+    view = sim.view
+    ratio = statistics.mean(rates['live']) / statistics.mean(
+        rates['straight'])
+    refreshes = sum(t == 'live' for t in LIVE_TURNS) * (LIVE_WINDOW
+                                                       // LIVE_EVERY)
+    res = {'N': 4096, 'dtype': 'float32', 'warm': LIVE_WARM,
+           'window': LIVE_WINDOW, 'update_every': LIVE_EVERY,
+           'turns': list(LIVE_TURNS), 'steps_per_s': rates,
+           'live_over_straight': ratio, 'push_solution_view_ms': push_ms,
+           'refreshes': view.refreshes,
+           'computed_steps': sol.computed_steps}
+    print(f"live (b) N=4096 float32: steps/s straight "
+          f"{rates['straight']}, live (refresh every {LIVE_EVERY}) "
+          f"{rates['live']}, live/straight {ratio:.4f}; one "
+          f"push_solution_view {push_ms} ms  ({card})", flush=True)
+    check(view.refreshes == refreshes,
+          f"live (b): {view.refreshes} refreshes, {refreshes} expected")
+    check(sol.computed_steps == LIVE_WARM + LIVE_WINDOW * len(LIVE_TURNS),
+          f"live (b): {sol.computed_steps} steps")
+    check(bool(torch.isfinite(sol.U).all()), 'live (b): the field')
+    check(view.shapes == {('numpy', 'ndarray', (4096, 4096))},
+          f"live (b): the panels got {view.shapes}")
+    del sim, solver, sol
+    torch.cuda.empty_cache()
+    return res
+
+
+def live_batch(card):
+    """(c) the canonical R=16 N=512 float64 batch with the experiment's
+    live-view hook and its chunk (update_every = 100), beside the batch at
+    chunk 1024: every member's stop, rows and U to the bit; the member-0
+    previews are 512² host arrays; member-steps/s and step iterations."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters
+    from chsimpy_tpu_torch import experiment as texp
+    from chsimpy_tpu_torch.ensemble import EnsembleSolver
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    pairs = canonical_pairs()
+    p = Parameters(no_gui=True, device='cuda',
+                   update_every=LIVE_CANONICAL_EVERY)
+    _, sols_ref, rate_ref, launches_ref = _ensemble_run(
+        p, pairs, CANONICAL_KAPPAS)
+    with stand_in_views():
+        view = texp.make_live_view(p)
+        hook = texp.live_view_hook(view, p)
+        ens = EnsembleSolver(p.deepcopy(), pairs,
+                             kappas=np.asarray(CANONICAL_KAPPAS))
+        ens.chunk_size = texp.live_chunk_size(ens.chunk_size,
+                                              p.update_every)
+        ens.prepare()
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        sols = ens.solve_or_resume(None, on_chunk=hook)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(K.launches)
+    rate = sum(s.computed_steps - 1 for s in sols) / seconds
+    same = [s.computed_steps == r.computed_steps
+            and s.stop_reason == r.stop_reason
+            and np.array_equal(s.timedata.data(), r.timedata.data())
+            and bool(torch.equal(s.U, r.U))
+            for s, r in zip(sols, sols_ref)]
+    it_live = launches['chemical_potential_members']
+    it_ref = launches_ref['chemical_potential_members']
+    res = {'R': 16, 'N': 512, 'dtype': 'float64',
+           'chunk': ens.chunk_size, 'stops': [s.computed_steps for s in sols],
+           'members_equal_chunk_1024': sum(same),
+           'member_steps_per_s': {'live_chunk_100': rate,
+                                  'chunk_1024': rate_ref},
+           'step_iterations': {'live_chunk_100': it_live,
+                               'chunk_1024': it_ref},
+           'refreshes': view.refreshes,
+           'previews': sorted(map(str, view.shapes)),
+           'launches': launches}
+    print(f"live (c) canonical batch with the live view: "
+          f"{json.dumps(res)}  ({card})", flush=True)
+    check(all(same), f"live (c): members equal to the chunk-1024 run "
+                     f"{same}")
+    check(view.shapes == {('numpy', 'ndarray', (512, 512))}
+          and view.refreshes == len(view.calls) == -(-it_live // 100),
+          f"live (c): previews {view.shapes}, {view.refreshes} refreshes "
+          f"for {it_live} step iterations")
+    for name, single in MEMBER_KERNELS.items():
+        check(launches[name] == it_live and launches[single] == 0,
+              f"live (c): {name} launched {launches[name]} times in "
+              f"{it_live} step iterations, {single} {launches[single]}")
+    del ens, sols, sols_ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def live_phase(card):
+    """Phase 13: (d) started, (a), (d) read, (b), (c)."""
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix='chip_smoke_live_')
+    cli_dir = os.path.join(work, 'cli')
+    os.makedirs(cli_dir)
+    proc = start_no_fallback(cli_dir)
+    try:
+        out = {'canonical': live_canonical(work)}
+        out['no_fallback'] = finish_no_fallback(proc, cli_dir)
+        out['rate'] = live_rate(card, work)
+        out['batch'] = live_batch(card)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def gpu_clocks():
     """The card's SM clock, temperature and power draw (nvidia-smi)."""
     proc = subprocess.run(
@@ -3543,6 +3953,7 @@ def main(argv=None) -> int:
     detail['experiment'] = timed(11, experiment_phase, card)
     detail['ozaki_ensemble'] = timed(12, ozaki_ensemble_phase, dev, card,
                                      detail['ensemble']['canonical'])
+    detail['live'] = timed(13, live_phase, card)
     print('phase seconds: ' + ', '.join(
         f"{k} {v:.1f}" for k, v in detail['phase_seconds'].items()),
         flush=True)

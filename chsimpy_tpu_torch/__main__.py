@@ -1,14 +1,16 @@
 #!/usr/bin/env python
 """``python -m chsimpy_tpu_torch`` — single-run CLI entry point.
 
-Parse flags, run the simulation, export the requested files, print the
-run summary and, for a run on the card, how often each kernel was
-launched.
+Parse flags, run the simulation (with the live view unless ``--no-gui``),
+render the PNG and export the requested files, print the run summary and,
+for a run on the card, how often each kernel was launched; then keep the
+plot window open when the GUI was asked for.
 
 With ``--mesh MxN`` the run is one rank of a grid-sharded world: start
 M*N of them with ``torchrun --standalone --nproc-per-node M*N -m
 chsimpy_tpu_torch --mesh MxN ...``.  Each joins the process group torchrun
-describes; only rank 0 prints (its launch counts are its own block's)."""
+describes and runs the live loop's chunks; only rank 0 draws, writes and
+prints (its launch counts are its own block's)."""
 
 from __future__ import annotations
 
@@ -52,10 +54,13 @@ def main(argv=None):
         kernels.reset_launches()
         solution = simulator.solve()
         if lead:
+            simulator.render()
             simulator.export()
             print(_summarize(simulator, solution))
             if simulator.solver.device.type == 'cuda':
                 print(f"kernel launches: {json.dumps(kernels.launches)}")
+            if simulator.gui_requested():
+                simulator.view.show(block=True)
     finally:
         if params.mesh_shape is not None:
             distributed.shutdown()

@@ -20,7 +20,6 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import sys
 import time
 
 import numpy as np
@@ -48,16 +47,15 @@ def parse_bench_args(argv=None):
     group.add_argument('--profile-dir',
                        help='Write a torch.profiler trace of the first '
                             'timed rep into this directory')
-    # a benchmark runs headless: --no-gui, which the port's CLI requires
-    argv = list(sys.argv[1:] if argv is None else argv)
-    if '--no-gui' not in argv:
-        argv.append('--no-gui')
     params = cli.get_parameters(argv)
     args = cli.args
+    params.no_gui = True
     if args.runs < 1:
         cli.parser.error('--runs must be at least 1')
     if args.warmup_ntmax is not None and args.warmup_ntmax > params.ntmax:
         cli.parser.error('--warmup-ntmax must not exceed ntmax')
+    if params.png or params.png_anim:
+        cli.parser.error('benchmarks run headless: drop --png/--png-anim')
     opts = {
         'runs': args.runs,
         'warmups': args.warmups,

@@ -143,8 +143,15 @@ FLAGS = [
          'timestamp). Existing files will be OVERWRITTEN!',
          param='file_id', default='auto'),
     Flag(('--no-gui',), 'Output',
-         'Do not show a plot window (required: the live view is not '
-         'ported yet)', param='no_gui', action='store_true'),
+         'Do not show plot window (if --png or --png-anim).',
+         param='no_gui', action='store_true'),
+    Flag(('--png',), 'Output',
+         'Export solution plot to PNG image file (see --file-id).',
+         param='png', action='store_true'),
+    Flag(('--png-anim',), 'Output',
+         'Export live plotting to series of PNGs (--update-every '
+         'required) (see --file-id).', param='png_anim',
+         action='store_true'),
     Flag(('--yaml',), 'Output',
          'Export the solution scalars to a yaml file (see --file-id).',
          param='yaml', action='store_true'),
@@ -154,6 +161,12 @@ FLAGS = [
     Flag(('-C', '--compress-csv'), 'Output',
          'Compress csv files with bz2',
          param='compress_csv', action='store_true'),
+    Flag(('--update-every',), 'Output',
+         'Every n simulation steps data is plotted or rendered (>=2) '
+         '(slowdown).', param='update_every', type=int),
+    Flag(('--no-diagrams',), 'Output',
+         'No diagrams or axes, it only renders the image map of U.',
+         param='no_diagrams', action='store_true'),
     Flag(('--checkpoint-file',), 'Output',
          'Save the full resumable solver state (npz: field, trace, '
          'counters, RNG stream position) here at the end of the run '
@@ -174,10 +187,6 @@ _LATER = [
      'the TPU tuning knob --fwd-matmul-precision', 14),
     (('--inv-band',), 1, 'the TPU tuning knob --inv-band', 14),
     (('--otf-coeffs',), 1, 'the TPU tuning knob --otf-coeffs', 14),
-    (('--png',), 0, 'the live view and PNG output', 13),
-    (('--png-anim',), 0, 'the live view and PNG output', 13),
-    (('--update-every',), 1, 'the live view and PNG output', 13),
-    (('--no-diagrams',), 0, 'the live view and PNG output', 13),
 ]
 
 
@@ -189,11 +198,7 @@ def _refusal(message: str) -> type:
 
 
 class CLIParser:
-    """``require_no_gui=False`` is for a caller that forces ``no_gui``
-    itself (the UQ experiment, as the reference forces it there)."""
-
-    def __init__(self, progname='chsimpy-tpu-torch', require_no_gui=True):
-        self.require_no_gui = require_no_gui
+    def __init__(self, progname='chsimpy-tpu-torch'):
         self.parser = argparse.ArgumentParser(
             prog=progname,
             description='Simulation of Phase Separation in Na2O-SiO2 '
@@ -269,6 +274,10 @@ class CLIParser:
                 setattr(params, pflag, (s1, s2))
 
         # cross-flag validation (reference cli_parser.py:146-153)
+        if params.update_every is not None and params.update_every < 2:
+            self.parser.error('--update-every should be >=2')
+        if params.png_anim and params.update_every is None:
+            self.parser.error('--png-anim requires --update-every.')
         if params.export_csv is not None and (
                 params.export_csv == ''
                 or params.export_csv.lower() == 'none'):
@@ -289,10 +298,6 @@ class CLIParser:
         errs = solver_scope_errors(params)
         if errs:
             self.parser.error('; '.join(errs))
-        if self.require_no_gui and not params.no_gui:
-            self.parser.error('the live view is not ported to '
-                              'chsimpy_tpu_torch yet (ROADMAP.md queue A '
-                              'item 13): pass --no-gui')
         return params
 
     def print_info(self):

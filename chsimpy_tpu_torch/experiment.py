@@ -13,18 +13,22 @@ The runs go through :class:`~chsimpy_tpu_torch.ensemble.EnsembleSolver` on
 the run's device (the member-batched K1-K4 on the card, and K5 on the
 float64 ``--transform ozaki`` route), at most
 ``-P/--processes`` members per batch.  The per-member host work (CSV/YAML
-export and the sympy post-processing) runs in a spawn-based process pool
-(:class:`HostPipeline`, ``--host-procs``), overlapped with the next batch's
-solve; its workers never touch the card.  The aggregate is computed on
-numpy (no pandas on the card's machine) and written as pandas' ``to_csv``
-writes it.
+export, the PNG of ``--png`` and the sympy post-processing) runs in a
+spawn-based process pool (:class:`HostPipeline`, ``--host-procs``),
+overlapped with the next batch's solve; its workers never touch the card.
+The aggregate is computed on numpy (no pandas on the card's machine) and
+written as pandas' ``to_csv`` writes it.  ``--live-view`` shows member
+0's field, cut to at most 512 pixels a side on the card before the copy,
+about every ``--update-every`` steps: the batch's chunk shrinks to that,
+which changes no member's bits.
 
 Refused, each naming its ROADMAP.md queue A item: ``--coordinator``,
 ``--num-processes`` and ``--process-id`` (the multi-process 'ens' mesh,
-item 11), ``--live-view`` and ``--png`` (item 13).  The JAX package's
-four-wide batch clamp for float64 ozaki (``_resolve_batch_width``) guards
-a TPU compiler fault and has no counterpart: the auto width is
-:func:`_auto_batch_width`'s on every route.
+item 11).  ``--png-anim`` is refused as in the JAX package.  The JAX
+package's four-wide batch clamp for float64 ozaki
+(``_resolve_batch_width``) guards a TPU compiler fault and has no
+counterpart: the auto width is :func:`_auto_batch_width`'s on every
+route.
 
     python -m chsimpy_tpu_torch.experiment -R 16 --A-source sobol -N 512 \\
         --cinit 0.89 --threshold 0.89 --export-csv E2 -f uq
@@ -65,6 +69,7 @@ class ExperimentParams:
         self.independent = False
         self.A_source = 'uniform'
         self.A_seed = None
+        self.live_view = False
         self.host_procs = -1
 
 
@@ -77,14 +82,12 @@ _LATER = [
      'the multi-process experiment (--num-processes)', 11),
     (('--process-id',), 1, 'the multi-process experiment (--process-id)',
      11),
-    (('--live-view',), 0, 'the live view of the experiment', 13),
 ]
 
 
 class ExperimentCLIParser:
     def __init__(self):
-        self.cliparser = CLIParser('chsimpy-tpu-torch (experiment)',
-                                   require_no_gui=False)
+        self.cliparser = CLIParser('chsimpy-tpu-torch (experiment)')
         parser = self.cliparser.parser
         group = parser.add_argument_group('Experiment')
         group.add_argument('-R', '--runs', default=3, type=int,
@@ -108,10 +111,15 @@ class ExperimentCLIParser:
                                 '(if --A-source is not file-based)')
         group.add_argument('--host-procs', default=-1, type=int,
                            help='Worker processes for the per-member host '
-                                'pipeline (CSV/YAML export, sympy '
-                                'post-processing), overlapped with the '
-                                'device solve. -1 = one per CPU, 0/1 = '
+                                'pipeline (CSV/YAML export, PNG render, '
+                                'sympy post-processing), overlapped with '
+                                'the device solve. -1 = one per CPU, 0/1 = '
                                 'synchronous')
+        group.add_argument('--live-view', action='store_true',
+                           help='Live map of ensemble member 0, refreshed '
+                                'about every --update-every steps (beyond-'
+                                'reference: the reference forces no-gui in '
+                                'experiments)')
         for names, nargs, what, item in _LATER:
             group.add_argument(*names, nargs=nargs,
                                action=_refusal(not_ported(what, item)),
@@ -136,6 +144,11 @@ class ExperimentCLIParser:
             params.compress_csv = args.compress_csv
         if exp_params.runs < 1:
             parser.error('ERROR: --runs must be at least 1.')
+        if params.png_anim:
+            parser.error('ERROR: --png-anim is not allowed.')
+        exp_params.live_view = args.live_view
+        if exp_params.live_view and params.update_every is None:
+            parser.error('ERROR: --live-view requires --update-every.')
         errs = ensemble_scope_errors(params)
         if errs:
             parser.error('; '.join(errs))
@@ -226,6 +239,15 @@ def export_member(params, sol: Solution, file_id: str):
                                         fname=f"{fname_sol}.{member}.{fext}")
 
 
+def render_member(params, sol: Solution, file_id: str):
+    """Per-run PNG render when ``--png`` is set (the reference renders every
+    experiment run, ``chsimpy/experiment.py:104-109``)."""
+    if not params.png:
+        return
+    from .simulator import render_solution_png
+    render_solution_png(params, sol, f"{file_id}.png")
+
+
 def _host_pool_init():
     """Worker initializer: mark the process (see :func:`run_experiment_batch`)
     and hide the cards from it, so a worker never initializes CUDA; it
@@ -246,9 +268,11 @@ def _host_pool_warmup():
 
 
 def _host_member_task(rp, sol, run_id, fac_A0, fac_A1):
-    """The per-member host pipeline: export, then the sympy post-processing
-    (the reference's pool worker, ``chsimpy/experiment.py:104-126``)."""
+    """The per-member host pipeline: export, render, then the sympy
+    post-processing (the reference's pool worker,
+    ``chsimpy/experiment.py:104-126``)."""
     export_member(rp, sol, rp.file_id)
+    render_member(rp, sol, rp.file_id)
     return postprocess_member(rp, sol, run_id, fac_A0, fac_A1)
 
 
@@ -361,6 +385,41 @@ def _json_rows(rows):
     return [[conv(v) for v in r] for r in rows]
 
 
+# the live view's preview: at most this many pixels a side
+LIVE_VIEW_PIXELS = 512
+
+
+def make_live_view(params):
+    """The ``--live-view`` window: a shown, interactive ``MapView``."""
+    from .viz.mapview import MapView
+    view = MapView(params.N)
+    view.prepare(show=True)
+    view.imode_on()
+    view.show()
+    return view
+
+
+def live_view_hook(view, params):
+    """``on_chunk`` hook that draws member 0's field in ``view``, every
+    ``ceil(N / LIVE_VIEW_PIXELS)``-th row and column taken on the card
+    before the copy, so a refresh moves at most 512² values, not N²."""
+    stride = -(-params.N // LIVE_VIEW_PIXELS)
+
+    def on_chunk(ens, states):
+        U0 = states.U[0, ::stride, ::stride].cpu().numpy()
+        step = int(states.computed_steps[0])
+        view.set_Umap(U0, params.threshold, title=f"member 0 | step {step}")
+        view.draw()
+    return on_chunk
+
+
+def live_chunk_size(chunk_size: int, update_every: int) -> int:
+    """The batch's chunk under the live view: at most ``update_every``
+    steps, so the view refreshes about that often (the chunk size never
+    shows in the members' bits)."""
+    return max(1, min(chunk_size, update_every))
+
+
 def run_experiment_batch(init_params, exp_params, A_list=None, U_init=None,
                          progress=True):
     """Run the full ensemble; returns the results rows in run order."""
@@ -422,6 +481,19 @@ def run_experiment_batch(init_params, exp_params, A_list=None, U_init=None,
         seed_rows = [tuple(r) for r in extra['results']]
         resume_start = int(extra['start'])
 
+    live_view = getattr(exp_params, 'live_view', False)
+    if init_params.png or live_view:
+        # before the solve, not in the first member's render after it
+        from .viz.base import require_matplotlib
+        require_matplotlib()
+    view = on_chunk = None
+    if live_view:
+        if not init_params.update_every:
+            raise ValueError("live_view requires update_every (the CLI "
+                             "enforces this; programmatic callers too)")
+        view = make_live_view(init_params)
+        on_chunk = live_view_hook(view, init_params)
+
     sink = HostPipeline(getattr(exp_params, 'host_procs', -1),
                         seed_rows=seed_rows)
     pbar = None
@@ -436,18 +508,22 @@ def run_experiment_batch(init_params, exp_params, A_list=None, U_init=None,
     try:
         return _run_batches(init_params, sink, A_pairs, facs, A_list,
                             U_init, nr_items, width, resume_start,
-                            resumed_ens, plan_digest, pbar)
+                            resumed_ens, plan_digest, pbar, on_chunk)
     finally:
         sink.close()
         if pbar is not None:
             pbar.close()
+        if view is not None:
+            view.finish()
 
 
 def _run_batches(init_params, sink, A_pairs, facs, A_list, U_init,
                  nr_items, width, resume_start, resumed_ens, plan_digest,
-                 pbar):
+                 pbar, on_chunk=None):
     """The batch loop of :func:`run_experiment_batch`: solve each batch,
-    hand every finished member to the host pipeline ``sink``."""
+    hand every finished member to the host pipeline ``sink``.  With the
+    live view's ``on_chunk`` the chunk shrinks to ``update_every`` and the
+    checkpoint hook calls it first."""
     file_id = init_params.file_id
     ckpt_file = init_params.checkpoint_file
     ckpt_every = init_params.checkpoint_every
@@ -460,11 +536,14 @@ def _run_batches(init_params, sink, A_pairs, facs, A_list, U_init,
                 pbar.update(stop - start)
             continue
 
-        hook = None
+        hook = on_chunk
         if ckpt_file and ckpt_every:
             last_saved = [0]
 
-            def hook(ens_, states, _start=start, _last=last_saved):
+            def hook(ens_, states, _start=start, _prev=on_chunk,
+                     _last=last_saved):
+                if _prev is not None:
+                    _prev(ens_, states)
                 c = int(states.computed_steps.max())
                 if c - _last[0] >= ckpt_every:
                     from .checkpoint import save_ensemble_checkpoint
@@ -481,6 +560,9 @@ def _run_batches(init_params, sink, A_pairs, facs, A_list, U_init,
         if start == resume_start and resumed_ens is not None:
             # finish the interrupted batch in place
             ens = resumed_ens
+            if on_chunk is not None:
+                ens.chunk_size = live_chunk_size(ens.chunk_size,
+                                                 init_params.update_every)
             c0 = int(ens._states.computed_steps.max())
             remaining = max(init_params.ntmax - c0, 0)
             sols = ens.solve_or_resume(remaining, on_chunk=hook,
@@ -489,6 +571,10 @@ def _run_batches(init_params, sink, A_pairs, facs, A_list, U_init,
             kappas = _member_kappas(init_params, A_pairs[start:stop], sink)
             ens = EnsembleSolver(init_params.deepcopy(), A_pairs[start:stop],
                                  U_init=U_init, kappas=kappas)
+            if on_chunk is not None:
+                # refresh the view about every --update-every steps
+                ens.chunk_size = live_chunk_size(ens.chunk_size,
+                                                 init_params.update_every)
             ens.prepare()
             sols = ens.solve_or_resume(init_params.ntmax, on_chunk=hook)
         on_done = None
@@ -645,6 +731,8 @@ def main(argv=None):
     print(f"  {init_params.file_id}-results.csv")
     print(f"  {{{init_params.file_id}-run***.solution.yaml}}")
     print(f"  {{{init_params.file_id}-run***.solution.*.(csv|bz2)}}")
+    if init_params.png:
+        print(f"  {{{init_params.file_id}-run***.png}}")
 
 
 if __name__ == '__main__':

@@ -130,6 +130,36 @@ def threefry_jitter(mesh, U, key, jitter: float, dtype: str) -> tuple:
     return _np(gather_field(Ub, mesh)), _np(out)
 
 
+def live_solve(mesh, params: dict, file_id: str, update_every: int) -> dict:
+    """The live loop on this world: ``Simulator.solve`` with ``png`` and
+    ``update_every`` (files named from ``file_id``, a path), then
+    ``render``; beside it a Solver of the same world entered at the same
+    boundaries.  Returns whether this rank built a view, both runs' rows
+    and gathered fields, and the loop's chunk count."""
+    p = Parameters(**params)
+    p.mesh_shape = mesh.shape
+    p.dist_backend = mesh.backend
+    p.no_gui, p.png, p.update_every, p.file_id = True, True, update_every, \
+        file_id
+    sim = Simulator(p)
+    sol = sim.solve()
+    sim.render()
+    q = Parameters(**params)
+    q.mesh_shape, q.dist_backend, q.no_gui = mesh.shape, mesh.backend, True
+    ref = Solver(q)
+    ref.prepare()
+    done = 0
+    while done < q.ntmax:
+        k = min(update_every, q.ntmax - done)
+        ref.solve_or_resume(k)
+        done += k
+    return {'view': sim.view is not None, 'steps_total': sim.steps_total,
+            'computed_steps': sol.computed_steps, 'tau0': sol.tau0,
+            'timedata': sol.timedata.data(), 'U': _np(sol.U),
+            'ref_timedata': ref.solution.timedata.data(),
+            'ref_U': _np(ref.solution.U)}
+
+
 def imported(mesh) -> list:
     """The top-level packages this rank has imported (a rank of the
     port imports no jax)."""
@@ -138,7 +168,8 @@ def imported(mesh) -> list:
 
 TASKS = {'solve': solve, 'fused_stats': fused_stats,
          'chemical_potential': chemical_potential, 'dcts': dcts,
-         'threefry_jitter': threefry_jitter, 'imported': imported}
+         'threefry_jitter': threefry_jitter, 'imported': imported,
+         'live_solve': live_solve}
 
 
 def run_tasks(mesh, tasks) -> list:

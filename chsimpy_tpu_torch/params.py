@@ -4,8 +4,8 @@ The same fields and defaults as ``chsimpy_tpu/params.py`` (so a
 ``scalar_dict`` carries across, see convert.py), plus the port's own
 ``device`` and ``dist_backend``.  Fields that select parts of the JAX
 package the port does not run yet keep their defaults;
-:func:`check_solver_scope` and :func:`check_output_scope` refuse any other
-value with an error that names the ROADMAP item that ports it.
+:func:`check_solver_scope` refuses any other value with an error that
+names the ROADMAP item that ports it.
 
 YAML files (``yaml_export_scalars`` / ``yaml_import_scalars``) are the JAX
 package's, byte for byte: the port's own fields stay out of them.
@@ -213,22 +213,8 @@ def solver_scope_errors(p: Parameters) -> list:
     return errs
 
 
-def output_scope_errors(p: Parameters) -> list:
-    """Why the simulator's outputs for ``p`` cannot run yet."""
-    errs = []
-    if not p.no_gui or p.png or p.png_anim:
-        errs.append(not_ported('the live view and PNG output '
-                               '(pass --no-gui)', 13))
-    return errs
-
-
 def check_solver_scope(p: Parameters) -> None:
     errs = solver_scope_errors(p)
     if errs:
         raise NotImplementedError('; '.join(errs))
 
-
-def check_output_scope(p: Parameters) -> None:
-    errs = output_scope_errors(p)
-    if errs:
-        raise NotImplementedError('; '.join(errs))

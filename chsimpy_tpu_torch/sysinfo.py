@@ -1,7 +1,8 @@
 """Host utilities: the file id, human-readable times, the host and device
 descriptions the bench and the experiment write into their files, the
-process's peak memory, and an object's attributes as "key, value"
-lines (``chsimpy_tpu/sysinfo.py``'s, without psutil)."""
+process's peak memory, an object's attributes as "key, value" lines and
+whether the run is in a notebook (``chsimpy_tpu/sysinfo.py``'s, without
+psutil)."""
 
 from __future__ import annotations
 
@@ -36,6 +37,12 @@ def card_line() -> str:
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def get_int_max_value() -> int:
+    """The live loop's step bound when a simulated time limit ends it."""
+    import numpy as np
+    return int(np.iinfo(np.intp).max)
 
 
 def get_mem_usage_all() -> str:
@@ -92,3 +99,16 @@ def get_device_info(device) -> list:
         info = [f"device, {dev.type}"]
     return info + [f"torch, {torch.__version__}",
                    f"cuda, {torch.version.cuda}"]
+
+
+def is_notebook() -> bool:
+    """True inside a Jupyter kernel (the views draw inline there)."""
+    try:
+        from IPython import get_ipython
+    except ImportError:
+        return False
+    try:
+        shell = get_ipython().__class__.__name__
+        return shell == 'ZMQInteractiveShell'
+    except NameError:
+        return False

@@ -18,11 +18,13 @@ Pallas slice kernel runs in interpret mode.  Bounds:
   ``_assert_members_match`` and U to 1e-11 (tests/test_torch_ozaki.py's
   bound for the route);
 * on the stiff stop case (delt = 1.4e-5) the two packages' ozaki traces
-  drift apart after ~20 steps: the transforms' ulps (above) grow there.
-  The port's single runs against the JAX package's pin that drift
-  (STOP_DRIFT); the ensemble is held to the same bound, with E within
-  1e-11 and the same stops, tau0 and t0 (its members are the port's
-  single runs to the bit, (d)).
+  drift apart: the transforms' ulps (above) grow there.  The port's
+  single runs against the JAX package's pin that drift (STOP_DRIFT); the
+  ensemble is held to the same bound, with E within 1e-11 and the same
+  stops, tau0 and t0 (its members are the port's single runs to the bit,
+  (d)).  The drift is the mean's summation order: with the port's mean
+  replaced by ``jnp.mean`` of the same field, the single runs are the
+  JAX runs (U to the bit, E2 within 1e-12).
 """
 
 import dataclasses
@@ -235,6 +237,44 @@ def test_single_ozaki_run_at_the_stop_case_matches_jax(member):
     j = ct.Simulator(jax_params(**one)).solve()
     assert s.computed_steps == [35, 33, 46][member]
     _assert_stop_case_match(s, j)
+
+
+def _jax_mean(U):
+    """``jnp.mean`` of the same field(s) on the JAX CPU backend, the mean
+    the JAX ozaki transforms take, as a tensor: a test hook for the port's
+    ``_mean`` (the route itself keeps ``torch.mean``)."""
+    if U.dim() == 3:
+        return torch.stack([_jax_mean(u) for u in U])
+    m = jnp.mean(jax.device_put(U.numpy(), jax.devices('cpu')[0]))
+    assert m.dtype == jnp.float64
+    return torch.tensor(float(m), dtype=U.dtype)
+
+
+@pytest.mark.parametrize('member', range(len(STOP_FACTORS)))
+def test_stop_drift_is_the_means_summation_order(member, monkeypatch):
+    """The STOP_DRIFT trace (ROADMAP.md queue C): with the port's mean
+    replaced by the JAX package's, the port's single ozaki run of the stop
+    case is the JAX run: the final U to the bit, E2 within 1e-12 at every
+    row (measured <= 2.4e-14: only the statistics sum in another order,
+    1 ulp at row 0 already).  Without the hook the traces part at row 1,
+    the first step's transforms (E2 2.4e-13, 6.7e-14, 3.3e-13 there; the
+    hook's 1.3e-15, 8.9e-16, 1.0e-15), and the stiff step grows that to
+    STOP_DRIFT."""
+    A0, A1 = a_pairs(STOP_FACTORS)[member]
+    one = dict(STOP, A0_const=float(A0), A1_const=float(A1))
+    j = ct.Simulator(jax_params(**one)).solve()
+    s = ctt.Simulator(port_params(**one)).solve()
+    monkeypatch.setattr(to, '_mean', _jax_mean)
+    h = ctt.Simulator(port_params(**one)).solve()
+    _assert_stop_case_match(h, j)
+    assert np.array_equal(h.U.numpy(), np.asarray(j.U))
+    hooked, plain = _route_distance(h, j), _route_distance(s, j)
+    assert hooked[1] == 0.0
+    assert hooked[0] <= 1e-12 < plain[0] and plain[1] > 0, (hooked, plain)
+    # the first step: the hook's rows stay at the statistics' ulps
+    rows = [np.abs(x.timedata.data()[1, 2] / j.timedata.data()[1, 2] - 1)
+            for x in (h, s)]
+    assert rows[0] <= 1e-14 < rows[1], rows
 
 
 def test_ozaki_ensemble_per_member_stop_matches_jax():

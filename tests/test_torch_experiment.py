@@ -245,8 +245,6 @@ def test_aggregate_equals_pandas(kind, tmp_path, monkeypatch):
     (['--coordinator', 'localhost:1234'], 11),
     (['--num-processes', '2'], 11),
     (['--process-id', '0'], 11),
-    (['--live-view'], 13),
-    (['--png'], 13),
 ])
 def test_refusals_name_their_items(flags, item, capsys):
     with pytest.raises(SystemExit):

@@ -214,11 +214,12 @@ def test_cli_reads_a_jax_parameter_file(tmp_path, capsys):
         (16, 7, 'lcg', KAPPA, 'cpu')
     sol = ctt.Simulator(p).solve()
     assert sol.computed_steps == 7
-    # a file that asks for the live view is refused by the port's CLI
-    _jax_params(no_gui=False).yaml_export_scalars(str(f))
-    with pytest.raises(SystemExit):
-        CLIParser().get_parameters(['--no-gui', '-p', str(f)])
-    assert 'item 13' in capsys.readouterr().err
+    # a file that asks for the live view and a PNG: the port's CLI takes
+    # it (item 13 is ported), the file winning over --no-gui
+    _jax_params(no_gui=False, png=True, update_every=20).yaml_export_scalars(
+        str(f))
+    p = CLIParser().get_parameters(['--no-gui', '-p', str(f)])
+    assert (p.no_gui, p.png, p.update_every) == (False, True, 20)
 
 
 def test_cli_exports_read_back(tmp_path, capsys, monkeypatch):

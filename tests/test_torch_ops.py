@@ -200,8 +200,12 @@ def test_solver_refuses_settings_not_ported():
                        mesh_shape=(2, 2), transform_backend='split')
     with pytest.raises(NotImplementedError, match='item 11'):
         ctt.Solver(p)
-    with pytest.raises(NotImplementedError, match='item 13'):
-        ctt.Simulator(ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA))
+    # the default run's view (item 13) is ported: the Simulator takes it
+    import matplotlib
+    matplotlib.use('Agg')
+    sim = ctt.Simulator(ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA))
+    assert sim.gui_requested() and sim.view is not None
+    sim.view._plt.close(sim.view.fig)
 
 
 def test_cuda_without_a_card_raises():
@@ -250,8 +254,12 @@ def test_cli_parses_the_slice_and_refuses_the_rest(capsys):
                                     'sobol', '--jitter-backend', 'device'])
     assert (p.adaptive_time, p.jitter, p.generator, p.jitter_backend) == \
         (True, 0.01, 'sobol', 'device')
-    # item 8's and item 13's flags parse (done), but for the live view
-    # and PNG output
+    # item 8's and item 13's flags parse
+    p = CLIParser().get_parameters(
+        ['--png', '--update-every', '10', '--no-diagrams'])
+    assert (p.no_gui, p.png, p.update_every, p.no_diagrams) == \
+        (False, True, 10, True)
+    assert CLIParser().get_parameters(['--no-gui', '--png']).png
     p = CLIParser().get_parameters(
         ['--no-gui', '--checkpoint-file', 'c.npz', '--checkpoint-every',
          '5', '--export-csv', 'U', '-C', '--yaml', '--restore', 'x',
@@ -266,14 +274,14 @@ def test_cli_parses_the_slice_and_refuses_the_rest(capsys):
                        (['--no-gui', '--export-csv', 'none'],
                         'valid entries'),
                        (['--no-gui', '-C'], 'no --export-csv'),
-                       (['--no-gui', '--png'], 'item 13'),
-                       (['--no-gui', '--update-every', '10'], 'item 13'),
+                       (['--no-gui', '--update-every', '1'], '>=2'),
+                       (['--no-gui', '--png-anim'],
+                        'requires --update-every'),
                        (['--no-gui', '--fold-field'], 'item 14'),
                        (['--no-gui', '--inv-band', '8'], 'item 14'),
                        (['--no-gui', '--kernels', 'pallas'], 'queue B'),
                        (['--no-gui', '--mesh', '2x2', '--restore', 'x'],
-                        'item 11'),
-                       ([], 'item 13')):
+                        'item 11')):
         with pytest.raises(SystemExit) as exc:
             CLIParser().get_parameters(argv)
         assert exc.value.code == 2, argv

@@ -16,6 +16,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -55,14 +56,24 @@ def load(name):
 
 
 @pytest.fixture(scope='module')
-def world_2x2():
+def world_2x2(tmp_path_factory):
+    live = tmp_path_factory.mktemp('live')
     tasks = [('solve', dict(params=dict(SHARDED, precision=prec,
                                         device='cpu')))
              for prec in ('float64', 'float32')] + [('imported', {})]
-    res = spawn_grid(run_tasks, (2, 2), backend='gloo', device='cpu',
-                     args=(tasks,), threads=1, timeout=300)
+    # the live loop: --png --update-every 10, its PNG named by a path
+    tasks.append(('live_solve', dict(
+        params=dict(SHARDED, precision='float64', device='cpu'),
+        file_id=str(live / 'live'), update_every=10)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv('MPLBACKEND', 'Agg')     # the ranks draw headless
+        t0 = time.perf_counter()
+        res = spawn_grid(run_tasks, (2, 2), backend='gloo', device='cpu',
+                         args=(tasks,), threads=1, timeout=300)
     return {'float64': [r[0] for r in res], 'float32': [r[1] for r in res],
-            'imported': [r[2] for r in res]}
+            'imported': [r[2] for r in res], 'live': [r[3] for r in res],
+            'live_files': sorted(os.listdir(live)),
+            'seconds': time.perf_counter() - t0}
 
 
 @pytest.fixture(scope='module')
@@ -124,6 +135,25 @@ def test_a_rank_imports_no_jax(world_2x2):
     for mods in world_2x2['imported']:
         assert 'chsimpy_tpu_torch' in mods
         assert not {'jax', 'jaxlib', 'chsimpy_tpu'} & set(mods), mods
+
+
+def test_live_loop_on_the_world(world_2x2):
+    """--png --update-every 10 on the 2x2 mesh: every rank runs the same
+    chunks (10, 10, 5) and returns the same rows, the world's Solver
+    entered at those boundaries to the bit; rank 0 alone builds the view
+    and writes the PNG; the world ends inside the fixture's timeout."""
+    ranks = world_2x2['live']
+    assert [r['view'] for r in ranks] == [True, False, False, False]
+    assert world_2x2['live_files'] == ['live.png']
+    for r in ranks:
+        assert (r['computed_steps'], r['steps_total']) == (25, 25)
+        assert np.array_equal(r['timedata'], ranks[0]['timedata'])
+        assert np.array_equal(r['U'], ranks[0]['U'])
+        assert np.array_equal(r['timedata'], r['ref_timedata'])
+        assert np.array_equal(r['U'], r['ref_U'])
+        # no energy fall: the last step is tau0, on every rank
+        assert r['tau0'] == 24
+    assert world_2x2['seconds'] < 300
 
 
 def test_sharded_solve_matches_single_device(world_2x2):
