@@ -83,10 +83,12 @@ Phases (each raises on failure, so the script exits nonzero):
    (b) K8 on a block against K1 on the same block: the same bits;
    (c) a 2x2 world of 4 ranks on the card (gloo, collectives staged
    through host memory, as the mesh prints) running the canonical run
-   through ``Simulator.solve``: stop 1674 with the golden anchors, E
-   within 1e-10 of the single-device run at every step, the same rows on
-   every rank, K7 and K8 launched once per step iteration per rank (K7
-   once more for prepare; the JSON line's counts are rank 0's);
+   through the Solver (entered to step 1601 in chunks of 200, saving
+   every 800 steps: the checkpoint phase 14 (e) restores; then again to
+   the stop): stop 1674 with the golden anchors, E within 1e-10 of the
+   single-device run at every step, the same rows on every rank, K7 and
+   K8 launched once per step iteration per rank (K7 once more for
+   prepare; the JSON line's counts are rank 0's);
    (d) the same run through ``torchrun`` and the CLI: rank 0 prints the
    stop line (1674, energy), K7 and K8 launched on every step;
    (e) N=4096 float32 ``full_sim`` over 64 steps in the same world: E
@@ -220,6 +222,43 @@ Phases (each raises on failure, so the script exits nonzero):
    (started first, read after (a)): without matplotlib it exits nonzero
    with an error naming matplotlib and --no-gui and writes no PNG; with
    matplotlib it says so and must write the PNG.
+14. the distributed ensemble, the checkpoint under ``--mesh`` and the
+   multi-process experiment; the worlds' ranks share the one card, so
+   they take the gloo backend (collectives staged through host memory;
+   no scaling figure):
+   (a) K7_members (``local_band_sums_members``: K7 with a member axis)
+   against its plain version (K3's tolerances, the count exact) and,
+   member by member, against the single K7 launch on the member's block,
+   halo and scalars (the same bits), R=4 on block (1, 0) of a 2x2 mesh
+   of N=512 float64 and N=4096 float32 and float64 fields; device ms
+   beside the 4 single launches, the plain version's and the bound; K11
+   (``row_absdev_members``, each member's Ra, no Pallas counterpart)
+   against its plain version (1e-12 / 1e-5) and member by member against
+   its launch on the member alone (the same bits), R=16 N=512 float64
+   and R=4 N=4096 float32 and float64 (its count in the JSON line comes
+   from phase 10 (b)'s run);
+   (b) the canonical UQ batch of phase 10 (b) on an 'ens' world of 2
+   ranks (``EnsembleMesh(2)``): every member's rows, U, stop, tau0 and
+   t0 equal phase 10 (b)'s batch from this call, to the bit, on both
+   ranks; member-steps/s; the world's ensemble checkpoint restores on one
+   device with its bits, and both re-enter for 100 steps with the same
+   bits;
+   (c) a grid ensemble on a (1, 2, 2) world of 4 ranks: R=4 N=512
+   float64 over 256 steps, E within 1e-10 of one device's batch, the
+   rows the same on every rank (K7_members on every step: the JSON
+   line's count); R=4 N=4096 float32 ``full_sim`` over 32 steps, E
+   within 1e-6 of one device's batch, each member's mean(U) within 1e-6
+   of its start, ms per step iteration and peak memory per rank;
+   (d) phase 11 (a)'s float64 design as two processes of the experiment
+   (``--coordinator``, each ``python3 chip_smoke.py --uq-process`` with
+   the experiment's arguments: ``experiment.main`` with the material
+   table), each in its own directory: results.csv and results-agg.csv the
+   bytes of phase 11 (a)'s run, the same per-run files, process 0 alone
+   writing the tables, each process the runs it owns; wall seconds;
+   (e) phase 8 (c)'s checkpoint (the canonical run on a 2x2 world
+   saving every 800 steps in chunks of 200: the file at step 1601, which
+   that run re-enters) restored on a new 2x2 world: stop 1674, phase 8
+   (c)'s rows to the bit, E within 1e-10 of phase 4's run.
    Phase 3's kernel window is bracketed by nvidia-smi's SM clock,
    temperature and power draw.
 
@@ -233,9 +272,17 @@ measurement also goes to DIR/chip_smoke.json.
 
     python3 chip_smoke.py --kernels-only
 
-runs phases 1-3 and the kernel parts of 6-12 ((a); (a)-(b) of 8; K9
-and K10 of 9; (a) of 10 and 12) only (phase 13 has no kernel of its own),
+runs phases 1-3 and the kernel parts of 6-14 ((a); (a)-(b) of 8; K9
+and K10 of 9; (a) of 10, 12 and 14) only (phase 13 has no kernel of its
+own),
 and prints the kernels' table instead of the two last lines.
+
+    python3 chip_smoke.py --phase 14
+
+runs phase 14 alone after the build, with what it is held to (phase 4's
+canonical run, phase 8 (c)'s world run, phase 10 (b)'s batch without its
+single runs, phase 11 (a)'s float64 experiment and its checks), and
+prints no closing lines.
 """
 
 from __future__ import annotations
@@ -289,6 +336,26 @@ BAKEOFF_REPS = 5
 
 class PhaseError(RuntimeError):
     pass
+
+
+# results of earlier phases that a later phase holds its own to (host
+# arrays and bytes; not part of the JSON detail), and files in kept_dir()
+KEPT = {}
+
+
+def kept_dir() -> str:
+    """A temporary directory for files a later phase reads (removed at
+    the end of main)."""
+    if 'dir' not in KEPT:
+        import tempfile
+        KEPT['dir'] = tempfile.mkdtemp(prefix='chip_smoke_kept_')
+    return KEPT['dir']
+
+
+def keep_mesh_run(res, ckpt):
+    """Phase 8 (c)'s canonical world run for phase 14 (e): its rows (the
+    same on every rank) and its checkpoint file."""
+    KEPT['mesh_run'] = {'timedata': res[0][0]['timedata'], 'ckpt': ckpt}
 
 
 def check(cond, msg):
@@ -1570,13 +1637,17 @@ ITEM7_WORLD = {
 }
 
 
-def world_tasks():
-    """(c) the canonical run through Simulator.solve, (e) N=4096 float32
-    over 64 steps plus a timed window of 64, and phase 9 (d)'s runs."""
-    canon = {'kappa_tilde': KAPPA}
+def world_tasks(ckpt):
+    """(c) the canonical run (through the Solver: entered to
+    MESH_CKPT_STEP, saving every 800 steps into ``ckpt``, then again to
+    its stop: phase 14 (e) restores the file and is held to these rows),
+    (e) N=4096 float32 over 64 steps plus a timed window of 64, and phase
+    9 (d)'s runs."""
+    canon = {'kappa_tilde': KAPPA, 'checkpoint_file': ckpt, **MESH_CKPT}
     fast = {'N': WORLD_FAST_N, 'precision': 'float32', 'full_sim': True,
             'generator': 'uniform', 'kappa_tilde': KAPPA, 'chunk_size': 64}
-    return [('solve', {'params': canon, 'return_U': False}),
+    return [('solve', {'params': canon, 'return_U': False,
+                       'steps': [MESH_CKPT_STEP, int(1e6)]}),
             ('solve', {'params': fast, 'steps': 64, 'rate_steps': 64,
                        'return_U': False}),
             ('imported', {})] + [('solve', {'params': p})
@@ -1629,7 +1700,9 @@ def check_world(tag, res, refs, card):
     check(out['E_every_100_max_rel'] <= 1e-10 and out['E_last_rel'] <= 1e-10
           and out['argmax_E2'] == g['argmax_E2'],
           f"{tag} (c): golden anchors not held")
-    iterations = min(int(1e6) - 1, -(-(1674 - 1) // 1024) * 1024)
+    # the first entry's chunks to MESH_CKPT_STEP, then one chunk holding
+    # the stop
+    iterations = MESH_CKPT_STEP - 1 + MESH_CKPT['chunk_size']
     for lc in out['launches']:
         check(lc['chemical_potential_sharded'] == iterations
               and lc['local_band_sums'] == iterations + 1
@@ -1716,15 +1789,18 @@ def sharded_phase(dev, card, refs):
 
     out = {'kernels': shard_kernel_phase(dev, card)}
     t0 = time.perf_counter()
+    ckpt = os.path.join(kept_dir(), 'mesh.npz')
     res = spawn_grid(run_tasks, WORLD_SHAPE, backend='gloo',
-                     device=dev.type, args=(world_tasks(),), timeout=900)
+                     device=dev.type, args=(world_tasks(ckpt),), timeout=900)
     out['gloo'] = check_world('world gloo', res, refs, card)
+    keep_mesh_run(res, ckpt)
     out['gloo']['world_seconds'] = time.perf_counter() - t0
     out['item7_world'] = check_item7_world('world gloo', res)
     out['cli'] = world_cli('gloo', dev.type)
     if torch_cards() >= WORLD_SHAPE[0] * WORLD_SHAPE[1]:
         res = spawn_grid(run_tasks, WORLD_SHAPE, backend='nccl',
-                         device='cuda', args=(world_tasks(),), timeout=900)
+                         device='cuda', args=(world_tasks(os.path.join(
+                             kept_dir(), 'mesh-nccl.npz')),), timeout=900)
         out['nccl'] = check_world('world nccl', res, refs, card)
         out['nccl']['item7'] = check_item7_world('world nccl', res)
     else:
@@ -2408,6 +2484,17 @@ def _ensemble_run(p, pairs, kappas, steps=None, warm=0):
     return ens, sols, done / seconds, launches
 
 
+def canonical_ensemble():
+    """_ensemble_run of the canonical batch; its members' results are
+    kept for phase 14 (b), which holds the 2-rank world's batch to them
+    to the bit."""
+    from chsimpy_tpu_torch import Parameters
+    out = _ensemble_run(Parameters(no_gui=True, device='cuda'),
+                        canonical_pairs(), CANONICAL_KAPPAS)
+    KEPT['canonical'] = _members_of(out[1])
+    return out
+
+
 def canonical_batch(card):
     """(b) the canonical R=16 N=512 float64 batch through
     ``EnsembleSolver`` (the main path: its launch counts are the JSON
@@ -2420,7 +2507,7 @@ def canonical_batch(card):
 
     pairs = canonical_pairs()
     p = Parameters(no_gui=True, device='cuda')
-    ens, sols, rate_b, launches = _ensemble_run(p, pairs, CANONICAL_KAPPAS)
+    ens, sols, rate_b, launches = canonical_ensemble()
     stops = [s.computed_steps for s in sols]
     iterations = max(stops) - 1
     single_rates, E_rel = [], []
@@ -2454,6 +2541,10 @@ def canonical_batch(card):
               f"in {iterations} step iterations")
         check(launches[single] == 0,
               f"canonical batch: the single-field {single} launched")
+    check(launches['row_absdev_members'] >= iterations,
+          f"canonical batch: row_absdev_members launched "
+          f"{launches['row_absdev_members']} times in {iterations} step "
+          f"iterations")
     del ens
     torch.cuda.empty_cache()
     return res
@@ -2848,6 +2939,12 @@ def experiment_f64(card, work, transform=None):
     print(f"{label}: the three sympy solves are lookups in SOBOL_MATERIAL "
           "(no sympy on this machine)", flush=True)
     wall, timers, launches = _experiment_run('float64', tag, work, extra)
+    if transform is None:
+        # phase 14 (d) holds the two-process run to these bytes
+        KEPT['uq64'] = {
+            'files': sorted(os.listdir(work)),
+            **{s: open(os.path.join(work, f'{tag}-{s}.csv'), 'rb').read()
+               for s in ('results', 'results-agg')}}
     got = read_results(os.path.join(work, f'{tag}-results.csv'))
     want = read_results(os.path.join(ROOT, UQ64_DIR, 'tpu64-results.csv'))
     ref = read_results(os.path.join(ROOT, UQ_REF_DIR, 'ref-results.csv'))
@@ -3721,6 +3818,510 @@ def live_phase(card):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 14: the distributed ensemble (K7_members), the checkpoint under
+# --mesh and the multi-process experiment
+# ----------------------------------------------------------------------
+
+# the worlds' ranks share the one card, so they take gloo (NCCL takes one
+# card a rank): every collective is staged through host memory
+DIST_BACKEND = 'gloo'
+# (a): (R, N, dtype) of K7_members on block (1, 0) of a 2x2 mesh; the
+# JSON line's row
+LOCAL_MEMBER_SHAPES = ((4, 512, 'float64'), (4, 4096, 'float32'),
+                       (4, 4096, 'float64'))
+LOCAL_MEMBER_REPORT = (4, 4096, 'float32')
+# (b): steps of the re-entry after every member's stop
+ENS_THEN = 100
+# (c): (R, N, steps) of the grid ensembles on a (1, 2, 2) world
+GRID_ENS_512 = (4, 512, 256)
+GRID_ENS_4096 = (4, 4096, 32)
+# (e): the single run's saves (every 800 steps at chunks of 200: steps 801
+# and 1601) and the step the file holds
+MESH_CKPT = {'checkpoint_every': 800, 'chunk_size': 200}
+MESH_CKPT_STEP = 1601
+
+
+def member_block_halo(F, i, j, bn, bw):
+    """Block (i, j) of every member's field F (R, N, N) and the stacked
+    halo vectors ((R, bw) rows, (R, bn) columns; edge-replicated at the
+    global boundary)."""
+    N = F.shape[-1]
+    r0, r1, c0, c1 = i * bn, (i + 1) * bn, j * bw, (j + 1) * bw
+    return (F[:, r0:r1, c0:c1].contiguous(),
+            (F[:, max(r0 - 1, 0), c0:c1].contiguous(),
+             F[:, min(r1, N - 1), c0:c1].contiguous(),
+             F[:, r0:r1, max(c0 - 1, 0)].contiguous(),
+             F[:, r0:r1, min(c1, N - 1)].contiguous()))
+
+
+def local_members_bound(R, bn, bw, dtype):
+    """bound_fields of K7_members: each member's block of U and E and its
+    halo read once, its A0/A1 read and its five float64 sums written."""
+    s = 4 if dtype == 'float32' else 8
+    n = bn * bw
+    return bound_fields(R * (2 * n + 2 * (bn + bw)) * s + R * (2 * 8 + 5 * 8),
+                        OPS_PER_ELEM['stats'] * R * n, dtype)
+
+
+def local_members_kernel_phase(dev, card):
+    """(a) K7_members on block (1, 0) of a 2x2 mesh of R member fields
+    against its plain version (K3's tolerances, the count exact) and,
+    member by member, against the single K7 launch on the member's block
+    with its halo and scalars (the same bits); one count a call; device
+    ms of the batched launch, of R single launches and of the plain
+    version, and the bound."""
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    for R, N, dname in LOCAL_MEMBER_SHAPES:
+        dtype = getattr(torch, dname)
+        f64 = dtype == torch.float64
+        cfg, c, U, E, _, _, _ = member_inputs(R, N, dtype, dev)
+        bn = bw = N // 2
+        i, j = 1, 0
+        Ub, halo = member_block_halo(U, i, j, bn, bw)
+        Eb = member_block_halo(E, i, j, bn, bw)[0]
+        A0s, A1s = c['A0'], c['A1']
+        a0, a1 = A0s.tolist(), A1s.tolist()
+        skw = dict(N=N, delx=cfg.delx, RT=cfg.RT, B=cfg.B,
+                   threshold=cfg.threshold)
+        args = (Ub, *halo, Eb, A0s, A1s, i * bn, j * bw)
+
+        def kern():
+            return K.local_band_sums_members(*args, **skw)
+
+        def ref():
+            return K.local_band_sums_members_ref(*args, **skw)
+
+        def single(r):
+            return K.local_band_sums(Ub[r], *(h[r] for h in halo), Eb[r],
+                                     a0[r], a1[r], i * bn, j * bw, **skw)
+
+        K.reset_launches()
+        got = kern()
+        counted = K.launches['local_band_sums_members']
+        want = ref()
+        torch.cuda.synchronize()
+        same = all(torch.equal(got[r], single(r)) for r in range(R))
+        d = (got - want).abs()
+        err = d.max().item()
+        rel = (d / want.abs()).max().item()
+        rtol = 1e-12 if f64 else 1e-5
+        count_exact = bool(torch.equal(got[:, 3], want[:, 3]))
+        ok = rel <= rtol and count_exact and same and counted == 1
+        tol = (f'rtol {rtol:g}, count exact; each member the single K7 '
+               f'launch\'s bits; one count a call')
+        row = {'name': 'local_band_sums_members', 'R': R, 'N': N,
+               'dtype': dname, 'mesh': '2x2', 'block': f'{bn}x{bw}',
+               'max_abs_err': err, 'max_rel_err': rel,
+               'members_equal_single_launch': same, 'tolerance': tol,
+               'ok': ok, **timed_row(kern, ref),
+               'single_launches_ms': device_ms(
+                   lambda: [single(r) for r in range(R)]),
+               **local_members_bound(R, bn, bw, dname)}
+        row['bound_share'] = row['bound_ms'] / row['ms']
+        rows.append(row)
+        print(f"kernel local_band_sums_members R={R} N={N} {dname} block "
+              f"{bn}x{bw}: rel={rel:.3e} members=single "
+              f"{'yes' if same else 'NO'} ({tol}) "
+              f"{'ok' if ok else 'FAIL'}  kernel {row['ms']:.4f} ms (one "
+              f"call {row['call_ms']:.4f}; {R} single launches "
+              f"{row['single_launches_ms']:.4f})  plain "
+              f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_share']:.0%})  ({card})", flush=True)
+        check(ok, f"K7_members R={R} N={N} {dname}: rel {rel:.3e}, count "
+                  f"exact {count_exact}, members equal {same}, {counted} "
+                  f"counts")
+        del U, E, Ub, Eb, halo, c
+        torch.cuda.empty_cache()
+    return rows
+
+
+# (a): (R, N, dtype) of K11 (each member's Ra); the JSON line's row is
+# the canonical batch's shape
+ROW_ABSDEV_SHAPES = ((16, 512, 'float64'), (4, 4096, 'float32'),
+                     (4, 4096, 'float64'))
+ROW_ABSDEV_REPORT = (16, 512, 'float64')
+ROW_ABSDEV_REPLACES = ('no Pallas counterpart: jnp.mean twice on the mid '
+                       'row in chsimpy_tpu/core/stepper.py:473, vmapped '
+                       'over the member axis (chsimpy_tpu/ensemble.py)')
+
+
+def row_absdev_kernel_phase(dev, card):
+    """(a) K11 (each member's Ra) against its plain version (1e-12 / 1e-5
+    relative) and member by member against its launch on the member
+    alone (the same bits: the order does not depend on the member
+    count); one count a call; device ms, the plain version's and the
+    bound (each row read once, R float64 written)."""
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    for R, N, dname in ROW_ABSDEV_SHAPES:
+        dtype = getattr(torch, dname)
+        U = member_inputs(R, N, dtype, dev)[2]
+        row = N // 2 + 1
+        K.reset_launches()
+        got = K.row_absdev_members(U, row)
+        counted = K.launches['row_absdev_members']
+        want = K.row_absdev_members_ref(U, row)
+        alone = torch.cat([K.row_absdev_members(U[r:r + 1], row)
+                           for r in range(R)])
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, alone))
+        rel = ((got - want).abs() / want.abs()).max().item()
+        rtol = 1e-12 if dtype == torch.float64 else 1e-5
+        ok = rel <= rtol and same and counted == 1
+        s = U.element_size()
+        row_out = {'name': 'row_absdev_members', 'R': R, 'N': N,
+                   'dtype': dname,
+                   'max_abs_err': (got - want).abs().max().item(),
+                   'max_rel_err': rel, 'members_equal_alone': same,
+                   'tolerance': f'rtol {rtol:g}; each member its launch '
+                                f'alone to the bit; one count a call',
+                   'ok': ok,
+                   **timed_row(lambda: K.row_absdev_members(U, row),
+                               lambda: K.row_absdev_members_ref(U, row)),
+                   **bound_fields(R * N * s + R * 8, 5 * R * N, dname)}
+        row_out['bound_share'] = row_out['bound_ms'] / row_out['ms']
+        rows.append(row_out)
+        print(f"kernel row_absdev_members R={R} N={N} {dname}: rel="
+              f"{rel:.3e} members=alone {'yes' if same else 'NO'} "
+              f"{'ok' if ok else 'FAIL'}  kernel {row_out['ms']:.4f} ms "
+              f"(one call {row_out['call_ms']:.4f})  plain "
+              f"{row_out['plain_ms']:.4f} ms  bound "
+              f"{row_out['bound_ms']:.5f} ms  ({card})", flush=True)
+        check(ok, f"K11 R={R} N={N} {dname}: rel {rel:.3e}, members equal "
+                  f"{same}, {counted} counts")
+    return rows
+
+
+def _world(shape, tasks, timeout=600):
+    """``spawn_world`` of ``shape`` on the card (gloo), and its seconds."""
+    from chsimpy_tpu_torch.parallel.distributed import spawn_world
+    from chsimpy_tpu_torch.parallel.workers import run_tasks
+    t0 = time.perf_counter()
+    res = spawn_world(run_tasks, shape, backend=DIST_BACKEND, device='cuda',
+                      args=(tasks,), timeout=timeout)
+    return res, time.perf_counter() - t0
+
+
+def _no_jax(tag, res, k):
+    for r in res:
+        check(not {'jax', 'jaxlib', 'chsimpy_tpu'} & set(r[k]),
+              f"{tag}: a rank imported {r[k]}")
+
+
+def _members_of(sols) -> dict:
+    """Solutions as the per-member lists a world's ensemble task returns
+    (``parallel/workers.py`` ``_ensemble_out``)."""
+    import numpy as np
+    return {'computed_steps': [s.computed_steps for s in sols],
+            'tau0': [s.tau0 for s in sols], 't0': [s.t0 for s in sols],
+            'timedata': [s.timedata.data() for s in sols],
+            'U': np.stack([s.U.cpu().numpy() for s in sols])}
+
+
+def _same_members(a, b):
+    """True when the members of two results (:func:`_members_of`) hold
+    the same bits."""
+    import numpy as np
+    return (all(list(a[k]) == list(b[k])
+                for k in ('computed_steps', 'tau0', 't0'))
+            and all(np.array_equal(x, y)
+                    for x, y in zip(a['timedata'], b['timedata']))
+            and np.array_equal(np.asarray(a['U']), np.asarray(b['U'])))
+
+
+def ens_world_phase(card, work):
+    """(b) the canonical batch on an 'ens' world of 2 ranks: every
+    member's rows, U, stop, tau0 and t0 equal phase 10 (b)'s batch to the
+    bit on both ranks; K1-K4 member-batched on every step of each rank;
+    member-steps/s.  Its ensemble checkpoint (saved after the stops)
+    restores on one device with the world's bits, and both re-enter for
+    ENS_THEN steps with the same bits."""
+    from chsimpy_tpu_torch import checkpoint
+
+    ck = os.path.join(work, 'ens-world.npz')
+    res, seconds = _world((2, 1, 1), [
+        ('ensemble', {'params': {'no_gui': True, 'device': 'cuda'},
+                      'pairs': canonical_pairs(),
+                      'kappas': list(CANONICAL_KAPPAS), 'save': ck,
+                      'then': ENS_THEN}),
+        ('imported', {})])
+    _no_jax('phase 14 (b)', res, 1)
+    ref = KEPT['canonical']
+    runs = [r[0] for r in res]
+    equal = [_same_members(g, ref) for g in runs]
+    iterations = max(ref['computed_steps']) - 1
+    for rank, g in enumerate(runs):
+        lc = g['launches']
+        check(g['local_members'] == (8 * rank, 8 * rank + 8),
+              f"phase 14 (b) rank {rank}: members {g['local_members']}")
+        for name, single in MEMBER_KERNELS.items():
+            check(lc[name] >= iterations and lc[single] == 0,
+                  f"phase 14 (b) rank {rank}: {name} {lc[name]}, {single} "
+                  f"{lc[single]} in {iterations} step iterations")
+    restored = checkpoint.restore_ensemble(ck, device='cuda')
+    handoff_equal = _same_members(_members_of(restored.solutions()),
+                                  runs[0])
+    then = _members_of(restored.solve_or_resume(ENS_THEN))
+    then_equal = _same_members(then, runs[0]['then'])
+    out = {'world': '(2, 1, 1)', 'mesh': runs[0]['mesh'],
+           'members_equal_phase10b': equal,
+           'member_steps_per_s': [g['member_steps_per_s'] for g in runs],
+           'solve_seconds': [g['seconds'] for g in runs],
+           'world_seconds': seconds, 'launches': [g['launches']
+                                                  for g in runs],
+           'checkpoint_handoff_equal': handoff_equal,
+           'then_steps': ENS_THEN,
+           'then_computed_steps': then['computed_steps'],
+           'then_equal': then_equal}
+    print(f"phase 14 (b) canonical batch on {runs[0]['mesh']}: 16 members "
+          f"= phase 10 (b) to the bit on ranks {equal}; "
+          + ', '.join(f"rank {k} {g['member_steps_per_s']:.1f} "
+                      f"member-steps/s" for k, g in enumerate(runs))
+          + f"; world {seconds:.1f} s; its checkpoint on one device: "
+          f"handoff {handoff_equal}, {ENS_THEN} more steps "
+          f"{then_equal}  ({card})", flush=True)
+    check(all(equal), f"phase 14 (b): members differ from phase 10 (b) "
+                      f"({equal})")
+    check(handoff_equal and then_equal,
+          f"phase 14 (b): the checkpoint on one device: handoff "
+          f"{handoff_equal}, re-entry {then_equal}")
+    del restored
+    return out
+
+
+def grid_ens_phase(card, work, E_single):
+    """(c) grid ensembles and (e) the single run's checkpoint under
+    --mesh, on two (1, 2, 2) worlds of 4 ranks: R=4 N=512 float64 over
+    256 steps (E within 1e-10 of one device's batch, the rows the same on
+    every rank; K7_members on every step: the JSON line's count) and R=4
+    N=4096 float32 full_sim over 32 steps (E within 1e-6 of one device's
+    batch, mean(U) within 1e-6 of its start, ms per step iteration and
+    each rank's peak memory); phase 8 (c)'s checkpoint (MESH_CKPT_STEP)
+    restored on the second world: the stop 1674 and phase 8 (c)'s rows
+    (that run re-entered at the same step) to the bit, E within 1e-10 of
+    phase 4's run."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters, checkpoint
+
+    R, N, steps = GRID_ENS_512
+    pairs, kappas = canonical_pairs(R), list(CANONICAL_KAPPAS[:R])
+    p512 = {'no_gui': True, 'device': 'cuda'}
+    Rb, Nb, steps_b = GRID_ENS_4096
+    pbig = {'N': Nb, 'precision': 'float32', 'full_sim': True,
+            'generator': 'uniform', 'no_gui': True, 'device': 'cuda'}
+    # one device's batches, from the same pairs
+    _, one512, _, _ = _ensemble_run(Parameters(**p512), pairs, kappas,
+                                    steps)
+    E512 = [s.timedata.data()[:, 1] for s in one512]
+    ens, onebig, _, _ = _ensemble_run(Parameters(**pbig), pairs, kappas,
+                                      steps_b)
+    Ebig = [s.timedata.data()[:, 1] for s in onebig]
+    U0_mean = float(np.mean(ens.U_init))
+    del ens, onebig, one512
+    torch.cuda.empty_cache()
+
+    ck = KEPT['mesh_run']['ckpt']
+    first, s1 = _world((1, 2, 2), [
+        ('ensemble', {'params': p512, 'pairs': pairs, 'kappas': kappas,
+                      'steps': steps, 'return_U': False}),
+        ('imported', {})])
+    _no_jax('phase 14 (c)', first, 1)
+    params, payload = checkpoint.load_checkpoint(ck, device='cuda')
+    saved_at = payload['header']['computed_steps']
+    second, s2 = _world((1, 2, 2), [
+        ('solve', {'params': {'restore_file': ck, 'ntmax': int(1e6)},
+                   'return_U': False}),
+        ('ensemble', {'params': pbig, 'pairs': pairs, 'kappas': kappas,
+                      'steps': steps_b, 'return_U': False})])
+
+    # (c) N=512
+    g512 = [r[0] for r in first]
+    same512 = all(all(np.array_equal(a, b) for a, b in
+                      zip(g['timedata'], g512[0]['timedata']))
+                  for g in g512)
+    rel512 = max(float(np.max(np.abs(td[:, 1] / e - 1)))
+                 for td, e in zip(g512[0]['timedata'], E512))
+    lc = g512[0]['launches']
+    it512 = steps - 1
+    path = ('chemical_potential_members', 'spectral_update_members',
+            'local_band_sums_members', 'absdev_sum_members')
+    for g in g512:
+        check(all(g['launches'][k] >= it512 for k in path)
+              and g['launches']['stats_sums_members'] == 0
+              and g['launches']['local_band_sums'] == 0,
+              f"phase 14 (c) N={N}: launches {g['launches']}")
+    # (c) N=4096
+    gbig = [r[1] for r in second]
+    samebig = all(all(np.array_equal(a, b) for a, b in
+                      zip(g['timedata'], gbig[0]['timedata']))
+                  for g in gbig)
+    relbig = max(float(np.max(np.abs(td[:, 1] / e - 1)))
+                 for td, e in zip(gbig[0]['timedata'], Ebig))
+    drift = max(abs(m - U0_mean) for m in gbig[0]['U_mean'])
+    ms_step = [g['seconds'] / (steps_b - 1) * 1e3 for g in gbig]
+    peak_gb = [g['peak_bytes'] / 1e9 for g in gbig]
+    # (e)
+    restored = [r[0] for r in second]
+    same_ranks = all(np.array_equal(r['timedata'], restored[0]['timedata'])
+                     for r in restored)
+    rows_equal = np.array_equal(restored[0]['timedata'],
+                                KEPT['mesh_run']['timedata'])
+    td = restored[0]['timedata']
+    E1 = np.asarray(E_single)
+    rel_single = float(np.max(np.abs(td[:, 1] / E1 - 1))) \
+        if len(td) == len(E1) else float('inf')
+    out = {'n512': {'R': R, 'N': N, 'steps': steps, 'mesh': g512[0]['mesh'],
+                    'E_max_rel_vs_one_device': rel512,
+                    'rows_same_on_every_rank': same512,
+                    'member_steps_per_s': [g['member_steps_per_s']
+                                           for g in g512],
+                    'launches': [g['launches'] for g in g512]},
+           'n4096': {'R': Rb, 'N': Nb, 'steps': steps_b,
+                     'E_max_rel_vs_one_device': relbig,
+                     'rows_same_on_every_rank': samebig,
+                     'U_mean_drift': drift, 'ms_per_step_iteration': ms_step,
+                     'peak_GB_per_rank': peak_gb},
+           'checkpoint': {'saved_at': saved_at,
+                          'mesh_shape': params.mesh_shape,
+                          'restored_computed_steps':
+                              restored[0]['computed_steps'],
+                          'stop_reason': restored[0]['stop_reason'],
+                          'rows_equal_phase8_run': rows_equal,
+                          'rows_same_on_every_rank': same_ranks,
+                          'E_max_rel_vs_phase4': rel_single},
+           'world_seconds': [s1, s2], 'launches': lc}
+    print(f"phase 14 (c) R={R} N={N} float64 {steps} steps on "
+          f"{g512[0]['mesh']}: E vs one device {rel512:.3e}, rows the same "
+          f"on every rank {same512}; R={Rb} N={Nb} float32 {steps_b} "
+          f"steps: E vs one device {relbig:.3e}, mean(U) drift "
+          f"{drift:.3e}, ms per step iteration "
+          + ', '.join(f'{m:.1f}' for m in ms_step) + ", peak GB per rank "
+          + ', '.join(f'{m:.2f}' for m in peak_gb)
+          + f" (4 ranks on one card, gloo)  ({card})", flush=True)
+    print(f"phase 14 (e) phase 8 (c)'s canonical run on a 2x2 world, "
+          f"saved at {saved_at} (mesh_shape {params.mesh_shape}), restored "
+          f"on a new world: stop {restored[0]['computed_steps']} "
+          f"({restored[0]['stop_reason']}), rows = phase 8 (c)'s "
+          f"{rows_equal}, the same on every rank {same_ranks}, E vs phase "
+          f"4 {rel_single:.3e}; worlds {s1:.1f} + {s2:.1f} s  ({card})",
+          flush=True)
+    check(same512 and rel512 <= 1e-10,
+          f"phase 14 (c) N={N}: E {rel512:.3e}, ranks same {same512}")
+    check(samebig and relbig <= 1e-6 and drift <= 1e-6
+          and all(g['U_finite'] for g in gbig),
+          f"phase 14 (c) N={Nb}: E {relbig:.3e}, drift {drift:.3e}, ranks "
+          f"same {samebig}")
+    check(saved_at == MESH_CKPT_STEP and tuple(params.mesh_shape) == (2, 2),
+          f"phase 14 (e): the file holds step {saved_at}, mesh "
+          f"{params.mesh_shape}")
+    check(restored[0]['computed_steps'] == 1674
+          and restored[0]['stop_reason'] == 'energy' and rows_equal
+          and same_ranks and rel_single <= 1e-10,
+          f"phase 14 (e): {out['checkpoint']}")
+    return out
+
+
+def uq_process(argv) -> int:
+    """One process of phase 14 (d): ``experiment.main(argv)`` with the
+    sympy solves looked up in SOBOL_MATERIAL (the card's machine has no
+    sympy)."""
+    from chsimpy_tpu_torch import experiment
+    with _MaterialTable():
+        experiment.main(argv)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def uq_two_processes(card, work):
+    """(d) phase 11 (a)'s float64 design as two processes of the
+    experiment (``--coordinator``, gloo, each in its own directory):
+    results.csv and results-agg.csv the bytes of phase 11 (a)'s
+    single-process run, the same per-run files, process 0 alone writing
+    the tables and each process the runs it owns; the wall seconds."""
+    coord = f'127.0.0.1:{_free_port()}'
+    dirs = [os.path.join(work, f'p{k}') for k in (0, 1)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for k, d in enumerate(dirs):
+            os.makedirs(d)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, 'chip_smoke.py'),
+                 '--uq-process', *UQ_ARGV, '--precision', 'float64', '-f',
+                 'uq64', '--coordinator', coord, '--num-processes', '2',
+                 '--process-id', str(k), '--dist-backend', DIST_BACKEND],
+                cwd=d, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    check(rcs == [0, 0], f"phase 14 (d): exit codes {rcs}:\n"
+                         + '\n'.join(o[-3000:] for o in outs))
+    want = KEPT['uq64']
+    files = [sorted(os.listdir(d)) for d in dirs]
+    tables = {s: open(os.path.join(dirs[0], f'uq64-{s}.csv'), 'rb').read()
+              for s in ('results', 'results-agg')}
+    equal = {s: tables[s] == want[s] for s in tables}
+    owned = all(re.search(r'-run(\d+)\.', f) is None
+                or int(re.search(r'-run(\d+)\.', f).group(1)) % 2 == k
+                for k, fs in enumerate(files) for f in fs)
+    shared = ('uq64-metadata.csv', 'uq64-results.csv',
+              'uq64-results-agg.csv')
+    out = {'processes': 2, 'backend': DIST_BACKEND,
+           'results_byte_equal': equal['results'],
+           'agg_byte_equal': equal['results-agg'],
+           'file_set_equal': sorted(files[0] + files[1]) == want['files'],
+           'each_process_its_runs': owned,
+           'tables_by_process_0_only': all(f in files[0] for f in shared)
+           and not any(f in files[1] for f in shared),
+           'wall_s': wall}
+    print(f"phase 14 (d) the experiment as 2 processes ({DIST_BACKEND}): "
+          f"{json.dumps(out)}  ({card})", flush=True)
+    check(all(v is True for k, v in out.items()
+              if k not in ('processes', 'backend', 'wall_s')),
+          f"phase 14 (d): {out}")
+    return out
+
+
+def distributed_phase(dev, card, E_single):
+    import shutil
+    import tempfile
+    out = {'kernels': local_members_kernel_phase(dev, card),
+           'row_absdev': row_absdev_kernel_phase(dev, card)}
+    work = tempfile.mkdtemp(prefix='chip_smoke_dist_')
+    try:
+        t0 = time.perf_counter()
+        out['ens_world'] = ens_world_phase(card, work)
+        out['seconds_b'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out['grid'] = grid_ens_phase(card, work, E_single)
+        out['seconds_c_e'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out['experiment'] = uq_two_processes(card, os.path.join(work, 'uq'))
+        out['seconds_d'] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def gpu_clocks():
     """The card's SM clock, temperature and power draw (nvidia-smi)."""
     proc = subprocess.run(
@@ -3838,6 +4439,41 @@ def summary_rows(detail):
         'single_launches_ms': row['single_launches_ms'],
         'shape': f"{R} members of {N}x{N} float64 -> {n} int8 slices",
         'bound_share': row['bound_ms'] / row['ms']})
+    # K11 at the canonical batch's shape, counted on phase 10 (b)'s run
+    R, N, dtype = ROW_ABSDEV_REPORT
+    row = next(r for r in detail['distributed']['row_absdev']
+               if (r['R'], r['N'], r['dtype']) == ROW_ABSDEV_REPORT)
+    rows.append({
+        'name': 'row_absdev_members', 'route': 'cuda', 'source': SOURCE,
+        'replaces': ROW_ABSDEV_REPLACES,
+        'launches': detail['ensemble']['canonical']['launches'][
+            'row_absdev_members'],
+        'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
+        'call_ms': row['call_ms'], 'plain_ms': row['plain_ms'],
+        'library_ms': None, 'bound_ms': row['bound_ms'],
+        'bound_by': row['bound_by'], 'max_rel_err': row['max_rel_err'],
+        'shape': f"row {N // 2 + 1} of {R} members' {N}x{N} {dtype} fields",
+        'bound_share': row['bound_ms'] / row['ms']})
+    # K7_members on a 2x2 mesh's block, counted on phase 14 (c)'s grid
+    # ensemble (rank 0)
+    R, N, dtype = LOCAL_MEMBER_REPORT
+    row = next(r for r in detail['distributed']['kernels']
+               if (r['R'], r['N'], r['dtype']) == LOCAL_MEMBER_REPORT)
+    rows.append({
+        'name': 'local_band_sums_members', 'route': 'cuda', 'source': SOURCE,
+        'replaces': REPLACES['local_band_sums'] + ' (vmapped over the member '
+                                                  'axis, chsimpy_tpu/'
+                                                  'ensemble.py)',
+        'launches': detail['distributed']['grid']['launches'][
+            'local_band_sums_members'],
+        'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
+        'call_ms': row['call_ms'], 'plain_ms': row['plain_ms'],
+        'library_ms': None, 'bound_ms': row['bound_ms'],
+        'bound_by': row['bound_by'], 'max_rel_err': row['max_rel_err'],
+        'single_launches_ms': row['single_launches_ms'],
+        'shape': f"{R} members' {row['block']} {dtype} blocks of {N}x{N} "
+                 f"on {row['mesh']}",
+        'bound_share': row['bound_ms'] / row['ms']})
     return rows
 
 
@@ -3852,6 +4488,8 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     detail['threefry_kernel'] = threefry_phase(dev, card)
     detail['member_kernels'] = member_kernel_phase(dev, card)
     detail['slice_members'] = member_slice_phase(dev, card)
+    detail['local_members'] = local_members_kernel_phase(dev, card)
+    detail['row_absdev'] = row_absdev_kernel_phase(dev, card)
     report = [r for r in detail['kernels'] if r['N'] == REPORT_SHAPE[0]]
     report += [r for r in detail['sobol_kernel'] if 'ms' in r
                and r['N'] == SOBOL_REPORT[0]]
@@ -3865,6 +4503,7 @@ def kernels_only(detail, dev, card, out_dir) -> int:
                and r['N'] == SHARD_REPORT[0]]
     report += detail['member_kernels']
     report += [r for r in detail['slice_members'] if 'ms' in r]
+    report += detail['local_members'] + detail['row_absdev']
     for r in report:
         if 'bound_ms' not in r:     # the slice kernel's row
             r.update(kernel_bound(r['name'], r['N'], 'float64'))
@@ -3884,12 +4523,57 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     return 0
 
 
+def phase14_alone(detail, dev, card, out_dir) -> int:
+    """``--phase 14``: phase 14 after what it is held to (phase 4's
+    canonical run, phase 8 (c)'s world run, phase 10 (b)'s batch without
+    its single runs, phase 11 (a)'s experiment run and checks); its
+    details to DIR/chip_smoke_14.json with ``--out``."""
+    import shutil
+    import tempfile
+    from chsimpy_tpu_torch.parallel.distributed import spawn_grid
+    from chsimpy_tpu_torch.parallel.workers import run_tasks
+    detail['default_run'] = default_run()
+    # phase 8 (c)'s canonical world run alone (its checks are phase 8's)
+    ckpt = os.path.join(kept_dir(), 'mesh.npz')
+    keep_mesh_run(spawn_grid(run_tasks, WORLD_SHAPE, backend='gloo',
+                             device='cuda', args=(world_tasks(ckpt)[:1],),
+                             timeout=900), ckpt)
+    canonical_ensemble()
+    work = tempfile.mkdtemp(prefix='chip_smoke_uq_')
+    try:
+        detail['experiment'] = {'f64': experiment_f64(
+            card, os.path.join(work, 'f64'))}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    detail['distributed'] = distributed_phase(dev, card,
+                                              detail['default_run']['E'])
+    detail['phase_seconds'][14] = time.perf_counter() - t0
+    print(f"phase 14: {detail['phase_seconds'][14]:.1f} s  ({card})",
+          flush=True)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, 'chip_smoke_14.json'), 'w') as f:
+            json.dump(detail, f, indent=1)
+    return 0
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ['--uq-process']:
+        # a process of phase 14 (d): the experiment's own argument list
+        return uq_process(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', help='directory for chip_smoke.json')
     ap.add_argument('--kernels-only', action='store_true',
                     help='only the kernels against their plain versions, '
                          'and their times')
+    ap.add_argument('--phase', type=int, choices=(14,),
+                    help='run this phase alone after the build, with the '
+                         'parts of earlier phases it holds its results to '
+                         '(phase 14: the canonical run of 4, the batch of '
+                         '10 (b), the float64 experiment of 11 (a)); no '
+                         'closing lines')
     # a worker of phase 12 (b): single ozaki runs, saved to --out
     ap.add_argument('--ozaki-singles', help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3920,12 +4604,23 @@ def main(argv=None) -> int:
               'cuda': torch.version.cuda, 'build_seconds': info['seconds'],
               'phase_seconds': {}}
 
+    try:
+        return _main(args, detail, dev, card, torch)
+    finally:
+        if 'dir' in KEPT:
+            import shutil
+            shutil.rmtree(KEPT['dir'], ignore_errors=True)
+
+
+def _main(args, detail, dev, card, torch) -> int:
     def timed(phase, fn, *a):
         t0 = time.perf_counter()
         out = fn(*a)
         detail['phase_seconds'][phase] = time.perf_counter() - t0
         return out
 
+    if args.phase == 14:
+        return phase14_alone(detail, dev, card, args.out)
     # the SM clock beside phase 3's kernel window (B1 and B8 read slower in
     # some runs with the code unchanged)
     detail['clocks_before_phase3'] = gpu_clocks()
@@ -3954,6 +4649,8 @@ def main(argv=None) -> int:
     detail['ozaki_ensemble'] = timed(12, ozaki_ensemble_phase, dev, card,
                                      detail['ensemble']['canonical'])
     detail['live'] = timed(13, live_phase, card)
+    detail['distributed'] = timed(14, distributed_phase, dev, card,
+                                  detail['default_run']['E'])
     print('phase seconds: ' + ', '.join(
         f"{k} {v:.1f}" for k, v in detail['phase_seconds'].items()),
         flush=True)

@@ -9,8 +9,10 @@ plot window open when the GUI was asked for.
 With ``--mesh MxN`` the run is one rank of a grid-sharded world: start
 M*N of them with ``torchrun --standalone --nproc-per-node M*N -m
 chsimpy_tpu_torch --mesh MxN ...``.  Each joins the process group torchrun
-describes and runs the live loop's chunks; only rank 0 draws, writes and
-prints (its launch counts are its own block's)."""
+describes and runs the live loop's chunks; only rank 0 draws, writes
+(the exports and the checkpoints of ``--checkpoint-file``) and prints
+(its launch counts are its own block's).  ``--restore`` under torchrun
+joins the group too: the file's mesh shape wins."""
 
 from __future__ import annotations
 
@@ -41,7 +43,8 @@ def main(argv=None):
     if lead:
         parser.print_info()
     params = parser.get_parameters(argv)
-    if params.mesh_shape is not None:
+    if params.mesh_shape is not None or params.restore_file is not None:
+        # a plain run outside torchrun joins nothing
         distributed.initialize(params.dist_backend, params.device)
     try:
         simulator = Simulator(params)
@@ -62,8 +65,7 @@ def main(argv=None):
             if simulator.gui_requested():
                 simulator.view.show(block=True)
     finally:
-        if params.mesh_shape is not None:
-            distributed.shutdown()
+        distributed.shutdown()
 
 
 if __name__ == '__main__':

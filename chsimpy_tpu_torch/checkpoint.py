@@ -32,6 +32,15 @@ shared host stream, on every route the ensemble runs (the float64 ozaki
 route included);
 the restore takes the members' kappas from the file (the values the JAX
 package derives with sympy, which the card's machine lacks).
+
+Under a mesh of ranks the file holds the whole field (every member's):
+the save gathers it on every rank, rank 0 alone writes, and every rank
+meets at a barrier after the write, so none reads a file that is not
+there yet.  A restore runs on every rank and takes the rank's block (its
+members' blocks).  A single run's restore takes the mesh shape from the
+file (as the JAX package's does); an ensemble's file is mesh-free host
+state and restores onto any mesh the caller passes, or none (the elastic
+restart).
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ import numpy as np
 import torch
 
 from .core.state import jax_prng_key, key_tensor  # noqa: F401
-from .params import TUPLE_FIELDS, Parameters, not_ported
+from .params import TUPLE_FIELDS, Parameters
 
 FORMAT_VERSION = 2
 
@@ -131,16 +140,36 @@ def _host(t) -> np.ndarray:
         else np.asarray(t)
 
 
+def _lead(mesh) -> bool:
+    """True on the rank that writes: rank 0 of the world (every rank
+    without a mesh)."""
+    if mesh is None:
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
+def _written(mesh) -> None:
+    """Every rank of a mesh waits here until rank 0 has written."""
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.barrier()
+
+
 # ----------------------------------------------------------------------
 # single run
 # ----------------------------------------------------------------------
 
 def save_checkpoint(fname: str, solver) -> None:
-    """Serialize a Solver's resumable state."""
-    if solver.mesh is not None:
-        raise NotImplementedError(not_ported(
-            'checkpoint and restore under --mesh', 11))
+    """Serialize a Solver's resumable state.  Under a mesh every rank
+    calls it: the field is the gathered ``solution.U`` (the solver sets
+    it at every chunk boundary it saves at and at the end of a solve);
+    rank 0 writes, then every rank meets at a barrier."""
     sol = solver.solution
+    U = solver._state.U if solver.mesh is None else sol.U
+    if not _lead(solver.mesh):
+        _written(solver.mesh)
+        return
     header = {
         'format_version': FORMAT_VERSION,
         'computed_steps': sol.computed_steps,
@@ -156,12 +185,13 @@ def save_checkpoint(fname: str, solver) -> None:
     }
     arrays = dict(
         header=_header_bytes(header),
-        U=_host(solver._state.U).astype(np.float64),
+        U=_host(U).astype(np.float64),
         timedata=sol.timedata.data(),
         rng_key=_host(solver._state.rng_key).astype(np.uint32),
         U_init=np.asarray(solver.U_init, dtype=np.float64),
     )
     _atomic_savez(fname, **arrays)
+    _written(solver.mesh)
 
 
 def load_checkpoint(fname: str, device='cuda'):
@@ -179,14 +209,18 @@ def load_checkpoint(fname: str, device='cuda'):
     return params, payload
 
 
-def restore_solver(fname: str, device='cuda'):
+def restore_solver(fname: str, device='cuda', dist_backend=None):
     """A prepared Solver on ``device``, mid-run, from a checkpoint written
-    by either package."""
+    by either package.  The file's ``mesh_shape`` wins: under a mesh every
+    rank of the process group calls it and takes its block of the field
+    (``dist_backend``: the caller's, as ``device``)."""
     from .core.solver import Solver
+    from .parallel.sharding import shard_field
     from .rng import FieldGenerator
     from .timedata import TimeData
 
     params, payload = load_checkpoint(fname, device)
+    params.dist_backend = dist_backend
     h = payload['header']
     solver = Solver(params, U_init=payload['U_init'])
     if payload['generator_state'] is not None:
@@ -213,6 +247,8 @@ def restore_solver(fname: str, device='cuda'):
     U = torch.as_tensor(payload['U']).to(device=dev,
                                          dtype=solver.cfg.tdtype)
     sol.U = U
+    if solver.mesh is not None:
+        U = shard_field(U, solver.mesh)[0]
 
     def f(x):
         return torch.tensor(float(x), dtype=f64, device=dev)
@@ -252,8 +288,12 @@ def save_ensemble_checkpoint(fname: str, ens, extra_header: dict = None
     field, counters and trace, the (A0, A1) pairs, the kappas, and the
     shared host generator's stream position.  ``extra_header`` lets a
     caller (the UQ experiment) keep its own JSON-serializable progress in
-    the header."""
-    s = ens._states
+    the header.  Under a mesh every rank calls it (the members are
+    gathered); rank 0 writes."""
+    s = ens.host_state()
+    if not _lead(ens.mesh):
+        _written(ens.mesh)
+        return
     header = {
         'format_version': FORMAT_VERSION,
         'kind': 'ensemble',
@@ -267,21 +307,22 @@ def save_ensemble_checkpoint(fname: str, ens, extra_header: dict = None
     _atomic_savez(
         fname,
         header=_header_bytes(header),
-        U=_host(s.U).astype(np.float64),
-        rng_key=_host(s.rng_key).astype(np.uint32),
+        U=s['U'].astype(np.float64),
+        rng_key=s['rng_key'].astype(np.uint32),
         A_pairs=np.stack([ens.A0s, ens.A1s], axis=1),
         kappas=np.asarray(ens.kappas),
         timedata=np.concatenate([td.data() for td in ens.timedatas],
                                 axis=0),
         U_init=np.asarray(ens.U_init, dtype=np.float64),
-        **{f'm_{n}': _host(getattr(s, n)).astype(dt)
-           for n, dt in _ENS_LEAVES.items()},
+        **{f'm_{n}': s[n].astype(dt) for n, dt in _ENS_LEAVES.items()},
     )
+    _written(ens.mesh)
 
 
 def restore_ensemble(fname: str, mesh=None, device='cuda'):
     """A prepared EnsembleSolver on ``device``, mid-run, from an ensemble
-    checkpoint written by either package."""
+    checkpoint written by either package, on ``mesh`` (an EnsembleMesh;
+    every rank calls it) or on one device, whatever mesh wrote it."""
     from .ensemble import EnsembleSolver
     from .rng import FieldGenerator
     from .timedata import TimeData
@@ -290,6 +331,8 @@ def restore_ensemble(fname: str, mesh=None, device='cuda'):
     if header.get('kind') != 'ensemble':
         raise ValueError(f"{fname} is not an ensemble checkpoint")
     params = _params_from_header(header, device)
+    # the caller's mesh (or none) places the members, not the writer's
+    params.mesh_shape = None
     ens = EnsembleSolver(params, np.asarray(z['A_pairs']),
                          U_init=np.asarray(z['U_init']), mesh=mesh,
                          kappas=np.asarray(z['kappas']))
@@ -305,16 +348,8 @@ def restore_ensemble(fname: str, mesh=None, device='cuda'):
         td.insert_block(rows[offs[r]:offs[r + 1]])
         ens.timedatas.append(td)
 
-    s = ens._states
-    dev = ens.device
-    repl = {'U': torch.as_tensor(np.asarray(z['U'])).to(
-        device=dev, dtype=ens.cfg.tdtype),
-        'rng_key': key_tensor(z['rng_key'], dev)}
-    for n in _ENS_LEAVES:
-        ref = getattr(s, n)
-        repl[n] = torch.as_tensor(np.asarray(z[f'm_{n}'])).to(
-            device=dev, dtype=ref.dtype)
-    ens._states = s.replace(**repl)
-    ens._stop = np.asarray(z['m_stop_reason'], np.int64)
+    host = {'U': np.asarray(z['U']), 'rng_key': np.asarray(z['rng_key'])}
+    host.update({n: np.asarray(z[f'm_{n}']) for n in _ENS_LEAVES})
+    ens.load_host_state(host)
     ens._ckpt_extra = header.get('extra')
     return ens

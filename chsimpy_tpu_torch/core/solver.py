@@ -25,7 +25,8 @@ With ``checkpoint_file`` and ``checkpoint_every`` the solve saves a
 checkpoint (``checkpoint.py``) at the first chunk boundary at least
 ``checkpoint_every`` steps after the last save, a cadence that survives
 re-entry; ``checkpoint.restore_solver`` rebuilds a prepared solver from
-one.
+one.  Under a mesh every rank gathers the field at that boundary and rank
+0 writes it.
 
 Per-step jitter (``0 < jitter < 0.1``) takes its mode from the generator
 and ``jitter_backend`` as in the JAX package: ``static`` for simplex,
@@ -369,9 +370,12 @@ class Solver:
             state = self._sync(state)
             if (ckpt and every and self.solution.computed_steps
                     - self._ckpt_last_saved >= every):
-                # a resumable snapshot at the chunk boundary
+                # a resumable snapshot at the chunk boundary (every rank
+                # of a mesh gets here at the same step: the scalars are
+                # the same bits on all of them)
                 self._state = state
-                self.solution.U = state.U
+                self.solution.U = (state.U if self.mesh is None
+                                   else gather_field(state.U, self.mesh))
                 from ..checkpoint import save_checkpoint
                 save_checkpoint(ckpt, self)
                 self._ckpt_last_saved = self.solution.computed_steps

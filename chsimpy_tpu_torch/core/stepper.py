@@ -469,7 +469,13 @@ def run_chunk(cfg: StepConfig, consts, state: SolverState,
 # are batched products (or FFTs) over the member axis.  A member that has
 # stopped is frozen by the per-member selects, as the vmapped while_loop's
 # predicate select freezes it; the chunk runs while any member is active
-# (the host loop in ensemble.py).
+# (the host loop in ensemble.py).  With grid-sharded member fields
+# (``mesh``, the grid of this rank's ens slot) the fields are the members'
+# blocks (R, bn, bw): K1, K2 and K4 take them as they are, the statistics
+# run K7_members (``fused_stats_sharded_members``), the DCTs are the grid
+# products of the stacked blocks, and every scalar is the same on every
+# rank of the grid, as in the single grid run.  On an ens-only mesh the
+# members stay local and the step runs without a mesh.
 # ----------------------------------------------------------------------
 
 def make_members_consts(cfg: StepConfig, delt: float, A0s, A1s, kappas,
@@ -496,14 +502,22 @@ def make_members_consts(cfg: StepConfig, delt: float, A0s, A1s, kappas,
     return consts
 
 
-def _members_stats(cfg: StepConfig, consts, U, EnergieEut=None):
+def _members_stats(cfg: StepConfig, consts, U, EnergieEut=None,
+                   mesh=None):
     """:func:`_stats` of every member, each an (R,) float64 tensor, from
     the batched K3 sums and the batched K4 with each member's mean; the
-    float64 finish in the single run's operations and order."""
+    float64 finish in the single run's operations and order; Ra by K11
+    (the same bits for a member whatever the batch holds).  On a grid
+    mesh U holds the members' blocks (K7_members and K4_members, the same
+    values on every rank)."""
+    if mesh is not None:
+        return K.fused_stats_sharded_members(
+            mesh, U, EnergieEut, consts['A0'], consts['A1'],
+            consts['kappa_tilde'], delx=cfg.delx, RT=cfg.RT, B=cfg.B,
+            Amr=cfg.Amr, L=cfg.L, threshold=cfg.threshold)
     N = cfg.N
     n2 = float(N * N)
     Lsq = cfg.L ** 2
-    f64 = torch.float64
     sums = K.stats_sums_members(U, EnergieEut, consts['A0'], consts['A1'],
                                 delx=cfg.delx, RT=cfg.RT, B=cfg.B,
                                 threshold=cfg.threshold)
@@ -513,24 +527,33 @@ def _members_stats(cfg: StepConfig, consts, U, EnergieEut=None):
     L2 = torch.sqrt(sums[:, 4]) / n2
     meanU = (sums[:, 2] / n2).to(U.dtype)
     PS = K.absdev_sum_members(U, meanU) / n2
-    mid = U[:, N // 2 + 1, :]
-    Ra = torch.mean(torch.abs(mid - torch.mean(mid, dim=-1, keepdim=True)),
-                    dim=-1).to(f64)
+    Ra = K.row_absdev_members(U, N // 2 + 1)
     return E, E2, PS, L2, Ra, SA
 
 
-def prepare_members_row0(cfg: StepConfig, consts, U):
+def prepare_members_row0(cfg: StepConfig, consts, U, mesh=None):
     """Step-0 (E, E2, Ra, PS) of every member, (R,) float64 tensors."""
-    E, E2, PS, _, Ra, _ = _members_stats(cfg, consts, U, None)
+    E, E2, PS, _, Ra, _ = _members_stats(cfg, consts, U, None, mesh)
     return E, E2, Ra, PS
 
 
-def adapted_members_delt(cfg: StepConfig, s: SolverState, EnergieEut):
+def adapted_members_delt(cfg: StepConfig, s: SolverState, EnergieEut,
+                         mesh=None):
     """:func:`adapted_delt` of every member from its own field: its
-    column sums' minimum, the blend with its own delt, (R,) float64."""
+    column sums' minimum, the blend with its own delt, (R,) float64.  On
+    a grid mesh each member's block columns are summed, the column
+    strip's partials added in rank order and the minimum taken over every
+    rank of the grid, as :func:`adapted_delt` does for one field."""
     a = EnergieEut.abs()
     x = cfg.delt_max / torch.sqrt(1.0 + ADAPT_ALPHA * (a * a))
-    low = torch.amin(torch.sum(x, dim=-2), dim=-1)
+    colsum = torch.sum(x, dim=-2)                       # (R, bw)
+    if mesh is not None:
+        R = colsum.shape[0]
+        colsum = coll.rank_sum(
+            coll.gather_x(mesh, colsum).reshape(mesh.shape[0], R, -1))
+    low = torch.amin(colsum, dim=-1)
+    if mesh is not None:
+        low = torch.amin(coll.gather_world(mesh, low), dim=0)
     delt_new = torch.clamp(low.to(torch.float64), min=cfg.delt_base)
     delt = s.delt
     blended = torch.where(delt_new / delt > 1.15,
@@ -549,16 +572,19 @@ def rebuilt_members_coefficients(cfg: StepConfig, consts, delt):
 
 
 def _members_step(cfg: StepConfig, consts, s: SolverState,
-                  slab=None) -> SolverState:
+                  slab=None, mesh=None) -> SolverState:
     """One step of every member; ``slab`` is the step's host jitter slab
     (``stream``; ``static``: the one simplex slab), shared by all members
-    as the JAX ensemble shares its jitter stream."""
+    as the JAX ensemble shares its jitter stream (on a grid mesh: this
+    rank's block of it).  On a grid mesh ``s.U`` and ``s.hat_U`` hold the
+    members' blocks and every collective runs on every step, also after
+    the stop."""
     f64 = torch.float64
     active = s.stop_reason == STOP_NONE
     EnergieEut = K.chemical_potential_members(s.U, cfg.RT, cfg.BRT,
                                               consts['A0'], consts['A1'])
     if cfg.adaptive_time:
-        delt = adapted_members_delt(cfg, s, EnergieEut)
+        delt = adapted_members_delt(cfg, s, EnergieEut, mesh)
         CHeig, Seig = rebuilt_members_coefficients(cfg, consts, delt)
     else:
         delt = s.delt
@@ -573,13 +599,14 @@ def _members_step(cfg: StepConfig, consts, s: SolverState,
         over = time_passed > cfg.time_limit
         go = active & ~over
 
-    hat_E = dct2_route(cfg, consts, EnergieEut, cfg.ozaki_fwd_pairs)
+    hat_E = dct2_route(cfg, consts, EnergieEut, cfg.ozaki_fwd_pairs, mesh)
     hat_U = K.spectral_update_members(s.hat_U, hat_E, Seig, CHeig)
-    U = idct2_route(cfg, consts, hat_U)
+    U = idct2_route(cfg, consts, hat_U, mesh)
     if cfg.jitter_mode in ('stream', 'static'):
         U = U + cfg.jitter * (2.0 * slab - 1.0)
 
-    E, E2, PS, L2, Ra, SA = _members_stats(cfg, consts, U, EnergieEut)
+    E, E2, PS, L2, Ra, SA = _members_stats(cfg, consts, U, EnergieEut,
+                                           mesh)
     domtime = time_passed ** (1.0 / 3.0)
     it = s.computed_steps
     row = torch.stack([it.to(f64), E, E2, SA, domtime, Ra, L2, PS, delt],
@@ -619,11 +646,13 @@ def _members_step(cfg: StepConfig, consts, s: SolverState,
 
 
 def run_members_chunk(cfg: StepConfig, consts, state: SolverState,
-                      n_iters: int, jitter_buf=None) -> SolverState:
+                      n_iters: int, jitter_buf=None,
+                      mesh=None) -> SolverState:
     """``n_iters`` member-batched steps with no host sync (``jitter_buf``
-    as in :func:`run_chunk`)."""
+    as in :func:`run_chunk`; ``mesh``: the grid of grid-sharded member
+    fields, or None)."""
     for i in range(n_iters):
         slab = (jitter_buf[i] if cfg.jitter_mode == 'stream'
                 else jitter_buf)
-        state = _members_step(cfg, consts, state, slab)
+        state = _members_step(cfg, consts, state, slab, mesh)
     return state

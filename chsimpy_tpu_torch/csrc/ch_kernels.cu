@@ -14,8 +14,8 @@
 // vectors from the neighbour ranks (kernel B7): one body, the halo a
 // compile-time flag.  K8 (B8) is K1's mu_kernel launched on the block: it
 // has no source of its own.  K9 and K10 add the step's jitter on the card
-// (the Sobol points, the device jitter's threefry stream): neither has a
-// Pallas counterpart.
+// (the Sobol points, the device jitter's threefry stream), and K11 takes
+// each ensemble member's Ra: none has a Pallas counterpart.
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes by
 // chsimpy_tpu_torch/ops/kernels.py.  Every entry launches on the stream it
@@ -24,14 +24,16 @@
 //
 // Member-batched launches (the ensemble, chsimpy_tpu/ensemble.py, whose
 // vmap batches B1-B4 and, on the ozaki route, B6 over a leading member
-// axis): K1-K5 take a member count R and run member r on field r of a
+// axis; with grid-sharded member fields B7 too): K1-K5 and K7 take a
+// member count R and run member r on field (or block) r of a
 // contiguous (R, ...) stack, with its own A0/A1 (K1, K3: float64 device
 // arrays, cast to the field type on the card as the host casts the single
 // launch's scalars), its own mean (K4), its own sums (K3: (R, 5); K4: (R,))
 // and its own scale (K5: (R,) scales and inverses, planes (S, R, ...)).
 // Member r of one batched launch does the arithmetic, in the order and on
 // the grid, of a single launch on field r: the member index only offsets
-// the pointers (blockIdx.y for K1, K2, K4 and K5, blockIdx.z for K3).
+// the pointers (blockIdx.y for K1, K2, K4 and K5, blockIdx.z for K3 and
+// K7, whose member also offsets its halo vectors).
 // R = 1 with no member arrays is the single launch.
 //
 // Built with -fmad=false (ops/cuda_build.py): every operation is rounded on
@@ -209,12 +211,19 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
              const double* __restrict__ A0s, const double* __restrict__ A1s,
              T threshold, double* __restrict__ partials,
              unsigned int* __restrict__ ticket, double* __restrict__ sums) {
-  // member r = blockIdx.z (K3 only): its field, A0/A1, partials, ticket and
-  // sums; the grid of (x, y) blocks is each member's
+  // member r = blockIdx.z: its field (K3) or block (K7_members) and, under
+  // HALO, its halo vectors; its A0/A1, partials, ticket and sums.  The
+  // grid of (x, y) blocks is each member's
   {
-    const long long moff = (long long)blockIdx.z * N * N;
+    const long long moff = (long long)blockIdx.z * block_rows * block_cols;
     U += moff;
     if (E != nullptr) E += moff;
+    if (HALO) {
+      up_row += (long long)blockIdx.z * block_cols;
+      dn_row += (long long)blockIdx.z * block_cols;
+      lf_col += (long long)blockIdx.z * block_rows;
+      rt_col += (long long)blockIdx.z * block_rows;
+    }
     partials += (long long)blockIdx.z * gridDim.x * gridDim.y * kNStats;
     ticket += blockIdx.z;
     sums += (long long)blockIdx.z * kNStats;
@@ -373,6 +382,35 @@ absdev_partials_kernel(const T* __restrict__ U, long long n,
   block_sum<1>(acc);
   if (threadIdx.x == 0)
     partials[(long long)blockIdx.x * gridDim.y + blockIdx.y] = acc[0];
+}
+
+// K11 — Ra of every member: the mean of |row - mean(row)| over one row of
+// each member's field (the JAX step's Ra, jnp.mean twice on the row,
+// chsimpy_tpu/core/stepper.py:473: no Pallas counterpart).  One block a
+// member (blockIdx.x), its W values read twice: the row's sum in double
+// (each thread its strided columns, then block_sum), the mean rounded to
+// the field type, then |x - mean| in the field type summed in double, over
+// W.  The order depends on W alone, so member r gives the same bits in a
+// launch of any member count (a torch reduction over the rows of an
+// (R, W) tensor splits a row across blocks by R: its bits depend on R).
+// The row of member r starts at r * member_stride + row_offset.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+row_absdev_kernel(const T* __restrict__ U, long long member_stride,
+                  long long row_offset, int W, double* __restrict__ out) {
+  const T* row = U + (long long)blockIdx.x * member_stride + row_offset;
+  double acc[1] = {0.0};
+  for (int c = threadIdx.x; c < W; c += kThreads) acc[0] += (double)row[c];
+  block_sum<1>(acc);
+  __shared__ double total;
+  if (threadIdx.x == 0) total = acc[0];
+  __syncthreads();
+  const T m = T(total / W);
+  acc[0] = 0.0;
+  for (int c = threadIdx.x; c < W; c += kThreads)
+    acc[0] += (double)fabsT(row[c] - m);
+  block_sum<1>(acc);
+  if (threadIdx.x == 0) out[blockIdx.x] = acc[0] / W;
 }
 
 // K5 — float64 field -> int8 slices for the ozaki int8 transforms, scale
@@ -825,11 +863,13 @@ inline bool aligned16(const void* p) {
 
 // K3 (HALO false: the (N, N) field, or R members' fields of a contiguous
 // (R, N, N) stack, no halo pointers) and K7 (a (bn, W) block at (row_off,
-// col_off) with its halo vectors; R = 1).  vec: 16 / sizeof(T) (the
-// wrapper's local_stats_grid checks W and the addresses; checked again
-// here, for every member's field) or 1; nblocks: the grid of one member
-// that the wrapper sized partials for (R * nblocks rows); ticket: R
-// counters; A0s / A1s: R doubles on the card, or null (R = 1)
+// col_off) with its halo vectors; K7_members: R members' blocks of a
+// contiguous (R, bn, W) stack, the halo vectors (R, W) and (R, bn)).
+// vec: 16 / sizeof(T) (the wrapper's local_stats_grid checks W and the
+// addresses; checked again here, for every member's block and halo row)
+// or 1; nblocks: the grid of one member that the wrapper sized partials
+// for (R * nblocks rows); ticket: R counters; A0s / A1s: R doubles on the
+// card, or null (R = 1)
 template <typename T, bool HALO>
 int launch_stats(const void* U, const void* E, const void* up,
                  const void* dn, const void* lf, const void* rt, int bn,
@@ -840,19 +880,19 @@ int launch_stats(const void* U, const void* E, const void* up,
                  void* stream) {
   if (bn < 1 || W < 1 || N < 2 || row_off < 0 || col_off < 0 ||
       row_off + bn > N || col_off + W > N || U == nullptr ||
-      bad_members(R) || (R > 1 && (HALO || A0s == nullptr ||
-                                   A1s == nullptr)) ||
+      bad_members(R) || (R > 1 && (A0s == nullptr || A1s == nullptr)) ||
       (HALO && (up == nullptr || dn == nullptr || lf == nullptr ||
                 rt == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   constexpr int kVec = 16 / (int)sizeof(T);
   if (vec == kVec) {
-    // a member's field starts N * N elements after the last: aligned with
-    // the first where W % kVec == 0 (then N is even)
+    // a member's field (block) starts bn * W elements after the last, its
+    // halo rows W after the last: aligned with the first where W % kVec
+    // == 0 and bn * W elements are a multiple of 16 bytes
     if (W % kVec || !aligned16(U) || (E != nullptr && !aligned16(E)) ||
         (HALO && (!aligned16(up) || !aligned16(dn))) ||
-        (R > 1 && ((long long)N * N * (long long)sizeof(T)) % 16))
+        (R > 1 && ((long long)bn * W * (long long)sizeof(T)) % 16))
       return (int)cudaErrorMisalignedAddress;
     return launch_stats_v<T, kVec, HALO>(
         U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, delx, RT, B,
@@ -879,6 +919,17 @@ int launch_absdev(const void* U, long long n, int R, const void* mean,
   if (err != cudaSuccess) return (int)err;
   reduce_columns_kernel<<<1, kThreads, 0, s>>>(
       (const double*)partials, nblocks, R, (double*)sums);
+  return (int)cudaGetLastError();
+}
+
+// K11 on R members' rows of W elements; out: R doubles
+template <typename T>
+int launch_row_absdev(const void* U, int R, long long member_stride,
+                      long long row_offset, int W, void* out, void* stream) {
+  if (W < 1 || bad_members(R) || member_stride < 0 || row_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  row_absdev_kernel<T><<<R, kThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)U, member_stride, row_offset, W, (double*)out);
   return (int)cudaGetLastError();
 }
 
@@ -1078,6 +1129,39 @@ int ch_local_stats_f64(const void* U, const void* up, const void* dn,
       stream);
 }
 
+// K7_members: R members' blocks (R, bn, W) of grid-sharded fields, each
+// with its halo vectors (up / dn: (R, W), lf / rt: (R, bn)) and its A0 /
+// A1 (R doubles); nblocks: one member's grid; ticket: R counters; sums:
+// (R, 5)
+int ch_local_stats_members_f32(const void* U, const void* up,
+                               const void* dn, const void* lf,
+                               const void* rt, const void* E, int bn, int W,
+                               int N, int R, int row_off, int col_off,
+                               double delx, double RT, double B,
+                               const void* A0s, const void* A1s,
+                               double threshold, void* partials, int nblocks,
+                               int vec, void* ticket, void* sums,
+                               void* stream) {
+  return launch_stats<float, true>(
+      U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, delx, RT, B, 0.0,
+      0.0, A0s, A1s, threshold, partials, nblocks, vec, ticket, sums,
+      stream);
+}
+int ch_local_stats_members_f64(const void* U, const void* up,
+                               const void* dn, const void* lf,
+                               const void* rt, const void* E, int bn, int W,
+                               int N, int R, int row_off, int col_off,
+                               double delx, double RT, double B,
+                               const void* A0s, const void* A1s,
+                               double threshold, void* partials, int nblocks,
+                               int vec, void* ticket, void* sums,
+                               void* stream) {
+  return launch_stats<double, true>(
+      U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, delx, RT, B, 0.0,
+      0.0, A0s, A1s, threshold, partials, nblocks, vec, ticket, sums,
+      stream);
+}
+
 int ch_absdev_f32(const void* U, long long n, const void* mean,
                   void* partials, int nblocks, void* sums, void* stream) {
   return launch_absdev<float>(U, n, 1, mean, partials, nblocks, sums,
@@ -1101,6 +1185,19 @@ int ch_absdev_members_f64(const void* U, long long n, int R,
                           void* sums, void* stream) {
   return launch_absdev<double>(U, n, R, mean, partials, nblocks, sums,
                                stream);
+}
+
+int ch_row_absdev_members_f32(const void* U, int R, long long member_stride,
+                              long long row_offset, int W, void* out,
+                              void* stream) {
+  return launch_row_absdev<float>(U, R, member_stride, row_offset, W, out,
+                                  stream);
+}
+int ch_row_absdev_members_f64(const void* U, int R, long long member_stride,
+                              long long row_offset, int W, void* out,
+                              void* stream) {
+  return launch_row_absdev<double>(U, R, member_stride, row_offset, W, out,
+                                   stream);
 }
 
 // float64 only: the ozaki route is the float64 transform.  K5 is

@@ -24,9 +24,25 @@ gates (``_warn_wide_f64_batch``, the ozaki ``R > 4`` unfold, and the
 experiment's four-wide clamp) have no counterpart: they guard a TPU
 compiler fault.
 
-Refused, each with its ROADMAP.md item: a ``mesh`` (the ensemble over an
-'ens' mesh of cards) and ``--mesh`` (item 11).  The JAX ensemble has no
-device jitter, so ``jitter_backend='device'`` is refused too.
+With ``mesh`` (an :class:`~.parallel.mesh.EnsembleMesh`: one rank per
+JAX mesh device, ``chsimpy_tpu/ensemble.py:113-136, 276-306``) the members
+are split over the mesh's 'ens' axis as JAX's ``P('ens')`` splits them
+(ens slot e runs the members ``[e*R/E, (e+1)*R/E)``; ``R % E`` raises), and
+with a grid of more than one rank each member's field is tiled over the
+grid of its slot (the matmul route only: K8 as K1_members on the blocks,
+the grid DCTs of the stacked blocks, K2_members, K7_members and
+K4_members).  Each rank builds the constants and state of its own
+members.  The host side (rows, stops, counters; the fields for
+``solutions()`` and checkpoints) is gathered over the ens axis (and the
+fields over the grid), so every rank holds every member, as JAX's
+replicated identity gives it, and every rank takes the same chunks.
+``params.mesh_shape`` without a ``mesh`` builds the mesh on the
+initialized process group (its world over the grid's ranks is E).
+
+Refused, each with its ROADMAP.md item: the split and ozaki routes with
+grid-sharded member fields (the pencil layout, item 11).  The JAX
+ensemble has no device jitter, so ``jitter_backend='device'`` is refused
+too.
 """
 
 from __future__ import annotations
@@ -47,6 +63,9 @@ from .derived import Derived
 from .device import resolve_device
 from .ops import dct as dct_ops
 from .params import Parameters, check_solver_scope, not_ported
+from .parallel.sharding import (block_slices, gather_field, gather_members,
+                                member_slice, shard_consts, shard_field,
+                                shard_members)
 from .rng import FieldGenerator
 from .solution import Solution
 from .timedata import TimeData
@@ -65,17 +84,42 @@ def derive_member_constants(params: Parameters, A0: float, A1: float):
     return kappa_base / (0.1602564 * 64) ** 2
 
 
-def ensemble_scope_errors(params: Parameters, mesh=None) -> list:
-    """Why the ensemble cannot run ``params`` (empty: it can), beyond the
-    single solver's refusals."""
-    errs = []
+def _grid_sharded(params: Parameters, mesh=None) -> bool:
+    """True when each member's field is tiled over more than one rank."""
     if mesh is not None:
-        errs.append(not_ported("the ensemble over an 'ens' mesh of cards",
-                               11))
-    if params.mesh_shape is not None:
-        errs.append(not_ported('the ensemble with grid-sharded member '
-                               'fields (--mesh)', 11))
+        return mesh.size > 1
+    return (params.mesh_shape is not None
+            and params.mesh_shape[0] * params.mesh_shape[1] > 1)
+
+
+def ensemble_scope_errors(params: Parameters, mesh=None) -> list:
+    """Why the ensemble cannot run ``params`` (on ``mesh``) (empty: it
+    can), beyond the single solver's refusals."""
+    errs = []
+    if _grid_sharded(params, mesh):
+        tb = params.transform_backend
+        if tb in ('split', 'ozaki'):
+            errs.append(not_ported(f'--transform {tb} with grid-sharded '
+                                   f'member fields (the pencil layout)', 11))
     return errs
+
+
+def _build_mesh(params: Parameters, device):
+    """The ('ens', 'x', 'y') mesh of ``params.mesh_shape`` on the
+    initialized process group: E is the world over the grid's ranks."""
+    import torch.distributed as dist
+    from .parallel.mesh import EnsembleMesh, check_grid_shape
+    mx, my = check_grid_shape(params.mesh_shape)
+    world = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 0)
+    if world == 0 or world % (mx * my):
+        raise RuntimeError(
+            f"the ensemble with --mesh {mx}x{my} needs a torch.distributed "
+            f"process group of a multiple of {mx * my} ranks (E x {mx} x "
+            f"{my}) and there is {'none' if world == 0 else world}: start "
+            f"the processes with the experiment's --coordinator, or "
+            f"torchrun, or pass an EnsembleMesh")
+    return EnsembleMesh(world // (mx * my), (mx, my), device)
 
 
 class EnsembleSolver:
@@ -96,6 +140,15 @@ class EnsembleSolver:
             raise NotImplementedError('; '.join(errs))
         check_solver_scope(params)
         self.device = resolve_device(params.device)
+        if _grid_sharded(params, mesh) and params.transform_backend == 'fft':
+            raise ValueError(
+                "--transform fft does not shard under --mesh; the "
+                "distributed transforms are the split (pencil layout), "
+                "matmul and ozaki routes")
+        if mesh is not None and params.mesh_shape is not None \
+                and tuple(params.mesh_shape) != tuple(mesh.shape):
+            raise ValueError(f"mesh_shape {tuple(params.mesh_shape)} is not "
+                             f"the mesh's grid {tuple(mesh.shape)}")
         A_pairs = np.asarray(A_pairs, dtype=np.float64)
         if A_pairs.ndim != 2 or A_pairs.shape[1] != 2 \
                 or A_pairs.shape[0] < 1:
@@ -112,6 +165,18 @@ class EnsembleSolver:
                 derive_member_constants(params, a0, a1)
                 for a0, a1 in zip(self.A0s, self.A1s)])
         N = params.N
+        if mesh is None and params.mesh_shape is not None:
+            mesh = _build_mesh(params, self.device)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"params ask for device {params.device!r}, the "
+                             f"mesh runs on {mesh.device.type!r}")
+        self.mesh = mesh
+        # the grid of grid-sharded member fields (None: members local)
+        self._grid = mesh if _grid_sharded(params, mesh) else None
+        # the members this rank steps (all of them without a mesh)
+        self.local_members = member_slice(mesh, self.R)
+        if self._grid is not None:
+            block_slices(self._grid, N)         # N must tile the grid
 
         # initial field: shared across members (reference semantics)
         self.generator = None
@@ -177,9 +242,12 @@ class EnsembleSolver:
             self.chunk_size = max(1, min(self.chunk_size,
                                          _JITTER_BUF_BYTES // (N * N * 8)))
         dct_ops.require_full_fp32()
-        self._consts = make_members_consts(self.cfg, params.delt, self.A0s,
-                                           self.A1s, self.kappas,
-                                           device=self.device)
+        self._consts = make_members_consts(
+            self.cfg, params.delt, shard_members(self.A0s, mesh),
+            shard_members(self.A1s, mesh), shard_members(self.kappas, mesh),
+            device=self.device)
+        if self._grid is not None:
+            self._consts = shard_consts(self._consts, self._grid)
         # the simplex slab, drawn at first use (checkpoint.restore_ensemble
         # installs the saved stream after construction)
         self._static_jbuf = None
@@ -189,15 +257,69 @@ class EnsembleSolver:
         self._ckpt_extra = None
 
     # ------------------------------------------------------------------
+    def _gather_host(self, *leaves) -> np.ndarray:
+        """Per-member leaves of this rank's members, as one (len(leaves),
+        R) float64 numpy array of every member (gathered over the ens
+        axis: every rank holds the same values)."""
+        t = torch.stack([x.to(torch.float64) for x in leaves], dim=-1)
+        if self.mesh is not None:
+            t = gather_members(t, self.mesh)
+        return t.cpu().numpy().T
+
+    def _gather_members(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-member tensor of this rank's members (fields: their
+        blocks) as every member's whole value, on every rank."""
+        if t.dtype == torch.bool:
+            return self._gather_members(t.to(torch.uint8)).bool()
+        if self._grid is not None and t.dim() == 3:
+            t = gather_field(t, self._grid)
+        return t if self.mesh is None else gather_members(t, self.mesh)
+
+    def host_state(self) -> dict:
+        """Every member's U (R, N, N), key and per-member leaves as numpy
+        arrays (a collective under a mesh: every rank calls it)."""
+        s = self._states
+        out = {'U': self._gather_members(s.U).cpu().numpy(),
+               'rng_key': self._gather_members(s.rng_key).cpu().numpy()}
+        for name in ('delt', 'time_delta_sum', 'computed_steps',
+                     'skip_check', 'stop_reason', 'tau0', 't0', 'E2_first',
+                     'E2_prev'):
+            out[name] = self._gather_members(getattr(s, name)).cpu().numpy()
+        return out
+
+    def load_host_state(self, host: dict) -> None:
+        """Install every member's leaves (:meth:`host_state`'s keys, each
+        with all R members) as this rank's members' state (their blocks
+        under a grid)."""
+        from .core.state import key_tensor
+        s = self._states
+        mine = {k: shard_members(np.asarray(v), self.mesh)
+                for k, v in host.items()}
+        U = torch.as_tensor(mine['U']).to(device=self.device,
+                                          dtype=self.cfg.tdtype)
+        if self._grid is not None:
+            U = shard_field(U, self._grid)[0]
+        repl = {'U': U, 'rng_key': key_tensor(mine['rng_key'], self.device)}
+        for name, v in mine.items():
+            if name not in repl:
+                repl[name] = torch.as_tensor(v).to(
+                    device=self.device, dtype=getattr(s, name).dtype)
+        self._states = s.replace(**repl)
+        self._stop = np.asarray(host['stop_reason'], np.int64)
+
     def prepare(self):
         N, R = self.params.N, self.R
         U0 = torch.as_tensor(self.U_init).to(device=self.device,
                                              dtype=self.cfg.tdtype)
-        U0_b = U0.expand(R, N, N).contiguous()
-        row0 = prepare_members_row0(self.cfg, self._consts, U0_b)
-        E, E2, Ra, PS = torch.stack(row0).cpu().numpy()
+        n_local = self.local_members.stop - self.local_members.start
+        U0_b = U0.expand(n_local, N, N).contiguous()
+        if self._grid is not None:
+            U0_b = shard_field(U0_b, self._grid)[0]
+        row0 = prepare_members_row0(self.cfg, self._consts, U0_b, self._grid)
+        E2_local = row0[1]
+        E, E2, Ra, PS = self._gather_host(*row0)
         self._states = init_members_state(
-            U0_b, self.params.delt, torch.as_tensor(E2), self.chunk_size,
+            U0_b, self.params.delt, E2_local, self.chunk_size,
             self.params.seed)
         self.timedatas = [TimeData() for _ in range(R)]
         for r in range(R):
@@ -224,15 +346,22 @@ class EnsembleSolver:
             slabs = np.empty((k, N, N), dtype=np.float64)
             for i in range(k):
                 slabs[i] = gen.next_sample()
-            return torch.as_tensor(slabs).to(device=self.device,
-                                             dtype=self.cfg.tdtype)
+            return self._to_device(slabs)
         if mode == 'static':
             if self._static_jbuf is None:
-                self._static_jbuf = torch.as_tensor(
-                    self._ensure_generator().next_sample()).to(
-                        device=self.device, dtype=self.cfg.tdtype)
+                self._static_jbuf = self._to_device(
+                    self._ensure_generator().next_sample())
             return self._static_jbuf
         return None
+
+    def _to_device(self, slabs: np.ndarray) -> torch.Tensor:
+        """Host slabs (..., N, N) in the field's type on the device; under
+        a grid this rank's block of each."""
+        t = torch.as_tensor(slabs)
+        if self._grid is not None:
+            rows, cols = block_slices(self._grid, self.params.N)
+            t = t[..., rows, cols]
+        return t.to(device=self.device, dtype=self.cfg.tdtype)
 
     def solve_or_resume(self, nsteps: Optional[int] = None, on_chunk=None,
                         preserve_stops: bool = False):
@@ -246,7 +375,8 @@ class EnsembleSolver:
             raise RuntimeError("call prepare() before solve_or_resume()")
         if nsteps is None:
             nsteps = max(self.params.ntmax, 0)
-        computed = self._states.computed_steps.cpu().numpy()
+        computed = self._gather_host(
+            self._states.computed_steps)[0].astype(np.int64)
         # entry semantics (a fresh solve runs nsteps-1 iterations, a
         # resume nsteps) are member 0's; a mix of fresh (== 1) and resumed
         # (> 1) members has no shared iteration count
@@ -262,18 +392,21 @@ class EnsembleSolver:
         states = self._states
         # the reference recomputes the spectral image at every (re)entry
         states = states.replace(
-            hat_U=entry_dct2(self.cfg, self._consts, states.U))
+            hat_U=entry_dct2(self.cfg, self._consts, states.U, self._grid))
         if n_iters > 0 and not preserve_stops:
             states = states.replace(
                 stop_reason=torch.zeros_like(states.stop_reason))
             self._stop = np.zeros(self.R, dtype=np.int64)
         elif preserve_stops:
-            self._stop = states.stop_reason.cpu().numpy().astype(np.int64)
+            self._stop = self._gather_host(
+                states.stop_reason)[0].astype(np.int64)
 
+        # the stops are every member's (gathered): every rank takes the
+        # same chunks, so the collectives meet
         while n_iters > 0 and np.any(self._stop == STOP_NONE):
             k = min(n_iters, self.chunk_size)
             states = run_members_chunk(self.cfg, self._consts, states, k,
-                                       self._draw_jitter_buf(k))
+                                       self._draw_jitter_buf(k), self._grid)
             n_iters -= k
             states = self._sync(states)
             # publish the state before the hook: it sees the solver as it
@@ -286,17 +419,20 @@ class EnsembleSolver:
 
     def _sync(self, states):
         """Per-chunk host sync: every member's new rows into its trace,
-        the stop codes; NaN in a member raises."""
-        f64 = torch.float64
-        host = torch.stack([states.rows.to(f64),
-                            states.stop_reason.to(f64)]).cpu().numpy()
+        the stop codes; NaN in a member raises.  Under a mesh the rows
+        and stops of every member are gathered first (the same on every
+        rank)."""
+        host = self._gather_host(states.rows, states.stop_reason)
         rows = host[0].astype(np.int64)
         stops = host[1].astype(np.int64)
         top = int(rows.max())
         if top > 0:
             # a copy: the device buffer is written in place by the next
             # chunk (and on the CPU .cpu() would alias it)
-            bufs = states.rowbuf[:, :top].to('cpu', copy=True).numpy()
+            buf = states.rowbuf[:, :top]
+            if self.mesh is not None:
+                buf = gather_members(buf.contiguous(), self.mesh)
+            bufs = buf.to('cpu', copy=True).numpy()
         for r in range(self.R):
             if rows[r] > 0:
                 self.timedatas[r].insert_block(bufs[r, :rows[r]])
@@ -307,10 +443,12 @@ class EnsembleSolver:
 
     # ------------------------------------------------------------------
     def solutions(self) -> Sequence[Solution]:
+        """One Solution per member, all R on every rank (under a mesh a
+        collective: every rank calls it)."""
         s = self._states
-        f64 = torch.float64
-        host = torch.stack([s.computed_steps.to(f64), s.tau0, s.t0,
-                            s.stop_reason.to(f64)]).cpu().numpy()
+        host = self._gather_host(s.computed_steps, s.tau0, s.t0,
+                                 s.stop_reason)
+        U = self._gather_members(s.U)
         sols = []
         for r in range(self.R):
             p = self.params.deepcopy()
@@ -318,7 +456,7 @@ class EnsembleSolver:
             p.A1_const = float(self.A1s[r])
             p.kappa_tilde = float(self.kappas[r])
             sol = Solution(p)
-            sol.U = s.U[r]
+            sol.U = U[r]
             sol.timedata = self.timedatas[r]
             sol.computed_steps = int(host[0, r])
             sol.tau0 = float(host[1, r])

@@ -22,9 +22,19 @@ written as pandas' ``to_csv`` writes it.  ``--live-view`` shows member
 about every ``--update-every`` steps: the batch's chunk shrinks to that,
 which changes no member's bits.
 
-Refused, each naming its ROADMAP.md queue A item: ``--coordinator``,
-``--num-processes`` and ``--process-id`` (the multi-process 'ens' mesh,
-item 11).  ``--png-anim`` is refused as in the JAX package.  The JAX
+With ``--coordinator host:port --num-processes P --process-id p`` the
+experiment is one process of P: the processes form a ``torch.distributed``
+world at the coordinator (one process per device, as one JAX process per
+host holds its devices), the batches run on an ('ens', 'x', 'y') mesh of
+``(P / (mx*my), mx, my)`` ranks (``--mesh MxN``, default 1x1), process
+``p`` runs the host pipeline of the runs ``run_id % P == p``, and the
+rows are merged (as Python objects, so a None stays None and a NaN stays
+NaN) before process 0 alone writes the metadata and the results tables
+and shows the progress bar: the bytes of a single-process run.  Each
+process binds card ``p`` modulo the host's cards (``--dist-backend
+nccl``: one card each).
+
+``--png-anim`` is refused as in the JAX package.  The JAX
 package's four-wide batch clamp for float64 ozaki
 (``_resolve_batch_width``) guards a TPU compiler fault and has no
 counterpart: the auto width is :func:`_auto_batch_width`'s on every
@@ -32,21 +42,22 @@ route.
 
     python -m chsimpy_tpu_torch.experiment -R 16 --A-source sobol -N 512 \\
         --cinit 0.89 --threshold 0.89 --export-csv E2 -f uq
+    # two processes (start both; --dist-backend gloo to share a card)
+    python -m chsimpy_tpu_torch.experiment ... -f uq \\
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0
 """
 
 from __future__ import annotations
 
-import argparse
 import os
 
 import numpy as np
 
 from . import ensemble, material, sysinfo
-from .cli import CLIParser, _refusal
+from .cli import CLIParser
 from .device import resolve_device
 from .ensemble import EnsembleSolver, ensemble_scope_errors
 from .io import csvio
-from .params import not_ported
 from .solution import Solution
 
 # set in every host-pipeline worker (run_experiment_batch refuses to run
@@ -71,18 +82,9 @@ class ExperimentParams:
         self.A_seed = None
         self.live_view = False
         self.host_procs = -1
-
-
-# flags of the JAX experiment that the port refuses: names, value count,
-# what, queue A item
-_LATER = [
-    (('--coordinator',), 1, 'the multi-process experiment (--coordinator)',
-     11),
-    (('--num-processes',), 1,
-     'the multi-process experiment (--num-processes)', 11),
-    (('--process-id',), 1, 'the multi-process experiment (--process-id)',
-     11),
-]
+        self.coordinator = None
+        self.num_processes = None
+        self.process_id = None
 
 
 class ExperimentCLIParser:
@@ -115,16 +117,23 @@ class ExperimentCLIParser:
                                 'sympy post-processing), overlapped with '
                                 'the device solve. -1 = one per CPU, 0/1 = '
                                 'synchronous')
+        group.add_argument('--coordinator', default=None,
+                           help='host:port where the processes of a '
+                                'multi-process experiment meet (the '
+                                "'ens' mesh axis spans every process; "
+                                'each runs the host pipeline of the runs '
+                                'it owns)')
+        group.add_argument('--num-processes', default=None, type=int,
+                           help='Total process count of the distributed '
+                                'experiment (with --coordinator)')
+        group.add_argument('--process-id', default=None, type=int,
+                           help="This process's rank in [0, "
+                                '--num-processes) (with --coordinator)')
         group.add_argument('--live-view', action='store_true',
                            help='Live map of ensemble member 0, refreshed '
                                 'about every --update-every steps (beyond-'
                                 'reference: the reference forces no-gui in '
                                 'experiments)')
-        for names, nargs, what, item in _LATER:
-            group.add_argument(*names, nargs=nargs,
-                               action=_refusal(not_ported(what, item)),
-                               default=argparse.SUPPRESS,
-                               help=argparse.SUPPRESS)
 
     def get_parameters(self, argv=None):
         params = self.cliparser.get_parameters(argv)
@@ -149,6 +158,25 @@ class ExperimentCLIParser:
         exp_params.live_view = args.live_view
         if exp_params.live_view and params.update_every is None:
             parser.error('ERROR: --live-view requires --update-every.')
+        exp_params.coordinator = args.coordinator
+        exp_params.num_processes = args.num_processes
+        exp_params.process_id = args.process_id
+        if exp_params.coordinator is not None:
+            if exp_params.num_processes is None \
+                    or exp_params.process_id is None:
+                parser.error('ERROR: --coordinator requires '
+                             '--num-processes and --process-id.')
+            if exp_params.live_view:
+                parser.error('ERROR: --live-view is single-process only.')
+            if params.checkpoint_file or params.restore_file:
+                parser.error('ERROR: experiment checkpointing is '
+                             'single-process only (the checkpoint header '
+                             'would need a global result gather at every '
+                             'save).')
+            if params.file_id is None or params.file_id == 'auto':
+                parser.error('ERROR: distributed experiments need an '
+                             'explicit --file-id (auto ids are timestamps; '
+                             'the processes would disagree).')
         errs = ensemble_scope_errors(params)
         if errs:
             parser.error('; '.join(errs))
@@ -360,16 +388,46 @@ def _member_kappas(init_params, A_sub, sink):
     return np.array([table[(float(a0), float(a1))] for a0, a1 in A_sub])
 
 
-def _auto_batch_width(nr_items, exp_params):
+def _auto_batch_width(nr_items, exp_params, mesh=None):
     """Device batch width when -P is auto (-1): everything at once,
     except that with the host pool on and at least 8 members the run
     splits in two, so the first batch's host work hides behind the second
-    batch's solve.  The JAX package's rule, kept so that its experiment
-    checkpoints (which record the width) restore here."""
+    batch's solve.  Under a mesh the width maps to the 'ens' axis, so it
+    stays one batch there.  The JAX package's rule, kept so that its
+    experiment checkpoints (which record the width) restore here."""
     hp = getattr(exp_params, 'host_procs', -1)
-    if nr_items >= 8 and (hp is None or hp < 0 or hp > 1):
+    if (nr_items >= 8 and mesh is None
+            and (hp is None or hp < 0 or hp > 1)):
         return (nr_items + 1) // 2
     return nr_items
+
+
+def _world() -> tuple:
+    """(process count, this process's index) of the experiment."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def merge_rows_across_processes(rows, nr_items):
+    """Every process's result rows (each holds those of the runs it
+    owns, ``run_id % P == p``) on every process, in run order: the
+    counterpart of the JAX package's ``_merge_rows_across_processes``
+    (the reference's pool gathers the rows into the parent,
+    ``chsimpy/experiment.py:211-218``).  The rows travel as Python
+    objects (``all_gather_object``), so every value comes back as it
+    went: a None stays None and a NaN stays NaN (the JAX package sends
+    float64 with NaN as its padding and turns a real NaN into None).
+    A collective: every process calls it."""
+    import torch.distributed as dist
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, [tuple(r) for r in rows])
+    merged = sorted((r for part in parts for r in part), key=lambda r: r[9])
+    if len(merged) != nr_items:
+        raise RuntimeError(f"the processes returned {len(merged)} result "
+                           f"rows for {nr_items} runs")
+    return merged
 
 
 def _json_rows(rows):
@@ -421,8 +479,10 @@ def live_chunk_size(chunk_size: int, update_every: int) -> int:
 
 
 def run_experiment_batch(init_params, exp_params, A_list=None, U_init=None,
-                         progress=True):
-    """Run the full ensemble; returns the results rows in run order."""
+                         progress=True, mesh=None):
+    """Run the full ensemble (on ``mesh``, an EnsembleMesh of the
+    processes' world, or one device); returns the results rows in run
+    order, every run's on every process."""
     if os.environ.get(HOST_WORKER_ENV):
         raise RuntimeError(
             "run_experiment_batch called inside a host-pipeline worker: "
@@ -445,7 +505,21 @@ def run_experiment_batch(init_params, exp_params, A_list=None, U_init=None,
     plan_digest = a_plan_digest(A_pairs, facs)
     width = exp_params.processes
     if width is None or width <= 0:
-        width = _auto_batch_width(nr_items, exp_params)
+        width = _auto_batch_width(nr_items, exp_params, mesh)
+
+    pcount, pindex = _world()
+    if pcount > 1:
+        if init_params.checkpoint_file or init_params.restore_file:
+            raise ValueError(
+                'experiment checkpoint/restore is single-process only '
+                '(the checkpoint header needs a global result gather at '
+                'every save)')
+        if getattr(exp_params, 'live_view', False):
+            raise ValueError('live_view is single-process only')
+        if mesh is None:
+            raise ValueError(
+                'multi-process experiments need a mesh of the processes '
+                "(an 'ens' axis spanning every process)")
 
     # checkpoint/resume of the experiment itself: the per-batch ensemble
     # snapshots carry the experiment's progress (the finished rows and the
@@ -502,28 +576,34 @@ def run_experiment_batch(init_params, exp_params, A_list=None, U_init=None,
             # per-run ticks with a memory postfix, like the reference's
             # imap_unordered progress
             from tqdm import tqdm
-            pbar = tqdm(total=nr_items, desc='ensemble runs')
+            owned = len(range(pindex, nr_items, pcount))
+            pbar = tqdm(total=owned, desc='ensemble runs')
         except ImportError:
             pass
     try:
-        return _run_batches(init_params, sink, A_pairs, facs, A_list,
-                            U_init, nr_items, width, resume_start,
-                            resumed_ens, plan_digest, pbar, on_chunk)
+        results = _run_batches(init_params, sink, A_pairs, facs, A_list,
+                               U_init, nr_items, width, resume_start,
+                               resumed_ens, plan_digest, pbar, on_chunk,
+                               mesh)
     finally:
         sink.close()
         if pbar is not None:
             pbar.close()
         if view is not None:
             view.finish()
+    if pcount > 1:
+        results = merge_rows_across_processes(results, nr_items)
+    return results
 
 
 def _run_batches(init_params, sink, A_pairs, facs, A_list, U_init,
                  nr_items, width, resume_start, resumed_ens, plan_digest,
-                 pbar, on_chunk=None):
+                 pbar, on_chunk=None, mesh=None):
     """The batch loop of :func:`run_experiment_batch`: solve each batch,
-    hand every finished member to the host pipeline ``sink``.  With the
-    live view's ``on_chunk`` the chunk shrinks to ``update_every`` and the
-    checkpoint hook calls it first."""
+    hand every finished member this process owns to the host pipeline
+    ``sink``.  With the live view's ``on_chunk`` the chunk shrinks to
+    ``update_every`` and the checkpoint hook calls it first."""
+    pcount, pindex = _world()
     file_id = init_params.file_id
     ckpt_file = init_params.checkpoint_file
     ckpt_every = init_params.checkpoint_every
@@ -570,7 +650,7 @@ def _run_batches(init_params, sink, A_pairs, facs, A_list, U_init,
         else:
             kappas = _member_kappas(init_params, A_pairs[start:stop], sink)
             ens = EnsembleSolver(init_params.deepcopy(), A_pairs[start:stop],
-                                 U_init=U_init, kappas=kappas)
+                                 U_init=U_init, kappas=kappas, mesh=mesh)
             if on_chunk is not None:
                 # refresh the view about every --update-every steps
                 ens.chunk_size = live_chunk_size(ens.chunk_size,
@@ -585,6 +665,10 @@ def _run_batches(init_params, sink, A_pairs, facs, A_list, U_init,
                 pbar.update(1)
         for i, sol in enumerate(sols):
             run_id = start + i
+            if run_id % pcount != pindex:
+                # another process owns this member's host pipeline (its
+                # row arrives in the merge)
+                continue
             rp = init_params.deepcopy()
             rp.file_id = f"{file_id}-run{run_id}"
             fac0 = None if A_list is not None else facs[run_id, 0]
@@ -691,6 +775,33 @@ def aggregate_results(results, file_id):
     return agg
 
 
+def _distributed_mesh(exp_params, init_params):
+    """Join the processes' world (``--coordinator``, or a ``torchrun``
+    launch) and return the ('ens', 'x', 'y') mesh the batches run on: the
+    'ens' axis spans every process, ``--mesh`` (if given) carves a
+    per-member ('x', 'y') grid out of each member's share (the JAX
+    package's ``_distributed_mesh``, ``experiment.py:719-739``)."""
+    import torch
+
+    from .parallel import distributed
+    from .parallel.mesh import EnsembleMesh
+    topo = distributed.initialize(
+        init_params.dist_backend, init_params.device,
+        coordinator_address=exp_params.coordinator,
+        num_processes=exp_params.num_processes,
+        process_id=exp_params.process_id)
+    grid = tuple(init_params.mesh_shape or (1, 1))
+    n_grid = grid[0] * grid[1]
+    n_dev = topo['global_devices']
+    if n_dev % n_grid:
+        raise ValueError(f"--mesh {grid} does not divide the "
+                         f"{n_dev} processes")
+    dev = torch.device(init_params.device)
+    if dev.type == 'cuda':
+        dev = torch.device('cuda', torch.cuda.current_device())
+    return EnsembleMesh(n_dev // n_grid, grid, dev)
+
+
 def main(argv=None):
     import threading
 
@@ -702,7 +813,22 @@ def main(argv=None):
     exp_cliparser.cliparser.print_info()
     exp_params, init_params = exp_cliparser.get_parameters(argv)
     resolve_device(init_params.device)
-    print(str(init_params).replace(", '", "\n '"))
+    mesh = None
+    if exp_params.coordinator is not None \
+            or init_params.mesh_shape is not None:
+        mesh = _distributed_mesh(exp_params, init_params)
+    try:
+        _main(exp_params, init_params, mesh)
+    finally:
+        if mesh is not None:
+            from .parallel import distributed
+            distributed.shutdown()
+
+
+def _main(exp_params, init_params, mesh):
+    is_primary = _world()[1] == 0
+    if is_primary:
+        print(str(init_params).replace(", '", "\n '"))
 
     if init_params.file_id is None or init_params.file_id == 'auto':
         init_params.file_id = sysinfo.get_or_create_file_id(
@@ -718,11 +844,17 @@ def main(argv=None):
     if exp_params.A_source not in ('uniform', 'sobol', 'grid'):
         A_list = csvio.csv_import_matrix(exp_params.A_source)
 
-    csvio.csv_export_list(f"{init_params.file_id}-metadata.csv",
-                          "\n".join(info + sysinfo.vars_to_list(exp_params)))
+    if is_primary:
+        csvio.csv_export_list(
+            f"{init_params.file_id}-metadata.csv",
+            "\n".join(info + sysinfo.vars_to_list(exp_params)))
 
     results = run_experiment_batch(init_params, exp_params, A_list=A_list,
-                                   U_init=U_init)
+                                   U_init=U_init, progress=is_primary,
+                                   mesh=mesh)
+    if not is_primary:
+        # every process holds the merged rows; one writes the tables
+        return
     agg = aggregate_results(results, init_params.file_id)
     print(agg_csv_text(agg), end='')
     print('Output files:')

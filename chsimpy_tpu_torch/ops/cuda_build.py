@@ -48,7 +48,11 @@ _SIGNATURES = {
                           _I, _P, _P, _P), _BOTH),
     'ch_local_stats': ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D,
                         _D, _D, _D, _D, _P, _I, _I, _P, _P, _P), _BOTH),
+    'ch_local_stats_members': ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _D, _D, _D, _P, _P, _D, _P, _I, _I,
+                                _P, _P, _P), _BOTH),
     'ch_absdev': ((_P, _LL, _P, _P, _I, _P, _P), _BOTH),
+    'ch_row_absdev_members': ((_P, _I, _LL, _LL, _I, _P, _P), _BOTH),
     'ch_absdev_members': ((_P, _LL, _I, _P, _P, _I, _P, _P), _BOTH),
     'ch_slice_scale': ((_P, _LL, _P, _I, _P, _P, _P, _P), ('_f64',)),
     'ch_slice': ((_P, _P, _P, _LL, _I, _P), ('_f64',)),

@@ -118,22 +118,25 @@ def idct2(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
 
 def dct2_grid(Ub: torch.Tensor, C: torch.Tensor, mesh) -> torch.Tensor:
     """This rank's (bn, bw) block of ``dct2`` of the field whose block is
-    ``Ub`` (a collective: every rank of the mesh calls it)."""
+    ``Ub`` (a collective: every rank of the mesh calls it).  A stack of
+    members' blocks (R, bn, bw) gives each member's block: batched
+    products over the member axis and gathers of the stacked strips (the
+    grid ensemble's transform)."""
     I, J = block_slices(mesh, C.shape[0])
     Ucol = coll.gather_x(mesh, Ub)                           # U[:, J]
-    Tt = torch.matmul(Ucol.T, C[I].T)                        # T[I, J]^T
+    Tt = torch.matmul(Ucol.transpose(-1, -2), C[I].T)        # T[I, J]^T
     G = coll.gather_y(mesh, Tt)                              # T[I, :]^T
-    return torch.matmul(G.T, C[J].T).contiguous()
+    return torch.matmul(G.transpose(-1, -2), C[J].T).contiguous()
 
 
 def idct2_grid(Xb: torch.Tensor, C: torch.Tensor, mesh) -> torch.Tensor:
     """This rank's block of ``idct2`` of the spectral image whose block
-    is ``Xb`` (a collective)."""
+    is ``Xb`` (a collective); member stacks as :func:`dct2_grid`."""
     I, J = block_slices(mesh, C.shape[0])
     Xcol = coll.gather_x(mesh, Xb)                           # X[:, J]
-    St = torch.matmul(Xcol.T, C[:, I])                       # S[I, J]^T
+    St = torch.matmul(Xcol.transpose(-1, -2), C[:, I])       # S[I, J]^T
     G = coll.gather_y(mesh, St)                              # S[I, :]^T
-    return torch.matmul(G.T, C[:, J]).contiguous()
+    return torch.matmul(G.transpose(-1, -2), C[:, J]).contiguous()
 
 
 # ----------------------------------------------------------------------

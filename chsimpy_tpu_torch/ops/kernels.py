@@ -13,7 +13,11 @@ member-batched (``*_members``) for the ensemble, where the JAX package
 (``chsimpy_tpu/ensemble.py``): one launch for R fields of an (R, N, N)
 stack, member r giving the single launch's bits on field r with its own
 scalars; so does K5 on the ozaki route (``slice_field_members``, B6 under
-``vmap``: each member its own scale).  Each wrapper
+``vmap``: each member its own scale), and K7 on the members' blocks of a
+grid ensemble (``local_band_sums_members``, B7 under ``vmap``; K1, K2 and
+K4 take the blocks as they are).  K11 (``row_absdev_members``) takes each
+member's Ra with an order that does not depend on the member count (no
+Pallas counterpart).  Each wrapper
 
 * runs the plain version (``*_ref``) only when its input lies on the CPU;
 * on a CUDA tensor launches its kernel (``csrc/ch_kernels.cu``; the GEMM
@@ -44,7 +48,8 @@ launches = {'chemical_potential': 0, 'spectral_update': 0,
             'sobol_jitter': 0, 'chemical_potential_members': 0,
             'spectral_update_members': 0, 'stats_sums_members': 0,
             'absdev_sum_members': 0, 'threefry_jitter': 0,
-            'slice_field_members': 0}
+            'slice_field_members': 0, 'local_band_sums_members': 0,
+            'row_absdev_members': 0}
 
 # grids of the reduction kernels: fixed by the shape (and, for K3 and K7,
 # the vector width) alone, so the summation order (and the result, to the
@@ -521,26 +526,23 @@ def idct2_gemm(X, C):
 def _halo_extended(Ub, up_row, dn_row, lf_col, rt_col):
     """(rows r-1, rows r+1, cols c-1, cols c+1) of the block as (bn, W)
     views built from the block and its four halo vectors — what the TPU
-    kernel's caller builds with ``_neighbor_views``."""
-    up = torch.cat([up_row.reshape(1, -1), Ub[:-1]], dim=0)
-    dn = torch.cat([Ub[1:], dn_row.reshape(1, -1)], dim=0)
-    lf = torch.cat([lf_col.reshape(-1, 1), Ub[:, :-1]], dim=1)
-    rt = torch.cat([Ub[:, 1:], rt_col.reshape(-1, 1)], dim=1)
+    kernel's caller builds with ``_neighbor_views``.  A member stack (R,
+    bn, W) takes (R, W) rows and (R, bn) columns."""
+    up = torch.cat([up_row.unsqueeze(-2), Ub[..., :-1, :]], dim=-2)
+    dn = torch.cat([Ub[..., 1:, :], dn_row.unsqueeze(-2)], dim=-2)
+    lf = torch.cat([lf_col.unsqueeze(-1), Ub[..., :, :-1]], dim=-1)
+    rt = torch.cat([Ub[..., :, 1:], rt_col.unsqueeze(-1)], dim=-1)
     return up, dn, lf, rt
 
 
-def local_band_sums_ref(Ub, up_row, dn_row, lf_col, rt_col,
-                        Eb: Optional[torch.Tensor], A0, A1, row_off: int,
-                        col_off: int, *, N, delx, RT, B, threshold):
-    """(5,) float64: the sums of :func:`stats_sums_ref` over one block of
-    an (N, N) field, the block's rows starting at global row ``row_off``
-    and its columns at ``col_off``.  The np.gradient stencil reads the
-    halo vectors across the block's edges and keys its one-sided
-    differences on the GLOBAL row and column (``_stats_band_kernel_sh``)."""
-    A0 = _cast(A0, Ub.dtype)
-    A1 = _cast(A1, Ub.dtype)
+def _local_sums(Ub, up_row, dn_row, lf_col, rt_col, Eb, A0, A1,
+                row_off: int, col_off: int, N, delx, RT, B, threshold):
+    """The five sums of each block of ``Ub`` (2-D: (5,); a member stack:
+    (R, 5)), A0 and A1 already in the field type (floats, or (R, 1, 1)
+    tensors)."""
     f64 = torch.float64
-    bn, W = Ub.shape
+    bn, W = Ub.shape[-2:]
+    dims = (-2, -1)
     up, dn, lf, rt = _halo_extended(Ub, up_row, dn_row, lf_col, rt_col)
     dev = Ub.device
     rows = (torch.arange(bn, device=dev) + row_off).reshape(-1, 1)
@@ -556,12 +558,25 @@ def local_band_sums_ref(Ub, up_row, dn_row, lf_col, rt_col,
     integrand = (RT * (Ub * (torch.log(Ub) - B) + Uinv * torch.log(Uinv))
                  + (A0 + A1 * (Uinv - Ub)) * Ub * Uinv)
     if Eb is None:
-        s_e2 = torch.zeros((), dtype=f64, device=dev)
+        s_e2 = torch.zeros(Ub.shape[:-2], dtype=f64, device=dev)
     else:
-        s_e2 = (Eb * Eb).to(f64).sum()
-    return torch.stack([integrand.to(f64).sum(), du2.to(f64).sum(),
-                        Ub.to(f64).sum(), (Ub < threshold).to(f64).sum(),
-                        s_e2])
+        s_e2 = (Eb * Eb).to(f64).sum(dims)
+    return torch.stack([integrand.to(f64).sum(dims), du2.to(f64).sum(dims),
+                        Ub.to(f64).sum(dims),
+                        (Ub < threshold).to(f64).sum(dims), s_e2], dim=-1)
+
+
+def local_band_sums_ref(Ub, up_row, dn_row, lf_col, rt_col,
+                        Eb: Optional[torch.Tensor], A0, A1, row_off: int,
+                        col_off: int, *, N, delx, RT, B, threshold):
+    """(5,) float64: the sums of :func:`stats_sums_ref` over one block of
+    an (N, N) field, the block's rows starting at global row ``row_off``
+    and its columns at ``col_off``.  The np.gradient stencil reads the
+    halo vectors across the block's edges and keys its one-sided
+    differences on the GLOBAL row and column (``_stats_band_kernel_sh``)."""
+    return _local_sums(Ub, up_row, dn_row, lf_col, rt_col, Eb,
+                       _cast(A0, Ub.dtype), _cast(A1, Ub.dtype), row_off,
+                       col_off, N, delx, RT, B, threshold)
 
 
 def local_band_sums(Ub, up_row, dn_row, lf_col, rt_col,
@@ -660,6 +675,160 @@ def chemical_potential_sharded(mesh, Ub, RT, BRT, A0, A1):
         return chemical_potential_ref(Ub, RT, BRT, A0, A1)
     out = _launch_mu(Ub, RT, BRT, A0, A1)
     launches['chemical_potential_sharded'] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# K7_members: K7 on the members' blocks of a grid ensemble (B7 under the
+# JAX ensemble's vmap), and the ensemble's fused_stats_sharded
+# ----------------------------------------------------------------------
+
+def _member_blocks(U: torch.Tensor) -> int:
+    """R of an (R, bh, bw) stack of members' fields or blocks; raises
+    otherwise."""
+    if U.dim() != 3 or 0 in U.shape:
+        raise ValueError(f"expected an (R, N, N) stack of members' fields "
+                         f"or an (R, bh, bw) stack of their blocks, got "
+                         f"{tuple(U.shape)}")
+    return U.shape[0]
+
+
+def local_band_sums_members_ref(Ub, up_row, dn_row, lf_col, rt_col,
+                                Eb: Optional[torch.Tensor], A0s, A1s,
+                                row_off: int, col_off: int, *, N, delx, RT,
+                                B, threshold):
+    """(R, 5) float64: :func:`local_band_sums_ref` of each member's block
+    ``Ub[r]`` with its halo vectors ``up_row[r]``, ... and its A0s[r],
+    A1s[r]; every block at the same (row_off, col_off)."""
+    return _local_sums(Ub, up_row, dn_row, lf_col, rt_col, Eb,
+                       _per_member(A0s, Ub.dtype), _per_member(A1s, Ub.dtype),
+                       row_off, col_off, N, delx, RT, B, threshold)
+
+
+def local_band_sums_members(Ub, up_row, dn_row, lf_col, rt_col,
+                            Eb: Optional[torch.Tensor], A0s, A1s,
+                            row_off: int, col_off: int, *, N, delx, RT, B,
+                            threshold):
+    """K7_members: K7 on every member's block in one launch (member r on
+    grid layer r, the grid of one K7 launch on an (bn, W) block: member r
+    gives the single launch's bits on its block, halo and scalars), its
+    own ticket and fixed-order finish.  Where W allows the vector, each
+    member's block and halo rows start a multiple of 16 bytes after the
+    first (W * itemsize is), so the stack takes a fresh block's width."""
+    R = _member_blocks(Ub)
+    _, bn, W = Ub.shape
+    _member_vector('A0s', A0s, R, Ub, torch.float64)
+    _member_vector('A1s', A1s, R, Ub, torch.float64)
+    for name, v, n in (('up_row', up_row, W), ('dn_row', dn_row, W),
+                       ('lf_col', lf_col, bn), ('rt_col', rt_col, bn)):
+        if tuple(v.shape) != (R, n):
+            raise ValueError(f"{name} must have shape ({R}, {n}), got "
+                             f"{tuple(v.shape)}")
+    _check_block(bn, W, N, row_off, col_off)
+    ops = (Ub, up_row, dn_row, lf_col, rt_col)
+    if Eb is not None:
+        if Eb.shape != Ub.shape:
+            raise ValueError("Eb and Ub differ in shape")
+        ops += (Eb,)
+    if not _on_card(*ops):
+        return local_band_sums_members_ref(
+            Ub, up_row, dn_row, lf_col, rt_col, Eb, A0s, A1s, row_off,
+            col_off, N=N, delx=delx, RT=RT, B=B, threshold=threshold)
+    rows = (Ub, up_row, dn_row) + (() if Eb is None else (Eb,))
+    vec, nblocks = local_stats_grid(bn, W, N, row_off, col_off,
+                                    Ub.element_size(),
+                                    *(t.data_ptr() for t in rows))
+    partials = torch.empty((R * nblocks, 5), dtype=torch.float64,
+                           device=Ub.device)
+    sums = torch.empty((R, 5), dtype=torch.float64, device=Ub.device)
+    _call('ch_local_stats_members', Ub.dtype, Ub.data_ptr(),
+          up_row.data_ptr(), dn_row.data_ptr(), lf_col.data_ptr(),
+          rt_col.data_ptr(), None if Eb is None else Eb.data_ptr(), bn, W, N,
+          R, int(row_off), int(col_off), float(delx), float(RT), float(B),
+          A0s.data_ptr(), A1s.data_ptr(), float(threshold),
+          partials.data_ptr(), nblocks, vec,
+          _ticket(Ub.device, R).data_ptr(), sums.data_ptr(), _stream())
+    launches['local_band_sums_members'] += 1
+    return sums
+
+
+def fused_stats_sharded_members(mesh, Ub, Eb: Optional[torch.Tensor], A0s,
+                                A1s, kappas, *, delx, RT, B, Amr, L,
+                                threshold):
+    """(E, E2, PS, L2, Ra, SA), each an (R,) float64 tensor with the same
+    bits on every rank of the grid, from this rank's blocks ``Ub`` (R, bn,
+    W) of the members' fields (and ``Eb``; None: L2 = 0).  The member
+    axis of :func:`fused_stats_sharded`: one halo exchange of every
+    member's edges, K7_members on the blocks, one world gather of the R x
+    (5 + W) partials and mid-row segments, rank-order sums per member,
+    the float64 finish per member (``kappas`` (R,) float64), then
+    K4_members on the blocks with each member's global mean."""
+    mx, my = mesh.shape
+    R, bn, W = Ub.shape
+    N = bn * mx
+    if W * my != N:
+        raise ValueError(f"blocks {bn}x{W} do not tile an (N, N) field on "
+                         f"a {mx}x{my} mesh")
+    i, j = mesh.coords
+    f64 = torch.float64
+    n2 = float(N * N)
+    Lsq = L ** 2
+    up, dn, lf, rt = coll.halo(mesh, Ub)
+    part = local_band_sums_members(Ub, up, dn, lf, rt, Eb, A0s, A1s, i * bn,
+                                   j * W, N=N, delx=delx, RT=RT, B=B,
+                                   threshold=threshold)
+    mid_row = N // 2 + 1
+    owner = mid_row // bn
+    if i == owner:
+        seg = Ub[:, mid_row - owner * bn].to(f64)
+    else:
+        seg = torch.zeros((R, W), dtype=f64, device=Ub.device)
+    g = coll.gather_world(mesh, torch.cat([part, seg], dim=1))  # (D, R, 5+W)
+    tot = coll.rank_sum(g[:, :, :5])                            # (R, 5)
+    mid = (g[owner * my:(owner + 1) * my, :, 5:].transpose(0, 1)
+           .reshape(R, 1, N).to(Ub.dtype))
+    E2 = 0.5 * Amr * kappas * Lsq * (tot[:, 1] / n2)
+    E = Amr * Lsq * (tot[:, 0] / n2) + E2
+    SA = tot[:, 3] / n2
+    L2 = torch.sqrt(tot[:, 4]) / n2
+    meanU = (tot[:, 2] / n2).to(Ub.dtype)
+    ps = absdev_sum_members(Ub, meanU)
+    PS = coll.rank_sum(coll.gather_world(mesh, ps)) / n2
+    Ra = row_absdev_members(mid, 0)
+    return E, E2, PS, L2, Ra, SA
+
+
+# ----------------------------------------------------------------------
+# K11: each member's Ra (no Pallas counterpart: jnp.mean twice on the mid
+# row in the JAX step's _stats, chsimpy_tpu/core/stepper.py:473)
+# ----------------------------------------------------------------------
+
+def row_absdev_members_ref(U, row: int):
+    """(R,) float64: mean|U[r, row] - mean(U[r, row])| of each member, in
+    U's dtype (the JAX step's Ra under ``vmap``)."""
+    mid = U[:, row, :]
+    return torch.mean(torch.abs(mid - torch.mean(mid, dim=-1, keepdim=True)),
+                      dim=-1).to(torch.float64)
+
+
+def row_absdev_members(U, row: int):
+    """K11: :func:`row_absdev_members_ref` on the card in one launch, one
+    block a member reading its row in place: the sums in float64, the
+    mean rounded to U's dtype, in an order fixed by the row's length, so
+    member r's bits do not depend on how many members the launch holds (a
+    torch reduction over an (R, W) tensor's rows does: its grid depends
+    on R).  U is (R, H, W): the members' fields, or their mid rows (R, 1,
+    W)."""
+    R = _member_blocks(U)
+    _, H, W = U.shape
+    if not 0 <= row < H:
+        raise ValueError(f"row {row} is not in [0, {H})")
+    if not _on_card(U):
+        return row_absdev_members_ref(U, row)
+    out = torch.empty((R,), dtype=torch.float64, device=U.device)
+    _call('ch_row_absdev_members', U.dtype, U.data_ptr(), R, H * W, row * W,
+          W, out.data_ptr(), _stream())
+    launches['row_absdev_members'] += 1
     return out
 
 
@@ -876,15 +1045,17 @@ def chemical_potential_members_ref(U, RT, BRT, A0s, A1s):
 
 def chemical_potential_members(U, RT, BRT, A0s, A1s):
     """K1 on every field of U in one launch (``mu_kernel``, member r on
-    grid row r), A0s/A1s read on the card."""
-    R = _members(U)
+    grid row r), A0s/A1s read on the card.  Pointwise, so U may be the
+    members' blocks of a grid ensemble (R, bh, bw): K8 under the member
+    axis."""
+    R = _member_blocks(U)
     _member_vector('A0s', A0s, R, U, torch.float64)
     _member_vector('A1s', A1s, R, U, torch.float64)
     if not _on_card(U):
         return chemical_potential_members_ref(U, RT, BRT, A0s, A1s)
     out = torch.empty_like(U)
-    N = U.shape[1]
-    _call('ch_mu_members', U.dtype, U.data_ptr(), out.data_ptr(), N * N, R,
+    _call('ch_mu_members', U.dtype, U.data_ptr(), out.data_ptr(),
+          U.shape[1] * U.shape[2], R,
           float(RT), float(BRT), A0s.data_ptr(), A1s.data_ptr(), _stream())
     launches['chemical_potential_members'] += 1
     return out
@@ -898,26 +1069,27 @@ def spectral_update_members_ref(hat_U, hat_E, Seig, CHeig):
 
 def spectral_update_members(hat_U, hat_E, Seig, CHeig):
     """K2 on every member in one launch; a shared (N, N) Seig or CHeig is
-    read by every member (stride 0), not copied."""
-    R = _members(hat_U)
-    N = hat_U.shape[1]
+    read by every member (stride 0), not copied.  The members' blocks of
+    a grid ensemble (R, bh, bw) take the grids' blocks."""
+    R = _member_blocks(hat_U)
+    shape = tuple(hat_U.shape[1:])
     if hat_E.shape != hat_U.shape:
         raise ValueError("hat_E and hat_U differ in shape")
     flags = []
     for name, g in (('Seig', Seig), ('CHeig', CHeig)):
-        if tuple(g.shape) == (R, N, N):
+        if tuple(g.shape) == (R,) + shape:
             flags.append(1)
-        elif tuple(g.shape) == (N, N):
+        elif tuple(g.shape) == shape:
             flags.append(0)
         else:
-            raise ValueError(f"{name} must be ({R}, {N}, {N}) or ({N}, {N}),"
-                             f" got {tuple(g.shape)}")
+            raise ValueError(f"{name} must be {(R,) + shape} or {shape}, "
+                             f"got {tuple(g.shape)}")
     if not _on_card(hat_U, hat_E, Seig, CHeig):
         return spectral_update_members_ref(hat_U, hat_E, Seig, CHeig)
     out = torch.empty_like(hat_U)
     _call('ch_update_members', hat_U.dtype, hat_U.data_ptr(),
           hat_E.data_ptr(), Seig.data_ptr(), CHeig.data_ptr(), out.data_ptr(),
-          N * N, R, flags[0], flags[1], _stream())
+          shape[0] * shape[1], R, flags[0], flags[1], _stream())
     launches['spectral_update_members'] += 1
     return out
 
@@ -985,7 +1157,7 @@ def absdev_sum_members(U, mean):
     """K4 on every member: one partials launch (member r on grid row r,
     the single launch's blocks) and one reduce over the (blocks, R)
     partials, column r in the single launch's order."""
-    R = _members(U)
+    R = _member_blocks(U)
     _member_vector('mean', mean, R, U, U.dtype)
     if not _on_card(U, mean):
         return absdev_sum_members_ref(U, mean)

@@ -1,15 +1,19 @@
-"""Grid sharding of the solve over ``torch.distributed`` ranks.
+"""Sharding of the solve and of the ensemble over ``torch.distributed``
+ranks.
 
-Counterpart of ``chsimpy_tpu/parallel/`` for the grid layout: the field is
-tiled over an ``mx x my`` mesh of ranks (one rank per JAX mesh device),
-each rank holding one ``(N/mx, N/my)`` block.
+Counterpart of ``chsimpy_tpu/parallel/`` for the grid layout and the
+ensemble mesh: the field is tiled over an ``mx x my`` mesh of ranks (one
+rank per JAX mesh device), each rank holding one ``(N/mx, N/my)`` block;
+an ensemble's members are split over an 'ens' axis of ``E`` such grids.
 
-* :mod:`.mesh` — :class:`GridMesh`, the rank's coordinates and its row and
-  column groups;
-* :mod:`.distributed` — joining a process group (torchrun's ``env://``),
-  binding each rank's card, :func:`spawn_grid` for in-process worlds;
-* :mod:`.sharding` — blocks of the field, the constants and the state;
+* :mod:`.mesh` — :class:`GridMesh` and :class:`EnsembleMesh`, the rank's
+  coordinates and its row, column, grid and ens groups;
+* :mod:`.distributed` — joining a process group (torchrun's ``env://``
+  or a coordinator's ``tcp://``), binding each rank's card,
+  :func:`spawn_world` and :func:`spawn_grid` for in-process worlds;
+* :mod:`.sharding` — blocks of the field, the constants and the state,
+  and each rank's members;
 * :mod:`.collectives` — the halo exchange, the strip all-gathers of the
-  grid DCTs and the rank-ordered sums;
+  grid DCTs, the rank-ordered sums and the gather over the ens axis;
 * :mod:`.workers` — the functions a spawned world runs.
 """

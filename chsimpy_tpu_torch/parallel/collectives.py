@@ -10,9 +10,14 @@ sharded DCT products (``parallel/sharding.py`` of the JAX package):
   block's own edge stands in (edge replication, as ``_neighbor_views``);
 * :func:`gather_x` / :func:`gather_y` — all-gathers over the rank's
   column strip (``x_group``) or row strip (``y_group``), concatenated
-  along dim 0 in coordinate order;
+  along the row axis (dim -2) in coordinate order; a stack of members'
+  blocks (R, bh, bw) gives the members' strips (R, ., bw);
 * :func:`gather_world` and :func:`rank_sum` — every rank's partial sums on
-  every rank, added in rank order.  ``all_reduce`` leaves its order to
+  every rank of the grid (an ensemble mesh: of its ens slot), added in
+  rank order;
+* :func:`gather_ens` — the all-gather over the ens axis of an
+  :class:`~.mesh.EnsembleMesh` (the ranks at the same grid coordinates),
+  concatenated along dim 0 in ``e`` order.  ``all_reduce`` leaves its order to
   the backend; here each rank adds the same numbers in the same order, so
   every rank holds the same bits.  The stop predicate rests on that: a
   rank whose E2 differed by one ulp could stop alone and leave the others
@@ -53,20 +58,39 @@ def _gather(mesh, t: torch.Tensor, group, n: int) -> torch.Tensor:
     return _home(mesh, out)
 
 
+def _gather_rows(mesh, t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The ``n`` ranks' ``t`` concatenated along dim -2: dim 0 of a 2-D
+    block; each member's rows of a member stack (R, a, b) -> (R, n*a, b)
+    (gathered along dim 0, then one copy into the members' layout)."""
+    if t.dim() == 2 or n == 1:
+        return _gather(mesh, t, group, n)
+    R, a, b = t.shape
+    out = _gather(mesh, t, group, n)                     # (n*R, a, b)
+    return out.reshape(n, R, a, b).transpose(0, 1).reshape(R, n * a, b)
+
+
 def gather_x(mesh, t: torch.Tensor) -> torch.Tensor:
     """All-gather over the ``mx`` ranks of this rank's column strip."""
-    return _gather(mesh, t, mesh.x_group, mesh.shape[0])
+    return _gather_rows(mesh, t, mesh.x_group, mesh.shape[0])
 
 
 def gather_y(mesh, t: torch.Tensor) -> torch.Tensor:
     """All-gather over the ``my`` ranks of this rank's row strip."""
-    return _gather(mesh, t, mesh.y_group, mesh.shape[1])
+    return _gather_rows(mesh, t, mesh.y_group, mesh.shape[1])
 
 
 def gather_world(mesh, t: torch.Tensor) -> torch.Tensor:
-    """(size, *t.shape): every rank's ``t``, in rank order."""
-    out = _gather(mesh, t.reshape((1,) + tuple(t.shape)), None, mesh.size)
+    """(size, *t.shape): every grid rank's ``t``, in rank order."""
+    out = _gather(mesh, t.reshape((1,) + tuple(t.shape)), mesh.group,
+                  mesh.size)
     return out.reshape((mesh.size,) + tuple(t.shape))
+
+
+def gather_ens(mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every ens slot's ``t`` at this rank's grid coordinates,
+    concatenated along dim 0 in ``e`` order (an all-gather over the
+    ``ens_group`` of an :class:`~.mesh.EnsembleMesh`)."""
+    return _gather(mesh, t, mesh.ens_group, mesh.n_ens)
 
 
 def rank_sum(gathered: torch.Tensor) -> torch.Tensor:
@@ -83,11 +107,15 @@ def halo(mesh, Ub: torch.Tensor):
     (each (W,)), the last column of the block to the left and the first
     column of the block to the right (each (bn,)).  A block on the global
     boundary gets its own edge on that side.  Only these four vectors
-    cross ranks: one message to each neighbour and one from it."""
+    cross ranks: one message to each neighbour and one from it.  A member
+    stack (R, bn, W) gives (R, W) rows and (R, bn) columns, each member's
+    edges in one message a side."""
     mx, my = mesh.shape
     i, j = mesh.coords
-    first_row, last_row = Ub[0].contiguous(), Ub[-1].contiguous()
-    first_col, last_col = Ub[:, 0].contiguous(), Ub[:, -1].contiguous()
+    first_row = Ub[..., 0, :].contiguous()
+    last_row = Ub[..., -1, :].contiguous()
+    first_col = Ub[..., :, 0].contiguous()
+    last_col = Ub[..., :, -1].contiguous()
     out = {'up': first_row, 'dn': last_row, 'lf': first_col,
            'rt': last_col}
     # (side received, neighbour, edge sent to it, its tag, tag received)

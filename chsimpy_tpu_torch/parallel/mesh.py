@@ -1,21 +1,31 @@
-"""The 2-D grid mesh of ranks.
+"""The meshes of ranks: a 2-D grid, and an ensemble of grids.
 
-Port of the grid part of ``chsimpy_tpu/parallel/mesh.py``.  JAX builds a
-``Mesh`` of devices with axes ``('x', 'y')``; here the devices are the
-ranks of the default ``torch.distributed`` process group, one process per
-JAX mesh device.  Rank ``r`` sits at ``(r // my, r % my)``, the order of
-JAX's ``np.asarray(devices).reshape(shape)``: the field's row blocks run
-along ``x``, its column blocks along ``y``.
+Port of ``chsimpy_tpu/parallel/mesh.py``.  JAX builds a ``Mesh`` of
+devices; here the devices are the ranks of the default
+``torch.distributed`` process group, one process per JAX mesh device.
 
-Each rank holds two subgroups:
+* :class:`GridMesh` (``make_mesh``): axes ``('x', 'y')``.  Rank ``r`` sits
+  at ``(r // my, r % my)``, the order of JAX's
+  ``np.asarray(devices).reshape(shape)``: the field's row blocks run along
+  ``x``, its column blocks along ``y``.
+* :class:`EnsembleMesh` (``make_ensemble_mesh``): axes ``('ens', 'x',
+  'y')`` of shape ``(E, mx, my)``.  Rank ``r`` sits at ``(e, i, j) =
+  (r // (mx*my), (r // my) % mx, r % my)``.  The ``mx*my`` ranks of ens
+  slot ``e`` form a grid of their own (the members' fields are tiled over
+  it), and the ``E`` ranks at one ``(i, j)`` hold the same block of
+  different members.
 
-* ``x_group`` — the ``mx`` ranks ``(0..mx-1, j)`` that hold the row blocks
-  of this rank's column strip (the JAX mesh axis ``'x'``);
-* ``y_group`` — the ``my`` ranks ``(i, 0..my-1)`` of this rank's row strip
-  (axis ``'y'``).
+Each rank holds its grid's subgroups:
 
-A group's rank order is the coordinate along its axis, so an all-gather
-over a group lands the blocks in field order.
+* ``x_group`` — the ``mx`` ranks ``(0..mx-1, j)`` of its slot that hold the
+  row blocks of this rank's column strip (the JAX mesh axis ``'x'``);
+* ``y_group`` — the ``my`` ranks ``(i, 0..my-1)`` of its row strip (``'y'``);
+* ``group`` — the ``mx*my`` ranks of its slot (None: the whole world);
+
+and, on an ensemble mesh, ``ens_group``: the ``E`` ranks at its ``(i, j)``
+in ``e`` order.  A group's rank order is the coordinate along its axis, so
+an all-gather over a group lands the blocks in field (or member) order.
+Every rank creates every group, in the same order.
 """
 
 from __future__ import annotations
@@ -51,6 +61,16 @@ def best_grid_shape(n_devices: int) -> tuple:
     return best
 
 
+def _require_world(n: int, what: str, hint: str) -> None:
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(f"{what} needs a torch.distributed process group "
+                           f"of {n} ranks and there is none: {hint}")
+    world = dist.get_world_size()
+    if world != n:
+        raise RuntimeError(f"{what} needs {n} ranks but the process group "
+                           f"has {world}: {hint}")
+
+
 class GridMesh:
     """``mx x my`` ranks of the initialized default process group.
 
@@ -63,43 +83,54 @@ class GridMesh:
 
     def __init__(self, shape: Sequence[int], device):
         mx, my = check_grid_shape(shape)
-        n = mx * my
-        hint = TORCHRUN_HINT.format(n=n, mx=mx, my=my)
-        if not (dist.is_available() and dist.is_initialized()):
-            raise RuntimeError(f"--mesh {mx}x{my} needs a torch.distributed "
-                               f"process group of {n} ranks and there is "
-                               f"none: {hint}")
-        world = dist.get_world_size()
-        if world != n:
-            raise RuntimeError(f"--mesh {mx}x{my} needs {n} ranks but the "
-                               f"process group has {world}: {hint}")
-        self.shape = (mx, my)
-        self.size = n
+        _require_world(mx * my, f"--mesh {mx}x{my}",
+                       TORCHRUN_HINT.format(n=mx * my, mx=mx, my=my))
+        self._join(device)
+        self._grid_groups(mx, my, 1)
+        # one collective over the whole world before any point-to-point
+        # exchange (NCCL wants all ranks in a group's first call)
+        dist.barrier()
+
+    def _join(self, device) -> None:
         self.rank = dist.get_rank()
-        self.coords = (self.rank // my, self.rank % my)
         self.device = torch.device(device)
         self.backend = str(dist.get_backend())
         if self.backend == 'nccl' and self.device.type != 'cuda':
             raise ValueError("the nccl backend moves CUDA tensors; a run on "
                              "the CPU takes --dist-backend gloo")
         self.staged = self.backend == 'gloo' and self.device.type == 'cuda'
+
+    def _grid_groups(self, mx: int, my: int, n_slots: int) -> None:
+        """The ``mx x my`` grid of this rank's ens slot: shape, coords and
+        size relative to the slot, and the grid groups of every slot
+        (every rank creates every group, in the same order)."""
+        n = mx * my
+        self.shape = (mx, my)
+        self.size = n
+        self.slot = self.rank // n
+        self.base = self.slot * n           # the slot's first rank
+        local = self.rank - self.base
+        self.coords = (local // my, local % my)
         i, j = self.coords
-        # every rank creates every group, in the same order
-        self.x_group = self.y_group = None
-        for jj in range(my):
-            g = dist.new_group([ii * my + jj for ii in range(mx)])
-            if jj == j:
-                self.x_group = g
-        for ii in range(mx):
-            g = dist.new_group([ii * my + jj for jj in range(my)])
-            if ii == i:
-                self.y_group = g
-        # one collective over the whole world before any point-to-point
-        # exchange (NCCL wants all ranks in a group's first call)
-        dist.barrier()
+        self.x_group = self.y_group = self.group = None
+        for e in range(n_slots):
+            base = e * n
+            for jj in range(my):
+                g = dist.new_group([base + ii * my + jj for ii in range(mx)])
+                if e == self.slot and jj == j:
+                    self.x_group = g
+            for ii in range(mx):
+                g = dist.new_group([base + ii * my + jj for jj in range(my)])
+                if e == self.slot and ii == i:
+                    self.y_group = g
+            if n_slots > 1:
+                g = dist.new_group(list(range(base, base + n)))
+                if e == self.slot:
+                    self.group = g
 
     def rank_at(self, i: int, j: int) -> int:
-        return i * self.shape[1] + j
+        """The global rank at grid coordinates (i, j) of this slot."""
+        return self.base + i * self.shape[1] + j
 
     def describe(self) -> str:
         mx, my = self.shape
@@ -107,3 +138,48 @@ class GridMesh:
                if self.staged else f'on {self.device.type} tensors')
         return (f"mesh {mx}x{my}: {self.size} ranks, backend "
                 f"{self.backend}, collectives {how}")
+
+
+class EnsembleMesh(GridMesh):
+    """``E x mx x my`` ranks of the initialized default process group: the
+    counterpart of ``make_ensemble_mesh(E, (mx, my))``.  The grid
+    attributes of :class:`GridMesh` describe this rank's ens slot, so the
+    grid collectives, kernels and sharding run on it unchanged;
+    ``EnsembleMesh(1, (mx, my))`` builds the same groups as ``GridMesh``.
+    ``n_ens`` and ``slot`` (the rank's ens index) place the rank on the
+    member axis."""
+
+    def __init__(self, n_ens: int, grid_shape: Sequence[int] = (1, 1),
+                 device='cuda'):
+        if int(n_ens) != n_ens or n_ens < 1:
+            raise ValueError(f"n_ens must be a positive integer, got "
+                             f"{n_ens!r}")
+        E = int(n_ens)
+        mx, my = check_grid_shape(grid_shape)
+        n = E * mx * my
+        hint = (f"start {n} processes (the experiment: --num-processes {n} "
+                f"with --coordinator), or call "
+                f"torch.distributed.init_process_group with world size {n} "
+                f"first")
+        _require_world(n, f"the ('ens', 'x', 'y') mesh ({E}, {mx}, {my})",
+                       hint)
+        self._join(device)
+        self._grid_groups(mx, my, E)
+        self.n_ens = E
+        self.ens_group = None
+        if E > 1:
+            for ii in range(mx):
+                for jj in range(my):
+                    g = dist.new_group([e * mx * my + ii * my + jj
+                                        for e in range(E)])
+                    if (ii, jj) == self.coords:
+                        self.ens_group = g
+        dist.barrier()
+
+    def describe(self) -> str:
+        mx, my = self.shape
+        how = ('staged through host memory (gloo moves CPU tensors)'
+               if self.staged else f'on {self.device.type} tensors')
+        return (f"mesh ('ens', 'x', 'y') = ({self.n_ens}, {mx}, {my}): "
+                f"{self.n_ens * self.size} ranks, backend {self.backend}, "
+                f"collectives {how}")

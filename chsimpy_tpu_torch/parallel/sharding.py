@@ -1,10 +1,13 @@
-"""Blocks of the field, the constants and the state on a grid mesh.
+"""Blocks of the field, the constants and the state on a mesh.
 
-Port of the grid parts of ``chsimpy_tpu/parallel/sharding.py``: the field
-is tiled ``P('x', 'y')``, rank ``(i, j)`` holding rows ``[i*bn, (i+1)*bn)``
-and columns ``[j*bw, (j+1)*bw)`` with ``bn = N/mx``, ``bw = N/my``.  The
-pencil layout of the split and ozaki routes is not ported (ROADMAP.md
-queue A item 11).
+Port of the grid and ensemble parts of ``chsimpy_tpu/parallel/sharding.py``:
+the field is tiled ``P('x', 'y')``, rank ``(i, j)`` holding rows
+``[i*bn, (i+1)*bn)`` and columns ``[j*bw, (j+1)*bw)`` with ``bn = N/mx``,
+``bw = N/my``; a stack of members' fields (R, N, N) is tiled the same way
+member by member.  On an ensemble mesh the member axis is split as JAX's
+``P('ens')`` splits it: ens slot ``e`` holds the contiguous members
+``[e*R/E, (e+1)*R/E)`` (:func:`shard_members`).  The pencil layout of the
+split and ozaki routes is not ported (ROADMAP.md queue A item 11).
 """
 
 from __future__ import annotations
@@ -26,19 +29,51 @@ def block_slices(mesh, N: int):
 
 def shard_field(U: torch.Tensor, mesh):
     """(this rank's block of the (N, N) field U, row_off, col_off); the
-    block is a contiguous copy."""
-    rows, cols = block_slices(mesh, U.shape[0])
-    return U[rows, cols].contiguous(), rows.start, cols.start
+    block is a contiguous copy.  A member stack (R, N, N) gives each
+    member's block, (R, bn, bw)."""
+    rows, cols = block_slices(mesh, U.shape[-1])
+    return U[..., rows, cols].contiguous(), rows.start, cols.start
 
 
 def gather_field(Ub: torch.Tensor, mesh) -> torch.Tensor:
-    """The full (N, N) field from every rank's block, on every rank (a
-    collective: every rank calls it)."""
+    """The full (N, N) field from every rank's block, on every rank of
+    the grid (a collective: every rank calls it); member blocks (R, bn,
+    bw) give the members' fields (R, N, N)."""
     mx, my = mesh.shape
-    bn, bw = Ub.shape
-    blocks = collectives.gather_world(mesh, Ub)         # (mx*my, bn, bw)
-    return (blocks.reshape(mx, my, bn, bw).permute(0, 2, 1, 3)
-            .reshape(mx * bn, my * bw))
+    lead = tuple(Ub.shape[:-2])
+    bn, bw = Ub.shape[-2:]
+    blocks = collectives.gather_world(mesh, Ub)    # (mx*my, ..., bn, bw)
+    k = len(lead)
+    out = blocks.reshape((mx, my) + lead + (bn, bw)).permute(
+        *range(2, 2 + k), 0, 2 + k, 1, 3 + k)
+    return out.reshape(lead + (mx * bn, my * bw))
+
+
+def member_slice(mesh, R: int) -> slice:
+    """The members [e*R/E, (e+1)*R/E) of this rank's ens slot e (all R
+    without a mesh); R % E raises, as JAX's ``P('ens')`` refuses an axis
+    its size does not divide."""
+    if mesh is None:
+        return slice(0, R)
+    E = mesh.n_ens
+    if R % E:
+        raise ValueError(f"{R} members do not split over the {E} ens "
+                         f"slots of the mesh: the global size of the "
+                         f"member axis must be divisible by {E}")
+    n = R // E
+    return slice(mesh.slot * n, (mesh.slot + 1) * n)
+
+
+def shard_members(x, mesh):
+    """This rank's members of ``x`` (its leading axis is the member axis:
+    a numpy array), a copy."""
+    return x[member_slice(mesh, x.shape[0])].copy()
+
+
+def gather_members(t: torch.Tensor, mesh) -> torch.Tensor:
+    """All members of ``t`` (this rank's members along dim 0), on every
+    rank, in member order (a collective over the ens axis)."""
+    return collectives.gather_ens(mesh, t)
 
 
 # the (N, N) grids of the spectral update: blocks of the spectral image

@@ -1,4 +1,5 @@
-"""What a world started by :func:`~.distributed.spawn_grid` runs.
+"""What a world started by :func:`~.distributed.spawn_grid` or
+:func:`~.distributed.spawn_world` runs.
 
 A spawned rank imports these functions by name (never a test file's, so a
 rank imports no jax).  :func:`run_tasks` runs a list of ``(name, kwargs)``
@@ -44,7 +45,8 @@ def solve(mesh, params: dict, U_init=None, steps=None, rate_steps=0,
           return_U=True) -> dict:
     """A grid-sharded solve of ``Parameters(**params)`` on this world's
     mesh shape and backend: through ``Simulator.solve`` (``steps`` None),
-    or ``Solver.prepare`` and ``solve_or_resume(steps)``; then, with
+    or ``Solver.prepare`` and ``solve_or_resume(steps)`` (a list: one
+    entry per item, in turn); then, with
     ``rate_steps``, one timed window of that many more steps.  The params'
     device must be the world's.  Returns the solution's scalars, its
     timedata, mean(U) (and U with ``return_U``), this rank's kernel
@@ -65,7 +67,8 @@ def solve(mesh, params: dict, U_init=None, steps=None, rate_steps=0,
     else:
         solver = Solver(p, U_init)
         solver.prepare()
-        sol = solver.solve_or_resume(steps)
+        for k in (steps if isinstance(steps, (list, tuple)) else [steps]):
+            sol = solver.solve_or_resume(k)
     _sync(mesh)
     seconds = time.perf_counter() - t0
     out = {'computed_steps': sol.computed_steps,
@@ -160,6 +163,106 @@ def live_solve(mesh, params: dict, file_id: str, update_every: int) -> dict:
             'ref_U': _np(ref.solution.U)}
 
 
+def _ensemble_out(ens, sols, seconds=None, return_U=True) -> dict:
+    """Every member's scalars, rows, mean(U) and (``return_U``) field
+    (numpy), the rank's kernel launches and, with ``seconds``, the
+    solve's time."""
+    out = {'computed_steps': [s.computed_steps for s in sols],
+           'stop_reason': [s.stop_reason for s in sols],
+           'tau0': [s.tau0 for s in sols], 't0': [s.t0 for s in sols],
+           'timedata': [s.timedata.data() for s in sols],
+           'U_mean': [s.U.double().mean().item() for s in sols],
+           'U_finite': all(bool(torch.isfinite(s.U).all()) for s in sols),
+           'launches': dict(K.launches), 'mesh': ens.mesh.describe(),
+           'local_members': (ens.local_members.start,
+                             ens.local_members.stop)}
+    if return_U:
+        out['U'] = np.stack([_np(s.U) for s in sols])
+    if seconds is not None:
+        out['seconds'] = seconds
+    return out
+
+
+def ensemble(mesh, params: dict, pairs, kappas=None, steps=None, warm=0,
+             U_init=None, save=None, then=0, return_U=True) -> dict:
+    """An :class:`~chsimpy_tpu_torch.ensemble.EnsembleSolver` of
+    ``Parameters(**params)`` and the (A0, A1) ``pairs`` on this world's
+    mesh: prepare, ``warm`` steps, then ``solve_or_resume(steps)`` timed
+    (this rank's launches counted over it).  With ``save`` (a path) the
+    ensemble checkpoint is written after it, and with ``then`` the
+    ensemble re-enters for that many more steps.  Returns every member's
+    results (:func:`_ensemble_out`), the member-steps/s of the timed
+    solve, this rank's peak card memory and, with ``then``, the
+    re-entry's results."""
+    from ..checkpoint import save_ensemble_checkpoint
+    from ..ensemble import EnsembleSolver
+    p = Parameters(**params)
+    ens = EnsembleSolver(p, np.asarray(pairs), U_init=U_init, mesh=mesh,
+                         kappas=None if kappas is None
+                         else np.asarray(kappas))
+    if mesh.device.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    ens.prepare()
+    if warm:
+        ens.solve_or_resume(warm)
+    _sync(mesh)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    sols = ens.solve_or_resume(steps)
+    _sync(mesh)
+    seconds = time.perf_counter() - t0
+    out = _ensemble_out(ens, sols, seconds, return_U)
+    out['member_steps_per_s'] = sum(s.computed_steps - (warm or 1)
+                                    for s in sols) / seconds
+    if mesh.device.type == 'cuda':
+        out['peak_bytes'] = torch.cuda.max_memory_allocated()
+    if save is not None:
+        save_ensemble_checkpoint(save, ens)
+    if then:
+        out['then'] = _ensemble_out(ens, ens.solve_or_resume(then),
+                                    return_U=return_U)
+    return out
+
+
+def restore_ensemble(mesh, path: str, steps: int, device: str,
+                     save=None) -> dict:
+    """The ensemble checkpoint ``path`` restored onto this world's mesh:
+    its members' fields as installed (gathered: the handoff), then
+    ``solve_or_resume(steps)``; with ``save`` the continued ensemble is
+    saved there."""
+    from ..checkpoint import restore_ensemble as restore
+    from ..checkpoint import save_ensemble_checkpoint
+    ens = restore(path, mesh=mesh, device=device)
+    handoff = ens.host_state()['U']
+    sols = ens.solve_or_resume(steps)
+    if save is not None:
+        save_ensemble_checkpoint(save, ens)
+    out = _ensemble_out(ens, sols)
+    out['handoff_U'] = handoff
+    return out
+
+
+def ensemble_error(mesh, params: dict, pairs) -> str:
+    """The error an EnsembleSolver on this mesh raises for ``pairs`` (''
+    when it builds)."""
+    from ..ensemble import EnsembleSolver
+    try:
+        EnsembleSolver(Parameters(**params), np.asarray(pairs), mesh=mesh)
+    except (ValueError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {e}"
+    return ''
+
+
+def merge_rows(mesh, rows_by_rank: list, nr_items: int) -> list:
+    """``experiment.merge_rows_across_processes`` of this rank's rows
+    ``rows_by_rank[rank]``."""
+    import torch.distributed as dist
+
+    from ..experiment import merge_rows_across_processes
+    return merge_rows_across_processes(rows_by_rank[dist.get_rank()],
+                                       nr_items)
+
+
 def imported(mesh) -> list:
     """The top-level packages this rank has imported (a rank of the
     port imports no jax)."""
@@ -169,7 +272,9 @@ def imported(mesh) -> list:
 TASKS = {'solve': solve, 'fused_stats': fused_stats,
          'chemical_potential': chemical_potential, 'dcts': dcts,
          'threefry_jitter': threefry_jitter, 'imported': imported,
-         'live_solve': live_solve}
+         'live_solve': live_solve, 'ensemble': ensemble,
+         'restore_ensemble': restore_ensemble,
+         'ensemble_error': ensemble_error, 'merge_rows': merge_rows}
 
 
 def run_tasks(mesh, tasks) -> list:

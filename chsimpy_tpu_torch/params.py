@@ -180,10 +180,6 @@ def solver_scope_errors(p: Parameters) -> list:
     if p.jitter_backend not in ('host', 'device'):
         errs.append(f"unknown jitter backend '{p.jitter_backend}'")
     if p.mesh_shape is not None:
-        if p.restore_file is not None or p.checkpoint_file is not None \
-                or p.checkpoint_every is not None:
-            errs.append(not_ported('checkpoint and restore under --mesh',
-                                   11))
         # the grid layout runs the matmul route; the JAX package shards the
         # split and ozaki routes through the pencil layout (and the ozaki
         # route through the grid too under --kernels pallas)

@@ -17,7 +17,8 @@ YAML, CSV and PNG files.  As there, the run can start from a checkpoint
 * Under ``--mesh`` every rank runs the same chunk boundaries (each ends
   in the collective gather of the field, and the loop's predicate reads
   the stop reason, which is the same bits on every rank); rank 0 alone
-  builds the view and writes the PNGs.
+  builds the view and writes the PNGs and the checkpoints (every rank
+  gathers the field for them and waits for the write).
 * The views import matplotlib when they are built, so a run without a
   view never touches it; a run that asks for one on a machine without
   matplotlib fails with an error naming it (``viz/base.py``).
@@ -109,11 +110,13 @@ def render_solution_png(params: Parameters, solution, fname: str) -> None:
 
 
 # run-control fields the command line keeps when --restore loads the
-# physics parameters from the checkpoint; the port's device too
+# physics parameters from the checkpoint; the port's device and process
+# group backend too (the file's mesh_shape wins, as in the JAX package)
 _RESTORE_CLI_FIELDS = ('ntmax', 'time_max', 'update_every', 'no_gui', 'png',
                        'png_anim', 'yaml', 'export_csv', 'compress_csv',
                        'file_id', 'no_diagrams', 'checkpoint_file',
-                       'checkpoint_every', 'restore_file', 'device')
+                       'checkpoint_every', 'restore_file', 'device',
+                       'dist_backend')
 
 
 class Simulator:
@@ -122,7 +125,8 @@ class Simulator:
         if self.params.restore_file is not None:
             from .checkpoint import restore_solver
             solver = restore_solver(self.params.restore_file,
-                                    device=self.params.device)
+                                    device=self.params.device,
+                                    dist_backend=self.params.dist_backend)
             # the checkpoint's physics parameters win; run control from
             # the caller
             for name in _RESTORE_CLI_FIELDS:

@@ -9,6 +9,7 @@ part of the trajectory, so the restored run is held to 1e-12 relative of
 the restoring package's own run there (two float64 matmul orders); the
 restoring package's own file to the bit."""
 
+import contextlib
 import json
 import os
 
@@ -52,6 +53,18 @@ def port_params(**kw):
     for k, v in dict(BASE, **kw).items():
         setattr(p, k, v)
     return p
+
+
+@contextlib.contextmanager
+def _one_rank_world(tmp_path):
+    """A torch.distributed world of this process alone (gloo)."""
+    import torch.distributed as dist
+    dist.init_process_group('gloo', init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def port_reentry(kw, first=30, then=30):
@@ -278,8 +291,13 @@ def test_ensemble_checkpoints_cross_packages(mode, tmp_path):
     ctt.Simulator(port_params(ntmax=3, checkpoint_file=single)).solve()
     with pytest.raises(ValueError, match='not an ensemble'):
         tck.restore_ensemble(single, device='cpu')
-    with pytest.raises(NotImplementedError, match='item 11'):
-        tck.restore_ensemble(f, mesh=object(), device='cpu')
+    # onto a mesh (a world of one rank): the same bits
+    from chsimpy_tpu_torch.parallel.mesh import EnsembleMesh
+    with _one_rank_world(tmp_path):
+        r = tck.restore_ensemble(f, mesh=EnsembleMesh(1, (1, 1), 'cpu'),
+                                 device='cpu')
+        out = [s.timedata.data() for s in r.solve_or_resume(30)]
+    assert all(np.array_equal(a, b) for a, b in zip(out, ref))
 
 
 def test_cli_checkpoint_and_restore(tmp_path, capsys, monkeypatch):

@@ -1,6 +1,6 @@
 """The CUDA kernels of chsimpy_tpu_torch (the GEMM, the grid-sharded
-K7/K8, the Sobol jitter K9 and the threefry jitter K10 included) against their plain PyTorch
-versions, and the ozaki, split
+K7/K8 and K7_members, the Sobol jitter K9 and the threefry jitter K10
+included) against their plain PyTorch versions, and the ozaki, split
 and FFT transforms, short solves and a grid-sharded solve of ranks sharing
 the card on the card against the same on the CPU.
 
@@ -696,6 +696,71 @@ def test_slice_members_kernel_gives_single_launch_bits(card, N, R):
             assert torch.equal(got[:, r], s) and float(scale[r]) == float(sc)
     assert K.launches['slice_field_members'] == 8
     assert float(scale[-1]) == 2.0 ** -90 and not got[:, -1].any()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('N,R,bn,bw', [(64, 3, 32, 32), (1000, 2, 500, 250),
+                                       (66, 3, 33, 22)])
+def test_local_members_kernel_gives_single_launch_bits(card, dtype, N, R,
+                                                       bn, bw):
+    """K7_members: member r of one launch = the single K7 launch on its
+    block, halo and scalars, to the bit (an odd block takes the one-column
+    path); the plain version's tolerances; one count a call."""
+    p = PHYS
+    F, A0s, A1s = _members(N, R, dtype, card)
+    E = F * 0.5
+    for i, j in ((0, 0), (1, 1)):
+        r0, c0 = i * bn, j * bw
+        sl = (slice(None), slice(r0, r0 + bn), slice(c0, c0 + bw))
+        Ub, Eb = F[sl].contiguous(), E[sl].contiguous()
+        halo = (F[:, max(r0 - 1, 0), c0:c0 + bw].contiguous(),
+                F[:, min(r0 + bn, N - 1), c0:c0 + bw].contiguous(),
+                F[:, r0:r0 + bn, max(c0 - 1, 0)].contiguous(),
+                F[:, r0:r0 + bn, min(c0 + bw, N - 1)].contiguous())
+        kw = dict(N=N, delx=p['delx'], RT=p['RT'], B=p['B'],
+                  threshold=p['threshold'])
+        K.reset_launches()
+        got = K.local_band_sums_members(Ub, *halo, Eb, A0s, A1s, r0, c0,
+                                        **kw)
+        assert K.launches['local_band_sums_members'] == 1
+        for r in range(R):
+            one = K.local_band_sums(Ub[r].clone(), *(h[r].clone()
+                                                     for h in halo),
+                                    Eb[r].clone(), A0s[r].item(),
+                                    A1s[r].item(), r0, c0, **kw)
+            assert torch.equal(got[r], one)
+        ref = K.local_band_sums_members_ref(Ub, *halo, Eb, A0s, A1s, r0,
+                                            c0, **kw)
+        torch.testing.assert_close(got, ref, rtol=_tol(dtype), atol=0)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('N,R', [(64, 3), (1000, 5), (33, 16)])
+def test_row_absdev_kernel_is_the_same_for_any_member_count(card, dtype, N,
+                                                            R):
+    """K11: each member's Ra within the plain version's tolerance, and
+    the same bits in a launch of R members as in its launch alone."""
+    U = _members(N, R, dtype, card)[0]
+    K.reset_launches()
+    got = K.row_absdev_members(U, N // 2 + 1)
+    assert K.launches['row_absdev_members'] == 1
+    for r in range(R):
+        assert torch.equal(got[r:r + 1],
+                           K.row_absdev_members(U[r:r + 1], N // 2 + 1))
+    torch.testing.assert_close(got, K.row_absdev_members_ref(U, N // 2 + 1),
+                               rtol=_tol(dtype), atol=0)
+
+
+def test_nccl_refuses_two_processes_on_one_card(card):
+    """A coordinator's processes bind card process_id modulo the cards;
+    with more processes than cards NCCL raises naming the backend before
+    any process group forms (no switch to gloo)."""
+    from chsimpy_tpu_torch.parallel import distributed
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match='nccl takes one card per rank'):
+        distributed.initialize('nccl', 'cuda',
+                               coordinator_address='127.0.0.1:1',
+                               num_processes=n, process_id=0)
 
 
 def test_member_wrappers_refuse_what_the_kernels_do_not_take(card):

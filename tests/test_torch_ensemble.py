@@ -9,6 +9,8 @@ the JAX ensemble (two float64 matmul orders), the same stop steps, tau0
 and t0; against the port's single run of the member, the same bits (the
 batched step does each member's arithmetic in the single step's order)."""
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,12 +173,40 @@ def test_resume_entry_and_mixed_entry_guard():
         e.solve_or_resume(3)
 
 
-def test_ensemble_refusals_name_their_items():
+@contextlib.contextmanager
+def _one_rank_world(tmp_path):
+    """A torch.distributed world of this process alone (gloo)."""
+    import torch.distributed as dist
+    dist.init_process_group('gloo', init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_ensemble_refusals_name_their_items(tmp_path):
+    from chsimpy_tpu_torch.parallel.mesh import EnsembleMesh
     pairs = a_pairs()
-    with pytest.raises(NotImplementedError, match='item 11'):
-        EnsembleSolver(port_params(), pairs, mesh=object())
-    with pytest.raises(NotImplementedError, match='item 11'):
-        EnsembleSolver(port_params(mesh_shape=(2, 2)), pairs)
+    ref = EnsembleSolver(port_params(), pairs)
+    ref.prepare()
+    want = ref.solve_or_resume(12)
+    with _one_rank_world(tmp_path):
+        # an ensemble on a mesh, and with mesh_shape (the mesh built on
+        # the process group), builds and runs: the same bits
+        for e in (EnsembleSolver(port_params(), pairs,
+                                 mesh=EnsembleMesh(1, (1, 1), 'cpu')),
+                  EnsembleSolver(port_params(mesh_shape=(1, 1)), pairs)):
+            assert e.mesh is not None and e.mesh.n_ens == 1
+            e.prepare()
+            for a, b in zip(e.solve_or_resume(12), want):
+                assert np.array_equal(a.timedata.data(), b.timedata.data())
+                assert torch.equal(a.U, b.U)
+    # split and ozaki with grid-sharded member fields: the pencil layout
+    for tb in ('split', 'ozaki'):
+        with pytest.raises(NotImplementedError, match='item 11'):
+            EnsembleSolver(port_params(mesh_shape=(2, 2), precision='float64',
+                                       transform_backend=tb), pairs)
     with pytest.raises(NotImplementedError, match='item 14'):
         EnsembleSolver(port_params(fold_field=True), pairs)
     with pytest.raises(ValueError, match='host'):

@@ -241,15 +241,24 @@ def test_aggregate_equals_pandas(kind, tmp_path, monkeypatch):
                 == open('jax' + suffix, 'rb').read()), suffix
 
 
-@pytest.mark.parametrize('flags,item', [
-    (['--coordinator', 'localhost:1234'], 11),
-    (['--num-processes', '2'], 11),
-    (['--process-id', '0'], 11),
+@pytest.mark.parametrize('flags,message', [
+    (['--coordinator', 'localhost:1234', '-f', 'x'],
+     '--coordinator requires --num-processes and --process-id'),
+    (['--coordinator', 'localhost:1234', '--num-processes', '2',
+      '--process-id', '0', '-f', 'x', '--live-view', '--update-every', '10'],
+     '--live-view is single-process only'),
+    (['--coordinator', 'localhost:1234', '--num-processes', '2',
+      '--process-id', '0', '-f', 'x', '--checkpoint-file', 'c.npz'],
+     'experiment checkpointing is single-process only'),
+    (['--coordinator', 'localhost:1234', '--num-processes', '2',
+      '--process-id', '0'], 'need an explicit --file-id'),
 ])
-def test_refusals_name_their_items(flags, item, capsys):
+def test_refusals_name_their_items(flags, message, capsys):
+    """The multi-process flags' CLI errors (the JAX package's,
+    ``chsimpy_tpu/experiment.py:131-149``)."""
     with pytest.raises(SystemExit):
         texp.ExperimentCLIParser().get_parameters(['-R', '2', *flags])
-    assert f'queue A item {item}' in capsys.readouterr().err
+    assert message in capsys.readouterr().err
 
 
 def test_the_experiment_refuses_to_run_in_a_host_worker(monkeypatch):

@@ -165,7 +165,7 @@ def test_params_carried_from_jax():
         convert.params_from_jax({'banana': 1})
 
 
-def test_solver_refuses_settings_not_ported():
+def test_solver_refuses_settings_not_ported(tmp_path):
     cases = {'fold_field': (True, 'item 14'),
              'inv_band': (4, 'item 14'),
              'kernel_backend': ('pallas', 'queue B'),
@@ -187,14 +187,30 @@ def test_solver_refuses_settings_not_ported():
                            no_gui=True)
         setattr(p, field, value)
         ctt.Solver(p)
-    # the checkpoint under a grid mesh is item 11
-    for field, value in (('restore_file', 'x.npz'), ('checkpoint_every', 10),
-                         ('checkpoint_file', 'x.npz')):
-        p = ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA,
-                           no_gui=True, mesh_shape=(2, 2))
-        setattr(p, field, value)
-        with pytest.raises(NotImplementedError, match='item 11'):
-            ctt.Solver(p)
+    # the checkpoint under a grid mesh (item 11, done) constructs and runs
+    # (a 1x1 mesh: this process as a world of one rank)
+    import torch.distributed as dist
+    from chsimpy_tpu_torch import checkpoint as tck
+    ck = str(tmp_path / 'mesh.npz')
+    dist.init_process_group('gloo', init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        # with and without the chunk boundary saves: the Simulator saves
+        # at the end too
+        for every in (8, None):
+            p = ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA,
+                               no_gui=True, mesh_shape=(1, 1), ntmax=12,
+                               chunk_size=4, checkpoint_file=ck,
+                               checkpoint_every=every)
+            sim = ctt.Simulator(p)
+            assert sim.solver.mesh is not None
+            sol = sim.solve()
+            r = tck.restore_solver(ck, device='cpu')
+            assert r.mesh is not None
+            assert r.solution.computed_steps == 12
+            assert torch.equal(r.solution.U, sol.U)
+    finally:
+        dist.destroy_process_group()
     # the grid mesh runs the matmul route; the pencil split route is later
     p = ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA, no_gui=True,
                        mesh_shape=(2, 2), transform_backend='split')
@@ -267,6 +283,12 @@ def test_cli_parses_the_slice_and_refuses_the_rest(capsys):
     assert (p.checkpoint_file, p.checkpoint_every, p.export_csv,
             p.compress_csv, p.yaml, p.restore_file, p.Uinit_file) == \
         ('c.npz', 5, 'U', True, True, 'x', 'u.csv')
+    # the checkpoint flags under --mesh parse (item 11, done)
+    p = CLIParser().get_parameters(
+        ['--no-gui', '--mesh', '2x2', '--restore', 'x', '--checkpoint-file',
+         'c.npz', '--checkpoint-every', '5'])
+    assert (p.mesh_shape, p.restore_file, p.checkpoint_every) == \
+        ((2, 2), 'x', 5)
     for argv, item in ((['--no-gui', '--checkpoint-every', '5'],
                         'no --checkpoint-file'),
                        (['--no-gui', '--mesh', '2x2', '--transform',
@@ -279,9 +301,7 @@ def test_cli_parses_the_slice_and_refuses_the_rest(capsys):
                         'requires --update-every'),
                        (['--no-gui', '--fold-field'], 'item 14'),
                        (['--no-gui', '--inv-band', '8'], 'item 14'),
-                       (['--no-gui', '--kernels', 'pallas'], 'queue B'),
-                       (['--no-gui', '--mesh', '2x2', '--restore', 'x'],
-                        'item 11')):
+                       (['--no-gui', '--kernels', 'pallas'], 'queue B')):
         with pytest.raises(SystemExit) as exc:
             CLIParser().get_parameters(argv)
         assert exc.value.code == 2, argv
