@@ -259,6 +259,49 @@ Phases (each raises on failure, so the script exits nonzero):
    saving every 800 steps in chunks of 200: the file at step 1601, which
    that run re-enters) restored on a new 2x2 world: stop 1674, phase 8
    (c)'s rows to the bit, E within 1e-10 of phase 4's run.
+15. the pencil layout (``--transform split`` and ``ozaki`` under
+   ``--mesh``: the field in column blocks, the spectral image in row
+   blocks, one transpose all-to-all per 2-D transform), in one world of 4
+   gloo ranks sharing the card (collectives staged through host memory:
+   no scaling figure):
+   (a) K5 sharded (``slice_field_sharded``, ``slice_field_members_sharded``:
+   the max pass's max-only mode, a world max of its bits, the scale by
+   ``slice_finish_kernel``, the slice pass) on the column and row blocks of
+   N=4096 and N=1000 float64 fields, the max in one block only and one ulp
+   above 2^8 in one block only, and on members' blocks: every rank's
+   planes are K5's on the whole field restricted to its block and its
+   plain version's at the world's max, to the bit, the scale the same on
+   every rank, one count a call; timed on a (4096, 1024) block and on R=4
+   members' (512, 128) blocks (its world max left out), each launch alone,
+   four block calls beside one whole-field K5, the plain version, the
+   bound; K7 on every (N, N/4) column block (halos left and right), K8
+   against K1 on the block (the same bits), K2 on a (N/4, N) row block and
+   K4 on the column block with the field's mean against their plain
+   versions, N=4096 and N=64 (W=16), float32 and float64;
+   (b) the canonical run on split (entered to step 1601 in chunks of 32,
+   saving there, then to the stop) and its first 640 steps on ozaki
+   through the Solver on a 2x2 mesh of the world: stop 1674 with the
+   golden anchors (ozaki: those of its steps), E within 1e-10 of one
+   device's run of the route at every step (phase 7 (c), phase 6 (b)),
+   the same rows on every rank, K8, K2 and K7 once a step iteration (K7
+   once more for prepare), K5 sharded once per transform on ozaki (the
+   JSON line's count) and never the single K5;
+   (c) N=4096 float32 ``full_sim`` on split over 64 steps: E within 1e-5
+   of phase 5's float64 run and 1e-6 of phase 7 (d)'s one-device split
+   run, mean(U) held, ms a step and peak GB a rank; the audit's bytes a
+   step and rank on split beside the grid matmul route's at the same N
+   (``parallel/audit.py``);
+   (d) N=4096 float64 ozaki over 32 steps: E within 1e-10 of phase 5's
+   float64 matmul run, ms a step, peak GB a rank, the audit's bytes;
+   (e) the grid ensemble on the world's (1, 2, 2) mesh, R=4 (the first
+   four canonical pairs) N=512 float64 over 256 steps on split and ozaki:
+   every member's E within 1e-10 of one device's batch, the rows the same
+   on every rank, K5_members sharded once per transform on ozaki (the
+   JSON line's count);
+   (f) (b)'s split file (step 1601) restored on a 1x4 mesh of the world's
+   ranks: stop 1674, the re-entered run's rows to the bit;
+   with one card per rank, (b) and (c) again on NCCL; otherwise a line
+   saying why it did not run.
    Phase 3's kernel window is bracketed by nvidia-smi's SM clock,
    temperature and power draw.
 
@@ -272,9 +315,9 @@ measurement also goes to DIR/chip_smoke.json.
 
     python3 chip_smoke.py --kernels-only
 
-runs phases 1-3 and the kernel parts of 6-14 ((a); (a)-(b) of 8; K9
-and K10 of 9; (a) of 10, 12 and 14) only (phase 13 has no kernel of its
-own),
+runs phases 1-3 and the kernel parts of 6-15 ((a); (a)-(b) of 8; K9
+and K10 of 9; (a) of 10, 12 and 14; 15 (a) but its world) only (phase 13
+has no kernel of its own),
 and prints the kernels' table instead of the two last lines.
 
     python3 chip_smoke.py --phase 14
@@ -282,7 +325,9 @@ and prints the kernels' table instead of the two last lines.
 runs phase 14 alone after the build, with what it is held to (phase 4's
 canonical run, phase 8 (c)'s world run, phase 10 (b)'s batch without its
 single runs, phase 11 (a)'s float64 experiment and its checks), and
-prints no closing lines.
+prints no closing lines; ``--phase 15`` does the same for phase 15 (one
+device's canonical runs on split and ozaki, N=4096 float64 matmul and
+float32 split over 64 steps).
 """
 
 from __future__ import annotations
@@ -802,12 +847,27 @@ def slices_per_forward(cfg) -> int:
     return 2 if cfg.ozaki_fold else 1
 
 
+def iterations_run(steps, chunk, n_iters, start=1):
+    """Step iterations a solve entered at computed step ``start`` with
+    ``n_iters`` to go runs when it ends at computed step ``steps``: all of
+    them without a stop, else the chunks before the one that holds the
+    stop and in that one the steps to the first look at the stop flag
+    after it (``stepper.STOP_POLL``)."""
+    from chsimpy_tpu_torch.core.stepper import STOP_POLL
+    t = steps - start
+    if t >= n_iters:
+        return n_iters
+    c = (t - 1) // chunk * chunk
+    k = min(chunk, n_iters - c)
+    return c + min(k, -(-(t - c) // STOP_POLL) * STOP_POLL)
+
+
 def check_ozaki_launches(tag, cfg, launches, steps, chunk, ntmax):
     """Every kernel of the route launched; K1 once per step iteration the
     chunks ran;
     the slice kernel fwd + iterations * (fwd + 1) times (one forward at
     entry, a forward and an inverse per step)."""
-    iterations = min(ntmax - 1, -(-(steps - 1) // chunk) * chunk)
+    iterations = iterations_run(steps, chunk, ntmax - 1)
     fwd = slices_per_forward(cfg)
     want = fwd + iterations * (fwd + 1)
     for name in MATMUL_PATH + ('slice_field',):
@@ -872,6 +932,7 @@ def ozaki_default_run():
     res['iterations'], res['slice_launches_implied'] = check_ozaki_launches(
         'ozaki default run', cfg, launches, sol.computed_steps,
         p.chunk_size, p.ntmax)
+    res['E'] = [float(e) for e in td[:, 1]]
     return res
 
 
@@ -1241,6 +1302,7 @@ def routes_n4096(card, E64):
         mean = s.solution.U.double().mean().item()
         out['E_vs_f64_max_rel'][t] = rel
         out['mean_U'][t] = {'initial': U0, 'after_64': mean}
+        KEPT[f'E_{t}_f32_4096'] = E.tolist()      # phase 15 (c)
         print(f"N=4096 float32 {t}: E vs float64 max rel {rel:.3e} over 64 "
               f"steps; mean(U) {mean!r} (initial {U0!r})", flush=True)
         check(bool(torch.isfinite(s.solution.U).all()),
@@ -1700,9 +1762,10 @@ def check_world(tag, res, refs, card):
     check(out['E_every_100_max_rel'] <= 1e-10 and out['E_last_rel'] <= 1e-10
           and out['argmax_E2'] == g['argmax_E2'],
           f"{tag} (c): golden anchors not held")
-    # the first entry's chunks to MESH_CKPT_STEP, then one chunk holding
+    # the first entry's chunks to MESH_CKPT_STEP, then the re-entry's to
     # the stop
-    iterations = MESH_CKPT_STEP - 1 + MESH_CKPT['chunk_size']
+    iterations = MESH_CKPT_STEP - 1 + iterations_run(
+        1674, MESH_CKPT['chunk_size'], int(1e6), start=MESH_CKPT_STEP)
     for lc in out['launches']:
         check(lc['chemical_potential_sharded'] == iterations
               and lc['local_band_sums'] == iterations + 1
@@ -4055,8 +4118,9 @@ def ens_world_phase(card, work):
     ref = KEPT['canonical']
     runs = [r[0] for r in res]
     equal = [_same_members(g, ref) for g in runs]
-    iterations = max(ref['computed_steps']) - 1
     for rank, g in enumerate(runs):
+        # a rank leaves a chunk once its own members have stopped
+        iterations = max(ref['computed_steps'][8 * rank:8 * rank + 8]) - 1
         lc = g['launches']
         check(g['local_members'] == (8 * rank, 8 * rank + 8),
               f"phase 14 (b) rank {rank}: members {g['local_members']}")
@@ -4322,6 +4386,661 @@ def distributed_phase(dev, card, E_single):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 15: the pencil layout (split and ozaki under --mesh, the single
+# run and the grid ensemble; K5 sharded; the collective audit)
+# ----------------------------------------------------------------------
+
+PENCIL_D = 4
+# (a) K5 sharded against K5 on the whole field, in the world: (N, kind,
+# layout, members); 'block': the max in one block only, 'ulp': the max
+# one ulp above 2^8 in one block only
+PENCIL_SLICE_CASES = tuple((N, kind, layout, 0) for N in (4096, 1000)
+                           for kind in ('block', 'ulp')
+                           for layout in ('field', 'spec')) + (
+    (512, 'ulp', 'field', 4), (512, 'block', 'spec', 4),
+    (1000, 'ulp', 'spec', 2))
+PENCIL_SLICE_N = 6              # the inverse's slices; the forward's: 4
+PENCIL_SLICE_REPORT = (4096, 4)        # the JSON line's K5 sharded row
+PENCIL_MEMBER_REPORT = (4, 512, 4)     # and K5_members sharded's
+PENCIL_BLOCK_NS = (4096, 64)
+PENCIL_FAST = (4096, 64)        # (c): N, steps (float32 split)
+PENCIL_OZAKI = (4096, 32)       # (d): N, steps (float64 ozaki)
+PENCIL_ENS = (4, 512, 256)      # (e): R, N, steps
+PENCIL_RESTORE_MESH = (1, 4)    # (f): the restoring grid of the 4 ranks
+# (b): the canonical runs' chunk; the split run saves at PENCIL_CKPT_STEP
+# (its first boundary 1600 steps after entering) and re-enters there
+PENCIL_CHUNK = 32
+PENCIL_CKPT_STEP = 1601
+# (b) on ozaki: the canonical run's first steps (the split run goes to the
+# stop; a world step of the ozaki route costs ~30-40 ms on gloo ranks that
+# share the card, so its run to the stop would take the phase past 150 s)
+PENCIL_OZAKI_STEPS = 640
+
+
+class _OneRank:
+    """A grid of one rank: K5 sharded's world max is its own (the timed
+    launches alone, with no collective)."""
+    size = 1
+
+
+def pencil_slice_timing(dev, card):
+    """(a) K5 sharded timed on a rank's column block (4096, 1024) of an
+    N=4096 float64 field, and on R=4 members' (512, 128) blocks: the call
+    (its world max left out: a one-rank grid), each launch alone, the
+    plain version, four block calls beside one whole-field K5 call, and
+    the bound."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    one = _OneRank()
+    N, n = PENCIL_SLICE_REPORT
+    rng = np.random.default_rng(N)
+    x = torch.tensor(0.01 * (rng.random((N, N)) - 0.5), device=dev)
+    b = x[:, :N // PENCIL_D].contiguous()
+    amax = torch.abs(x).amax()
+    bits = K._slice_max_launch(b, 1)
+    _, inv = K._slice_finish_launch(bits)
+    row = {'name': 'slice_field_sharded', 'N': N, 'n_slices': n,
+           'block': '%dx%d' % tuple(b.shape),
+           **timed_row(lambda: K.slice_field_sharded(b, one, n),
+                       lambda: K.slice_field_ref(b, n, amax)),
+           'launch_ms': {
+               'max pass (max-only mode)': device_ms(
+                   lambda: K._slice_max_launch(b, 1)),
+               'slice_finish_kernel': device_ms(
+                   lambda: K._slice_finish_launch(bits)),
+               'slice_kernel': device_ms(
+                   lambda: K._slice_planes_launch(b, inv, n))},
+           'whole_field_K5_ms': device_ms(lambda: K.slice_field(x, n)),
+           'library_ms': None,
+           **bound_fields(b.numel() * (8 + n),
+                          (OPS_PER_ELEM['slice_setup']
+                           + OPS_PER_ELEM['slice_per_plane'] * n)
+                          * b.numel(), 'float64')}
+    got, sc = K.slice_field_sharded(b, one, n)
+    want, wsc = K.slice_field_ref(b, n)
+    torch.cuda.synchronize()
+    row['max_abs_err'] = (got.int() - want.int()).abs().max().item()
+    row['four_blocks_ms'] = PENCIL_D * row['ms']
+    row['bound_share'] = row['bound_ms'] / row['ms']
+    check(row['max_abs_err'] == 0 and sc.item() == wsc.item(),
+          f"K5 sharded on a one-rank grid: planes {row['max_abs_err']}, "
+          f"scale {sc.item()} vs {wsc.item()}")
+    rows.append(row)
+    R, Nm, n = PENCIL_MEMBER_REPORT
+    xm = torch.tensor(rng.standard_normal((R, Nm, Nm)), device=dev)
+    bm = xm[..., :Nm // PENCIL_D].contiguous()
+    am = torch.abs(xm).amax(dim=(1, 2))
+    got, sc = K.slice_field_members_sharded(bm, one, n)
+    want, wsc = K.slice_field_members_ref(bm, n)
+    torch.cuda.synchronize()
+    row = {'name': 'slice_field_members_sharded', 'R': R, 'N': Nm,
+           'n_slices': n, 'block': '%dx%d' % tuple(bm.shape[1:]),
+           'max_abs_err': (got.int() - want.int()).abs().max().item(),
+           **timed_row(lambda: K.slice_field_members_sharded(bm, one, n),
+                       lambda: K.slice_field_members_ref(bm, n, am)),
+           'single_launches_ms': device_ms(lambda: [
+               K.slice_field_sharded(bm[r], one, n) for r in range(R)]),
+           'library_ms': None,
+           **bound_fields(bm.numel() * (8 + n),
+                          (OPS_PER_ELEM['slice_setup']
+                           + OPS_PER_ELEM['slice_per_plane'] * n)
+                          * bm.numel(), 'float64')}
+    row['bound_share'] = row['bound_ms'] / row['ms']
+    check(row['max_abs_err'] == 0 and torch.equal(sc, wsc),
+          f"K5_members sharded on a one-rank grid: planes "
+          f"{row['max_abs_err']}")
+    rows.append(row)
+    for r in rows:
+        launches = ', '.join(f"{k} {v:.4f}"
+                             for k, v in r.get('launch_ms', {}).items())
+        print(f"kernel {r['name']} {r.get('R', 1)} x {r['block']} block(s) "
+              f"of {r['N']}x{r['N']} float64, {r['n_slices']} slices: "
+              f"{r['ms']:.4f} ms (one call {r['call_ms']:.4f}"
+              + (f"; {launches}" if launches else '') + ") plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_share']:.0%})"
+              + (f"; 4 block calls {r['four_blocks_ms']:.4f} ms beside one "
+                 f"whole-field K5 {r['whole_field_K5_ms']:.4f}"
+                 if 'four_blocks_ms' in r else
+                 f"; {r['R']} single block calls "
+                 f"{r['single_launches_ms']:.4f} ms") + f"  ({card})",
+              flush=True)
+    return rows
+
+
+def pencil_block_kernels(dev, card):
+    """(a) K7, K8, K2 and K4 on the pencil blocks of D=4 ranks against
+    their plain versions (K3's tolerances; K8 to the bit against K1 on
+    the same block): K7 on each (N, N/4) column block with left and right
+    halos (its own edges above and below), the blocks' sums in rank order
+    against K3; K2 on a (N/4, N) row block; K4 on the column block with
+    the whole field's mean; N=4096 and N=64 (W=16)."""
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    for N in PENCIL_BLOCK_NS:
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
+            cfg, c, U, E, hat_U, hat_E = kernel_inputs(N, dtype, dev)
+            skw = dict(N=N, delx=cfg.delx, RT=cfg.RT, B=cfg.B,
+                       threshold=cfg.threshold)
+            whole = K.stats_sums(U, E, cfg.A0, cfg.A1,
+                                 **{k: v for k, v in skw.items()
+                                    if k != 'N'})
+            rtol = 1e-12 if dtype == torch.float64 else 1e-5
+            c_ = N // PENCIL_D
+            mean = (U.double().sum() / (N * N)).to(dtype)
+            total, k7 = None, 0.0
+            k8_same = k4_ok = True
+            k4_rel = 0.0
+            for j in range(PENCIL_D):
+                Ub, halo = block_halo(U, 0, j, N, c_)
+                Eb = block_halo(E, 0, j, N, c_)[0]
+                args = (Ub, *halo, Eb, cfg.A0, cfg.A1, 0, j * c_)
+                got = K.local_band_sums(*args, **skw)
+                want = K.local_band_sums_ref(*args, **skw)
+                b8 = K.chemical_potential_sharded(None, Ub, cfg.RT, cfg.BRT,
+                                                  cfg.A0, cfg.A1)
+                k1 = K.chemical_potential(Ub, cfg.RT, cfg.BRT, cfg.A0,
+                                          cfg.A1)
+                a4 = K.absdev_sum(Ub, mean)
+                r4 = K.absdev_sum_ref(Ub, mean)
+                torch.cuda.synchronize()
+                k7 = max(k7, ((got - want).abs() / want.abs()).max().item())
+                check(got[3].item() == want[3].item(),
+                      f"K7 N={N} {dname} column block {j}: count")
+                k8_same = k8_same and torch.equal(b8, k1)
+                rel4 = abs(a4.item() - r4.item()) / abs(r4.item())
+                k4_rel = max(k4_rel, rel4)
+                k4_ok = k4_ok and rel4 <= rtol
+                total = got if total is None else total + got
+            total_rel = ((total - whole).abs() / whole.abs()).max().item()
+            r0 = slice(0, c_)
+            Xb = (hat_U[r0].contiguous(), hat_E[r0].contiguous(),
+                  c['Seig'][r0].contiguous(), c['CHeig'][r0].contiguous())
+            got2, want2 = K.spectral_update(*Xb), K.spectral_update_ref(*Xb)
+            torch.cuda.synchronize()
+            rtol2 = 1e-12 if dtype == torch.float64 else 1e-6
+            k2_ok = bool(((got2 - want2).abs()
+                          <= rtol2 * want2.abs()).all())
+            row = {'N': N, 'dtype': dname, 'column_block': f'{N}x{c_}',
+                   'row_block': f'{c_}x{N}', 'K7_max_rel_err': k7,
+                   'K7_blocks_vs_K3_max_rel': total_rel,
+                   'K8_same_bits_as_K1': k8_same, 'K4_max_rel_err': k4_rel,
+                   'K2_ok': k2_ok,
+                   'tolerance': f"K7 rtol {rtol:g} (count exact), blocks vs "
+                                f"K3 {SHARD_TOTAL_RTOL[dname]:g}; K8 = K1 "
+                                f"bits; K4 rtol {rtol:g}; K2 rtol "
+                                f"{rtol2:g}"}
+            if N == PENCIL_BLOCK_NS[0]:
+                Ub, halo = block_halo(U, 0, 1, N, c_)
+                Eb = block_halo(E, 0, 1, N, c_)[0]
+                args = (Ub, *halo, Eb, cfg.A0, cfg.A1, 0, c_)
+                row['K7'] = {**timed_row(
+                    lambda: K.local_band_sums(*args, **skw),
+                    lambda: K.local_band_sums_ref(*args, **skw)),
+                    **bound_fields(*stats_bytes_ops(Ub), dname)}
+                row['K2'] = {**timed_row(lambda: K.spectral_update(*Xb),
+                                         lambda: K.spectral_update_ref(*Xb)),
+                             **bound_fields(5 * Xb[0].numel()
+                                            * Xb[0].element_size(),
+                                            3 * Xb[0].numel(), dname)}
+            rows.append(row)
+            times = ''.join(f"; {k} {row[k]['ms']:.4f} ms (plain "
+                            f"{row[k]['plain_ms']:.4f}, bound "
+                            f"{row[k]['bound_ms']:.4f})"
+                            for k in ('K7', 'K2') if k in row)
+            print(f"pencil blocks N={N} {dname}: K7 rel {k7:.3e}, blocks vs "
+                  f"K3 {total_rel:.3e}; K8 = K1 {k8_same}; K4 rel "
+                  f"{k4_rel:.3e}; K2 {k2_ok}{times}  ({card})", flush=True)
+            check(k7 <= rtol and total_rel <= SHARD_TOTAL_RTOL[dname]
+                  and k8_same and k4_ok and k2_ok,
+                  f"pencil blocks N={N} {dname}: {row}")
+    return rows
+
+
+def pencil_world_tasks(ckpt):
+    """The phase world's tasks, which each rank runs in turn, as a list
+    of (key, task): the K5 sharded checks, the audits, (c), (d), (b) on
+    split (saving into ``ckpt`` and re-entering at PENCIL_CKPT_STEP) and
+    ozaki, (f) the file restored on PENCIL_RESTORE_MESH, (e) on split and
+    ozaki.  (Two such worlds side by side took longer than one: the 8
+    processes time-slice the card.)"""
+    Nf, sf = PENCIL_FAST
+    No, so = PENCIL_OZAKI
+    R, Ne, se = PENCIL_ENS
+    fast = {'N': Nf, 'precision': 'float32', 'full_sim': True,
+            'generator': 'uniform', 'kappa_tilde': KAPPA,
+            'chunk_size': sf // 2, 'transform_backend': 'split'}
+    oz = {'N': No, 'full_sim': True, 'generator': 'uniform',
+          'kappa_tilde': KAPPA, 'chunk_size': so // 2,
+          'transform_backend': 'ozaki'}
+    canon = {'kappa_tilde': KAPPA, 'chunk_size': PENCIL_CHUNK}
+    pairs = canonical_pairs(R)
+
+    def ensemble(t):
+        return ('ensemble', {'params': {'N': Ne, 'no_gui': True,
+                                        'device': 'cuda',
+                                        'transform_backend': t},
+                             'pairs': pairs,
+                             'kappas': list(CANONICAL_KAPPAS[:R]),
+                             'steps': se, 'return_U': False})
+
+    a = [(('slice', k), ('slice_sharded_check', {
+        'N': N, 'n_slices': PENCIL_SLICE_N, 'kind': kind, 'layout': layout,
+        'R': Rm, 'seed': N}))
+        for k, (N, kind, layout, Rm) in enumerate(PENCIL_SLICE_CASES)]
+    a += [('grid_audit', ('audit', {'N': Nf, 'precision': 'float32',
+                                    'transform': 'matmul'}))]
+    # (c), (d): two entries each, the second one timed, then the audit's
+    # chunk
+    a += [('fast', ('solve', {'params': fast, 'steps': [sf // 2, sf // 2],
+                              'return_U': False, 'audit_steps': 2})),
+          ('ozaki_4096', ('solve', {'params': oz,
+                                    'steps': [so // 2, so // 2],
+                                    'return_U': False,
+                                    'audit_steps': 2})),
+          ('split', ('solve', {'params': dict(
+              canon, transform_backend='split', checkpoint_file=ckpt,
+              checkpoint_every=PENCIL_CKPT_STEP - 1),
+              'steps': [PENCIL_CKPT_STEP, int(1e6)], 'return_U': False})),
+          ('restored', ('solve', {'params': {'restore_file': ckpt,
+                                             'ntmax': int(1e6)},
+                                  'mesh_shape': PENCIL_RESTORE_MESH,
+                                  'return_U': False})),
+          ('ozaki', ('solve', {'params': dict(canon,
+                                              transform_backend='ozaki'),
+                               'steps': PENCIL_OZAKI_STEPS,
+                               'return_U': False})),
+          ('ens_split', ensemble('split')),
+          ('ens_ozaki', ensemble('ozaki')),
+          ('imported', ('imported', {}))]
+    return a
+
+
+def run_pencil_world(tasks, timeout=900):
+    """The world of :func:`pencil_world_tasks`: ({key: [each rank's
+    result]}, the world's seconds, {key: rank 0's seconds of the task})."""
+    from chsimpy_tpu_torch.parallel.distributed import spawn_world
+    from chsimpy_tpu_torch.parallel.workers import run_tasks
+    t0 = time.perf_counter()
+    res = spawn_world(run_tasks, (1, 2, 2), backend=DIST_BACKEND,
+                      device='cuda', args=([t for _, t in tasks], True),
+                      timeout=timeout)
+    seconds = time.perf_counter() - t0
+    return ({key: [r[0][i] for r in res] for i, (key, _) in
+             enumerate(tasks)}, seconds,
+            {str(key): res[0][1][i] for i, (key, _) in enumerate(tasks)})
+
+
+def _iterations_to_stop(start):
+    """Step iterations a canonical world run entered at ``start`` runs."""
+    return iterations_run(1674, PENCIL_CHUNK, int(1e6), start)
+
+
+def pencil_phase(dev, card, refs):
+    """(a) the kernels on pencil shapes; (b)-(f) in one world of 4 gloo
+    ranks sharing the card (no scaling figure)."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters
+
+    out = {'slice_timing': pencil_slice_timing(dev, card),
+           'blocks': pencil_block_kernels(dev, card)}
+    with open(os.path.join(ROOT, 'tests', 'golden',
+                           'default_n512_anchors.json')) as f:
+        g = json.load(f)
+    # the world starts (its ranks import torch) while this process runs
+    # (e)'s one-device batches from the same pairs (no timing in either)
+    import threading
+    ckpt = os.path.join(kept_dir(), 'pencil.npz')
+    world = {}
+
+    def run():
+        try:
+            world['out'] = run_pencil_world(pencil_world_tasks(ckpt))
+        except BaseException as e:      # raised again below
+            world['error'] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+    R, Ne, se = PENCIL_ENS
+    pairs, kappas = canonical_pairs(R), list(CANONICAL_KAPPAS[:R])
+    one = {}
+    for t in ('split', 'ozaki'):
+        _, sols, _, _ = _ensemble_run(
+            Parameters(N=Ne, no_gui=True, device='cuda',
+                       transform_backend=t), pairs, kappas, se)
+        one[t] = [s.timedata.data()[:, 1] for s in sols]
+    torch.cuda.empty_cache()
+    th.join()
+    if 'error' in world:
+        raise world['error']
+    res, seconds, task_seconds = world['out']
+    out['task_seconds'] = task_seconds
+    out['world_seconds'] = seconds
+    _no_jax('phase 15', [[r] for r in res['imported']], 0)
+
+    # (a) K5 sharded in the world
+    slices = []
+    for k, case in enumerate(PENCIL_SLICE_CASES):
+        rr = res[('slice', k)]
+        ok = all(r['max_diff_whole'] == 0 and r['max_diff_plain'] == 0
+                 and r['scale'] == r['whole_scale'] == r['plain_scale']
+                 == rr[0]['scale'] for r in rr)
+        want = 'slice_field_members_sharded' if case[3] else \
+            'slice_field_sharded'
+        ok = ok and all(r['launches'][want] == 1 for r in rr)
+        slices.append({'case': list(case), 'ok': ok,
+                       'blocks': [r['block'] for r in rr],
+                       'scale': rr[0]['scale'],
+                       'max_diff_whole': max(r['max_diff_whole'] for r in rr),
+                       'max_diff_plain': max(r['max_diff_plain']
+                                             for r in rr)})
+        print(f"phase 15 (a) K5 sharded N={case[0]} {case[1]} {case[2]} "
+              f"blocks {rr[0]['block']}" + (f", R={case[3]}" if case[3]
+                                             else '')
+              + f": planes = the whole field's K5 on every rank "
+              f"{ok}, scale {rr[0]['scale']} on every rank", flush=True)
+        check(ok, f"phase 15 (a) K5 sharded {case}: {rr}")
+    out['slice_checks'] = slices
+
+    # the audits
+    audits = {'split_f32': res['fast'][0]['audit'],
+              'grid_matmul_f32': res['grid_audit'][0],
+              'ozaki_f64': res['ozaki_4096'][0]['audit']}
+    out['audit'] = audits
+    for name, a in audits.items():
+        print(f"phase 15 audit N={PENCIL_FAST[0]} {name} on 2x2: "
+              f"{_audit_line(a)}  ({card})", flush=True)
+    sp, gr, oz = (audits['split_f32'], audits['grid_matmul_f32'],
+                  audits['ozaki_f64'])
+    check(sp['pencil'] and sp['per_op_bytes']['all-gather'] == 0
+          and sp['per_op_bytes']['all-to-all'] > 0
+          and sp['total_bytes'] < gr['per_op_bytes']['all-gather']
+          and sp['total_wire_bytes'] < gr['total_wire_bytes']
+          and sp['max_single_collective_bytes'] <= sp['field_bytes'] // 4
+          and oz['pencil'] and oz['per_op_bytes']['all-to-all'] > 0
+          and oz['total_bytes'] < 3 * oz['field_bytes'],
+          f"phase 15 audit: {audits}")
+
+    # (c) N=4096 float32 split
+    fast = res['fast']
+    f = fast[0]
+    E = f['timedata'][:, 1]
+    rel64 = float(np.max(np.abs(E / np.asarray(refs['E_f64_4096']) - 1)))
+    rel32 = float(np.max(np.abs(
+        E / np.asarray(refs['E_split_f32_4096']) - 1)))
+    drift = f['U_mean'] - refs['U0_mean_4096']
+    timed = PENCIL_FAST[1] // 2
+    out['n4096_split'] = {
+        'E_vs_f64_max_rel': rel64, 'E_vs_single_split_f32_max_rel': rel32,
+        'U_mean_drift': drift,
+        'ms_per_step': [r['entry_seconds'][1] / timed * 1e3 for r in fast],
+        'peak_GB_per_rank': [r['peak_bytes'] / 1e9 for r in fast],
+        'rows_same_on_every_rank': all(np.array_equal(r['timedata'],
+                                                      f['timedata'])
+                                       for r in fast),
+        'launches': f['launches']}
+    o = out['n4096_split']
+    print(f"phase 15 (c) N={PENCIL_FAST[0]} float32 split on the 2x2 "
+          f"pencil world, {PENCIL_FAST[1]} steps: E vs float64 {rel64:.3e}, "
+          f"vs one device's split float32 {rel32:.3e}, mean(U) drift "
+          f"{drift:.3e}; ms a step (the last {timed}) " + ', '.join(
+              f'{m:.1f}' for m in o['ms_per_step']) + '; peak GB a rank '
+          + ', '.join(f'{m:.2f}' for m in o['peak_GB_per_rank'])
+          + f" (4 ranks on one card, gloo)  ({card})", flush=True)
+    check(f['pencil'] and len(E) == PENCIL_FAST[1] and f['U_finite']
+          and o['rows_same_on_every_rank'],
+          "phase 15 (c): not a finite pencil run of the same rows")
+    check(rel64 <= 1e-5 and rel32 <= 1e-6 and abs(drift) <= 1e-6,
+          f"phase 15 (c): E {rel64:.3e} / {rel32:.3e}, drift {drift:.3e}")
+
+    # (d) N=4096 float64 ozaki
+    ozr = res['ozaki_4096']
+    z = ozr[0]
+    n = PENCIL_OZAKI[1]
+    Ez = z['timedata'][:, 1]
+    relz = float(np.max(np.abs(Ez / np.asarray(refs['E_f64_4096'][:n])
+                               - 1)))
+    out['n4096_ozaki'] = {
+        'E_vs_matmul_f64_max_rel': relz,
+        'ms_per_step': [r['entry_seconds'][1] / (n // 2) * 1e3 for r in ozr],
+        'peak_GB_per_rank': [r['peak_bytes'] / 1e9 for r in ozr],
+        'rows_same_on_every_rank': all(np.array_equal(r['timedata'],
+                                                      z['timedata'])
+                                       for r in ozr),
+        'launches': z['launches']}
+    o = out['n4096_ozaki']
+    print(f"phase 15 (d) N={PENCIL_OZAKI[0]} float64 ozaki on the 2x2 "
+          f"pencil world, {n} steps: E vs the matmul route {relz:.3e}; ms "
+          f"a step (the last {n // 2}) "
+          + ', '.join(f'{m:.1f}' for m in o['ms_per_step'])
+          + '; peak GB a rank '
+          + ', '.join(f'{m:.2f}' for m in o['peak_GB_per_rank'])
+          + f"  ({card})", flush=True)
+    check(z['pencil'] and len(Ez) == n and z['U_finite']
+          and o['rows_same_on_every_rank'] and relz <= 1e-10,
+          f"phase 15 (d): E {relz:.3e} from matmul, {o}")
+
+    # (b) the canonical run on split (re-entered at PENCIL_CKPT_STEP) and
+    # ozaki
+    out['canonical'] = {
+        'split': check_pencil_canonical(
+            'phase 15 (b) split', res['split'],
+            np.asarray(refs['E_split_n512']), g,
+            PENCIL_CKPT_STEP - 1 + _iterations_to_stop(PENCIL_CKPT_STEP),
+            'split'),
+        'ozaki': check_pencil_canonical(
+            'phase 15 (b) ozaki', res['ozaki'],
+            np.asarray(refs['E_ozaki_n512']), g, PENCIL_OZAKI_STEPS - 1,
+            'ozaki', PENCIL_OZAKI_STEPS)}
+
+    # (f) the split run's file (PENCIL_CKPT_STEP) restored on 1x4
+    rest = res['restored']
+    rows_equal = np.array_equal(rest[0]['timedata'],
+                                res['split'][0]['timedata'])
+    out['restored'] = {
+        'mesh': rest[0]['mesh'], 'computed_steps': rest[0]['computed_steps'],
+        'stop_reason': rest[0]['stop_reason'],
+        'rows_equal_the_reentered_run': rows_equal,
+        'rows_same_on_every_rank': all(
+            np.array_equal(r['timedata'], rest[0]['timedata'])
+            for r in rest)}
+    print(f"phase 15 (f) the 2x2 pencil run's file (step "
+          f"{PENCIL_CKPT_STEP}) restored on {rest[0]['mesh']}: stop "
+          f"{rest[0]['computed_steps']} ({rest[0]['stop_reason']}), the "
+          f"re-entered run's rows to the bit {rows_equal}", flush=True)
+    check(rest[0]['pencil'] and rest[0]['computed_steps'] == 1674
+          and rows_equal and out['restored']['rows_same_on_every_rank'],
+          f"phase 15 (f): {out['restored']}")
+
+    # (e) the grid ensembles
+    out['ensemble'] = {}
+    for t in ('split', 'ozaki'):
+        er = res['ens_' + t]
+        e0 = er[0]
+        same = all(all(np.array_equal(a, b) for a, b in
+                       zip(r['timedata'], e0['timedata'])) for r in er)
+        rel = max(float(np.max(np.abs(td[:, 1] / e - 1)))
+                  for td, e in zip(e0['timedata'], one[t]))
+        ms = [r['seconds'] / (se - 1) * 1e3 for r in er]
+        out['ensemble'][t] = {'E_max_rel_vs_one_device': rel,
+                              'rows_same_on_every_rank': same,
+                              'ms_per_step_iteration': ms,
+                              'launches': e0['launches']}
+        print(f"phase 15 (e) R={R} N={Ne} float64 {se} steps on {t}, "
+              f"{e0['mesh']}: E vs one device's batch {rel:.3e}, rows the "
+              f"same on every rank {same}; ms a step iteration "
+              + ', '.join(f'{m:.1f}' for m in ms) + f"  ({card})",
+              flush=True)
+        lc = e0['launches']
+        check(same and rel <= 1e-10 and e0['U_finite'],
+              f"phase 15 (e) {t}: E {rel:.3e}, ranks same {same}")
+        check(lc['local_band_sums_members'] >= se - 1
+              and lc['spectral_update_members'] >= se - 1
+              and lc['slice_field_members_sharded']
+              == (1 + 2 * (se - 1) if t == 'ozaki' else 0)
+              and lc['slice_field_members'] == 0,
+              f"phase 15 (e) {t}: launches {lc}")
+    print(f"phase 15 world: {seconds:.1f} s; rank 0's tasks: "
+          + ', '.join(f"{k} {v:.1f}" for k, v in task_seconds.items())
+          + f"  ({card})", flush=True)
+    out['nccl'] = pencil_nccl(card, refs, g)
+    return out
+
+
+def pencil_nccl(card, refs, g):
+    """With one card per rank: (b) on split and ozaki and (c) again on
+    NCCL; otherwise a line saying why it did not run."""
+    import numpy as np
+    from chsimpy_tpu_torch.parallel.distributed import spawn_grid
+    from chsimpy_tpu_torch.parallel.workers import run_tasks
+    if torch_cards() < PENCIL_D:
+        print(f"phase 15: the NCCL world did not run: {torch_cards()} "
+              f"card(s), and NCCL takes one card per rank ({PENCIL_D} "
+              f"needed)", flush=True)
+        return None
+    tasks = dict(pencil_world_tasks(os.path.join(kept_dir(),
+                                                 'pencil-nccl.npz')))
+    res = spawn_grid(run_tasks, (2, 2), backend='nccl', device='cuda',
+                     args=([tasks['fast'], tasks['split'],
+                            tasks['ozaki']],), timeout=900)
+    out = {'split': check_pencil_canonical(
+        'phase 15 nccl (b) split', [r[1] for r in res],
+        np.asarray(refs['E_split_n512']), g,
+        PENCIL_CKPT_STEP - 1 + _iterations_to_stop(PENCIL_CKPT_STEP),
+        'split'),
+        'ozaki': check_pencil_canonical(
+        'phase 15 nccl (b) ozaki', [r[2] for r in res],
+        np.asarray(refs['E_ozaki_n512']), g, PENCIL_OZAKI_STEPS - 1,
+        'ozaki', PENCIL_OZAKI_STEPS)}
+    E = res[0][0]['timedata'][:, 1]
+    rel = float(np.max(np.abs(E / np.asarray(refs['E_f64_4096']) - 1)))
+    timed = PENCIL_FAST[1] // 2
+    out['n4096_split_E_vs_f64'] = rel
+    out['n4096_split_ms_per_step'] = [r[0]['entry_seconds'][1] / timed * 1e3
+                                      for r in res]
+    print(f"phase 15 nccl (c): E vs float64 {rel:.3e}, ms a step "
+          + ', '.join(f"{m:.2f}" for m in out['n4096_split_ms_per_step'])
+          + f"  ({card})", flush=True)
+    check(rel <= 1e-5, f"phase 15 nccl (c): E {rel:.3e}")
+    return out
+
+
+def _audit_line(a):
+    per = a['per_op_bytes']
+    return (f"{a['total_bytes'] / 1e6:.3f} MB a step and rank ("
+            + ', '.join(f"{k} {v / 1e6:.3f}" for k, v in per.items() if v)
+            + f"; received {a['total_wire_bytes'] / 1e6:.3f} MB; largest "
+            f"{a['max_single_collective_bytes'] / 1e6:.3f} MB; "
+            f"{a['n_collectives']} calls)")
+
+
+def check_pencil_canonical(tag, runs, E1, g, iterations, route,
+                           steps=None):
+    """(b): stop 1674 with the anchors (with ``steps``: the first steps,
+    the anchors among them), E within 1e-10 of one device's run of the
+    route at every step, the same rows on every rank, the route's kernels
+    launched as it implies."""
+    import numpy as np
+    c = runs[0]
+    td = c['timedata']
+    n = min(len(td), len(E1))
+    e100 = np.asarray(g['E_every_100'])[:len(td[::100])]
+    out = {'mesh': c['mesh'], 'pencil': c['pencil'],
+           'computed_steps': c['computed_steps'],
+           'stop_reason': c['stop_reason'],
+           'rows_same_on_every_rank': all(
+               np.array_equal(r['timedata'], td) for r in runs),
+           'E_vs_single_max_rel': float(np.max(np.abs(td[:n, 1]
+                                                      / E1[:n] - 1))),
+           'E_every_100_max_rel': float(np.max(np.abs(
+               td[::100, 1] / e100 - 1))),
+           'E_last_rel': None if steps else abs(td[-1, 1] / g['E_last'] - 1),
+           'argmax_E2': None if steps else int(td[:, 2].argmax()),
+           'iterations': iterations,
+           'seconds': [r['seconds'] for r in runs],
+           'launches': [r['launches'] for r in runs]}
+    ms = [s / iterations * 1e3 for s in out['seconds']]
+    print(f"phase 15 (b) canonical run on {route}: "
+          + json.dumps({k: v for k, v in out.items()
+                        if k not in ('launches', 'seconds')})
+          + ', ms a step iteration ' + ', '.join(f'{m:.1f}' for m in ms),
+          flush=True)
+    check(c['pencil'], f"{tag}: not on the pencil layout")
+    check(out['rows_same_on_every_rank'], f"{tag}: ranks differ")
+    if steps:
+        check(c['computed_steps'] == len(td) == steps
+              and c['stop_reason'] == 'None'
+              and out['E_every_100_max_rel'] <= 1e-10,
+              f"{tag}: {c['computed_steps']} steps ({c['stop_reason']}), "
+              f"{len(td)} rows, E every 100 "
+              f"{out['E_every_100_max_rel']:.3e}")
+    else:
+        check(c['computed_steps'] == 1674 and c['stop_reason'] == 'energy'
+              and len(td) == len(E1), f"{tag}: stop {c['computed_steps']} "
+                                      f"{c['stop_reason']}, {len(td)} rows")
+        check(c['tau0'] == g['tau0']
+              and abs(c['t0'] / g['t0'] - 1) <= 1e-12
+              and out['E_every_100_max_rel'] <= 1e-10
+              and out['E_last_rel'] <= 1e-10
+              and out['argmax_E2'] == g['argmax_E2'],
+              f"{tag}: golden anchors not held")
+    check(out['E_vs_single_max_rel'] <= 1e-10,
+          f"{tag}: E {out['E_vs_single_max_rel']:.3e} from one device")
+    want_k5 = 1 + 2 * iterations if route == 'ozaki' else 0
+    for lc in out['launches']:
+        check(lc['chemical_potential_sharded'] == iterations
+              and lc['spectral_update'] == iterations
+              and lc['local_band_sums'] == iterations + 1
+              and lc['slice_field_sharded'] == want_k5
+              and lc['slice_field'] == 0 and lc['chemical_potential'] == 0
+              and lc['stats_sums'] == 0,
+              f"{tag}: launches {lc}, {iterations} step iterations")
+    return out
+
+
+def pencil_refs():
+    """What phase 15 is held to when it runs alone: one device's
+    canonical runs on split and ozaki, N=4096 float64 matmul and float32
+    split over 64 steps from the same field."""
+    import numpy as np
+    s64 = make_solver(4096, 'float64', 64, transform='matmul')
+    E64 = np.array(s64.solve_or_resume(64).timedata.E)
+    del s64
+    s32 = make_solver(4096, 'float32', 64, transform='split')
+    U0 = s32.solution.U.double().mean().item()
+    E32 = np.array(s32.solve_or_resume(64).timedata.E)
+    del s32
+    return {'E_split_n512': default_run('split')['E'],
+            'E_ozaki_n512': ozaki_default_run()['E'],
+            'E_f64_4096': E64.tolist(), 'E_split_f32_4096': E32.tolist(),
+            'U0_mean_4096': U0}
+
+
+def phase15_alone(detail, dev, card, out_dir) -> int:
+    """``--phase 15``: phase 15 after what it is held to
+    (:func:`pencil_refs`); its details to DIR/chip_smoke_15.json with
+    ``--out``."""
+    refs = pencil_refs()
+    t0 = time.perf_counter()
+    detail['pencil'] = pencil_phase(dev, card, refs)
+    detail['phase_seconds'][15] = time.perf_counter() - t0
+    print(f"phase 15: {detail['phase_seconds'][15]:.1f} s  ({card})",
+          flush=True)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, 'chip_smoke_15.json'), 'w') as f:
+            json.dump(detail, f, indent=1)
+    return 0
+
+
 def gpu_clocks():
     """The card's SM clock, temperature and power draw (nvidia-smi)."""
     proc = subprocess.run(
@@ -4474,6 +5193,35 @@ def summary_rows(detail):
         'shape': f"{R} members' {row['block']} {dtype} blocks of {N}x{N} "
                  f"on {row['mesh']}",
         'bound_share': row['bound_ms'] / row['ms']})
+    # K5 sharded on a rank's pencil block (phase 15 (a)), counted on
+    # phase 15 (b)'s canonical ozaki run and (e)'s ozaki grid ensemble
+    # (rank 0)
+    pen = detail['pencil']
+    world_err = max(max(c['max_diff_whole'], c['max_diff_plain'])
+                    for c in pen['slice_checks'])
+    counted = (pen['canonical']['ozaki']['launches'][0][
+        'slice_field_sharded'], pen['ensemble']['ozaki']['launches'][
+        'slice_field_members_sharded'])
+    for row, launches in zip(pen['slice_timing'], counted):
+        rows.append({
+            'name': row['name'], 'route': 'cuda', 'source': SOURCE,
+            'replaces': REPLACES['slice_field'] + ' on the pencil layout '
+                        '(the sharded ozaki route, chsimpy_tpu/core/'
+                        'stepper.py:690-705' + (', vmapped' if 'R' in row
+                                                else '') + ')',
+            'launches': launches,
+            'max_abs_err': max(row['max_abs_err'], world_err),
+            'ms': row['ms'], 'call_ms': row['call_ms'],
+            'plain_ms': row['plain_ms'], 'library_ms': None,
+            'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+            'shape': (f"{row.get('R', 1)} x {row['block']} float64 "
+                      f"block(s) of {row['N']}x{row['N']} -> "
+                      f"{row['n_slices']} int8 slices, world max left out"),
+            **({'launch_ms': row['launch_ms'],
+                'whole_field_K5_ms': row['whole_field_K5_ms']}
+               if 'launch_ms' in row else
+               {'single_launches_ms': row['single_launches_ms']}),
+            'bound_share': row['bound_ms'] / row['ms']})
     return rows
 
 
@@ -4490,6 +5238,8 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     detail['slice_members'] = member_slice_phase(dev, card)
     detail['local_members'] = local_members_kernel_phase(dev, card)
     detail['row_absdev'] = row_absdev_kernel_phase(dev, card)
+    detail['pencil_slices'] = pencil_slice_timing(dev, card)
+    detail['pencil_blocks'] = pencil_block_kernels(dev, card)
     report = [r for r in detail['kernels'] if r['N'] == REPORT_SHAPE[0]]
     report += [r for r in detail['sobol_kernel'] if 'ms' in r
                and r['N'] == SOBOL_REPORT[0]]
@@ -4504,6 +5254,7 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     report += detail['member_kernels']
     report += [r for r in detail['slice_members'] if 'ms' in r]
     report += detail['local_members'] + detail['row_absdev']
+    report += detail['pencil_slices']
     for r in report:
         if 'bound_ms' not in r:     # the slice kernel's row
             r.update(kernel_bound(r['name'], r['N'], 'float64'))
@@ -4568,12 +5319,14 @@ def main(argv=None) -> int:
     ap.add_argument('--kernels-only', action='store_true',
                     help='only the kernels against their plain versions, '
                          'and their times')
-    ap.add_argument('--phase', type=int, choices=(14,),
+    ap.add_argument('--phase', type=int, choices=(14, 15),
                     help='run this phase alone after the build, with the '
                          'parts of earlier phases it holds its results to '
                          '(phase 14: the canonical run of 4, the batch of '
-                         '10 (b), the float64 experiment of 11 (a)); no '
-                         'closing lines')
+                         '10 (b), the float64 experiment of 11 (a); phase '
+                         '15: the canonical runs on split and ozaki, N=4096 '
+                         'float64 matmul and float32 split); no closing '
+                         'lines')
     # a worker of phase 12 (b): single ozaki runs, saved to --out
     ap.add_argument('--ozaki-singles', help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -4621,6 +5374,8 @@ def _main(args, detail, dev, card, torch) -> int:
 
     if args.phase == 14:
         return phase14_alone(detail, dev, card, args.out)
+    if args.phase == 15:
+        return phase15_alone(detail, dev, card, args.out)
     # the SM clock beside phase 3's kernel window (B1 and B8 read slower in
     # some runs with the code unchanged)
     detail['clocks_before_phase3'] = gpu_clocks()
@@ -4651,6 +5406,12 @@ def _main(args, detail, dev, card, torch) -> int:
     detail['live'] = timed(13, live_phase, card)
     detail['distributed'] = timed(14, distributed_phase, dev, card,
                                   detail['default_run']['E'])
+    detail['pencil'] = timed(15, pencil_phase, dev, card, {
+        'E_split_n512': detail['routes']['default_run']['split']['E'],
+        'E_ozaki_n512': detail['ozaki']['default_run']['E'],
+        'E_f64_4096': fm['E_f64_64_steps'],
+        'E_split_f32_4096': KEPT['E_split_f32_4096'],
+        'U0_mean_4096': fm['f32_mean_U_initial']})
     print('phase seconds: ' + ', '.join(
         f"{k} {v:.1f}" for k, v in detail['phase_seconds'].items()),
         flush=True)

@@ -6,13 +6,15 @@ render the PNG and export the requested files, print the run summary and,
 for a run on the card, how often each kernel was launched; then keep the
 plot window open when the GUI was asked for.
 
-With ``--mesh MxN`` the run is one rank of a grid-sharded world: start
+With ``--mesh MxN`` the run is one rank of a sharded world (the grid
+layout on the matmul route, the pencil layout on split and ozaki): start
 M*N of them with ``torchrun --standalone --nproc-per-node M*N -m
 chsimpy_tpu_torch --mesh MxN ...``.  Each joins the process group torchrun
 describes and runs the live loop's chunks; only rank 0 draws, writes
 (the exports and the checkpoints of ``--checkpoint-file``) and prints
 (its launch counts are its own block's).  ``--restore`` under torchrun
-joins the group too: the file's mesh shape wins."""
+joins the group too: the file's mesh shape holds unless ``--mesh`` gives
+another."""
 
 from __future__ import annotations
 
@@ -53,6 +55,11 @@ def main(argv=None):
             print(str(params).replace(", '", "\n '"))
             if mesh is not None:
                 print(mesh.describe())
+            if simulator.solver.cfg.pencil:
+                N, D = params.N, mesh.size
+                print(f"pencil layout: the field in ({N}, {N // D}) column "
+                      f"blocks, the spectral image in ({N // D}, {N}) row "
+                      f"blocks")
 
         kernels.reset_launches()
         solution = simulator.solve()

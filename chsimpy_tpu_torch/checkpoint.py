@@ -209,11 +209,14 @@ def load_checkpoint(fname: str, device='cuda'):
     return params, payload
 
 
-def restore_solver(fname: str, device='cuda', dist_backend=None):
+def restore_solver(fname: str, device='cuda', dist_backend=None,
+                   mesh_shape=None):
     """A prepared Solver on ``device``, mid-run, from a checkpoint written
-    by either package.  The file's ``mesh_shape`` wins: under a mesh every
-    rank of the process group calls it and takes its block of the field
-    (``dist_backend``: the caller's, as ``device``)."""
+    by either package.  The file's ``mesh_shape`` holds unless the caller
+    gives one (a world of another shape; ``dist_backend``: the caller's,
+    as ``device``): under a mesh every rank of the process group calls it
+    and takes its block of the field (on the pencil layout its column
+    block; the spectral image is rebuilt at the solve's entry)."""
     from .core.solver import Solver
     from .parallel.sharding import shard_field
     from .rng import FieldGenerator
@@ -221,6 +224,8 @@ def restore_solver(fname: str, device='cuda', dist_backend=None):
 
     params, payload = load_checkpoint(fname, device)
     params.dist_backend = dist_backend
+    if mesh_shape is not None:
+        params.mesh_shape = tuple(mesh_shape)
     h = payload['header']
     solver = Solver(params, U_init=payload['U_init'])
     if payload['generator_state'] is not None:
@@ -248,7 +253,7 @@ def restore_solver(fname: str, device='cuda', dist_backend=None):
                                          dtype=solver.cfg.tdtype)
     sol.U = U
     if solver.mesh is not None:
-        U = shard_field(U, solver.mesh)[0]
+        U = shard_field(U, solver.field_mesh)[0]
 
     def f(x):
         return torch.tensor(float(x), dtype=f64, device=dev)

@@ -94,10 +94,13 @@ FLAGS = [
          choices=['auto', 'matmul', 'split', 'fft', 'ozaki'],
          default='auto'),
     Flag(('--mesh',), 'Device',
-         'Grid mesh of ranks, e.g. "2x2" (rows x cols): the field is '
-         'tiled over mx*my torch.distributed processes, one per mesh '
-         'device (start them with torchrun --nproc-per-node mx*my); '
-         'matmul transform only', param='mesh_shape'),
+         'Grid mesh of ranks, e.g. "2x2" (rows x cols), over mx*my '
+         'torch.distributed processes, one per mesh device (start them '
+         'with torchrun --nproc-per-node mx*my): the matmul transform '
+         'tiles the field over the grid, split and ozaki take the pencil '
+         'layout (column blocks over all mx*my ranks; N divisible by '
+         'mx*my). With --restore: a world of another shape than the '
+         "checkpoint's", param='mesh_shape'),
     Flag(('--jitter-backend',), 'Device',
          'host = bit-exact RNG streamed per chunk; device = on-device '
          'draws without the per-chunk slab uploads (-g sobol: the Sobol '

@@ -2,9 +2,10 @@
 
 Port of ``chsimpy_tpu/core/solver.py`` for the slice: ``prepare()`` then
 ``solve_or_resume(nsteps)``.  Time stepping runs in chunks of
-``chunk_size`` steps on the device (core/stepper.py); the host syncs once
-per chunk: it reads the chunk's timedata rows and the scalar state, and
-maps the stop code.  The reference's iteration-count semantics hold:
+``chunk_size`` steps on the device (core/stepper.py, which leaves a chunk
+at its first look at the stop flag after a stop); the host syncs once per
+chunk: it reads the chunk's timedata rows and the scalar state, and maps
+the stop code.  The reference's iteration-count semantics hold:
 
 * a fresh solve (computed_steps == 1) runs ``nsteps - 1`` iterations, a
   resume runs ``nsteps``;
@@ -13,13 +14,17 @@ maps the stop code.  The reference's iteration-count semantics hold:
 * ``prepare()`` resets what the reference resets, and NOT time_delta_sum,
   delt or skip_check.
 
-With ``mesh_shape`` the solve is grid-sharded over the ranks of a
-``torch.distributed`` process group (one rank per mesh device, as the JAX
-package's ``--mesh MxN --kernels pallas``): every rank builds the same
-initial field on the host and keeps its block; the step runs K8, the grid
-DCTs, K2 and K7 on the block; every rank holds the same scalars and rows,
-so each syncs, stops and returns the same solution (``solution.U`` is the
-gathered field).
+With ``mesh_shape`` the solve is sharded over the ranks of a
+``torch.distributed`` process group (one rank per mesh device): every rank
+builds the same initial field on the host and keeps its block; every rank
+holds the same scalars and rows, so each syncs, stops and returns the same
+solution (``solution.U`` is the gathered field).  The matmul route tiles
+the field over the grid (as the JAX package's ``--mesh MxN --kernels
+pallas``: K8, the grid DCTs, K2 and K7 on the block); the split and ozaki
+routes take the pencil layout when the rank count D divides N (as the JAX
+package resolves ``pencil``): the field in column blocks, the spectral
+image and its grids in row blocks, one transpose all-to-all per 2-D
+transform, K5 sharded on the ozaki route.
 
 With ``checkpoint_file`` and ``checkpoint_every`` the solve saves a
 checkpoint (``checkpoint.py``) at the first chunk boundary at least
@@ -60,8 +65,8 @@ from ..solution import Solution
 from ..timedata import TimeData
 from . import state as state_mod
 from .state import STOP_NAN, STOP_NONE, STOP_STRINGS, SolverState
-from .stepper import (StepConfig, entry_dct2, make_consts, prepare_row0,
-                      run_chunk)
+from .stepper import (StepConfig, entry_dct2, field_mesh, make_consts,
+                      prepare_row0, run_chunk)
 
 _JITTER_BUF_BYTES = 64 << 20  # cap on the per-chunk host jitter pre-draw
 
@@ -86,6 +91,11 @@ def resolve_jitter_mode(params: Parameters, has_U_init: bool = False) -> str:
     return 'stream'
 
 
+FFT_UNDER_MESH = ("--transform fft does not shard under --mesh; the "
+                  "distributed transforms are the split (pencil layout), "
+                  "matmul and ozaki routes")
+
+
 def resolve_transform(params: Parameters) -> str:
     """The concrete DCT route: 'matmul', 'split', 'fft' or 'ozaki', with
     the JAX package's single-device guards.  'auto' stays matmul in the
@@ -95,10 +105,7 @@ def resolve_transform(params: Parameters) -> str:
     only (no complex128 there): float64 FFT runs on the card."""
     tb = params.transform_backend or 'auto'
     if tb == 'fft' and params.mesh_shape is not None:
-        raise ValueError(
-            "--transform fft does not shard under --mesh; the "
-            "distributed transforms are the split (pencil layout), "
-            "matmul and ozaki routes")
+        raise ValueError(FFT_UNDER_MESH)
     if tb == 'auto':
         return 'matmul'
     if tb in ('fft', 'split') and params.N % 2:
@@ -122,13 +129,18 @@ def check_split_levels(params: Parameters) -> None:
             f"(got N={params.N})")
 
 
-def _resolve_rfold_levels(params: Parameters) -> int:
+def _resolve_rfold_levels(params: Parameters,
+                          grid_sharded: Optional[bool] = None) -> int:
     """Fold depth of the recursive permuted ozaki route (0 = the level-1
     natural fold, or the unfolded route for odd N), as the JAX package
     resolves it: N >= 1024 folds to depth 2 (1 above N=4096), clamped by
     divisibility and by the int32 group bound 65*65*8*N*2^L < 2^31
-    (ops/ozaki.py).  The depth changes the bits, so the port keeps it."""
-    if resolve_transform(params) != 'ozaki':
+    (ops/ozaki.py).  The depth changes the bits, so the port keeps it.
+    A field sharded over ranks (``grid_sharded``; by default: a mesh)
+    takes the unfolded pencil route (0)."""
+    if grid_sharded is None:
+        grid_sharded = params.mesh_shape is not None
+    if grid_sharded or resolve_transform(params) != 'ozaki':
         return 0
     N = params.N
     if N < 1024:
@@ -157,6 +169,37 @@ def resolve_ozaki_inv_pairs(params: Parameters) -> tuple:
     unfolded inverses keep (5, 7)."""
     pairs = params.ozaki_inv_pairs
     return (3, 5) if pairs is None else tuple(pairs)
+
+
+def mesh_ranks(params: Parameters) -> Optional[int]:
+    """The rank count of ``params.mesh_shape`` (None: no mesh)."""
+    if params.mesh_shape is None:
+        return None
+    mx, my = params.mesh_shape
+    return mx * my
+
+
+def resolve_pencil(params: Parameters, D: Optional[int]) -> bool:
+    """True when a field tiled over ``D`` ranks (None: a field on one
+    device) takes the pencil layout: the split or ozaki route and N
+    divisible by D (the JAX package's ``pencil``,
+    ``chsimpy_tpu/core/solver.py:489-498``; the port has no
+    ``--kernels``), with its guards: fft does not shard, split needs D to
+    divide N.  The ozaki route with N not divisible is refused
+    (``params.solver_scope_errors``).  The single run and the ensemble
+    both decide here."""
+    if D is None:
+        return False
+    tb = params.transform_backend
+    if tb == 'fft':
+        raise ValueError(FFT_UNDER_MESH)
+    if tb == 'split' and params.N % D:
+        raise ValueError(
+            f"--transform split under --mesh uses the pencil layout, "
+            f"which needs N divisible by the device count {D} "
+            f"(got N={params.N})")
+    return (resolve_transform(params) in ('split', 'ozaki')
+            and params.N % D == 0)
 
 
 def check_grid_mesh(params: Parameters) -> None:
@@ -211,10 +254,12 @@ class Solver:
             time_limit = params.time_max * 60.0
 
         check_split_levels(params)
+        pencil = resolve_pencil(params, mesh_ranks(params))
         transform = resolve_transform(params)
         self.mesh = None
         if params.mesh_shape is not None:
-            check_grid_mesh(params)
+            if not pencil:
+                check_grid_mesh(params)
             resolve_backend(params.dist_backend, self.device)
             self.mesh = GridMesh(params.mesh_shape, self.device)
         d = self.derived
@@ -231,10 +276,14 @@ class Solver:
             jitter_mode=jitter_mode,
             transform_backend=transform,
             split_levels=params.split_levels,
-            ozaki_fold=transform == 'ozaki' and N % 2 == 0,
+            ozaki_fold=(transform == 'ozaki' and N % 2 == 0
+                        and self.mesh is None),
             ozaki_rfold_levels=_resolve_rfold_levels(params),
             ozaki_fwd_pairs=resolve_ozaki_fwd_pairs(params),
-            ozaki_inv_pairs=resolve_ozaki_inv_pairs(params))
+            ozaki_inv_pairs=resolve_ozaki_inv_pairs(params),
+            pencil=pencil)
+        # the layout of the field: the grid's, or its column blocks
+        self.field_mesh = field_mesh(self.cfg, self.mesh)
         # chunk size: device steps per host round-trip
         self.chunk_size = max(1, int(params.chunk_size))
         if jitter_mode == 'stream':
@@ -249,7 +298,7 @@ class Solver:
                 sobol_shift=torch.tensor(sh.astype(np.int64),
                                          device=self.device))
         if self.mesh is not None:
-            self._consts = shard_consts(self._consts, self.mesh)
+            self._consts = shard_consts(self._consts, self.mesh, pencil)
         # the simplex slab, drawn at first use
         self._static_jbuf = None
         self._state: Optional[SolverState] = None
@@ -261,7 +310,7 @@ class Solver:
                                              dtype=self.cfg.tdtype)
         self.solution.U = U0
         if self.mesh is not None:
-            U0 = shard_field(U0, self.mesh)[0]
+            U0 = shard_field(U0, self.field_mesh)[0]
         row0 = prepare_row0(self.cfg, self._consts, U0, self.mesh)
         E, E2, Ra, PS = torch.stack(row0).tolist()
 
@@ -303,7 +352,7 @@ class Solver:
         mesh this rank's block of each."""
         t = torch.as_tensor(slabs)
         if self.mesh is not None:
-            rows, cols = block_slices(self.mesh, self.params.N)
+            rows, cols = block_slices(self.field_mesh, self.params.N)
             t = t[..., rows, cols]
         return t.to(device=self.device, dtype=self.cfg.tdtype)
 
@@ -374,16 +423,19 @@ class Solver:
                 # of a mesh gets here at the same step: the scalars are
                 # the same bits on all of them)
                 self._state = state
-                self.solution.U = (state.U if self.mesh is None
-                                   else gather_field(state.U, self.mesh))
+                self.solution.U = self.host_field(state.U)
                 from ..checkpoint import save_checkpoint
                 save_checkpoint(ckpt, self)
                 self._ckpt_last_saved = self.solution.computed_steps
 
         self._state = state
-        self.solution.U = (state.U if self.mesh is None
-                           else gather_field(state.U, self.mesh))
+        self.solution.U = self.host_field(state.U)
         return self.solution
+
+    def host_field(self, U: torch.Tensor) -> torch.Tensor:
+        """The whole field of this rank's ``U`` (gathered under a mesh: a
+        collective, every rank calls it)."""
+        return U if self.mesh is None else gather_field(U, self.field_mesh)
 
     def _sync(self, state: SolverState) -> SolverState:
         """Per-chunk host sync: pull rows, update host mirrors, map stop."""

@@ -3,8 +3,11 @@
 Port of ``chsimpy_tpu/core/stepper.py`` for the slices the port runs: fixed
 or adaptive ``delt``, per-step jitter, the matmul, split and FFT DCT routes
 and the float64 ozaki route on one device, the matmul route on a grid mesh
-of ranks (``mesh``: each rank steps its block of the field), ``full_sim``
-and the energy early stop, the ``time_max`` limit and the NaN guard.  One
+of ranks (``mesh``: each rank steps its block of the field), the split and
+ozaki routes on the pencil layout of a mesh (``cfg.pencil``: each rank
+holds a column block of the field and a row block of the spectral image,
+``parallel/mesh.py``), ``full_sim`` and the energy early stop, the
+``time_max`` limit and the NaN guard.  One
 step does, in order:
 
   nonlinear term (kernel K1)
@@ -21,14 +24,16 @@ products in the permuted spectral basis on the split route, real FFTs
 on the ozaki route (``ops/ozaki.py``, slicing kernel K5).
 
 The JAX package runs a chunk of steps in a ``lax.while_loop`` that exits at
-the stop.  Here a chunk is a Python loop of a fixed number of steps that
-never waits for the host: every per-step scalar is a 0-d device tensor.  The
-stop is made exact by a device flag instead of an exit.  ``active`` (no
-stop yet) and ``go`` (active and inside the time limit) are 0-d booleans;
-every carried field is selected by them (``torch.where``), and the step and
-row counters advance by ``go``.  After the trigger the rest of the chunk
-computes steps whose results are thrown away, leaving ``U``, ``hat_U``, the
-counters, the bookkeeping and the rows unchanged.  The row buffer is
+the stop.  Here a chunk is a Python loop of steps that waits for the host
+only every ``STOP_POLL`` steps, to leave the chunk once the run has stopped
+(every member of a batch): every per-step scalar is a 0-d device tensor.
+The stop is made exact by a device flag; the exit only saves steps.
+``active`` (no stop yet) and ``go`` (active and inside the time limit)
+are 0-d booleans; every carried field is selected by them
+(``torch.where``), and the step and row counters advance by ``go``.
+After the trigger the steps to the next poll compute results that are
+thrown away, leaving ``U``, ``hat_U``, the counters, the bookkeeping and
+the rows unchanged.  The row buffer is
 written in place at index ``rows`` on every step; a discarded step's row
 lands beyond the rows the host reads.  A discarded step still takes its
 jitter slab (the host drew the chunk's slabs before it ran, as the JAX
@@ -61,6 +66,10 @@ ADAPT_ALPHA = 500.0 / 2 ** 3  # chsimpy/solver.py:182 of the reference
 # (K10, the JAX package's threefry stream, not reference-exact) |
 # device_sobol (K9, bit-equal to stream)
 JITTER_MODES = ('none', 'stream', 'static', 'device', 'device_sobol')
+# steps between the chunk runners' looks at the stop flag (a host sync): a
+# run that stops early runs to the next multiple of it in its chunk, not
+# to the chunk's end
+STOP_POLL = 64
 
 
 @dataclass(frozen=True)
@@ -107,6 +116,10 @@ class StepConfig:
     # unfolded inverses always keep (5, 7)
     ozaki_fwd_pairs: Optional[tuple] = None
     ozaki_inv_pairs: Optional[tuple] = None
+    # the split or ozaki route on the pencil layout of the mesh (the field
+    # in column blocks, the spectral image in row blocks); False on one
+    # device and on the grid layout
+    pencil: bool = False
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -192,13 +205,28 @@ def _fold_stacks(cfg: StepConfig, consts) -> dict:
     return fs
 
 
+def field_mesh(cfg: StepConfig, mesh):
+    """The layout of the field on ``mesh``: the grid's own, or on the
+    pencil layout its column blocks (``field_view``).  The solvers and
+    the step read the layout here alone."""
+    return mesh.field_view if mesh is not None and cfg.pencil else mesh
+
+
 def dct2_route(cfg: StepConfig, consts, U, pairs=None, mesh=None):
     """Forward 2-D DCT of the configured route (the ozaki routes with the
     pair cutoffs ``pairs``; None = untrimmed).  On a grid mesh U is this
-    rank's block and the route is matmul (the solver refuses the rest)."""
+    rank's block and the route is matmul; on the pencil layout U is a
+    column block and the result a row block (split or ozaki)."""
+    tb = cfg.transform_backend
+    if mesh is not None and cfg.pencil:
+        if tb == 'split':
+            return dct_ops.dct2_split_perm_pencil(U, consts['tree'], mesh)
+        s1, s2 = _pairs(pairs)
+        return ozaki_ops.dct2_ozaki_pencil(
+            U, consts['Cs'], consts['CsT'], ozaki_ops.dct_scale(cfg.N),
+            mesh, s1=s1, s2=s2)
     if mesh is not None:
         return dct_ops.dct2_grid(U, consts['C'], mesh)
-    tb = cfg.transform_backend
     if tb == 'split':
         return dct_ops.dct2_split_perm(U, consts['tree'])
     if tb == 'fft':
@@ -218,10 +246,17 @@ def dct2_route(cfg: StepConfig, consts, U, pairs=None, mesh=None):
 
 
 def idct2_route(cfg: StepConfig, consts, X, mesh=None):
-    """Inverse 2-D DCT of the configured route."""
+    """Inverse 2-D DCT of the configured route (on the pencil layout from
+    a row block to a column block; the ozaki inverse untrimmed, as the
+    JAX package's unfolded inverse)."""
+    tb = cfg.transform_backend
+    if mesh is not None and cfg.pencil:
+        if tb == 'split':
+            return dct_ops.idct2_split_perm_pencil(X, consts['tree'], mesh)
+        return ozaki_ops.idct2_ozaki_pencil(
+            X, consts['Cs'], consts['CsT'], ozaki_ops.dct_scale(cfg.N), mesh)
     if mesh is not None:
         return dct_ops.idct2_grid(X, consts['C'], mesh)
-    tb = cfg.transform_backend
     if tb == 'split':
         return dct_ops.idct2_split_perm(X, consts['tree'])
     if tb == 'fft':
@@ -255,7 +290,9 @@ def _stats(cfg: StepConfig, consts, U, EnergieEut=None, mesh=None):
     ``_stats_fast``.  Returns (E, E2, PS, L2, Ra, SA), 0-d float64 tensors;
     ``EnergieEut=None`` (prepare path) gives L2 = 0.  On a grid mesh U is
     this rank's block: K7 and K4 per block, the same values on every rank
-    (``fused_stats_sharded``)."""
+    (``fused_stats_sharded``; on the pencil layout K7 on the column block
+    with left and right halos only)."""
+    mesh = field_mesh(cfg, mesh)
     if mesh is not None:
         return K.fused_stats_sharded(
             mesh, U, EnergieEut, consts['A0'], consts['A1'],
@@ -302,7 +339,9 @@ def adapted_delt(cfg: StepConfig, s: SolverState, EnergieEut, mesh=None):
     column sums run in the field's type.  On a grid mesh each rank sums
     its block's columns, the column strip's partials are added in rank
     order and the minimum is taken over every rank: the same bits on all
-    of them (not the single device's summation order)."""
+    of them (not the single device's summation order).  On the pencil
+    layout each column is whole on its rank: only the minimum crosses."""
+    mesh = field_mesh(cfg, mesh)
     a = EnergieEut.abs()
     x = cfg.delt_max / torch.sqrt(1.0 + ADAPT_ALPHA * (a * a))
     colsum = torch.sum(x, dim=0)
@@ -342,6 +381,7 @@ def _jitter(cfg: StepConfig, consts, s: SolverState, U, slab, go,
         return U, s.rng_key
     if mode in ('stream', 'static'):
         return U + cfg.jitter * (2.0 * slab - 1.0), s.rng_key
+    mesh = field_mesh(cfg, mesh)
     rows, cols = ((slice(None), slice(None)) if mesh is None
                   else block_slices(mesh, cfg.N))
     if mode == 'device_sobol':
@@ -439,10 +479,17 @@ def _step(cfg: StepConfig, consts, s: SolverState, mesh=None, slab=None,
         rng_key=rng_key)
 
 
+def _stopped(state: SolverState) -> bool:
+    """True when the run (every member) has stopped: a host sync.  Every
+    rank of a mesh holds the same flags, so all leave at the same step."""
+    return bool((state.stop_reason != STOP_NONE).all())
+
+
 def run_chunk(cfg: StepConfig, consts, state: SolverState,
               n_iters: int, mesh=None, jitter_buf=None) -> SolverState:
-    """``n_iters`` steps with no host sync; steps after a stop leave the
-    state unchanged (see the module docstring).  ``jitter_buf``: the
+    """Up to ``n_iters`` steps, left every ``STOP_POLL`` steps once the
+    run has stopped; steps after a stop leave the state unchanged (see
+    the module docstring).  ``jitter_buf``: the
     ``stream`` mode's (n_iters, ...) slabs, step i taking slab i, or the
     ``static`` mode's one slab (``chsimpy_tpu/core/stepper.py:808-825``).
     The ``device`` mode's keys alternate between the two rows of a buffer
@@ -455,6 +502,8 @@ def run_chunk(cfg: StepConfig, consts, state: SolverState,
                 else jitter_buf)
         state = _step(cfg, consts, state, mesh, slab,
                       None if keys is None else keys[i % 2])
+        if (i + 1) % STOP_POLL == 0 and i + 1 < n_iters and _stopped(state):
+            break
     return state
 
 
@@ -473,8 +522,10 @@ def run_chunk(cfg: StepConfig, consts, state: SolverState,
 # (``mesh``, the grid of this rank's ens slot) the fields are the members'
 # blocks (R, bn, bw): K1, K2 and K4 take them as they are, the statistics
 # run K7_members (``fused_stats_sharded_members``), the DCTs are the grid
-# products of the stacked blocks, and every scalar is the same on every
-# rank of the grid, as in the single grid run.  On an ens-only mesh the
+# products of the stacked blocks (on the pencil layout: the members'
+# column blocks (R, N, N/D), the pencil transforms of the stack, K5_members
+# sharded on ozaki), and every scalar is the same on every rank of the
+# grid, as in the single grid run.  On an ens-only mesh the
 # members stay local and the step runs without a mesh.
 # ----------------------------------------------------------------------
 
@@ -509,7 +560,8 @@ def _members_stats(cfg: StepConfig, consts, U, EnergieEut=None,
     float64 finish in the single run's operations and order; Ra by K11
     (the same bits for a member whatever the batch holds).  On a grid
     mesh U holds the members' blocks (K7_members and K4_members, the same
-    values on every rank)."""
+    values on every rank; on the pencil layout their column blocks)."""
+    mesh = field_mesh(cfg, mesh)
     if mesh is not None:
         return K.fused_stats_sharded_members(
             mesh, U, EnergieEut, consts['A0'], consts['A1'],
@@ -544,6 +596,7 @@ def adapted_members_delt(cfg: StepConfig, s: SolverState, EnergieEut,
     a grid mesh each member's block columns are summed, the column
     strip's partials added in rank order and the minimum taken over every
     rank of the grid, as :func:`adapted_delt` does for one field."""
+    mesh = field_mesh(cfg, mesh)
     a = EnergieEut.abs()
     x = cfg.delt_max / torch.sqrt(1.0 + ADAPT_ALPHA * (a * a))
     colsum = torch.sum(x, dim=-2)                       # (R, bw)
@@ -648,11 +701,13 @@ def _members_step(cfg: StepConfig, consts, s: SolverState,
 def run_members_chunk(cfg: StepConfig, consts, state: SolverState,
                       n_iters: int, jitter_buf=None,
                       mesh=None) -> SolverState:
-    """``n_iters`` member-batched steps with no host sync (``jitter_buf``
-    as in :func:`run_chunk`; ``mesh``: the grid of grid-sharded member
-    fields, or None)."""
+    """Up to ``n_iters`` member-batched steps, left as :func:`run_chunk`
+    leaves once every member has stopped (``jitter_buf`` as there;
+    ``mesh``: the grid of grid-sharded member fields, or None)."""
     for i in range(n_iters):
         slab = (jitter_buf[i] if cfg.jitter_mode == 'stream'
                 else jitter_buf)
         state = _members_step(cfg, consts, state, slab, mesh)
+        if (i + 1) % STOP_POLL == 0 and i + 1 < n_iters and _stopped(state):
+            break
     return state

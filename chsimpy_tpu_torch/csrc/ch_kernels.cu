@@ -443,6 +443,16 @@ row_absdev_kernel(const T* __restrict__ U, long long member_stride,
 // output.  Each member's max, scale and planes are the single launch's on
 // its field, to the bit (the max is exact; the planes are elementwise).
 //
+// K5 sharded (the pencil layout: B6 on a rank's block at the WHOLE field's
+// scale, as GSPMD's max over the sharded field gives it in the JAX
+// package): the max pass in its max-only mode writes the block's max|x|
+// (its bits, one word a member) instead of the scale; the caller takes the
+// max of those words over the ranks (an all-reduce MAX: order-free, so
+// every rank gets the same bits), slice_finish_kernel turns it into scale
+// and inverse by the same formula (scale_from_max), and slice_kernel
+// follows.  A rank's planes are then the whole field's planes of its
+// block, to the bit, and its scale the whole field's.
+//
 // Bound by device-memory bandwidth: the field is read by both launches
 // (8 bytes an element each; at N=4096 the 134 MB field exceeds the 50 MB
 // L2) and n_slices bytes an element are written, 0.34 GB per call at
@@ -463,20 +473,33 @@ __device__ __forceinline__ unsigned long long abs_bits(double v) {
   return (unsigned long long)__double_as_longlong(fabs(v));
 }
 
+// e = max(ceil(log2(amax + 1e-30)) + 2, -90), scale = 2^e, inv = 2^-e
+// rounded to float (exact at an integer e); amax given by its bits
+__device__ __forceinline__ void scale_from_max(unsigned long long m,
+                                               double* scale, float* inv) {
+  const double amax = __longlong_as_double((long long)m);
+  double e = ceil(log2(amax + 1e-30)) + 2.0;
+  if (e < -90.0) e = -90.0;              // a NaN stays NaN, as in torch.clamp
+  *scale = exp2(e);
+  *inv = __double2float_rn(exp2(-e));
+}
+
+// amax_out == nullptr: the last block writes scale and inv; else (K5
+// sharded's max-only mode) it writes the max's bits to amax_out
 __global__ void __launch_bounds__(kThreads)
 slice_scale_kernel(const double* __restrict__ x, long long n, bool vec,
                    unsigned long long* __restrict__ partials,
                    unsigned int* __restrict__ ticket,
-                   double* __restrict__ scale, float* __restrict__ inv) {
+                   double* __restrict__ scale, float* __restrict__ inv,
+                   unsigned long long* __restrict__ amax_out) {
   __shared__ unsigned long long sh[kWarps];
   __shared__ bool last;
-  // member r (blockIdx.y): its field, partials, ticket, scale and inverse
+  // member r (blockIdx.y): its field, partials and ticket (and at the
+  // end its scale and inverse, or its max)
   const int r = blockIdx.y;
   x += (long long)r * n;
   partials += (long long)r * gridDim.x;
   ticket += r;
-  scale += r;
-  inv += r;
   const long long stride = (long long)gridDim.x * kThreads;
   const long long t0 = (long long)blockIdx.x * kThreads + threadIdx.x;
   unsigned long long m = 0;
@@ -525,13 +548,20 @@ slice_scale_kernel(const double* __restrict__ x, long long n, bool vec,
     m = max(m, __ldcg(partials + b));
   m = block_max(m);
   if (threadIdx.x == 0) {
-    const double amax = __longlong_as_double((long long)m);
-    double e = ceil(log2(amax + 1e-30)) + 2.0;
-    if (e < -90.0) e = -90.0;            // a NaN stays NaN, as in torch.clamp
-    *scale = exp2(e);
-    *inv = __double2float_rn(exp2(-e));
+    if (amax_out != nullptr)
+      amax_out[r] = m;
+    else
+      scale_from_max(m, scale + r, inv + r);
     *ticket = 0u;
   }
+}
+
+// K5 sharded's scale: R members' world max (bits) -> scale and inverse
+__global__ void slice_finish_kernel(const unsigned long long* __restrict__ amax,
+                                    int R, double* __restrict__ scale,
+                                    float* __restrict__ inv) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r < R) scale_from_max(amax[r], scale + r, inv + r);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -938,9 +968,10 @@ int launch_row_absdev(const void* U, int R, long long member_stride,
 // is the single launch's, at most max_blocks blocks of 8 elements a thread
 // (the max is exact, so the double2 loads, taken where every member's
 // field is 16-byte aligned, change no bit)
+// (amax_out: nullptr for K5's own scale; R words for K5 sharded's max)
 int launch_slice_scale(const void* x, long long n, int R, void* partials,
                        int max_blocks, void* ticket, void* scale, void* inv,
-                       void* stream) {
+                       void* amax_out, void* stream) {
   if (n <= 0 || max_blocks < 1 || bad_members(R))
     return (int)cudaErrorInvalidValue;
   const long long per_block = (long long)kThreads * 2 * kScaleLoads;
@@ -949,7 +980,17 @@ int launch_slice_scale(const void* x, long long n, int R, void* partials,
   slice_scale_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const double*)x, n, aligned16(x) && (R == 1 || n % 2 == 0),
       (unsigned long long*)partials, (unsigned int*)ticket, (double*)scale,
-      (float*)inv);
+      (float*)inv, (unsigned long long*)amax_out);
+  return (int)cudaGetLastError();
+}
+
+// K5 sharded's finish: one thread a member
+int launch_slice_finish(const void* amax, int R, void* scale, void* inv,
+                        void* stream) {
+  if (bad_members(R)) return (int)cudaErrorInvalidValue;
+  slice_finish_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const unsigned long long*)amax, R, (double*)scale, (float*)inv);
   return (int)cudaGetLastError();
 }
 
@@ -1207,7 +1248,7 @@ int ch_slice_scale_f64(const void* x, long long n, void* partials,
                        int max_blocks, void* ticket, void* scale, void* inv,
                        void* stream) {
   return launch_slice_scale(x, n, 1, partials, max_blocks, ticket, scale,
-                            inv, stream);
+                            inv, nullptr, stream);
 }
 int ch_slice_f64(const void* x, const void* inv, void* out, long long n,
                  int n_slices, void* stream) {
@@ -1219,11 +1260,24 @@ int ch_slice_scale_members_f64(const void* x, long long n, int R,
                                void* partials, int max_blocks, void* ticket,
                                void* scale, void* inv, void* stream) {
   return launch_slice_scale(x, n, R, partials, max_blocks, ticket, scale,
-                            inv, stream);
+                            inv, nullptr, stream);
 }
 int ch_slice_members_f64(const void* x, const void* inv, void* out,
                          long long n, int R, int n_slices, void* stream) {
   return launch_slice(x, inv, out, n, R, n_slices, stream);
+}
+// K5 sharded: the max pass of R fields of n elements into R words of
+// amax (their bits), then, from the world max of those words, R scales
+// and inverses; ch_slice / ch_slice_members take the inverses
+int ch_slice_max_f64(const void* x, long long n, int R, void* partials,
+                     int max_blocks, void* ticket, void* amax,
+                     void* stream) {
+  return launch_slice_scale(x, n, R, partials, max_blocks, ticket, nullptr,
+                            nullptr, amax, stream);
+}
+int ch_slice_finish_f64(const void* amax, int R, void* scale, void* inv,
+                        void* stream) {
+  return launch_slice_finish(amax, R, scale, inv, stream);
 }
 
 // K9, in place on U

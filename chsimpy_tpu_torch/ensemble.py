@@ -29,20 +29,25 @@ JAX mesh device, ``chsimpy_tpu/ensemble.py:113-136, 276-306``) the members
 are split over the mesh's 'ens' axis as JAX's ``P('ens')`` splits them
 (ens slot e runs the members ``[e*R/E, (e+1)*R/E)``; ``R % E`` raises), and
 with a grid of more than one rank each member's field is tiled over the
-grid of its slot (the matmul route only: K8 as K1_members on the blocks,
-the grid DCTs of the stacked blocks, K2_members, K7_members and
-K4_members).  Each rank builds the constants and state of its own
-members.  The host side (rows, stops, counters; the fields for
-``solutions()`` and checkpoints) is gathered over the ens axis (and the
-fields over the grid), so every rank holds every member, as JAX's
-replicated identity gives it, and every rank takes the same chunks.
+grid of its slot: on the matmul route as a grid (K8 as K1_members on the
+blocks, the grid DCTs of the stacked blocks, K2_members, K7_members and
+K4_members), on the split and ozaki routes in the pencil layout when the
+grid's rank count D divides N (the members' column blocks, their spectral
+images in row blocks, one transpose of the stack per 2-D transform,
+K5_members sharded on the ozaki route, K7_members on the column blocks;
+``vmap`` adds the member axis to the pencil specs in the JAX package).
+Each rank builds the constants and state of its own members.  The host
+side (rows, stops, counters; the fields for ``solutions()`` and
+checkpoints) is gathered over the ens axis (and the fields over the
+grid), so every rank holds every member, as JAX's replicated identity
+gives it, and every rank takes the same chunks.
 ``params.mesh_shape`` without a ``mesh`` builds the mesh on the
 initialized process group (its world over the grid's ranks is E).
 
-Refused, each with its ROADMAP.md item: the split and ozaki routes with
-grid-sharded member fields (the pencil layout, item 11).  The JAX
-ensemble has no device jitter, so ``jitter_backend='device'`` is refused
-too.
+Refused: the ozaki route with grid-sharded member fields and N not
+divisible by D (the grid ozaki route, ROADMAP.md item 11), and split with
+N not divisible by D (the JAX package's guard).  The JAX ensemble has no
+device jitter, so ``jitter_backend='device'`` is refused too.
 """
 
 from __future__ import annotations
@@ -55,10 +60,11 @@ import torch
 from . import material
 from .core.solver import (_JITTER_BUF_BYTES, _resolve_rfold_levels,
                           check_split_levels, resolve_ozaki_fwd_pairs,
-                          resolve_transform)
+                          resolve_pencil, resolve_transform)
 from .core.state import STOP_NAN, STOP_NONE, STOP_STRINGS, init_members_state
-from .core.stepper import (StepConfig, entry_dct2, make_members_consts,
-                           prepare_members_row0, run_members_chunk)
+from .core.stepper import (StepConfig, entry_dct2, field_mesh,
+                           make_members_consts, prepare_members_row0,
+                           run_members_chunk)
 from .derived import Derived
 from .device import resolve_device
 from .ops import dct as dct_ops
@@ -84,24 +90,29 @@ def derive_member_constants(params: Parameters, A0: float, A1: float):
     return kappa_base / (0.1602564 * 64) ** 2
 
 
+def _grid_devices(params: Parameters, mesh=None) -> int:
+    """The ranks each member's field is tiled over (1: members local)."""
+    if mesh is not None:
+        return mesh.size
+    if params.mesh_shape is None:
+        return 1
+    return params.mesh_shape[0] * params.mesh_shape[1]
+
+
 def _grid_sharded(params: Parameters, mesh=None) -> bool:
     """True when each member's field is tiled over more than one rank."""
-    if mesh is not None:
-        return mesh.size > 1
-    return (params.mesh_shape is not None
-            and params.mesh_shape[0] * params.mesh_shape[1] > 1)
+    return _grid_devices(params, mesh) > 1
 
 
 def ensemble_scope_errors(params: Parameters, mesh=None) -> list:
     """Why the ensemble cannot run ``params`` (on ``mesh``) (empty: it
     can), beyond the single solver's refusals."""
-    errs = []
-    if _grid_sharded(params, mesh):
-        tb = params.transform_backend
-        if tb in ('split', 'ozaki'):
-            errs.append(not_ported(f'--transform {tb} with grid-sharded '
-                                   f'member fields (the pencil layout)', 11))
-    return errs
+    D = _grid_devices(params, mesh)
+    if D > 1 and params.transform_backend == 'ozaki' and params.N % D:
+        return [not_ported('--transform ozaki with grid-sharded member '
+                           'fields and N not divisible by the rank count '
+                           '(the grid ozaki route)', 11)]
+    return []
 
 
 def _build_mesh(params: Parameters, device):
@@ -140,11 +151,8 @@ class EnsembleSolver:
             raise NotImplementedError('; '.join(errs))
         check_solver_scope(params)
         self.device = resolve_device(params.device)
-        if _grid_sharded(params, mesh) and params.transform_backend == 'fft':
-            raise ValueError(
-                "--transform fft does not shard under --mesh; the "
-                "distributed transforms are the split (pencil layout), "
-                "matmul and ozaki routes")
+        D = _grid_devices(params, mesh)
+        pencil = resolve_pencil(params, D if D > 1 else None)
         if mesh is not None and params.mesh_shape is not None \
                 and tuple(params.mesh_shape) != tuple(mesh.shape):
             raise ValueError(f"mesh_shape {tuple(params.mesh_shape)} is not "
@@ -173,6 +181,7 @@ class EnsembleSolver:
         self.mesh = mesh
         # the grid of grid-sharded member fields (None: members local)
         self._grid = mesh if _grid_sharded(params, mesh) else None
+        transform = resolve_transform(params)
         # the members this rank steps (all of them without a mesh)
         self.local_members = member_slice(mesh, self.R)
         if self._grid is not None:
@@ -216,7 +225,6 @@ class EnsembleSolver:
         if dp.kappa_tilde is None:
             dp.kappa_tilde = float(self.kappas[0])
         d = Derived.from_params(dp)
-        transform = resolve_transform(params)
         inv_pairs = params.ozaki_inv_pairs
         self.cfg = StepConfig(
             N=N, dtype=params.precision,
@@ -231,11 +239,18 @@ class EnsembleSolver:
             jitter_mode=jitter_mode,
             transform_backend=transform,
             split_levels=params.split_levels,
-            ozaki_fold=transform == 'ozaki' and N % 2 == 0,
-            ozaki_rfold_levels=_resolve_rfold_levels(params),
+            # grid-sharded member fields take the unfolded pencil route
+            ozaki_fold=(transform == 'ozaki' and N % 2 == 0
+                        and self._grid is None),
+            ozaki_rfold_levels=_resolve_rfold_levels(
+                params, grid_sharded=self._grid is not None),
             ozaki_fwd_pairs=resolve_ozaki_fwd_pairs(params),
             # pin-only under the ensemble, as in the JAX package
-            ozaki_inv_pairs=tuple(inv_pairs) if inv_pairs else None)
+            ozaki_inv_pairs=tuple(inv_pairs) if inv_pairs else None,
+            pencil=pencil)
+        # the layout of the fields on the grid: its own, or the pencil
+        # layout's column blocks
+        self._field = field_mesh(self.cfg, self._grid)
 
         self.chunk_size = max(1, int(params.chunk_size))
         if jitter_mode == 'stream':
@@ -247,7 +262,7 @@ class EnsembleSolver:
             shard_members(self.A1s, mesh), shard_members(self.kappas, mesh),
             device=self.device)
         if self._grid is not None:
-            self._consts = shard_consts(self._consts, self._grid)
+            self._consts = shard_consts(self._consts, self._grid, pencil)
         # the simplex slab, drawn at first use (checkpoint.restore_ensemble
         # installs the saved stream after construction)
         self._static_jbuf = None
@@ -272,7 +287,7 @@ class EnsembleSolver:
         if t.dtype == torch.bool:
             return self._gather_members(t.to(torch.uint8)).bool()
         if self._grid is not None and t.dim() == 3:
-            t = gather_field(t, self._grid)
+            t = gather_field(t, self._field)
         return t if self.mesh is None else gather_members(t, self.mesh)
 
     def host_state(self) -> dict:
@@ -298,7 +313,7 @@ class EnsembleSolver:
         U = torch.as_tensor(mine['U']).to(device=self.device,
                                           dtype=self.cfg.tdtype)
         if self._grid is not None:
-            U = shard_field(U, self._grid)[0]
+            U = shard_field(U, self._field)[0]
         repl = {'U': U, 'rng_key': key_tensor(mine['rng_key'], self.device)}
         for name, v in mine.items():
             if name not in repl:
@@ -314,7 +329,7 @@ class EnsembleSolver:
         n_local = self.local_members.stop - self.local_members.start
         U0_b = U0.expand(n_local, N, N).contiguous()
         if self._grid is not None:
-            U0_b = shard_field(U0_b, self._grid)[0]
+            U0_b = shard_field(U0_b, self._field)[0]
         row0 = prepare_members_row0(self.cfg, self._consts, U0_b, self._grid)
         E2_local = row0[1]
         E, E2, Ra, PS = self._gather_host(*row0)
@@ -359,7 +374,7 @@ class EnsembleSolver:
         a grid this rank's block of each."""
         t = torch.as_tensor(slabs)
         if self._grid is not None:
-            rows, cols = block_slices(self._grid, self.params.N)
+            rows, cols = block_slices(self._field, self.params.N)
             t = t[..., rows, cols]
         return t.to(device=self.device, dtype=self.cfg.tdtype)
 

@@ -59,6 +59,8 @@ _SIGNATURES = {
     'ch_slice_scale_members': ((_P, _LL, _I, _P, _I, _P, _P, _P, _P),
                                ('_f64',)),
     'ch_slice_members': ((_P, _P, _P, _LL, _I, _I, _P), ('_f64',)),
+    'ch_slice_max': ((_P, _LL, _I, _P, _I, _P, _P, _P), ('_f64',)),
+    'ch_slice_finish': ((_P, _I, _P, _P, _P), ('_f64',)),
     'ch_sobol_jitter': ((_P, _I, _I, _P, _P, _P, _I, _I, _D, _P), _BOTH),
     'ch_threefry_jitter': ((_P, _I, _I, _LL, _I, _I, _P, _P, _P, _D, _P),
                            _BOTH),

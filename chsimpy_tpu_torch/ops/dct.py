@@ -1,7 +1,9 @@
 """2-D DCT-II / DCT-III: the matmul, split and FFT routes.
 
-Port of ``chsimpy_tpu/ops/dct.py`` for one device, and of the matmul
-route on a grid mesh (:func:`dct2_grid`, :func:`idct2_grid`).
+Port of ``chsimpy_tpu/ops/dct.py`` for one device, of the matmul route
+on a grid mesh (:func:`dct2_grid`, :func:`idct2_grid`), and of the pencil
+forms (:func:`dct2_split_perm_pencil`, :func:`idct2_split_perm_pencil`,
+:func:`dct2_pencil`, :func:`idct2_pencil`).
 
 * **matmul** — the orthonormal DCT-II along an axis is a product with the
   (N, N) cosine matrix C, so
@@ -40,8 +42,8 @@ pair and the folded pair are reached only from the bake-off
 (``fold_field``, the JAX ``fold1_np``) is item 14.
 
 Not ported: the Hou odd-branch recursion (measured and rejected, ROADMAP.md
-queue A item 2), the ``band_frac`` banding and ``idct2_banded`` (the
-``--inv-band`` knob, item 14), and the pencil inverses (item 11).
+queue A item 2), and the ``band_frac`` banding and ``idct2_banded`` (the
+``--inv-band`` knob, item 14).
 
 float32 products run in full float32: :func:`require_full_fp32` turns
 TF32 off.  The JAX float32 route contracts at 3-pass bf16 ('high', about
@@ -137,6 +139,49 @@ def idct2_grid(Xb: torch.Tensor, C: torch.Tensor, mesh) -> torch.Tensor:
     St = torch.matmul(Xcol.transpose(-1, -2), C[:, I])       # S[I, J]^T
     G = coll.gather_y(mesh, St)                              # S[I, :]^T
     return torch.matmul(G.transpose(-1, -2), C[:, J]).contiguous()
+
+
+# ----------------------------------------------------------------------
+# pencil layout (chsimpy_tpu/ops/dct.py:659-697): the field is a column
+# block (N, N/D) on every rank, the spectral image a row block (N/D, N).
+# Each 1-D stage contracts a local axis and the one exchange of a 2-D
+# transform is the transpose between them (``collectives.transpose_to_*``,
+# the resharding JAX's ``constrain`` asks for).  The forward runs the
+# column stage (over the rows, local in a column block) first; the inverse
+# runs the row stage first, which nests the two 1-D sums the other way
+# round from :func:`idct2_split_perm`: an equally exact DCT-III, the same
+# bits on any number of ranks where each product gives the columns (rows)
+# of the whole product's bits.  A stack of members (R, ., .) is
+# transformed member by member over its last two axes.
+# ----------------------------------------------------------------------
+
+def dct2_pencil(Ub: torch.Tensor, C: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's row block of ``dct2`` of the field whose column block
+    is ``Ub`` (a collective over the grid ``mesh``)."""
+    T = coll.transpose_to_rows(mesh, torch.matmul(C, Ub))
+    return torch.matmul(T, C.T).contiguous()
+
+
+def idct2_pencil(Xb: torch.Tensor, C: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's column block of ``idct2`` of the spectral image whose
+    row block is ``Xb``: ``(X @ C)``, the transpose, then ``C^T @ .``."""
+    T = coll.transpose_to_cols(mesh, torch.matmul(Xb, C))
+    return torch.matmul(C.T, T).contiguous()
+
+
+def dct2_split_perm_pencil(Ub, tree, mesh):
+    """:func:`dct2_split_perm` of the field whose column block is ``Ub``:
+    this rank's row block of the permuted spectral image."""
+    T = coll.transpose_to_rows(mesh, _apply_split_perm(tree, Ub))
+    return _apply_split_perm_right(tree, T).contiguous()
+
+
+def idct2_split_perm_pencil(Xb, tree, mesh):
+    """The inverse of :func:`dct2_split_perm` with the last-axis stage
+    first, from this rank's row block ``Xb`` to its column block of the
+    field."""
+    T = coll.transpose_to_cols(mesh, _apply_split_t_perm_right(tree, Xb))
+    return _apply_split_t_perm(tree, T).contiguous()
 
 
 # ----------------------------------------------------------------------

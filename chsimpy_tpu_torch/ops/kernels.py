@@ -13,7 +13,9 @@ member-batched (``*_members``) for the ensemble, where the JAX package
 (``chsimpy_tpu/ensemble.py``): one launch for R fields of an (R, N, N)
 stack, member r giving the single launch's bits on field r with its own
 scalars; so does K5 on the ozaki route (``slice_field_members``, B6 under
-``vmap``: each member its own scale), and K7 on the members' blocks of a
+``vmap``: each member its own scale), K5 on a rank's block of a
+pencil-sharded field at the whole field's scale (``slice_field_sharded``
+and ``slice_field_members_sharded``), and K7 on the members' blocks of a
 grid ensemble (``local_band_sums_members``, B7 under ``vmap``; K1, K2 and
 K4 take the blocks as they are).  K11 (``row_absdev_members``) takes each
 member's Ra with an order that does not depend on the member count (no
@@ -49,7 +51,8 @@ launches = {'chemical_potential': 0, 'spectral_update': 0,
             'spectral_update_members': 0, 'stats_sums_members': 0,
             'absdev_sum_members': 0, 'threefry_jitter': 0,
             'slice_field_members': 0, 'local_band_sums_members': 0,
-            'row_absdev_members': 0}
+            'row_absdev_members': 0, 'slice_field_sharded': 0,
+            'slice_field_members_sharded': 0}
 
 # grids of the reduction kernels: fixed by the shape (and, for K3 and K7,
 # the vector width) alone, so the summation order (and the result, to the
@@ -310,25 +313,34 @@ MAX_SLICES = 8      # 7 payload bits each: 56 bits cover a float64's hi/lo
 LO_SKIP = 3         # the lo component's first three slices are zero
 
 
+def scale_from_amax(amax):
+    """(scale, a float64 tensor of amax's shape; inv = 2^-e, float32, of
+    shape (1,) for a 0-d amax) from max|x|: e = max(ceil(log2(amax +
+    1e-30)) + 2, -90), so |x| / scale <= 1/4 and an all-zero field keeps
+    a finite scale.  K5's max pass (``scale_from_max``) and K5 sharded's
+    finish compute the same bits on the card."""
+    e = torch.clamp(torch.ceil(torch.log2(amax + 1e-30)) + 2.0, min=-90.0)
+    return torch.exp2(e), torch.exp2(-e).to(torch.float32).reshape(
+        amax.shape or (1,))
+
+
 def slice_scale(x):
     """The shared power-of-two scale of :func:`slice_field_ref`, on x's
-    device with no host sync: (scale, a 0-d float64 tensor; inv = 2^-e, a
-    float32 tensor of shape (1,)).  e = max(ceil(log2(amax + 1e-30)) + 2,
-    -90): |x| / scale <= 1/4, and an all-zero field keeps a finite
-    scale.  K5's first launch computes the same bits on the card."""
-    amax = torch.amax(torch.abs(x))
-    e = torch.clamp(torch.ceil(torch.log2(amax + 1e-30)) + 2.0, min=-90.0)
-    return torch.exp2(e), torch.exp2(-e).to(torch.float32).reshape(1)
+    device with no host sync: :func:`scale_from_amax` of max|x|."""
+    return scale_from_amax(torch.amax(torch.abs(x)))
 
 
-def slice_field_ref(x, n_slices: int = MAX_SLICES):
+def slice_field_ref(x, n_slices: int = MAX_SLICES, amax=None):
     """(int8 [n_slices, *x.shape], scale) with x = scale * Σ_k s_k 2^-7(k+1)
     to ~2^-48 relative (``chsimpy_tpu/ops/ozaki.py:slice_field``).
+    ``amax`` (a 0-d float64 tensor, at least max|x|) sets the scale in
+    place of x's own max: K5 sharded's block of a field at the field's
+    scale.
 
     x splits into float32 hi and lo; each runs the fixed-point chain
     v <- 128 v, s = round(v) (half to even), v <- v - s in float32, which is
     exact.  The lo chain starts at slice 3: |lo| * 128^3 / scale < 1/2."""
-    scale, inv = slice_scale(x)
+    scale, inv = slice_scale(x) if amax is None else scale_from_amax(amax)
     inv = inv.reshape(())
     hi0 = x.to(torch.float32)
     lo0 = (x - hi0.to(x.dtype)).to(torch.float32)
@@ -396,11 +408,13 @@ def _slice_args(x, n_slices: int, dim: int) -> None:
                          f"got {n_slices}")
 
 
-def slice_field_members_ref(x, n_slices: int = MAX_SLICES):
+def slice_field_members_ref(x, n_slices: int = MAX_SLICES, amax=None):
     """(int8 [n_slices, R, rows, cols], (R,) float64 scales): member r's
     planes and scale are :func:`slice_field_ref` of x[r] (the JAX
-    ensemble's ``vmap`` of ``slice_field``: a scale per member)."""
-    parts = [slice_field_ref(m, n_slices) for m in x]
+    ensemble's ``vmap`` of ``slice_field``: a scale per member), at
+    ``amax[r]`` where given."""
+    parts = [slice_field_ref(m, n_slices, None if amax is None else amax[r])
+             for r, m in enumerate(x)]
     return (torch.stack([s for s, _ in parts], dim=1),
             torch.stack([sc for _, sc in parts]))
 
@@ -425,12 +439,135 @@ def slice_field_members(x, n_slices: int = MAX_SLICES):
           partials.data_ptr(), SLICE_MAX_BLOCKS,
           _ticket(x.device, R).data_ptr(), scale.data_ptr(), inv.data_ptr(),
           _stream())
+    out = _slice_members_planes_launch(x, inv, n_slices)
+    launches['slice_field_members'] += 1
+    return out, scale
+
+
+# ----------------------------------------------------------------------
+# K5 sharded: K5 on a rank's block of a pencil-sharded field at the whole
+# field's scale (B6 on the JAX package's sharded ozaki route, where GSPMD
+# takes the max over the sharded field): the max pass's max-only mode,
+# the world max of its bits (``collectives.world_max``), the scale by the
+# same formula (``ch_slice_finish``), then K5's slice pass
+# ----------------------------------------------------------------------
+
+def _slice_max_launch(x, R: int):
+    """K5 sharded's first launch: the max pass's max-only mode, the bits
+    of max|x| of each of x's R fields ((R,) int64)."""
+    partials = torch.empty((R * SLICE_MAX_BLOCKS,), dtype=torch.int64,
+                           device=x.device)
+    bits = torch.empty((R,), dtype=torch.int64, device=x.device)
+    _call('ch_slice_max', x.dtype, x.data_ptr(), x.numel() // R, R,
+          partials.data_ptr(), SLICE_MAX_BLOCKS,
+          _ticket(x.device, R).data_ptr(), bits.data_ptr(), _stream())
+    return bits
+
+
+def _slice_finish_launch(bits):
+    """(scales (R,) float64, inverses (R,) float32) from max bits."""
+    R = bits.numel()
+    scale = torch.empty((R,), dtype=torch.float64, device=bits.device)
+    inv = torch.empty((R,), dtype=torch.float32, device=bits.device)
+    _call('ch_slice_finish', torch.float64, bits.data_ptr(), R,
+          scale.data_ptr(), inv.data_ptr(), _stream())
+    return scale, inv
+
+
+def _slice_members_planes_launch(x, inv, n_slices: int):
+    """K5_members' slice pass: x (R, rows, cols) under R inverses."""
     out = torch.empty((n_slices,) + tuple(x.shape), dtype=torch.int8,
                       device=x.device)
     _call('ch_slice_members', x.dtype, x.data_ptr(), inv.data_ptr(),
-          out.data_ptr(), n, R, n_slices, _stream())
-    launches['slice_field_members'] += 1
-    return out, scale
+          out.data_ptr(), x[0].numel(), x.shape[0], n_slices, _stream())
+    return out
+
+
+def _world_max(mesh, amax, also_max):
+    """The world max of ``amax`` (R float64 values) and, in the same
+    all-reduce, of ``also_max`` (float64, or None): (amax, also_max)."""
+    if also_max is None:
+        return coll.world_max(mesh, amax), None
+    flat = also_max.reshape(-1)
+    both = coll.world_max(mesh, torch.cat([amax, flat]))
+    return both[:amax.numel()], both[amax.numel():].reshape(also_max.shape)
+
+
+def _slice_sharded(x, n_slices: int, mesh, R: int, also_max=None,
+                   amax=None):
+    """The launches of K5 sharded on R fields of x: (planes, scales, the
+    world max of ``also_max``).  The max pass's words are the bits of
+    non-negative doubles, so their max as float64 is their max as
+    integers.  With ``amax`` (the world's max, R float64 values) the max
+    pass and its all-reduce are left out."""
+    also = None
+    if amax is None:
+        bits = _slice_max_launch(x, R).view(torch.float64)
+        bits, also = _world_max(mesh, bits, also_max)
+    else:
+        bits = amax.reshape(-1).contiguous()
+    scale, inv = _slice_finish_launch(bits.view(torch.int64))
+    if x.dim() == 3:
+        planes = _slice_members_planes_launch(x, inv, n_slices)
+    else:
+        planes = _slice_planes_launch(x, inv, n_slices)
+    return planes, scale, also
+
+
+def _world_amax(mesh, x, dims, also_max=None):
+    """max|x| over ``dims`` of this rank's block, then over the ranks
+    (with ``also_max``, :func:`_world_max`)."""
+    return _world_max(mesh, torch.abs(x).amax(dim=dims).reshape(-1),
+                      also_max)
+
+
+def slice_field_sharded(x, mesh, n_slices: int = MAX_SLICES, also_max=None,
+                        amax=None):
+    """K5 sharded on this rank's block ``x`` of a field over the grid
+    ``mesh`` (a collective: every rank calls it): the planes of the block
+    and the scale, 0-d, each the whole field's K5 result to the bit.  On
+    the card three launches and one all-reduce MAX (one count a call).
+    ``also_max`` (float64 on x's device) rides the same all-reduce: its
+    world max comes back third.  ``amax``: the whole field's max|x| (0-d
+    float64, the same on every rank), given by the caller, who took it
+    in a collective of its own; then the call has no collective and no
+    max pass (two launches)."""
+    _slice_args(x, n_slices, 2)
+    if amax is not None and also_max is not None:
+        raise ValueError("also_max rides K5's own all-reduce, which a "
+                         "given amax leaves out")
+    if not _on_card(x):
+        if amax is None:
+            amax, also = _world_amax(mesh, x, (0, 1), also_max)
+        out, scale = slice_field_ref(x, n_slices, amax.reshape(()))
+    else:
+        out, scale, also = _slice_sharded(x, n_slices, mesh, 1, also_max,
+                                          amax)
+        scale = scale.reshape(())
+        launches['slice_field_sharded'] += 1
+    return (out, scale) if also_max is None else (out, scale, also)
+
+
+def slice_field_members_sharded(x, mesh, n_slices: int = MAX_SLICES,
+                                also_max=None, amax=None):
+    """K5 sharded on every member's block of an (R, rows, cols) stack:
+    (planes (n_slices, R, rows, cols), (R,) scales), member r's the
+    whole field's K5 result on its block; one world max for all members
+    (one count a call); ``also_max`` and ``amax`` ((R,)) as in
+    :func:`slice_field_sharded`."""
+    _slice_args(x, n_slices, 3)
+    if amax is not None and also_max is not None:
+        raise ValueError("also_max rides K5's own all-reduce, which a "
+                         "given amax leaves out")
+    if not _on_card(x):
+        if amax is None:
+            amax, also = _world_amax(mesh, x, (1, 2), also_max)
+        out, scale = slice_field_members_ref(x, n_slices, amax)
+    else:
+        out, scale, also = _slice_sharded(x, n_slices, mesh, x.shape[0],
+                                          also_max, amax)
+        launches['slice_field_members_sharded'] += 1
+    return (out, scale) if also_max is None else (out, scale, also)
 
 
 # ----------------------------------------------------------------------

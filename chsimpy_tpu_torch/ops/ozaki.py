@@ -29,8 +29,11 @@ Three route pairs, chosen by the solver as in the JAX package: unfolded
 (:func:`dct2_ozaki`, odd N), the level-1 fold in natural layout
 (:func:`dct2_ozaki_fold`, N < 1024) and the recursive fold in the permuted
 basis (:func:`dct2_ozaki_rfold`, N >= 1024; conjugate the spectral grids
-with ``dct.split_permute_grid``).  The pair cutoffs (s1, s2) and the int32
-bounds are the JAX package's; see the notes there.
+with ``dct.split_permute_grid``); under a mesh, the unfolded route on the
+pencil layout (:func:`dct2_ozaki_pencil`, :func:`idct2_ozaki_pencil`:
+K5 sharded, the int8 stacks transposed between the stages).  The pair
+cutoffs (s1, s2) and the int32 bounds are the JAX package's; see the
+notes there.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import functools
 import numpy as np
 import torch
 
+from ..parallel import collectives as coll
 from . import kernels as K
 from .dct import _dct_matrix_np
 
@@ -182,16 +186,23 @@ def _round_up(n: int, m: int) -> int:
 
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b for int8 matrices, the exact int32 product
-    (``torch._int_mm``).  On the card cuBLASLt takes a row-major left
-    operand with more than 16 rows and inner and column counts that are
-    multiples of 8: other shapes are zero-padded (rows to a multiple of 8,
-    at least 24), which changes no sum."""
+    (``torch._int_mm``).  On the card cuBLASLt takes inner and column
+    counts that are multiples of 8, and refuses some row counts that are
+    not multiples of 32 (16, 24, 40, 48 and 136 rows with 64 inner and 64
+    columns; ``tests/test_torch_cuda.py``): other shapes are zero-padded,
+    rows to a multiple of 32, which changes no sum.  A left operand of
+    fewer than 32 rows (a (1, 4) pencil world's (16, 64) row block at
+    N=64) is multiplied in float64 instead, exact: every partial sum is
+    an integer below 2^53."""
     a, b = a.contiguous(), b.contiguous()
     if a.device.type != 'cuda':
         return torch._int_mm(a, b)
     M, Kd = a.shape
     N = b.shape[1]
-    Mp, Kp, Np = max(_round_up(M, 8), 24), _round_up(Kd, 8), _round_up(N, 8)
+    if M < 32:
+        return torch.matmul(a.to(torch.float64),
+                            b.to(torch.float64)).to(torch.int32)
+    Mp, Kp, Np = _round_up(M, 32), _round_up(Kd, 8), _round_up(N, 8)
     if (Mp, Kp, Np) == (M, Kd, N):
         return torch._int_mm(a, b)
     ap = torch.zeros((Mp, Kp), dtype=torch.int8, device=a.device)
@@ -220,17 +231,33 @@ def _pair_groups(a_slices, b_slices, max_pair=MAX_PAIR, dot=None):
     """All slice products dot(a_i, b_j) with i+j <= max_pair, summed into
     int32 groups by k = i+j (``dot``: :func:`int8_matmul` by default, or
     the transforms' :func:`_left` / :func:`_right`; the JAX package's
-    ``_dot_left``/``_dot_right``).  Group sums stay < 2^31: each product
-    is <= 65*65*N and <= 8 join a group (N <= 2^19); stacking members
-    changes neither bound."""
+    ``_dot_left``/``_dot_right``), None where no pair adds to k.  Group
+    sums stay < 2^31: each product is <= 65*65*N and <= 8 join a group
+    (N <= 2^19); stacking members changes neither bound.
+
+    Each group is one product: its a_i side by side along their
+    contracted last axis (one copy), its b_j, j ascending, a range of the
+    stack along their contracted first axis (a view), so the products'
+    sum runs inside the product.  The sum is exact in int32, so it has
+    the bits of the pairs' products added one by one, with a launch a
+    group in place of two a pair."""
     dot = dot or int8_matmul
     Sa, Sb = a_slices.shape[0], b_slices.shape[0]
-    groups = [None] * (max_pair + 1)
-    for i in range(Sa):
-        for j in range(min(Sb, max_pair + 1 - i)):
-            p = dot(a_slices[i], b_slices[j])
-            k = i + j
-            groups[k] = p if groups[k] is None else groups[k] + p
+    groups = []
+    for k in range(max_pair + 1):
+        j0, j1 = max(0, k - Sa + 1), min(k, Sb - 1)
+        if j0 > j1:
+            groups.append(None)
+            continue
+        if j0 == j1:
+            groups.append(dot(a_slices[k - j0], b_slices[j0]))
+            continue
+        n = j1 - j0 + 1
+        a = torch.stack([a_slices[k - j] for j in range(j0, j1 + 1)],
+                        dim=-2)
+        a = a.reshape(*a.shape[:-2], n * a.shape[-1])
+        b = b_slices[j0:j1 + 1]
+        groups.append(dot(a, b.reshape(n * b.shape[1], *b.shape[2:])))
     return groups
 
 
@@ -390,6 +417,103 @@ def idct2_ozaki(X, Cs, CsT, m_scale):
     N = X.shape[-1]
     d = X[..., 0, 0]
     u = _transform2d(_dc_zero(X), CsT, Cs, m_scale)
+    return u + _bcast(d / N)
+
+
+# ----------------------------------------------------------------------
+# the pencil layout (chsimpy_tpu/core/stepper.py:690-705, ops/ozaki.py:
+# 385-500): the unfolded route on a rank's column block (N, N/D) of the
+# field and row block (N/D, N) of the spectral image.  The slices take the
+# whole field's scale (K5 sharded), each int8 product contracts a local
+# axis, and the renormalized int8 stack crosses ranks in one transpose
+# each way.  The int32 sums are exact under any partitioning and the mean
+# is summed column by column (:func:`_world_mean_amax`), so a rank's result is
+# the one-rank pencil transform's block, to the bit.  The mean's order is
+# not torch.mean's: the result differs from :func:`dct2_ozaki` by that.
+# ----------------------------------------------------------------------
+
+def _world_mean_amax(mesh, Ub, N):
+    """The whole field's mean and max|U - mean| (each 0-d, or (R,) for
+    members) from the column blocks ``Ub`` (..., N, c), in one gather:
+    each column's sum over its N rows (a reduction along a contiguous row
+    of the transposed block, so its bits do not depend on c), the block's
+    max and min.  The N column sums are summed in column order, so every
+    rank gets the same mean for any number of ranks.  x -> fl(x - mean)
+    is monotone, so max|fl(U - mean)| is taken at U's max or min: the
+    bits of ``torch.amax(torch.abs(U - mean))`` over the whole field."""
+    lead = Ub.shape[:-2]
+    c = Ub.shape[-1]
+    part = torch.cat([Ub.transpose(-1, -2).contiguous().sum(-1),
+                      Ub.amax(dim=(-2, -1)).unsqueeze(-1),
+                      Ub.amin(dim=(-2, -1)).unsqueeze(-1)], dim=-1)
+    g = coll.gather_world(mesh, part)                      # (D, ..., c + 2)
+    m = g[..., :c].movedim(0, -2).reshape(lead + (N,)).sum(-1) / float(N * N)
+    hi = g[..., c].amax(dim=0) - m
+    lo = g[..., c + 1].amin(dim=0) - m
+    return m, torch.maximum(hi.abs(), lo.abs())
+
+
+def _slice_sharded(x, n_slices, mesh, also_max=None, amax=None):
+    """K5 sharded on a block or on each member's block: (planes in the
+    products' layout (S, rows, R, cols), the whole field's scale[, the
+    world max of ``also_max``, taken in K5's own all-reduce]); ``amax``:
+    the whole field's max|x|, known already."""
+    f = K.slice_field_sharded if x.dim() == 2 else \
+        K.slice_field_members_sharded
+    s, sc, *also = f(x, mesh, n_slices, also_max=also_max, amax=amax)
+    s = s.unsqueeze(2) if x.dim() == 2 else s.transpose(1, 2).contiguous()
+    return (s, sc, *also)
+
+
+def _holds_row0(mesh) -> bool:
+    return mesh.rank == mesh.base
+
+
+def dct2_ozaki_pencil(Ub, Cs, CsT, m_scale, mesh, s1=STAGE1_PAIR,
+                      s2=STAGE2_PAIR):
+    """:func:`dct2_ozaki` of the field whose column block is ``Ub`` (N,
+    N/D) (or each member's, (R, N, N/D)) on the grid ``mesh``: this
+    rank's row block of the spectral image.  The whole field's mean goes
+    around the int8 path; the rank that holds row 0 adds it at [0, 0].
+    The mean and the slices' scale come from one gather."""
+    N = Ub.shape[-2]
+    m, amax = _world_mean_amax(mesh, Ub, N)
+    Us, su = _slice_sharded(Ub - _bcast(m), _n_field(s1), mesh, amax=amax)
+    g1 = _pair_groups(Cs, Us, max_pair=s1, dot=_left)         # (N, R, c)
+    t = _renorm_to_slices(g1, n_slices=_n_slots(s2))
+    t = coll.transpose_to_rows(mesh, t, row_dim=1)            # (S, b, R, N)
+    g2 = _pair_groups(t, CsT, max_pair=s2, dot=_right)        # (b, R, N)
+    z = _horner_f64(g2, Ub.dtype)
+    Y = _field(z * _mid(su * (m_scale * m_scale * 2.0 ** RENORM_SHIFT)),
+               Ub)
+    if _holds_row0(mesh):
+        Y = _dc_add(Y, m * N)
+    return Y
+
+
+def idct2_ozaki_pencil(Xb, Cs, CsT, m_scale, mesh):
+    """:func:`idct2_ozaki` of the spectral image whose row block is
+    ``Xb`` (N/D, N) (or each member's): this rank's column block of the
+    field.  The column stage runs first (``right_first``): it contracts
+    the local axis of a row block.  [0, 0] (the DC) goes around: the rank
+    that holds row 0 sends it in the slices' world max (every other rank
+    puts -inf there), which costs no collective of its own."""
+    N = Xb.shape[-1]
+    # [0, 0] reaches every rank in K5's all-reduce MAX: -inf elsewhere
+    if _holds_row0(mesh):
+        d = Xb[..., 0, 0].clone()
+        Xb = _dc_zero(Xb)
+    else:
+        d = torch.full(Xb.shape[:-2], -torch.inf, dtype=Xb.dtype,
+                       device=Xb.device)
+    Xs, sx, d = _slice_sharded(Xb, _n_field(), mesh, d)        # (S, b, R, N)
+    g1 = _pair_groups(Xs, Cs, max_pair=STAGE1_PAIR, dot=_right)
+    t = _renorm_to_slices(g1, n_slices=_n_slots())
+    t = coll.transpose_to_cols(mesh, t, row_dim=1)             # (S, N, R, c)
+    g2 = _pair_groups(CsT, t, max_pair=STAGE2_PAIR, dot=_left)
+    z = _horner_f64(g2, Xb.dtype)
+    u = _field(z * _mid(sx * (m_scale * m_scale * 2.0 ** RENORM_SHIFT)),
+               Xb)
     return u + _bcast(d / N)
 
 

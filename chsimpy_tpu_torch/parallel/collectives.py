@@ -17,16 +17,33 @@ sharded DCT products (``parallel/sharding.py`` of the JAX package):
   rank order;
 * :func:`gather_ens` — the all-gather over the ens axis of an
   :class:`~.mesh.EnsembleMesh` (the ranks at the same grid coordinates),
-  concatenated along dim 0 in ``e`` order.  ``all_reduce`` leaves its order to
-  the backend; here each rank adds the same numbers in the same order, so
-  every rank holds the same bits.  The stop predicate rests on that: a
-  rank whose E2 differed by one ulp could stop alone and leave the others
-  waiting in the next collective.
+  concatenated along dim 0 in ``e`` order;
+* :func:`transpose_to_rows` / :func:`transpose_to_cols` — the pencil
+  layout's transpose between column and row blocks, one
+  ``all_to_all_single`` over the grid;
+* :func:`world_max` — an all-reduce MAX (order-free: every rank gets the
+  same bits).
+
+``all_reduce`` leaves the order of a sum to the backend; here each rank
+adds the same numbers in the same order, so every rank holds the same
+bits.  The stop predicate rests on that: a rank whose E2 differed by one
+ulp could stop alone and leave the others waiting in the next collective.
 
 Each is called on every step by every rank, whether or not the run has
 stopped (the stepper freezes the state with ``torch.where``), so all ranks
 issue the same sequence.  On a staged mesh (gloo with the blocks on a
-card) each operand is copied to host memory and each result back.
+card) each operand is copied to pinned host memory (the host waits for
+the card there) and each result back without a host wait.
+
+:data:`traffic` counts each kind's calls and bytes on this rank (the
+result's bytes, as the JAX package's HLO audit counts a collective's
+result shape, and the part of them received from other ranks), under
+the names of the XLA collectives the JAX program has in their place: the
+strip and ens gathers are ``'all-gather'``, the transposes
+``'all-to-all'``, the halo ``'collective-permute'``, and
+:func:`gather_world` (the partial sums an all-reduce carries there, added
+in rank order here) and :func:`world_max` ``'all-reduce'``.
+``parallel/audit.py`` reads it.
 """
 
 from __future__ import annotations
@@ -37,24 +54,63 @@ import torch.distributed as dist
 # tags of the four halo messages (gloo matches on them; NCCL ignores them)
 _TAG_UP, _TAG_DOWN, _TAG_LEFT, _TAG_RIGHT = 1, 2, 3, 4
 
+OPS = ('all-gather', 'all-to-all', 'all-reduce', 'collective-permute')
+# op -> [calls, result bytes, the largest call's result bytes, bytes
+# received from other ranks] on this rank since the last reset_traffic()
+traffic = {op: [0, 0, 0, 0] for op in OPS}
+
+
+def reset_traffic() -> None:
+    for v in traffic.values():
+        v[:] = [0, 0, 0, 0]
+
+
+def _count(op: str, t: torch.Tensor, share: float = 1.0) -> None:
+    """One call of ``op`` with result ``t``, ``share`` of it received
+    from the other ranks."""
+    nbytes = t.numel() * t.element_size()
+    v = traffic[op]
+    v[0] += 1
+    v[1] += nbytes
+    v[2] = max(v[2], nbytes)
+    v[3] += int(nbytes * share)
+
 
 def _wire(mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` where the backend reads it: on a staged mesh a copy in pinned
+    host memory (the host waits for it: gloo sends host bytes)."""
     t = t.contiguous()
-    return t.cpu() if mesh.staged else t
+    if not mesh.staged:
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def _buffer(mesh, like: torch.Tensor, shape=None) -> torch.Tensor:
+    """A result buffer of the backend beside ``like`` (pinned host memory
+    on a staged mesh)."""
+    return torch.empty(like.shape if shape is None else shape,
+                       dtype=like.dtype, device=like.device,
+                       pin_memory=mesh.staged)
 
 
 def _home(mesh, t: torch.Tensor) -> torch.Tensor:
-    return t.to(mesh.device) if mesh.staged else t
+    """A result back on the card: from pinned memory the copy is queued
+    on the current stream ahead of the kernels that read it, and the host
+    does not wait for it."""
+    return t.to(mesh.device, non_blocking=True) if mesh.staged else t
 
 
-def _gather(mesh, t: torch.Tensor, group, n: int) -> torch.Tensor:
+def _gather(mesh, t: torch.Tensor, group, n: int,
+            op: str = 'all-gather') -> torch.Tensor:
     """The ``n`` ranks' ``t`` of ``group`` concatenated along dim 0."""
     if n == 1:
         return t.contiguous()
     src = _wire(mesh, t)
-    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
-                      dtype=src.dtype, device=src.device)
+    out = _buffer(mesh, src, (n * src.shape[0],) + tuple(src.shape[1:]))
     dist.all_gather_into_tensor(out, src, group=group)
+    _count(op, out, (n - 1) / n)
     return _home(mesh, out)
 
 
@@ -82,7 +138,7 @@ def gather_y(mesh, t: torch.Tensor) -> torch.Tensor:
 def gather_world(mesh, t: torch.Tensor) -> torch.Tensor:
     """(size, *t.shape): every grid rank's ``t``, in rank order."""
     out = _gather(mesh, t.reshape((1,) + tuple(t.shape)), mesh.group,
-                  mesh.size)
+                  mesh.size, 'all-reduce')
     return out.reshape((mesh.size,) + tuple(t.shape))
 
 
@@ -134,15 +190,111 @@ def halo(mesh, Ub: torch.Tensor):
                       _TAG_LEFT))
     if not links:
         return out['up'], out['dn'], out['lf'], out['rt']
-    ops, recvs = [], []
+    # the edges sent in one staged copy (one host wait a call), each
+    # received into a buffer of its own
+    sent = _wire(mesh, torch.cat([edge.reshape(-1) for _, _, edge, _, _
+                                  in links]))
+    ops, recvs, at = [], [], 0
     for side, peer, edge, tag_out, tag_in in links:
-        send = _wire(mesh, edge)
-        recv = torch.empty_like(send)
+        send = sent[at:at + edge.numel()].view(edge.shape)
+        at += edge.numel()
+        recv = _buffer(mesh, send)
         ops.append(dist.P2POp(dist.isend, send, peer, tag=tag_out))
         ops.append(dist.P2POp(dist.irecv, recv, peer, tag=tag_in))
         recvs.append((side, recv))
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     for side, recv in recvs:
+        _count('collective-permute', recv)
         out[side] = _home(mesh, recv)
     return out['up'], out['dn'], out['lf'], out['rt']
+
+
+# ----------------------------------------------------------------------
+# the pencil layout's transposes (the resharding the JAX package's
+# ``constrain`` / ``constrain_mid`` asks GSPMD for, chsimpy_tpu/ops/
+# dct.py:659-697, ops/ozaki.py:326-341)
+# ----------------------------------------------------------------------
+
+def _all_to_all(mesh, send: torch.Tensor) -> torch.Tensor:
+    """``all_to_all_single`` of ``send`` (D equal chunks along dim 0, chunk
+    q to the grid's rank q) over the grid; chunk p of the result came
+    from rank p."""
+    src = _wire(mesh, send)
+    out = _buffer(mesh, src)
+    dist.all_to_all_single(out, src, group=mesh.group)
+    _count('all-to-all', out, (mesh.size - 1) / mesh.size)
+    return _home(mesh, out)
+
+
+def transpose_to_rows(mesh, t: torch.Tensor, row_dim: int = -2
+                      ) -> torch.Tensor:
+    """A column block -> the row block of the same array: ``t`` holds
+    every row (dim ``row_dim``, length N) of this rank's columns (the last
+    dim, c = N/D); the result holds this rank's rows N/D of every column
+    (D*c), contiguous, the other dims as they were.  A 2-D pencil (N, c),
+    a member stack (R, N, c) or an int8 slice stack in the products'
+    layout (S, N, R, c) (``row_dim=1``).  The D row bands go to the
+    front for the call (one copy) and the D column blocks received are
+    put side by side (one copy)."""
+    D = mesh.size
+    if D == 1:
+        return t.contiguous()
+    a = row_dim % t.dim()
+    N = t.shape[a]
+    if N % D:
+        raise ValueError(f"{N} rows do not split over {D} ranks")
+    x = t.movedim(a, 0)
+    rest = tuple(x.shape[1:-1])
+    send = x.reshape((D, N // D) + rest + (x.shape[-1],))
+    out = _all_to_all(mesh, send)             # (D, b, *rest, c)
+    # out dims: 0 = D (source rank = column block), 1 = b, 2.. = rest,
+    # last = c; back to t's order with (D, c) merged as the last dim
+    others = iter(range(2, 2 + len(rest)))
+    order = []
+    for d in range(t.dim()):
+        if d == a:
+            order.append(1)
+        elif d == t.dim() - 1:
+            order += [0, out.dim() - 1]
+        else:
+            order.append(next(others))
+    shape = list(t.shape)
+    shape[a] = N // D
+    shape[-1] = D * t.shape[-1]
+    return out.permute(order).reshape(shape)
+
+
+def transpose_to_cols(mesh, t: torch.Tensor, row_dim: int = -2
+                      ) -> torch.Tensor:
+    """The inverse of :func:`transpose_to_rows`: a row block (rows N/D
+    on dim ``row_dim``, every column N on the last dim) -> every row of
+    this rank's columns N/D, contiguous."""
+    D = mesh.size
+    a = row_dim % t.dim()
+    N = t.shape[-1]
+    if N % D:
+        raise ValueError(f"{N} columns do not split over {D} ranks")
+    width = N // D
+    if D == 1:
+        return t.contiguous()
+    send = t.unflatten(-1, (D, width)).movedim(-2, 0)   # (D, ..., width)
+    out = _all_to_all(mesh, send.contiguous())
+    # chunk p holds rank p's rows: stack them along the row dim
+    shape = list(t.shape)
+    shape[a] = D * t.shape[a]
+    shape[-1] = width
+    return out.movedim(0, a).reshape(shape)
+
+
+def world_max(mesh, t: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over the grid's ranks (max is
+    order-free: every rank gets the same bits)."""
+    if mesh.size == 1:
+        return t
+    x = _wire(mesh, t)
+    if not mesh.staged:
+        x = x.clone()           # the all-reduce writes its operand
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.group)
+    _count('all-reduce', x)
+    return _home(mesh, x)

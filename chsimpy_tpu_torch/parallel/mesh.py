@@ -26,6 +26,18 @@ and, on an ensemble mesh, ``ens_group``: the ``E`` ranks at its ``(i, j)``
 in ``e`` order.  A group's rank order is the coordinate along its axis, so
 an all-gather over a group lands the blocks in field (or member) order.
 Every rank creates every group, in the same order.
+
+The pencil layout of the split and ozaki routes (``chsimpy_tpu/parallel/
+sharding.py:1-17, 33-60``) shards the field over ONE axis using all ``D =
+mx*my`` ranks of the grid, flattened in mesh order: the field's columns
+(``P(None, ('x', 'y'))``) and the spectral image's rows (``P(('x', 'y'),
+None)``), rank ``r = i*my + j`` holding column block ``r`` and row block
+``r``.  That is the grid layout of a ``(1, D)`` mesh, and of a ``(D, 1)``
+mesh, over the same ranks in the same order: a grid's ``field_view`` and
+``spec_view`` (:class:`PencilView`) are those meshes, so the block
+helpers, the halo exchange and the sharded statistics run on a pencil
+block unchanged.  The views make no group: their collectives run over
+the grid's ``group``.
 """
 
 from __future__ import annotations
@@ -127,6 +139,8 @@ class GridMesh:
                 g = dist.new_group(list(range(base, base + n)))
                 if e == self.slot:
                     self.group = g
+        self.field_view = PencilView(self, (1, n))
+        self.spec_view = PencilView(self, (n, 1))
 
     def rank_at(self, i: int, j: int) -> int:
         """The global rank at grid coordinates (i, j) of this slot."""
@@ -138,6 +152,33 @@ class GridMesh:
                if self.staged else f'on {self.device.type} tensors')
         return (f"mesh {mx}x{my}: {self.size} ranks, backend "
                 f"{self.backend}, collectives {how}")
+
+
+class PencilView:
+    """The ``(1, D)`` (field) or ``(D, 1)`` (spectral) pencil layout of
+    a grid's ``D`` ranks in rank order, with the attributes of a
+    :class:`GridMesh` that the blocks and the collectives read.  The axis
+    of length 1 has no group (a gather over it is the block itself); the
+    other runs over the grid's ``group``."""
+
+    def __init__(self, grid: GridMesh, shape: tuple):
+        local = grid.rank - grid.base
+        self.grid = grid
+        self.shape = shape
+        self.size = grid.size
+        self.rank, self.base, self.slot = grid.rank, grid.base, grid.slot
+        self.device, self.backend, self.staged = (grid.device, grid.backend,
+                                                  grid.staged)
+        self.group = grid.group
+        if shape[0] == 1:
+            self.coords = (0, local)
+            self.x_group, self.y_group = None, grid.group
+        else:
+            self.coords = (local, 0)
+            self.x_group, self.y_group = grid.group, None
+
+    def rank_at(self, i: int, j: int) -> int:
+        return self.base + i * self.shape[1] + j
 
 
 class EnsembleMesh(GridMesh):

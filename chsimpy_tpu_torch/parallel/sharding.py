@@ -6,8 +6,14 @@ the field is tiled ``P('x', 'y')``, rank ``(i, j)`` holding rows
 ``bw = N/my``; a stack of members' fields (R, N, N) is tiled the same way
 member by member.  On an ensemble mesh the member axis is split as JAX's
 ``P('ens')`` splits it: ens slot ``e`` holds the contiguous members
-``[e*R/E, (e+1)*R/E)`` (:func:`shard_members`).  The pencil layout of the
-split and ozaki routes is not ported (ROADMAP.md queue A item 11).
+``[e*R/E, (e+1)*R/E)`` (:func:`shard_members`).
+
+The pencil layout of the split and ozaki routes is the grid layout of a
+grid's ``field_view`` (the field's column blocks, a ``(1, D)`` mesh) and
+``spec_view`` (the spectral image's row blocks, ``(D, 1)``;
+``parallel/mesh.py``): :func:`shard_field` and :func:`gather_field` take
+either view, and :func:`shard_consts` places the spectral grids as row
+blocks with ``pencil=True``.
 """
 
 from __future__ import annotations
@@ -80,13 +86,16 @@ def gather_members(t: torch.Tensor, mesh) -> torch.Tensor:
 _GRIDS = ('leig', 'CHeig', 'Seig')
 
 
-def shard_consts(consts: dict, mesh) -> dict:
+def shard_consts(consts: dict, mesh, pencil: bool = False) -> dict:
     """The eigenvalue and coefficient grids as this rank's blocks; the DCT
     matrix C stays whole (the grid transforms read its row and column
-    strips in place), and so does everything else."""
+    strips in place), and so does everything else.  ``pencil``: the grids
+    live in spectral space, so they take the spectral layout, this rank's
+    row block (on the split route the permuted grids)."""
+    spec = mesh.spec_view if pencil else mesh
     out = dict(consts)
     for k in _GRIDS:
-        out[k] = shard_field(consts[k], mesh)[0]
+        out[k] = shard_field(consts[k], spec)[0]
     return out
 
 

@@ -10,6 +10,7 @@ can hold the world's results against a single-device or JAX run.
 
 from __future__ import annotations
 
+import functools
 import sys
 import time
 
@@ -42,24 +43,30 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def solve(mesh, params: dict, U_init=None, steps=None, rate_steps=0,
-          return_U=True) -> dict:
-    """A grid-sharded solve of ``Parameters(**params)`` on this world's
-    mesh shape and backend: through ``Simulator.solve`` (``steps`` None),
+          return_U=True, mesh_shape=None, audit_steps=0) -> dict:
+    """A sharded solve of ``Parameters(**params)`` on this world's mesh
+    shape (or ``mesh_shape``, another grid of the world's ranks) and
+    backend: through ``Simulator.solve`` (``steps`` None),
     or ``Solver.prepare`` and ``solve_or_resume(steps)`` (a list: one
-    entry per item, in turn); then, with
-    ``rate_steps``, one timed window of that many more steps.  The params'
-    device must be the world's.  Returns the solution's scalars, its
+    entry per item, in turn, each entry's seconds kept); then, with
+    ``rate_steps``, one timed window of that many more steps, and with
+    ``audit_steps`` the collectives of that many more
+    (``parallel.audit.count_chunk``).  The params' device must be the
+    world's.  Returns the solution's scalars, its
     timedata, mean(U) (and U with ``return_U``), this rank's kernel
     launches and the seconds of the solve."""
     p = Parameters(**params)
     if torch.device(p.device).type != mesh.device.type:
         raise ValueError(f"params ask for device {p.device!r}, the world "
                          f"runs on {mesh.device.type!r}")
-    p.mesh_shape = mesh.shape
+    p.mesh_shape = tuple(mesh_shape or mesh.shape)
     p.dist_backend = mesh.backend
     p.no_gui = True
     K.reset_launches()
+    if mesh.device.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    entries = []
     if steps is None:
         sim = Simulator(p, U_init)
         solver = sim.solver
@@ -68,7 +75,10 @@ def solve(mesh, params: dict, U_init=None, steps=None, rate_steps=0,
         solver = Solver(p, U_init)
         solver.prepare()
         for k in (steps if isinstance(steps, (list, tuple)) else [steps]):
+            t1 = time.perf_counter()
             sol = solver.solve_or_resume(k)
+            _sync(mesh)
+            entries.append(time.perf_counter() - t1)
     _sync(mesh)
     seconds = time.perf_counter() - t0
     out = {'computed_steps': sol.computed_steps,
@@ -78,7 +88,13 @@ def solve(mesh, params: dict, U_init=None, steps=None, rate_steps=0,
            'U_finite': bool(torch.isfinite(sol.U).all()),
            'U_shape': tuple(sol.U.shape),
            'launches': dict(K.launches), 'seconds': seconds,
-           'mesh': mesh.describe()}
+           'entry_seconds': entries,
+           'mesh': (solver.mesh or mesh).describe(),
+           'pencil': solver.cfg.pencil,
+           'block_shapes': {k: tuple(getattr(solver._state, k).shape)
+                            for k in ('U', 'hat_U')}}
+    if mesh.device.type == 'cuda':
+        out['peak_bytes'] = torch.cuda.max_memory_allocated()
     if return_U:
         out['U'] = _np(sol.U)
     if rate_steps:
@@ -87,6 +103,9 @@ def solve(mesh, params: dict, U_init=None, steps=None, rate_steps=0,
         solver.solve_or_resume(rate_steps)
         _sync(mesh)
         out['steps_per_s'] = rate_steps / (time.perf_counter() - t0)
+    if audit_steps:
+        from .audit import count_chunk
+        out['audit'] = count_chunk(solver, audit_steps)
     return out
 
 
@@ -118,6 +137,122 @@ def dcts(mesh, U, dtype: str) -> tuple:
     Ub = _block(mesh, U, dtype)
     return (_np(gather_field(dct_ops.dct2_grid(Ub, C, mesh), mesh)),
             _np(gather_field(dct_ops.idct2_grid(Ub, C, mesh), mesh)))
+
+
+def pencil_dcts(mesh, U, dtype: str) -> tuple:
+    """The pencil forms of the matmul and split routes' 2-D DCTs of the
+    whole U, gathered whole: (dct2_pencil, idct2_pencil,
+    dct2_split_perm_pencil, idct2_split_perm_pencil at 2 levels)."""
+    N = np.asarray(U).shape[0]
+    dt = _DTYPES[dtype]
+    C = dct_ops.dct_matrix(N, dt, mesh.device)
+    tree = dct_ops.split_tree(N, 2, dt, mesh.device)
+    cols = _block(mesh.field_view, U, dtype)
+    rows = _block(mesh.spec_view, U, dtype)
+    return tuple(_np(gather_field(x, view)) for x, view in (
+        (dct_ops.dct2_pencil(cols, C, mesh), mesh.spec_view),
+        (dct_ops.idct2_pencil(rows, C, mesh), mesh.field_view),
+        (dct_ops.dct2_split_perm_pencil(cols, tree, mesh), mesh.spec_view),
+        (dct_ops.idct2_split_perm_pencil(rows, tree, mesh),
+         mesh.field_view)))
+
+
+def transposes(mesh, N: int, R: int = 3, S: int = 4) -> dict:
+    """The pencil transposes on seeded arrays of this rank's blocks: for
+    a 2-D pencil (N, N), a member stack (R, N, N) and an int8 stack in
+    the products' layout (S, N, R, N), whether the row block
+    :func:`transpose_to_rows` gives is the array's row block, and whether
+    :func:`transpose_to_cols` takes it back to the column block."""
+    from . import collectives as coll
+    D, r = mesh.size, mesh.rank - mesh.base
+    c = N // D
+    g = torch.Generator().manual_seed(7)
+    cases = {'pencil': (torch.rand((N, N), generator=g, dtype=torch.float64),
+                        0),
+             'members': (torch.rand((R, N, N), generator=g), 1),
+             'int8': (torch.randint(-64, 65, (S, N, R, N), generator=g,
+                                    dtype=torch.int8), 1)}
+    out = {}
+    for name, (a, dim) in cases.items():
+        a = a.to(mesh.device)
+        colb = a[..., r * c:(r + 1) * c].contiguous()
+        rowb = a.narrow(dim, r * c, c)
+        rows = coll.transpose_to_rows(mesh, colb, row_dim=dim)
+        back = coll.transpose_to_cols(mesh, rows, row_dim=dim)
+        out[name] = (torch.equal(rows, rowb) and rows.is_contiguous(),
+                     torch.equal(back, colb) and back.is_contiguous())
+    return out
+
+
+def slice_sharded(mesh, x, n_slices: int, members: bool = False,
+                  layout: str = 'field') -> tuple:
+    """K5 sharded on this rank's block of the whole float64 ``x`` ((N, N),
+    or (R, N, N) with ``members``) in the pencil ``layout`` ('field':
+    column blocks, 'spec': row blocks): (planes, scale) as numpy."""
+    view = mesh.field_view if layout == 'field' else mesh.spec_view
+    t = torch.as_tensor(np.asarray(x, dtype=np.float64)).to(mesh.device)
+    b = shard_field(t, view)[0]
+    f = K.slice_field_members_sharded if members else K.slice_field_sharded
+    planes, scale = f(b, mesh, n_slices)
+    return _np(planes), _np(scale)
+
+
+@functools.lru_cache(maxsize=2)
+def _normal_field(seed: int, shape: tuple) -> np.ndarray:
+    """Standard normal values from ``seed`` (made once a rank per seed
+    and shape: the checks of one field share it)."""
+    return np.random.default_rng(seed).standard_normal(shape)
+
+
+def slice_sharded_check(mesh, N: int, n_slices: int, kind: str,
+                        layout: str = 'field', R: int = 0,
+                        seed: int = 0) -> dict:
+    """K5 sharded against K5 on the whole field, on this world's device:
+    the field (or R members' fields) made from ``seed`` on every rank —
+    ``kind`` 'block' (normal values, the max in one block only) or 'ulp'
+    (the max one ulp above 2^8, in one block only) — K5 sharded on this
+    rank's block in the pencil ``layout``, ``slice_field`` (or
+    ``slice_field_members``) on the whole field restricted to the block,
+    and the plain version at the world's max.  Returns the largest plane
+    differences, the scales and the launches counted."""
+    view = mesh.field_view if layout == 'field' else mesh.spec_view
+    x = _normal_field(seed, (R, N, N) if R else (N, N)).copy()
+    # the max in block 1 only, its exponent above every other block's
+    b1 = N // mesh.size + N // (3 * mesh.size)
+    at = (N // 3, b1) if layout == 'field' else (b1, N // 3)
+    big = np.nextafter(2.0 ** 8, np.inf) if kind == 'ulp' else 20.5
+    if R:
+        x[R - 1][at] = -big
+    else:
+        x[at] = -big
+    t = torch.as_tensor(x).to(mesh.device)
+    b = shard_field(t, view)[0]
+    K.reset_launches()
+    if R:
+        got, scale = K.slice_field_members_sharded(b, mesh, n_slices)
+        whole, wscale = K.slice_field_members(t, n_slices)
+        amax = torch.abs(t).amax(dim=(1, 2))
+        plain, pscale = K.slice_field_members_ref(b, n_slices, amax)
+    else:
+        got, scale = K.slice_field_sharded(b, mesh, n_slices)
+        whole, wscale = K.slice_field(t, n_slices)
+        plain, pscale = K.slice_field_ref(b, n_slices, torch.abs(t).amax())
+    counted = dict(K.launches)
+    rows, cols = block_slices(view, N)
+    want = whole[..., rows, cols]
+    _sync(mesh)
+    return {'N': N, 'kind': kind, 'layout': layout, 'R': R,
+            'n_slices': n_slices, 'block': tuple(b.shape[-2:]),
+            'max_diff_whole': int((got.int() - want.int()).abs().max()),
+            'max_diff_plain': int((got.int() - plain.int()).abs().max()),
+            'scale': _np(scale).tolist(), 'whole_scale': _np(wscale).tolist(),
+            'plain_scale': _np(pscale).tolist(), 'launches': counted}
+
+
+def audit(mesh, **kw) -> dict:
+    """``parallel.audit.audit_chunk`` on this world's mesh."""
+    from .audit import audit_chunk
+    return audit_chunk(mesh, **kw)
 
 
 def threefry_jitter(mesh, U, key, jitter: float, dtype: str) -> tuple:
@@ -274,9 +409,18 @@ TASKS = {'solve': solve, 'fused_stats': fused_stats,
          'threefry_jitter': threefry_jitter, 'imported': imported,
          'live_solve': live_solve, 'ensemble': ensemble,
          'restore_ensemble': restore_ensemble,
-         'ensemble_error': ensemble_error, 'merge_rows': merge_rows}
+         'ensemble_error': ensemble_error, 'merge_rows': merge_rows,
+         'transposes': transposes, 'pencil_dcts': pencil_dcts,
+         'slice_sharded': slice_sharded,
+         'slice_sharded_check': slice_sharded_check, 'audit': audit}
 
 
-def run_tasks(mesh, tasks) -> list:
-    """Run each ``(name, kwargs)`` of ``tasks`` in order; their results."""
-    return [TASKS[name](mesh, **kw) for name, kw in tasks]
+def run_tasks(mesh, tasks, timed: bool = False):
+    """Run each ``(name, kwargs)`` of ``tasks`` in order; their results
+    (``timed``: and each task's seconds on this rank)."""
+    out, seconds = [], []
+    for name, kw in tasks:
+        t0 = time.perf_counter()
+        out.append(TASKS[name](mesh, **kw))
+        seconds.append(time.perf_counter() - t0)
+    return (out, seconds) if timed else out

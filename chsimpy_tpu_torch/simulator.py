@@ -111,7 +111,8 @@ def render_solution_png(params: Parameters, solution, fname: str) -> None:
 
 # run-control fields the command line keeps when --restore loads the
 # physics parameters from the checkpoint; the port's device and process
-# group backend too (the file's mesh_shape wins, as in the JAX package)
+# group backend too (the file's mesh_shape holds, as in the JAX package,
+# unless the caller gives --mesh: a world of another shape)
 _RESTORE_CLI_FIELDS = ('ntmax', 'time_max', 'update_every', 'no_gui', 'png',
                        'png_anim', 'yaml', 'export_csv', 'compress_csv',
                        'file_id', 'no_diagrams', 'checkpoint_file',
@@ -126,7 +127,8 @@ class Simulator:
             from .checkpoint import restore_solver
             solver = restore_solver(self.params.restore_file,
                                     device=self.params.device,
-                                    dist_backend=self.params.dist_backend)
+                                    dist_backend=self.params.dist_backend,
+                                    mesh_shape=self.params.mesh_shape)
             # the checkpoint's physics parameters win; run control from
             # the caller
             for name in _RESTORE_CLI_FIELDS:

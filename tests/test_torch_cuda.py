@@ -1,8 +1,8 @@
 """The CUDA kernels of chsimpy_tpu_torch (the GEMM, the grid-sharded
-K7/K8 and K7_members, the Sobol jitter K9 and the threefry jitter K10
-included) against their plain PyTorch versions, and the ozaki, split
-and FFT transforms, short solves and a grid-sharded solve of ranks sharing
-the card on the card against the same on the CPU.
+K7/K8 and K7_members, the Sobol jitter K9, the threefry jitter K10 and K5
+sharded included) against their plain PyTorch versions, and the ozaki,
+split and FFT transforms, short solves and grid-sharded and pencil solves
+of ranks sharing the card on the card against the same on the CPU.
 
 These tests need an NVIDIA card with ``nvcc`` (they build the kernels of
 ``csrc/``); without one they skip.  They import no jax, so
@@ -226,6 +226,23 @@ def _route(N, route, L, device):
     rf, sc = oz.dct_rfold_slices(N, L, device)
     return (lambda x, s: oz.dct2_ozaki_rfold(x, rf, sc, L, *s),
             lambda y: oz.idct2_ozaki_rfold(y, rf, sc, L), L + 1)
+
+
+@pytest.mark.parametrize('M', [16, 24, 32, 40, 48, 64, 96, 128, 136])
+@pytest.mark.parametrize('K_,N', [(64, 64), (128, 64), (64, 24),
+                                  (256, 256), (129, 9)])
+def test_int8_matmul_exact_on_card(card, M, K_, N):
+    """The int8 products on the card, the int64 product's values on every
+    shape: cuBLASLt refuses (16, 24, 40, 48, 136) x 64 @ 64 x 64 int8
+    operands, which ``int8_matmul`` pads or multiplies in float64."""
+    rng = np.random.default_rng(M * K_ + N)
+    a = rng.integers(-128, 128, (M, K_)).astype(np.int8)
+    b = rng.integers(-128, 128, (K_, N)).astype(np.int8)
+    got = oz.int8_matmul(torch.tensor(a, device=card),
+                         torch.tensor(b, device=card))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  a.astype(np.int64) @ b.astype(np.int64))
 
 
 @pytest.mark.parametrize('route,N,L', [('unfold', 129, 0), ('fold', 256, 0),
@@ -797,3 +814,75 @@ def test_ensemble_on_card_matches_single_runs(card, transform):
         assert s.computed_steps == ref.computed_steps
         np.testing.assert_allclose(s.timedata.data()[:, 1],
                                    ref.timedata.data()[:, 1], rtol=1e-12)
+
+
+# ----------------------------------------------------------------------
+# the pencil layout: K5 sharded, and a pencil world of ranks on the card
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize('layout', ['field', 'spec'])
+@pytest.mark.parametrize('N,D,R', [(64, 4, 0), (1000, 4, 0), (64, 4, 3),
+                                   (40, 2, 2)])
+def test_slice_sharded_kernel_gives_whole_field_bits(card, layout, N, D, R):
+    """K5 sharded's three launches with the max of the blocks' words
+    taken on the card (the world max of D ranks): each block's planes are
+    K5's on the whole field restricted to the block, the scale the whole
+    field's, to the bit; the max one ulp above 2^8 in one block only."""
+    rng = np.random.default_rng(N + D + R)
+    x = rng.standard_normal((max(R, 1), N, N))
+    x[-1, N // 3, N // D + 1] = -np.nextafter(256.0, np.inf)
+    if layout == 'spec':
+        x = x.transpose(0, 2, 1).copy()
+    t = torch.tensor(x if R else x[0], device=card)
+    whole, wscale = (K.slice_field_members(t, 6) if R
+                     else K.slice_field(t, 6))
+    c = N // D
+    blocks = [(t[..., :, j * c:(j + 1) * c] if layout == 'field'
+               else t[..., j * c:(j + 1) * c, :]).contiguous()
+              for j in range(D)]
+    bits = torch.stack([K._slice_max_launch(b, max(R, 1)) for b in blocks])
+    scale, inv = K._slice_finish_launch(bits.amax(dim=0))
+    for j, b in enumerate(blocks):
+        planes = (K._slice_members_planes_launch(b, inv, 6) if R
+                  else K._slice_planes_launch(b, inv, 6))
+        want = (whole[..., :, j * c:(j + 1) * c] if layout == 'field'
+                else whole[..., j * c:(j + 1) * c, :])
+        assert torch.equal(planes, want)
+    assert torch.equal(scale.reshape(wscale.shape), wscale)
+
+
+def test_pencil_world_on_card_matches_cpu(card):
+    """A 2x2 pencil world of gloo ranks sharing the card, split and ozaki,
+    and split with the host stream, K9 and K10 jitter on the column
+    blocks, against the same world on the CPU; K5 sharded once per
+    transform on ozaki, K9 and K10 once a step."""
+    from chsimpy_tpu_torch.parallel.distributed import spawn_grid
+    from chsimpy_tpu_torch.parallel.workers import run_tasks
+    kw = dict(N=64, ntmax=30, full_sim=True, generator='lcg',
+              kappa_tilde=KAPPA)
+    jitter = [dict(generator='uniform', jitter=0.01),
+              dict(generator='sobol', jitter=0.01, jitter_backend='device'),
+              dict(generator='uniform', jitter=0.01,
+                   jitter_backend='device')]
+    tasks = [('solve', dict(params=dict(kw, transform_backend=t)))
+             for t in ('split', 'ozaki')] + [
+        ('solve', dict(params=dict(kw, transform_backend='split', **j)))
+        for j in jitter]
+    res = spawn_grid(run_tasks, (2, 2), backend='gloo', device='cuda',
+                     args=(tasks,), timeout=600)
+    cpu = spawn_grid(run_tasks, (2, 2), backend='gloo', device='cpu',
+                     args=([(n, dict(params=dict(k['params'], device='cpu')))
+                            for n, k in tasks],), timeout=600)
+    for r in res:
+        for i in range(len(tasks)):
+            assert r[i]['pencil']
+            assert np.array_equal(r[i]['timedata'], res[0][i]['timedata'])
+            np.testing.assert_allclose(r[i]['timedata'][:, 1],
+                                       cpu[0][i]['timedata'][:, 1],
+                                       rtol=1e-12)
+            np.testing.assert_allclose(r[i]['U'], cpu[0][i]['U'], rtol=0,
+                                       atol=1e-12)
+        assert r[1]['launches']['slice_field_sharded'] == 1 + 2 * 29
+        assert r[1]['launches']['slice_field'] == 0
+        assert r[3]['launches']['sobol_jitter'] == 29
+        assert r[4]['launches']['threefry_jitter'] == 29

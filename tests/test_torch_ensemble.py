@@ -202,10 +202,13 @@ def test_ensemble_refusals_name_their_items(tmp_path):
             for a, b in zip(e.solve_or_resume(12), want):
                 assert np.array_equal(a.timedata.data(), b.timedata.data())
                 assert torch.equal(a.U, b.U)
-    # split and ozaki with grid-sharded member fields: the pencil layout
-    for tb in ('split', 'ozaki'):
-        with pytest.raises(NotImplementedError, match='item 11'):
-            EnsembleSolver(port_params(mesh_shape=(2, 2), precision='float64',
+    # split and ozaki with grid-sharded member fields take the pencil
+    # layout where the rank count divides N; N=34 on 4 ranks stays refused
+    for tb, exc, match in (('split', ValueError, 'device count 4'),
+                           ('ozaki', NotImplementedError, 'item 11')):
+        with pytest.raises(exc, match=match):
+            EnsembleSolver(port_params(N=34, mesh_shape=(2, 2),
+                                       precision='float64',
                                        transform_backend=tb), pairs)
     with pytest.raises(NotImplementedError, match='item 14'):
         EnsembleSolver(port_params(fold_field=True), pairs)

@@ -147,7 +147,11 @@ def test_params_carried_from_jax():
     d = jp.scalar_dict()
     d['mesh_shape'] = [2, 4]
     assert convert.params_from_jax(d, device='cpu').mesh_shape == (2, 4)
+    # split and ozaki take the pencil layout where the rank count divides
+    # N; the grid ozaki route (N=100 on 8 ranks) is not ported
     d['transform_backend'] = 'split'
+    assert convert.params_from_jax(d, device='cpu').mesh_shape == (2, 4)
+    d.update(transform_backend='ozaki', N=100)
     with pytest.raises(NotImplementedError, match='item 11'):
         convert.params_from_jax(d)
     d = jp.scalar_dict()
@@ -211,9 +215,10 @@ def test_solver_refuses_settings_not_ported(tmp_path):
             assert torch.equal(r.solution.U, sol.U)
     finally:
         dist.destroy_process_group()
-    # the grid mesh runs the matmul route; the pencil split route is later
-    p = ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA, no_gui=True,
-                       mesh_shape=(2, 2), transform_backend='split')
+    # the grid mesh runs the matmul route, the pencil layout split and
+    # ozaki where the rank count divides N; the grid ozaki route is later
+    p = ctt.Parameters(N=18, device='cpu', kappa_tilde=KAPPA, no_gui=True,
+                       mesh_shape=(2, 2), transform_backend='ozaki')
     with pytest.raises(NotImplementedError, match='item 11'):
         ctt.Solver(p)
     # the default run's view (item 13) is ported: the Simulator takes it
@@ -292,7 +297,7 @@ def test_cli_parses_the_slice_and_refuses_the_rest(capsys):
     for argv, item in ((['--no-gui', '--checkpoint-every', '5'],
                         'no --checkpoint-file'),
                        (['--no-gui', '--mesh', '2x2', '--transform',
-                         'split'], 'item 11'),
+                         'ozaki', '-N', '66'], 'item 11'),
                        (['--no-gui', '--export-csv', 'none'],
                         'valid entries'),
                        (['--no-gui', '-C'], 'no --export-csv'),

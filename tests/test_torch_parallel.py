@@ -204,13 +204,16 @@ def test_mesh_needs_divisible_N():
 
 
 @pytest.mark.parametrize('transform,exc,match', [
-    ('split', NotImplementedError, 'item 11'),
+    ('split', ValueError, 'divisible by the device count 4'),
     ('ozaki', NotImplementedError, 'item 11'),
     ('fft', ValueError, 'does not shard under --mesh'),
 ])
 def test_mesh_refuses_the_other_routes(transform, exc, match):
+    # split and ozaki take the pencil layout where the rank count divides
+    # N (tests/test_torch_pencil.py); N=66 on 4 ranks leaves what stays
+    # refused: split (the JAX package's guard) and the grid ozaki route
     with pytest.raises(exc, match=match):
-        ctt.Solver(_params(N=64, mesh_shape=(2, 2),
+        ctt.Solver(_params(N=66, mesh_shape=(2, 2), precision='float64',
                            transform_backend=transform))
 
 
@@ -252,7 +255,8 @@ def test_cli_parses_the_mesh(capsys):
     assert (p.mesh_shape, p.dist_backend) == ((2, 4), 'gloo')
     assert CLIParser().get_parameters(['--no-gui']).mesh_shape is None
     for argv, msg in ((['--mesh', 'banana'], 'must look like'),
-                      (['--mesh', '2x2', '--transform', 'split'], 'item 11'),
+                      (['--mesh', '2x2', '--transform', 'ozaki', '-N', '66'],
+                       'item 11'),
                       (['--dist-backend', 'mpi'], 'invalid choice')):
         with pytest.raises(SystemExit):
             CLIParser().get_parameters(['--no-gui'] + argv)
