@@ -300,6 +300,27 @@ Phases (each raises on failure, so the script exits nonzero):
    JSON line's count);
    (f) (b)'s split file (step 1601) restored on a 1x4 mesh of the world's
    ranks: stop 1674, the re-entered run's rows to the bit;
+   the grid layout where 4 does not divide N, in the same world:
+   (g) K7, K8, K2 and K4 on every block of grids whose block sides are
+   no multiple of 8 (2047, 501, 20, 18 x 9, 17) against their plain
+   versions, K7 and K8 timed on 2047 and 501 blocks; N=4094 float32
+   matmul over 32 steps: E within 1e-6 of one device's run from the same
+   field;
+   (h) N=4094 float64 ozaki (the grid ozaki route) over 32 steps: E
+   within 1e-10 of one device's float64 matmul run at every step, the
+   same rows on every rank, K5 sharded twice a step iteration (the JSON
+   line's count), ms a step and peak GB a rank, the audit's bytes;
+   (i) N=1002 float64 ozaki with the forward pairs (5, 7) over 256 steps:
+   E within 1e-10 of one device's ozaki run with the same pairs;
+   (j) K5 sharded on every block of the 2x2 grid at N=4094 and N=1002 =
+   K5 on the whole field restricted to the block, to the bit, and timed
+   on a block (the JSON line's row);
+   (k) ``benchmarks/scaling.py`` on the world, ``--axis grid`` and
+   ``ens`` at N=1024 float32 over 64 steps: its JSON line and keys;
+   (l) ``benchmarks/rank_profile.py``: rank 0's ``torch.profiler`` trace
+   of 4 more step iterations of (h)'s grid ozaki run and (c)'s pencil
+   split run: the top device operations and the host's gaps by what the
+   host was doing;
    with one card per rank, (b) and (c) again on NCCL; otherwise a line
    saying why it did not run.
    Phase 3's kernel window is bracketed by nvidia-smi's SM clock,
@@ -4416,6 +4437,24 @@ PENCIL_CKPT_STEP = 1601
 # stop; a world step of the ozaki route costs ~30-40 ms on gloo ranks that
 # share the card, so its run to the stop would take the phase past 150 s)
 PENCIL_OZAKI_STEPS = 640
+# (g)-(l): the grid layout where the rank count does not divide N, in the
+# same world.  (g): K7, K8, K2 and K4 on every block of a grid whose block
+# sides are no multiple of 8 (N, mesh), timed on the GRID_TIMED_NS blocks;
+# the float32 matmul run (N, steps)
+GRID_BLOCK_CASES = ((4094, (2, 2)), (1002, (2, 2)), (40, (2, 2)),
+                    (36, (2, 4)), (34, (2, 2)))
+GRID_TIMED_NS = (4094, 1002)
+GRID_F32 = (4094, 32)
+GRID_OZAKI = (4094, 32)         # (h): N, steps (float64 ozaki, (3, 5))
+GRID_OZAKI_PINNED = (1002, 256)  # (i): N, steps, ozaki_fwd_pairs (5, 7)
+GRID_CHUNK = 16
+# (j): K5 sharded on each block of the 2x2 grid: (N, kind); the timed
+# block calls (the JSON line's row: a block of N=4094, 6 slices)
+GRID_SLICE_CASES = ((4094, 'block'), (4094, 'ulp'), (1002, 'block'),
+                    (1002, 'ulp'))
+GRID_SLICE_REPORT = (4094, 6)
+GRID_SCALING = (1024, 64)       # (k): N, steps (float32)
+GRID_PROFILE_STEPS = 4          # (l): traced step iterations after (c), (h)
 
 
 class _OneRank:
@@ -4604,6 +4643,170 @@ def pencil_block_kernels(dev, card):
     return rows
 
 
+def grid_block_kernels(dev, card):
+    """(g) K7, K8, K2 and K4 on every block of GRID_BLOCK_CASES' grids
+    (sides 2047, 501, 20, 18 x 9 and 17: no multiple of 8) against their
+    plain versions (K3's tolerances, the count exact; K8 also K1's bits on
+    the block), the blocks' K7 sums in rank order against K3 on the whole
+    field; K7 and K8 timed on block (1, 0) of GRID_TIMED_NS."""
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    for N, (mx, my) in GRID_BLOCK_CASES:
+        bn, bw = N // mx, N // my
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
+            cfg, c, U, E, hat_U, hat_E = kernel_inputs(N, dtype, dev)
+            skw = dict(N=N, delx=cfg.delx, RT=cfg.RT, B=cfg.B,
+                       threshold=cfg.threshold)
+            whole = K.stats_sums(U, E, cfg.A0, cfg.A1,
+                                 **{k: v for k, v in skw.items()
+                                    if k != 'N'})
+            rtol = 1e-12 if dtype == torch.float64 else 1e-5
+            rtol2 = 1e-12 if dtype == torch.float64 else 1e-6
+            mean = (U.double().sum() / (N * N)).to(dtype)
+            total, k7, k8, k4 = None, 0.0, 0.0, 0.0
+            k8_same = k2_ok = count_ok = True
+            for i in range(mx):
+                for j in range(my):
+                    Ub, halo = block_halo(U, i, j, bn, bw)
+                    Eb = block_halo(E, i, j, bn, bw)[0]
+                    args = (Ub, *halo, Eb, cfg.A0, cfg.A1, i * bn, j * bw)
+                    got = K.local_band_sums(*args, **skw)
+                    want = K.local_band_sums_ref(*args, **skw)
+                    b8 = K.chemical_potential_sharded(
+                        None, Ub, cfg.RT, cfg.BRT, cfg.A0, cfg.A1)
+                    k1 = K.chemical_potential(Ub, cfg.RT, cfg.BRT, cfg.A0,
+                                              cfg.A1)
+                    p8 = K.chemical_potential_ref(Ub, cfg.RT, cfg.BRT,
+                                                  cfg.A0, cfg.A1)
+                    a4 = K.absdev_sum(Ub, mean)
+                    r4 = K.absdev_sum_ref(Ub, mean)
+                    blk = (slice(i * bn, (i + 1) * bn),
+                           slice(j * bw, (j + 1) * bw))
+                    Xb = tuple(t[blk].contiguous() for t in
+                               (hat_U, hat_E, c['Seig'], c['CHeig']))
+                    g2, w2 = K.spectral_update(*Xb), \
+                        K.spectral_update_ref(*Xb)
+                    torch.cuda.synchronize()
+                    k7 = max(k7, ((got - want).abs()
+                                  / want.abs()).max().item())
+                    count_ok = count_ok and got[3].item() == want[3].item()
+                    k8_same = k8_same and torch.equal(b8, k1)
+                    k8 = max(k8, ((b8 - p8).abs()
+                                  / p8.abs()).max().item())
+                    k4 = max(k4, abs(a4.item() - r4.item())
+                             / abs(r4.item()))
+                    k2_ok = k2_ok and bool(((g2 - w2).abs()
+                                            <= rtol2 * w2.abs()).all())
+                    total = got if total is None else total + got
+            total_rel = ((total - whole).abs() / whole.abs()).max().item()
+            row = {'N': N, 'mesh': '%dx%d' % (mx, my), 'dtype': dname,
+                   'block': f'{bn}x{bw}', 'K7_max_rel_err': k7,
+                   'K7_count_exact': count_ok,
+                   'K7_blocks_vs_K3_max_rel': total_rel,
+                   'K8_max_rel_err': k8, 'K8_same_bits_as_K1': k8_same,
+                   'K4_max_rel_err': k4, 'K2_ok': k2_ok,
+                   'tolerance': f"K7, K8, K4 rtol {rtol:g} (K7's count "
+                                f"exact), blocks vs K3 "
+                                f"{SHARD_TOTAL_RTOL[dname]:g}; K8 = K1 "
+                                f"bits; K2 rtol {rtol2:g}"}
+            if N in GRID_TIMED_NS:
+                Ub, halo = block_halo(U, 1, 0, bn, bw)
+                Eb = block_halo(E, 1, 0, bn, bw)[0]
+                args = (Ub, *halo, Eb, cfg.A0, cfg.A1, bn, 0)
+                row['K7'] = {**timed_row(
+                    lambda: K.local_band_sums(*args, **skw),
+                    lambda: K.local_band_sums_ref(*args, **skw)),
+                    **bound_fields(*stats_bytes_ops(Ub), dname)}
+                row['K8'] = {**timed_row(
+                    lambda: K.chemical_potential_sharded(
+                        None, Ub, cfg.RT, cfg.BRT, cfg.A0, cfg.A1),
+                    lambda: K.chemical_potential_ref(
+                        Ub, cfg.RT, cfg.BRT, cfg.A0, cfg.A1)),
+                    **bound_fields(*mu_bytes_ops(Ub), dname)}
+            rows.append(row)
+            times = ''.join(f"; {k} {row[k]['ms']:.4f} ms (one call "
+                            f"{row[k]['call_ms']:.4f}, plain "
+                            f"{row[k]['plain_ms']:.4f}, bound "
+                            f"{row[k]['bound_ms']:.4f})"
+                            for k in ('K7', 'K8') if k in row)
+            print(f"phase 15 (g) grid blocks {bn}x{bw} of N={N} on "
+                  f"{mx}x{my} {dname}: K7 rel {k7:.3e}, blocks vs K3 "
+                  f"{total_rel:.3e}; K8 rel {k8:.3e}, = K1 {k8_same}; K4 "
+                  f"rel {k4:.3e}; K2 {k2_ok}{times}  ({card})", flush=True)
+            check(k7 <= rtol and count_ok and k8 <= rtol and k8_same
+                  and total_rel <= SHARD_TOTAL_RTOL[dname] and k4 <= rtol
+                  and k2_ok, f"phase 15 (g) grid blocks N={N} {dname}: "
+                             f"{row}")
+    return rows
+
+
+def grid_slice_timing(dev, card):
+    """(j) K5 sharded timed on block (1, 0) of the 2x2 grid at N=4094
+    and N=1002 (its world max left out: a one-rank grid), with the
+    forward's column strip (N, N/2) at a given max, the plain version,
+    each launch alone, four block calls beside one whole-field K5, and
+    the bound; the block's planes against the plain version's."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    one = _OneRank()
+    n = GRID_SLICE_REPORT[1]
+    for N in GRID_TIMED_NS:
+        rng = np.random.default_rng(N)
+        x = torch.tensor(rng.standard_normal((N, N)), device=dev)
+        h = N // 2
+        b = x[h:, :h].contiguous()
+        strip = x[:, :h].contiguous()
+        amax = torch.abs(x).amax()
+        bits = K._slice_max_launch(b, 1)
+        _, inv = K._slice_finish_launch(bits)
+        row = {'name': 'slice_field_sharded', 'N': N, 'n_slices': n,
+               'block': '%dx%d' % tuple(b.shape), 'layout': 'grid 2x2',
+               **timed_row(lambda: K.slice_field_sharded(b, one, n),
+                           lambda: K.slice_field_ref(b, n, amax)),
+               'strip_ms': device_ms(lambda: K.slice_field_sharded(
+                   strip, one, n, amax=amax)),
+               'launch_ms': {
+                   'max pass (max-only mode)': device_ms(
+                       lambda: K._slice_max_launch(b, 1)),
+                   'slice_finish_kernel': device_ms(
+                       lambda: K._slice_finish_launch(bits)),
+                   'slice_kernel': device_ms(
+                       lambda: K._slice_planes_launch(b, inv, n))},
+               'whole_field_K5_ms': device_ms(lambda: K.slice_field(x, n)),
+               'library_ms': None,
+               **bound_fields(b.numel() * (8 + n),
+                              (OPS_PER_ELEM['slice_setup']
+                               + OPS_PER_ELEM['slice_per_plane'] * n)
+                              * b.numel(), 'float64')}
+        got, sc = K.slice_field_sharded(b, one, n)
+        want, wsc = K.slice_field_ref(b, n)
+        torch.cuda.synchronize()
+        row['max_abs_err'] = (got.int() - want.int()).abs().max().item()
+        row['four_blocks_ms'] = 4 * row['ms']
+        row['bound_share'] = row['bound_ms'] / row['ms']
+        check(row['max_abs_err'] == 0 and sc.item() == wsc.item(),
+              f"K5 sharded on a {row['block']} grid block: planes "
+              f"{row['max_abs_err']}, scale {sc.item()} vs {wsc.item()}")
+        rows.append(row)
+        launches = ', '.join(f"{k} {v:.4f}"
+                             for k, v in row['launch_ms'].items())
+        print(f"phase 15 (j) kernel slice_field_sharded on a {row['block']}"
+              f" block of {N}x{N} float64 (2x2 grid), {n} slices: "
+              f"{row['ms']:.4f} ms (one call {row['call_ms']:.4f}; "
+              f"{launches}; the forward's {N}x{h} strip at a given max "
+              f"{row['strip_ms']:.4f}) plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_share']:.0%}); 4 block "
+              f"calls {row['four_blocks_ms']:.4f} ms beside one whole-field "
+              f"K5 {row['whole_field_K5_ms']:.4f}  ({card})", flush=True)
+    return rows
+
+
 def pencil_world_tasks(ckpt):
     """The phase world's tasks, which each rank runs in turn, as a list
     of (key, task): the K5 sharded checks, the audits, (c), (d), (b) on
@@ -4640,7 +4843,8 @@ def pencil_world_tasks(ckpt):
     # (c), (d): two entries each, the second one timed, then the audit's
     # chunk
     a += [('fast', ('solve', {'params': fast, 'steps': [sf // 2, sf // 2],
-                              'return_U': False, 'audit_steps': 2})),
+                              'return_U': False, 'audit_steps': 2,
+                              'profile_steps': GRID_PROFILE_STEPS})),
           ('ozaki_4096', ('solve', {'params': oz,
                                     'steps': [so // 2, so // 2],
                                     'return_U': False,
@@ -4658,7 +4862,32 @@ def pencil_world_tasks(ckpt):
                                'steps': PENCIL_OZAKI_STEPS,
                                'return_U': False})),
           ('ens_split', ensemble('split')),
-          ('ens_ozaki', ensemble('ozaki')),
+          ('ens_ozaki', ensemble('ozaki'))]
+    # (g)-(l): the grid layout where 4 does not divide N
+    grid = {'full_sim': True, 'generator': 'uniform', 'kappa_tilde': KAPPA,
+            'chunk_size': GRID_CHUNK}
+    g32 = dict(grid, N=GRID_F32[0], precision='float32',
+               transform_backend='matmul')
+    goz = dict(grid, N=GRID_OZAKI[0], transform_backend='ozaki')
+    gpin = dict(grid, N=GRID_OZAKI_PINNED[0], transform_backend='ozaki',
+                ozaki_fwd_pairs=(5, 7), chunk_size=128)
+    half = [GRID_CHUNK, GRID_CHUNK]
+    Ns, ss = GRID_SCALING
+    a += [(('grid_slice', k), ('slice_sharded_check', {
+        'N': N, 'n_slices': PENCIL_SLICE_N, 'kind': kind, 'layout': 'grid',
+        'seed': N})) for k, (N, kind) in enumerate(GRID_SLICE_CASES)]
+    a += [('grid_f32', ('solve', {'params': g32, 'steps': half,
+                                  'return_U': False})),
+          ('grid_ozaki', ('solve', {'params': goz, 'steps': half,
+                                    'return_U': False, 'audit_steps': 2,
+                                    'profile_steps': GRID_PROFILE_STEPS})),
+          ('grid_ozaki_pinned', ('solve', {'params': gpin,
+                                           'steps': GRID_OZAKI_PINNED[1],
+                                           'return_U': False})),
+          ('scaling_grid', ('scaling', {'axis': 'grid', 'N': Ns,
+                                        'nsteps': ss})),
+          ('scaling_ens', ('scaling', {'axis': 'ens', 'N': Ns,
+                                       'nsteps': ss})),
           ('imported', ('imported', {}))]
     return a
 
@@ -4690,8 +4919,12 @@ def pencil_phase(dev, card, refs):
     import torch
     from chsimpy_tpu_torch import Parameters
 
+    t0 = time.perf_counter()
     out = {'slice_timing': pencil_slice_timing(dev, card),
-           'blocks': pencil_block_kernels(dev, card)}
+           'blocks': pencil_block_kernels(dev, card),
+           'grid_slice_timing': grid_slice_timing(dev, card),
+           'grid_blocks': grid_block_kernels(dev, card)}
+    kernel_seconds = time.perf_counter() - t0
     with open(os.path.join(ROOT, 'tests', 'golden',
                            'default_n512_anchors.json')) as f:
         g = json.load(f)
@@ -4709,6 +4942,7 @@ def pencil_phase(dev, card, refs):
 
     th = threading.Thread(target=run)
     th.start()
+    t1 = time.perf_counter()
     R, Ne, se = PENCIL_ENS
     pairs, kappas = canonical_pairs(R), list(CANONICAL_KAPPAS[:R])
     one = {}
@@ -4717,7 +4951,23 @@ def pencil_phase(dev, card, refs):
             Parameters(N=Ne, no_gui=True, device='cuda',
                        transform_backend=t), pairs, kappas, se)
         one[t] = [s.timedata.data()[:, 1] for s in sols]
+    # (g)-(i)'s one-device runs from the same fields
+    from chsimpy_tpu_torch.core.solver import Solver
+    grid_one = {}
+    for key, (N, steps), prec, tb, extra in (
+            ('f32', GRID_F32, 'float32', 'matmul', {}),
+            ('f64', GRID_OZAKI, 'float64', 'matmul', {}),
+            ('pinned', GRID_OZAKI_PINNED, 'float64', 'ozaki',
+             {'ozaki_fwd_pairs': (5, 7)})):
+        s1 = Solver(Parameters(N=N, precision=prec, full_sim=True,
+                               generator='uniform', kappa_tilde=KAPPA,
+                               chunk_size=steps, no_gui=True, device='cuda',
+                               transform_backend=tb, **extra))
+        s1.prepare()
+        grid_one[key] = np.array(s1.solve_or_resume(steps).timedata.E)
+        del s1
     torch.cuda.empty_cache()
+    one_seconds = time.perf_counter() - t1
     th.join()
     if 'error' in world:
         raise world['error']
@@ -4888,10 +5138,129 @@ def pencil_phase(dev, card, refs):
               == (1 + 2 * (se - 1) if t == 'ozaki' else 0)
               and lc['slice_field_members'] == 0,
               f"phase 15 (e) {t}: launches {lc}")
-    print(f"phase 15 world: {seconds:.1f} s; rank 0's tasks: "
+    out['grid'] = grid_phase_checks(res, grid_one, card)
+    out['kernel_seconds'], out['one_device_seconds'] = (kernel_seconds,
+                                                        one_seconds)
+    print(f"phase 15 kernels {kernel_seconds:.1f} s before the world; "
+          f"one-device runs {one_seconds:.1f} s beside it; world: "
+          f"{seconds:.1f} s; rank 0's tasks: "
           + ', '.join(f"{k} {v:.1f}" for k, v in task_seconds.items())
           + f"  ({card})", flush=True)
     out['nccl'] = pencil_nccl(card, refs, g)
+    return out
+
+
+def grid_phase_checks(res, one, card):
+    """(g)-(l) from the world's results: the runs against one device's
+    (``one``: E of the float32 and float64 matmul runs at N=4094 and of
+    the pinned ozaki run at N=1002), K5 sharded on the grid blocks, the
+    scaling lines and the profiles."""
+    import numpy as np
+    out = {}
+    # (j) K5 sharded on every block of the 2x2 grid
+    slices = []
+    for k, (N, kind) in enumerate(GRID_SLICE_CASES):
+        rr = res[('grid_slice', k)]
+        ok = all(r['max_diff_whole'] == 0 and r['max_diff_plain'] == 0
+                 and r['scale'] == r['whole_scale'] == r['plain_scale']
+                 == rr[0]['scale'] and r['launches']['slice_field_sharded']
+                 == 1 for r in rr)
+        slices.append({'N': N, 'kind': kind, 'ok': ok,
+                       'blocks': [r['block'] for r in rr],
+                       'scale': rr[0]['scale']})
+        print(f"phase 15 (j) K5 sharded N={N} {kind} on the 2x2 grid's "
+              f"blocks {rr[0]['block']}: planes = the whole field's K5 on "
+              f"every rank {ok}, scale {rr[0]['scale']}", flush=True)
+        check(ok, f"phase 15 (j) K5 sharded N={N} {kind}: {rr}")
+    out['slice_checks'] = slices
+    # (g), (h), (i): the runs
+    cases = (('g', 'grid_f32', 'f32', 1e-6, GRID_F32),
+             ('h', 'grid_ozaki', 'f64', 1e-10, GRID_OZAKI),
+             ('i', 'grid_ozaki_pinned', 'pinned', 1e-10, GRID_OZAKI_PINNED))
+    for part, key, ref, rtol, (N, steps) in cases:
+        rr = res[key]
+        r0 = rr[0]
+        E = r0['timedata'][:, 1]
+        rel = float(np.max(np.abs(E / one[ref] - 1)))
+        same = all(np.array_equal(r['timedata'], r0['timedata'])
+                   for r in rr)
+        # the last entry's seconds over its step iterations (g, h: the
+        # second entry of GRID_CHUNK; i: the one entry of steps - 1)
+        last = GRID_CHUNK if part != 'i' else steps - 1
+        o = {'N': N, 'steps': steps, 'E_max_rel_vs_one_device': rel,
+             'rows_same_on_every_rank': same,
+             'ms_per_step_iteration': [r['entry_seconds'][-1] / last * 1e3
+                                       for r in rr],
+             'peak_GB_per_rank': [r['peak_bytes'] / 1e9 for r in rr],
+             'launches': r0['launches'], 'block': r0['block_shapes']['U'],
+             'pencil': r0['pencil']}
+        if 'audit' in r0:
+            o['audit'] = r0['audit']
+        out[key] = o
+        what = {'g': f'float32 matmul vs one device\'s float32 matmul',
+                'h': 'float64 ozaki vs one device\'s float64 matmul',
+                'i': 'float64 ozaki (5, 7) vs one device\'s ozaki (5, 7)'}
+        print(f"phase 15 ({part}) N={N} {what[part]} on the 2x2 grid "
+              f"({o['block'][0]}x{o['block'][1]} blocks), {steps} steps: E "
+              f"{rel:.3e} (bound {rtol:g}), rows the same on every rank "
+              f"{same}; ms a step iteration "
+              + ', '.join(f'{m:.1f}' for m in o['ms_per_step_iteration'])
+              + '; peak GB a rank '
+              + ', '.join(f'{m:.2f}' for m in o['peak_GB_per_rank'])
+              + (f"; audit {_audit_line(o['audit'])}" if 'audit' in o
+                 else '') + f"  (4 ranks on one card, gloo)  ({card})",
+              flush=True)
+        check(not r0['pencil'] and len(E) == len(one[ref]) == steps
+              and r0['U_finite'] and same and rel <= rtol,
+              f"phase 15 ({part}): E {rel:.3e}, {o}")
+        lc = r0['launches']
+        it = steps - 1
+        k5 = 0 if part == 'g' else (2 if part != 'i' else 1) + 2 * it
+        check(lc['chemical_potential_sharded'] == it
+              and lc['spectral_update'] == it
+              and lc['local_band_sums'] == it + 1
+              and lc['slice_field_sharded'] == k5
+              and lc['slice_field'] == 0 and lc['chemical_potential'] == 0,
+              f"phase 15 ({part}): launches {lc}, {it} step iterations")
+    a = out['grid_ozaki']['audit']
+    check(a['max_single_collective_bytes'] < a['field_bytes']
+          and a['total_bytes'] <= 16 * a['field_bytes']
+          and a['per_op_bytes']['all-to-all'] == 0,
+          f"phase 15 (h) audit: {a}")
+    # (k) the scaling benchmark's lines
+    keys = {'grid': {'axis', 'N', 'devices', 'mesh', 'steps_per_s_1dev',
+                     'steps_per_s_mesh', 'speedup', 'scaling_efficiency'},
+            'ens': {'axis', 'N', 'devices', 'members',
+                    'member_steps_per_s_1dev', 'member_steps_per_s_mesh',
+                    'speedup', 'scaling_efficiency'}}
+    out['scaling'] = {}
+    for axis in ('grid', 'ens'):
+        line = res['scaling_' + axis][0]
+        out['scaling'][axis] = line
+        print(f"phase 15 (k) benchmarks/scaling.py --axis {axis} (4 gloo "
+              f"ranks sharing the card: no scaling figure): "
+              f"{json.dumps(line)}  ({card})", flush=True)
+        check(set(line) == keys[axis] and line['devices'] == 4
+              and line['speedup'] > 0
+              and all(r == line for r in res['scaling_' + axis]),
+              f"phase 15 (k) scaling --axis {axis}: {line}")
+    # (l) rank 0's profiles, after (h)'s and (c)'s runs
+    out['profile'] = {}
+    for key, run in (('grid_ozaki', 'grid_ozaki'), ('pencil_split', 'fast')):
+        prof = res[run][0]['profile']
+        out['profile'][key] = prof
+        top = ', '.join(f"{n} {ms:.2f} ms x{c}"
+                        for n, ms, c in prof['top_device'][:6])
+        gaps = ', '.join(f"{n} {ms:.2f}" for n, ms in prof['host_gaps'][:6])
+        print(f"phase 15 (l) torch.profiler, rank 0, {key} N="
+              f"{prof['N']} {prof['dtype']}, {prof['steps']} step "
+              f"iterations: window {prof['window_ms']:.1f} ms, device busy "
+              f"{prof['device_busy_ms']:.1f} ms (idle share "
+              f"{prof['device_idle_share']:.3f}, {prof['device_events']} "
+              f"device events); top device: {top}; host gaps (ms): {gaps}"
+              f"  ({card})", flush=True)
+        check(prof['window_ms'] > 0 and prof['top_host'],
+              f"phase 15 (l) {key}: {prof}")
     return out
 
 
@@ -5195,20 +5564,28 @@ def summary_rows(detail):
         'bound_share': row['bound_ms'] / row['ms']})
     # K5 sharded on a rank's pencil block (phase 15 (a)), counted on
     # phase 15 (b)'s canonical ozaki run and (e)'s ozaki grid ensemble
-    # (rank 0)
+    # (rank 0); on a rank's grid block (phase 15 (j)), counted on (h)'s
+    # N=4094 grid ozaki run (rank 0)
     pen = detail['pencil']
     world_err = max(max(c['max_diff_whole'], c['max_diff_plain'])
                     for c in pen['slice_checks'])
+    grid_row = next(r for r in pen['grid_slice_timing']
+                    if r['N'] == GRID_SLICE_REPORT[0])
     counted = (pen['canonical']['ozaki']['launches'][0][
         'slice_field_sharded'], pen['ensemble']['ozaki']['launches'][
-        'slice_field_members_sharded'])
-    for row, launches in zip(pen['slice_timing'], counted):
+        'slice_field_members_sharded'], pen['grid']['grid_ozaki'][
+        'launches']['slice_field_sharded'])
+    for row, launches in zip(pen['slice_timing'] + [grid_row], counted):
+        grid = row is grid_row
         rows.append({
             'name': row['name'], 'route': 'cuda', 'source': SOURCE,
-            'replaces': REPLACES['slice_field'] + ' on the pencil layout '
-                        '(the sharded ozaki route, chsimpy_tpu/core/'
-                        'stepper.py:690-705' + (', vmapped' if 'R' in row
-                                                else '') + ')',
+            'replaces': REPLACES['slice_field'] + (
+                ' on the grid layout (the GSPMD-partitioned ozaki route, '
+                'chsimpy_tpu/core/stepper.py:707-718)' if grid else
+                ' on the pencil layout (the sharded ozaki route, '
+                'chsimpy_tpu/core/stepper.py:690-705' + (
+                    ', vmapped' if 'R' in row else '') + ')'),
+            'layout': 'grid' if grid else 'pencil',
             'launches': launches,
             'max_abs_err': max(row['max_abs_err'], world_err),
             'ms': row['ms'], 'call_ms': row['call_ms'],
@@ -5221,6 +5598,7 @@ def summary_rows(detail):
                 'whole_field_K5_ms': row['whole_field_K5_ms']}
                if 'launch_ms' in row else
                {'single_launches_ms': row['single_launches_ms']}),
+            **({'strip_ms': row['strip_ms']} if grid else {}),
             'bound_share': row['bound_ms'] / row['ms']})
     return rows
 
@@ -5240,6 +5618,8 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     detail['row_absdev'] = row_absdev_kernel_phase(dev, card)
     detail['pencil_slices'] = pencil_slice_timing(dev, card)
     detail['pencil_blocks'] = pencil_block_kernels(dev, card)
+    detail['grid_slices'] = grid_slice_timing(dev, card)
+    detail['grid_blocks'] = grid_block_kernels(dev, card)
     report = [r for r in detail['kernels'] if r['N'] == REPORT_SHAPE[0]]
     report += [r for r in detail['sobol_kernel'] if 'ms' in r
                and r['N'] == SOBOL_REPORT[0]]
@@ -5254,7 +5634,7 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     report += detail['member_kernels']
     report += [r for r in detail['slice_members'] if 'ms' in r]
     report += detail['local_members'] + detail['row_absdev']
-    report += detail['pencil_slices']
+    report += detail['pencil_slices'] + detail['grid_slices']
     for r in report:
         if 'bound_ms' not in r:     # the slice kernel's row
             r.update(kernel_bound(r['name'], r['N'], 'float64'))

@@ -19,12 +19,14 @@ With ``mesh_shape`` the solve is sharded over the ranks of a
 builds the same initial field on the host and keeps its block; every rank
 holds the same scalars and rows, so each syncs, stops and returns the same
 solution (``solution.U`` is the gathered field).  The matmul route tiles
-the field over the grid (as the JAX package's ``--mesh MxN --kernels
-pallas``: K8, the grid DCTs, K2 and K7 on the block); the split and ozaki
-routes take the pencil layout when the rank count D divides N (as the JAX
-package resolves ``pencil``): the field in column blocks, the spectral
-image and its grids in row blocks, one transpose all-to-all per 2-D
-transform, K5 sharded on the ozaki route.
+the field over the grid (as the JAX package's ``--mesh MxN``: K8, the grid
+DCTs, K2 and K7 on the block); the split and ozaki routes take the pencil
+layout when the rank count D divides N (as the JAX package resolves
+``pencil``): the field in column blocks, the spectral image and its grids
+in row blocks, one transpose all-to-all per 2-D transform, K5 sharded on
+the ozaki route.  The ozaki route with N not divisible by D tiles the
+grid as the matmul route does (the grid ozaki route: strip gathers of the
+field and of the int8 slice stacks, K5 sharded).
 
 With ``checkpoint_file`` and ``checkpoint_every`` the solve saves a
 checkpoint (``checkpoint.py``) at the first chunk boundary at least
@@ -185,9 +187,10 @@ def resolve_pencil(params: Parameters, D: Optional[int]) -> bool:
     divisible by D (the JAX package's ``pencil``,
     ``chsimpy_tpu/core/solver.py:489-498``; the port has no
     ``--kernels``), with its guards: fft does not shard, split needs D to
-    divide N.  The ozaki route with N not divisible is refused
-    (``params.solver_scope_errors``).  The single run and the ensemble
-    both decide here."""
+    divide N.  The ozaki route with N not divisible by D takes the grid
+    layout (``ops/ozaki.py`` ``dct2_ozaki_grid``), as the JAX package's
+    GSPMD-partitioned unfolded route does.  The single run and the
+    ensemble both decide here."""
     if D is None:
         return False
     tb = params.transform_backend
@@ -203,15 +206,19 @@ def resolve_pencil(params: Parameters, D: Optional[int]) -> bool:
 
 
 def check_grid_mesh(params: Parameters) -> None:
-    """The JAX package's guard for its sharded Pallas kernels
-    (``core/solver.py``): N divisible by 8*mx (8-row bands per x-shard, a
-    TPU tile rule kept for parity; ROADMAP.md item 14) and by my."""
+    """N divisible by mx and by my: the grid layout's blocks are equal,
+    as the JAX package's ``device_put`` of the field onto its mesh needs
+    (an uneven split raises there).  The JAX package's stricter guard (N
+    divisible by 8*mx, ``chsimpy_tpu/core/solver.py:503-516``) holds only
+    for its ``kernel_backend='pallas'``, whose banded kernels tile to the
+    TPU's (8, 128) geometry; its default path and the port's kernels take
+    any block."""
     mx, my = params.mesh_shape
     N = params.N
-    if N % (mx * 8) or N % my:
+    if N % mx or N % my:
         raise ValueError(
-            f"the sharded kernels with mesh {mx}x{my} need N divisible by "
-            f"{mx * 8} (8-row bands per x-shard) and by {my}; got N={N}")
+            f"N={N} does not tile a {mx}x{my} mesh: N must be divisible "
+            f"by {mx} and by {my}")
 
 
 class Solver:
@@ -258,8 +265,7 @@ class Solver:
         transform = resolve_transform(params)
         self.mesh = None
         if params.mesh_shape is not None:
-            if not pencil:
-                check_grid_mesh(params)
+            check_grid_mesh(params)
             resolve_backend(params.dist_backend, self.device)
             self.mesh = GridMesh(params.mesh_shape, self.device)
         d = self.derived

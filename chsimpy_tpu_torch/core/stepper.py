@@ -2,13 +2,12 @@
 
 Port of ``chsimpy_tpu/core/stepper.py`` for the slices the port runs: fixed
 or adaptive ``delt``, per-step jitter, the matmul, split and FFT DCT routes
-and the float64 ozaki route on one device, the matmul route on a grid mesh
-of ranks (``mesh``: each rank steps its block of the field), the split and
-ozaki routes on the pencil layout of a mesh (``cfg.pencil``: each rank
-holds a column block of the field and a row block of the spectral image,
-``parallel/mesh.py``), ``full_sim`` and the energy early stop, the
-``time_max`` limit and the NaN guard.  One
-step does, in order:
+and the float64 ozaki route on one device, the matmul and ozaki routes on
+a grid mesh of ranks (``mesh``: each rank steps its block of the field),
+the split and ozaki routes on the pencil layout of a mesh (``cfg.pencil``:
+each rank holds a column block of the field and a row block of the
+spectral image, ``parallel/mesh.py``), ``full_sim`` and the energy early
+stop, the ``time_max`` limit and the NaN guard.  One step does, in order:
 
   nonlinear term (kernel K1)
   -> adaptive delt and coefficient grids rebuilt (``adaptive_time``)
@@ -174,10 +173,10 @@ def make_consts(cfg: StepConfig, delt: float, device='cpu') -> dict:
     elif L:
         rf = ozaki_ops.dct_rfold_slices(N, L, device)[0]
     elif cfg.ozaki_fold:
-        fs = ozaki_ops.dct_fold_slices(N)
+        fs = ozaki_ops.dct_fold_slices(N, device)
         host.update({k: fs[k] for k in _FOLD_KEYS})
     else:
-        host['Cs'], host['CsT'], _ = ozaki_ops.dct_slices(N)
+        host['Cs'], host['CsT'], _ = ozaki_ops.dct_slices(N, device)
     leig = coeffs_ops.eigenvalues(N, dtype)
     eaxis = coeffs_ops.eigenvalue_axis(N)
     if L:
@@ -215,8 +214,8 @@ def field_mesh(cfg: StepConfig, mesh):
 def dct2_route(cfg: StepConfig, consts, U, pairs=None, mesh=None):
     """Forward 2-D DCT of the configured route (the ozaki routes with the
     pair cutoffs ``pairs``; None = untrimmed).  On a grid mesh U is this
-    rank's block and the route is matmul; on the pencil layout U is a
-    column block and the result a row block (split or ozaki)."""
+    rank's block and the route matmul or ozaki; on the pencil layout U is
+    a column block and the result a row block (split or ozaki)."""
     tb = cfg.transform_backend
     if mesh is not None and cfg.pencil:
         if tb == 'split':
@@ -225,6 +224,11 @@ def dct2_route(cfg: StepConfig, consts, U, pairs=None, mesh=None):
         return ozaki_ops.dct2_ozaki_pencil(
             U, consts['Cs'], consts['CsT'], ozaki_ops.dct_scale(cfg.N),
             mesh, s1=s1, s2=s2)
+    if mesh is not None and tb == 'ozaki':
+        s1, s2 = _pairs(pairs)
+        return ozaki_ops.dct2_ozaki_grid(
+            U, consts['ozaki_grid'], ozaki_ops.dct_scale(cfg.N), mesh,
+            s1=s1, s2=s2)
     if mesh is not None:
         return dct_ops.dct2_grid(U, consts['C'], mesh)
     if tb == 'split':
@@ -255,6 +259,9 @@ def idct2_route(cfg: StepConfig, consts, X, mesh=None):
             return dct_ops.idct2_split_perm_pencil(X, consts['tree'], mesh)
         return ozaki_ops.idct2_ozaki_pencil(
             X, consts['Cs'], consts['CsT'], ozaki_ops.dct_scale(cfg.N), mesh)
+    if mesh is not None and tb == 'ozaki':
+        return ozaki_ops.idct2_ozaki_grid(
+            X, consts['ozaki_grid'], ozaki_ops.dct_scale(cfg.N), mesh)
     if mesh is not None:
         return dct_ops.idct2_grid(X, consts['C'], mesh)
     if tb == 'split':

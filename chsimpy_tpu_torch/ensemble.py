@@ -35,7 +35,9 @@ K4_members), on the split and ozaki routes in the pencil layout when the
 grid's rank count D divides N (the members' column blocks, their spectral
 images in row blocks, one transpose of the stack per 2-D transform,
 K5_members sharded on the ozaki route, K7_members on the column blocks;
-``vmap`` adds the member axis to the pencil specs in the JAX package).
+``vmap`` adds the member axis to the pencil specs in the JAX package),
+and on the ozaki route with N not divisible by D as a grid again (the
+grid ozaki transforms of the stacked blocks, K5_members sharded).
 Each rank builds the constants and state of its own members.  The host
 side (rows, stops, counters; the fields for ``solutions()`` and
 checkpoints) is gathered over the ens axis (and the fields over the
@@ -44,10 +46,9 @@ gives it, and every rank takes the same chunks.
 ``params.mesh_shape`` without a ``mesh`` builds the mesh on the
 initialized process group (its world over the grid's ranks is E).
 
-Refused: the ozaki route with grid-sharded member fields and N not
-divisible by D (the grid ozaki route, ROADMAP.md item 11), and split with
-N not divisible by D (the JAX package's guard).  The JAX ensemble has no
-device jitter, so ``jitter_backend='device'`` is refused too.
+Refused, as in the JAX package: split with N not divisible by D, and a
+grid that N does not tile.  The JAX ensemble has no device jitter, so
+``jitter_backend='device'`` is refused too.
 """
 
 from __future__ import annotations
@@ -59,8 +60,9 @@ import torch
 
 from . import material
 from .core.solver import (_JITTER_BUF_BYTES, _resolve_rfold_levels,
-                          check_split_levels, resolve_ozaki_fwd_pairs,
-                          resolve_pencil, resolve_transform)
+                          check_grid_mesh, check_split_levels,
+                          resolve_ozaki_fwd_pairs, resolve_pencil,
+                          resolve_transform)
 from .core.state import STOP_NAN, STOP_NONE, STOP_STRINGS, init_members_state
 from .core.stepper import (StepConfig, entry_dct2, field_mesh,
                            make_members_consts, prepare_members_row0,
@@ -68,7 +70,7 @@ from .core.stepper import (StepConfig, entry_dct2, field_mesh,
 from .derived import Derived
 from .device import resolve_device
 from .ops import dct as dct_ops
-from .params import Parameters, check_solver_scope, not_ported
+from .params import Parameters, check_solver_scope
 from .parallel.sharding import (block_slices, gather_field, gather_members,
                                 member_slice, shard_consts, shard_field,
                                 shard_members)
@@ -104,17 +106,6 @@ def _grid_sharded(params: Parameters, mesh=None) -> bool:
     return _grid_devices(params, mesh) > 1
 
 
-def ensemble_scope_errors(params: Parameters, mesh=None) -> list:
-    """Why the ensemble cannot run ``params`` (on ``mesh``) (empty: it
-    can), beyond the single solver's refusals."""
-    D = _grid_devices(params, mesh)
-    if D > 1 and params.transform_backend == 'ozaki' and params.N % D:
-        return [not_ported('--transform ozaki with grid-sharded member '
-                           'fields and N not divisible by the rank count '
-                           '(the grid ozaki route)', 11)]
-    return []
-
-
 def _build_mesh(params: Parameters, device):
     """The ('ens', 'x', 'y') mesh of ``params.mesh_shape`` on the
     initialized process group: E is the world over the grid's ranks."""
@@ -146,10 +137,9 @@ class EnsembleSolver:
                  U_init: Optional[np.ndarray] = None, mesh=None,
                  kappas: Optional[np.ndarray] = None):
         self.params = params
-        errs = ensemble_scope_errors(params, mesh)
-        if errs:
-            raise NotImplementedError('; '.join(errs))
         check_solver_scope(params)
+        if params.mesh_shape is not None:
+            check_grid_mesh(params)
         self.device = resolve_device(params.device)
         D = _grid_devices(params, mesh)
         pencil = resolve_pencil(params, D if D > 1 else None)

@@ -56,7 +56,7 @@ import numpy as np
 from . import ensemble, material, sysinfo
 from .cli import CLIParser
 from .device import resolve_device
-from .ensemble import EnsembleSolver, ensemble_scope_errors
+from .ensemble import EnsembleSolver
 from .io import csvio
 from .solution import Solution
 
@@ -177,9 +177,6 @@ class ExperimentCLIParser:
                 parser.error('ERROR: distributed experiments need an '
                              'explicit --file-id (auto ids are timestamps; '
                              'the processes would disagree).')
-        errs = ensemble_scope_errors(params)
-        if errs:
-            parser.error('; '.join(errs))
         exp_params.processes = args.processes
         exp_params.A_seed = args.A_seed
         exp_params.host_procs = args.host_procs

@@ -5,7 +5,7 @@ cut into int8 slices at a shared power-of-two scale,
 
     x = sx * sum_i X_i 2^{-7(i+1)},  X_i int8, |X_i| <= 64,
 
-the DCT matrix likewise (on the host, once), and each slice pair is one
+the DCT matrix likewise (once, on its device), and each slice pair is one
 exact int8 x int8 -> int32 matrix product.  Products are summed into int32
 groups by i + j, the groups of the first 1-D pass are carry-renormalized
 back into int8 slices (shifts and masks, exact), and one float64 Horner
@@ -31,7 +31,10 @@ Three route pairs, chosen by the solver as in the JAX package: unfolded
 basis (:func:`dct2_ozaki_rfold`, N >= 1024; conjugate the spectral grids
 with ``dct.split_permute_grid``); under a mesh, the unfolded route on the
 pencil layout (:func:`dct2_ozaki_pencil`, :func:`idct2_ozaki_pencil`:
-K5 sharded, the int8 stacks transposed between the stages).  The pair
+K5 sharded, the int8 stacks transposed between the stages) where the
+rank count divides N, else on the grid layout (:func:`dct2_ozaki_grid`,
+:func:`idct2_ozaki_grid`: K5 sharded, strip gathers between the
+stages).  The pair
 cutoffs (s1, s2) and the int32 bounds are the JAX package's; see the
 notes there.
 """
@@ -59,80 +62,76 @@ slice_field_members = K.slice_field_members
 
 
 # ----------------------------------------------------------------------
-# host slicing of the constant matrices (numpy, as the JAX package)
+# slicing of the constant matrices: C (and its fold blocks) computed on
+# the host in float64 as the JAX package computes it, sliced on the
+# device the route runs on.  Every slicing operation is exact (a
+# power-of-two scaling, a rounding half to even, the remainder), so the
+# slices are the JAX package's numpy slices, on any device.
 # ----------------------------------------------------------------------
 
-def slice_matrix_host(M: np.ndarray, n_slices: int = N_SLICES,
-                      scale: float = None):
-    """Exact fixed-point slicing of a constant float64 matrix: ``(slices,
-    scale)`` with M = scale * Σ_k slices[k] 2^{-7(k+1)} (+ a tail below
-    2^{-7 n_slices} scale).  scale is a power of two with |M|/scale < 1/4;
-    pass ``scale`` to share it across matrices whose int32 product groups
-    are added."""
-    if scale is None:
-        amax = float(np.max(np.abs(M)))
-        e = int(np.ceil(np.log2(amax))) + 2 if amax > 0 else 0
-        scale = float(2.0 ** e)
-    u = np.asarray(M, np.float64) / scale
-    out = []
-    for _ in range(n_slices):
+def _slice_scale(amax: float) -> float:
+    """The power of two with amax / scale < 1/4."""
+    e = int(np.ceil(np.log2(amax))) + 2 if amax > 0 else 0
+    return float(2.0 ** e)
+
+
+def slice_matrix(M: torch.Tensor, scale: float,
+                 n_slices: int = N_SLICES) -> torch.Tensor:
+    """Exact fixed-point slicing of a constant float64 matrix, as an
+    (n_slices, ...) int8 stack: M = scale * sum_k S[k] 2^{-7(k+1)} (+ a
+    tail below 2^{-7 n_slices} scale), with |M|/scale < 1/4 (matrices
+    whose int32 product groups are added share ``scale``)."""
+    u = M / scale
+    out = torch.empty((n_slices,) + tuple(M.shape), dtype=torch.int8,
+                      device=M.device)
+    for k in range(n_slices):
         u = u * 128.0
-        s = np.round(u)
+        s = torch.round(u)
         u = u - s
-        out.append(s.astype(np.int8))
-    return out, scale
+        out[k] = s.to(torch.int8)
+    return out
 
 
-def _stack(slices, device) -> torch.Tensor:
-    return torch.from_numpy(np.stack(slices)).to(device)
+def _with_transpose(S: torch.Tensor) -> tuple:
+    return S, S.transpose(1, 2).contiguous()
 
 
-@functools.lru_cache(maxsize=8)
-def _dct_slices_np(N: int):
-    C = _dct_matrix_np(N)
-    Cs, sc = slice_matrix_host(C)
-    CsT = [s.T.copy() for s in Cs]
-    return Cs, CsT, sc
+def _on(M: np.ndarray, device) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(M), device=device)
 
 
 def dct_slices(N: int, device='cpu'):
     """int8 slice stacks [S, N, N] of C and C^T, and their scale."""
-    Cs, CsT, sc = _dct_slices_np(N)
-    return _stack(Cs, device), _stack(CsT, device), sc
+    return (*_with_transpose(slice_matrix(_on(_dct_matrix_np(N), device),
+                                          dct_scale(N))), dct_scale(N))
 
 
+@functools.lru_cache(maxsize=32)
 def dct_scale(N: int) -> float:
-    return _dct_slices_np(N)[2]
+    return _slice_scale(float(np.max(np.abs(_dct_matrix_np(N)))))
 
 
-@functools.lru_cache(maxsize=8)
-def _dct_fold_slices_np(N: int):
-    """Level-1 folded blocks Ce = C[0::2, :N/2], Co = C[1::2, :N/2] and
-    their transposes, sliced at ONE shared scale: the inverse adds int32
-    groups across the even and odd branches."""
+def _fold_blocks_np(N: int) -> tuple:
+    """Level-1 folded blocks Ce = C[0::2, :N/2], Co = C[1::2, :N/2]."""
     C = _dct_matrix_np(N)
     h = N // 2
-    Ce = np.ascontiguousarray(C[0::2, :h])
-    Co = np.ascontiguousarray(C[1::2, :h])
-    amax = max(float(np.max(np.abs(Ce))), float(np.max(np.abs(Co))))
-    e = int(np.ceil(np.log2(amax))) + 2 if amax > 0 else 0
-    sc = float(2.0 ** e)
-    CeS, _ = slice_matrix_host(Ce, scale=sc)
-    CoS, _ = slice_matrix_host(Co, scale=sc)
-    return (CeS, CoS, [s.T.copy() for s in CeS], [s.T.copy() for s in CoS],
-            sc)
+    return C[0::2, :h], C[1::2, :h]
 
 
 def dct_fold_slices(N: int, device='cpu') -> dict:
-    """int8 stacks [S, N/2, N/2] of Ce, Co, Ce^T, Co^T and the scale."""
-    CeS, CoS, CeTS, CoTS, sc = _dct_fold_slices_np(N)
-    return {'CeS': _stack(CeS, device), 'CoS': _stack(CoS, device),
-            'CeTS': _stack(CeTS, device), 'CoTS': _stack(CoTS, device),
-            'scale': sc}
+    """int8 stacks [S, N/2, N/2] of Ce, Co, Ce^T, Co^T, sliced at ONE
+    shared scale (the inverse adds int32 groups across the even and odd
+    branches), and the scale."""
+    sc = dct_fold_scale(N)
+    Ce, Co = (slice_matrix(_on(b, device), sc) for b in _fold_blocks_np(N))
+    return {'CeS': Ce, 'CoS': Co, 'CeTS': Ce.transpose(1, 2).contiguous(),
+            'CoTS': Co.transpose(1, 2).contiguous(), 'scale': sc}
 
 
+@functools.lru_cache(maxsize=32)
 def dct_fold_scale(N: int) -> float:
-    return _dct_fold_slices_np(N)[4]
+    return _slice_scale(max(float(np.max(np.abs(b)))
+                            for b in _fold_blocks_np(N)))
 
 
 @functools.lru_cache(maxsize=16)
@@ -149,31 +148,19 @@ def _rfold_blocks_np(N: int, levels: int):
             np.ascontiguousarray(M[1::2, :n // 2])]
 
     blocks = rec(C, levels)
-    amax = max(float(np.max(np.abs(b))) for b in blocks)
-    e = int(np.ceil(np.log2(amax))) + 2 if amax > 0 else 0
-    return blocks, float(2.0 ** e)
-
-
-@functools.lru_cache(maxsize=16)
-def _dct_rfold_slices_np(N: int, levels: int):
-    blocks, sc = _rfold_blocks_np(N, levels)
-    out = []
-    for b in blocks:
-        S, _ = slice_matrix_host(b, scale=sc)
-        out.append((np.stack(S), np.stack([s.T.copy() for s in S])))
-    return out, sc
+    return blocks, _slice_scale(max(float(np.max(np.abs(b)))
+                                    for b in blocks))
 
 
 def dct_rfold_slices(N: int, levels: int, device='cpu'):
     """((block, block^T) int8 stacks in branch order, shared scale)."""
-    np_blocks, sc = _dct_rfold_slices_np(N, levels)
-    return (tuple((torch.from_numpy(s).to(device),
-                   torch.from_numpy(st).to(device))
-                  for s, st in np_blocks), sc)
+    blocks, sc = _rfold_blocks_np(N, levels)
+    return (tuple(_with_transpose(slice_matrix(_on(b, device), sc))
+                  for b in blocks), sc)
 
 
 def dct_rfold_scale(N: int, levels: int) -> float:
-    return _dct_rfold_slices_np(N, levels)[1]
+    return _rfold_blocks_np(N, levels)[1]
 
 
 # ----------------------------------------------------------------------
@@ -434,19 +421,24 @@ def idct2_ozaki(X, Cs, CsT, m_scale):
 
 def _world_mean_amax(mesh, Ub, N):
     """The whole field's mean and max|U - mean| (each 0-d, or (R,) for
-    members) from the column blocks ``Ub`` (..., N, c), in one gather:
-    each column's sum over its N rows (a reduction along a contiguous row
-    of the transposed block, so its bits do not depend on c), the block's
-    max and min.  The N column sums are summed in column order, so every
-    rank gets the same mean for any number of ranks.  x -> fl(x - mean)
-    is monotone, so max|fl(U - mean)| is taken at U's max or min: the
-    bits of ``torch.amax(torch.abs(U - mean))`` over the whole field."""
+    members) from whole columns ``Ub`` (..., N, c), in one gather over
+    the mesh's row strip (:func:`~..parallel.collectives.gather_row`),
+    whose ranks hold the field's column blocks in order: on the pencil's
+    field view (1, D) every rank its own, on the grid (after the column
+    strip's gather) ranks (i, 0..my-1) the my column strips.  Each column's
+    sum over its N rows (a reduction along a contiguous row of the
+    transposed block, so its bits do not depend on c), the block's max
+    and min.  The N column sums are summed in column order, so every
+    rank gets the same mean for any number of ranks, on the pencil layout
+    and the grid alike.  x -> fl(x - mean) is monotone, so max|fl(U -
+    mean)| is taken at U's max or min: the bits of
+    ``torch.amax(torch.abs(U - mean))`` over the whole field."""
     lead = Ub.shape[:-2]
     c = Ub.shape[-1]
     part = torch.cat([Ub.transpose(-1, -2).contiguous().sum(-1),
                       Ub.amax(dim=(-2, -1)).unsqueeze(-1),
                       Ub.amin(dim=(-2, -1)).unsqueeze(-1)], dim=-1)
-    g = coll.gather_world(mesh, part)                      # (D, ..., c + 2)
+    g = coll.gather_row(mesh, part)                        # (my, ..., c + 2)
     m = g[..., :c].movedim(0, -2).reshape(lead + (N,)).sum(-1) / float(N * N)
     hi = g[..., c].amax(dim=0) - m
     lo = g[..., c + 1].amin(dim=0) - m
@@ -477,7 +469,7 @@ def dct2_ozaki_pencil(Ub, Cs, CsT, m_scale, mesh, s1=STAGE1_PAIR,
     around the int8 path; the rank that holds row 0 adds it at [0, 0].
     The mean and the slices' scale come from one gather."""
     N = Ub.shape[-2]
-    m, amax = _world_mean_amax(mesh, Ub, N)
+    m, amax = _world_mean_amax(mesh.field_view, Ub, N)
     Us, su = _slice_sharded(Ub - _bcast(m), _n_field(s1), mesh, amax=amax)
     g1 = _pair_groups(Cs, Us, max_pair=s1, dot=_left)         # (N, R, c)
     t = _renorm_to_slices(g1, n_slices=_n_slots(s2))
@@ -511,6 +503,85 @@ def idct2_ozaki_pencil(Xb, Cs, CsT, m_scale, mesh):
     t = _renorm_to_slices(g1, n_slices=_n_slots())
     t = coll.transpose_to_cols(mesh, t, row_dim=1)             # (S, N, R, c)
     g2 = _pair_groups(CsT, t, max_pair=STAGE2_PAIR, dot=_left)
+    z = _horner_f64(g2, Xb.dtype)
+    u = _field(z * _mid(sx * (m_scale * m_scale * 2.0 ** RENORM_SHIFT)),
+               Xb)
+    return u + _bcast(d / N)
+
+
+# ----------------------------------------------------------------------
+# the grid layout (chsimpy_tpu/core/stepper.py:707-718, the last branch:
+# dct2_ozaki / idct2_ozaki under the grid constrainer, partitioned by
+# GSPMD): the unfolded route on a rank's (bn, bw) block (I, J) of the
+# field and of the spectral image, where the rank count D does not divide
+# N (no pencil layout).  Each stage is a strip gather and exact int8
+# products with the blocks of the DCT's slice stacks the rank reads
+# (``parallel/sharding.py`` ``ozaki_grid_stacks``):
+#
+#   forward  U[:, J] (a float64 gather over the column strip), K5 sharded
+#            on it at the whole field's scale, C[I, :] @ . (T[I, J], int32
+#            groups, renormalized), T[I, :] (an int8 gather over the row
+#            strip), . @ C^T[:, J];
+#   inverse  K5 sharded on the block at the world max, X[:, J] (an int8
+#            gather over the column strip), C^T[I, :] @ ., the row strip's
+#            gather, . @ C[:, J].
+#
+# The forward gathers the field's column strip in float64, not its int8
+# slices: the mean is summed column by column over whole columns
+# (:func:`_world_mean_amax`), the pencil's order, the same for any number
+# of ranks, and the rank then slices the strip it holds (8 bytes an
+# element cross in place of one a slice, in as many collectives).  The
+# int32 sums are exact and the renormalization and Horner work element by
+# element, so a rank's block is the one-device unfolded transform's block
+# (:func:`dct2_ozaki`, :func:`idct2_ozaki`), to the bit, given the same
+# mean; the inverse's DC rides K5's all-reduce MAX, as on the pencil.
+# ----------------------------------------------------------------------
+
+def dct2_ozaki_grid(Ub, stacks, m_scale, mesh, s1=STAGE1_PAIR,
+                    s2=STAGE2_PAIR):
+    """:func:`dct2_ozaki` of the field whose block on the grid ``mesh``
+    is ``Ub`` (bn, bw) (or each member's, (R, bn, bw)): this rank's block
+    of the spectral image.  ``stacks``: ``ozaki_grid_stacks`` of the
+    DCT's slice stacks.  The whole field's mean goes around the int8
+    path; the rank that holds [0, 0] adds it there."""
+    Cs_I, CsT_J = stacks['fwd']
+    N = Cs_I.shape[-1]
+    Ucol = coll.gather_x(mesh, Ub)                            # U[:, J]
+    m, amax = _world_mean_amax(mesh, Ucol, N)
+    Us, su = _slice_sharded(Ucol - _bcast(m), _n_field(s1), mesh,
+                            amax=amax)                        # (S, N, R, bw)
+    g1 = _pair_groups(Cs_I, Us, max_pair=s1, dot=_left)       # (bn, R, bw)
+    t = _renorm_to_slices(g1, n_slices=_n_slots(s2))
+    t = coll.gather_y(mesh, t, dim=-1)                        # (S, bn, R, N)
+    g2 = _pair_groups(t, CsT_J, max_pair=s2, dot=_right)      # (bn, R, bw)
+    z = _horner_f64(g2, Ub.dtype)
+    Y = _field(z * _mid(su * (m_scale * m_scale * 2.0 ** RENORM_SHIFT)),
+               Ub)
+    if _holds_row0(mesh):
+        Y = _dc_add(Y, m * N)
+    return Y
+
+
+def idct2_ozaki_grid(Xb, stacks, m_scale, mesh):
+    """:func:`idct2_ozaki` of the spectral image whose block on the grid
+    ``mesh`` is ``Xb`` (bn, bw) (or each member's): this rank's block of
+    the field, untrimmed.  [0, 0] (the DC) goes around: the rank that
+    holds it sends it in the slices' world max (every other rank puts
+    -inf there)."""
+    CsT_I, Cs_J = stacks['inv']
+    N = CsT_I.shape[-1]
+    if _holds_row0(mesh):
+        d = Xb[..., 0, 0].clone()
+        Xb = _dc_zero(Xb)
+    else:
+        d = torch.full(Xb.shape[:-2], -torch.inf, dtype=Xb.dtype,
+                       device=Xb.device)
+    Xs, sx, d = _slice_sharded(Xb, _n_field(), mesh, d)        # (S, bn, R, bw)
+    Xs = coll.gather_x(mesh, Xs, dim=1)                        # X[:, J]
+    g1 = _pair_groups(CsT_I, Xs, max_pair=STAGE1_PAIR, dot=_left)
+    t = _renorm_to_slices(g1, n_slices=_n_slots())
+    t = coll.gather_y(mesh, t, dim=-1)                         # (S, bn, R, N)
+    g2 = _pair_groups(t, Cs_J, max_pair=STAGE2_PAIR, dot=_right)
     z = _horner_f64(g2, Xb.dtype)
     u = _field(z * _mid(sx * (m_scale * m_scale * 2.0 ** RENORM_SHIFT)),
                Xb)

@@ -4,8 +4,9 @@ ranks.
 Counterpart of ``chsimpy_tpu/parallel/`` for the grid and pencil layouts
 and the ensemble mesh: the field is tiled over an ``mx x my`` mesh of
 ranks (one rank per JAX mesh device), each rank holding one ``(N/mx,
-N/my)`` block, or, on the split and ozaki routes, whole columns of the
-field and whole rows of its spectral image (the pencil layout); an
+N/my)`` block, or, on the split and ozaki routes where the rank count
+divides N, whole columns of the field and whole rows of its spectral
+image (the pencil layout); an
 ensemble's members are split over an 'ens' axis of ``E`` such grids.
 
 * :mod:`.mesh` — :class:`GridMesh` and :class:`EnsembleMesh`, the rank's
@@ -19,6 +20,9 @@ ensemble's members are split over an 'ens' axis of ``E`` such grids.
 * :mod:`.collectives` — the halo exchange, the strip all-gathers of the
   grid DCTs, the pencil transposes, the rank-ordered sums, the world max
   and the gather over the ens axis, each counting its calls and bytes;
-* :mod:`.audit` — the bytes a step moves, by collective;
+* :mod:`.audit` — the bytes a step (or an ensemble's chunk) moves, by
+  collective;
+* :mod:`.dryrun` — the dry run of the mesh axes on a world of ranks
+  against one device's runs;
 * :mod:`.workers` — the functions a spawned world runs.
 """

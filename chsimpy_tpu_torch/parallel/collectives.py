@@ -10,11 +10,13 @@ sharded DCT products (``parallel/sharding.py`` of the JAX package):
   block's own edge stands in (edge replication, as ``_neighbor_views``);
 * :func:`gather_x` / :func:`gather_y` — all-gathers over the rank's
   column strip (``x_group``) or row strip (``y_group``), concatenated
-  along the row axis (dim -2) in coordinate order; a stack of members'
-  blocks (R, bh, bw) gives the members' strips (R, ., bw);
+  in coordinate order along the row axis (dim -2) or a given dim; a
+  stack of members' blocks (R, bh, bw) gives the members' strips (R, .,
+  bw), and the grid ozaki route gathers its int8 slice stacks (S, bh, R,
+  bw) along their rows (dim 1) and columns (dim -1);
 * :func:`gather_world` and :func:`rank_sum` — every rank's partial sums on
   every rank of the grid (an ensemble mesh: of its ens slot), added in
-  rank order;
+  rank order; :func:`gather_row` the same over the row strip;
 * :func:`gather_ens` — the all-gather over the ens axis of an
   :class:`~.mesh.EnsembleMesh` (the ranks at the same grid coordinates),
   concatenated along dim 0 in ``e`` order;
@@ -41,8 +43,9 @@ result shape, and the part of them received from other ranks), under
 the names of the XLA collectives the JAX program has in their place: the
 strip and ens gathers are ``'all-gather'``, the transposes
 ``'all-to-all'``, the halo ``'collective-permute'``, and
-:func:`gather_world` (the partial sums an all-reduce carries there, added
-in rank order here) and :func:`world_max` ``'all-reduce'``.
+:func:`gather_world` and :func:`gather_row` (the partial sums an
+all-reduce carries there, added in rank order here) and
+:func:`world_max` ``'all-reduce'``.
 ``parallel/audit.py`` reads it.
 """
 
@@ -114,32 +117,51 @@ def _gather(mesh, t: torch.Tensor, group, n: int,
     return _home(mesh, out)
 
 
-def _gather_rows(mesh, t: torch.Tensor, group, n: int) -> torch.Tensor:
-    """The ``n`` ranks' ``t`` concatenated along dim -2: dim 0 of a 2-D
-    block; each member's rows of a member stack (R, a, b) -> (R, n*a, b)
-    (gathered along dim 0, then one copy into the members' layout)."""
-    if t.dim() == 2 or n == 1:
-        return _gather(mesh, t, group, n)
-    R, a, b = t.shape
-    out = _gather(mesh, t, group, n)                     # (n*R, a, b)
-    return out.reshape(n, R, a, b).transpose(0, 1).reshape(R, n * a, b)
+def _gather_along(mesh, t: torch.Tensor, group, n: int,
+                  dim: int = -2) -> torch.Tensor:
+    """The ``n`` ranks' ``t`` concatenated along ``dim`` (gathered along
+    dim 0, then one copy into place when ``dim`` is not 0): dim -2 of a
+    2-D block or of a member stack (R, a, b) -> (R, n*a, b) gives each
+    member's rows; an int8 slice stack in the products' layout (S, a, R,
+    b) takes its rows with ``dim=1`` and its columns with ``dim=-1``."""
+    d = dim % t.dim()
+    out = _gather(mesh, t, group, n)                 # (n*t0, ...)
+    if d == 0 or n == 1:
+        return out
+    shape = list(t.shape)
+    shape[d] *= n
+    return out.reshape((n,) + tuple(t.shape)).movedim(0, d).reshape(shape)
 
 
-def gather_x(mesh, t: torch.Tensor) -> torch.Tensor:
-    """All-gather over the ``mx`` ranks of this rank's column strip."""
-    return _gather_rows(mesh, t, mesh.x_group, mesh.shape[0])
+def gather_x(mesh, t: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """All-gather over the ``mx`` ranks of this rank's column strip,
+    concatenated along ``dim``."""
+    return _gather_along(mesh, t, mesh.x_group, mesh.shape[0], dim)
 
 
-def gather_y(mesh, t: torch.Tensor) -> torch.Tensor:
-    """All-gather over the ``my`` ranks of this rank's row strip."""
-    return _gather_rows(mesh, t, mesh.y_group, mesh.shape[1])
+def gather_y(mesh, t: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """All-gather over the ``my`` ranks of this rank's row strip,
+    concatenated along ``dim``."""
+    return _gather_along(mesh, t, mesh.y_group, mesh.shape[1], dim)
+
+
+def _stack(mesh, t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """(n, *t.shape): the ``n`` ranks' ``t`` of ``group``, in order."""
+    out = _gather(mesh, t.reshape((1,) + tuple(t.shape)), group, n,
+                  'all-reduce')
+    return out.reshape((n,) + tuple(t.shape))
 
 
 def gather_world(mesh, t: torch.Tensor) -> torch.Tensor:
     """(size, *t.shape): every grid rank's ``t``, in rank order."""
-    out = _gather(mesh, t.reshape((1,) + tuple(t.shape)), mesh.group,
-                  mesh.size, 'all-reduce')
-    return out.reshape((mesh.size,) + tuple(t.shape))
+    return _stack(mesh, t, mesh.group, mesh.size)
+
+
+def gather_row(mesh, t: torch.Tensor) -> torch.Tensor:
+    """(my, *t.shape): the ``t`` of the ``my`` ranks of this rank's row
+    strip (``y_group``), in coordinate order; on a pencil's field view
+    (1, D), every rank's."""
+    return _stack(mesh, t, mesh.y_group, mesh.shape[1])
 
 
 def gather_ens(mesh, t: torch.Tensor) -> torch.Tensor:

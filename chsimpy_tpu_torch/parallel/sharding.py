@@ -13,7 +13,9 @@ grid's ``field_view`` (the field's column blocks, a ``(1, D)`` mesh) and
 ``spec_view`` (the spectral image's row blocks, ``(D, 1)``;
 ``parallel/mesh.py``): :func:`shard_field` and :func:`gather_field` take
 either view, and :func:`shard_consts` places the spectral grids as row
-blocks with ``pencil=True``.
+blocks with ``pencil=True``.  The ozaki route where the rank count does
+not divide N keeps the grid layout: each rank holds the blocks of the
+DCT's slice stacks its products read (:func:`ozaki_grid_stacks`).
 """
 
 from __future__ import annotations
@@ -86,16 +88,33 @@ def gather_members(t: torch.Tensor, mesh) -> torch.Tensor:
 _GRIDS = ('leig', 'CHeig', 'Seig')
 
 
+def ozaki_grid_stacks(Cs: torch.Tensor, CsT: torch.Tensor, mesh) -> dict:
+    """The blocks of the DCT's int8 slice stacks (S, N, N) that a rank of
+    the grid ozaki route reads (``ops/ozaki.py`` ``dct2_ozaki_grid``),
+    each contiguous: the forward's C rows I and C^T columns J, the
+    inverse's C^T rows I and C columns J, for this rank's block (I, J)."""
+    I, J = block_slices(mesh, Cs.shape[-1])
+    return {'fwd': (Cs[:, I].contiguous(), CsT[..., J].contiguous()),
+            'inv': (CsT[:, I].contiguous(), Cs[..., J].contiguous())}
+
+
 def shard_consts(consts: dict, mesh, pencil: bool = False) -> dict:
     """The eigenvalue and coefficient grids as this rank's blocks; the DCT
     matrix C stays whole (the grid transforms read its row and column
-    strips in place), and so does everything else.  ``pencil``: the grids
-    live in spectral space, so they take the spectral layout, this rank's
-    row block (on the split route the permuted grids)."""
+    strips in place), and so does everything else but the ozaki route's
+    slice stacks on the grid layout, which give way to the blocks this
+    rank reads (``'ozaki_grid'``, :func:`ozaki_grid_stacks`).
+    ``pencil``: the grids live in spectral space, so they take the
+    spectral layout, this rank's row block (on the split route the
+    permuted grids)."""
     spec = mesh.spec_view if pencil else mesh
     out = dict(consts)
     for k in _GRIDS:
         out[k] = shard_field(consts[k], spec)[0]
+    if not pencil and consts['Cs'].numel():
+        out['ozaki_grid'] = ozaki_grid_stacks(consts['Cs'], consts['CsT'],
+                                              mesh)
+        out['Cs'] = out['CsT'] = consts['Cs'][:0]
     return out
 
 

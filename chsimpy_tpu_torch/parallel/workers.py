@@ -43,7 +43,8 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def solve(mesh, params: dict, U_init=None, steps=None, rate_steps=0,
-          return_U=True, mesh_shape=None, audit_steps=0) -> dict:
+          return_U=True, mesh_shape=None, audit_steps=0,
+          profile_steps=0) -> dict:
     """A sharded solve of ``Parameters(**params)`` on this world's mesh
     shape (or ``mesh_shape``, another grid of the world's ranks) and
     backend: through ``Simulator.solve`` (``steps`` None),
@@ -51,7 +52,10 @@ def solve(mesh, params: dict, U_init=None, steps=None, rate_steps=0,
     entry per item, in turn, each entry's seconds kept); then, with
     ``rate_steps``, one timed window of that many more steps, and with
     ``audit_steps`` the collectives of that many more
-    (``parallel.audit.count_chunk``).  The params' device must be the
+    (``parallel.audit.count_chunk``), and with ``profile_steps`` a
+    ``torch.profiler`` trace of that many more
+    (``benchmarks.rank_profile.profile_solver`` on rank 0; None on the
+    other ranks, which step untraced).  The params' device must be the
     world's.  Returns the solution's scalars, its
     timedata, mean(U) (and U with ``return_U``), this rank's kernel
     launches and the seconds of the solve."""
@@ -106,6 +110,14 @@ def solve(mesh, params: dict, U_init=None, steps=None, rate_steps=0,
     if audit_steps:
         from .audit import count_chunk
         out['audit'] = count_chunk(solver, audit_steps)
+    if profile_steps:
+        # rank 0 traces; the others step untraced, in the same collectives
+        from ..benchmarks.rank_profile import profile_solver
+        out['profile'] = None
+        if mesh.rank == mesh.base:
+            out['profile'] = profile_solver(solver, profile_steps)
+        else:
+            solver.solve_or_resume(profile_steps)
     return out
 
 
@@ -197,6 +209,27 @@ def slice_sharded(mesh, x, n_slices: int, members: bool = False,
     return _np(planes), _np(scale)
 
 
+def ozaki_grid(mesh, x, s1: int = 3, s2: int = 5) -> dict:
+    """The grid ozaki transforms (``ops/ozaki.py`` ``dct2_ozaki_grid`` at
+    the pair cutoffs (s1, s2), ``idct2_ozaki_grid``) of the whole float64
+    ``x`` ((N, N), or (R, N, N) members) on this rank's block, gathered
+    whole, and the mean and max|x - mean| the forward took, as numpy."""
+    from ..ops import ozaki
+    from . import collectives as coll
+    from .sharding import ozaki_grid_stacks
+    t = torch.as_tensor(np.asarray(x, dtype=np.float64)).to(mesh.device)
+    N = t.shape[-1]
+    Cs, CsT, sc = ozaki.dct_slices(N, mesh.device)
+    stacks = ozaki_grid_stacks(Cs, CsT, mesh)
+    b = shard_field(t, mesh)[0]
+    fwd = ozaki.dct2_ozaki_grid(b, stacks, sc, mesh, s1=s1, s2=s2)
+    inv = ozaki.idct2_ozaki_grid(b, stacks, sc, mesh)
+    m, amax = ozaki._world_mean_amax(mesh, coll.gather_x(mesh, b), N)
+    return {'dct2': _np(gather_field(fwd, mesh)),
+            'idct2': _np(gather_field(inv, mesh)),
+            'mean': _np(m), 'amax': _np(amax), 'block': tuple(b.shape)}
+
+
 @functools.lru_cache(maxsize=2)
 def _normal_field(seed: int, shape: tuple) -> np.ndarray:
     """Standard normal values from ``seed`` (made once a rank per seed
@@ -211,15 +244,21 @@ def slice_sharded_check(mesh, N: int, n_slices: int, kind: str,
     the field (or R members' fields) made from ``seed`` on every rank —
     ``kind`` 'block' (normal values, the max in one block only) or 'ulp'
     (the max one ulp above 2^8, in one block only) — K5 sharded on this
-    rank's block in the pencil ``layout``, ``slice_field`` (or
+    rank's block in the ``layout`` ('field', 'spec': the pencil's column
+    and row blocks; 'grid': the grid's own blocks), ``slice_field`` (or
     ``slice_field_members``) on the whole field restricted to the block,
     and the plain version at the world's max.  Returns the largest plane
     differences, the scales and the launches counted."""
-    view = mesh.field_view if layout == 'field' else mesh.spec_view
+    view = {'field': mesh.field_view, 'spec': mesh.spec_view,
+            'grid': mesh}[layout]
     x = _normal_field(seed, (R, N, N) if R else (N, N)).copy()
     # the max in block 1 only, its exponent above every other block's
-    b1 = N // mesh.size + N // (3 * mesh.size)
-    at = (N // 3, b1) if layout == 'field' else (b1, N // 3)
+    if layout == 'grid':
+        my = mesh.shape[1]
+        at = (N // (3 * mesh.shape[0]), N // my + N // (3 * my))
+    else:
+        b1 = N // mesh.size + N // (3 * mesh.size)
+        at = (N // 3, b1) if layout == 'field' else (b1, N // 3)
     big = np.nextafter(2.0 ** 8, np.inf) if kind == 'ulp' else 20.5
     if R:
         x[R - 1][at] = -big
@@ -253,6 +292,19 @@ def audit(mesh, **kw) -> dict:
     """``parallel.audit.audit_chunk`` on this world's mesh."""
     from .audit import audit_chunk
     return audit_chunk(mesh, **kw)
+
+
+def scaling(mesh, **kw) -> dict:
+    """``benchmarks.scaling.scaling`` on this world (rank 0's result on
+    every rank)."""
+    from ..benchmarks.scaling import scaling as run
+    return run(device=mesh.device.type, **kw)
+
+
+def audit_ensemble(mesh, **kw) -> dict:
+    """``parallel.audit.audit_ensemble`` on this world's mesh."""
+    from .audit import audit_ensemble as run
+    return run(mesh, **kw)
 
 
 def threefry_jitter(mesh, U, key, jitter: float, dtype: str) -> tuple:
@@ -398,6 +450,25 @@ def merge_rows(mesh, rows_by_rank: list, nr_items: int) -> list:
                                        nr_items)
 
 
+def experiment(mesh, argv: list, cwd: str) -> str:
+    """``experiment.main(argv)`` on this world (the process group the
+    experiment joins), run in ``cwd``/rank<r> (made here), whose path it
+    returns.  The experiment ends the process group: a world's last
+    task."""
+    import os
+
+    from ..experiment import main
+    work = os.path.join(cwd, f'rank{mesh.rank}')
+    os.makedirs(work, exist_ok=True)
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        main(list(argv))
+    finally:
+        os.chdir(here)
+    return work
+
+
 def imported(mesh) -> list:
     """The top-level packages this rank has imported (a rank of the
     port imports no jax)."""
@@ -412,7 +483,9 @@ TASKS = {'solve': solve, 'fused_stats': fused_stats,
          'ensemble_error': ensemble_error, 'merge_rows': merge_rows,
          'transposes': transposes, 'pencil_dcts': pencil_dcts,
          'slice_sharded': slice_sharded,
-         'slice_sharded_check': slice_sharded_check, 'audit': audit}
+         'slice_sharded_check': slice_sharded_check, 'audit': audit,
+         'ozaki_grid': ozaki_grid, 'audit_ensemble': audit_ensemble,
+         'scaling': scaling, 'experiment': experiment}
 
 
 def run_tasks(mesh, tasks, timed: bool = False):

@@ -179,15 +179,6 @@ def solver_scope_errors(p: Parameters) -> list:
         errs.append(f"unknown generator '{p.generator}'")
     if p.jitter_backend not in ('host', 'device'):
         errs.append(f"unknown jitter backend '{p.jitter_backend}'")
-    if p.mesh_shape is not None and p.transform_backend == 'ozaki':
-        # the split and ozaki routes take the pencil layout when the rank
-        # count divides N; the JAX package runs the ozaki route on the
-        # grid layout otherwise
-        mx, my = p.mesh_shape
-        if p.N % (mx * my):
-            errs.append(not_ported(
-                '--transform ozaki under --mesh with N not divisible by '
-                'the rank count (the grid ozaki route)', 11))
     if p.transform_backend not in ('auto', 'matmul', 'split', 'fft',
                                    'ozaki'):
         errs.append(f"unknown transform '{p.transform_backend}'")

@@ -1,8 +1,9 @@
 """Host utilities: the file id, human-readable times, the host and device
-descriptions the bench and the experiment write into their files, the
-process's peak memory, an object's attributes as "key, value" lines and
-whether the run is in a notebook (``chsimpy_tpu/sysinfo.py``'s, without
-psutil)."""
+descriptions the bench and the experiment write into their files (the
+card's topology among them), the process's memory, an object's
+attributes as "key, value" lines and whether the run is in a notebook
+(``chsimpy_tpu/sysinfo.py``'s, from ``os``, ``resource`` and ``/proc``:
+the card's machine has no psutil)."""
 
 from __future__ import annotations
 
@@ -26,6 +27,40 @@ def sec_to_min_if(value, t=60):
     if value > t:
         return str(round(value / 60.0, 1)) + 'min'
     return str(round(value, 1)) + 's'
+
+
+def get_current_localtime() -> str:
+    return time.strftime("%Y-%m-%d %H:%M:%S %Z", time.localtime())
+
+
+def get_number_physical_cores() -> int:
+    """The host's physical cores: the distinct (physical id, core id)
+    pairs of ``/proc/cpuinfo`` (psutil's count on Linux), or the logical
+    count where it names none."""
+    cores, phys, core = set(), None, None
+    try:
+        with open('/proc/cpuinfo') as f:
+            for line in list(f) + ['\n']:
+                key, _, value = line.partition(':')
+                key = key.strip()
+                if key == 'physical id':
+                    phys = value.strip()
+                elif key == 'core id':
+                    core = value.strip()
+                elif not key:               # a processor's block ends
+                    if core is not None:
+                        cores.add((phys, core))
+                    phys = core = None
+    except OSError:
+        pass
+    return len(cores) or os.cpu_count() or 1
+
+
+def get_mem_usage() -> str:
+    """This process's resident memory (``/proc/self/statm``) in MiB."""
+    with open('/proc/self/statm') as f:
+        pages = int(f.read().split()[1])
+    return f"{pages * os.sysconf('SC_PAGE_SIZE') / 1048576:.2f}MiB"
 
 
 def card_line() -> str:
@@ -70,8 +105,7 @@ def vars_to_list(obj) -> list:
 
 def get_system_info() -> list:
     """The host, as "key, value" lines (``chsimpy_tpu/sysinfo.py``'s
-    keys without psutil's core and clock counts: the card's machine has
-    no psutil)."""
+    keys but psutil's clock rates: the card's machine has no psutil)."""
     uname = platform.uname()
     return [
         f"system, {uname.system}",
@@ -79,25 +113,36 @@ def get_system_info() -> list:
         f"kernel-release, {uname.release}",
         f"kernel-version, {uname.version}",
         f"machine, {uname.machine}",
+        f"cores_phys, {get_number_physical_cores()}",
         f"cores_total, {os.cpu_count()}",
-        f"localtime, {time.strftime('%Y-%m-%d %H:%M:%S %Z')}",
+        f"localtime, {get_current_localtime()}",
         f"argv, '{' '.join(sys.argv)}'",
         f"chsimpy-tpu-torch-version, {__version__}",
     ]
 
 
 def get_device_info(device) -> list:
-    """The run's device as "key, value" lines: on the card its name and
-    power limit (:func:`card_line`) and the card count, then the torch and
-    CUDA versions."""
+    """The run's device and its topology as "key, value" lines, the JAX
+    package's keys: ``device-count`` (the cards visible; 1 on the CPU),
+    ``local-device-count`` (the devices this process drives: one, a
+    process a device), ``process-count`` (the world size of an
+    initialized process group, else 1), ``device-kind`` (the card's
+    name); on the card its name and power limit (:func:`card_line`);
+    then the torch and CUDA versions."""
     import torch
+    import torch.distributed as dist
     dev = torch.device(device)
+    procs = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 1)
     if dev.type == 'cuda':
         info = [f"card, {card_line()}",
-                f"device-count, {torch.cuda.device_count()}"]
+                f"device-count, {torch.cuda.device_count()}",
+                f"device-kind, {torch.cuda.get_device_name(dev)}"]
     else:
-        info = [f"device, {dev.type}"]
-    return info + [f"torch, {torch.__version__}",
+        info = [f"device, {dev.type}", "device-count, 1",
+                f"device-kind, {dev.type}"]
+    return info + ["local-device-count, 1", f"process-count, {procs}",
+                   f"torch, {torch.__version__}",
                    f"cuda, {torch.version.cuda}"]
 
 

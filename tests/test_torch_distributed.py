@@ -303,13 +303,13 @@ def test_an_ensemble_mesh_of_one_slot_is_the_grid_mesh():
 def test_grid_sharded_members_refuse_the_pencil_routes(route):
     # the pencil layout needs the grid's rank count to divide N (N=32 on
     # 2x2 runs: tests/test_torch_pencil.py); N=34 on 4 ranks is refused
-    # before any world is needed
+    # on split before any world is needed, and takes the grid layout on
+    # ozaki (tests/test_torch_grid.py), which asks for its world
     cfg = port_config(mesh_shape=(2, 2), precision='float64',
                       transform_backend=route)
     cfg['N'] = 34
     exc, match = ((ValueError, 'divisible by the device count 4')
-                  if route == 'split' else
-                  (NotImplementedError, 'grid ozaki route.*item 11'))
+                  if route == 'split' else (RuntimeError, 'process group'))
     with pytest.raises(exc, match=match):
         EnsembleSolver(ctt.Parameters(**cfg), pairs())
 

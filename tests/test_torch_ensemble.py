@@ -203,9 +203,10 @@ def test_ensemble_refusals_name_their_items(tmp_path):
                 assert np.array_equal(a.timedata.data(), b.timedata.data())
                 assert torch.equal(a.U, b.U)
     # split and ozaki with grid-sharded member fields take the pencil
-    # layout where the rank count divides N; N=34 on 4 ranks stays refused
+    # layout where the rank count divides N; at N=34 on 4 ranks split stays
+    # refused and ozaki takes the grid layout, asking for its world
     for tb, exc, match in (('split', ValueError, 'device count 4'),
-                           ('ozaki', NotImplementedError, 'item 11')):
+                           ('ozaki', RuntimeError, 'process group')):
         with pytest.raises(exc, match=match):
             EnsembleSolver(port_params(N=34, mesh_shape=(2, 2),
                                        precision='float64',

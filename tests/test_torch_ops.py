@@ -23,6 +23,7 @@ from chsimpy_tpu.ops import dct as jdct
 import chsimpy_tpu_torch as ctt
 from chsimpy_tpu_torch import convert, rng
 from chsimpy_tpu_torch.cli import CLIParser
+from chsimpy_tpu_torch.core import solver as tsolver
 from chsimpy_tpu_torch.core import stepper as tst
 from chsimpy_tpu_torch.derived import Derived
 from chsimpy_tpu_torch.device import resolve_device
@@ -148,12 +149,13 @@ def test_params_carried_from_jax():
     d['mesh_shape'] = [2, 4]
     assert convert.params_from_jax(d, device='cpu').mesh_shape == (2, 4)
     # split and ozaki take the pencil layout where the rank count divides
-    # N; the grid ozaki route (N=100 on 8 ranks) is not ported
+    # N; ozaki where it does not (N=100 on 8 ranks) the grid layout
     d['transform_backend'] = 'split'
     assert convert.params_from_jax(d, device='cpu').mesh_shape == (2, 4)
-    d.update(transform_backend='ozaki', N=100)
-    with pytest.raises(NotImplementedError, match='item 11'):
-        convert.params_from_jax(d)
+    d.update(transform_backend='ozaki', N=100, precision='float64')
+    p = convert.params_from_jax(d, device='cpu')
+    assert (p.transform_backend, p.mesh_shape, p.N) == ('ozaki', (2, 4), 100)
+    assert not tsolver.resolve_pencil(p, 8)
     d = jp.scalar_dict()
     d.update(transform_backend='split', split_levels=3)
     p = convert.params_from_jax(d, device='cpu')
@@ -215,11 +217,13 @@ def test_solver_refuses_settings_not_ported(tmp_path):
             assert torch.equal(r.solution.U, sol.U)
     finally:
         dist.destroy_process_group()
-    # the grid mesh runs the matmul route, the pencil layout split and
-    # ozaki where the rank count divides N; the grid ozaki route is later
+    # the grid mesh runs the matmul route and, where the rank count does
+    # not divide N, the ozaki route; the pencil layout split and ozaki
+    # where it does: N=18 on 4 ranks takes the grid ozaki route, and asks
+    # for its world
     p = ctt.Parameters(N=18, device='cpu', kappa_tilde=KAPPA, no_gui=True,
                        mesh_shape=(2, 2), transform_backend='ozaki')
-    with pytest.raises(NotImplementedError, match='item 11'):
+    with pytest.raises(RuntimeError, match='torchrun'):
         ctt.Solver(p)
     # the default run's view (item 13) is ported: the Simulator takes it
     import matplotlib
@@ -294,10 +298,13 @@ def test_cli_parses_the_slice_and_refuses_the_rest(capsys):
          'c.npz', '--checkpoint-every', '5'])
     assert (p.mesh_shape, p.restore_file, p.checkpoint_every) == \
         ((2, 2), 'x', 5)
+    # and the ozaki route where the rank count does not divide N (the grid
+    # ozaki route, item 11, done)
+    p = CLIParser().get_parameters(
+        ['--no-gui', '--mesh', '2x2', '--transform', 'ozaki', '-N', '66'])
+    assert (p.mesh_shape, p.transform_backend, p.N) == ((2, 2), 'ozaki', 66)
     for argv, item in ((['--no-gui', '--checkpoint-every', '5'],
                         'no --checkpoint-file'),
-                       (['--no-gui', '--mesh', '2x2', '--transform',
-                         'ozaki', '-N', '66'], 'item 11'),
                        (['--no-gui', '--export-csv', 'none'],
                         'valid entries'),
                        (['--no-gui', '-C'], 'no --export-csv'),

@@ -198,20 +198,26 @@ def _params(**kw):
 
 
 def test_mesh_needs_divisible_N():
-    # 40 % (2*8) != 0: the JAX package's guard for its sharded kernels
+    # 36 % 8 != 0: the blocks must be equal, as the JAX package's
+    # device_put onto its mesh needs; 40 on 2x4 (no multiple of 8*mx, the
+    # JAX guard of its Pallas kernels only) is taken, and asks for its
+    # world
     with pytest.raises(ValueError, match='divisible'):
+        ctt.Solver(_params(N=36, mesh_shape=(1, 8)))
+    with pytest.raises(RuntimeError, match='torchrun'):
         ctt.Solver(_params(N=40, mesh_shape=(2, 4)))
 
 
 @pytest.mark.parametrize('transform,exc,match', [
     ('split', ValueError, 'divisible by the device count 4'),
-    ('ozaki', NotImplementedError, 'item 11'),
+    ('ozaki', RuntimeError, 'torchrun'),
     ('fft', ValueError, 'does not shard under --mesh'),
 ])
 def test_mesh_refuses_the_other_routes(transform, exc, match):
     # split and ozaki take the pencil layout where the rank count divides
     # N (tests/test_torch_pencil.py); N=66 on 4 ranks leaves what stays
-    # refused: split (the JAX package's guard) and the grid ozaki route
+    # refused: split (the JAX package's guard) and fft; ozaki takes the
+    # grid layout there (tests/test_torch_grid.py) and asks for its world
     with pytest.raises(exc, match=match):
         ctt.Solver(_params(N=66, mesh_shape=(2, 2), precision='float64',
                            transform_backend=transform))
@@ -254,9 +260,11 @@ def test_cli_parses_the_mesh(capsys):
                                     '--dist-backend', 'gloo'])
     assert (p.mesh_shape, p.dist_backend) == ((2, 4), 'gloo')
     assert CLIParser().get_parameters(['--no-gui']).mesh_shape is None
+    # the grid ozaki route parses (item 11, done)
+    p = CLIParser().get_parameters(['--no-gui', '--mesh', '2x2',
+                                    '--transform', 'ozaki', '-N', '66'])
+    assert (p.mesh_shape, p.transform_backend) == ((2, 2), 'ozaki')
     for argv, msg in ((['--mesh', 'banana'], 'must look like'),
-                      (['--mesh', '2x2', '--transform', 'ozaki', '-N', '66'],
-                       'item 11'),
                       (['--dist-backend', 'mpi'], 'invalid choice')):
         with pytest.raises(SystemExit):
             CLIParser().get_parameters(['--no-gui'] + argv)

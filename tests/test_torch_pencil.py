@@ -461,9 +461,12 @@ def test_pencil_checkpoint_loads_in_the_jax_package(runs):
 @pytest.mark.parametrize('transform,N,exc,match', [
     ('fft', 64, ValueError, 'does not shard under --mesh'),
     ('split', 66, ValueError, 'divisible by the device count 4'),
-    ('ozaki', 66, NotImplementedError, 'grid ozaki route.*item 11'),
+    ('ozaki', 66, RuntimeError, 'process group'),
 ])
 def test_pencil_refusals(transform, N, exc, match):
+    # ozaki with N not divisible by the rank count is no refusal: it
+    # takes the grid layout (tests/test_torch_grid.py), and asks for its
+    # world
     p = ctt.Parameters(N=N, no_gui=True, device='cpu', kappa_tilde=KAPPA,
                        precision='float64', mesh_shape=(2, 2),
                        transform_backend=transform)
