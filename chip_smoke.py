@@ -323,6 +323,46 @@ Phases (each raises on failure, so the script exits nonzero):
    host was doing;
    with one card per rank, (b) and (c) again on NCCL; otherwise a line
    saying why it did not run.
+16. the float32 knobs: the product precisions (``highest``:
+   cuBLAS FP32, ``high``: 3xTF32 by the GEMM kernel K6, ``default``: one
+   TF32 pass), ``--fwd-matmul-precision``, ``--inv-band``,
+   ``--otf-coeffs`` (kernel K12), ``--fold-field`` (K3's fold mode), and
+   ``transform='auto'``:
+   (a) K12 and K12_members against their plain versions to the bit at
+   N = 4096, 1000, 1001, 512, float32 and float64, R = 4 and 16, each
+   member against K12 on the member, on a 2x2 block against the whole
+   field's block; K3's fold mode on the folded field against its plain
+   version (K3's tolerances, the count exact) and against K3 on the
+   natural field (the same bits where the fold keeps K3's vector width),
+   single and R=4 members, at N = 4096, 1000, 1002, 512; K6 on every
+   product shape of a solve at 'high' (N=4096 matmul, split levels 4,
+   folded levels 5; R=4 N=512 ensembles), held as in 7 (a), a member
+   stack member by member against K6 on the member; each timed at N=4096
+   (K6 at its largest solve shape, beside cuBLAS FP32) beside its bound;
+   (b) in 4 worker processes side by side (in a full run started beside
+   phase 6 (b) and (c), and waited for before 6 (d)): the canonical
+   float32 run and the N=1024 and N=2048 float32 stops on matmul at
+   'high', fft and split at its default precision (N >= 1024), and
+   split with the 1-pass forward,
+   --inv-band N/4 (N >= 1024), --otf-coeffs 1, --fold-field and all of
+   them: each stop within its band of PERFORMANCE.md:254 (the 1-pass
+   forward: the E class only), E within 1e-5 of float64 at every step,
+   the path's kernels launched on every step; the float64 canonical run
+   with --otf-coeffs 1 (stop 1674, the anchors); as jobs of their own: an R=4
+   ensemble with K12_members, K3_members' fold mode and K6 (64 steps,
+   each member within 1e-6 of its single run), the folded runs' U, E, E2
+   and Ra = the natural runs' at pinned levels (N=4096 float32 levels 4
+   and 5; N=512 with -a and the host jitter, and the device jitter), and
+   N=4096 float32 over 256 steps within 1e-5 of float64 on matmul at
+   'high' and on split with what its auto gates take there;
+   (c) steps/s at N=4096 float32 in turns: matmul at 'highest' and
+   'high', split at 'high' alone and with each knob and all of them,
+   fft, -a with and without --otf-coeffs 1;
+   (d) steps/s of every route at N = 512, 1024, 2048, 4096, float32 (at
+   both precisions) and float64 (the float64 runs of phases 4, 6 and 7
+   where they exist), float64 fft at N=4096 within 1e-10 of matmul; at
+   each (N, precision) the route ``core/solver.py`` ``AUTO_ROUTES`` picks
+   must run at least AUTO_MARGIN (0.85) of the fastest route's steps/s.
    Phase 3's kernel window is bracketed by nvidia-smi's SM clock,
    temperature and power draw.
 
@@ -348,7 +388,9 @@ canonical run, phase 8 (c)'s world run, phase 10 (b)'s batch without its
 single runs, phase 11 (a)'s float64 experiment and its checks), and
 prints no closing lines; ``--phase 15`` does the same for phase 15 (one
 device's canonical runs on split and ozaki, N=4096 float64 matmul and
-float32 split over 64 steps).
+float32 split over 64 steps), ``--phase 16`` for phase 16 (phase 4's
+run and N=4096 float64 over 64 steps; its sweep measures every
+configuration itself).
 """
 
 from __future__ import annotations
@@ -606,9 +648,10 @@ def kernel_phase(dev, card):
 # phase 4: the canonical default run (the main path)
 # ----------------------------------------------------------------------
 
-def default_run(transform='auto'):
-    """The canonical run on ``transform``: the stop step and the golden
-    anchors.  On every route the JAX package stops this run at the
+def default_run(transform='matmul', **fields):
+    """The canonical run on ``transform`` (pinned: ``auto`` follows the
+    card's table) with the Parameters ``fields``: the stop step and the
+    golden anchors.  On every route the JAX package stops this run at the
     golden's 1674 on the CPU (split at levels 2 with fold_field=False, and
     fft: E every 100 steps within 5.06e-11 of the anchors)."""
     import numpy as np
@@ -620,7 +663,7 @@ def default_run(transform='auto'):
                            'default_n512_anchors.json')) as f:
         g = json.load(f)
     p = Parameters(no_gui=True, device='cuda', kappa_tilde=KAPPA,
-                   transform_backend=transform)
+                   transform_backend=transform, **fields)
     sim = Simulator(p)
     K.reset_launches()
     t0 = time.perf_counter()
@@ -655,7 +698,10 @@ def default_run(transform='auto'):
     check(res['E_every_100_max_rel'] <= 1e-10,
           f'{tag}: E_every_100 outside 1e-10')
     check(res['argmax_E2'] == g['argmax_E2'], f'{tag}: argmax E2 differs')
+    otf = sim.solver.cfg.otf_coeffs
     for name in MATMUL_PATH:
+        if otf and name == 'spectral_update':
+            name = 'update_otf'             # K12 in place of K2
         n = launches[name]
         check(n >= sol.computed_steps - 1,
               f"{tag}: {name} launched {n} times in {sol.computed_steps} "
@@ -672,7 +718,8 @@ def default_run(transform='auto'):
 def cli_run():
     cmd = [sys.executable, '-m', 'chsimpy_tpu_torch', '-N', '4096', '-n',
            '256', '-z', '--precision', 'float32', '--no-gui', '-g',
-           'uniform', '-K', repr(KAPPA)]
+           'uniform', '-K', repr(KAPPA), '--transform', 'matmul',
+           '--matmul-precision', 'highest']
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                           timeout=600)
@@ -692,12 +739,19 @@ def cli_run():
     return {'seconds': seconds, 'launches': launches}
 
 
-def make_solver(N, precision, chunk, full_sim=True, transform='auto'):
+def make_solver(N, precision, chunk, full_sim=True, transform='matmul',
+                **fields):
+    """A prepared Solver on the card; the route and (unless ``fields``
+    give one) the full-float32 products pinned, so a phase measures what
+    it measured before ``auto`` and the float32 default followed the
+    card's table (phase 16)."""
     from chsimpy_tpu_torch import Parameters
     from chsimpy_tpu_torch.core.solver import Solver
+    fields.setdefault('matmul_precision', 'highest')
     p = Parameters(N=N, precision=precision, full_sim=full_sim,
                    generator='uniform', kappa_tilde=KAPPA, chunk_size=chunk,
-                   no_gui=True, device='cuda', transform_backend=transform)
+                   no_gui=True, device='cuda', transform_backend=transform,
+                   **fields)
     s = Solver(p)
     s.prepare()
     return s
@@ -1130,8 +1184,15 @@ def ozaki_n4096(card):
 def ozaki_phase(dev, card):
     out = {'slice_kernel': slice_phase(dev, card)}
     t0 = time.perf_counter()
+    if 'knob_refs' in KEPT:
+        # phase 16 (b)'s checks and stop runs (no rates) in worker
+        # processes beside (b) and (c), two single-process host-bound runs
+        # whose checks take no rates; done before (d) times the routes
+        KEPT['knob_workers'] = start_knob_workers(*KEPT.pop('knob_refs'))
     out['default_run'] = ozaki_default_run()
     out['n1024_golden'] = ozaki_golden_n1024()
+    if 'knob_workers' in KEPT:
+        wait_knob_workers(KEPT['knob_workers'])
     out['n4096'] = ozaki_n4096(card)
     out['seconds_b_to_d'] = time.perf_counter() - t0
     return out
@@ -1444,6 +1505,9 @@ TF32_PASSES = 3     # the GEMM's float32-class product: 3xTF32
 # operations per element, counting each arithmetic operation, comparison
 # and log as one
 OPS_PER_ELEM = {'chemical_potential': 13, 'spectral_update': 3,
+                # K12: leig, its square, CHeig, Seig, the update (5), and
+                # each thread's lam1, lam2 (2 divisions, a product)
+                'update_otf': 11,
                 'stats': 27, 'absdev_sum': 3, 'slice_setup': 6,
                 'slice_per_plane': 6, 'sobol_jitter': 6,
                 # 32-bit integer operations: threefry2x32's 20 rounds of
@@ -1728,7 +1792,8 @@ def world_tasks(ckpt):
     9 (d)'s runs."""
     canon = {'kappa_tilde': KAPPA, 'checkpoint_file': ckpt, **MESH_CKPT}
     fast = {'N': WORLD_FAST_N, 'precision': 'float32', 'full_sim': True,
-            'generator': 'uniform', 'kappa_tilde': KAPPA, 'chunk_size': 64}
+            'generator': 'uniform', 'kappa_tilde': KAPPA, 'chunk_size': 64,
+            'matmul_precision': 'highest'}
     return [('solve', {'params': canon, 'return_U': False,
                        'steps': [MESH_CKPT_STEP, int(1e6)]}),
             ('solve', {'params': fast, 'steps': 64, 'rate_steps': 64,
@@ -2224,7 +2289,9 @@ def item7_n4096(card, fixed_rate):
     for tag, kw in ITEM7_N4096.items():
         p = Parameters(N=4096, precision='float32', full_sim=True,
                        generator='uniform', kappa_tilde=KAPPA,
-                       chunk_size=ITEM7_WINDOW, no_gui=True, device='cuda')
+                       chunk_size=ITEM7_WINDOW, no_gui=True, device='cuda',
+                       transform_backend='matmul',
+                       matmul_precision='highest')
         for k, v in kw.items():
             setattr(p, k, v)
         s = Solver(p)
@@ -2652,7 +2719,7 @@ def ensemble_n4096(card):
     for route in ('matmul', 'split', 'fft'):
         p = Parameters(N=4096, precision='float32', full_sim=True,
                        generator='uniform', no_gui=True, device='cuda',
-                       transform_backend=route)
+                       transform_backend=route, matmul_precision='highest')
         ens, sols, rate_b, launches = _ensemble_run(
             p, pairs, kappas, steps - ENS_WARM, ENS_WARM)
         U0 = float(np.mean(ens.U_init))
@@ -3166,7 +3233,7 @@ SLICE_MEMBER_REPORT = (16, 512, 4)
 # (b): the worker processes that run the 16 single ozaki runs to their
 # stops side by side (one alone runs ~56 steps/s at N=512, ~30 s to its
 # stop: one after another they would take 8 minutes, four side by side
-# take 3)
+# ~2; eight side by side were no faster)
 OZ_SINGLE_PROCS = 4
 # (c): members, steps (a warm-up of ENS_WARM, then the timed window)
 OZ_ENS_4096 = (4, 64)
@@ -3761,6 +3828,7 @@ def live_rate(card, work):
 
     p = Parameters(N=4096, precision='float32', full_sim=True,
                    generator='uniform', kappa_tilde=KAPPA, chunk_size=1024,
+                   transform_backend='matmul', matmul_precision='highest',
                    no_gui=True, png=True, update_every=LIVE_EVERY,
                    ntmax=LIVE_WINDOW, device='cuda',
                    file_id=os.path.join(work, 'rate'))
@@ -4200,7 +4268,8 @@ def grid_ens_phase(card, work, E_single):
     p512 = {'no_gui': True, 'device': 'cuda'}
     Rb, Nb, steps_b = GRID_ENS_4096
     pbig = {'N': Nb, 'precision': 'float32', 'full_sim': True,
-            'generator': 'uniform', 'no_gui': True, 'device': 'cuda'}
+            'generator': 'uniform', 'no_gui': True, 'device': 'cuda',
+            'transform_backend': 'matmul', 'matmul_precision': 'highest'}
     # one device's batches, from the same pairs
     _, one512, _, _ = _ensemble_run(Parameters(**p512), pairs, kappas,
                                     steps)
@@ -4819,7 +4888,8 @@ def pencil_world_tasks(ckpt):
     R, Ne, se = PENCIL_ENS
     fast = {'N': Nf, 'precision': 'float32', 'full_sim': True,
             'generator': 'uniform', 'kappa_tilde': KAPPA,
-            'chunk_size': sf // 2, 'transform_backend': 'split'}
+            'chunk_size': sf // 2, 'transform_backend': 'split',
+            'matmul_precision': 'highest'}
     oz = {'N': No, 'full_sim': True, 'generator': 'uniform',
           'kappa_tilde': KAPPA, 'chunk_size': so // 2,
           'transform_backend': 'ozaki'}
@@ -4867,7 +4937,7 @@ def pencil_world_tasks(ckpt):
     grid = {'full_sim': True, 'generator': 'uniform', 'kappa_tilde': KAPPA,
             'chunk_size': GRID_CHUNK}
     g32 = dict(grid, N=GRID_F32[0], precision='float32',
-               transform_backend='matmul')
+               transform_backend='matmul', matmul_precision='highest')
     goz = dict(grid, N=GRID_OZAKI[0], transform_backend='ozaki')
     gpin = dict(grid, N=GRID_OZAKI_PINNED[0], transform_backend='ozaki',
                 ozaki_fwd_pairs=(5, 7), chunk_size=128)
@@ -4962,7 +5032,8 @@ def pencil_phase(dev, card, refs):
         s1 = Solver(Parameters(N=N, precision=prec, full_sim=True,
                                generator='uniform', kappa_tilde=KAPPA,
                                chunk_size=steps, no_gui=True, device='cuda',
-                               transform_backend=tb, **extra))
+                               transform_backend=tb,
+                               matmul_precision='highest', **extra))
         s1.prepare()
         grid_one[key] = np.array(s1.solve_or_resume(steps).timedata.E)
         del s1
@@ -5410,6 +5481,869 @@ def phase15_alone(detail, dev, card, out_dir) -> int:
     return 0
 
 
+# ----------------------------------------------------------------------
+# phase 16: the float32 knobs (queue A item 14): K12, K3's fold mode, K6
+# in the solve, runs under each knob, N=4096 speeds, the auto sweep
+# ----------------------------------------------------------------------
+
+OTF_NS = (4096, 1000, 1001, 512)
+# K12 has no Pallas counterpart: XLA fuses the JAX step's otf update
+OTF_REPLACES = ('chsimpy_tpu/core/stepper.py:588 (get_coefficients_axis '
+                'fused into the update; B2, chsimpy_tpu/ops/'
+                'pallas_kernels.py:113, on the stored grids)')
+OTF_RS = (4, 16)
+OTF_REPORT = (4096, 'float32')            # the JSON line's K12 rows
+OTF_MEMBERS_REPORT = (4, 4096, 'float32')
+# K3's fold mode needs an even N; 1002 / 2 is odd: the fold's one-column
+# path in both types
+FOLD_NS = (4096, 1000, 1002, 512)
+FOLD_REPORT = (4096, 'float32')
+# (b): the stop runs (N, golden with the float64 E at every step or None
+# for the canonical run, the float32 stop band of PERFORMANCE.md:254)
+KNOB_STOPS = ((512, None, 0.0030), (1024, 'n1024_uniform_stop', 0.0049),
+              (2048, 'n2048_uniform_stop', 0.0098))
+KNOB_E_CLASS = 1e-5         # float32 E against float64 at every step
+
+
+def otf_bound(R, N, dtype):
+    """K12 reads hat_U and hat_E and writes one field (the axis aside)."""
+    s = 4 if dtype == 'float32' else 8
+    n = R * N * N
+    return bound_fields(3 * n * s + N * s, OPS_PER_ELEM['update_otf'] * n,
+                        dtype)
+
+
+def otf_kernel_phase(dev, card):
+    """(a) K12 and K12_members against their plain versions to the bit,
+    member by member against K12 on the member, and on a 2x2 block
+    against the whole field's block; timed at N=4096."""
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    for N in OTF_NS:
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
+            cfg, c, _U, _E, hat_U, hat_E = kernel_inputs(N, dtype, dev)
+            e = c['eaxis']
+            delt = torch.tensor(3e-8, dtype=torch.float64, device=dev)
+            args = (e, delt, cfg.kappa_tilde, cfg.delx2)
+            before = K.launches['update_otf']
+            got = K.update_otf(hat_U, hat_E, *args)
+            want = K.update_otf_ref(hat_U, hat_E, *args)
+            check(K.launches['update_otf'] == before + 1,
+                  f'update_otf N={N}: not one count a call')
+            err = (got.double() - want.double()).abs().max().item()
+            ok = torch.equal(got, want)
+            row = {'name': 'update_otf', 'N': N, 'dtype': dname,
+                   'max_abs_err': err, 'tolerance': 'the same bits',
+                   'ok': ok}
+            if N == 4096:
+                row.update(timed_row(lambda: K.update_otf(hat_U, hat_E,
+                                                          *args),
+                                     lambda: K.update_otf_ref(hat_U, hat_E,
+                                                              *args)),
+                           **otf_bound(1, N, dname))
+                # K2 on the stored grids, the kernel K12 replaces
+                row['K2_ms'] = device_ms(lambda: K.spectral_update(
+                    hat_U, hat_E, c['Seig'], c['CHeig']))
+                h = N // 2
+                blk = [x[h:, h:].contiguous() for x in (hat_U, hat_E)]
+                bgot = K.update_otf(*blk, *args, h, h)
+                ok = (ok and torch.equal(bgot, K.update_otf_ref(
+                    *blk, *args, h, h)) and torch.equal(bgot, got[h:, h:]))
+                row['block_2x2'] = 'the same bits as the plain version ' \
+                                   'and the whole field\'s block'
+            rows.append(row)
+            print(f"kernel update_otf N={N} {dname}: err={err:.3e} "
+                  f"{'ok' if ok else 'FAIL'}" + (
+                      f"  kernel {row['ms']:.4f} ms (one call "
+                      f"{row['call_ms']:.4f}, K2 {row['K2_ms']:.4f})  plain "
+                      f"{row['plain_ms']:.4f} ms  bound "
+                      f"{row['bound_ms']:.4f} ms" if 'ms' in row else '')
+                  + f"  ({card})", flush=True)
+            check(ok, f"update_otf N={N} {dname}: not the plain bits")
+            for R in OTF_RS:
+                g = torch.Generator(device=dev).manual_seed(N + R)
+                hU = torch.randn((R, N, N), dtype=dtype, device=dev,
+                                 generator=g)
+                hE = torch.randn((R, N, N), dtype=dtype, device=dev,
+                                 generator=g)
+                f = torch.arange(R, dtype=torch.float64, device=dev)
+                kap = cfg.kappa_tilde * (1.0 + 0.01 * f)
+                dts = 3e-8 * (1.0 + 0.02 * f)
+                margs = (e, dts, kap, cfg.delx2)
+                mgot = K.update_otf_members(hU, hE, *margs)
+                ok = torch.equal(mgot, K.update_otf_ref(hU, hE, *margs))
+                for r in range(R):
+                    ok = ok and torch.equal(mgot[r], K.update_otf(
+                        hU[r], hE[r], e, dts[r], kap[r].item(), cfg.delx2))
+                h = N // 2
+                bl = [x[:, h:, :h].contiguous() for x in (hU, hE)]
+                ok = ok and torch.equal(K.update_otf_members(
+                    *bl, *margs, h, 0), mgot[:, h:, :h])
+                mrow = {'name': 'update_otf_members', 'R': R, 'N': N,
+                        'dtype': dname, 'max_abs_err': 0.0 if ok else None,
+                        'tolerance': 'the same bits as the plain version '
+                                     'and as K12 on each member', 'ok': ok}
+                if (R, N, dname) == OTF_MEMBERS_REPORT:
+                    mrow.update(timed_row(
+                        lambda: K.update_otf_members(hU, hE, *margs),
+                        lambda: K.update_otf_ref(hU, hE, *margs)),
+                        **otf_bound(R, N, dname))
+                    mrow['single_launches_ms'] = device_ms(lambda: [
+                        K.update_otf(hU[r], hE[r], e, dts[r],
+                                     float(kap[r]), cfg.delx2)
+                        for r in range(R)])
+                rows.append(mrow)
+                print(f"kernel update_otf_members R={R} N={N} {dname}: "
+                      f"{'ok' if ok else 'FAIL'}" + (
+                          f"  kernel {mrow['ms']:.4f} ms (R single "
+                          f"{mrow['single_launches_ms']:.4f})  plain "
+                          f"{mrow['plain_ms']:.4f} ms  bound "
+                          f"{mrow['bound_ms']:.4f} ms" if 'ms' in mrow
+                          else '') + f"  ({card})", flush=True)
+                check(ok, f"update_otf_members R={R} N={N} {dname}")
+                del hU, hE, mgot, bl
+            del hat_U, hat_E, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fold_kernel_phase(dev, card):
+    """(a) K3's fold mode on the folded field against its plain version
+    (K3's tolerances, the count exact) and against K3 on the natural field
+    (the same bits), single and members; timed at N=4096."""
+    import torch
+    from chsimpy_tpu_torch.ops import dct as dct_ops
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    for N in FOLD_NS:
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
+            cfg, c, U, E, _hu, _he = kernel_inputs(N, dtype, dev)
+            V, EV = dct_ops.fold1(U), dct_ops.fold1(E)
+            skw = dict(delx=cfg.delx, RT=cfg.RT, B=cfg.B,
+                       threshold=cfg.threshold)
+            got = K.stats_sums(V, EV, cfg.A0, cfg.A1, fold=True, **skw)
+            want = K.stats_sums_ref(V, EV, cfg.A0, cfg.A1, fold=True, **skw)
+            natural = K.stats_sums(U, E, cfg.A0, cfg.A1, **skw)
+            rtol = 1e-12 if dtype == torch.float64 else 1e-5
+            diff = (got - want).abs()
+            # the natural bits where the fold keeps K3's vector width
+            same_grid = (K.stats_grid(N, U.element_size(), U.data_ptr(),
+                                      E.data_ptr())
+                         == K.stats_grid(N, V.element_size(), V.data_ptr(),
+                                         EV.data_ptr(), fold=True))
+            ok = (bool((diff <= rtol * want.abs()).all())
+                  and got[3].item() == want[3].item()
+                  and (torch.equal(got, natural) or not same_grid))
+            row = {'name': 'stats_sums (fold)', 'N': N, 'dtype': dname,
+                   'max_abs_err': diff.max().item(),
+                   'max_rel_err': (diff / want.abs().clamp_min(1e-300))
+                   .max().item(),
+                   'tolerance': f'rtol {rtol:g}, count exact, the natural '
+                                f'K3 bits where the grid is K3\'s',
+                   'same_grid_as_K3': same_grid, 'ok': ok}
+            R = 4
+            Us = torch.stack([U, 1.0 - 0.5 * U, U, U * 0.999])
+            Es = torch.stack([E, E, 2.0 * E, E])
+            a0 = torch.full((R,), cfg.A0, dtype=torch.float64, device=dev)
+            a1 = torch.full((R,), cfg.A1, dtype=torch.float64, device=dev)
+            mgot = K.stats_sums_members(dct_ops.fold1(Us), dct_ops.fold1(Es),
+                                        a0, a1, fold=True, **skw)
+            ok = ok and (torch.equal(mgot, K.stats_sums_members(
+                Us, Es, a0, a1, **skw)) or not same_grid)
+            row['members'] = 'R=4: the natural K3_members bits'
+            if N == 4096:
+                row.update(timed_row(
+                    lambda: K.stats_sums(V, EV, cfg.A0, cfg.A1, fold=True,
+                                         **skw),
+                    lambda: K.stats_sums_ref(V, EV, cfg.A0, cfg.A1,
+                                             fold=True, **skw)),
+                    **kernel_bound('stats_sums', N, dname))
+                row['natural_ms'] = device_ms(
+                    lambda: K.stats_sums(U, E, cfg.A0, cfg.A1, **skw))
+            rows.append(row)
+            print(f"kernel stats_sums fold N={N} {dname}: rel "
+                  f"{row['max_rel_err']:.3e} {'ok' if ok else 'FAIL'}" + (
+                      f"  kernel {row['ms']:.4f} ms (natural "
+                      f"{row['natural_ms']:.4f})  plain "
+                      f"{row['plain_ms']:.4f} ms  bound "
+                      f"{row['bound_ms']:.4f} ms" if 'ms' in row else '')
+                  + f"  ({card})", flush=True)
+            check(ok, f"stats_sums fold N={N} {dname}")
+    return rows
+
+
+def solve_products(dev):
+    """Every product K6 does in one step of the float32 solves at
+    matmul_precision 'high' (N=4096 matmul, split levels 4, folded
+    split levels 5; an R=4 N=512 ensemble on matmul and split): one
+    recorded (A, B) pair per shape and layout."""
+    import numpy as np
+    from chsimpy_tpu_torch import Parameters
+    from chsimpy_tpu_torch.core import stepper
+    from chsimpy_tpu_torch.ensemble import EnsembleSolver
+    from chsimpy_tpu_torch.ops import dct as dct_ops
+
+    seen = {}
+    runs = [('matmul', 4096, {}), ('split', 4096, {}),
+            ('split', 4096, {'fold_field': True})]
+    with CallRecorder([(dct_ops.K, 'matmul', 'K6')]) as rec:
+        for route, N, extra in runs:
+            s = make_solver(N, 'float32', 8, transform=route,
+                            matmul_precision='high', **extra)
+            stepper._step(s.cfg, s._consts, s._state.replace(
+                hat_U=stepper.entry_dct2(s.cfg, s._consts, s._state.U)))
+            del s
+        for route in ('matmul', 'split'):
+            p = Parameters(N=512, precision='float32', device='cuda',
+                           kappa_tilde=KAPPA, transform_backend=route,
+                           matmul_precision='high', no_gui=True)
+            ens = EnsembleSolver(p, np.tile([[p.func_A0(p.temp),
+                                              p.func_A1(p.temp)]], (4, 1)),
+                                 kappas=np.full(4, KAPPA))
+            ens.prepare()
+            ens.solve_or_resume(2)
+            del ens
+    for _fn, (A, B), _k in rec.calls.get('K6', []):
+        key = (tuple(A.shape), A.stride()[-2:], tuple(B.shape),
+               B.stride()[-2:], A.dim() == 3 and A.stride(0) != 0,
+               B.dim() == 3 and B.stride(0) != 0)
+        seen.setdefault(key, (A, B))
+    return list(seen.values())
+
+
+def gemm_solve_phase(dev, card):
+    """(a) K6 on every product the solve gives it (solve_products):
+    held to its plain version as phase 7 (a) holds it (against the
+    float64 product); a member stack also member by member against K6 on
+    the member (the same bits); timed at the largest shape."""
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    rows = []
+    pairs = solve_products(dev)
+    check(pairs, 'no K6 product in a solve at matmul_precision high')
+    big = max(pairs, key=lambda ab: ab[0].shape[-2] * ab[0].shape[-1]
+              * ab[1].shape[-1])
+    for A, B in pairs:
+        got, plain = K.matmul(A, B), K.matmul_ref(A, B)
+        ref = torch.matmul(A.double(), B.double())
+        tag = (f"matmul in the solve {tuple(A.shape)}@{tuple(B.shape)} "
+               f"strides {A.stride()} {B.stride()}")
+        times = (timed_row(lambda: K.matmul(A, B),
+                           lambda: K.matmul_ref(A, B))
+                 if A is big[0] and B is big[1] else
+                 {'ms': float('nan'), 'call_ms': float('nan'),
+                  'plain_ms': float('nan')})
+        row = held_to_plain(tag, got, plain, ref, times, card,
+                            A=list(A.shape), B=list(B.shape))
+        if got.dim() == 3:
+            same = all(torch.equal(got[r], K.matmul(
+                A[r] if A.dim() == 3 else A, B[r] if B.dim() == 3 else B))
+                for r in range(got.shape[0]))
+            row['members_same_bits'] = same
+            check(same, f"{tag}: a member differs from K6 on the member")
+        if A is big[0] and B is big[1]:
+            M, Kd, N = A.shape[-2], A.shape[-1], B.shape[-1]
+            row['library_ms'] = device_ms(lambda: torch.matmul(A, B))
+            row.update(bound_fields(4 * (M * Kd + Kd * N + M * N),
+                                    TF32_PASSES * 2.0 * M * Kd * N, 'tf32'))
+            row['report'] = True
+        rows.append(row)
+    return rows
+
+
+def _knob_fields(N, **knob):
+    """Parameters fields of a float32 run at N with every knob pinned
+    (the product precision the run takes by default, the forward at it, no
+    band, no otf, no fold), then ``knob``: one knob alone, whatever the
+    auto gates say."""
+    from chsimpy_tpu_torch import Parameters
+    from chsimpy_tpu_torch.core.solver import resolve_matmul_precision
+    mp = resolve_matmul_precision(Parameters(N=N, precision='float32'))
+    return {'matmul_precision': mp, 'fwd_matmul_precision': mp,
+            'inv_band': 0, 'otf_coeffs': 0, 'fold_field': False, **knob}
+
+
+def knob_configs(N):
+    """(b)'s configurations at size N: matmul at 'high' (the float32
+    default from N=1024); at N >= 1024 the float32 class of fft and of
+    split at its default precision ('high'), the crossover sizes; the
+    split route with each knob and all together; --inv-band at N >= 1024
+    only, as the JAX package measured it."""
+    split = dict(_knob_fields(N), transform_backend='split')
+    out = {'matmul high': dict(_knob_fields(N, matmul_precision='high',
+                                            fwd_matmul_precision='high'),
+                               transform_backend='matmul')}
+    if N >= 1024:
+        out['fft'] = {'transform_backend': 'fft'}
+        out['split'] = dict(split)
+    out['split fwd default'] = dict(split, fwd_matmul_precision='default')
+    if N >= 1024:
+        out['split inv-band N/4'] = dict(split, inv_band=N // 4)
+    out['split otf'] = dict(split, otf_coeffs=1)
+    out['split fold'] = dict(split, fold_field=True)
+    out['split all'] = dict(split, fwd_matmul_precision='default',
+                            inv_band=N // 4 if N >= 1024 else 0,
+                            otf_coeffs=1, fold_field=True)
+    return out
+
+
+# (b)'s checks that are no stop runs, each a job of its own
+KNOB_CHECKS = ('members', 'fold bits', 'n4096 class')
+
+
+def knob_jobs():
+    """(b)'s work as jobs for the workers: the checks of KNOB_CHECKS and
+    the stop runs (N, golden, band, name, fields), the largest first; then
+    the float64 canonical run with --otf-coeffs 1."""
+    jobs = [(N, golden, band, name, fields)
+            for N, golden, band in reversed(KNOB_STOPS)
+            for name, fields in knob_configs(N).items()]
+    return ([(None, None, None, name, None) for name in KNOB_CHECKS]
+            + jobs + [(512, None, 0.0, 'float64 otf', None)])
+
+
+def knob_run_raw(N, golden, name, fields):
+    """One stop run of (b) (N=512: the canonical run, else the golden's
+    configuration), float32 with ``fields``, from zeroed counts: its rows'
+    E, stop, the counts and what the solver resolved."""
+    import torch
+    from chsimpy_tpu_torch import Parameters, Simulator
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    if fields is None:
+        # the float64 canonical run with --otf-coeffs 1: default_run's
+        # checks (stop 1674, the anchors, K12 on every step)
+        res = default_run('matmul', otf_coeffs=1)
+        return dict(res, config=name, N=N)
+    cfg = {} if golden is None else load_golden(golden)['config']
+    p = Parameters(no_gui=True, device='cuda', kappa_tilde=KAPPA,
+                   precision='float32', **cfg, **fields)
+    sim = Simulator(p)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    sol = sim.solve()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    c = sim.solver.cfg
+    return {'N': N, 'config': name, 'route': c.transform_backend,
+            'levels': c.spectral_levels, 'matmul_precision':
+            c.matmul_precision, 'fwd': c.fwd_precision,
+            'inv_band': c.inv_band, 'otf': c.otf_coeffs,
+            'fold': c.fold_field, 'computed_steps': sol.computed_steps,
+            'stop_reason': sol.stop_reason, 'seconds': seconds,
+            'launches': {k: v for k, v in K.launches.items() if v},
+            'E': [float(e) for e in sol.timedata.E]}
+
+
+def knob_worker(indices, path):
+    """A worker of (b): the jobs ``indices`` of :func:`knob_jobs`, their
+    results to ``path`` (JSON); the checks read the earlier phases'
+    float64 traces from ``path``'s directory (refs.json)."""
+    import torch
+    with open(os.path.join(os.path.dirname(path), 'refs.json')) as f:
+        refs = json.load(f)
+    checks = {'members': members_knob_run,
+              'fold bits': lambda: fold_bits(
+                  torch.device('cuda', torch.cuda.current_device())),
+              'n4096 class': lambda: high_class_n4096(refs['E64_4096'])}
+    out = []
+    for i in indices:
+        N, golden, _band, name, fields = knob_jobs()[i]
+        if N is None:
+            out.append({'check': name, 'result': checks[name]()})
+        else:
+            out.append(knob_run_raw(N, golden, name, fields))
+    with open(path, 'w') as f:
+        json.dump(out, f)
+    return 0
+
+
+# (b)'s worker processes (the card's machine has 8 cores)
+KNOB_PROCS = 4
+
+
+def start_knob_workers(E512, E64_4096):
+    """(b)'s jobs in KNOB_PROCS processes on the card side by side (job i
+    in process i % KNOB_PROCS): their host work overlaps, so (b)'s runs
+    give stops and traces, not rates.  A full run starts them beside
+    phase 6 (b) and (c) (single-process runs whose checks take no rates);
+    --phase 16 at (b)."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix='chip_smoke_knobs_')
+    with open(os.path.join(work, 'refs.json'), 'w') as f:
+        json.dump({'E64_4096': list(E64_4096)}, f)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    n = len(knob_jobs())
+    procs = []
+    for w in range(KNOB_PROCS):
+        path = os.path.join(work, f'knobs{w}.json')
+        idx = ','.join(str(i) for i in range(w, n, KNOB_PROCS))
+        procs.append((path, subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, 'chip_smoke.py'),
+             '--knob-runs', idx, '--out', path], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return {'work': work, 'procs': procs, 'E512': list(E512),
+            't0': time.perf_counter()}
+
+
+def wait_knob_workers(started, timeout=900):
+    """Wait until every worker of :func:`start_knob_workers` has ended
+    (their logs and exit codes into ``started``)."""
+    if 'rcs' in started:
+        return
+    logs, rcs = [], []
+    for _, proc in started['procs']:
+        left = max(1.0, timeout - (time.perf_counter() - started['t0']))
+        log, _ = proc.communicate(timeout=left)
+        logs.append(log)
+        rcs.append(proc.returncode)
+    started.update(logs=logs, rcs=rcs,
+                   wall=time.perf_counter() - started['t0'])
+
+
+def stop_knob_workers(started):
+    for _, proc in started['procs']:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_knob_workers(started, timeout=900):
+    """Wait for :func:`start_knob_workers`'s processes (their checks
+    raised there) and hold each run: its stop within its band of the
+    float64 stop (the 1-pass forward: the E class only), E within
+    KNOB_E_CLASS of float64 at every step, the kernels of its path
+    launched on every step.  Returns (the runs, the checks' results, the
+    workers' wall seconds)."""
+    import shutil
+    import numpy as np
+    E512 = started['E512']
+    runs, checks = [], {}
+    try:
+        wait_knob_workers(started, timeout)
+        for (path, _), log, rc in zip(started['procs'], started['logs'],
+                                      started['rcs']):
+            print(log, end='', flush=True)
+            check(rc == 0, f"knob worker exited {rc}:\n{log[-3000:]}")
+            with open(path) as f:
+                for res in json.load(f):
+                    if 'check' in res:
+                        checks[res['check']] = res['result']
+                    else:
+                        runs.append(res)
+    finally:
+        stop_knob_workers(started)
+        shutil.rmtree(started['work'], ignore_errors=True)
+    wall = started['wall']
+    check(sorted(checks) == sorted(KNOB_CHECKS), f"checks {sorted(checks)}")
+    bands = {N: (golden, band) for N, golden, band in KNOB_STOPS}
+    out = []
+    for res in sorted(runs, key=lambda r: (r['N'], r['config'])):
+        if res['config'] == 'float64 otf':
+            print(f"knob run float64 canonical --otf-coeffs 1: stop "
+                  f"{res['computed_steps']}, E every 100 steps "
+                  f"{res['E_every_100_max_rel']:.3e} of the anchors, "
+                  f"update_otf {res['launches']['update_otf']}", flush=True)
+            res.pop('E')
+            out.append(res)
+            continue
+        N, name = res['N'], res['config']
+        golden, band = bands[N]
+        E64 = E512 if golden is None else load_golden(golden)['E']
+        ref_stop = 1674 if golden is None else \
+            load_golden(golden)['computed_steps']
+        E = np.asarray(res.pop('E'))
+        n = min(len(E), len(E64))
+        rel = float(np.max(np.abs(E[:n] / np.asarray(E64[:n]) - 1)))
+        shift = res['computed_steps'] / ref_stop - 1
+        res.update(E_vs_f64_max_rel=rel, stop_shift=shift, band=band,
+                   in_band=abs(shift) <= band)
+        print(f"knob run N={N} float32 {name} ({res['route']}, "
+              f"{res['matmul_precision']}, fwd {res['fwd']}, levels "
+              f"{res['levels']}): stop {res['computed_steps']} "
+              f"({shift:+.4%}, band {band:.2%}), E vs float64 {rel:.3e}, "
+              f"launches {res['launches']}", flush=True)
+        check(res['stop_reason'] == 'energy', f"{name} N={N}: no stop")
+        check(rel <= KNOB_E_CLASS, f"{name} N={N}: E {rel:.3e} from "
+                                   f"float64")
+        if res['fwd'] != 'default':
+            # the 1-pass forward is held to the E class only: the JAX
+            # package measured it moving the canonical stop (1669 ->
+            # 1683, chsimpy_tpu/core/solver.py:145-147)
+            check(res['in_band'], f"{name} N={N}: stop "
+                                  f"{res['computed_steps']} outside "
+                                  f"{band:.2%} of {ref_stop}")
+        L = res['launches']
+        steps = res['computed_steps'] - 1
+        update = 'update_otf' if res['otf'] else 'spectral_update'
+        for k in ('chemical_potential', update, 'stats_sums', 'absdev_sum'):
+            check(L.get(k, 0) >= steps, f"{name} N={N}: {k} launched "
+                                        f"{L.get(k, 0)} in {steps} steps")
+        high = 'high' in (res['matmul_precision'], res['fwd'])
+        if res['route'] in ('matmul', 'split') and high:
+            check(L.get('matmul', 0) >= steps, f"{name}: K6 launched "
+                                               f"{L.get('matmul', 0)}")
+        else:
+            check('matmul' not in L, f"{name}: K6 launched")
+        out.append(res)
+    return out, checks, wall
+
+
+def fold_bits(dev):
+    """(b) with --split-levels pinned the folded run's U is the natural
+    run's to the bit, and E, E2 and Ra too (K3's fold mode; N=4096
+    float32 64 steps at levels 4 and 5; N=512 float64 with -a and the
+    host jitter to step 520; N=512 float32 with the device jitter)."""
+    import numpy as np
+    import torch
+    out = {}
+    for N, prec, steps, levels, extra in (
+            (4096, 'float32', 64, 4, {}), (4096, 'float32', 64, 5, {}),
+            (512, 'float64', 520, 2,
+             {'adaptive_time': True, 'delt_max': 8 * ITEM7_DELT_MAX,
+              'jitter': 0.01}),
+            (512, 'float32', 300, 2,
+             {'jitter': 0.01, 'jitter_backend': 'device'})):
+        Us, rows = [], []
+        for ff in (False, True):
+            s = make_solver(N, prec, steps, transform='split',
+                            split_levels=levels, fold_field=ff,
+                            matmul_precision='high', **extra)
+            sol = s.solve_or_resume(steps)
+            Us.append(sol.U.clone())
+            rows.append(sol.timedata.data()[:, [1, 2, 5]].copy())
+            del s
+        same = torch.equal(Us[0], Us[1])
+        same_rows = bool(np.array_equal(rows[0], rows[1]))
+        key = f"N={N} {prec} levels {levels} {steps} steps {extra}"
+        out[key] = {'U_same_bits': same, 'E_E2_Ra_same_bits': same_rows}
+        print(f"fold bits {key}: U {'equal' if same else 'DIFFER'}, "
+              f"E/E2/Ra {'equal' if same_rows else 'differ'}", flush=True)
+        check(same and same_rows,
+              f"fold {key}: the folded run is not the natural run")
+    return out
+
+
+def high_class_n4096(E64_64):
+    """(b) at N=4096 over 256 steps, E within KNOB_E_CLASS of a float64
+    run at every step (its first 64 steps = phase 5's, ``E64_64``):
+    matmul at 'high' (the float32 default's condition), and the split
+    route with what its auto gates take there (the 1-pass forward,
+    --otf-coeffs)."""
+    import numpy as np
+    from chsimpy_tpu_torch import Parameters
+    from chsimpy_tpu_torch.core import solver as solver_mod
+    s64 = make_solver(4096, 'float64', 256)
+    E64 = np.asarray(s64.solve_or_resume(256).timedata.E)
+    del s64
+    check(np.array_equal(E64[:64], np.asarray(E64_64)),
+          'N=4096 float64: not phase 5\'s run')
+    gated = Parameters(N=4096, precision='float32', transform_backend='split')
+    runs = {'matmul high': {'matmul_precision': 'high'},
+            'split auto gates': {
+                'transform': 'split', 'matmul_precision': None,
+                'fwd_matmul_precision':
+                    solver_mod.resolve_fwd_matmul_precision(gated),
+                'otf_coeffs': int(solver_mod.resolve_otf_coeffs(gated))}}
+    out = {}
+    for name, kw in runs.items():
+        s32 = make_solver(4096, 'float32', 256, **kw)
+        E32 = np.asarray(s32.solve_or_resume(256).timedata.E)
+        c = s32.cfg
+        del s32
+        rel = float(np.max(np.abs(E32 / E64 - 1)))
+        out[name] = {'E_vs_f64_max_rel_256': rel,
+                     'precision': c.matmul_precision, 'fwd': c.fwd_precision,
+                     'otf': c.otf_coeffs, 'fold': c.fold_field,
+                     'inv_band': c.inv_band}
+        print(f"N=4096 float32 {name} ({c.transform_backend}, "
+              f"{c.matmul_precision}, fwd {c.fwd_precision}, otf "
+              f"{c.otf_coeffs}, fold {c.fold_field}, band {c.inv_band}): E "
+              f"vs float64 {rel:.3e} over 256 steps", flush=True)
+        check(rel <= KNOB_E_CLASS, f"N=4096 {name}: E {rel:.3e} from "
+                                   f"float64")
+    return out
+
+
+# (c): N=4096 float32 configurations, steps/s in turns
+SPEED_N = 4096
+SPEED_WINDOW = 96
+
+
+def speed_configs():
+    """(c): FP32 against 3xTF32 on matmul; the split route at 'high' (its
+    default at N=4096) against each knob alone and all together; fft;
+    -a with and without --otf-coeffs (matmul, full float32, as phase 9
+    (c))."""
+    split = dict(_knob_fields(SPEED_N, matmul_precision='high',
+                              fwd_matmul_precision='high'),
+                 transform='split')
+    a = {'transform': 'matmul', 'matmul_precision': 'highest',
+         'adaptive_time': True, 'delt_max': ITEM7_DELT_MAX}
+    return {
+        'matmul highest': {'transform': 'matmul',
+                           'matmul_precision': 'highest'},
+        'matmul high': {'transform': 'matmul', 'matmul_precision': 'high'},
+        'split high': dict(split),
+        'split high fwd default': dict(split,
+                                       fwd_matmul_precision='default'),
+        'split high inv-band N/4': dict(split, inv_band=SPEED_N // 4),
+        'split high otf': dict(split, otf_coeffs=1),
+        'split high fold': dict(split, fold_field=True),
+        'split high all': dict(split, fwd_matmul_precision='default',
+                               inv_band=SPEED_N // 4, otf_coeffs=1,
+                               fold_field=True),
+        'fft': {'transform': 'fft'},
+        'matmul -a': dict(a),
+        'matmul -a otf': dict(a, otf_coeffs=1),
+    }
+
+
+def knob_speeds(card):
+    """(c) steps/s at N=4096 float32 of every speed_configs entry, each
+    after a 32-step warm-up chunk, two windows in turns (forward then
+    backward order)."""
+    solvers = {}
+    for name, kw in speed_configs().items():
+        s = make_solver(SPEED_N, 'float32', 32, **kw)
+        s.solve_or_resume(32)
+        solvers[name] = s
+    names = list(solvers)
+    rates = {n: [] for n in names}
+    for n in names + names[::-1]:
+        rates[n].append(rate(solvers[n], SPEED_WINDOW))
+    for n, v in rates.items():
+        c = solvers[n].cfg
+        print(f"steps/s N=4096 float32 {n} (levels {c.spectral_levels}): "
+              + ', '.join(f"{r:.2f}" for r in v) + f"  ({card})",
+              flush=True)
+    del solvers
+    return rates
+
+
+# (d): auto's route runs at least this share of the fastest route's
+# steps/s in the same run
+AUTO_MARGIN = 0.85
+# (d): the auto sweep's sizes and windows (steps) a configuration
+SWEEP = ((512, 256), (1024, 128), (2048, 128), (4096, 32))
+
+
+def sweep_routes(N, prec):
+    """(d)'s configurations at N: float32 matmul at both product
+    precisions (the float32 default's evidence), split at the default
+    one, fft; float64 every route."""
+    from chsimpy_tpu_torch import Parameters
+    from chsimpy_tpu_torch.core.solver import resolve_matmul_precision
+    if prec == 'float64':
+        return [('matmul', None), ('split', None), ('fft', None),
+                ('ozaki', None)], None
+    mp = resolve_matmul_precision(Parameters(N=N, precision='float32'))
+    return [('matmul', 'highest'), ('matmul', 'high'), ('split', mp),
+            ('fft', None)], mp
+
+
+def _sweep_rate(N, prec, window, route, mp=None):
+    kw = {'transform': route}
+    if mp:
+        kw['matmul_precision'] = mp
+    s = make_solver(N, prec, window, **kw)
+    s.solve_or_resume(window)
+    out = max(rate(s, window), rate(s, window))
+    return out, s
+
+
+def auto_sweep(card, speeds, earlier=None):
+    """(d) steps/s of every route at N = 512 .. 4096 in float32 (full
+    float32 and 3xTF32 products) and float64, one warm-up chunk and two
+    windows each; N=4096 float32 from (c).  ``earlier``: the same run's
+    earlier measurements, taken instead of measuring again: the float64
+    whole runs of phases 4, 6 (b), (c), 7 (c), (e) (steps over seconds) at
+    N <= 2048 and phase 6 (d)'s windows at N=4096 (matmul, ozaki).  The
+    float64 fft at N=4096 is held to the matmul run (E within 1e-10 over
+    64 steps).  Then each (N, precision)'s fastest route beside what
+    core/solver.py's AUTO_ROUTES picks."""
+    import numpy as np
+    from chsimpy_tpu_torch.core import solver as solver_mod
+    out = dict(earlier or {})
+    for prec in ('float32', 'float64'):
+        for N, window in SWEEP:
+            for route, mp in sweep_routes(N, prec)[0]:
+                key = f"N={N} {prec} {route}" + (f" {mp}" if mp else '')
+                if key in out or (earlier and route == 'ozaki'):
+                    # the ozaki route is 4-12x slower than matmul at every
+                    # N (phase 6, and this sweep run alone)
+                    continue
+                if prec == 'float32' and N == SPEED_N:
+                    name = {'fft': 'fft', 'matmul highest': 'matmul highest',
+                            'matmul high': 'matmul high',
+                            'split high': 'split high'}.get(
+                        f"{route} {mp}" if mp else route)
+                    if name:
+                        out[key] = max(speeds[name])
+                        continue
+                out[key], s = _sweep_rate(N, prec, window, route, mp)
+                if (N, prec, route) == (4096, 'float64', 'fft'):
+                    mm = make_solver(4096, 'float64', 64)
+                    Em = np.asarray(mm.solve_or_resume(64).timedata.E)
+                    Ef = np.asarray(s.solution.timedata.E[:64])
+                    rel = float(np.max(np.abs(Ef / Em - 1)))
+                    out['fft_f64_4096_E_vs_matmul'] = rel
+                    print(f"N=4096 float64 fft: E vs matmul {rel:.3e} over "
+                          f"64 steps", flush=True)
+                    check(rel <= 1e-10, f"float64 fft E {rel:.3e}")
+                    del mm
+                del s
+                print(f"auto sweep {key}: {out[key]:.2f} steps/s  ({card})",
+                      flush=True)
+    table = {}
+    for prec in ('float32', 'float64'):
+        for N, _ in SWEEP:
+            # the routes at the precision a run takes when it pins none
+            routes, mp = sweep_routes(N, prec)
+            keys = {r: f"N={N} {prec} {r}" + (f" {m}" if m else '')
+                    for r, m in routes if m in (None, mp)}
+            cands = {r: out[k] for r, k in keys.items() if k in out}
+            best = max(cands, key=cands.get)
+            auto = solver_mod.auto_route(N, prec)
+            table[f"N={N} {prec}"] = {'fastest': best, 'auto': auto,
+                                      'precision': mp,
+                                      'steps_per_s': cands}
+            print(f"auto N={N} {prec} ({mp or 'float64'} products): fastest "
+                  f"{best}, auto picks {auto}: {cands}", flush=True)
+            # host-bound sizes move ~10-20% run to run (PERF.md §7)
+            check(cands[auto] >= AUTO_MARGIN * cands[best],
+                  f"auto N={N} {prec} picks {auto} ({cands[auto]:.1f} "
+                  f"steps/s), the card measured {best} at "
+                  f"{cands[best]:.1f}")
+    return {'steps_per_s': out, 'table': table}
+
+
+def earlier_rates(detail):
+    """(d)'s float64 rates from the same run's earlier phases: whole runs
+    (computed steps - 1 over their seconds) of the canonical run on
+    matmul (4), split and fft (7 (c)), the N=1024/2048 stop goldens (7
+    (e)); phase 6 (d)'s windows at N=4096 (matmul, ozaki).  Phase 6 (b)
+    and (c) share the card with (b)'s workers: their ozaki runs give no
+    rate (the ozaki route is 4-12x slower than matmul at every N)."""
+    out = {}
+
+    def whole(key, res):
+        out[key] = (res['computed_steps'] - 1) / res['seconds']
+    whole('N=512 float64 matmul', detail['default_run'])
+    for t in ('split', 'fft'):
+        whole(f'N=512 float64 {t}', detail['routes']['default_run'][t])
+    for res in detail['routes']['stop_goldens']:
+        N = {'n1024_uniform_stop': 1024,
+             'n2048_uniform_stop': 2048}.get(res['golden'])
+        if N:
+            whole(f"N={N} float64 {res['route']}", res)
+    for k, v in detail['ozaki']['n4096']['steps_per_s'].items():
+        out[f'N=4096 float64 {k}'] = max(v)
+    return out
+
+
+def members_knob_run():
+    """The ensemble's path under the knobs: R=4 N=512 float32 on split at
+    'high' with --otf-coeffs 1 and --fold-field over 64 steps from
+    zeroed counts (K12_members, K3_members' fold mode and K6 launched on
+    every step), each member within 1e-6 of its single run."""
+    import numpy as np
+    import torch
+    from chsimpy_tpu_torch import Parameters
+    from chsimpy_tpu_torch.core.solver import Solver
+    from chsimpy_tpu_torch.ensemble import EnsembleSolver
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    fields = dict(N=512, precision='float32', device='cuda',
+                  kappa_tilde=KAPPA, transform_backend='split',
+                  matmul_precision='high', otf_coeffs=1, fold_field=True,
+                  full_sim=True, no_gui=True)
+    p = Parameters(**fields)
+    pairs = canonical_pairs(4)
+    kappas = KAPPA * (1.0 + 0.01 * np.arange(4))
+    ens = EnsembleSolver(p, pairs, kappas=kappas)
+    ens.prepare()
+    K.reset_launches()
+    sols = ens.solve_or_resume(64)
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    for name in ('update_otf_members', 'stats_sums_members', 'matmul'):
+        check(launches[name] >= 63, f"ensemble: {name} launched "
+                                    f"{launches[name]} times in 63 steps")
+    worst = 0.0
+    for r, sol in enumerate(sols):
+        q = Parameters(**fields, A0_const=float(pairs[r][0]),
+                       A1_const=float(pairs[r][1]))
+        q.kappa_tilde = float(kappas[r])
+        s = Solver(q)
+        s.prepare()
+        one = s.solve_or_resume(64)
+        worst = max(worst, float(np.max(np.abs(
+            np.asarray(sol.timedata.E) / np.asarray(one.timedata.E) - 1))))
+    print(f"ensemble R=4 N=512 float32 split high otf fold: 64 steps, "
+          f"members vs single runs E {worst:.3e}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    check(worst <= 1e-6, f"ensemble members {worst:.3e} from single runs")
+    return {'launches': launches, 'E_vs_single_max_rel': worst}
+
+
+def knobs_phase(dev, card, E512, E64_4096, detail=None):
+    """Phase 16 (``detail``: the run's earlier phases, whose float64
+    rates (d) takes instead of measuring again; (b)'s workers, if phase
+    6 started them, in KEPT['knob_workers'])."""
+    import torch
+    out = {'otf_kernels': otf_kernel_phase(dev, card),
+           'fold_kernels': fold_kernel_phase(dev, card),
+           'gemm_solve': gemm_solve_phase(dev, card)}
+    t0 = time.perf_counter()
+    started = KEPT.pop('knob_workers', None) or start_knob_workers(
+        E512, E64_4096)
+    out['runs'], checks, out['workers_wall_s'] = finish_knob_workers(
+        started)
+    out['members'] = checks['members']
+    out['fold_bits'] = checks['fold bits']
+    out['high_n4096'] = checks['n4096 class']
+    out['seconds_b'] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out['speeds'] = knob_speeds(card)
+    out['seconds_c'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out['auto'] = auto_sweep(card, out['speeds'], None if detail is None
+                             else earlier_rates(detail))
+    out['seconds_d'] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase16_alone(detail, dev, card, out_dir) -> int:
+    """``--phase 16``: phase 16 after what it is held to (phase 4's
+    canonical run, phase 5's float64 N=4096 run); its details to
+    DIR/chip_smoke_16.json with ``--out``."""
+    import numpy as np
+    detail['default_run'] = default_run('matmul')
+    s64 = make_solver(4096, 'float64', 64)
+    E64 = np.asarray(s64.solve_or_resume(64).timedata.E).tolist()
+    del s64
+    t0 = time.perf_counter()
+    detail['knobs'] = knobs_phase(dev, card, detail['default_run']['E'],
+                                  E64)
+    detail['phase_seconds'][16] = time.perf_counter() - t0
+    print(f"phase 16: {detail['phase_seconds'][16]:.1f} s  ({card})",
+          flush=True)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, 'chip_smoke_16.json'), 'w') as f:
+            json.dump(detail, f, indent=1)
+    return 0
+
+
 def gpu_clocks():
     """The card's SM clock, temperature and power draw (nvidia-smi)."""
     proc = subprocess.run(
@@ -5600,7 +6534,62 @@ def summary_rows(detail):
                {'single_launches_ms': row['single_launches_ms']}),
             **({'strip_ms': row['strip_ms']} if grid else {}),
             'bound_share': row['bound_ms'] / row['ms']})
+    rows += knob_rows(detail['knobs'])
     return rows
+
+
+def knob_rows(kn):
+    """Phase 16's kernels in the JSON line: K12 and K12_members (N=4096
+    float32, R=4), counted on (b)'s canonical split run with --otf-coeffs
+    1 and the ensemble's run; K3's fold mode (N=4096 float32), counted on
+    (b)'s canonical split run with --fold-field; K6 at its largest product
+    in a solve, counted on (b)'s N=1024 split run at 'high'."""
+    def launches(N, config, name):
+        return next(r for r in kn['runs'] if r['N'] == N
+                    and r['config'] == config)['launches'].get(name, 0)
+
+    def row_of(rows, **key):
+        return next(r for r in rows if 'ms' in r and all(
+            r.get(k) == v for k, v in key.items()))
+    otf = row_of(kn['otf_kernels'], name='update_otf', N=OTF_REPORT[0],
+                 dtype=OTF_REPORT[1])
+    R, N, dt = OTF_MEMBERS_REPORT
+    otfm = row_of(kn['otf_kernels'], name='update_otf_members', R=R, N=N,
+                  dtype=dt)
+    fold = row_of(kn['fold_kernels'], N=FOLD_REPORT[0],
+                  dtype=FOLD_REPORT[1])
+    gemm = next(r for r in kn['gemm_solve'] if r.get('report'))
+    out = []
+    for name, row, replaces, count, shape, extra in (
+            ('update_otf', otf, OTF_REPLACES,
+             launches(512, 'split otf', 'update_otf'),
+             f"{N}x{N} {dt}", {'K2_ms': otf['K2_ms']}),
+            ('update_otf_members', otfm, OTF_REPLACES + ' (vmapped over '
+             'the member axis, chsimpy_tpu/ensemble.py)',
+             kn['members']['launches']['update_otf_members'],
+             f"{R} members of {N}x{N} {dt}",
+             {'single_launches_ms': otfm['single_launches_ms']}),
+            ('stats_sums (fold)', fold, REPLACES['stats_sums'] + ' (on the '
+             'folded layout of chsimpy_tpu/core/stepper.py:405)',
+             launches(512, 'split fold', 'stats_sums'),
+             f"{FOLD_REPORT[0]}x{FOLD_REPORT[0]} {FOLD_REPORT[1]}, folded",
+             {'natural_ms': fold['natural_ms'],
+              'max_rel_err': fold['max_rel_err']}),
+            ('matmul (solve)', gemm, REPLACES['matmul'] + ' (the solve\'s '
+             'float32 products at Precision.HIGH, chsimpy_tpu/core/'
+             'stepper.py:615-650, 719-729)',
+             launches(1024, 'split', 'matmul'),
+             f"{gemm['A']}@{gemm['B']} float32", {})):
+        out.append({
+            'name': name, 'route': 'cuda',
+            'source': GEMM_SOURCE if name.startswith('matmul') else SOURCE,
+            'replaces': replaces, 'launches': count,
+            'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
+            'call_ms': row['call_ms'], 'plain_ms': row['plain_ms'],
+            'library_ms': row.get('library_ms'), 'bound_ms': row['bound_ms'],
+            'bound_by': row['bound_by'], 'shape': shape, **extra,
+            'bound_share': row['bound_ms'] / row['ms']})
+    return out
 
 
 def kernels_only(detail, dev, card, out_dir) -> int:
@@ -5620,6 +6609,8 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     detail['pencil_blocks'] = pencil_block_kernels(dev, card)
     detail['grid_slices'] = grid_slice_timing(dev, card)
     detail['grid_blocks'] = grid_block_kernels(dev, card)
+    detail['otf_kernels'] = otf_kernel_phase(dev, card)
+    detail['fold_kernels'] = fold_kernel_phase(dev, card)
     report = [r for r in detail['kernels'] if r['N'] == REPORT_SHAPE[0]]
     report += [r for r in detail['sobol_kernel'] if 'ms' in r
                and r['N'] == SOBOL_REPORT[0]]
@@ -5635,6 +6626,8 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     report += [r for r in detail['slice_members'] if 'ms' in r]
     report += detail['local_members'] + detail['row_absdev']
     report += detail['pencil_slices'] + detail['grid_slices']
+    report += [r for r in detail['otf_kernels'] + detail['fold_kernels']
+               if 'ms' in r]
     for r in report:
         if 'bound_ms' not in r:     # the slice kernel's row
             r.update(kernel_bound(r['name'], r['N'], 'float64'))
@@ -5699,16 +6692,18 @@ def main(argv=None) -> int:
     ap.add_argument('--kernels-only', action='store_true',
                     help='only the kernels against their plain versions, '
                          'and their times')
-    ap.add_argument('--phase', type=int, choices=(14, 15),
+    ap.add_argument('--phase', type=int, choices=(14, 15, 16),
                     help='run this phase alone after the build, with the '
                          'parts of earlier phases it holds its results to '
                          '(phase 14: the canonical run of 4, the batch of '
                          '10 (b), the float64 experiment of 11 (a); phase '
                          '15: the canonical runs on split and ozaki, N=4096 '
-                         'float64 matmul and float32 split); no closing '
-                         'lines')
+                         'float64 matmul and float32 split; phase 16: the '
+                         'canonical run of 4); no closing lines')
     # a worker of phase 12 (b): single ozaki runs, saved to --out
     ap.add_argument('--ozaki-singles', help=argparse.SUPPRESS)
+    # a worker of phase 16 (b): knob runs, saved to --out
+    ap.add_argument('--knob-runs', help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5718,6 +6713,9 @@ def main(argv=None) -> int:
     if args.ozaki_singles:
         return ozaki_single_worker(
             [int(r) for r in args.ozaki_singles.split(',')], args.out)
+    if args.knob_runs:
+        return knob_worker([int(i) for i in args.knob_runs.split(',')],
+                           args.out)
     from chsimpy_tpu_torch.ops import cuda_build
     from chsimpy_tpu_torch.sysinfo import card_line
     card = card_line()
@@ -5740,6 +6738,8 @@ def main(argv=None) -> int:
     try:
         return _main(args, detail, dev, card, torch)
     finally:
+        if 'knob_workers' in KEPT:
+            stop_knob_workers(KEPT['knob_workers'])
         if 'dir' in KEPT:
             import shutil
             shutil.rmtree(KEPT['dir'], ignore_errors=True)
@@ -5756,6 +6756,8 @@ def _main(args, detail, dev, card, torch) -> int:
         return phase14_alone(detail, dev, card, args.out)
     if args.phase == 15:
         return phase15_alone(detail, dev, card, args.out)
+    if args.phase == 16:
+        return phase16_alone(detail, dev, card, args.out)
     # the SM clock beside phase 3's kernel window (B1 and B8 read slower in
     # some runs with the code unchanged)
     detail['clocks_before_phase3'] = gpu_clocks()
@@ -5768,6 +6770,7 @@ def _main(args, detail, dev, card, torch) -> int:
         return kernels_only(detail, dev, card, args.out)
     detail['default_run'] = timed(4, default_run)
     fm = detail['fast_mode'] = timed(5, fast_mode, card)
+    KEPT['knob_refs'] = (detail['default_run']['E'], fm['E_f64_64_steps'])
     detail['ozaki'] = timed(6, ozaki_phase, dev, card)
     detail['routes'] = timed(7, routes_phase, dev, card,
                              fm['E_f64_64_steps'])
@@ -5792,6 +6795,9 @@ def _main(args, detail, dev, card, torch) -> int:
         'E_f64_4096': fm['E_f64_64_steps'],
         'E_split_f32_4096': KEPT['E_split_f32_4096'],
         'U0_mean_4096': fm['f32_mean_U_initial']})
+    detail['knobs'] = timed(16, knobs_phase, dev, card,
+                            detail['default_run']['E'],
+                            fm['E_f64_64_steps'], detail)
     print('phase seconds: ' + ', '.join(
         f"{k} {v:.1f}" for k, v in detail['phase_seconds'].items()),
         flush=True)

@@ -164,9 +164,12 @@ def save_checkpoint(fname: str, solver) -> None:
     """Serialize a Solver's resumable state.  Under a mesh every rank
     calls it: the field is the gathered ``solution.U`` (the solver sets
     it at every chunk boundary it saves at and at the end of a solve);
-    rank 0 writes, then every rank meets at a barrier."""
+    rank 0 writes, then every rank meets at a barrier.  The field is
+    written in the natural layout (a folded state is unfolded), as the
+    JAX package writes it."""
     sol = solver.solution
-    U = solver._state.U if solver.mesh is None else sol.U
+    U = solver.field_state(solver._state.U) if solver.mesh is None \
+        else sol.U
     if not _lead(solver.mesh):
         _written(solver.mesh)
         return
@@ -254,6 +257,7 @@ def restore_solver(fname: str, device='cuda', dist_backend=None,
     sol.U = U
     if solver.mesh is not None:
         U = shard_field(U, solver.field_mesh)[0]
+    U = solver.field_state(U)
 
     def f(x):
         return torch.tensor(float(x), dtype=f64, device=dev)

@@ -1,10 +1,10 @@
 """Command-line interface.
 
-The flags of the JAX CLI (``chsimpy_tpu/cli.py``) that the port runs, with
-the same names, defaults, range checks and cross-flag errors, plus
-``--device``; a ``-p`` YAML file wins over the command line, as there.
-Every other flag of the JAX CLI is still recognized, and refused with an
-error that names the ROADMAP item that ports it.
+The flags of the JAX CLI (``chsimpy_tpu/cli.py``), with the same names,
+choices, defaults, range checks and cross-flag errors, plus ``--device``
+and ``--dist-backend``; a ``-p`` YAML file wins over the command line, as
+there.  ``--kernels`` alone is recognized and refused: the hand-written
+kernels are the port's path.
 """
 
 from __future__ import annotations
@@ -13,8 +13,7 @@ import argparse
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
-from .params import (KERNELS_MSG, Parameters, not_ported,
-                     solver_scope_errors)
+from .params import KERNELS_MSG, PRECISIONS, Parameters, solver_scope_errors
 from .version import __version__
 
 
@@ -90,7 +89,8 @@ FLAGS = [
          '2-D DCT route: matmul (C·U·Cᵀ), split (folded block products '
          'in a permuted spectral basis, even N), fft (Makhoul rFFT, even '
          'N), or ozaki (float64 only: exact int8 slice products); auto '
-         'resolves to matmul', param='transform_backend',
+         'picks by N, precision and mesh from steps/s measured on the card',
+         param='transform_backend',
          choices=['auto', 'matmul', 'split', 'fft', 'ozaki'],
          default='auto'),
     Flag(('--mesh',), 'Device',
@@ -116,8 +116,43 @@ FLAGS = [
          choices=['nccl', 'gloo']),
     Flag(('--split-levels',), 'Device',
          'Fold depth of the split transform route (N divisible by '
-         '2^levels); default: 4 at N>=4096, 3 at N>=2048, else 2',
+         '2^levels); default: 4 at N>=4096 (5 under --fold-field), 3 at '
+         'N>=2048, else 2. Pin it to make --fold-field a pure-layout A/B',
          param='split_levels', type=int, default=None),
+    Flag(('--fold-field',), 'Device',
+         'Keep the field in the level-1 folded layout between transforms '
+         '(split route, single device or an ensemble over ranks of its '
+         'own): drops 4 full-field reversals per step; the statistics '
+         'kernel reads the folded field through the fold map. At equal '
+         '--split-levels U is the natural run\'s to the bit; the default '
+         'depth is one level deeper under the fold at N>=4096. Default: '
+         'auto (core/solver.py resolve_fold_field); --no-fold-field forces '
+         'the natural layout', param='fold_field',
+         action=argparse.BooleanOptionalAction),
+    Flag(('--matmul-precision',), 'Device',
+         'float32 products of the DCT transforms: highest = full FP32 '
+         '(cuBLAS, TF32 off; the TPU\'s 6-pass bf16), high = 3xTF32 on '
+         'the tensor cores (the GEMM kernel; the TPU\'s 3-pass), default = '
+         'one TF32 pass (the TPU\'s 1-pass bf16). float64 products are '
+         'float64 whatever the name. Default: resolved per precision',
+         param='matmul_precision', choices=list(PRECISIONS), default=None),
+    Flag(('--fwd-matmul-precision',), 'Device',
+         'The same for the FORWARD (nonlinear-term) transform only; the '
+         'semi-implicit damping makes it far less error-sensitive than '
+         'the inverse (unset = auto gate, else --matmul-precision)',
+         param='fwd_matmul_precision', choices=list(PRECISIONS),
+         default=None),
+    Flag(('--inv-band',), 'Device',
+         'Banded-precision inverse (float32, matmul and split routes): '
+         'spectral rows/cols >= this index contract at one TF32 pass, the '
+         'dominant low band keeps --matmul-precision; 0 = uniform '
+         'precision (default: auto gate)',
+         param='inv_band', type=int, default=None),
+    Flag(('--otf-coeffs',), 'Device',
+         'Rebuild the Seig/CHeig update coefficients per step from the '
+         '1-D eigenvalue axis inside the update kernel instead of reading '
+         'two (N,N) grids (1 = on, 0 = off; default: auto gate)',
+         param='otf_coeffs', type=int, default=None, choices=[0, 1]),
     Flag(('--ozaki-fwd-pairs',), 'Device',
          'Stage pair cutoffs "S1,S2" for the FORWARD float64 ozaki '
          'transform (default 3,5 — E at the floor with 2 slots of '
@@ -180,18 +215,6 @@ FLAGS = [
          'device-chunk boundaries).', param='checkpoint_every', type=int),
 ]
 
-# flags of the JAX CLI that the port refuses: names, value count, what
-_LATER = [
-    (('--fold-field', '--no-fold-field'), 0, 'the TPU tuning knob '
-     '--fold-field', 14),
-    (('--matmul-precision',), 1, 'the TPU tuning knob --matmul-precision',
-     14),
-    (('--fwd-matmul-precision',), 1,
-     'the TPU tuning knob --fwd-matmul-precision', 14),
-    (('--inv-band',), 1, 'the TPU tuning knob --inv-band', 14),
-    (('--otf-coeffs',), 1, 'the TPU tuning knob --otf-coeffs', 14),
-]
-
 
 def _refusal(message: str) -> type:
     class NotPorted(argparse.Action):
@@ -228,15 +251,10 @@ class CLIParser:
                     kw['choices'] = flag.choices
                 kw['default'] = flag.default
             groups[flag.group].add_argument(*flag.names, **kw)
-        later = self.parser.add_argument_group(
-            'Not ported yet (each names its ROADMAP.md item)')
-        for names, nargs, what, item in _LATER:
-            later.add_argument(*names, nargs=nargs,
-                               action=_refusal(not_ported(what, item)),
-                               default=argparse.SUPPRESS,
-                               help=argparse.SUPPRESS)
-        later.add_argument('--kernels', nargs=1, action=_refusal(KERNELS_MSG),
-                           default=argparse.SUPPRESS, help=argparse.SUPPRESS)
+        self.parser.add_argument('--kernels', nargs=1,
+                                 action=_refusal(KERNELS_MSG),
+                                 default=argparse.SUPPRESS,
+                                 help=argparse.SUPPRESS)
         self.args = None
 
     # ------------------------------------------------------------------

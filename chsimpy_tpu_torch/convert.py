@@ -11,9 +11,12 @@ neither jax nor ``chsimpy_tpu``:
   sobol_shift and sobol_base where the JAX solver added them;
 * :func:`split_tree_from_jax` — a split block tree (``chsimpy_tpu.ops.dct.
   split_tree``) as nested tensors;
-* :func:`state_from_jax` — the fields of a ``chsimpy_tpu`` ``SolverState``;
-* :func:`params_from_jax` — ``chsimpy_tpu.Parameters.scalar_dict()``,
-  refusing what the port does not run yet;
+* :func:`state_from_jax` — the fields of a ``chsimpy_tpu`` ``SolverState``
+  (a folded solver's field in the natural layout, as the JAX checkpoint
+  writes it, with ``folded=True``);
+* :func:`params_from_jax` — ``chsimpy_tpu.Parameters.scalar_dict()``, the
+  float32 knobs included, refusing what the port does not run
+  (``kernel_backend='pallas'``, ``spectral_bf16``);
 * :func:`members_consts_from_jax` and :func:`members_state_from_jax` —
   the ensemble's batched consts (A0, A1, kappa_tilde (R,) and CHeig
   (R, N, N) beside the shared operands) and its batched state (every leaf
@@ -83,12 +86,27 @@ def consts_from_jax(d: dict, device='cpu', mesh=None) -> dict:
     return consts if mesh is None else shard_consts(consts, mesh)
 
 
-def state_from_jax(d: dict, device='cpu', mesh=None) -> SolverState:
+def _natural(U, folded: bool):
+    """A field (or a stack) from a JAX state's layout: ``folded`` (a JAX
+    solver with ``fold_field``) holds it level-1 folded; the fold is an
+    involution, as the JAX package's ``_field_natural`` uses it."""
+    if not folded:
+        return U
+    from .ops.dct import fold1
+    return fold1(torch.as_tensor(np.array(U))).numpy()
+
+
+def state_from_jax(d: dict, device='cpu', mesh=None,
+                   folded: bool = False) -> SolverState:
     """The port's SolverState from the numpy form of the JAX state (its
     ``rng_key``, the device jitter's threefry key, carried as the port
     holds it; PRNGKey(0) where ``d`` has none, as for a run without that
-    jitter).  With ``mesh``, U and hat_U are this rank's blocks."""
-    kw = {'U': _tensor(d['U'], device), 'hat_U': _tensor(d['hat_U'], device),
+    jitter).  With ``mesh``, U and hat_U are this rank's blocks.
+    ``folded``: the JAX solver ran ``fold_field``; U comes out in the
+    natural layout (the JAX checkpoint's), hat_U as it is (the spectral
+    image is the same in both layouts)."""
+    kw = {'U': _tensor(_natural(np.asarray(d['U']), folded), device),
+          'hat_U': _tensor(d['hat_U'], device),
           'skip_check': _tensor(bool(np.asarray(d['skip_check'])), device),
           'rowbuf': _tensor(d['rowbuf'], device, torch.float64),
           'rng_key': key_tensor(d.get('rng_key', jax_prng_key(0)), device)}
@@ -111,11 +129,14 @@ def members_consts_from_jax(d: dict, device='cpu') -> dict:
     return consts
 
 
-def members_state_from_jax(d: dict, device='cpu') -> SolverState:
+def members_state_from_jax(d: dict, device='cpu',
+                           folded: bool = False) -> SolverState:
     """The ensemble's state from the numpy form of the JAX ensemble's
     (``EnsembleSolver._states``: every leaf with a leading member axis,
-    ``rng_key`` (R, 2) included where ``d`` has it)."""
-    kw = {'U': _tensor(d['U'], device), 'hat_U': _tensor(d['hat_U'], device),
+    ``rng_key`` (R, 2) included where ``d`` has it); ``folded`` as
+    :func:`state_from_jax`."""
+    kw = {'U': _tensor(_natural(np.asarray(d['U']), folded), device),
+          'hat_U': _tensor(d['hat_U'], device),
           'skip_check': _tensor(np.asarray(d['skip_check'], dtype=bool),
                                 device),
           'rowbuf': _tensor(d['rowbuf'], device, torch.float64),
@@ -128,8 +149,9 @@ def members_state_from_jax(d: dict, device='cpu') -> SolverState:
 
 def params_from_jax(scalar_dict: dict, device='cuda') -> Parameters:
     """Port Parameters from a JAX ``scalar_dict``; raises
-    NotImplementedError for settings the port does not run yet (a mesh,
-    the split transform, ...) and ValueError for unknown keys."""
+    NotImplementedError for the settings the port does not run
+    (``kernel_backend='pallas'``, ``spectral_bf16``) and ValueError for
+    unknown keys."""
     names = {f.name for f in dataclasses.fields(Parameters)}
     unknown = sorted(set(scalar_dict) - names)
     if unknown:

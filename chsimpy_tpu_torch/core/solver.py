@@ -98,18 +98,58 @@ FFT_UNDER_MESH = ("--transform fft does not shard under --mesh; the "
                   "matmul and ozaki routes")
 
 
+# transform='auto' on one device: for each precision, (smallest N, route)
+# rows, the first row whose N the run reaches wins (see auto_route).
+# steps/s on the card (chip_smoke.py phase 16 (d), three runs; NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md §6), each route at the product
+# precision a run takes by default (N <= 2048 host-bound: 10-30% run to
+# run):
+#   float32  N=512   matmul 763-918   split 449-593  fft 463-554
+#            N=1024  matmul 860-1083  split 383-432  fft 450-771
+#            N=2048  matmul 698-723   split 324-425  fft 490-652
+#            N=4096  matmul 184-186   split 254-263  fft 337-339
+#   float64  N=512   matmul 848-1057  split 473-609  fft 512-801
+#            N=1024  matmul 763-909   split 534-662  fft 503-671
+#            N=2048  matmul 582-643   split 413-561  fft 514-639
+#            N=4096  matmul 89-91     split 156-157  fft 198
+#   (ozaki 23-98 at every N: never the fastest on the card)
+# Each route keeps the float32 class there (the N=512/1024/2048 stops in
+# their bands, E within 1e-5 of float64 at every step; phase 16 (b)) and
+# float64 its contract (the stop goldens on every route, phase 7 (e);
+# fft at N=4096 within 1e-10 of matmul, phase 16 (d)).  Between 2048 and
+# 4096 the crossover was not measured.
+AUTO_ROUTES = {'float32': ((4096, 'fft'), (0, 'matmul')),
+               'float64': ((4096, 'fft'), (0, 'matmul'))}
+
+
+def auto_route(N: int, precision: str, D: Optional[int] = None) -> str:
+    """The route ``transform='auto'`` takes for an N x N run in
+    ``precision`` on one device (``D`` None) or tiled over D ranks, from
+    steps/s measured on the card (AUTO_ROUTES; PERF.md §6).  The
+    same table holds on the CPU, so the CPU tests run the card's route.
+    Under a mesh the routes that shard are matmul (grid) and split and
+    ozaki (pencil): split where a single device takes it and D divides N,
+    else matmul."""
+    route = next(r for n, r in AUTO_ROUTES[precision] if N >= n)
+    if route in ('split', 'fft') and N % 2:
+        route = 'matmul'
+    if D is not None and (route not in ('split', 'ozaki') or N % D):
+        route = 'matmul'
+    return route
+
+
 def resolve_transform(params: Parameters) -> str:
     """The concrete DCT route: 'matmul', 'split', 'fft' or 'ozaki', with
-    the JAX package's single-device guards.  'auto' stays matmul in the
-    port: the JAX package's TPU choices (split for float32 at N >= 1024,
-    ozaki for float64) have to be earned by a measurement on the H100
-    (ROADMAP.md queue A item 14).  JAX's float64-FFT guard holds on a TPU
-    only (no complex128 there): float64 FFT runs on the card."""
+    the JAX package's single-device guards; 'auto' is :func:`auto_route`
+    of (N, precision, ranks), not the JAX package's TPU choices (split for
+    float32 at N >= 1024, ozaki for float64).  JAX's float64-FFT guard
+    holds on a TPU only (no complex128 there): float64 FFT runs on the
+    card."""
     tb = params.transform_backend or 'auto'
     if tb == 'fft' and params.mesh_shape is not None:
         raise ValueError(FFT_UNDER_MESH)
     if tb == 'auto':
-        return 'matmul'
+        return auto_route(params.N, params.precision, mesh_ranks(params))
     if tb in ('fft', 'split') and params.N % 2:
         raise ValueError(f"--transform {tb} requires even N "
                          f"(got {params.N})")
@@ -153,6 +193,125 @@ def _resolve_rfold_levels(params: Parameters,
            and N * 2 ** (L + 1) <= 63550):
         L += 1
     return L
+
+
+# float32 runs that pin no matmul_precision take 'high' (3xTF32, K6) from
+# this N up, 'highest' (cuBLAS FP32) below; the JAX package takes 'high'
+# at every N (chsimpy_tpu/core/solver.py:467-468).  Earned on the card
+# (phase 16 (b), (d), three runs; H100 80GB HBM3, 700 W): 'high' holds the
+# float32 class (the stops 1674, 1836-1837, 2039-2040 inside their bands,
+# E within 6.6e-8 of float64 at every step, 3.9e-8 over 256 steps at
+# N=4096), and matmul steps/s at high / highest are 739-958 / 763-918 at
+# N=512 (no clear winner: host-bound), 860-1083 / 842-917 at 1024,
+# 698-723 / 617-619 at 2048, 184-186 / 88 at 4096
+F32_HIGH_MIN_N = 1024
+# the JAX package's float32 fast-mode gates (chsimpy_tpu/core/solver.py:
+# 150-217; float32, the split route on one device, no pinned precision),
+# each kept only where the card earned it: the smallest N of each (None:
+# off).  steps/s of the split route at N=4096 float32, 'high' alone
+# against each knob in turns (phase 16 (c), two runs; H100 80GB HBM3,
+# 700 W; PERF.md §6): alone 247.7-263.5; the 1-pass forward
+# 269.4-305.1 (on: its stops stay in their bands, E 9.2e-8 at N=2048,
+# 3.8e-8 over 256 steps at N=4096, phase 16 (b)); otf 249.3-269.1 (off:
+# within the spread of the route alone; with -a on matmul 85.3-85.4
+# against 83.6, but the gate is the split route's); --inv-band N/4
+# 201.1-218.3 (off: the tail is a second product beside K6's low band);
+# --fold-field 227.9-263.8 at depth 5 (off).  At N < 4096 the route
+# there is matmul (AUTO_ROUTES) and the split route's knobs were measured
+# for their class only.
+AUTO_FWD_DEFAULT_MIN_N = 4096
+AUTO_INV_BAND_MIN_N = None
+AUTO_OTF_MIN_N = None
+AUTO_FOLD = False
+
+
+def resolve_matmul_precision(params: Parameters) -> str:
+    """The float32 product precision of the transforms: the pinned name,
+    else in float32 'high' from N = F32_HIGH_MIN_N up and 'highest'
+    below; 'highest' in float64 (float64 products ignore the name).  What
+    each name computes on the card: ``ops/dct.py``."""
+    if params.matmul_precision is not None:
+        return params.matmul_precision
+    if params.precision == 'float32' and params.N >= F32_HIGH_MIN_N:
+        return 'high'
+    return 'highest'
+
+
+def _fast_mode(params: Parameters, min_n: Optional[int]) -> bool:
+    """The JAX package's auto-gate condition: float32, the split route on
+    one device, no pinned matmul_precision, N >= min_n (None: off)."""
+    return (min_n is not None and params.precision == 'float32'
+            and params.matmul_precision is None and params.N >= min_n
+            and params.mesh_shape is None
+            and resolve_transform(params) == 'split')
+
+
+def resolve_fwd_matmul_precision(params: Parameters) -> Optional[str]:
+    """The forward transform's precision (None: the run's).  Auto: the
+    JAX package's 1-pass forward ('default') on its fast-mode gate at N >=
+    AUTO_FWD_DEFAULT_MIN_N (chsimpy_tpu/core/solver.py:150-172)."""
+    if params.fwd_matmul_precision is not None:
+        return params.fwd_matmul_precision
+    return 'default' if _fast_mode(params, AUTO_FWD_DEFAULT_MIN_N) else None
+
+
+def resolve_inv_band(params: Parameters) -> Optional[int]:
+    """The banded inverse's first tail index (None: uniform precision;
+    ``inv_band=0`` forces that).  Auto: N/4 on the fast-mode gate at N >=
+    AUTO_INV_BAND_MIN_N (chsimpy_tpu/core/solver.py:175-202)."""
+    if params.inv_band is not None:
+        return params.inv_band or None
+    return params.N // 4 if _fast_mode(params, AUTO_INV_BAND_MIN_N) else None
+
+
+def resolve_otf_coeffs(params: Parameters) -> bool:
+    """The update's coefficients rebuilt per step by K12 (``otf_coeffs``
+    1 / 0 pins it).  Auto: on the fast-mode gate at N >= AUTO_OTF_MIN_N
+    (chsimpy_tpu/core/solver.py:205-233)."""
+    if params.otf_coeffs is not None:
+        return bool(params.otf_coeffs)
+    return _fast_mode(params, AUTO_OTF_MIN_N)
+
+
+def resolve_fold_field(params: Parameters,
+                       grid_sharded: Optional[bool] = None) -> bool:
+    """The level-1 folded field (``fold_field`` True / False pins it).
+    Auto (AUTO_FOLD): whenever the split route runs on member-local
+    fields (``grid_sharded``: the field split over ranks; by default a
+    mesh), as the JAX package resolves it (chsimpy_tpu/core/solver.py:
+    46-92).  The JAX package refuses the fold with its Pallas kernels; the
+    port's kernels read the folded layout (K3's fold mode)."""
+    if params.fold_field is not None:
+        return bool(params.fold_field)
+    if grid_sharded is None:
+        grid_sharded = params.mesh_shape is not None
+    return (AUTO_FOLD and not grid_sharded
+            and resolve_transform(params) == 'split')
+
+
+INV_BAND_F64 = ("--inv-band is a float32 fast-mode knob (a 1-pass bf16 "
+                "band would break the float64 validation contract)")
+FOLD_SPLIT_ONLY = ("--fold-field needs the split transform route (the fold "
+                   "is a property of its level-1 layout)")
+
+
+def check_knobs(params: Parameters) -> None:
+    """The JAX Solver's guards of the knobs (chsimpy_tpu/core/solver.py:
+    416-448), shared by the single run and the ensemble: a pinned
+    --inv-band is float32 only, in (0, N), on the matmul and split routes;
+    the fold is the split route's (its mesh rule is the caller's)."""
+    ib = params.inv_band
+    if ib:
+        if params.precision != 'float32':
+            raise ValueError(INV_BAND_F64)
+        if not 0 < ib < params.N:
+            raise ValueError(f"--inv-band must be in (0, N) or 0 for "
+                             f"uniform precision, got {ib}")
+        if resolve_transform(params) not in ('matmul', 'split'):
+            raise ValueError(
+                "--inv-band applies to the matmul and split routes")
+    if params.fold_field and resolve_transform(params) != 'split':
+        raise ValueError(FOLD_SPLIT_ONLY)
 
 
 def resolve_ozaki_fwd_pairs(params: Parameters) -> tuple:
@@ -261,8 +420,13 @@ class Solver:
             time_limit = params.time_max * 60.0
 
         check_split_levels(params)
+        check_knobs(params)
         pencil = resolve_pencil(params, mesh_ranks(params))
         transform = resolve_transform(params)
+        fold_field = resolve_fold_field(params)
+        if fold_field and params.mesh_shape is not None:
+            raise ValueError("--fold-field is single-device only (the "
+                             "folded seam crosses shard halves)")
         self.mesh = None
         if params.mesh_shape is not None:
             check_grid_mesh(params)
@@ -287,7 +451,11 @@ class Solver:
             ozaki_rfold_levels=_resolve_rfold_levels(params),
             ozaki_fwd_pairs=resolve_ozaki_fwd_pairs(params),
             ozaki_inv_pairs=resolve_ozaki_inv_pairs(params),
-            pencil=pencil)
+            pencil=pencil, fold_field=fold_field,
+            matmul_precision=resolve_matmul_precision(params),
+            fwd_matmul_precision=resolve_fwd_matmul_precision(params),
+            inv_band=resolve_inv_band(params),
+            otf_coeffs=resolve_otf_coeffs(params))
         # the layout of the field: the grid's, or its column blocks
         self.field_mesh = field_mesh(self.cfg, self.mesh)
         # chunk size: device steps per host round-trip
@@ -317,6 +485,9 @@ class Solver:
         self.solution.U = U0
         if self.mesh is not None:
             U0 = shard_field(U0, self.field_mesh)[0]
+        # the state's layout from here on (folded under fold_field;
+        # solution.U stays natural)
+        U0 = self.field_state(U0)
         row0 = prepare_row0(self.cfg, self._consts, U0, self.mesh)
         E, E2, Ra, PS = torch.stack(row0).tolist()
 
@@ -355,12 +526,14 @@ class Solver:
 
     def _to_device(self, slabs: np.ndarray) -> torch.Tensor:
         """Host slabs (..., N, N) in the field's type on the device; on a
-        mesh this rank's block of each."""
+        mesh this rank's block of each; under fold_field folded (the same
+        values land on the same natural cells)."""
         t = torch.as_tensor(slabs)
         if self.mesh is not None:
             rows, cols = block_slices(self.field_mesh, self.params.N)
             t = t[..., rows, cols]
-        return t.to(device=self.device, dtype=self.cfg.tdtype)
+        return self.field_state(t.to(device=self.device,
+                                     dtype=self.cfg.tdtype))
 
     def _draw_jitter_buf(self, k: int):
         """The chunk's jitter slabs (``stream``: k draws of the host
@@ -439,9 +612,17 @@ class Solver:
         return self.solution
 
     def host_field(self, U: torch.Tensor) -> torch.Tensor:
-        """The whole field of this rank's ``U`` (gathered under a mesh: a
-        collective, every rank calls it)."""
-        return U if self.mesh is None else gather_field(U, self.field_mesh)
+        """The whole field of this rank's ``U`` in the natural layout
+        (gathered under a mesh: a collective, every rank calls it;
+        unfolded under fold_field)."""
+        if self.mesh is not None:
+            return gather_field(U, self.field_mesh)
+        return self.field_state(U)
+
+    def field_state(self, U: torch.Tensor) -> torch.Tensor:
+        """A natural field in the state's layout (and back: the level-1
+        fold is an involution); the identity unless fold_field."""
+        return dct_ops.fold1(U) if self.cfg.fold_field else U
 
     def _sync(self, state: SolverState) -> SolverState:
         """Per-chunk host sync: pull rows, update host mirrors, map stop."""

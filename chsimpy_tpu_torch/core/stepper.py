@@ -7,11 +7,18 @@ a grid mesh of ranks (``mesh``: each rank steps its block of the field),
 the split and ozaki routes on the pencil layout of a mesh (``cfg.pencil``:
 each rank holds a column block of the field and a row block of the
 spectral image, ``parallel/mesh.py``), ``full_sim`` and the energy early
-stop, the ``time_max`` limit and the NaN guard.  One step does, in order:
+stop, the ``time_max`` limit and the NaN guard, with the JAX package's
+float32 knobs: the product precision of the transforms (``matmul_precision``
+and ``fwd_matmul_precision``: full float32, 3xTF32 by the GEMM kernel K6,
+or one TF32 pass, ``ops/dct.py``), the banded inverse (``inv_band``), the
+coefficients rebuilt in the update (``otf_coeffs``: kernel K12) and the
+level-1 folded field of the split route (``fold_field``: K3's fold mode).
+One step does, in order:
 
   nonlinear term (kernel K1)
   -> adaptive delt and coefficient grids rebuilt (``adaptive_time``)
-  -> forward 2-D DCT -> semi-implicit spectral update (K2)
+  -> forward 2-D DCT -> semi-implicit spectral update (K2; K12 under
+     ``otf_coeffs``)
   -> inverse 2-D DCT -> jitter (the Sobol points by K9, the threefry
      stream by K10 on the card)
   -> field sums (K3) and Σ|U − mean| (K4), finalized in float64
@@ -43,6 +50,7 @@ the steps the JAX package's loop runs.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -101,10 +109,23 @@ class StepConfig:
     # 'matmul' | 'split' | 'fft' | 'ozaki' (float64)
     transform_backend: str = 'matmul'
     # fold depth of the split route; None resolves by size
-    # (split_levels_resolved).  The port keeps the natural field layout
-    # (the JAX package's fold_field is not ported), so the JAX resolver's
-    # folded-layout branch is never taken
+    # (split_levels_resolved)
     split_levels: Optional[int] = None
+    # the split route's field kept level-1 folded between the transforms
+    # (one device): the four level-1 reversals of a step go, K3 reads the
+    # field through the fold map (its sums the natural field's to the
+    # bit), and at equal split_levels U is the natural run's to the bit
+    fold_field: bool = False
+    # float32 product precision of the transforms ('highest', 'high',
+    # 'default': ops/dct.py), of the forward alone (None: the same), and
+    # the banded inverse's first tail index (None: uniform); float64
+    # products ignore them
+    matmul_precision: str = 'highest'
+    fwd_matmul_precision: Optional[str] = None
+    inv_band: Optional[int] = None
+    # the update's coefficients rebuilt from the eigenvalue axis on every
+    # step (K12) in place of the stored grids
+    otf_coeffs: bool = False
     # ozaki route layout, resolved by the solver as in the JAX package:
     # level-1 fold in natural layout (N < 1024), or the recursive fold in
     # the permuted basis (levels > 0, N >= 1024; overrides ozaki_fold)
@@ -125,11 +146,23 @@ class StepConfig:
         return _DTYPES[self.dtype]
 
     @property
+    def fwd_precision(self) -> str:
+        return self.fwd_matmul_precision or self.matmul_precision
+
+    @property
+    def band_frac(self) -> Optional[float]:
+        """``inv_band`` as a fraction of N (the split blocks' cut)."""
+        return self.inv_band / self.N if self.inv_band else None
+
+    @property
     def split_levels_resolved(self) -> int:
-        """The JAX package's depth table for the natural layout:
-        4 at N >= 4096, 3 at N >= 2048, else 2 (divisibility allowing)."""
+        """The JAX package's depth table (``chsimpy_tpu/core/stepper.py:
+        146-158``): 5 at N >= 4096 under the folded layout, 4 at N >=
+        4096, 3 at N >= 2048, else 2 (divisibility allowing)."""
         if self.split_levels is not None:
             return self.split_levels
+        if self.N >= 4096 and self.N % 32 == 0 and self.fold_field:
+            return 5
         if self.N >= 4096 and self.N % 16 == 0:
             return 4
         if self.N >= 2048 and self.N % 8 == 0:
@@ -211,15 +244,20 @@ def field_mesh(cfg: StepConfig, mesh):
     return mesh.field_view if mesh is not None and cfg.pencil else mesh
 
 
-def dct2_route(cfg: StepConfig, consts, U, pairs=None, mesh=None):
+def dct2_route(cfg: StepConfig, consts, U, pairs=None, mesh=None,
+               precision=None):
     """Forward 2-D DCT of the configured route (the ozaki routes with the
-    pair cutoffs ``pairs``; None = untrimmed).  On a grid mesh U is this
-    rank's block and the route matmul or ozaki; on the pencil layout U is
-    a column block and the result a row block (split or ozaki)."""
+    pair cutoffs ``pairs``; None = untrimmed), its float32 products at
+    ``precision`` (None: full float32, as the JAX package's entry
+    transform).  On a grid mesh U is this rank's block and the route
+    matmul or ozaki; on the pencil layout U is a column block and the
+    result a row block (split or ozaki); under ``fold_field`` U is
+    level-1 folded."""
     tb = cfg.transform_backend
     if mesh is not None and cfg.pencil:
         if tb == 'split':
-            return dct_ops.dct2_split_perm_pencil(U, consts['tree'], mesh)
+            return dct_ops.dct2_split_perm_pencil(U, consts['tree'], mesh,
+                                                  precision)
         s1, s2 = _pairs(pairs)
         return ozaki_ops.dct2_ozaki_pencil(
             U, consts['Cs'], consts['CsT'], ozaki_ops.dct_scale(cfg.N),
@@ -230,13 +268,16 @@ def dct2_route(cfg: StepConfig, consts, U, pairs=None, mesh=None):
             U, consts['ozaki_grid'], ozaki_ops.dct_scale(cfg.N), mesh,
             s1=s1, s2=s2)
     if mesh is not None:
-        return dct_ops.dct2_grid(U, consts['C'], mesh)
+        return dct_ops.dct2_grid(U, consts['C'], mesh, precision)
     if tb == 'split':
-        return dct_ops.dct2_split_perm(U, consts['tree'])
+        if cfg.fold_field:
+            return dct_ops.dct2_split_perm_folded(U, consts['tree'],
+                                                  precision)
+        return dct_ops.dct2_split_perm(U, consts['tree'], precision)
     if tb == 'fft':
         return dct_ops.dct2_fft(U)
     if tb != 'ozaki':
-        return dct_ops.dct2(U, consts['C'])
+        return dct_ops.dct2(U, consts['C'], precision)
     s1, s2 = _pairs(pairs)
     N, L = cfg.N, cfg.ozaki_rfold_levels
     if L:
@@ -252,24 +293,33 @@ def dct2_route(cfg: StepConfig, consts, U, pairs=None, mesh=None):
 def idct2_route(cfg: StepConfig, consts, X, mesh=None):
     """Inverse 2-D DCT of the configured route (on the pencil layout from
     a row block to a column block; the ozaki inverse untrimmed, as the
-    JAX package's unfolded inverse)."""
+    JAX package's unfolded inverse), its float32 products at the run's
+    precision, banded by ``inv_band``, folded under ``fold_field``."""
     tb = cfg.transform_backend
+    prec = cfg.matmul_precision
     if mesh is not None and cfg.pencil:
         if tb == 'split':
-            return dct_ops.idct2_split_perm_pencil(X, consts['tree'], mesh)
+            return dct_ops.idct2_split_perm_pencil(X, consts['tree'], mesh,
+                                                   prec, cfg.band_frac)
         return ozaki_ops.idct2_ozaki_pencil(
             X, consts['Cs'], consts['CsT'], ozaki_ops.dct_scale(cfg.N), mesh)
     if mesh is not None and tb == 'ozaki':
         return ozaki_ops.idct2_ozaki_grid(
             X, consts['ozaki_grid'], ozaki_ops.dct_scale(cfg.N), mesh)
     if mesh is not None:
-        return dct_ops.idct2_grid(X, consts['C'], mesh)
+        return dct_ops.idct2_grid(X, consts['C'], mesh, prec, cfg.inv_band)
     if tb == 'split':
-        return dct_ops.idct2_split_perm(X, consts['tree'])
+        if cfg.fold_field:
+            return dct_ops.idct2_split_perm_folded(X, consts['tree'], prec,
+                                                   cfg.band_frac)
+        return dct_ops.idct2_split_perm(X, consts['tree'], prec,
+                                        cfg.band_frac)
     if tb == 'fft':
         return dct_ops.idct2_fft(X)
     if tb != 'ozaki':
-        return dct_ops.idct2(X, consts['C'])
+        if cfg.inv_band:
+            return dct_ops.idct2_banded(X, consts['C'], cfg.inv_band, prec)
+        return dct_ops.idct2(X, consts['C'], prec)
     N, L = cfg.N, cfg.ozaki_rfold_levels
     if L:
         s1, s2 = _pairs(cfg.ozaki_inv_pairs)
@@ -311,7 +361,7 @@ def _stats(cfg: StepConfig, consts, U, EnergieEut=None, mesh=None):
     f64 = torch.float64
     sums = K.stats_sums(U, EnergieEut, consts['A0'], consts['A1'],
                         delx=cfg.delx, RT=cfg.RT, B=cfg.B,
-                        threshold=cfg.threshold)
+                        threshold=cfg.threshold, fold=cfg.fold_field)
     E2 = 0.5 * cfg.Amr * consts['kappa_tilde'] * Lsq * (sums[1] / n2)
     E = cfg.Amr * Lsq * (sums[0] / n2) + E2
     SA = sums[3] / n2
@@ -319,9 +369,20 @@ def _stats(cfg: StepConfig, consts, U, EnergieEut=None, mesh=None):
     meanU = (sums[2] / n2).to(U.dtype)
     PS = K.absdev_sum(U, meanU) / n2
     # Ra: one mid row, O(N) — plain torch, as in the JAX package
-    mid = U[N // 2 + 1, :]
+    mid = _mid_row(cfg, U)
     Ra = torch.mean(torch.abs(mid - torch.mean(mid))).to(f64)
     return E, E2, PS, L2, Ra, SA
+
+
+def _mid_row(cfg: StepConfig, U):
+    """Row N/2+1 of the field (of each member of a stack) in the natural
+    column order.  Under ``fold_field`` it is stored at row N-2
+    (``chsimpy_tpu/core/stepper.py:419``), its right half reversed:
+    unfolded here (O(N)), so Ra is the natural run's to the bit."""
+    N = cfg.N
+    if cfg.fold_field:
+        return dct_ops.fold_cols(U[..., N - 2, :])
+    return U[..., N // 2 + 1, :]
 
 
 def prepare_row0(cfg: StepConfig, consts, U, mesh=None):
@@ -332,8 +393,8 @@ def prepare_row0(cfg: StepConfig, consts, U, mesh=None):
 
 def entry_dct2(cfg: StepConfig, consts, U, mesh=None):
     """Spectral image of U, recomputed at every solve entry, in the
-    route's spectral layout (the ozaki routes untrimmed: once per entry,
-    accuracy is free here)."""
+    route's spectral layout (the ozaki routes untrimmed, the float32
+    products full float32: once per entry, accuracy is free here)."""
     return dct2_route(cfg, consts, U, mesh=mesh)
 
 
@@ -350,7 +411,8 @@ def adapted_delt(cfg: StepConfig, s: SolverState, EnergieEut, mesh=None):
     layout each column is whole on its rank: only the minimum crosses."""
     mesh = field_mesh(cfg, mesh)
     a = EnergieEut.abs()
-    x = cfg.delt_max / torch.sqrt(1.0 + ADAPT_ALPHA * (a * a))
+    x = _natural_rows(cfg, cfg.delt_max / torch.sqrt(1.0 + ADAPT_ALPHA
+                                                     * (a * a)))
     colsum = torch.sum(x, dim=0)
     if mesh is not None:
         colsum = coll.rank_sum(coll.gather_x(mesh, colsum.reshape(1, -1)))
@@ -363,6 +425,29 @@ def adapted_delt(cfg: StepConfig, s: SolverState, EnergieEut, mesh=None):
                           0.75 * delt + 0.25 * delt_new, delt_new)
     do_adapt = (s.computed_steps > 500) & (s.computed_steps % 2 == 0)
     return torch.where(do_adapt, blended, delt)
+
+
+def _natural_rows(cfg: StepConfig, x):
+    """x with its rows in the natural order: under ``fold_field`` the
+    bottom half un-reversed (``chsimpy_tpu/core/stepper.py:546-556``), so
+    each column sum adds the natural run's terms in its order; the
+    columns may stay permuted (only their minimum is taken)."""
+    if not cfg.fold_field:
+        return x
+    n = x.shape[-2]
+    return torch.cat([x[..., :n // 2, :],
+                      torch.flip(x[..., n // 2:, :], (-2,))], dim=-2)
+
+
+def spectral_offsets(cfg: StepConfig, mesh=None):
+    """(row, column) of this rank's block of the spectral image: (0, 0)
+    on one device, the grid block's on a grid mesh, the row block's on
+    the pencil layout."""
+    if mesh is None:
+        return 0, 0
+    spec = mesh.spec_view if cfg.pencil else mesh
+    rows, cols = block_slices(spec, cfg.N)
+    return rows.start or 0, cols.start or 0
 
 
 def rebuilt_coefficients(cfg: StepConfig, consts, delt):
@@ -387,7 +472,14 @@ def _jitter(cfg: StepConfig, consts, s: SolverState, U, slab, go,
     if mode == 'none':
         return U, s.rng_key
     if mode in ('stream', 'static'):
+        # under fold_field the solver folded the slabs
         return U + cfg.jitter * (2.0 * slab - 1.0), s.rng_key
+    if cfg.fold_field:
+        # the draws land on the natural cells: the kernels add them to the
+        # unfolded field, which folds back (a permutation: no rounding)
+        U, key = _jitter(_natural_cfg(cfg), consts, s, dct_ops.fold1(U),
+                         slab, go, key_out, mesh)
+        return dct_ops.fold1(U), key
     mesh = field_mesh(cfg, mesh)
     rows, cols = ((slice(None), slice(None)) if mesh is None
                   else block_slices(mesh, cfg.N))
@@ -404,6 +496,22 @@ def _jitter(cfg: StepConfig, consts, s: SolverState, U, slab, go,
     return U, key_out
 
 
+def _natural_cfg(cfg: StepConfig) -> StepConfig:
+    return dataclasses.replace(cfg, fold_field=False)
+
+
+def _update(cfg: StepConfig, consts, hat_U, hat_E, Seig, CHeig, delt,
+            mesh=None):
+    """The spectral update: K2 with the stored (or rebuilt) grids, or K12
+    with the coefficients formed from the eigenvalue axis at ``delt``
+    (``otf_coeffs``) on this rank's block of the spectral image."""
+    if not cfg.otf_coeffs:
+        return K.spectral_update(hat_U, hat_E, Seig, CHeig)
+    r0, c0 = spectral_offsets(cfg, mesh)
+    return K.update_otf(hat_U, hat_E, consts['eaxis'], delt,
+                        consts['kappa_tilde'], cfg.delx2, r0, c0)
+
+
 def _step(cfg: StepConfig, consts, s: SolverState, mesh=None, slab=None,
           key_out=None) -> SolverState:
     """One step.  ``slab``: this step's host jitter slab (``stream`` and
@@ -417,9 +525,11 @@ def _step(cfg: StepConfig, consts, s: SolverState, mesh=None, slab=None,
     EnergieEut = _nonlinear_term(cfg, consts, s.U, mesh)
 
     if cfg.adaptive_time:
-        # rebuilt on every step, as the JAX step does
+        # rebuilt on every step, as the JAX step does (in the update
+        # itself under otf_coeffs)
         delt = adapted_delt(cfg, s, EnergieEut, mesh)
-        CHeig, Seig = rebuilt_coefficients(cfg, consts, delt)
+        CHeig, Seig = ((None, None) if cfg.otf_coeffs
+                       else rebuilt_coefficients(cfg, consts, delt))
     else:
         delt = s.delt
         CHeig, Seig = consts['CHeig'], consts['Seig']
@@ -439,8 +549,9 @@ def _step(cfg: StepConfig, consts, s: SolverState, mesh=None, slab=None,
     # semi-implicit spectral update, eq. (12) of Ghiass et al. (2016)
     # the forward transform of the nonlinear term rides the semi-implicit
     # damping, so the ozaki routes may trim its pair cutoffs
-    hat_E = dct2_route(cfg, consts, EnergieEut, cfg.ozaki_fwd_pairs, mesh)
-    hat_U = K.spectral_update(s.hat_U, hat_E, Seig, CHeig)
+    hat_E = dct2_route(cfg, consts, EnergieEut, cfg.ozaki_fwd_pairs, mesh,
+                       cfg.fwd_precision)
+    hat_U = _update(cfg, consts, s.hat_U, hat_E, Seig, CHeig, delt, mesh)
     U = idct2_route(cfg, consts, hat_U, mesh)
     U, rng_key = _jitter(cfg, consts, s, U, slab, go, key_out, mesh)
 
@@ -542,15 +653,19 @@ def make_members_consts(cfg: StepConfig, delt: float, A0s, A1s, kappas,
     ('A0', 'A1', 'kappa_tilde') and CHeig (R, N, N) from each member's
     kappa; the transform operands, leig and Seig are shared.  CHeig is
     built on the CPU with make_consts' operations and order, so member r's
-    grid is the single run's with kappa r, to the bit."""
+    grid is the single run's with kappa r, to the bit.  Under
+    ``otf_coeffs`` no (R, N, N) grid is built: K12 forms each member's
+    coefficients from its kappa."""
     consts = make_consts(cfg, delt, device=device)
     dtype = cfg.tdtype
     f64 = torch.float64
     kt = torch.as_tensor(kappas, dtype=f64)
-    leig = consts['leig'].cpu()
-    CHeig, _ = coeffs_ops.get_coefficients(
-        leig, kt.to(dtype).reshape(-1, 1, 1), torch.tensor(delt, dtype=dtype),
-        cfg.delx2)
+    if cfg.otf_coeffs:
+        CHeig = consts['CHeig'].cpu()
+    else:
+        CHeig, _ = coeffs_ops.get_coefficients(
+            consts['leig'].cpu(), kt.to(dtype).reshape(-1, 1, 1),
+            torch.tensor(delt, dtype=dtype), cfg.delx2)
     consts.update(
         CHeig=CHeig.to(device),
         A0=torch.as_tensor(A0s, dtype=f64).to(device),
@@ -579,14 +694,18 @@ def _members_stats(cfg: StepConfig, consts, U, EnergieEut=None,
     Lsq = cfg.L ** 2
     sums = K.stats_sums_members(U, EnergieEut, consts['A0'], consts['A1'],
                                 delx=cfg.delx, RT=cfg.RT, B=cfg.B,
-                                threshold=cfg.threshold)
+                                threshold=cfg.threshold,
+                                fold=cfg.fold_field)
     E2 = 0.5 * cfg.Amr * consts['kappa_tilde'] * Lsq * (sums[:, 1] / n2)
     E = cfg.Amr * Lsq * (sums[:, 0] / n2) + E2
     SA = sums[:, 3] / n2
     L2 = torch.sqrt(sums[:, 4]) / n2
     meanU = (sums[:, 2] / n2).to(U.dtype)
     PS = K.absdev_sum_members(U, meanU) / n2
-    Ra = K.row_absdev_members(U, N // 2 + 1)
+    if cfg.fold_field:
+        Ra = K.row_absdev_members(_mid_row(cfg, U).unsqueeze(1), 0)
+    else:
+        Ra = K.row_absdev_members(U, N // 2 + 1)
     return E, E2, PS, L2, Ra, SA
 
 
@@ -605,7 +724,8 @@ def adapted_members_delt(cfg: StepConfig, s: SolverState, EnergieEut,
     rank of the grid, as :func:`adapted_delt` does for one field."""
     mesh = field_mesh(cfg, mesh)
     a = EnergieEut.abs()
-    x = cfg.delt_max / torch.sqrt(1.0 + ADAPT_ALPHA * (a * a))
+    x = _natural_rows(cfg, cfg.delt_max / torch.sqrt(1.0 + ADAPT_ALPHA
+                                                     * (a * a)))
     colsum = torch.sum(x, dim=-2)                       # (R, bw)
     if mesh is not None:
         R = colsum.shape[0]
@@ -645,7 +765,8 @@ def _members_step(cfg: StepConfig, consts, s: SolverState,
                                               consts['A0'], consts['A1'])
     if cfg.adaptive_time:
         delt = adapted_members_delt(cfg, s, EnergieEut, mesh)
-        CHeig, Seig = rebuilt_members_coefficients(cfg, consts, delt)
+        CHeig, Seig = ((None, None) if cfg.otf_coeffs
+                       else rebuilt_members_coefficients(cfg, consts, delt))
     else:
         delt = s.delt
         CHeig, Seig = consts['CHeig'], consts['Seig']
@@ -659,8 +780,15 @@ def _members_step(cfg: StepConfig, consts, s: SolverState,
         over = time_passed > cfg.time_limit
         go = active & ~over
 
-    hat_E = dct2_route(cfg, consts, EnergieEut, cfg.ozaki_fwd_pairs, mesh)
-    hat_U = K.spectral_update_members(s.hat_U, hat_E, Seig, CHeig)
+    hat_E = dct2_route(cfg, consts, EnergieEut, cfg.ozaki_fwd_pairs, mesh,
+                       cfg.fwd_precision)
+    if cfg.otf_coeffs:
+        r0, c0 = spectral_offsets(cfg, mesh)
+        hat_U = K.update_otf_members(s.hat_U, hat_E, consts['eaxis'], delt,
+                                     consts['kappa_tilde'], cfg.delx2, r0,
+                                     c0)
+    else:
+        hat_U = K.spectral_update_members(s.hat_U, hat_E, Seig, CHeig)
     U = idct2_route(cfg, consts, hat_U, mesh)
     if cfg.jitter_mode in ('stream', 'static'):
         U = U + cfg.jitter * (2.0 * slab - 1.0)

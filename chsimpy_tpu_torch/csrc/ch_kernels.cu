@@ -15,7 +15,11 @@
 // compile-time flag.  K8 (B8) is K1's mu_kernel launched on the block: it
 // has no source of its own.  K9 and K10 add the step's jitter on the card
 // (the Sobol points, the device jitter's threefry stream), and K11 takes
-// each ensemble member's Ra: none has a Pallas counterpart.
+// each ensemble member's Ra: none has a Pallas counterpart.  K12 is K2 with
+// the coefficient grids rebuilt in registers from the 1-D eigenvalue axis
+// (the JAX step's --otf-coeffs, which XLA fuses into the update there).
+// K3 also has a fold mode: the field stored in the level-1 folded layout of
+// the split route's --fold-field, read through the fold map.
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes by
 // chsimpy_tpu_torch/ops/kernels.py.  Every entry launches on the stream it
@@ -135,6 +139,41 @@ update_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
                 * hat_E[m + i]) / CHeig[blockIdx.y * cheig_stride + i];
 }
 
+// K12 — K2 with the coefficients formed in registers.  Replaces the JAX
+// step's otf_coeffs update (coeffs.get_coefficients_axis feeding
+// (hat_U + Seig*hat_E)/CHeig, chsimpy_tpu/core/stepper.py:568-593, which
+// XLA fuses into one elementwise pass): leig = e[i] + e[j] from the (N,)
+// eigenvalue axis (already in the route's spectral order), and, in the
+// order of chsimpy_tpu/ops/coeffs.py:47-66 with every operation rounded on
+// its own (-fmad=false),
+//   lam1 = delt / delx2,  lam2 = kappa * lam1 / delx2  (true divisions),
+//   CHeig = 1 + lam2 * (leig * leig),  Seig = lam1 * leig.
+// delt and kappa are cast to the field type first, as the JAX step casts
+// them; delt is read from the card (the adaptive step's delt never
+// crosses to the host).  Reads hat_U and hat_E and writes one field where
+// K2 reads four: 201 MB per call at N=4096 f32 against K2's 336 MB.  A
+// block of R members' (rows, cols) blocks at (row_off, col_off) of the
+// spectral image (a rank's grid or pencil block); member r = blockIdx.z
+// takes delt[r] (delt_per_member) and kappas[r] where those are given.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+update_otf_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
+                  const T* __restrict__ eaxis, T* __restrict__ out, int rows,
+                  int cols, int row_off, int col_off,
+                  const double* __restrict__ delt, int delt_per_member,
+                  const double* __restrict__ kappas, T kappa_in, T delx2) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= cols) return;
+  const long long i = ((long long)blockIdx.z * rows + blockIdx.y) * cols + c;
+  const T lam1 = T(delt[delt_per_member ? blockIdx.z : 0]) / delx2;
+  const T kappa = kappas != nullptr ? T(kappas[blockIdx.z]) : kappa_in;
+  const T lam2 = kappa * lam1 / delx2;
+  const T leig = eaxis[row_off + (int)blockIdx.y] + eaxis[col_off + c];
+  const T cheig = T(1) + lam2 * (leig * leig);
+  const T seig = lam1 * leig;
+  out[i] = (hat_U[i] + seig * hat_E[i]) / cheig;
+}
+
 // K3 and K7 — fused field statistics in one launch.  K3 replaces
 // stats_band_sums / _stats_band_kernel (pallas_kernels.py:205-258,
 // 288-321) on the whole field; K7 replaces _local_band_sums /
@@ -186,6 +225,23 @@ update_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
 //   call.  The grid depends on (bn, W) and V alone, never on the card or
 //   the offsets: every run gives the same bits, and K7 on the whole field
 //   gives K3's.
+//
+// K3's fold mode (FOLD, never with HALO) takes the field in the level-1
+// folded layout of --fold-field (chsimpy_tpu/ops/dct.py fold1): natural
+// row r stored at row r for r < N/2, else at 3N/2-1-r, and the same for
+// columns.  The sweep walks the NATURAL rows and columns and reads every
+// value (U, E, the warp's edge values) through that map: a row is still
+// one stored row, and a thread's V columns in the right half are V stored
+// columns in reverse order (one vector load, its lanes reversed; the
+// vector needs N/2 % V == 0).  The edges and the seams of the stored
+// layout (rows and columns 0, N/2-1, N/2, N-1) are then ordinary natural
+// neighbours, and every term and every partial sum is K3's on the natural
+// field: where the fold keeps K3's vector width (N/2 % V == 0, every N
+// that is a multiple of 16) the sums are the natural field's to the bit;
+// otherwise the one-column grid's, within K3's tolerances.  The JAX package
+// refuses --fold-field with its Pallas kernels (chsimpy_tpu/core/
+// solver.py:78-83, 445-448; its XLA path regroups the sums instead);
+// here this mode is what lets the hand kernels run the folded layout.
 constexpr int kStatsRowsV = 64;        // rows per band times V
 
 template <typename T, int V>
@@ -201,7 +257,7 @@ __device__ __forceinline__ void load_vec(const T* p, T (&v)[V]) {
   }
 }
 
-template <typename T, int V, bool HALO>
+template <typename T, int V, bool HALO, bool FOLD>
 __global__ void __launch_bounds__(kThreads)
 stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
              const T* __restrict__ up_row, const T* __restrict__ dn_row,
@@ -255,6 +311,17 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
   const T* edge_base = left_halo ? lf_col : U + (lane == 0 ? wc0 - 1 : wc1);
   const long long edge_stride = left_halo ? 1 : W;
   const bool tail = HALO && active && c0 + V == W;
+  // FOLD: the stored row of natural row r, where this thread's V columns
+  // start in the stored row (reversed in the right half), and the stored
+  // column of the warp's edge value
+  const int half = N / 2;
+  auto frow = [&](int r) { return FOLD && r >= half ? 3 * half - 1 - r : r; };
+  const bool rev = FOLD && c0 >= half;
+  const int sc0 = rev ? 3 * half - c0 - V : c0;
+  if (FOLD) {
+    const int col = lane == 0 ? wc0 - 1 : wc1;
+    edge_base = U + (col >= half ? 3 * half - 1 - col : col);
+  }
   // rows -1 and bn of the sweep are the halo rows; K3 clamps to the field
   // (the one-sided differences at its edges never read the clamped row)
   const int last_row = HALO ? bn : N - 1;
@@ -263,16 +330,24 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
   auto below_in = [&](int r) { return r < bn - 1 ? r + 1 : bn - 1; };
   auto load_row = [&](const T* F, int r, T (&v)[V]) {
     const T* row = HALO && r < 0 ? up_row
-                   : HALO && r == bn ? dn_row : F + (long long)r * W;
+                   : HALO && r == bn ? dn_row : F + (long long)frow(r) * W;
     if (active) {
-      load_vec<T, V>(row + c0, v);
+      load_vec<T, V>(row + sc0, v);
+      if (rev) {
+#pragma unroll
+        for (int j = 0; j < V / 2; ++j) {
+          const T t = v[j];
+          v[j] = v[V - 1 - j];
+          v[V - 1 - j] = t;
+        }
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < V; ++j) v[j] = T(0);
     }
   };
   auto load_edge = [&](int r) {
-    return edge_lane ? edge_base[(long long)r * edge_stride] : T(0);
+    return edge_lane ? edge_base[(long long)frow(r) * edge_stride] : T(0);
   };
   auto load_tail = [&](int r) { return tail ? rt_col[r] : T(0); };
   double acc[kNStats] = {0.0, 0.0, 0.0, 0.0, 0.0};
@@ -867,7 +942,27 @@ int launch_update(const void* hat_U, const void* hat_E, const void* Seig,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int V, bool HALO>
+// K12 on R members' (rows, cols) blocks at (row_off, col_off) of the
+// spectral image; delt: R doubles (delt_per_member) or one; kappas: R
+// doubles on the card, or null for kappa
+template <typename T>
+int launch_update_otf(const void* hat_U, const void* hat_E,
+                      const void* eaxis, void* out, int rows, int cols,
+                      int row_off, int col_off, int R, const void* delt,
+                      int delt_per_member, const void* kappas, double kappa,
+                      double delx2, void* stream) {
+  if (rows < 1 || cols < 1 || rows > 65535 || row_off < 0 || col_off < 0 ||
+      bad_members(R) || delt == nullptr || eaxis == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((cols + kThreads - 1) / kThreads, rows, R);
+  update_otf_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)hat_U, (const T*)hat_E, (const T*)eaxis, (T*)out, rows,
+      cols, row_off, col_off, (const double*)delt, delt_per_member,
+      (const double*)kappas, T(kappa), T(delx2));
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int V, bool HALO, bool FOLD>
 int launch_stats_v(const void* U, const void* E, const void* up,
                    const void* dn, const void* lf, const void* rt, int bn,
                    int W, int N, int row_off, int col_off, int R,
@@ -879,7 +974,7 @@ int launch_stats_v(const void* U, const void* E, const void* up,
                   (bn + kStatsRowsV / V - 1) / (kStatsRowsV / V), R);
   if ((long long)grid.x * grid.y != nblocks || grid.y > 65535)
     return (int)cudaErrorInvalidValue;
-  stats_kernel<T, V, HALO><<<grid, kThreads, 0, s>>>(
+  stats_kernel<T, V, HALO, FOLD><<<grid, kThreads, 0, s>>>(
       (const T*)U, (const T*)E, (const T*)up, (const T*)dn, (const T*)lf,
       (const T*)rt, bn, W, N, row_off, col_off, delx, T(RT), T(B), T(A0),
       T(A1), (const double*)A0s, (const double*)A1s, T(threshold),
@@ -899,8 +994,9 @@ inline bool aligned16(const void* p) {
 // addresses; checked again here, for every member's block and halo row)
 // or 1; nblocks: the grid of one member that the wrapper sized partials
 // for (R * nblocks rows); ticket: R counters; A0s / A1s: R doubles on the
-// card, or null (R = 1)
-template <typename T, bool HALO>
+// card, or null (R = 1); FOLD: K3's fold mode (even N, the vector only
+// where N/2 % vec == 0)
+template <typename T, bool HALO, bool FOLD = false>
 int launch_stats(const void* U, const void* E, const void* up,
                  const void* dn, const void* lf, const void* rt, int bn,
                  int W, int N, int row_off, int col_off, int R, double delx,
@@ -912,7 +1008,7 @@ int launch_stats(const void* U, const void* E, const void* up,
       row_off + bn > N || col_off + W > N || U == nullptr ||
       bad_members(R) || (R > 1 && (A0s == nullptr || A1s == nullptr)) ||
       (HALO && (up == nullptr || dn == nullptr || lf == nullptr ||
-                rt == nullptr)))
+                rt == nullptr)) || (FOLD && (HALO || N % 2)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   constexpr int kVec = 16 / (int)sizeof(T);
@@ -922,17 +1018,37 @@ int launch_stats(const void* U, const void* E, const void* up,
     // == 0 and bn * W elements are a multiple of 16 bytes
     if (W % kVec || !aligned16(U) || (E != nullptr && !aligned16(E)) ||
         (HALO && (!aligned16(up) || !aligned16(dn))) ||
-        (R > 1 && ((long long)bn * W * (long long)sizeof(T)) % 16))
+        (R > 1 && ((long long)bn * W * (long long)sizeof(T)) % 16) ||
+        (FOLD && (N / 2) % kVec))
       return (int)cudaErrorMisalignedAddress;
-    return launch_stats_v<T, kVec, HALO>(
+    return launch_stats_v<T, kVec, HALO, FOLD>(
         U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, delx, RT, B,
         A0, A1, A0s, A1s, threshold, partials, nblocks, ticket, sums, s);
   }
   if (vec == 1)
-    return launch_stats_v<T, 1, HALO>(
+    return launch_stats_v<T, 1, HALO, FOLD>(
         U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, delx, RT, B,
         A0, A1, A0s, A1s, threshold, partials, nblocks, ticket, sums, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K3 with its fold mode chosen at run time
+template <typename T>
+int launch_stats_field(const void* U, const void* E, int N, int R,
+                       double delx, double RT, double B, double A0,
+                       double A1, const void* A0s, const void* A1s,
+                       double threshold, void* partials, int nblocks,
+                       int vec, void* ticket, void* sums, int fold,
+                       void* stream) {
+  if (fold)
+    return launch_stats<T, false, true>(
+        U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, R, delx,
+        RT, B, A0, A1, A0s, A1s, threshold, partials, nblocks, vec, ticket,
+        sums, stream);
+  return launch_stats<T, false>(
+      U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, R, delx, RT,
+      B, A0, A1, A0s, A1s, threshold, partials, nblocks, vec, ticket, sums,
+      stream);
 }
 
 // K4 on R fields of n elements with R means; partials: nblocks * R
@@ -1103,24 +1219,47 @@ int ch_update_members_f64(const void* hat_U, const void* hat_E,
                                seig_per_member, cheig_per_member, stream);
 }
 
-// ticket: an unsigned int that is 0 between calls (the kernel resets it)
+// K12: R members' (rows, cols) blocks at (row_off, col_off) of the
+// spectral image, eaxis the whole (N,) axis; delt: one double on the card,
+// or R (delt_per_member); kappas: R doubles on the card, or null for kappa
+int ch_update_otf_f32(const void* hat_U, const void* hat_E,
+                      const void* eaxis, void* out, int rows, int cols,
+                      int row_off, int col_off, int R, const void* delt,
+                      int delt_per_member, const void* kappas, double kappa,
+                      double delx2, void* stream) {
+  return launch_update_otf<float>(hat_U, hat_E, eaxis, out, rows, cols,
+                                  row_off, col_off, R, delt,
+                                  delt_per_member, kappas, kappa, delx2,
+                                  stream);
+}
+int ch_update_otf_f64(const void* hat_U, const void* hat_E,
+                      const void* eaxis, void* out, int rows, int cols,
+                      int row_off, int col_off, int R, const void* delt,
+                      int delt_per_member, const void* kappas, double kappa,
+                      double delx2, void* stream) {
+  return launch_update_otf<double>(hat_U, hat_E, eaxis, out, rows, cols,
+                                   row_off, col_off, R, delt,
+                                   delt_per_member, kappas, kappa, delx2,
+                                   stream);
+}
+
+// ticket: an unsigned int that is 0 between calls (the kernel resets it);
+// fold: the field in the level-1 folded layout (K3's fold mode)
 int ch_stats_f32(const void* U, const void* E, int N, double delx, double RT,
                  double B, double A0, double A1, double threshold,
                  void* partials, int nblocks, int vec, void* ticket,
-                 void* sums, void* stream) {
-  return launch_stats<float, false>(
-      U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, 1, delx, RT,
-      B, A0, A1, nullptr, nullptr, threshold, partials, nblocks, vec, ticket,
-      sums, stream);
+                 void* sums, int fold, void* stream) {
+  return launch_stats_field<float>(U, E, N, 1, delx, RT, B, A0, A1, nullptr,
+                                 nullptr, threshold, partials, nblocks, vec,
+                                 ticket, sums, fold, stream);
 }
 int ch_stats_f64(const void* U, const void* E, int N, double delx, double RT,
                  double B, double A0, double A1, double threshold,
                  void* partials, int nblocks, int vec, void* ticket,
-                 void* sums, void* stream) {
-  return launch_stats<double, false>(
-      U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, 1, delx, RT,
-      B, A0, A1, nullptr, nullptr, threshold, partials, nblocks, vec, ticket,
-      sums, stream);
+                 void* sums, int fold, void* stream) {
+  return launch_stats_field<double>(U, E, N, 1, delx, RT, B, A0, A1, nullptr,
+                                 nullptr, threshold, partials, nblocks, vec,
+                                 ticket, sums, fold, stream);
 }
 // member-batched K3: R fields (N, N); nblocks: one member's grid; ticket:
 // R counters; sums: (R, 5)
@@ -1128,21 +1267,19 @@ int ch_stats_members_f32(const void* U, const void* E, int N, int R,
                          double delx, double RT, double B, const void* A0s,
                          const void* A1s, double threshold, void* partials,
                          int nblocks, int vec, void* ticket, void* sums,
-                         void* stream) {
-  return launch_stats<float, false>(
-      U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, R, delx, RT,
-      B, 0.0, 0.0, A0s, A1s, threshold, partials, nblocks, vec, ticket, sums,
-      stream);
+                         int fold, void* stream) {
+  return launch_stats_field<float>(U, E, N, R, delx, RT, B, 0.0, 0.0, A0s,
+                                 A1s, threshold, partials, nblocks, vec,
+                                 ticket, sums, fold, stream);
 }
 int ch_stats_members_f64(const void* U, const void* E, int N, int R,
                          double delx, double RT, double B, const void* A0s,
                          const void* A1s, double threshold, void* partials,
                          int nblocks, int vec, void* ticket, void* sums,
-                         void* stream) {
-  return launch_stats<double, false>(
-      U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, R, delx, RT,
-      B, 0.0, 0.0, A0s, A1s, threshold, partials, nblocks, vec, ticket, sums,
-      stream);
+                         int fold, void* stream) {
+  return launch_stats_field<double>(U, E, N, R, delx, RT, B, 0.0, 0.0, A0s,
+                                 A1s, threshold, partials, nblocks, vec,
+                                 ticket, sums, fold, stream);
 }
 
 // K7: one block of a grid-sharded field (the halo vectors beside it); the

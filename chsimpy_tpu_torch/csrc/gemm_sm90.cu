@@ -40,6 +40,17 @@
 // * Tiles are visited in groups of 8 block rows so that the blocks in
 //   flight share their A and B panels in L2.
 //
+// * A member axis (the ensemble's (R, N, N) stacks): batch z of a launch
+//   takes operands at z times their batch strides, and an operand shared
+//   by every member (stride 0: a DCT matrix or a split block) is split
+//   once and read by all.  Each member's product is the one a launch of
+//   its own gives, to the bit.
+//
+// In the solve K6 is the float32 product at --matmul-precision high (the
+// TPU's 3-pass bf16, chsimpy_tpu/core/stepper.py:159-162): the matmul
+// route's C·U·Cᵀ, the split route's block products, the grid and pencil
+// transforms.
+//
 // Every mbarrier wait gives up with a trap after ~2^26 polls: a protocol
 // fault then stops the kernel with an error instead of hanging the card.
 
@@ -70,15 +81,20 @@ __device__ __forceinline__ float tf32_rna(float x) {
 }
 
 // out holds ceil(rows/128) x KT tiles, tile (rb, kb) at
-// ((rb * KT + kb) * 2) * kTileFloats: hi, then lo.  Inside a tile, element
+// ((rb * KT + kb) * 2) * kTileFloats: hi, then lo; batch z (blockIdx.z)
+// reads X + z * x_stride and writes the next such block of tiles.  Inside a tile, element
 // (r, k) sits at r*32 + ((k/4) ^ (r%8))*4 + k%4: row r is 128 B of k, and
 // its 16-byte chunk c is stored at chunk c ^ (r % 8), the 128-byte swizzle
 // of wgmma's operand descriptor.  Element (r, k) of op(X) is X[r*ld + k]
 // when k_fastest, else X[k*ld + r]; beyond rows or K it is 0.
 __global__ void __launch_bounds__(kSplitThreads)
 split_tf32_kernel(const float* __restrict__ X, int rows, int K, long long ld,
-                  int k_fastest, int KT, float* __restrict__ out) {
+                  int k_fastest, int KT, long long x_stride,
+                  float* __restrict__ out) {
   __shared__ float tile[kBM][kBK + 1];
+  X += (long long)blockIdx.z * x_stride;
+  out += (long long)blockIdx.z * ((rows + kBM - 1) / kBM) * KT * 2
+         * kTileFloats;
   const int kb = blockIdx.x;
   const int rb = blockIdx.y;
   const int r0 = rb * kBM;
@@ -222,10 +238,16 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t a,
 
 // As / Bs: the split operands (split_tf32_kernel) of op(A) (M x K) and
 // op(B)^T (N x K), KT = ceil(K / 32) k tiles each; C row-major (M, N).
+// Batch z = blockIdx.y: As / Bs advance by as_stride / bs_stride floats (0
+// for an operand shared by the batch), C by c_stride.
 __global__ void __launch_bounds__(kGemmThreads, 1)
 gemm_tf32x3_kernel(const float* __restrict__ As, const float* __restrict__ Bs,
                    float* __restrict__ C, int M, int N, int KT,
-                   long long ldc) {
+                   long long ldc, long long as_stride, long long bs_stride,
+                   long long c_stride) {
+  As += (long long)blockIdx.y * as_stride;
+  Bs += (long long)blockIdx.y * bs_stride;
+  C += (long long)blockIdx.y * c_stride;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[kStages];
   __shared__ __align__(8) uint64_t empty_bar[kStages];
@@ -334,9 +356,9 @@ gemm_tf32x3_kernel(const float* __restrict__ As, const float* __restrict__ Bs,
 
 inline int tiles(int n, int t) { return (n + t - 1) / t; }
 
-long long workspace_floats(int M, int N, int K) {
-  return 2LL * kTileFloats * tiles(K, kBK)
-         * ((long long)tiles(M, kBM) + tiles(N, kBN));
+// floats of one split operand of `rows` rows
+long long split_floats(int rows, int K) {
+  return 2LL * kTileFloats * tiles(K, kBK) * tiles(rows, kBM);
 }
 
 }  // namespace
@@ -345,20 +367,26 @@ extern "C" {
 
 // float32 only: the TPU kernel contracts float32 operands.  A is (M, K),
 // stored row-major with leading dimension lda, or (transA) as the
-// transpose of a row-major (K, M); B likewise; C row-major (M, N).  ws: a
-// scratch buffer of ch_matmul_workspace_f32(M, N, K) floats for the split
-// operands.  Three launches on the stream: the two splits and the GEMM.
-long long ch_matmul_workspace_f32(int M, int N, int K) {
-  return workspace_floats(M, N, K);
+// transpose of a row-major (K, M); B likewise; C row-major (M, N).  A batch
+// of `batch` products: A and B advance by stride_a / stride_b floats a
+// member (0: one operand for every member), C by M * ldc.  ws: a scratch
+// buffer of ch_matmul_workspace_f32(M, N, K, a_splits, b_splits) floats
+// for the split operands (a_splits: batch, or 1 where stride_a is 0; b
+// likewise).  Three launches on the stream: the two splits and the GEMM.
+long long ch_matmul_workspace_f32(int M, int N, int K, int a_splits,
+                                  int b_splits) {
+  return a_splits * split_floats(M, K) + b_splits * split_floats(N, K);
 }
 
-int ch_matmul_f32(const void* A, int transA, long long lda, const void* B,
-                  int transB, long long ldb, void* C, long long ldc, int M,
-                  int N, int K, void* ws, void* stream) {
+int ch_matmul_f32(const void* A, int transA, long long lda,
+                  long long stride_a, const void* B, int transB,
+                  long long ldb, long long stride_b, void* C, long long ldc,
+                  int M, int N, int K, int batch, void* ws, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || ldc < N || lda < (transA ? M : K) ||
       ldb < (transB ? K : N) || tiles(K, kBK) > 65535 ||
       tiles(M, kBM) > 65535 || tiles(N, kBN) > 65535 ||
-      (long long)tiles(M, kBM) * tiles(N, kBN) > 0x7fffffffLL)
+      (long long)tiles(M, kBM) * tiles(N, kBN) > 0x7fffffffLL ||
+      batch < 1 || batch > 65535 || stride_a < 0 || stride_b < 0)
     return (int)cudaErrorInvalidValue;
   static const cudaError_t configured = cudaFuncSetAttribute(
       gemm_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -366,20 +394,26 @@ int ch_matmul_f32(const void* A, int transA, long long lda, const void* B,
   if (configured != cudaSuccess) return (int)configured;
   cudaStream_t s = (cudaStream_t)stream;
   const int KT = tiles(K, kBK);
+  const int a_splits = stride_a ? batch : 1;
+  const int b_splits = stride_b ? batch : 1;
   float* As = (float*)ws;
-  float* Bs = As + 2LL * kTileFloats * KT * tiles(M, kBM);
+  float* Bs = As + a_splits * split_floats(M, K);
   // op(A) (M x K): k runs along memory unless A is a transposed view;
   // op(B)^T (N x K): k runs along memory only when B is one
-  split_tf32_kernel<<<dim3(KT, tiles(M, kBM)), kSplitThreads, 0, s>>>(
-      (const float*)A, M, K, lda, transA ? 0 : 1, KT, As);
+  split_tf32_kernel<<<dim3(KT, tiles(M, kBM), a_splits), kSplitThreads, 0,
+                      s>>>((const float*)A, M, K, lda, transA ? 0 : 1, KT,
+                           stride_a, As);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  split_tf32_kernel<<<dim3(KT, tiles(N, kBN)), kSplitThreads, 0, s>>>(
-      (const float*)B, N, K, ldb, transB ? 1 : 0, KT, Bs);
+  split_tf32_kernel<<<dim3(KT, tiles(N, kBN), b_splits), kSplitThreads, 0,
+                      s>>>((const float*)B, N, K, ldb, transB ? 1 : 0, KT,
+                           stride_b, Bs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  gemm_tf32x3_kernel<<<tiles(M, kBM) * tiles(N, kBN), kGemmThreads,
-                       kSmemBytes, s>>>(As, Bs, (float*)C, M, N, KT, ldc);
+  gemm_tf32x3_kernel<<<dim3(tiles(M, kBM) * tiles(N, kBN), batch),
+                       kGemmThreads, kSmemBytes, s>>>(
+      As, Bs, (float*)C, M, N, KT, ldc, stride_a ? split_floats(M, K) : 0,
+      stride_b ? split_floats(N, K) : 0, (long long)M * ldc);
   return (int)cudaGetLastError();
 }
 

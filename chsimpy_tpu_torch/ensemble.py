@@ -46,6 +46,15 @@ gives it, and every rank takes the same chunks.
 ``params.mesh_shape`` without a ``mesh`` builds the mesh on the
 initialized process group (its world over the grid's ranks is E).
 
+The float32 knobs are the single run's (``core/solver.py``): the product
+precision, the forward's, ``fold_field`` (member-local fields only: one
+device or an 'ens'-only mesh, as in the JAX package), and, pinned only as
+in the JAX ensemble, ``inv_band`` and ``otf_coeffs`` (K12_members: each
+member's coefficients from its kappa, no (R, N, N) CHeig).  A pinned
+``inv_band`` takes the single run's guards, float64 refused (the JAX
+ensemble accepts it there, ``chsimpy_tpu/ensemble.py:171``: a fault of the
+reference the port does not copy).
+
 Refused, as in the JAX package: split with N not divisible by D, and a
 grid that N does not tile.  The JAX ensemble has no device jitter, so
 ``jitter_backend='device'`` is refused too.
@@ -60,7 +69,9 @@ import torch
 
 from . import material
 from .core.solver import (_JITTER_BUF_BYTES, _resolve_rfold_levels,
-                          check_grid_mesh, check_split_levels,
+                          check_grid_mesh, check_knobs, check_split_levels,
+                          resolve_fold_field, resolve_fwd_matmul_precision,
+                          resolve_inv_band, resolve_matmul_precision,
                           resolve_ozaki_fwd_pairs, resolve_pencil,
                           resolve_transform)
 from .core.state import STOP_NAN, STOP_NONE, STOP_STRINGS, init_members_state
@@ -143,6 +154,14 @@ class EnsembleSolver:
         self.device = resolve_device(params.device)
         D = _grid_devices(params, mesh)
         pencil = resolve_pencil(params, D if D > 1 else None)
+        check_knobs(params)
+        fold_field = resolve_fold_field(params,
+                                        grid_sharded=_grid_sharded(params,
+                                                                   mesh))
+        if params.fold_field and _grid_sharded(params, mesh):
+            raise ValueError("--fold-field needs member-local fields: shard "
+                             "the ensemble over 'ens' only (the folded seam "
+                             "crosses grid-shard halves)")
         if mesh is not None and params.mesh_shape is not None \
                 and tuple(params.mesh_shape) != tuple(mesh.shape):
             raise ValueError(f"mesh_shape {tuple(params.mesh_shape)} is not "
@@ -237,7 +256,12 @@ class EnsembleSolver:
             ozaki_fwd_pairs=resolve_ozaki_fwd_pairs(params),
             # pin-only under the ensemble, as in the JAX package
             ozaki_inv_pairs=tuple(inv_pairs) if inv_pairs else None,
-            pencil=pencil)
+            pencil=pencil, fold_field=fold_field,
+            matmul_precision=resolve_matmul_precision(params),
+            fwd_matmul_precision=resolve_fwd_matmul_precision(params),
+            # pinned only, as the JAX ensemble takes them
+            inv_band=resolve_inv_band(params) if params.inv_band else None,
+            otf_coeffs=bool(params.otf_coeffs))
         # the layout of the fields on the grid: its own, or the pencil
         # layout's column blocks
         self._field = field_mesh(self.cfg, self._grid)
@@ -280,11 +304,18 @@ class EnsembleSolver:
             t = gather_field(t, self._field)
         return t if self.mesh is None else gather_members(t, self.mesh)
 
+    def field_layout(self, U: torch.Tensor) -> torch.Tensor:
+        """Natural fields (..., N, N) in the state's layout, and back (the
+        level-1 fold is an involution); the identity unless fold_field."""
+        return dct_ops.fold1(U) if self.cfg.fold_field else U
+
     def host_state(self) -> dict:
-        """Every member's U (R, N, N), key and per-member leaves as numpy
-        arrays (a collective under a mesh: every rank calls it)."""
+        """Every member's U (R, N, N) in the natural layout, key and
+        per-member leaves as numpy arrays (a collective under a mesh:
+        every rank calls it)."""
         s = self._states
-        out = {'U': self._gather_members(s.U).cpu().numpy(),
+        out = {'U': self.field_layout(
+                   self._gather_members(s.U)).cpu().numpy(),
                'rng_key': self._gather_members(s.rng_key).cpu().numpy()}
         for name in ('delt', 'time_delta_sum', 'computed_steps',
                      'skip_check', 'stop_reason', 'tau0', 't0', 'E2_first',
@@ -304,7 +335,8 @@ class EnsembleSolver:
                                           dtype=self.cfg.tdtype)
         if self._grid is not None:
             U = shard_field(U, self._field)[0]
-        repl = {'U': U, 'rng_key': key_tensor(mine['rng_key'], self.device)}
+        repl = {'U': self.field_layout(U),
+                'rng_key': key_tensor(mine['rng_key'], self.device)}
         for name, v in mine.items():
             if name not in repl:
                 repl[name] = torch.as_tensor(v).to(
@@ -320,6 +352,8 @@ class EnsembleSolver:
         U0_b = U0.expand(n_local, N, N).contiguous()
         if self._grid is not None:
             U0_b = shard_field(U0_b, self._field)[0]
+        # the state's layout from here on (folded under fold_field)
+        U0_b = self.field_layout(U0_b)
         row0 = prepare_members_row0(self.cfg, self._consts, U0_b, self._grid)
         E2_local = row0[1]
         E, E2, Ra, PS = self._gather_host(*row0)
@@ -361,12 +395,13 @@ class EnsembleSolver:
 
     def _to_device(self, slabs: np.ndarray) -> torch.Tensor:
         """Host slabs (..., N, N) in the field's type on the device; under
-        a grid this rank's block of each."""
+        a grid this rank's block of each; folded under fold_field."""
         t = torch.as_tensor(slabs)
         if self._grid is not None:
             rows, cols = block_slices(self._field, self.params.N)
             t = t[..., rows, cols]
-        return t.to(device=self.device, dtype=self.cfg.tdtype)
+        return self.field_layout(t.to(device=self.device,
+                                      dtype=self.cfg.tdtype))
 
     def solve_or_resume(self, nsteps: Optional[int] = None, on_chunk=None,
                         preserve_stops: bool = False):
@@ -453,7 +488,7 @@ class EnsembleSolver:
         s = self._states
         host = self._gather_host(s.computed_steps, s.tau0, s.t0,
                                  s.stop_reason)
-        U = self._gather_members(s.U)
+        U = self.field_layout(self._gather_members(s.U))
         sols = []
         for r in range(self.R):
             p = self.params.deepcopy()

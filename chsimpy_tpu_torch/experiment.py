@@ -461,7 +461,8 @@ def live_view_hook(view, params):
     stride = -(-params.N // LIVE_VIEW_PIXELS)
 
     def on_chunk(ens, states):
-        U0 = states.U[0, ::stride, ::stride].cpu().numpy()
+        # member 0 in the natural layout (unfolded under fold_field)
+        U0 = ens.field_layout(states.U[0])[::stride, ::stride].cpu().numpy()
         step = int(states.computed_steps[0])
         view.set_Umap(U0, params.threshold, title=f"member 0 | step {step}")
         view.draw()

@@ -42,10 +42,12 @@ _SIGNATURES = {
     'ch_mu_members': ((_P, _P, _LL, _I, _D, _D, _P, _P, _P), _BOTH),
     'ch_update': ((_P, _P, _P, _P, _P, _LL, _P), _BOTH),
     'ch_update_members': ((_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P), _BOTH),
+    'ch_update_otf': ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _D,
+                       _D, _P), _BOTH),
     'ch_stats': ((_P, _P, _I, _D, _D, _D, _D, _D, _D, _P, _I, _I, _P, _P,
-                  _P), _BOTH),
+                  _I, _P), _BOTH),
     'ch_stats_members': ((_P, _P, _I, _I, _D, _D, _D, _P, _P, _D, _P, _I,
-                          _I, _P, _P, _P), _BOTH),
+                          _I, _P, _P, _I, _P), _BOTH),
     'ch_local_stats': ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D,
                         _D, _D, _D, _D, _P, _I, _I, _P, _P, _P), _BOTH),
     'ch_local_stats_members': ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -64,9 +66,9 @@ _SIGNATURES = {
     'ch_sobol_jitter': ((_P, _I, _I, _P, _P, _P, _I, _I, _D, _P), _BOTH),
     'ch_threefry_jitter': ((_P, _I, _I, _LL, _I, _I, _P, _P, _P, _D, _P),
                            _BOTH),
-    'ch_matmul': ((_P, _I, _LL, _P, _I, _LL, _P, _LL, _I, _I, _I, _P, _P),
-                  ('_f32',)),
-    'ch_matmul_workspace': ((_I, _I, _I), ('_f32',), _LL),
+    'ch_matmul': ((_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _LL, _I, _I, _I,
+                   _I, _P, _P), ('_f32',)),
+    'ch_matmul_workspace': ((_I, _I, _I, _I, _I), ('_f32',), _LL),
 }
 
 

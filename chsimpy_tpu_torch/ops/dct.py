@@ -28,40 +28,60 @@ forms (:func:`dct2_split_perm_pencil`, :func:`idct2_split_perm_pencil`,
   float64.
 
 The JAX package leaves these products and FFTs to XLA outside any Pallas
-kernel; here they go to ``torch.matmul`` and ``torch.fft``.  Transposes are
-views: ``_mm_nt`` is ``x @ m.T`` with no copy.  ``x[n//2:][::-1]`` has no
+kernel; here they go to :func:`mm` (cuBLAS or the GEMM kernel K6) and
+``torch.fft``.  Transposes are views: ``_mm_nt`` is ``x @ m.T`` with no
+copy.  ``x[n//2:][::-1]`` has no
 torch view, so every reversal is a ``torch.flip`` (a copy).  The 2-D
 transforms return contiguous tensors: the kernels take nothing else.
 
-The solver runs the permuted forms and the FFT route.  These and the
-matmul route's :func:`dct2` / :func:`idct2` also take a stack of fields
-(R, N, N), each transformed over its last two axes: the ensemble's step
-(``torch.matmul`` broadcasts the (N, N) matrices over the member axis).  The natural-layout
-pair and the folded pair are reached only from the bake-off
-(``benchmarks/dct_bench.py``): the solver's folded field layout
-(``fold_field``, the JAX ``fold1_np``) is item 14.
+The solver runs the permuted forms (on a level-1 folded field under
+``fold_field``: :func:`dct2_split_perm_folded`,
+:func:`idct2_split_perm_folded`, :func:`fold1`) and the FFT route.  These
+and the matmul route's :func:`dct2` / :func:`idct2` also take a stack of
+fields (R, N, N), each transformed over its last two axes: the ensemble's
+step (the (N, N) matrices are shared by every member).  The natural-layout
+pair is reached only from the bake-off (``benchmarks/dct_bench.py``).
 
 Not ported: the Hou odd-branch recursion (measured and rejected, ROADMAP.md
-queue A item 2), and the ``band_frac`` banding and ``idct2_banded`` (the
-``--inv-band`` knob, item 14).
+queue A item 2).
 
-float32 products run in full float32: :func:`require_full_fp32` turns
-TF32 off.  The JAX float32 route contracts at 3-pass bf16 ('high', about
-float32 accuracy) and its E trace is held to the float32 class against
-float64 (1e-5 relative); TF32 keeps about three decimal digits and would
-leave that class.  Whether a TF32 or 3xTF32 product keeps the class is a
-measurement for a later change.
+**Precision.**  Every float32 product takes one of the JAX package's
+precision names (its bf16 pass counts on the TPU's matrix unit), mapped by
+pass count to what Hopper computes, each at least as accurate as its TPU
+counterpart (:func:`mm`):
+
+* ``'highest'`` (6-pass bf16): full float32, cuBLAS with TF32 off
+  (:func:`require_full_fp32` keeps the global switch off);
+* ``'high'`` (3-pass bf16): 3xTF32 on the tensor cores, kernel K6
+  (``ops/kernels.py`` ``matmul``, ``csrc/gemm_sm90.cu``);
+* ``'default'`` (1-pass bf16): one TF32 pass (10 mantissa bits against
+  bf16's 8), cuBLAS with TF32 on for that call only
+  (``kernels.matmul_tf32``).
+
+float64 products are float64 whatever the name, as on the JAX CPU
+backend.  On the CPU every name but ``'default'`` is the float32 product;
+``'default'`` rounds the operands to TF32 first.  The spectral images
+``--inv-band`` bands (:func:`idct2_banded`, ``band_frac``) contract their
+high-frequency tail at ``'default'``.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..parallel import collectives as coll
 from ..parallel.sharding import block_slices
+from . import kernels as K
+
+# the JAX package's matmul precision names (chsimpy_tpu/core/stepper.py
+# StepConfig.matmul_precision), most accurate first
+PRECISIONS = ('highest', 'high', 'default')
+# the precision of a banded inverse's tail (idct2_banded, band_frac)
+BAND_PRECISION = 'default'
 
 
 @functools.lru_cache(maxsize=32)
@@ -83,19 +103,79 @@ def dct_matrix(N: int, dtype=torch.float64, device='cpu') -> torch.Tensor:
 
 
 def require_full_fp32() -> None:
-    """Keep float32 matrix products in full float32 on the card (see the
-    module docstring for why the solve does not take TF32)."""
+    """Keep the global TF32 switch off: a ``'highest'`` product is full
+    float32, and TF32 is turned on only around a ``'default'`` one."""
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def dct2(U: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+def mm(a: torch.Tensor, b: torch.Tensor, precision=None) -> torch.Tensor:
+    """``a @ b`` at a precision name (module docstring); None is
+    ``'highest'``.  Either operand may be a stack (R, ., .)."""
+    if precision in (None, 'highest') or a.dtype != torch.float32:
+        return torch.matmul(a, b)
+    if precision == 'high':
+        return K.matmul(a, b)
+    if precision == 'default':
+        return K.matmul_tf32(a, b)
+    raise ValueError(f"unknown matmul precision {precision!r}; "
+                     f"choose from {PRECISIONS}")
+
+
+def dct2(U: torch.Tensor, C: torch.Tensor, precision=None) -> torch.Tensor:
     """Orthonormal 2-D DCT-II (equals scipy ``dctn(U, norm='ortho')``)."""
-    return torch.matmul(torch.matmul(C, U), C.T)
+    return mm(mm(C, U, precision), C.T, precision)
 
 
-def idct2(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+def idct2(X: torch.Tensor, C: torch.Tensor, precision=None) -> torch.Tensor:
     """Orthonormal 2-D DCT-III, the exact inverse of :func:`dct2`."""
-    return torch.matmul(torch.matmul(C.T, X), C)
+    return mm(mm(C.T, X, precision), C, precision)
+
+
+def _band(n: int, band_frac) -> int:
+    """The first index of a banded contraction's tail over ``n`` spectral
+    indices (n: no tail), as ``chsimpy_tpu/ops/dct.py`` ``_mmt_banded_l``
+    cuts each split block."""
+    if not band_frac:
+        return n
+    return min(n, max(1, int(n * band_frac)))
+
+
+def _mmt_cut_l(M, y, precision, j0: int):
+    """M.T @ y with y's rows from ``j0`` on (a high-frequency tail)
+    contracted at ``BAND_PRECISION``."""
+    low = mm(M.T[:, :j0], y[..., :j0, :], precision)
+    if j0 == y.shape[-2]:
+        return low
+    return low + mm(M.T[:, j0:], y[..., j0:, :], BAND_PRECISION)
+
+
+def _mm_cut_r(y, M, precision, j0: int):
+    """y @ M with y's columns from ``j0`` on at ``BAND_PRECISION``."""
+    low = mm(y[..., :j0], M[:j0], precision)
+    if j0 == y.shape[-1]:
+        return low
+    return low + mm(y[..., j0:], M[j0:], BAND_PRECISION)
+
+
+def _mmt_banded_l(M, y, precision, band_frac):
+    """M.T @ y, the rows of y past ``band_frac`` of them (the block's
+    tail: every split block is in ascending frequency) at
+    ``BAND_PRECISION``."""
+    return _mmt_cut_l(M, y, precision, _band(y.shape[-2], band_frac))
+
+
+def _mm_banded_r(y, M, precision, band_frac):
+    """y @ M, the right-side mirror of :func:`_mmt_banded_l`."""
+    return _mm_cut_r(y, M, precision, _band(y.shape[-1], band_frac))
+
+
+def idct2_banded(X: torch.Tensor, C: torch.Tensor, k0: int,
+                 precision=None) -> torch.Tensor:
+    """The inverse with a banded precision (``chsimpy_tpu/ops/dct.py:
+    70-90``): both stages of C^T X C contract a frequency index, so each
+    splits into the low band [0, k0) at ``precision`` and the tail
+    [k0, N) at ``BAND_PRECISION``."""
+    return _mm_cut_r(_mmt_cut_l(C, X, precision, k0), C, precision, k0)
 
 
 # ----------------------------------------------------------------------
@@ -118,7 +198,8 @@ def idct2(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
 # into each rank, 4 bytes (float32) or 8 per element.
 # ----------------------------------------------------------------------
 
-def dct2_grid(Ub: torch.Tensor, C: torch.Tensor, mesh) -> torch.Tensor:
+def dct2_grid(Ub: torch.Tensor, C: torch.Tensor, mesh,
+              precision=None) -> torch.Tensor:
     """This rank's (bn, bw) block of ``dct2`` of the field whose block is
     ``Ub`` (a collective: every rank of the mesh calls it).  A stack of
     members' blocks (R, bn, bw) gives each member's block: batched
@@ -126,19 +207,25 @@ def dct2_grid(Ub: torch.Tensor, C: torch.Tensor, mesh) -> torch.Tensor:
     grid ensemble's transform)."""
     I, J = block_slices(mesh, C.shape[0])
     Ucol = coll.gather_x(mesh, Ub)                           # U[:, J]
-    Tt = torch.matmul(Ucol.transpose(-1, -2), C[I].T)        # T[I, J]^T
+    Tt = mm(Ucol.transpose(-1, -2), C[I].T, precision)       # T[I, J]^T
     G = coll.gather_y(mesh, Tt)                              # T[I, :]^T
-    return torch.matmul(G.transpose(-1, -2), C[J].T).contiguous()
+    return mm(G.transpose(-1, -2), C[J].T, precision).contiguous()
 
 
-def idct2_grid(Xb: torch.Tensor, C: torch.Tensor, mesh) -> torch.Tensor:
+def idct2_grid(Xb: torch.Tensor, C: torch.Tensor, mesh, precision=None,
+               band: Optional[int] = None) -> torch.Tensor:
     """This rank's block of ``idct2`` of the spectral image whose block
-    is ``Xb`` (a collective); member stacks as :func:`dct2_grid`."""
-    I, J = block_slices(mesh, C.shape[0])
+    is ``Xb`` (a collective); member stacks as :func:`dct2_grid`.  Each
+    stage contracts a frequency index (X's rows, then S's columns), so
+    ``band`` cuts both as :func:`idct2_banded` does."""
+    N = C.shape[0]
+    I, J = block_slices(mesh, N)
+    k0 = N if band is None else band
     Xcol = coll.gather_x(mesh, Xb)                           # X[:, J]
-    St = torch.matmul(Xcol.transpose(-1, -2), C[:, I])       # S[I, J]^T
+    St = _mm_cut_r(Xcol.transpose(-1, -2), C[:, I], precision, k0)
     G = coll.gather_y(mesh, St)                              # S[I, :]^T
-    return torch.matmul(G.transpose(-1, -2), C[:, J]).contiguous()
+    return _mm_cut_r(G.transpose(-1, -2), C[:, J], precision,
+                     k0).contiguous()
 
 
 # ----------------------------------------------------------------------
@@ -169,19 +256,21 @@ def idct2_pencil(Xb: torch.Tensor, C: torch.Tensor, mesh) -> torch.Tensor:
     return torch.matmul(C.T, T).contiguous()
 
 
-def dct2_split_perm_pencil(Ub, tree, mesh):
+def dct2_split_perm_pencil(Ub, tree, mesh, precision=None):
     """:func:`dct2_split_perm` of the field whose column block is ``Ub``:
     this rank's row block of the permuted spectral image."""
-    T = coll.transpose_to_rows(mesh, _apply_split_perm(tree, Ub))
-    return _apply_split_perm_right(tree, T).contiguous()
+    T = coll.transpose_to_rows(mesh, _apply_split_perm(tree, Ub, precision))
+    return _apply_split_perm_right(tree, T, precision).contiguous()
 
 
-def idct2_split_perm_pencil(Xb, tree, mesh):
+def idct2_split_perm_pencil(Xb, tree, mesh, precision=None,
+                            band_frac=None):
     """The inverse of :func:`dct2_split_perm` with the last-axis stage
     first, from this rank's row block ``Xb`` to its column block of the
-    field."""
-    T = coll.transpose_to_cols(mesh, _apply_split_t_perm_right(tree, Xb))
-    return _apply_split_t_perm(tree, T).contiguous()
+    field (``band_frac`` as :func:`idct2_split_perm`)."""
+    T = coll.transpose_to_cols(mesh, _apply_split_t_perm_right(
+        tree, Xb, precision, band_frac))
+    return _apply_split_t_perm(tree, T, precision, band_frac).contiguous()
 
 
 # ----------------------------------------------------------------------
@@ -350,25 +439,26 @@ def idct2_split(X, tree):
 # so the interleave that restores natural coefficient order is dropped;
 # outputs stay in block order and the solver's grids are conjugated once.
 
-def _apply_split_perm(tree, x):
+def _apply_split_perm(tree, x, precision=None):
     """P · C_block @ x: :func:`_apply_split` without the interleave (over
     the row axis -2, so x may be a stack of fields)."""
     if not isinstance(tree, tuple):
-        return torch.matmul(tree, x)
+        return mm(tree, x, precision)
     n = x.shape[-2]
     top, bot = x[..., :n // 2, :], _flip0(x[..., n // 2:, :])
-    even = _apply_split_perm(tree[0], top + bot)
-    odd = torch.matmul(tree[1], top - bot)
+    even = _apply_split_perm(tree[0], top + bot, precision)
+    odd = mm(tree[1], top - bot, precision)
     return torch.cat([even, odd], dim=-2)
 
 
-def _apply_split_t_perm(tree, y):
-    """C_block^T · P^T @ y, the inverse of :func:`_apply_split_perm`."""
+def _apply_split_t_perm(tree, y, precision=None, band_frac=None):
+    """C_block^T · P^T @ y, the inverse of :func:`_apply_split_perm`;
+    ``band_frac``: each block's tail at ``BAND_PRECISION``."""
     if not isinstance(tree, tuple):
-        return torch.matmul(tree.T, y)
+        return _mmt_banded_l(tree, y, precision, band_frac)
     n2 = y.shape[-2] // 2
-    u = _apply_split_t_perm(tree[0], y[..., :n2, :])
-    v = torch.matmul(tree[1].T, y[..., n2:, :])
+    u = _apply_split_t_perm(tree[0], y[..., :n2, :], precision, band_frac)
+    v = _mmt_banded_l(tree[1], y[..., n2:, :], precision, band_frac)
     return torch.cat([u + v, _flip0(u - v)], dim=-2)
 
 
@@ -399,44 +489,52 @@ def split_permute_axis(v: np.ndarray, N: int, levels: int) -> np.ndarray:
     return np.asarray(v)[_split_permutation_np(N, levels)]
 
 
-def _mm_nt(x, m):
-    """x @ m^T, the transpose a view (no copy of the block)."""
-    return torch.matmul(x, m.T)
+def _mm_nt(x, m, precision=None):
+    """x @ m^T, the transpose a view (no copy of the block; K6 reads it
+    as a transposed operand)."""
+    return mm(x, m.T, precision)
 
 
-def _apply_split_perm_right(tree, x):
+def _apply_split_perm_right(tree, x, precision=None):
     """x @ (P·C_block)^T: folds and block order along the LAST axis, so
     the 2-D transform runs rows then columns with no full-field
     transpose."""
     if not isinstance(tree, tuple):
-        return _mm_nt(x, tree)
+        return _mm_nt(x, tree, precision)
     n = x.shape[-1]
     top, bot = x[..., :n // 2], _flip1(x[..., n // 2:])
-    even = _apply_split_perm_right(tree[0], top + bot)
-    odd = _mm_nt(top - bot, tree[1])
+    even = _apply_split_perm_right(tree[0], top + bot, precision)
+    odd = _mm_nt(top - bot, tree[1], precision)
     return torch.cat([even, odd], dim=-1)
 
 
-def _apply_split_t_perm_right(tree, y):
+def _apply_split_t_perm_right(tree, y, precision=None, band_frac=None):
     """y @ P·C_block, the inverse of :func:`_apply_split_perm_right`."""
     if not isinstance(tree, tuple):
-        return torch.matmul(y, tree)
+        return _mm_banded_r(y, tree, precision, band_frac)
     n2 = y.shape[-1] // 2
-    u = _apply_split_t_perm_right(tree[0], y[..., :n2])
-    v = torch.matmul(y[..., n2:], tree[1])
+    u = _apply_split_t_perm_right(tree[0], y[..., :n2], precision,
+                                  band_frac)
+    v = _mm_banded_r(y[..., n2:], tree[1], precision, band_frac)
     return torch.cat([u + v, _flip1(u - v)], dim=-1)
 
 
-def dct2_split_perm(U, tree):
+def dct2_split_perm(U, tree, precision=None):
     """2-D DCT-II into the permuted spectral basis (rows by the left
     application, columns by the right one)."""
-    return _apply_split_perm_right(tree, _apply_split_perm(tree, U))
+    return _apply_split_perm_right(tree, _apply_split_perm(tree, U,
+                                                           precision),
+                                   precision)
 
 
-def idct2_split_perm(X, tree):
+def idct2_split_perm(X, tree, precision=None, band_frac=None):
     """Inverse from the permuted spectral basis (the exact inverse of
-    :func:`dct2_split_perm`)."""
-    return _apply_split_t_perm_right(tree, _apply_split_t_perm(tree, X))
+    :func:`dct2_split_perm`); ``band_frac`` contracts the high-frequency
+    tail of every block at ``BAND_PRECISION`` (``chsimpy_tpu/ops/dct.py``
+    ``_mmt_banded_l``)."""
+    return _apply_split_t_perm_right(
+        tree, _apply_split_t_perm(tree, X, precision, band_frac), precision,
+        band_frac)
 
 
 # --- level-1 folded field: bottom rows and right columns stored reversed,
@@ -444,10 +542,17 @@ def idct2_split_perm(X, tree):
 # the halves directly instead of reversing them.
 
 def fold1(x: torch.Tensor) -> torch.Tensor:
-    """Natural <-> level-1-folded spatial layout (an involution): bottom
-    half rows reversed, then right half columns reversed."""
-    n, m = x.shape[0], x.shape[1]
-    x = torch.cat([x[:n // 2], _flip0(x[n // 2:])], dim=0)
+    """Natural <-> level-1-folded spatial layout (an involution) over the
+    last two axes: bottom half rows reversed, then right half columns
+    reversed (the JAX ``fold1`` / ``fold1_np``)."""
+    n = x.shape[-2]
+    x = torch.cat([x[..., :n // 2, :], _flip0(x[..., n // 2:, :])], dim=-2)
+    return fold_cols(x)
+
+
+def fold_cols(x: torch.Tensor) -> torch.Tensor:
+    """:func:`fold1` of the last axis alone (rows of a folded field)."""
+    m = x.shape[-1]
     return torch.cat([x[..., :m // 2], _flip1(x[..., m // 2:])], dim=-1)
 
 
@@ -456,30 +561,33 @@ def _needs_levels(tree) -> None:
         raise ValueError("folded split variants need levels >= 1")
 
 
-def dct2_split_perm_folded(V, tree):
-    """2-D DCT-II (permuted basis) of a level-1-folded field; equals
-    ``dct2_split_perm(fold1(V))`` without the two reversals."""
+def dct2_split_perm_folded(V, tree, precision=None):
+    """2-D DCT-II (permuted basis) of a level-1-folded field (or a stack
+    of them); equals ``dct2_split_perm(fold1(V))`` without the two
+    reversals."""
     _needs_levels(tree)
-    n = V.shape[0]
-    top, bot = V[:n // 2], V[n // 2:]
-    X = torch.cat([_apply_split_perm(tree[0], top + bot),
-                   torch.matmul(tree[1], top - bot)], dim=0)
+    n = V.shape[-2]
+    top, bot = V[..., :n // 2, :], V[..., n // 2:, :]
+    X = torch.cat([_apply_split_perm(tree[0], top + bot, precision),
+                   mm(tree[1], top - bot, precision)], dim=-2)
     m = X.shape[-1]
     left, right = X[..., :m // 2], X[..., m // 2:]
-    return torch.cat([_apply_split_perm_right(tree[0], left + right),
-                      _mm_nt(left - right, tree[1])], dim=-1)
+    return torch.cat([_apply_split_perm_right(tree[0], left + right,
+                                              precision),
+                      _mm_nt(left - right, tree[1], precision)], dim=-1)
 
 
-def idct2_split_perm_folded(X, tree):
+def idct2_split_perm_folded(X, tree, precision=None, band_frac=None):
     """Inverse of :func:`dct2_split_perm_folded`, emitting the
     level-1-folded field (``fold1(idct2_split_perm(X))`` without the two
-    reversals)."""
+    reversals); ``band_frac`` as :func:`idct2_split_perm`."""
     _needs_levels(tree)
-    n2 = X.shape[0] // 2
-    u = _apply_split_t_perm(tree[0], X[:n2])
-    v = torch.matmul(tree[1].T, X[n2:])
-    U = torch.cat([u + v, u - v], dim=0)
+    n2 = X.shape[-2] // 2
+    u = _apply_split_t_perm(tree[0], X[..., :n2, :], precision, band_frac)
+    v = _mmt_banded_l(tree[1], X[..., n2:, :], precision, band_frac)
+    U = torch.cat([u + v, u - v], dim=-2)
     m2 = U.shape[-1] // 2
-    u = _apply_split_t_perm_right(tree[0], U[..., :m2])
-    v = torch.matmul(U[..., m2:], tree[1])
+    u = _apply_split_t_perm_right(tree[0], U[..., :m2], precision,
+                                  band_frac)
+    v = _mm_banded_r(U[..., m2:], tree[1], precision, band_frac)
     return torch.cat([u + v, u - v], dim=-1)

@@ -19,7 +19,12 @@ and ``slice_field_members_sharded``), and K7 on the members' blocks of a
 grid ensemble (``local_band_sums_members``, B7 under ``vmap``; K1, K2 and
 K4 take the blocks as they are).  K11 (``row_absdev_members``) takes each
 member's Ra with an order that does not depend on the member count (no
-Pallas counterpart).  Each wrapper
+Pallas counterpart).  K12 (``update_otf``, ``update_otf_members``) is K2
+with its coefficient grids rebuilt in registers from the eigenvalue axis
+(the JAX step's ``otf_coeffs``, fused by XLA there); K3 and K3_members
+take the field in the folded layout of ``fold_field`` (``fold=True``); K6
+takes a member axis and is the solve's float32 product at
+``matmul_precision='high'``.  Each wrapper
 
 * runs the plain version (``*_ref``) only when its input lies on the CPU;
 * on a CUDA tensor launches its kernel (``csrc/ch_kernels.cu``; the GEMM
@@ -52,7 +57,8 @@ launches = {'chemical_potential': 0, 'spectral_update': 0,
             'absdev_sum_members': 0, 'threefry_jitter': 0,
             'slice_field_members': 0, 'local_band_sums_members': 0,
             'row_absdev_members': 0, 'slice_field_sharded': 0,
-            'slice_field_members_sharded': 0}
+            'slice_field_members_sharded': 0, 'update_otf': 0,
+            'update_otf_members': 0}
 
 # grids of the reduction kernels: fixed by the shape (and, for K3 and K7,
 # the vector width) alone, so the summation order (and the result, to the
@@ -188,14 +194,144 @@ def spectral_update(hat_U, hat_E, Seig, CHeig):
 
 
 # ----------------------------------------------------------------------
+# K12: spectral update with the coefficients rebuilt from the eigenvalue
+# axis (replaces the JAX step's otf_coeffs update, coeffs.
+# get_coefficients_axis fused into (hat_U + Seig*hat_E)/CHeig by XLA)
+# ----------------------------------------------------------------------
+
+def otf_coefficients_ref(e_rows, e_cols, delt, kappa, delx2):
+    """(CHeig, Seig) of ``chsimpy_tpu/ops/coeffs.py``
+    ``get_coefficients_axis`` over leig = e_rows[i] + e_cols[j], in its
+    operations and order: lam1 = delt / delx2, lam2 = kappa * lam1 /
+    delx2 (true divisions: delx2 is a tensor of the axis' type on its
+    device, since PyTorch turns a division of a CUDA tensor by a Python
+    number into a product with its reciprocal), CHeig = 1 + lam2 *
+    (leig * leig), Seig = lam1 * leig.  ``delt``: a float64 tensor, 0-d or
+    (R,) (one per member); ``kappa``: a float or an (R,) float64 tensor;
+    both cast to the axis' type first, as the JAX step casts them.  The
+    grids are (rows, cols), or (R, rows, cols) for member arrays."""
+    dtype = e_rows.dtype
+    d2 = torch.tensor(delx2, dtype=dtype, device=e_rows.device)
+    if isinstance(kappa, torch.Tensor):
+        kappa = kappa.to(dtype).reshape(-1, 1, 1)
+    else:
+        kappa = _cast(kappa, dtype)
+    delt = delt.to(dtype)
+    if delt.dim():
+        delt = delt.reshape(-1, 1, 1)
+    lam1 = delt / d2
+    lam2 = kappa * lam1 / d2
+    leig = e_rows.reshape(-1, 1) + e_cols.reshape(1, -1)
+    return 1.0 + lam2 * (leig * leig), lam1 * leig
+
+
+def _otf_axes(eaxis, shape, row_off: int, col_off: int):
+    rows, cols = shape
+    N = eaxis.shape[0]
+    if eaxis.dim() != 1 or not (0 <= row_off and row_off + rows <= N
+                                and 0 <= col_off and col_off + cols <= N):
+        raise ValueError(f"a ({rows}, {cols}) block at ({row_off}, "
+                         f"{col_off}) does not lie in the spectral image of "
+                         f"an axis of shape {tuple(eaxis.shape)}")
+    return (eaxis[row_off:row_off + rows], eaxis[col_off:col_off + cols])
+
+
+def update_otf_ref(hat_U, hat_E, eaxis, delt, kappa, delx2,
+                   row_off: int = 0, col_off: int = 0):
+    """:func:`spectral_update_ref` with (CHeig, Seig) from
+    :func:`otf_coefficients_ref` on the block of the spectral image at
+    (row_off, col_off)."""
+    CHeig, Seig = otf_coefficients_ref(
+        *_otf_axes(eaxis, hat_U.shape[-2:], row_off, col_off), delt, kappa,
+        delx2)
+    return (hat_U + Seig * hat_E) / CHeig
+
+
+def _otf_checks(hat_U, hat_E, eaxis, delt):
+    if hat_E.shape != hat_U.shape:
+        raise ValueError("hat_E and hat_U differ in shape")
+    if eaxis.dtype != hat_U.dtype or eaxis.device != hat_U.device:
+        raise ValueError("eaxis must be of the field's type and device")
+    if delt.dtype != torch.float64 or delt.device != hat_U.device:
+        raise ValueError("delt must be a float64 tensor on the field's "
+                         "device")
+
+
+def update_otf(hat_U, hat_E, eaxis, delt, kappa, delx2, row_off: int = 0,
+               col_off: int = 0):
+    """K12 on a field, or on a rank's (rows, cols) block at (row_off,
+    col_off) of the spectral image (a grid or pencil block): ``delt`` a
+    0-d float64 tensor on the card (read there: no host sync), ``kappa``
+    a float, ``eaxis`` the whole (N,) axis in the route's order."""
+    _block(hat_U)
+    _otf_checks(hat_U, hat_E, eaxis, delt)
+    if delt.dim() != 0:
+        raise ValueError("delt must be a 0-d tensor")
+    _otf_axes(eaxis, hat_U.shape, row_off, col_off)
+    if not _on_card(hat_U, hat_E, eaxis):
+        return update_otf_ref(hat_U, hat_E, eaxis, delt, kappa, delx2,
+                              row_off, col_off)
+    out = torch.empty_like(hat_U)
+    rows, cols = hat_U.shape
+    _call('ch_update_otf', hat_U.dtype, hat_U.data_ptr(), hat_E.data_ptr(),
+          eaxis.data_ptr(), out.data_ptr(), rows, cols, int(row_off),
+          int(col_off), 1, delt.data_ptr(), 0, None, float(kappa),
+          float(delx2), _stream())
+    launches['update_otf'] += 1
+    return out
+
+
+def update_otf_members(hat_U, hat_E, eaxis, delts, kappas, delx2,
+                       row_off: int = 0, col_off: int = 0):
+    """K12 on every member's field (or block) of an (R, rows, cols)
+    stack in one launch, member r with its own kappa (``kappas``: (R,)
+    float64) and delt (``delts``: (R,) float64, or one 0-d delt for all):
+    what the ensemble's (R, N, N) CHeig grids give, without them."""
+    R = _member_blocks(hat_U)
+    _otf_checks(hat_U, hat_E, eaxis, delts)
+    _member_vector('kappas', kappas, R, hat_U, torch.float64)
+    if delts.dim():
+        _member_vector('delts', delts, R, hat_U, torch.float64)
+    _otf_axes(eaxis, hat_U.shape[1:], row_off, col_off)
+    if not _on_card(hat_U, hat_E, eaxis):
+        return update_otf_ref(hat_U, hat_E, eaxis, delts, kappas, delx2,
+                              row_off, col_off)
+    if not (delts.is_contiguous() and kappas.is_contiguous()):
+        raise ValueError("the kernels take contiguous tensors")
+    out = torch.empty_like(hat_U)
+    _, rows, cols = hat_U.shape
+    _call('ch_update_otf', hat_U.dtype, hat_U.data_ptr(), hat_E.data_ptr(),
+          eaxis.data_ptr(), out.data_ptr(), rows, cols, int(row_off),
+          int(col_off), R, delts.data_ptr(), int(delts.dim() > 0),
+          kappas.data_ptr(), 0.0, float(delx2), _stream())
+    launches['update_otf_members'] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
 # K3: fused field sums (replaces pallas_kernels.stats_band_sums)
 # ----------------------------------------------------------------------
 
+def _unfolded(U, EnergieEut, fold: bool):
+    """(U, EnergieEut) in the natural layout: as given, or (``fold``)
+    read back from the level-1 folded layout (an even N)."""
+    if not fold:
+        return U, EnergieEut
+    if U.shape[-1] % 2:
+        raise ValueError(f"the folded layout needs an even N, got "
+                         f"{U.shape[-1]}")
+    from .dct import fold1
+    return fold1(U), None if EnergieEut is None else fold1(EnergieEut)
+
+
 def stats_sums_ref(U, EnergieEut: Optional[torch.Tensor], A0, A1, *,
-                   delx, RT, B, threshold):
+                   delx, RT, B, threshold, fold: bool = False):
     """(5,) float64: [Σ integrand, Σ|∇U|², ΣU, #(U<threshold), ΣEnergieEut²]
     — terms in the field type, sums in float64; the last is 0 when
-    ``EnergieEut`` is None (the prepare path)."""
+    ``EnergieEut`` is None (the prepare path).  ``fold``: U and EnergieEut
+    are in the level-1 folded layout (``ops/dct.py`` :func:`fold1`), the
+    sums those of the natural field."""
+    U, EnergieEut = _unfolded(U, EnergieEut, fold)
     A0 = _cast(A0, U.dtype)
     A1 = _cast(A1, U.dtype)
     f64 = torch.float64
@@ -233,13 +369,22 @@ def local_stats_grid(bn: int, W: int, N: int, row_off: int, col_off: int,
     vec = 16 // itemsize
     if W % vec or any(a % 16 for a in addresses):
         vec = 1
+    return vec, _stats_blocks(bn, W, vec)
+
+
+def _stats_blocks(bn: int, W: int, vec: int) -> int:
     cols, rows = STATS_THREADS * vec, STATS_ROWS_X_VEC // vec
-    return vec, -(-W // cols) * -(-bn // rows)
+    return -(-W // cols) * -(-bn // rows)
 
 
-def stats_grid(N: int, itemsize: int, *addresses: int):
-    """(V, blocks) of K3: the whole (N, N) field as one block."""
-    return local_stats_grid(N, N, N, 0, 0, itemsize, *addresses)
+def stats_grid(N: int, itemsize: int, *addresses: int, fold: bool = False):
+    """(V, blocks) of K3: the whole (N, N) field as one block; in the
+    fold mode the vector also needs N/2 divisible by V (a thread's
+    columns lie on one side of the fold)."""
+    vec, blocks = local_stats_grid(N, N, N, 0, 0, itemsize, *addresses)
+    if fold and (N // 2) % vec:
+        return 1, _stats_blocks(N, N, 1)
+    return vec, blocks
 
 
 def _ticket(device: torch.device, count: int = 1) -> torch.Tensor:
@@ -257,17 +402,25 @@ def _ticket(device: torch.device, count: int = 1) -> torch.Tensor:
 
 
 def stats_sums(U, EnergieEut: Optional[torch.Tensor], A0, A1, *,
-               delx, RT, B, threshold):
+               delx, RT, B, threshold, fold: bool = False):
+    """K3.  ``fold``: U and EnergieEut in the level-1 folded layout
+    (``fold_field``); the kernel walks the natural rows and columns and
+    reads each value through the fold map, so the sums are the natural
+    field's to the bit wherever N/2 allows K3's vector width (every N
+    divisible by 16; else the one-column grid's order)."""
     _square(U)
+    if fold and U.shape[0] % 2:
+        raise ValueError(f"the folded layout needs an even N, got "
+                         f"{U.shape[0]}")
     ops = (U,) if EnergieEut is None else (U, EnergieEut)
     if not _on_card(*ops):
         return stats_sums_ref(U, EnergieEut, A0, A1, delx=delx, RT=RT, B=B,
-                              threshold=threshold)
+                              threshold=threshold, fold=fold)
     if EnergieEut is not None and EnergieEut.shape != U.shape:
         raise ValueError("EnergieEut and U differ in shape")
     N = U.shape[0]
     vec, nblocks = stats_grid(N, U.element_size(),
-                              *(t.data_ptr() for t in ops))
+                              *(t.data_ptr() for t in ops), fold=fold)
     partials = torch.empty((nblocks, 5), dtype=torch.float64,
                            device=U.device)
     sums = torch.empty((5,), dtype=torch.float64, device=U.device)
@@ -275,7 +428,8 @@ def stats_sums(U, EnergieEut: Optional[torch.Tensor], A0, A1, *,
           None if EnergieEut is None else EnergieEut.data_ptr(), N,
           float(delx), float(RT), float(B), float(A0), float(A1),
           float(threshold), partials.data_ptr(), nblocks, vec,
-          _ticket(U.device).data_ptr(), sums.data_ptr(), _stream())
+          _ticket(U.device).data_ptr(), sums.data_ptr(), int(fold),
+          _stream())
     launches['stats_sums'] += 1
     return sums
 
@@ -579,7 +733,8 @@ def matmul_ref(A, B):
     """A @ B in full float32 (TF32 off for the call, as the TPU kernel
     contracts at ``Precision.HIGHEST``).  The kernel computes the same
     product in three TF32 passes (hi/lo operand split), in the float32
-    class: within 4x this version's error against float64."""
+    class: within 4x this version's error against float64.  Either
+    operand may carry a member axis (R, ., .)."""
     cuda_mm = torch.backends.cuda.matmul
     prev = cuda_mm.allow_tf32
     cuda_mm.allow_tf32 = False
@@ -605,15 +760,27 @@ def _gemm_operand(X: torch.Tensor):
                      f"transposes, got strides {X.stride()}")
 
 
+def _batch(X: torch.Tensor):
+    """(members, member stride, one member's 2-D view) of an operand:
+    a 2-D matrix is shared by every member (stride 0)."""
+    if X.dim() == 2:
+        return 1, 0, X
+    return X.shape[0], X.stride(0) if X.shape[0] > 1 else 0, X[0]
+
+
 def matmul(A, B):
     """A @ B for float32 (M, K) and (K, N); either operand may be the
-    ``.T`` view of a row-major matrix.  On the card the kernel first writes
-    hi/lo TF32 copies of both operands, K-major and tiled, into a scratch
-    buffer allocated here."""
-    if A.dim() != 2 or B.dim() != 2 or A.shape[1] != B.shape[0] \
-            or 0 in A.shape + B.shape:
-        raise ValueError(f"matmul takes non-empty (M, K) @ (K, N), got "
-                         f"{tuple(A.shape)} @ {tuple(B.shape)}")
+    ``.T`` view of a row-major matrix, and either may carry a member axis
+    (R, M, K) / (R, K, N) with any member stride (a 2-D operand is shared
+    by every member: split once, read by all), giving (R, M, N).  On the
+    card the kernel first writes hi/lo TF32 copies of the operands, K-major
+    and tiled, into a scratch buffer allocated here; one launch does every
+    member."""
+    if not (A.dim() in (2, 3) and B.dim() in (2, 3)) \
+            or A.shape[-1] != B.shape[-2] or 0 in A.shape + B.shape \
+            or (A.dim() == B.dim() == 3 and A.shape[0] != B.shape[0]):
+        raise ValueError(f"matmul takes non-empty [R,] (M, K) @ [R,] (K, N),"
+                         f" got {tuple(A.shape)} @ {tuple(B.shape)}")
     if A.device != B.device:
         raise ValueError(f"matmul inputs on different devices: "
                          f"{A.device} vs {B.device}")
@@ -629,17 +796,47 @@ def matmul(A, B):
     if A.device.index != torch.cuda.current_device():
         raise ValueError(f"tensor on {A.device} but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    (M, Kd), N = A.shape, B.shape[1]
-    out = torch.empty((M, N), dtype=A.dtype, device=A.device)
-    ta, lda = _gemm_operand(A)
-    tb, ldb = _gemm_operand(B)
+    (M, Kd), N = A.shape[-2:], B.shape[-1]
+    ra, sa, A2 = _batch(A)
+    rb, sb, B2 = _batch(B)
+    R = max(ra, rb)
+    shape = (M, N) if A.dim() == B.dim() == 2 else (R, M, N)
+    out = torch.empty(shape, dtype=A.dtype, device=A.device)
+    ta, lda = _gemm_operand(A2)
+    tb, ldb = _gemm_operand(B2)
     from .cuda_build import load_library
-    ws = torch.empty((load_library().ch_matmul_workspace_f32(M, N, Kd),),
-                     dtype=torch.float32, device=A.device)
-    _call('ch_matmul', A.dtype, A.data_ptr(), ta, lda, B.data_ptr(), tb, ldb,
-          out.data_ptr(), N, M, N, Kd, ws.data_ptr(), _stream())
+    ws = torch.empty((load_library().ch_matmul_workspace_f32(
+        M, N, Kd, R if sa else 1, R if sb else 1),), dtype=torch.float32,
+        device=A.device)
+    _call('ch_matmul', A.dtype, A.data_ptr(), ta, lda, sa, B.data_ptr(), tb,
+          ldb, sb, out.data_ptr(), N, M, N, Kd, R, ws.data_ptr(), _stream())
     launches['matmul'] += 1
     return out
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32's 10-bit mantissa, to nearest with
+    ties away from zero (PTX ``cvt.rna.tf32.f32``, K6's split)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_tf32(A, B):
+    """A @ B in one TF32 pass: on the card cuBLAS with TF32 on for this
+    call only (the global switch stays off); on the CPU the float32
+    product of the operands rounded to TF32 (:func:`tf32_round`), so CPU
+    runs see the card's class of error.  cuBLAS may round its operands to
+    TF32 in another mode: the card's products agree with this version
+    within the error of one TF32 rounding of each operand."""
+    if A.device.type == 'cpu':
+        return torch.matmul(tf32_round(A), tf32_round(B))
+    cuda_mm = torch.backends.cuda.matmul
+    prev = cuda_mm.allow_tf32
+    cuda_mm.allow_tf32 = True
+    try:
+        return torch.matmul(A, B)
+    finally:
+        cuda_mm.allow_tf32 = prev
 
 
 def dct2_gemm(U, C):
@@ -1232,9 +1429,10 @@ def spectral_update_members(hat_U, hat_E, Seig, CHeig):
 
 
 def stats_sums_members_ref(U, EnergieEut: Optional[torch.Tensor], A0s, A1s,
-                           *, delx, RT, B, threshold):
+                           *, delx, RT, B, threshold, fold: bool = False):
     """(R, 5) float64: :func:`stats_sums_ref` of each field of U with its
-    member's A0s[r], A1s[r]."""
+    member's A0s[r], A1s[r] (``fold``: the fields folded)."""
+    U, EnergieEut = _unfolded(U, EnergieEut, fold)
     A0 = _per_member(A0s, U.dtype)
     A1 = _per_member(A1s, U.dtype)
     f64 = torch.float64
@@ -1254,14 +1452,17 @@ def stats_sums_members_ref(U, EnergieEut: Optional[torch.Tensor], A0s, A1s,
 
 
 def stats_sums_members(U, EnergieEut: Optional[torch.Tensor], A0s, A1s, *,
-                       delx, RT, B, threshold):
+                       delx, RT, B, threshold, fold: bool = False):
     """K3 on every member in one launch: member r on grid layer r with
     the grid a single (N, N) field gets (:func:`stats_grid` of N and the
     stack's addresses: where N allows the vector, every member's field
     starts a multiple of 16 bytes after the first, so a contiguous stack
     and a fresh field take the same vector width), its own ticket and its
-    own fixed-order finish."""
+    own fixed-order finish; ``fold`` as :func:`stats_sums`."""
     R = _members(U)
+    if fold and U.shape[1] % 2:
+        raise ValueError(f"the folded layout needs an even N, got "
+                         f"{U.shape[1]}")
     _member_vector('A0s', A0s, R, U, torch.float64)
     _member_vector('A1s', A1s, R, U, torch.float64)
     ops = (U,) if EnergieEut is None else (U, EnergieEut)
@@ -1269,10 +1470,11 @@ def stats_sums_members(U, EnergieEut: Optional[torch.Tensor], A0s, A1s, *,
         raise ValueError("EnergieEut and U differ in shape")
     if not _on_card(*ops):
         return stats_sums_members_ref(U, EnergieEut, A0s, A1s, delx=delx,
-                                      RT=RT, B=B, threshold=threshold)
+                                      RT=RT, B=B, threshold=threshold,
+                                      fold=fold)
     N = U.shape[1]
     vec, nblocks = stats_grid(N, U.element_size(),
-                              *(t.data_ptr() for t in ops))
+                              *(t.data_ptr() for t in ops), fold=fold)
     partials = torch.empty((R * nblocks, 5), dtype=torch.float64,
                            device=U.device)
     sums = torch.empty((R, 5), dtype=torch.float64, device=U.device)
@@ -1280,7 +1482,8 @@ def stats_sums_members(U, EnergieEut: Optional[torch.Tensor], A0s, A1s, *,
           None if EnergieEut is None else EnergieEut.data_ptr(), N, R,
           float(delx), float(RT), float(B), A0s.data_ptr(), A1s.data_ptr(),
           float(threshold), partials.data_ptr(), nblocks, vec,
-          _ticket(U.device, R).data_ptr(), sums.data_ptr(), _stream())
+          _ticket(U.device, R).data_ptr(), sums.data_ptr(), int(fold),
+          _stream())
     launches['stats_sums_members'] += 1
     return sums
 

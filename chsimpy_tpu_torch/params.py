@@ -2,10 +2,11 @@
 
 The same fields and defaults as ``chsimpy_tpu/params.py`` (so a
 ``scalar_dict`` carries across, see convert.py), plus the port's own
-``device`` and ``dist_backend``.  Fields that select parts of the JAX
-package the port does not run yet keep their defaults;
-:func:`check_solver_scope` refuses any other value with an error that
-names the ROADMAP item that ports it.
+``device`` and ``dist_backend``.  Two fields select what the port does not
+run, and :func:`check_solver_scope` refuses any other value than their
+defaults with the reason: ``kernel_backend`` (the hand kernels are the
+port's path) and ``spectral_bf16`` (a probe knob of the JAX package,
+measured negative).
 
 YAML files (``yaml_export_scalars`` / ``yaml_import_scalars``) are the JAX
 package's, byte for byte: the port's own fields stay out of them.
@@ -75,7 +76,10 @@ class Parameters:
     jitter_backend: str = 'host'
     # fold depth of the split transform route; None resolves by size
     split_levels: Optional[int] = None
-    # TPU tuning knobs of the JAX package; the port runs their defaults
+    # the float32 knobs (core/solver.py resolves each None): the split
+    # route's level-1 folded field, the product precision of the
+    # transforms and of the forward alone ('highest' | 'high' | 'default',
+    # ops/dct.py)
     fold_field: Optional[bool] = None
     kernel_backend: str = 'xla'
     matmul_precision: Optional[str] = None
@@ -84,10 +88,13 @@ class Parameters:
     # rfold inverse transforms; None = (3, 5) (core/solver.py)
     ozaki_fwd_pairs: Optional[tuple] = None
     ozaki_inv_pairs: Optional[tuple] = None
+    # the banded inverse's first tail index (0: uniform precision) and the
+    # update's coefficients rebuilt per step (1 / 0)
     inv_band: Optional[int] = None
     otf_coeffs: Optional[int] = None
     spectral_bf16: bool = False
-    # auto (= matmul in the port) | matmul | split | fft | ozaki (float64)
+    # auto (core/solver.py auto_route) | matmul | split | fft | ozaki
+    # (float64)
     transform_backend: str = 'auto'
 
     version: str = __version__
@@ -165,11 +172,11 @@ TUPLE_FIELDS = ('mesh_shape', 'ozaki_fwd_pairs', 'ozaki_inv_pairs')
 
 KERNELS_MSG = ("--kernels has no counterpart in the port: on a CUDA tensor "
                "the hand-written kernels are the path (ROADMAP.md queue B)")
-
-
-def not_ported(what: str, item) -> str:
-    return (f"{what} is not ported to chsimpy_tpu_torch yet "
-            f"(ROADMAP.md queue A item {item})")
+SPECTRAL_BF16_MSG = (
+    "spectral_bf16 is not ported: a probe knob of the JAX package with no "
+    "CLI, measured negative there (the N=2048 stop +24.9%, "
+    "chsimpy_tpu/core/stepper.py:179-186; ROADMAP.md 'Not to port')")
+PRECISIONS = ('highest', 'high', 'default')
 
 
 def solver_scope_errors(p: Parameters) -> list:
@@ -184,16 +191,15 @@ def solver_scope_errors(p: Parameters) -> list:
         errs.append(f"unknown transform '{p.transform_backend}'")
     if p.kernel_backend != 'xla':
         errs.append(KERNELS_MSG)
-    knobs = {'fold_field': p.fold_field,
-             'matmul_precision': p.matmul_precision,
-             'fwd_matmul_precision': p.fwd_matmul_precision,
-             'inv_band': p.inv_band or None,
-             'otf_coeffs': p.otf_coeffs or None,
-             'spectral_bf16': p.spectral_bf16 or None}
-    for name, value in knobs.items():
-        if value is not None and value is not False:
-            errs.append(not_ported(f'the TPU tuning knob {name}={value!r}',
-                                   14))
+    if p.spectral_bf16:
+        errs.append(SPECTRAL_BF16_MSG)
+    for name in ('matmul_precision', 'fwd_matmul_precision'):
+        v = getattr(p, name)
+        if v is not None and v not in PRECISIONS:
+            errs.append(f"unknown {name} {v!r}; choose from {PRECISIONS}")
+    if p.otf_coeffs not in (None, 0, 1):
+        errs.append(f"otf_coeffs must be 0, 1 or None, got "
+                    f"{p.otf_coeffs!r}")
     if p.precision not in ('float32', 'float64'):
         errs.append(f"unknown precision '{p.precision}'")
     return errs

@@ -1,8 +1,10 @@
-"""The CUDA kernels of chsimpy_tpu_torch (the GEMM, the grid-sharded
-K7/K8 and K7_members, the Sobol jitter K9, the threefry jitter K10 and K5
-sharded included) against their plain PyTorch versions, and the ozaki,
-split and FFT transforms, short solves and grid-sharded and pencil solves
-of ranks sharing the card on the card against the same on the CPU.
+"""The CUDA kernels of chsimpy_tpu_torch (the GEMM with its member axis,
+the grid-sharded K7/K8 and K7_members, the Sobol jitter K9, the threefry
+jitter K10, K5 sharded, the otf update K12 and K3's fold mode included)
+against their plain PyTorch versions, and the ozaki, split and FFT
+transforms, short solves (under the float32 knobs too) and grid-sharded
+and pencil solves of ranks sharing the card on the card against the same
+on the CPU.
 
 These tests need an NVIDIA card with ``nvcc`` (they build the kernels of
 ``csrc/``); without one they skip.  They import no jax, so
@@ -1005,3 +1007,133 @@ def test_dryrun_on_four_ranks_sharing_the_card(card):
     assert lines[0].startswith('dryrun stage 1 ok')
     assert sum('PASS (mesh (2, 2)' in ln for ln in lines) == 4
     assert lines[-1].startswith('ens-only f64: PASS (ens=4')
+
+
+# ----------------------------------------------------------------------
+# the float32 knobs: K12, K3's fold mode, K6's member axis and the solve
+# at each precision
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('N', [64, 1000, 1001])
+def test_update_otf_kernel_matches_plain_version(card, dtype, N):
+    """K12 and K12_members give their plain versions' bits (the plain
+    versions divide by delx2 as a tensor: PyTorch would take a Python
+    number's reciprocal), on the field, a block and each member."""
+    from chsimpy_tpu_torch.ops.coeffs import eigenvalue_axis
+    g = torch.Generator(device=card).manual_seed(N)
+    e = torch.tensor(eigenvalue_axis(N), dtype=dtype, device=card)
+    hU = torch.randn((N, N), dtype=dtype, device=card, generator=g)
+    hE = torch.randn((N, N), dtype=dtype, device=card, generator=g)
+    delt = torch.tensor(3e-8, dtype=torch.float64, device=card)
+    args = (e, delt, KAPPA, 1.6e-5)
+    K.reset_launches()
+    got = K.update_otf(hU, hE, *args)
+    assert torch.equal(got, K.update_otf_ref(hU, hE, *args))
+    h = N // 2
+    assert torch.equal(K.update_otf(hU[h:, :h].contiguous(),
+                                    hE[h:, :h].contiguous(), *args, h, 0),
+                       got[h:, :h])
+    kap = KAPPA * (1 + 0.01 * torch.arange(3, dtype=torch.float64,
+                                           device=card))
+    dts = 3e-8 * (1 + 0.02 * torch.arange(3, dtype=torch.float64,
+                                          device=card))
+    st = torch.stack([hU, hE, hU + hE])
+    m = K.update_otf_members(st, st.flip(0), e, dts, kap, 1.6e-5)
+    assert torch.equal(m, K.update_otf_ref(st, st.flip(0), e, dts, kap,
+                                           1.6e-5))
+    for r in range(3):
+        assert torch.equal(m[r], K.update_otf(st[r], st.flip(0)[r], e,
+                                              dts[r], kap[r].item(), 1.6e-5))
+    assert K.launches['update_otf'] == 5
+    assert K.launches['update_otf_members'] == 1
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('N', [64, 1000, 1002])
+def test_stats_fold_mode_is_natural_k3(card, dtype, N):
+    """K3's fold mode on the folded field: K3's tolerances against its
+    plain version, the count exact, and K3's bits on the natural field
+    where the fold keeps K3's vector width."""
+    from chsimpy_tpu_torch.ops.dct import fold1
+    p = PHYS
+    U = _field(N, dtype, card)
+    E = K.chemical_potential(U, p['RT'], p['BRT'], p['A0'], p['A1'])
+    skw = dict(delx=p['delx'], RT=p['RT'], B=p['B'],
+               threshold=p['threshold'])
+    V, EV = fold1(U), fold1(E)
+    got = K.stats_sums(V, EV, p['A0'], p['A1'], fold=True, **skw)
+    want = K.stats_sums_ref(V, EV, p['A0'], p['A1'], fold=True, **skw)
+    assert bool(((got - want).abs() <= _tol(dtype) * want.abs()).all())
+    assert got[3].item() == want[3].item()
+    same = K.stats_grid(N, U.element_size(), U.data_ptr(), E.data_ptr()) \
+        == K.stats_grid(N, V.element_size(), V.data_ptr(), EV.data_ptr(),
+                        fold=True)
+    if same:
+        assert torch.equal(got, K.stats_sums(U, E, p['A0'], p['A1'], **skw))
+    a0 = torch.full((2,), p['A0'], dtype=torch.float64, device=card)
+    a1 = torch.full((2,), p['A1'], dtype=torch.float64, device=card)
+    Us, Es = torch.stack([U, U]), torch.stack([E, 2 * E])
+    mgot = K.stats_sums_members(fold1(Us), fold1(Es), a0, a1, fold=True,
+                                **skw)
+    assert torch.equal(mgot[0], got)
+
+
+def test_matmul_kernel_member_axis(card):
+    """K6 over a member axis (either operand, or both; a shared operand
+    stride 0): each member the one launch's bits on it."""
+    g = torch.Generator(device=card).manual_seed(9)
+    A = torch.randn((3, 200, 130), device=card, generator=g)
+    B = torch.randn((130, 70), device=card, generator=g)
+    C = torch.randn((3, 130, 70), device=card, generator=g)
+    for a, b in ((A, B), (B.T, C), (A, C),
+                 (A.transpose(-1, -2).contiguous().transpose(-1, -2), C)):
+        got = K.matmul(a, b)
+        for r in range(got.shape[0]):
+            ar = a[r] if a.dim() == 3 else a
+            br = b[r] if b.dim() == 3 else b
+            assert torch.equal(got[r], K.matmul(ar, br))
+        ref = torch.matmul(a.double(), b.double())
+        plain = (K.matmul_ref(a, b).double() - ref).abs().max().item()
+        err = (got.double() - ref).abs().max().item()
+        assert err <= 4 * plain and err <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize('route', ['matmul', 'split'])
+@pytest.mark.parametrize('knobs', [
+    {'matmul_precision': 'high'},
+    {'matmul_precision': 'default'},
+    {'fwd_matmul_precision': 'default', 'inv_band': 16, 'otf_coeffs': 1},
+], ids=['high', 'default', 'fwd-band-otf'])
+def test_knob_solve_on_card_matches_cpu(card, route, knobs):
+    """A float32 run under the knobs on the card against the same run on
+    the CPU (where 'high' is the float32 product and 'default' rounds the
+    operands to TF32): E within the float32 class, 1e-5."""
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        p = Parameters(N=64, ntmax=60, full_sim=True, no_gui=True,
+                       precision='float32', kappa_tilde=KAPPA,
+                       transform_backend=route, device=dev, **knobs)
+        s = Simulator(p)
+        K.reset_launches()
+        out[dev] = np.asarray(s.solve().timedata.E)
+        if dev == 'cuda' and 'high' in knobs.values():
+            assert K.launches['matmul'] >= 59
+        if dev == 'cuda' and knobs.get('otf_coeffs'):
+            assert K.launches['update_otf'] >= 59
+    assert np.max(np.abs(out['cuda'] / out['cpu'] - 1)) <= 1e-5
+
+
+def test_folded_solve_on_card_is_the_natural_solve(card):
+    """--fold-field on the card at pinned split levels: U the natural
+    run's to the bit, E and E2 too (K3's fold mode)."""
+    out = {}
+    for fold in (False, True):
+        p = Parameters(N=256, ntmax=80, full_sim=True, no_gui=True,
+                       precision='float32', kappa_tilde=KAPPA,
+                       transform_backend='split', split_levels=3,
+                       fold_field=fold, device='cuda')
+        sol = Simulator(p).solve()
+        out[fold] = (sol.U, sol.timedata.data())
+    assert torch.equal(out[True][0], out[False][0])
+    assert np.array_equal(out[True][1][:, 1:3], out[False][1][:, 1:3])

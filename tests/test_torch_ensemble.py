@@ -211,7 +211,8 @@ def test_ensemble_refusals_name_their_items(tmp_path):
             EnsembleSolver(port_params(N=34, mesh_shape=(2, 2),
                                        precision='float64',
                                        transform_backend=tb), pairs)
-    with pytest.raises(NotImplementedError, match='item 14'):
+    # the fold is the split route's, on member-local fields (item 14)
+    with pytest.raises(ValueError, match='split transform route'):
         EnsembleSolver(port_params(fold_field=True), pairs)
     with pytest.raises(ValueError, match='host'):
         EnsembleSolver(port_params(generator='uniform', jitter=0.01,

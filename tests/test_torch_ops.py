@@ -160,8 +160,15 @@ def test_params_carried_from_jax():
     d.update(transform_backend='split', split_levels=3)
     p = convert.params_from_jax(d, device='cpu')
     assert (p.transform_backend, p.split_levels) == ('split', 3)
-    d['fold_field'] = True
-    with pytest.raises(NotImplementedError, match='item 14'):
+    # the float32 knobs carry across (item 14, done); the JAX package's
+    # probe knob spectral_bf16 stays refused, naming itself
+    d.update(fold_field=True, precision='float32', matmul_precision='high',
+             fwd_matmul_precision='default', inv_band=256, otf_coeffs=1)
+    p = convert.params_from_jax(d, device='cpu')
+    assert (p.fold_field, p.matmul_precision, p.fwd_matmul_precision,
+            p.inv_band, p.otf_coeffs) == (True, 'high', 'default', 256, 1)
+    d['spectral_bf16'] = True
+    with pytest.raises(NotImplementedError, match='spectral_bf16'):
         convert.params_from_jax(d)
     d = ct.Parameters().scalar_dict()
     d.update(transform_backend='ozaki', ozaki_fwd_pairs=[2, 4])
@@ -172,16 +179,23 @@ def test_params_carried_from_jax():
 
 
 def test_solver_refuses_settings_not_ported(tmp_path):
-    cases = {'fold_field': (True, 'item 14'),
-             'inv_band': (4, 'item 14'),
-             'kernel_backend': ('pallas', 'queue B'),
-             'matmul_precision': ('high', 'item 14')}
-    for field, (value, item) in cases.items():
+    # --kernels and spectral_bf16 stay refused with their reasons; the
+    # knobs of item 14 (done) meet the JAX Solver's guards: the fold off
+    # the split route and a float64 --inv-band raise ValueError
+    cases = {'fold_field': (True, ValueError, 'split transform route'),
+             'inv_band': (4, ValueError, 'float32 fast-mode'),
+             'kernel_backend': ('pallas', NotImplementedError, 'queue B'),
+             'spectral_bf16': (True, NotImplementedError, 'measured')}
+    for field, (value, exc, item) in cases.items():
         p = ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA,
                            no_gui=True)
         setattr(p, field, value)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(exc, match=item):
             ctt.Solver(p)
+    # and run where they apply (the precision names on any route)
+    p = ctt.Parameters(N=16, device='cpu', kappa_tilde=KAPPA, no_gui=True,
+                       matmul_precision='high')
+    assert ctt.Solver(p).cfg.matmul_precision == 'high'
     # item 7's settings run (ROADMAP.md queue A item 7, done), and item
     # 8's checkpoint settings (done): restore_file is the Simulator's
     for field, value in (('adaptive_time', True), ('jitter', 0.01),
@@ -311,8 +325,10 @@ def test_cli_parses_the_slice_and_refuses_the_rest(capsys):
                        (['--no-gui', '--update-every', '1'], '>=2'),
                        (['--no-gui', '--png-anim'],
                         'requires --update-every'),
-                       (['--no-gui', '--fold-field'], 'item 14'),
-                       (['--no-gui', '--inv-band', '8'], 'item 14'),
+                       (['--no-gui', '--matmul-precision', 'fast'],
+                        'invalid choice'),
+                       (['--no-gui', '--otf-coeffs', '2'],
+                        'invalid choice'),
                        (['--no-gui', '--kernels', 'pallas'], 'queue B')):
         with pytest.raises(SystemExit) as exc:
             CLIParser().get_parameters(argv)

@@ -174,11 +174,18 @@ def test_route_resolution_and_refusals(capsys):
     with pytest.raises(ValueError, match='divisible by 2'):
         ctt.Solver(port_params(N=32, kappa_tilde=KAPPA,
                                transform_backend='split', split_levels=0))
-    for argv in (['--fold-field'], ['--no-fold-field'], ['--inv-band', '8'],
-                 ['--otf-coeffs', '1'], ['--matmul-precision', 'high']):
-        with pytest.raises(SystemExit):
-            CLIParser().get_parameters(['--no-gui', *argv])
-        assert 'item 14' in capsys.readouterr().err, argv
+    # the knobs parse with the JAX CLI's values (item 14, done)
+    for argv, field, value in (
+            (['--fold-field'], 'fold_field', True),
+            (['--no-fold-field'], 'fold_field', False),
+            (['--inv-band', '8'], 'inv_band', 8),
+            (['--otf-coeffs', '1'], 'otf_coeffs', 1),
+            (['--matmul-precision', 'high'], 'matmul_precision', 'high'),
+            (['--fwd-matmul-precision', 'default'], 'fwd_matmul_precision',
+             'default')):
+        p = CLIParser().get_parameters(['--no-gui', *argv])
+        assert getattr(p, field) == value, argv
+    assert 'item 14' not in capsys.readouterr().err
     p = CLIParser().get_parameters(['-N', '64', '--no-gui', '--device',
                                     'cpu', '--transform', 'split',
                                     '--split-levels', '3'])

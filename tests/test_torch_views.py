@@ -272,7 +272,8 @@ def test_cli_view_flags(capsys):
         (False, False, None, False)
     for argv, msg in ((['--update-every', '1'], '>=2'),
                       (['--png-anim'], 'requires --update-every'),
-                      (['--fold-field'], 'item 14')):
+                      (['--fold-field', '--inv-band', 'x'],
+                       'invalid int value')):
         with pytest.raises(SystemExit) as exc:
             CLIParser().get_parameters(argv)
         assert exc.value.code == 2
