@@ -14,7 +14,10 @@ Phases (each raises on failure, so the script exits nonzero):
    the same bits in 30 calls; both versions timed (``device_ms``: the
    device time of one call in a run of back-to-back calls; ``call_ms``:
    one call alone between two CUDA events, the wrapper's host time
-   included);
+   included); K3 also timed on the fixed tile in turns with its tile
+   where the two differ (``design_turns``, ``kernels.fixed_stats_tile``),
+   K4 beside ``torch.dist(U, mean, p=1)``; (b) K3 at N=1024 and 2048
+   likewise, at 2048 the fixed tile's bits;
 4. the canonical default run (N=512, float64, uniform, seed 2023) through
    ``Simulator.solve``: it must stop at step 1674 and hold the golden
    anchors of tests/golden/default_n512_anchors.json; the kernel launch
@@ -30,11 +33,15 @@ Phases (each raises on failure, so the script exits nonzero):
    lies one ulp above a power of two (the scale's log2/ceil formula, not
    frexp's exponent): the same slices to the bit, the same scale and one
    count a call, both timed, and each of the kernel's two launches (the
-   max pass that writes the scale, the slice pass) timed alone;
+   max pass that writes the scale, the slice pass) timed alone; a field
+   with a NaN (a NaN scale, the same bits); where the field takes the
+   one-launch path (N=512), its bits = the two launches' and both timed
+   in turns;
    (b) the canonical run through ``Simulator.solve`` on the level-1 fold
    route: stop at 1674 with the golden anchors, and the slice kernel
-   launched exactly as often as the route implies (the slice kernel's
-   count in the JSON line comes from this run);
+   launched exactly as often as the route implies, every call by its
+   one-launch path (the slice kernel's count in the JSON line comes from
+   this run);
    (c) the tests/golden/n1024_uniform_stop.json run on the rfold route:
    stop 1837, E within 1e-10 at every step;
    (d) N=4096 (rfold, two levels): E over 64 steps within 1e-10 of the
@@ -128,9 +135,10 @@ Phases (each raises on failure, so the script exits nonzero):
    (a) each batched kernel against its plain version (phase 3's
    tolerances) and member by member against the single-field launch on
    the member's field with its scalars (the same bits), at R=16 N=512
-   float64 and R=4 N=4096 float32 and float64, one count a call; device ms
-   of the batched launch and of R single launches, the plain version's,
-   and the bound;
+   float64 and float32 and R=4 N=4096 float32 and float64, one count a
+   call; device ms of the batched launch and of R single launches, the
+   plain version's, and the bound; K3_members also on the fixed tile, in
+   turns with its tile;
    (b) the canonical UQ batch (R=16, N=512 float64, the JAX experiment's
    A factors from seed 85972, each member's kappa passed as ``kappas=``):
    every member's stop step equals the port's single run of the member on
@@ -175,7 +183,10 @@ Phases (each raises on failure, so the script exits nonzero):
    to the bit, one count a call) at R=16 N=512, R=4 N=4096, R=3 N=1001
    (the scalar path, members off the vector alignment) and R=2 N=1000,
    4 and 6 slices, a member 1000x smaller than the rest and an all-zero
-   one; device ms of the batched call, of R single launches, of the
+   one, and a member with a NaN at R=16 N=512 and R=3 N=1001 (its scale
+   NaN, its bits); the one-launch path where the shape takes it (the
+   planes and scales the two launches' bits); device ms of the batched
+   call (in turns with the two launches), of R single launches, of the
    copy of its planes into the products' layout and of the plain
    version, and the bound;
    (b) the canonical UQ batch of phase 10 (b) on the ozaki route (level-1
@@ -185,8 +196,9 @@ Phases (each raises on failure, so the script exits nonzero):
    rows (Ra, a batched row mean, within 1e-12) and final U equal the
    single run's to the bit; the stops equal phase 10 (b)'s matmul
    batch's; member-steps/s beside that matmul batch's; K5_members
-   launched as often as the route implies, the single-field K5 never
-   (the JSON line's K5_members count comes from this run);
+   launched as often as the route implies, every call by its one-launch
+   path, the single-field K5 never (the JSON line's K5_members count
+   comes from this run);
    (c) R=4 N=4096 float64 ``full_sim`` over 64 steps on ozaki (rfold,
    two levels) beside matmul: member-steps/s after a 16-step warm-up, E
    within 1e-10 of the matmul members at every row, mean(U) held, the
@@ -231,7 +243,8 @@ Phases (each raises on failure, so the script exits nonzero):
    member by member, against the single K7 launch on the member's block,
    halo and scalars (the same bits), R=4 on block (1, 0) of a 2x2 mesh
    of N=512 float64 and N=4096 float32 and float64 fields; device ms
-   beside the 4 single launches, the plain version's and the bound; K11
+   beside the 4 single launches and, in turns, beside the fixed tile,
+   the plain version's and the bound; K11
    (``row_absdev_members``, each member's Ra, no Pallas counterpart)
    against its plain version (1e-12 / 1e-5) and member by member against
    its launch on the member alone (the same bits), R=16 N=512 float64
@@ -471,6 +484,13 @@ def check(cond, msg):
         raise PhaseError(msg)
 
 
+def same_bits(a, b):
+    """float64 tensors with the same bits (a NaN equal to itself)."""
+    import torch
+    return a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.int64), b.reshape(-1).view(torch.int64))
+
+
 def call_ms(fn, reps=30, warm=3):
     """One call alone between two CUDA events on an idle card (median of
     ``reps``): the device time plus the host time the card waits for the
@@ -529,6 +549,52 @@ def timed_row(kern, ref):
     kernel's wrapper and its plain version."""
     return {'ms': device_ms(kern), 'call_ms': call_ms(kern),
             'plain_ms': device_ms(ref)}
+
+
+def launch_counts():
+    """The kernels' launch counts since the last reset, and under
+    'one_launch' the calls of K5 and K5_members that took the one-launch
+    path."""
+    from chsimpy_tpu_torch.ops import kernels as K
+    return dict(K.launches, one_launch=dict(K.one_launch))
+
+
+# seconds spent in the design turns and the small-field checks, by part
+# (design_turns, spent)
+PART_SECONDS = {}
+
+
+def spent(part, t0):
+    """Add the seconds since ``t0`` to PART_SECONDS[part]."""
+    PART_SECONDS[part] = (PART_SECONDS.get(part, 0.0)
+                          + time.perf_counter() - t0)
+
+
+def design_turns(where, fn, before_fn):
+    """Device ms of ``fn`` (a wrapper, on its current design) and of
+    ``before_fn`` (the design it replaced: the statistics kernel's fixed
+    tile, K5's two launches) in turns in this call (before, now, now,
+    before): 'ms_turns', 'before_ms_turns' and 'before_ms', their median.
+    Called only where the two designs differ; the seconds it takes add up
+    in PART_SECONDS['turns ' + where]."""
+    t0 = time.perf_counter()
+    now, before = [], []
+    for turn in ('before', 'now', 'now', 'before'):
+        if turn == 'now':
+            now.append(device_ms(fn))
+        else:
+            before.append(device_ms(before_fn))
+    spent('turns ' + where, t0)
+    return {'ms_turns': now, 'before_ms_turns': before,
+            'before_ms': statistics.median(before)}
+
+
+def turns_text(row):
+    """design_turns' figures for a printed line ('' where not timed)."""
+    if 'before_ms' not in row:
+        return ''
+    return (f"before {row['before_ms']:.4f} ms, turns "
+            f"{row['before_ms_turns']} / {row['ms_turns']}")
 
 
 # ----------------------------------------------------------------------
@@ -630,6 +696,20 @@ def kernel_phase(dev, card):
                        'max_abs_err': err, 'max_rel_err': rel,
                        'tolerance': tol, 'ok': ok, **timed_row(kern, ref),
                        **kernel_bound(name, N, dname)}
+                extra = ''
+                if name == 'stats_sums':
+                    row.update(stats_turns('3 (a)', kern, N, N, U, E,
+                                           lambda t: K._stats_sums_launch(
+                                               U, E, cfg.A0, cfg.A1, t,
+                                               **skw)))
+                    extra = (f" (tile {row['tile']}, the fixed tile "
+                             f"{row['earlier_tile']}: {turns_text(row)})")
+                elif name == 'absdev_sum':
+                    # one PyTorch call for the same sum (at float32 torch
+                    # sums in float32, K4 in float64)
+                    row['library_ms'] = device_ms(
+                        lambda: torch.dist(U, mean, p=1))
+                    extra = f"  torch.dist {row['library_ms']:.4f} ms"
                 row['bound_share'] = row['bound_ms'] / row['ms']
                 rows.append(row)
                 print(f"kernel {name:18s} N={N:5d} {dname:8s} "
@@ -637,10 +717,93 @@ def kernel_phase(dev, card):
                       f"{'ok' if ok else 'FAIL'}  kernel {row['ms']:.4f} ms "
                       f"(one call {row['call_ms']:.4f})  plain "
                       f"{row['plain_ms']:.4f} ms  bound "
-                      f"{row['bound_ms']:.4f} ms ({row['bound_share']:.0%})"
-                      f"  ({card})", flush=True)
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                      f"{row['bound_share']:.0%}){extra}  ({card})",
+                      flush=True)
                 check(ok, f"{name} N={N} {dtype}: error {err:.3e} "
                           f"outside {tol}")
+    return rows + stats_fields(dev, card)
+
+
+def stats_turns(where, kern, bn, W, U, E, launch):
+    """The statistics kernel's tile on (bn, W) blocks U (and E) and the
+    fixed tile it replaced: 'tile', 'earlier_tile' as (V, band, blocks);
+    where they differ, ``kern`` timed in turns with ``launch`` on the
+    fixed tile (design_turns)."""
+    from chsimpy_tpu_torch.ops import kernels as K
+    ptrs = (U.data_ptr(), E.data_ptr())
+    tile = K.stats_tile(bn, W, max(bn, W), 0, 0, U.element_size(), *ptrs)
+    earlier = K.fixed_stats_tile(bn, W, U.element_size(), *ptrs)
+    out = {'tile': list(tile), 'earlier_tile': list(earlier)}
+    if tile != earlier:
+        out.update(design_turns(where, kern, lambda: launch(earlier)))
+    return out
+
+
+# phase 3 (b): K3 on the fields whose tile the refinement sizes (N=512 is
+# in (a)) and on N=2048, whose fixed tile (256 blocks) stays
+STATS_FIELD_NS = (1024, 2048)
+
+
+def stats_fields(dev, card):
+    """(b) K3 at STATS_FIELD_NS against its plain version (phase 3's
+    tolerances, the count exact, the same bits in 30 calls), its tile
+    and the fixed tile, timed in turns with the fixed tile; where the
+    tile is the fixed one, the same bits as under it."""
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+    t0 = time.perf_counter()
+    rows = []
+    for N in STATS_FIELD_NS:
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
+            cfg, _, U, E, _, _ = kernel_inputs(N, dtype, dev)
+            skw = dict(delx=cfg.delx, RT=cfg.RT, B=cfg.B,
+                       threshold=cfg.threshold)
+
+            def kern():
+                return K.stats_sums(U, E, cfg.A0, cfg.A1, **skw)
+
+            def launch(tile):
+                return K._stats_sums_launch(U, E, cfg.A0, cfg.A1, tile,
+                                            **skw)
+
+            got = kern()
+            want = K.stats_sums_ref(U, E, cfg.A0, cfg.A1, **skw)
+            earlier = launch(K.fixed_stats_tile(N, N, U.element_size(),
+                                                U.data_ptr(), E.data_ptr()))
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            rtol = 1e-12 if dtype == torch.float64 else 1e-5
+            row = {'name': 'stats_sums', 'N': N, 'dtype': dname,
+                   'max_abs_err': diff.max().item(),
+                   'max_rel_err': (diff / want.abs()).max().item(),
+                   **stats_turns('3 (b)', kern, N, N, U, E, launch)}
+            same = all(torch.equal(kern(), got)
+                       for _ in range(DETERMINISM_CALLS - 1))
+            fixed = row['tile'] == row['earlier_tile']
+            ok = (bool((diff <= rtol * want.abs()).all()) and same
+                  and got[3].item() == want[3].item()
+                  and (not fixed or torch.equal(got, earlier)))
+            row.update(ok=ok, tolerance=f'rtol {rtol:g}, count exact, the '
+                       f'same bits in {DETERMINISM_CALLS} calls; the fixed '
+                       f'tile\'s bits where the tile is the fixed one',
+                       **timed_row(kern, lambda: K.stats_sums_ref(
+                           U, E, cfg.A0, cfg.A1, **skw)),
+                       **kernel_bound('stats_sums', N, dname))
+            row['bound_share'] = row['bound_ms'] / row['ms']
+            rows.append(row)
+            print(f"kernel stats_sums (b) N={N:5d} {dname:8s} "
+                  f"rel={row['max_rel_err']:.3e} tile {row['tile']} (fixed "
+                  f"{row['earlier_tile']}) {'ok' if ok else 'FAIL'}  kernel "
+                  f"{row['ms']:.4f} ms ({turns_text(row) or 'one design'})"
+                  f"  plain "
+                  f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}, {row['bound_share']:.0%})  ({card})",
+                  flush=True)
+            check(ok, f"stats_sums N={N} {dname}: {row}")
+            del U, E
+    spent('3 (b)', t0)
     return rows
 
 
@@ -853,8 +1016,9 @@ SLICE_ULP_EXP = 8
 
 
 def slice_launch_ms(K, x, n):
-    """Device time of each launch of the slice kernel alone: the max pass
-    that writes the scale, and the slice pass."""
+    """Device time of each launch of the two-launch slice kernel alone
+    (at every size: the one-launch path's fields too): the max pass that
+    writes the scale, and the slice pass."""
     _, inv = K._slice_scale_launch(x)
     return {'slice_scale_kernel': device_ms(lambda: K._slice_scale_launch(x)),
             'slice_kernel': device_ms(
@@ -876,33 +1040,50 @@ def slice_phase(dev, card):
         ulp = np.clip(rng.standard_normal((N, N)) * 20.0, -120.0, 120.0)
         ulp[N // 3, N // 2] = -np.nextafter(2.0 ** SLICE_ULP_EXP, np.inf)
         fields['ulp'] = ulp
+        nan = fields['solver'].copy()
+        nan[N // 2, N // 3] = np.nan
+        fields['nan'] = nan
+        one_path = K.slice_one_launch(1, N * N)
         for kind, f in fields.items():
+            t0 = time.perf_counter()
             x = torch.tensor(f, dtype=torch.float64, device=dev)
             for n in (4, 6, 8):
                 K.reset_launches()
                 got, scale = K.slice_field(x, n)
                 counted = K.launches['slice_field']
+                one = K.one_launch['slice_field']
                 want, wscale = K.slice_field_ref(x, n)
+                two, tscale = K._slice_two_launches(x, n)
                 torch.cuda.synchronize()
                 err = (got.int() - want.int()).abs().max().item()
-                ok = err == 0 and scale.item() == wscale.item() \
-                    and counted == 1
+                ok = (err == 0 and same_bits(scale, wscale)
+                      and torch.equal(got, two) and same_bits(scale, tscale)
+                      and counted == 1 and one == int(one_path))
                 if kind == 'ulp':
                     # the plain formula's exponent, not frexp's
                     ok = ok and scale.item() == 2.0 ** (SLICE_ULP_EXP + 2)
                 row = {'name': 'slice_field', 'N': N, 'n_slices': n,
                        'field': kind, 'max_abs_err': err,
+                       'one_launch': one_path,
                        'scale': scale.item(), 'plain_scale': wscale.item(),
-                       'tolerance': 'bit-identical slices, equal scale, one '
-                                    'count a call',
+                       'tolerance': 'bit-identical slices and scale (a NaN '
+                                    'scale too), the two launches\' bits, '
+                                    'one count a call, the one-launch path '
+                                    'where the shape takes it',
                        'ok': ok}
                 if kind == 'solver':
                     row.update(timed_row(lambda: K.slice_field(x, n),
                                          lambda: K.slice_field_ref(x, n)))
                     row['launch_ms'] = slice_launch_ms(K, x, n)
+                    if one_path:
+                        row.update(design_turns(
+                            '6 (a)', lambda: K.slice_field(x, n),
+                            lambda: K._slice_two_launches(x, n)))
                 rows.append(row)
                 times = (f"kernel {row['ms']:.4f} ms (" + ', '.join(
                     f"{k} {v:.4f}" for k, v in row['launch_ms'].items())
+                    + (f"; one launch, two launches: {turns_text(row)}"
+                       if 'before_ms' in row else '')
                     + f") plain {row['plain_ms']:.4f} ms  ({card})"
                     if 'ms' in row else '')
                 print(f"kernel slice_field N={N:5d} n={n} {kind:6s} "
@@ -911,6 +1092,8 @@ def slice_phase(dev, card):
                 check(ok, f"slice_field N={N} n={n} {kind}: slices differ "
                           f"by {err} or scale {row['scale']!r} != "
                           f"{row['plain_scale']!r} ({counted} counts)")
+            if kind == 'nan':
+                spent('6 (a) NaN field', t0)
     return rows
 
 
@@ -941,7 +1124,9 @@ def check_ozaki_launches(tag, cfg, launches, steps, chunk, ntmax):
     """Every kernel of the route launched; K1 once per step iteration the
     chunks ran;
     the slice kernel fwd + iterations * (fwd + 1) times (one forward at
-    entry, a forward and an inverse per step)."""
+    entry, a forward and an inverse per step), each by its one-launch path
+    where the field's shape takes it."""
+    from chsimpy_tpu_torch.ops import kernels as K
     iterations = iterations_run(steps, chunk, ntmax - 1)
     fwd = slices_per_forward(cfg)
     want = fwd + iterations * (fwd + 1)
@@ -954,6 +1139,11 @@ def check_ozaki_launches(tag, cfg, launches, steps, chunk, ntmax):
     check(launches['slice_field'] == want,
           f"{tag}: slice_field launched {launches['slice_field']} times, "
           f"the route implies {want}")
+    one = want if K.slice_one_launch(1, cfg.N * cfg.N) else 0
+    check(launches['one_launch']['slice_field'] == one,
+          f"{tag}: {launches['one_launch']['slice_field']} of the "
+          f"slice_field calls took the one-launch path, the shape implies "
+          f"{one}")
     return iterations, want
 
 
@@ -979,7 +1169,7 @@ def ozaki_default_run():
     sol = sim.solve()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches = launch_counts()
     td = sol.timedata.data()
     res = {'route': 'fold', 'computed_steps': sol.computed_steps,
            'stop_reason': sol.stop_reason, 'tau0': sol.tau0, 't0': sol.t0,
@@ -1039,7 +1229,7 @@ def ozaki_golden_n1024():
     res = {'route': 'rfold L=2', 'computed_steps': sol.computed_steps,
            'stop_reason': sol.stop_reason, 'tau0': sol.tau0,
            'E_max_rel': rel, 'seconds': seconds,
-           'launches': dict(K.launches)}
+           'launches': launch_counts()}
     print(f"ozaki n1024 golden: {json.dumps(res)}", flush=True)
     check(sol.computed_steps == g['computed_steps'] == 1837,
           f"ozaki N=1024 stop step {sol.computed_steps} != 1837")
@@ -2420,8 +2610,8 @@ MEMBER_KERNELS = {'chemical_potential_members': 'chemical_potential',
                   'absdev_sum_members': 'absdev_sum'}
 # (a): (R, N, dtype) of the batched launches; the JSON line's rows are the
 # canonical batch's shape
-MEMBER_SHAPES = ((16, 512, 'float64'), (4, 4096, 'float32'),
-                 (4, 4096, 'float64'))
+MEMBER_SHAPES = ((16, 512, 'float64'), (16, 512, 'float32'),
+                 (4, 4096, 'float32'), (4, 4096, 'float64'))
 MEMBER_REPORT = (16, 512, 'float64')
 # (b): the canonical UQ batch of the JAX experiment (A factors in
 # [0.995, 1.005] from PCG64(85972), chsimpy_tpu/experiment.py:153-180,
@@ -2516,6 +2706,7 @@ def member_kernel_phase(dev, card):
 
     rows = []
     for R, N, dname in MEMBER_SHAPES:
+        t0 = time.perf_counter()
         dtype = getattr(torch, dname)
         f64 = dtype == torch.float64
         cfg, c, U, E, hat_U, hat_E, mean = member_inputs(R, N, dtype, dev)
@@ -2576,6 +2767,11 @@ def member_kernel_phase(dev, card):
                    'single_launches_ms': device_ms(
                        lambda: [single(r) for r in range(R)]),
                    **member_bound(name, R, N, dname)}
+            if name == 'stats_sums_members':
+                row.update(stats_turns(
+                    '10 (a)', kern, N, N, U, E,
+                    lambda t: K._stats_sums_members_launch(U, E, A0s, A1s, t,
+                                                           **skw)))
             row['bound_share'] = row['bound_ms'] / row['ms']
             rows.append(row)
             print(f"kernel {name:27s} R={R:2d} N={N:5d} {dname:8s} "
@@ -2585,12 +2781,18 @@ def member_kernel_phase(dev, card):
                   f"(one call {row['call_ms']:.4f}; {R} single launches "
                   f"{row['single_launches_ms']:.4f})  plain "
                   f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms"
-                  f" ({row['bound_share']:.0%})  ({card})", flush=True)
+                  f" ({row['bound_by']}, {row['bound_share']:.0%})"
+                  + (f"  tile {row['tile']} (the fixed tile "
+                     f"{row['earlier_tile']}) {turns_text(row)}"
+                     if 'tile' in row else '') + f"  ({card})",
+                  flush=True)
             check(ok, f"{name} R={R} N={N} {dname}: error {err:.3e} "
                       f"outside {tol}, members equal {same}, {counted} "
                       f"counts")
         del U, E, hat_U, hat_E, c
         torch.cuda.empty_cache()
+        if (R, N, dname) == (16, 512, 'float32'):
+            spent('10 (a) R=16 float32', t0)
     return rows
 
 
@@ -2615,7 +2817,8 @@ def _single_member_run(p, A0, A1, kappa, steps=None, warm=0):
 
 def _ensemble_run(p, pairs, kappas, steps=None, warm=0):
     """(ensemble, solutions, member-steps/s of the solve after ``warm``
-    steps, launches of that solve)."""
+    steps, launches of that solve and, under 'members', the member
+    count)."""
     import numpy as np
     import torch
     from chsimpy_tpu_torch.ensemble import EnsembleSolver
@@ -2630,7 +2833,8 @@ def _ensemble_run(p, pairs, kappas, steps=None, warm=0):
     sols = ens.solve_or_resume(steps)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches = launch_counts()
+    launches['members'] = len(sols)
     done = sum(s.computed_steps - (warm or 1) for s in sols)
     return ens, sols, done / seconds, launches
 
@@ -3230,6 +3434,8 @@ def experiment_phase(card):
 # JSON line's row is the canonical batch's shape with 4 slices
 SLICE_MEMBER_SHAPES = ((16, 512), (4, 4096), (3, 1001), (2, 1000))
 SLICE_MEMBER_REPORT = (16, 512, 4)
+# and a NaN in member 0 (its scale NaN, its planes the plain version's)
+SLICE_NAN_SHAPES = ((16, 512), (3, 1001))
 # (b): the worker processes that run the 16 single ozaki runs to their
 # stops side by side (one alone runs ~56 steps/s at N=512, ~30 s to its
 # stop: one after another they would take 8 minutes, four side by side
@@ -3275,32 +3481,48 @@ def member_slice_phase(dev, card):
     from chsimpy_tpu_torch.ops import kernels as K
 
     rows = []
-    for R, N in SLICE_MEMBER_SHAPES:
+    for R, N, kind in [s + ('solver',) for s in SLICE_MEMBER_SHAPES] + [
+            s + ('nan',) for s in SLICE_NAN_SHAPES]:
+        t0 = time.perf_counter()
         x = member_slice_inputs(R, N, dev)
+        if kind == 'nan':
+            x[0, N // 2, N // 3] = float('nan')
+        one_path = K.slice_one_launch(R, N * N)
         for n in (4, 6):
             K.reset_launches()
             got, scale = K.slice_field_members(x, n)
             counted = K.launches['slice_field_members']
+            one = K.one_launch['slice_field_members']
             want, wscale = K.slice_field_members_ref(x, n)
             singles = [K.slice_field(x[r], n) for r in range(R)]
+            two, tscale = K._slice_members_two_launches(x, n)
             torch.cuda.synchronize()
             err = (got.int() - want.int()).abs().max().item()
-            same = all(torch.equal(got[:, r], a) and torch.equal(scale[r], b)
+            same = all(torch.equal(got[:, r], a) and same_bits(scale[r], b)
                        for r, (a, b) in enumerate(singles))
-            ok = (err == 0 and torch.equal(scale, wscale) and same
-                  and counted == 1 and tuple(got.shape) == (n, R, N, N))
+            ok = (err == 0 and same_bits(scale, wscale) and same
+                  and torch.equal(got, two) and same_bits(scale, tscale)
+                  and counted == 1 and one == int(one_path)
+                  and tuple(got.shape) == (n, R, N, N))
             row = {'name': 'slice_field_members', 'R': R, 'N': N,
-                   'n_slices': n, 'dtype': 'float64', 'max_abs_err': err,
+                   'n_slices': n, 'dtype': 'float64', 'field': kind,
+                   'max_abs_err': err, 'one_launch': one_path,
                    'members_equal_single_launch': same,
                    'scales': scale.tolist(),
-                   'tolerance': 'bit-identical planes and scales, each '
-                                'member the single launch\'s, one count a '
-                                'call',
+                   'tolerance': 'bit-identical planes and scales (a NaN '
+                                'scale too), each member the single '
+                                'launch\'s and the two launches\', one '
+                                'count a call, the one-launch path where '
+                                'the shape takes it',
                    'ok': ok}
-            if (R, N) in ((16, 512), (4, 4096)):
+            if (R, N, kind) in ((16, 512, 'solver'), (4, 4096, 'solver')):
                 row.update(timed_row(
                     lambda: K.slice_field_members(x, n),
                     lambda: K.slice_field_members_ref(x, n)))
+                if one_path:
+                    row.update(design_turns(
+                        '12 (a)', lambda: K.slice_field_members(x, n),
+                        lambda: K._slice_members_two_launches(x, n)))
                 row['single_launches_ms'] = device_ms(
                     lambda: [K.slice_field(x[r], n) for r in range(R)])
                 # ops/ozaki.py's _slice: the planes in the products'
@@ -3313,11 +3535,14 @@ def member_slice_phase(dev, card):
             times = (f"kernel {row['ms']:.4f} ms (one call "
                      f"{row['call_ms']:.4f}; {R} single launches "
                      f"{row['single_launches_ms']:.4f}; relayout "
-                     f"{row['relayout_ms']:.4f}) plain "
+                     f"{row['relayout_ms']:.4f}"
+                     + (f"; two launches: {turns_text(row)}"
+                        if 'before_ms' in row else '') + f") plain "
                      f"{row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f}"
                      f" ms ({row['bound_share']:.0%})  ({card})"
                      if 'ms' in row else '')
             print(f"kernel slice_field_members R={R:2d} N={N:5d} n={n} "
+                  f"{kind} {'one launch' if one_path else 'two launches'} "
                   f"max diff {err} members=single "
                   f"{'yes' if same else 'NO'} {'ok' if ok else 'FAIL'}  "
                   f"{times}", flush=True)
@@ -3326,6 +3551,8 @@ def member_slice_phase(dev, card):
                       f"counts")
         del x
         torch.cuda.empty_cache()
+        if kind == 'nan':
+            spent('12 (a) NaN members', t0)
     return rows
 
 
@@ -3333,7 +3560,9 @@ def check_members_ozaki_launches(tag, cfg, launches):
     """The ozaki ensemble's path: K1-K4 and K5_members for all members,
     never a single-field kernel; K5_members fwd + iterations * (fwd + 1)
     times (one forward at the solve's entry, a forward and an inverse a
-    step; K1 counts the step iterations)."""
+    step; K1 counts the step iterations), each by its one-launch path
+    where the batch's shape takes it."""
+    from chsimpy_tpu_torch.ops import kernels as K
     iterations = launches['chemical_potential_members']
     fwd = slices_per_forward(cfg)
     want = fwd + iterations * (fwd + 1)
@@ -3347,6 +3576,12 @@ def check_members_ozaki_launches(tag, cfg, launches):
           f"{tag}: slice_field_members launched "
           f"{launches['slice_field_members']} times (the route implies "
           f"{want}), slice_field {launches['slice_field']}")
+    R = launches['members']
+    one = want if K.slice_one_launch(R, cfg.N * cfg.N) else 0
+    check(launches['one_launch']['slice_field_members'] == one,
+          f"{tag}: {launches['one_launch']['slice_field_members']} of the "
+          f"slice_field_members calls took the one-launch path, the shape "
+          f"implies {one}")
     return iterations, want
 
 
@@ -4072,7 +4307,10 @@ def local_members_kernel_phase(dev, card):
                'ok': ok, **timed_row(kern, ref),
                'single_launches_ms': device_ms(
                    lambda: [single(r) for r in range(R)]),
-               **local_members_bound(R, bn, bw, dname)}
+               **local_members_bound(R, bn, bw, dname),
+               **stats_turns('14 (a)', kern, bn, bw, Ub, Eb,
+                             lambda t: K._local_band_sums_members_launch(
+                                 *args, t, **skw))}
         row['bound_share'] = row['bound_ms'] / row['ms']
         rows.append(row)
         print(f"kernel local_band_sums_members R={R} N={N} {dname} block "
@@ -4082,7 +4320,10 @@ def local_members_kernel_phase(dev, card):
               f"call {row['call_ms']:.4f}; {R} single launches "
               f"{row['single_launches_ms']:.4f})  plain "
               f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_share']:.0%})  ({card})", flush=True)
+              f"({row['bound_by']}, {row['bound_share']:.0%})  tile "
+              f"{row['tile']} (the fixed tile {row['earlier_tile']}) "
+              f"{turns_text(row)}  ({card})",
+              flush=True)
         check(ok, f"K7_members R={R} N={N} {dname}: rel {rel:.3e}, count "
                   f"exact {count_exact}, members equal {same}, {counted} "
                   f"counts")
@@ -6354,6 +6595,11 @@ def gpu_clocks():
         else f'nvidia-smi exited {proc.returncode}'
 
 
+# what a timed row says of the design it was timed beside (design_turns),
+# carried into the JSON line
+DESIGN_KEYS = ('before_ms', 'tile', 'earlier_tile')
+
+
 def summary_rows(detail):
     """The kernels' JSON line: one row per kernel."""
     rows = []
@@ -6362,9 +6608,11 @@ def summary_rows(detail):
             N, n, kind = SLICE_REPORT
             row = next(r for r in detail['ozaki']['slice_kernel']
                        if (r['N'], r['n_slices'], r['field']) == SLICE_REPORT)
-            launches = detail['ozaki']['default_run']['launches'][name]
+            run = detail['ozaki']['default_run']['launches']
+            launches = run[name]
             extra = {'shape': f"{N}x{N} float64 -> {n} int8 slices",
                      'launch_ms': row['launch_ms'],
+                     'one_launch_launches': run['one_launch'][name],
                      **kernel_bound(name, N, 'float64', n)}
         elif name == 'matmul':
             row = detail['routes']['gemm'][0]
@@ -6422,7 +6670,8 @@ def summary_rows(detail):
             'replaces': replaces, 'launches': launches,
             'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
             'call_ms': row['call_ms'], 'plain_ms': row['plain_ms'],
-            'library_ms': row.get('library_ms'), **extra})
+            'library_ms': row.get('library_ms'), **extra,
+            **{k: row[k] for k in DESIGN_KEYS if k in row}})
         rows[-1]['bound_share'] = rows[-1]['bound_ms'] / row['ms']
     # the member-batched kernels at the canonical batch's shape, counted
     # on phase 10 (b)'s run
@@ -6442,6 +6691,7 @@ def summary_rows(detail):
             'bound_by': row['bound_by'], 'max_rel_err': row['max_rel_err'],
             'single_launches_ms': row['single_launches_ms'],
             'shape': f"{R} members of {N}x{N} {dtype}",
+            **{k: row[k] for k in DESIGN_KEYS if k in row},
             'bound_share': row['bound_ms'] / row['ms']})
     # K5_members at the canonical batch's shape, counted on phase 12 (b)'s
     # run of the ozaki batch
@@ -6460,6 +6710,9 @@ def summary_rows(detail):
         'bound_by': row['bound_by'],
         'single_launches_ms': row['single_launches_ms'],
         'shape': f"{R} members of {N}x{N} float64 -> {n} int8 slices",
+        'one_launch_launches': detail['ozaki_ensemble']['canonical'][
+            'launches']['one_launch']['slice_field_members'],
+        **{k: row[k] for k in DESIGN_KEYS if k in row},
         'bound_share': row['bound_ms'] / row['ms']})
     # K11 at the canonical batch's shape, counted on phase 10 (b)'s run
     R, N, dtype = ROW_ABSDEV_REPORT
@@ -6495,6 +6748,7 @@ def summary_rows(detail):
         'single_launches_ms': row['single_launches_ms'],
         'shape': f"{R} members' {row['block']} {dtype} blocks of {N}x{N} "
                  f"on {row['mesh']}",
+        **{k: row[k] for k in DESIGN_KEYS if k in row},
         'bound_share': row['bound_ms'] / row['ms']})
     # K5 sharded on a rank's pencil block (phase 15 (a)), counted on
     # phase 15 (b)'s canonical ozaki run and (e)'s ozaki grid ensemble
@@ -6801,6 +7055,9 @@ def _main(args, detail, dev, card, torch) -> int:
     print('phase seconds: ' + ', '.join(
         f"{k} {v:.1f}" for k, v in detail['phase_seconds'].items()),
         flush=True)
+    detail['part_seconds'] = dict(PART_SECONDS)
+    print('design turns and small-field checks, seconds: ' + ', '.join(
+        f"{k} {v:.1f}" for k, v in PART_SECONDS.items()), flush=True)
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)

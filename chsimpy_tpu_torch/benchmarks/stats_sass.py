@@ -1,0 +1,127 @@
+#!/usr/bin/env python
+"""What does the statistics kernel's compiled loop issue per element?
+Static counts by pipe from ``cuobjdump -sass`` of the built library.
+
+    python -m chsimpy_tpu_torch.benchmarks.stats_sass
+
+For every instantiation of ``stats_kernel`` (K3, K3_members, K7,
+K7_members and the fold mode; float32 and float64, vector width V) the
+kernel's longest loop (one row of V columns a thread) is cut out of the
+SASS and its instructions counted by pipe: FP64, FP32, MUFU and
+conversions, with each pipe's time at its rate on an H100 SM for N=4096
+(132 SMs at 1.98 GHz, the rates of the CUDA C++ Programming Guide's
+throughput table for compute capability 9.0).
+
+These are static counts: every instruction of the loop body counts once,
+predicated-off ones, the one-sided edge branches an interior element
+never takes and the loop control included.  Only the copies of the true
+division beyond the two an interior element runs are taken out.  They
+bound what the compiled code issues from above, not what the function
+needs: the kernel's roofline bound stays its bytes and its arithmetic
+(``chip_smoke.py`` ``OPS_PER_ELEM``).  It needs the CUDA toolkit's
+``cuobjdump`` and ``nvcc``, not a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import subprocess
+
+from ..ops import cuda_build
+
+# the pipes, their SASS opcodes and their rates (instructions a clock on
+# an SM)
+PIPES = (('fp64', ('DADD', 'DMUL', 'DFMA', 'DSETP'), 64),
+         ('fp32', ('FADD', 'FMUL', 'FFMA', 'FSETP'), 128),
+         ('mufu', ('MUFU',), 16),
+         ('conversion', ('F2F', 'F2I', 'I2F', 'I2FP'), 16))
+SMS = 132
+CLOCK_HZ = 1.98e9
+FIELD = 4096 * 4096          # the elements the times are given for
+
+
+def _opcode(text: str) -> str:
+    return re.sub(r'^@!?U?P\w+\s+', '', text).split()[0].split('.')[0]
+
+
+def _counts(lines) -> dict:
+    ops = [_opcode(t) for _, t in lines]
+    out = {pipe: sum(o in names for o in ops) for pipe, names, _ in PIPES}
+    out['all'] = len(ops)
+    return out
+
+
+def loop_counts(ins, vec: int):
+    """(per element, loop body): the static counts of the function's
+    longest loop (``ins``: (address, text) of its SASS) by pipe, and per
+    element.  The body holds one copy of the true division for each
+    branch of the one-sided differences; an interior element runs two a
+    column (its row and its column difference), so the per-element count
+    takes out the copies beyond 2 V, each counted from its reciprocal
+    (MUFU) to the end of its slow-path branch (the CALL that marks it and
+    the BSYNC after)."""
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    loops = []
+    for i, (a, t) in enumerate(ins):
+        m = re.search(r'\bBRA\b.*?0x([0-9a-f]+)', t)
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in at:
+            loops.append((at[int(m.group(1), 16)], i))
+    b, e = max(loops, key=lambda be: be[1] - be[0])
+    body = ins[b:e + 1]
+    static = _counts(body)
+    divs = []
+    for i, (_, t) in enumerate(body):
+        if _opcode(t) == 'CALL':
+            d0 = max(k for k in range(i) if _opcode(body[k][1]) == 'MUFU')
+            d1 = next(k for k in range(i, len(body))
+                      if _opcode(body[k][1]) == 'BSYNC')
+            divs.append(_counts(body[d0:d1 + 1]))
+    extra = len(divs) - 2 * vec
+    per = {p: (static[p] - extra * statistics.mean(d[p] for d in divs))
+           / vec for p in static}
+    return per, static
+
+
+def stats_sass(lib_path: str) -> list:
+    """One row for every instantiation of stats_kernel in the library."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.find_nvcc()),
+                             'cuobjdump')
+    text = subprocess.run([cuobjdump, '-sass', lib_path],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    rows = []
+    for part in re.split(r'\n\s*Function : ', text)[1:]:
+        name, body = part.split('\n', 1)
+        m = re.search(r'stats_kernelI([fd])Li(\d)ELb(\d)ELb(\d)E', name)
+        if not m:
+            continue
+        ins = [(int(a, 16), t.strip()) for a, t in re.findall(
+            r'/\*([0-9a-f]{4,})\*/\s+([^;]*);', body)]
+        vec = int(m.group(2))
+        per, static = loop_counts(ins, vec)
+        clocks_ms = FIELD / (SMS * CLOCK_HZ) * 1e3
+        rows.append({
+            'dtype': 'float32' if m.group(1) == 'f' else 'float64',
+            'V': vec, 'halo': m.group(3) == '1', 'fold': m.group(4) == '1',
+            'static_per_element': per, 'loop_body': static,
+            'pipe_ms_at_4096': {p: per[p] / rate * clocks_ms
+                                for p, _, rate in PIPES}})
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog='python -m chsimpy_tpu_torch.benchmarks.stats_sass',
+        description=__doc__.splitlines()[0])
+    ap.parse_args(argv)
+    for row in stats_sass(cuda_build.build()['path']):
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    raise SystemExit(main())

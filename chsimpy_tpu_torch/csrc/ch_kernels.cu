@@ -7,7 +7,8 @@
 // double: Hopper has native FP64, so the float64 validation mode runs the
 // same kernels as the float32 fast mode.  K5 slices a float64 field into
 // int8 planes for the ozaki route and exists for double only (K5_members:
-// the same two kernels over R members' fields).  K6, the
+// the same two kernels over R members' fields; where the fields fit in
+// L2, one cooperative launch instead).  K6, the
 // float32 GEMM of the DCT bake-off's 'gemm' route (ROADMAP.md kernel B5),
 // lives in gemm_sm90.cu (tensor cores, 3xTF32).  On a grid mesh (one rank
 // per block of the field) K7 is K3's stats_kernel on a block with halo
@@ -207,12 +208,11 @@ update_otf_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
 // the bytes to one pass:
 // * each thread owns V contiguous columns (a float4 in float32, a double2
 //   in float64; V=1 where W or an address does not allow the vector) and
-//   walks down a band of kStatsRowsV / V rows (16 with the vector) with the
-//   rows above, at and below in registers, so a U element is loaded once,
-//   plus three halo rows per band; every load is issued one row before the
-//   row that uses it (a deeper prefetch, more rows a band, fewer
-//   registers for more blocks an SM or float2 in float32 were slower on
-//   the H100);
+//   walks down a band of `band` rows with the rows above, at and below in
+//   registers, so a U element is loaded once, plus three halo rows per
+//   band; every load is issued one row before the row that uses it (at
+//   N=4096 a deeper prefetch, more rows a band, fewer registers for more
+//   blocks an SM or float2 in float32 were slower on the H100);
 // * the column neighbours come from the adjacent lanes (shuffles); lanes 0
 //   and 31 load the one value beyond the warp's columns (lane 0 at the
 //   block's left edge: lf_col), and under HALO the thread that holds column
@@ -225,6 +225,16 @@ update_otf_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
 //   call.  The grid depends on (bn, W) and V alone, never on the card or
 //   the offsets: every run gives the same bits, and K7 on the whole field
 //   gives K3's.
+// The tile (V, band) is the wrapper's (ops/kernels.py stats_tile), from
+// the block's shape, the element size and the vector width alone.  Its
+// fixed tile, 256 V columns by 64 / V rows, was sized at N=4096 (1024
+// blocks in either type) and stays wherever it gives at least 256 blocks.
+// On smaller blocks it left most SMs idle (16 blocks on a 512-wide float64
+// field, a float4 block twice as wide as a 512-wide float32 field), so
+// there the vector narrows (a float2 in float32, one column) until a
+// block is no wider than needed, and the band shortens until the grid
+// reaches 256 blocks (down to 4 rows): a member of a batched launch keeps
+// the single field's grid, and a small field fills the card.
 //
 // K3's fold mode (FOLD, never with HALO) takes the field in the level-1
 // folded layout of --fold-field (chsimpy_tpu/ops/dct.py fold1): natural
@@ -242,15 +252,16 @@ update_otf_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
 // refuses --fold-field with its Pallas kernels (chsimpy_tpu/core/
 // solver.py:78-83, 445-448; its XLA path regroups the sums instead);
 // here this mode is what lets the hand kernels run the folded layout.
-constexpr int kStatsRowsV = 64;        // rows per band times V
-
 template <typename T, int V>
 __device__ __forceinline__ void load_vec(const T* p, T (&v)[V]) {
   if constexpr (V == 4) {
     const float4 q = *reinterpret_cast<const float4*>(p);
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  } else if constexpr (V == 2) {
+  } else if constexpr (V == 2 && sizeof(T) == 8) {
     const double2 q = *reinterpret_cast<const double2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  } else if constexpr (V == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
     v[0] = q.x; v[1] = q.y;
   } else {
     v[0] = *p;
@@ -263,7 +274,8 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
              const T* __restrict__ up_row, const T* __restrict__ dn_row,
              const T* __restrict__ lf_col, const T* __restrict__ rt_col,
              int block_rows, int block_cols, int N, int block_row_off,
-             int block_col_off, double delx, T RT, T B, T A0_in, T A1_in,
+             int block_col_off, int band, double delx, T RT, T B, T A0_in,
+             T A1_in,
              const double* __restrict__ A0s, const double* __restrict__ A1s,
              T threshold, double* __restrict__ partials,
              unsigned int* __restrict__ ticket, double* __restrict__ sums) {
@@ -299,8 +311,8 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
   const bool active = c0 < W;            // W % V == 0: all V columns exist
   const bool first_col = c0 + col_off == 0;
   const bool last_col = c0 + col_off + V - 1 == N - 1;
-  const int r0 = blockIdx.y * (kStatsRowsV / V);
-  const int r1 = min(r0 + kStatsRowsV / V, bn);
+  const int r0 = blockIdx.y * band;
+  const int r1 = min(r0 + band, bn);
   const bool has_e = E != nullptr;
   // the one value beyond the warp's columns that a row needs: lane 0 the
   // left one, lane 31 the right one; under HALO, the value right of column
@@ -639,49 +651,54 @@ __global__ void slice_finish_kernel(const unsigned long long* __restrict__ amax,
   if (r < R) scale_from_max(amax[r], scale + r, inv + r);
 }
 
-__global__ void __launch_bounds__(kThreads)
-slice_kernel(const double* __restrict__ x, const float* __restrict__ inv_ptr,
-             signed char* __restrict__ out, long long n, int n_slices,
-             bool vec) {
-  __shared__ __align__(16) unsigned char stage[kWarps][kSliceWarpTile];
-  // member r (blockIdx.y) of R (gridDim.y): its field and inverse; its
-  // plane p at (p R + r) n of the (n_slices, R, n) output
-  const long long r = blockIdx.y;
-  const long long plane_stride = (long long)gridDim.y * n;
-  x += r * n;
-  inv_ptr += r;
-  out += r * n;
+// A thread's kSliceElems values of one warp tile of K5's slice pass (the
+// up-to-kSliceWarpTile elements at src): element 2k+b of the thread lies
+// at 64k + 2 lane + b; valid: how many of the tile's elements exist (the
+// rest read as 0); full: a whole tile with 16-byte loads.
+__device__ __forceinline__ void slice_load(const double* __restrict__ src,
+                                           long long valid, bool full,
+                                           double (&v)[kSliceElems]) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long tile =
-      (long long)(gridDim.x - 1 - blockIdx.x) * kSliceBlockTile +
-      (long long)warp * kSliceWarpTile;
-  if (tile >= n) return;                // the whole warp
-  const bool full = vec && tile + kSliceWarpTile <= n;   // warp-uniform
-  const float inv = *inv_ptr;
-  const float inv_lo = inv * 2097152.0f;  // 128^3, exact: a power of two
-  const int lo_skip = n_slices < 3 ? n_slices : 3;
-  // element 2k+b of the thread lies at tile + 64k + 2 lane + b
-  float h[kSliceElems], l[kSliceElems];
 #pragma unroll
   for (int k = 0; k < kSliceElems / 2; ++k) {
-    const long long i = tile + 64 * k + 2 * lane;
-    double v[2];
+    const int i = 64 * k + 2 * lane;
     if (full) {
-      const double2 q = *reinterpret_cast<const double2*>(x + i);
-      v[0] = q.x;
-      v[1] = q.y;
+      const double2 q = *reinterpret_cast<const double2*>(src + i);
+      v[2 * k] = q.x;
+      v[2 * k + 1] = q.y;
     } else {
-      v[0] = i < n ? x[i] : 0.0;
-      v[1] = i + 1 < n ? x[i + 1] : 0.0;
+      v[2 * k] = i < valid ? src[i] : 0.0;
+      v[2 * k + 1] = i + 1 < valid ? src[i + 1] : 0.0;
     }
+  }
+}
+
+// the float32 hi = rn(x) and lo = rn(x - hi) of each value
+__device__ __forceinline__ void slice_split(const double (&v)[kSliceElems],
+                                            float (&h)[kSliceElems],
+                                            float (&l)[kSliceElems]) {
 #pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const float hi = __double2float_rn(v[b]);
-      const float lo = __double2float_rn(v[b] - (double)hi);
-      h[2 * k + b] = hi * inv;
-      l[2 * k + b] = lo * inv_lo;
-    }
+  for (int e = 0; e < kSliceElems; ++e) {
+    h[e] = __double2float_rn(v[e]);
+    l[e] = __double2float_rn(v[e] - (double)h[e]);
+  }
+}
+
+// The planes of a thread's values of one warp tile (hi, lo in h, l, the
+// thread's elements as slice_load places them) into dst, plane p at
+// dst + p * plane_stride; full: 16-byte stores, the warp's bytes staged
+// through its stage.
+__device__ __forceinline__ void slice_planes(
+    float (&h)[kSliceElems], float (&l)[kSliceElems], float inv,
+    signed char* __restrict__ dst, long long plane_stride, long long valid,
+    bool full, int n_slices, unsigned char* __restrict__ stage) {
+  const int lane = threadIdx.x & 31;
+  const float inv_lo = inv * 2097152.0f;  // 128^3, exact: a power of two
+  const int lo_skip = n_slices < 3 ? n_slices : 3;
+#pragma unroll
+  for (int e = 0; e < kSliceElems; ++e) {
+    h[e] = h[e] * inv;
+    l[e] = l[e] * inv_lo;
   }
   for (int p = 0; p < n_slices; ++p) {
     signed char s8[kSliceElems];
@@ -698,26 +715,181 @@ slice_kernel(const double* __restrict__ x, const float* __restrict__ inv_ptr,
       }
       s8[e] = (signed char)(int)s;
     }
-    signed char* dst = out + (long long)p * plane_stride + tile;
+    signed char* d = dst + (long long)p * plane_stride;
     if (full) {
       // plane p of member r starts at (p R + r) n, 16-byte aligned for
-      // every p and r (vec holds n % 16 == 0): two bytes a load into the
-      // warp's stage, then 16 contiguous bytes a thread
+      // every p and r (full holds n % 16 == 0): two bytes a store into
+      // the warp's stage, then 16 contiguous bytes a thread
 #pragma unroll
       for (int k = 0; k < kSliceElems / 2; ++k)
-        *reinterpret_cast<unsigned short*>(&stage[warp][64 * k + 2 * lane]) =
+        *reinterpret_cast<unsigned short*>(&stage[64 * k + 2 * lane]) =
             (unsigned short)((unsigned char)s8[2 * k] |
                              (unsigned)(unsigned char)s8[2 * k + 1] << 8);
       __syncwarp();
-      const uint4 q = *reinterpret_cast<const uint4*>(&stage[warp][16 * lane]);
+      const uint4 q = *reinterpret_cast<const uint4*>(&stage[16 * lane]);
       __syncwarp();                      // read before the next plane writes
-      *reinterpret_cast<uint4*>(dst + 16 * lane) = q;
+      *reinterpret_cast<uint4*>(d + 16 * lane) = q;
     } else {
 #pragma unroll
       for (int e = 0; e < kSliceElems; ++e) {
         const int idx = 64 * (e / 2) + 2 * lane + (e % 2);
-        if (tile + idx < n) dst[idx] = s8[e];
+        if (idx < valid) d[idx] = s8[e];
       }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+slice_kernel(const double* __restrict__ x, const float* __restrict__ inv_ptr,
+             signed char* __restrict__ out, long long n, int n_slices,
+             bool vec) {
+  __shared__ __align__(16) unsigned char stage[kWarps][kSliceWarpTile];
+  // member r (blockIdx.y) of R (gridDim.y): its field and inverse; its
+  // plane p at (p R + r) n of the (n_slices, R, n) output
+  const long long r = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const long long tile =
+      (long long)(gridDim.x - 1 - blockIdx.x) * kSliceBlockTile +
+      (long long)warp * kSliceWarpTile;
+  if (tile >= n) return;                // the whole warp
+  const bool full = vec && tile + kSliceWarpTile <= n;
+  double v[kSliceElems];
+  float h[kSliceElems], l[kSliceElems];
+  slice_load(x + r * n + tile, n - tile, full, v);
+  slice_split(v, h, l);
+  slice_planes(h, l, inv_ptr[r], out + r * n + tile, (long long)gridDim.y * n,
+               n - tile, full, n_slices, stage[warp]);
+}
+
+// K5 in one launch (the one-launch path), where the members' fields fit in
+// L2 (the wrapper's slice_one_launch, up to 48 MiB: the canonical R=16
+// N=512 batch, 32 MiB, and the single N=512 to 2048 fields): at R=16
+// N=512 the two launches above took 36% of their bound.  One cooperative launch of co-resident blocks,
+// each taking a fixed range of the members' 4096-element tiles:
+// 1. max pass: each block takes max|x| over its tiles (the bits of a
+//    non-negative double, as slice_scale_kernel does) and adds it to its
+//    members' maxima with atomicMax (order-free, so the max pass's bits);
+// 2. a grid barrier (every block is resident: the launch is cooperative);
+// 3. slice pass: each block forms its members' scale and inverse from the
+//    maxima (scale_from_max) and slices the same tiles again, last read
+//    first: the last from registers, the others from L2 (slice_load,
+//    slice_split, slice_planes, the slice pass's code); the block holding
+//    a member's first tile writes its scale and inverse;
+// 4. the last block to finish (a ticket) puts the maxima and the barrier
+//    back to 0 for the next call.
+// Planes and scales are the two launches' (and the plain version's), to
+// the bit, whatever the grid.  A one-cluster-a-member design (the field
+// in the shared memory of up to 16 CTAs, maxima over distributed shared
+// memory) was slower than the two launches at R=16 and at R=1, N=512 on
+// the H100: one CTA an SM, each loading 128 KiB before it could slice.
+// Holding the last tile in registers costs registers (two blocks an SM);
+// capping them for more blocks an SM was no faster.
+
+// the block's max of m into *dst (atomicMax; every thread calls it)
+__device__ __forceinline__ void block_max_into(unsigned long long m,
+                                               unsigned long long* sh,
+                                               unsigned long long* dst) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = max(m, __shfl_down_sync(0xffffffffu, m, off));
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kWarps; ++w) m = max(m, sh[w]);
+    atomicMax(dst, m);
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads)
+slice_one_launch_kernel(const double* __restrict__ x, long long n, int R,
+                        long long member_tiles,
+                        unsigned long long* __restrict__ scratch,
+                        double* __restrict__ scale,
+                        float* __restrict__ inv_out,
+                        signed char* __restrict__ out, int n_slices,
+                        bool vec) {
+  __shared__ __align__(16) unsigned char stage[kWarps][kSliceWarpTile];
+  __shared__ unsigned long long sh[kWarps];
+  // scratch: the barrier's two counters, then the R members' maxima, all
+  // 0 between calls
+  unsigned int* arrived = reinterpret_cast<unsigned int*>(scratch);
+  unsigned int* finished = arrived + 1;
+  unsigned long long* amax = scratch + 1;
+  const long long tiles = (long long)R * member_tiles;
+  const long long t0 = tiles * blockIdx.x / gridDim.x;
+  const long long t1 = tiles * (blockIdx.x + 1) / gridDim.x;
+  // 1. the maxima (a block's range changes member at most a few times:
+  // the member, hence the branch, is the same for all its threads); the
+  // values of the block's last tile stay in registers for step 3
+  const int warp = threadIdx.x >> 5;
+  long long cur = -1;
+  unsigned long long m = 0;
+  double v[kSliceElems];
+  for (long long t = t0; t < t1; ++t) {
+    const long long r = t / member_tiles;
+    if (r != cur) {
+      if (cur >= 0) block_max_into(m, sh, amax + cur);
+      cur = r;
+      m = 0;
+    }
+    const long long w0 = (t - r * member_tiles) * kSliceBlockTile +
+                         (long long)warp * kSliceWarpTile;
+    slice_load(x + r * n + w0, n - w0, vec && w0 + kSliceWarpTile <= n, v);
+#pragma unroll
+    for (int e = 0; e < kSliceElems; ++e) m = max(m, abs_bits(v[e]));
+  }
+  if (cur >= 0) block_max_into(m, sh, amax + cur);
+  float h[kSliceElems], l[kSliceElems];
+  slice_split(v, h, l);
+  // 2. the grid barrier (thread 0 polls, backing off up to 512 ns)
+  if (threadIdx.x == 0) {
+    __threadfence();                     // the maxima before the arrival
+    atomicAdd(arrived, 1u);
+    unsigned int wait = 32;
+    while (*reinterpret_cast<volatile unsigned int*>(arrived) < gridDim.x) {
+      __nanosleep(wait);
+      if (wait < 512) wait *= 2;
+    }
+    __threadfence();
+  }
+  __syncthreads();
+  // 3. the slices, the block's tiles in reverse: the last one is in
+  // registers, the one before it the likeliest still in L2
+  cur = -1;
+  float inv = 0.0f;
+  double sc = 0.0;
+  for (long long t = t1 - 1; t >= t0; --t) {
+    const long long r = t / member_tiles;
+    if (r != cur) {
+      cur = r;
+      scale_from_max(__ldcg(amax + r), &sc, &inv);
+    }
+    if (t == r * member_tiles && threadIdx.x == 0) {
+      scale[r] = sc;
+      inv_out[r] = inv;
+    }
+    const long long w0 = (t - r * member_tiles) * kSliceBlockTile +
+                         (long long)warp * kSliceWarpTile;
+    const bool full = vec && w0 + kSliceWarpTile <= n;
+    if (t < t1 - 1) {
+      slice_load(x + r * n + w0, n - w0, full, v);
+      slice_split(v, h, l);
+    }
+    if (w0 < n)
+      slice_planes(h, l, inv, out + r * n + w0, (long long)R * n, n - w0,
+                   full, n_slices, stage[warp]);
+  }
+  // 4. the last block puts the scratch back to 0 (every block has read
+  // the maxima and left the barrier before it counts itself finished)
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(finished, 1u) == gridDim.x - 1) {
+      for (int r = 0; r < R; ++r) amax[r] = 0ull;
+      *arrived = 0u;
+      *finished = 0u;
+      __threadfence();
     }
   }
 }
@@ -913,6 +1085,8 @@ inline unsigned int elementwise_blocks(long long n) {
 
 inline bool bad_members(int R) { return R < 1 || R > 65535; }
 
+constexpr int kMaxDevices = 64;
+
 // K1 on R fields of n elements; A0s / A1s: R doubles on the card, or null
 // (R = 1) for the scalars A0 / A1
 template <typename T>
@@ -965,70 +1139,76 @@ int launch_update_otf(const void* hat_U, const void* hat_E,
 template <typename T, int V, bool HALO, bool FOLD>
 int launch_stats_v(const void* U, const void* E, const void* up,
                    const void* dn, const void* lf, const void* rt, int bn,
-                   int W, int N, int row_off, int col_off, int R,
+                   int W, int N, int row_off, int col_off, int R, int band,
                    double delx, double RT, double B, double A0, double A1,
                    const void* A0s, const void* A1s, double threshold,
                    void* partials, int nblocks, void* ticket, void* sums,
                    cudaStream_t s) {
   const dim3 grid((W + kThreads * V - 1) / (kThreads * V),
-                  (bn + kStatsRowsV / V - 1) / (kStatsRowsV / V), R);
+                  (bn + band - 1) / band, R);
   if ((long long)grid.x * grid.y != nblocks || grid.y > 65535)
     return (int)cudaErrorInvalidValue;
   stats_kernel<T, V, HALO, FOLD><<<grid, kThreads, 0, s>>>(
       (const T*)U, (const T*)E, (const T*)up, (const T*)dn, (const T*)lf,
-      (const T*)rt, bn, W, N, row_off, col_off, delx, T(RT), T(B), T(A0),
-      T(A1), (const double*)A0s, (const double*)A1s, T(threshold),
+      (const T*)rt, bn, W, N, row_off, col_off, band, delx, T(RT), T(B),
+      T(A0), T(A1), (const double*)A0s, (const double*)A1s, T(threshold),
       (double*)partials, (unsigned int*)ticket, (double*)sums);
   return (int)cudaGetLastError();
 }
 
-inline bool aligned16(const void* p) {
-  return ((unsigned long long)p & 15u) == 0;
+inline bool aligned(const void* p, long long bytes) {
+  return ((unsigned long long)p % (unsigned long long)bytes) == 0;
 }
+
+inline bool aligned16(const void* p) { return aligned(p, 16); }
 
 // K3 (HALO false: the (N, N) field, or R members' fields of a contiguous
 // (R, N, N) stack, no halo pointers) and K7 (a (bn, W) block at (row_off,
 // col_off) with its halo vectors; K7_members: R members' blocks of a
 // contiguous (R, bn, W) stack, the halo vectors (R, W) and (R, bn)).
-// vec: 16 / sizeof(T) (the wrapper's local_stats_grid checks W and the
-// addresses; checked again here, for every member's block and halo row)
-// or 1; nblocks: the grid of one member that the wrapper sized partials
-// for (R * nblocks rows); ticket: R counters; A0s / A1s: R doubles on the
-// card, or null (R = 1); FOLD: K3's fold mode (even N, the vector only
-// where N/2 % vec == 0)
+// (vec, band): the wrapper's tile (stats_tile), vec 1, 2 or (float) 4
+// columns a thread, band rows a block; a vector needs W % vec == 0 and
+// every pointer aligned to its width (the wrapper checks W and the
+// addresses; checked again here, for every member's block and halo row);
+// nblocks: the grid of one member that the wrapper sized partials for (R *
+// nblocks rows); ticket: R counters; A0s / A1s: R doubles on the card, or
+// null (R = 1); FOLD: K3's fold mode (even N, a vector only where N/2 %
+// vec == 0)
 template <typename T, bool HALO, bool FOLD = false>
 int launch_stats(const void* U, const void* E, const void* up,
                  const void* dn, const void* lf, const void* rt, int bn,
                  int W, int N, int row_off, int col_off, int R, double delx,
                  double RT, double B, double A0, double A1, const void* A0s,
                  const void* A1s, double threshold, void* partials,
-                 int nblocks, int vec, void* ticket, void* sums,
+                 int nblocks, int vec, int band, void* ticket, void* sums,
                  void* stream) {
   if (bn < 1 || W < 1 || N < 2 || row_off < 0 || col_off < 0 ||
-      row_off + bn > N || col_off + W > N || U == nullptr ||
+      row_off + bn > N || col_off + W > N || U == nullptr || band < 1 ||
       bad_members(R) || (R > 1 && (A0s == nullptr || A1s == nullptr)) ||
       (HALO && (up == nullptr || dn == nullptr || lf == nullptr ||
-                rt == nullptr)) || (FOLD && (HALO || N % 2)))
+                rt == nullptr)) || (FOLD && (HALO || N % 2)) ||
+      (vec != 1 && vec != 2 && vec * (int)sizeof(T) != 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  constexpr int kVec = 16 / (int)sizeof(T);
-  if (vec == kVec) {
+  if (vec > 1) {
     // a member's field (block) starts bn * W elements after the last, its
-    // halo rows W after the last: aligned with the first where W % kVec
-    // == 0 and bn * W elements are a multiple of 16 bytes
-    if (W % kVec || !aligned16(U) || (E != nullptr && !aligned16(E)) ||
-        (HALO && (!aligned16(up) || !aligned16(dn))) ||
-        (R > 1 && ((long long)bn * W * (long long)sizeof(T)) % 16) ||
-        (FOLD && (N / 2) % kVec))
+    // halo rows W after the last: aligned with the first where W % vec
+    // == 0
+    const long long width = vec * (long long)sizeof(T);
+    if (W % vec || !aligned(U, width) ||
+        (E != nullptr && !aligned(E, width)) ||
+        (HALO && (!aligned(up, width) || !aligned(dn, width))) ||
+        (FOLD && (N / 2) % vec))
       return (int)cudaErrorMisalignedAddress;
-    return launch_stats_v<T, kVec, HALO, FOLD>(
-        U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, delx, RT, B,
-        A0, A1, A0s, A1s, threshold, partials, nblocks, ticket, sums, s);
   }
-  if (vec == 1)
-    return launch_stats_v<T, 1, HALO, FOLD>(
-        U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, delx, RT, B,
-        A0, A1, A0s, A1s, threshold, partials, nblocks, ticket, sums, s);
+#define CH_STATS_LAUNCH(VV)                                                 \
+  return launch_stats_v<T, VV, HALO, FOLD>(                                 \
+      U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, band, delx, RT, \
+      B, A0, A1, A0s, A1s, threshold, partials, nblocks, ticket, sums, s)
+  if (vec == 1) CH_STATS_LAUNCH(1);
+  if (vec == 2) CH_STATS_LAUNCH(2);
+  if constexpr (sizeof(T) == 4) CH_STATS_LAUNCH(4);
+#undef CH_STATS_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1038,17 +1218,17 @@ int launch_stats_field(const void* U, const void* E, int N, int R,
                        double delx, double RT, double B, double A0,
                        double A1, const void* A0s, const void* A1s,
                        double threshold, void* partials, int nblocks,
-                       int vec, void* ticket, void* sums, int fold,
+                       int vec, int band, void* ticket, void* sums, int fold,
                        void* stream) {
   if (fold)
     return launch_stats<T, false, true>(
         U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, R, delx,
-        RT, B, A0, A1, A0s, A1s, threshold, partials, nblocks, vec, ticket,
-        sums, stream);
+        RT, B, A0, A1, A0s, A1s, threshold, partials, nblocks, vec, band,
+        ticket, sums, stream);
   return launch_stats<T, false>(
       U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, R, delx, RT,
-      B, A0, A1, A0s, A1s, threshold, partials, nblocks, vec, ticket, sums,
-      stream);
+      B, A0, A1, A0s, A1s, threshold, partials, nblocks, vec, band, ticket,
+      sums, stream);
 }
 
 // K4 on R fields of n elements with R means; partials: nblocks * R
@@ -1122,6 +1302,54 @@ int launch_slice(const void* x, const void* inv, void* out, long long n,
   slice_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const double*)x, (const float*)inv, (signed char*)out, n, n_slices,
       vec);
+  return (int)cudaGetLastError();
+}
+
+// K5's one-launch path on R fields of n elements: a cooperative launch of
+// at most the blocks the card holds at once (one a tile where there are
+// fewer tiles); scratch: 1 + R 64-bit words, 0 between calls; scale, inv:
+// R each; out (n_slices, R, n).  A launch the card refuses returns its
+// error; there is no other path here.
+int launch_slice_one_launch(const void* x, long long n, int R,
+                            void* scratch, void* scale, void* inv, void* out,
+                            int n_slices, void* stream) {
+  if (n <= 0 || bad_members(R) || scratch == nullptr || n_slices < 1 ||
+      n_slices > 8)
+    return (int)cudaErrorInvalidValue;
+  // the blocks the card holds at once, asked once a device
+  static int resident[kMaxDevices] = {0};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (resident[device] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, slice_one_launch_kernel, kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    resident[device] = sms * per_sm;
+  }
+  const long long member_tiles = (n + kSliceBlockTile - 1) / kSliceBlockTile;
+  const long long tiles = member_tiles * R;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned int)(tiles < resident[device]
+                                        ? tiles : resident[device]));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const bool vec = n % 16 == 0 && aligned16(x) && aligned16(out);
+  err = cudaLaunchKernelEx(&cfg, slice_one_launch_kernel, (const double*)x,
+                           n, R, member_tiles,
+                           (unsigned long long*)scratch, (double*)scale,
+                           (float*)inv, (signed char*)out, n_slices, vec);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1247,39 +1475,39 @@ int ch_update_otf_f64(const void* hat_U, const void* hat_E,
 // fold: the field in the level-1 folded layout (K3's fold mode)
 int ch_stats_f32(const void* U, const void* E, int N, double delx, double RT,
                  double B, double A0, double A1, double threshold,
-                 void* partials, int nblocks, int vec, void* ticket,
+                 void* partials, int nblocks, int vec, int band, void* ticket,
                  void* sums, int fold, void* stream) {
   return launch_stats_field<float>(U, E, N, 1, delx, RT, B, A0, A1, nullptr,
                                  nullptr, threshold, partials, nblocks, vec,
-                                 ticket, sums, fold, stream);
+                                 band, ticket, sums, fold, stream);
 }
 int ch_stats_f64(const void* U, const void* E, int N, double delx, double RT,
                  double B, double A0, double A1, double threshold,
-                 void* partials, int nblocks, int vec, void* ticket,
+                 void* partials, int nblocks, int vec, int band, void* ticket,
                  void* sums, int fold, void* stream) {
   return launch_stats_field<double>(U, E, N, 1, delx, RT, B, A0, A1, nullptr,
                                  nullptr, threshold, partials, nblocks, vec,
-                                 ticket, sums, fold, stream);
+                                 band, ticket, sums, fold, stream);
 }
 // member-batched K3: R fields (N, N); nblocks: one member's grid; ticket:
 // R counters; sums: (R, 5)
 int ch_stats_members_f32(const void* U, const void* E, int N, int R,
                          double delx, double RT, double B, const void* A0s,
                          const void* A1s, double threshold, void* partials,
-                         int nblocks, int vec, void* ticket, void* sums,
-                         int fold, void* stream) {
+                         int nblocks, int vec, int band, void* ticket,
+                         void* sums, int fold, void* stream) {
   return launch_stats_field<float>(U, E, N, R, delx, RT, B, 0.0, 0.0, A0s,
                                  A1s, threshold, partials, nblocks, vec,
-                                 ticket, sums, fold, stream);
+                                 band, ticket, sums, fold, stream);
 }
 int ch_stats_members_f64(const void* U, const void* E, int N, int R,
                          double delx, double RT, double B, const void* A0s,
                          const void* A1s, double threshold, void* partials,
-                         int nblocks, int vec, void* ticket, void* sums,
-                         int fold, void* stream) {
+                         int nblocks, int vec, int band, void* ticket,
+                         void* sums, int fold, void* stream) {
   return launch_stats_field<double>(U, E, N, R, delx, RT, B, 0.0, 0.0, A0s,
                                  A1s, threshold, partials, nblocks, vec,
-                                 ticket, sums, fold, stream);
+                                 band, ticket, sums, fold, stream);
 }
 
 // K7: one block of a grid-sharded field (the halo vectors beside it); the
@@ -1289,22 +1517,24 @@ int ch_local_stats_f32(const void* U, const void* up, const void* dn,
                        int W, int N, int row_off, int col_off, double delx,
                        double RT, double B, double A0, double A1,
                        double threshold, void* partials, int nblocks,
-                       int vec, void* ticket, void* sums, void* stream) {
+                       int vec, int band, void* ticket, void* sums,
+                       void* stream) {
   return launch_stats<float, true>(
       U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, 1, delx, RT, B, A0,
-      A1, nullptr, nullptr, threshold, partials, nblocks, vec, ticket, sums,
-      stream);
+      A1, nullptr, nullptr, threshold, partials, nblocks, vec, band, ticket,
+      sums, stream);
 }
 int ch_local_stats_f64(const void* U, const void* up, const void* dn,
                        const void* lf, const void* rt, const void* E, int bn,
                        int W, int N, int row_off, int col_off, double delx,
                        double RT, double B, double A0, double A1,
                        double threshold, void* partials, int nblocks,
-                       int vec, void* ticket, void* sums, void* stream) {
+                       int vec, int band, void* ticket, void* sums,
+                       void* stream) {
   return launch_stats<double, true>(
       U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, 1, delx, RT, B, A0,
-      A1, nullptr, nullptr, threshold, partials, nblocks, vec, ticket, sums,
-      stream);
+      A1, nullptr, nullptr, threshold, partials, nblocks, vec, band, ticket,
+      sums, stream);
 }
 
 // K7_members: R members' blocks (R, bn, W) of grid-sharded fields, each
@@ -1318,11 +1548,11 @@ int ch_local_stats_members_f32(const void* U, const void* up,
                                double delx, double RT, double B,
                                const void* A0s, const void* A1s,
                                double threshold, void* partials, int nblocks,
-                               int vec, void* ticket, void* sums,
+                               int vec, int band, void* ticket, void* sums,
                                void* stream) {
   return launch_stats<float, true>(
       U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, delx, RT, B, 0.0,
-      0.0, A0s, A1s, threshold, partials, nblocks, vec, ticket, sums,
+      0.0, A0s, A1s, threshold, partials, nblocks, vec, band, ticket, sums,
       stream);
 }
 int ch_local_stats_members_f64(const void* U, const void* up,
@@ -1332,11 +1562,11 @@ int ch_local_stats_members_f64(const void* U, const void* up,
                                double delx, double RT, double B,
                                const void* A0s, const void* A1s,
                                double threshold, void* partials, int nblocks,
-                               int vec, void* ticket, void* sums,
+                               int vec, int band, void* ticket, void* sums,
                                void* stream) {
   return launch_stats<double, true>(
       U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, delx, RT, B, 0.0,
-      0.0, A0s, A1s, threshold, partials, nblocks, vec, ticket, sums,
+      0.0, A0s, A1s, threshold, partials, nblocks, vec, band, ticket, sums,
       stream);
 }
 
@@ -1402,6 +1632,15 @@ int ch_slice_scale_members_f64(const void* x, long long n, int R,
 int ch_slice_members_f64(const void* x, const void* inv, void* out,
                          long long n, int R, int n_slices, void* stream) {
   return launch_slice(x, inv, out, n, R, n_slices, stream);
+}
+// K5's one-launch path (slice_one_launch_kernel) on R fields of n
+// elements: scratch 1 + R words, 0 between calls (the kernel resets
+// them); scale R doubles, inv R floats, out (n_slices, R, n)
+int ch_slice_one_launch_f64(const void* x, long long n, int R,
+                            void* scratch, void* scale, void* inv, void* out,
+                            int n_slices, void* stream) {
+  return launch_slice_one_launch(x, n, R, scratch, scale, inv, out,
+                                 n_slices, stream);
 }
 // K5 sharded: the max pass of R fields of n elements into R words of
 // amax (their bits), then, from the world max of those words, R scales

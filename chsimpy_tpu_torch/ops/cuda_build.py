@@ -44,15 +44,15 @@ _SIGNATURES = {
     'ch_update_members': ((_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P), _BOTH),
     'ch_update_otf': ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _D,
                        _D, _P), _BOTH),
-    'ch_stats': ((_P, _P, _I, _D, _D, _D, _D, _D, _D, _P, _I, _I, _P, _P,
-                  _I, _P), _BOTH),
+    'ch_stats': ((_P, _P, _I, _D, _D, _D, _D, _D, _D, _P, _I, _I, _I, _P,
+                  _P, _I, _P), _BOTH),
     'ch_stats_members': ((_P, _P, _I, _I, _D, _D, _D, _P, _P, _D, _P, _I,
-                          _I, _P, _P, _I, _P), _BOTH),
+                          _I, _I, _P, _P, _I, _P), _BOTH),
     'ch_local_stats': ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D,
-                        _D, _D, _D, _D, _P, _I, _I, _P, _P, _P), _BOTH),
+                        _D, _D, _D, _D, _P, _I, _I, _I, _P, _P, _P), _BOTH),
     'ch_local_stats_members': ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _D, _D, _D, _P, _P, _D, _P, _I, _I,
-                                _P, _P, _P), _BOTH),
+                                _I, _P, _P, _P), _BOTH),
     'ch_absdev': ((_P, _LL, _P, _P, _I, _P, _P), _BOTH),
     'ch_row_absdev_members': ((_P, _I, _LL, _LL, _I, _P, _P), _BOTH),
     'ch_absdev_members': ((_P, _LL, _I, _P, _P, _I, _P, _P), _BOTH),
@@ -63,6 +63,8 @@ _SIGNATURES = {
     'ch_slice_members': ((_P, _P, _P, _LL, _I, _I, _P), ('_f64',)),
     'ch_slice_max': ((_P, _LL, _I, _P, _I, _P, _P, _P), ('_f64',)),
     'ch_slice_finish': ((_P, _I, _P, _P, _P), ('_f64',)),
+    'ch_slice_one_launch': ((_P, _LL, _I, _P, _P, _P, _P, _I, _P),
+                            ('_f64',)),
     'ch_sobol_jitter': ((_P, _I, _I, _P, _P, _P, _I, _I, _D, _P), _BOTH),
     'ch_threefry_jitter': ((_P, _I, _I, _LL, _I, _I, _P, _P, _P, _D, _P),
                            _BOTH),

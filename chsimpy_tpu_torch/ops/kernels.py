@@ -31,7 +31,8 @@ takes a member axis and is the solve's float32 product at
   ``csrc/gemm_sm90.cu``) on the current stream or raises — there is no
   fallback;
 * adds one to ``launches[name]`` where it launches the kernel, and nowhere
-  else (the CPU path does not count).
+  else (the CPU path does not count); K5 and K5_members also count in
+  ``one_launch`` the calls that took their one-launch path.
 
 The ``*_ref`` functions keep the JAX package's formulas and operation
 order.  Sums are returned as float64 tensors on the input's device: the
@@ -59,26 +60,42 @@ launches = {'chemical_potential': 0, 'spectral_update': 0,
             'row_absdev_members': 0, 'slice_field_sharded': 0,
             'slice_field_members_sharded': 0, 'update_otf': 0,
             'update_otf_members': 0}
+# of those calls of K5 and K5_members, the ones that took the one-launch
+# path (slice_one_launch_kernel; the others launched the max and slice
+# passes)
+one_launch = {'slice_field': 0, 'slice_field_members': 0}
 
 # grids of the reduction kernels: fixed by the shape (and, for K3 and K7,
 # the vector width) alone, so the summation order (and the result, to the
 # bit) never depends on the card
 STATS_THREADS = 256             # K3/K7: threads per block, V columns each
-STATS_ROWS_X_VEC = 64           # K3/K7: rows per band times V (kStatsRowsV)
+STATS_ROWS_X_VEC = 64           # K3/K7's fixed tile: rows per band times V
+STATS_MIN_BLOCKS = 256          # K3/K7: a grid below this is refined
+STATS_MIN_BAND = 4              # K3/K7: the refined tile's shortest band
 ABSDEV_ELEMS_PER_BLOCK = 8 * 256
 ABSDEV_MAX_BLOCKS = 4096
 SLICE_MAX_BLOCKS = 1024         # K5's max pass: blocks at most
+# K5's one-launch path: fields of at most this many bytes in all.  One
+# launch against two on the H100, one call (benchmarks/slice_paths.py):
+# 0.82-1.00 of the time at 32 MiB (R=16 N=512, R=4 N=1024, R=1 N=2048),
+# 0.87-0.93 at 40 and 48 MiB (R=5, 6 at N=1024; R=20, 24 at N=512); a
+# single 50 MiB field 1.06-1.07, 64 MiB stacks 0.98-0.99, 128 and 512
+# MiB 1.10-1.13 (the second read no longer comes from the 50 MB L2)
+SLICE_ONE_LAUNCH_BYTES = 48 << 20
 
 # the ticket counters of K3, K5 and K7, one set per (device, stream), one
-# counter per member of a batched K3: 0 between calls
+# counter per member of a batched K3: 0 between calls; and the scratch of
+# K5's one-launch path, likewise
 _TICKETS: dict = {}
+_SLICE_SCRATCH: dict = {}
 
 _SUFFIX = {torch.float32: '_f32', torch.float64: '_f64'}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, one_launch):
+        for k in counts:
+            counts[k] = 0
 
 
 def _cast(x: float, dtype: torch.dtype) -> float:
@@ -356,34 +373,80 @@ def _check_block(bn: int, W: int, N: int, row_off: int, col_off: int):
                          f"not lie in an ({N}, {N}) field")
 
 
+def _stats_blocks(bn: int, W: int, vec: int, band: int) -> int:
+    return -(-W // (STATS_THREADS * vec)) * -(-bn // band)
+
+
+def _tile(bn: int, W: int, vec: int):
+    """(V, band) of the statistics kernel on a (bn, W) block whose widest
+    vector is ``vec``: the fixed tile (STATS_THREADS * V columns,
+    STATS_ROWS_X_VEC / V rows) where it gives at least STATS_MIN_BLOCKS
+    blocks; else the vector halves while a block of the narrower one
+    still spans W, and the band halves (from STATS_ROWS_X_VEC / V, down
+    to STATS_MIN_BAND) until the grid has STATS_MIN_BLOCKS blocks."""
+    band = STATS_ROWS_X_VEC // vec
+    if _stats_blocks(bn, W, vec, band) >= STATS_MIN_BLOCKS:
+        return vec, band
+    while vec > 1 and STATS_THREADS * (vec // 2) >= W:
+        vec //= 2
+    band = STATS_ROWS_X_VEC // vec
+    while (band > STATS_MIN_BAND
+           and _stats_blocks(bn, W, vec, band) < STATS_MIN_BLOCKS):
+        band //= 2
+    return vec, band
+
+
+def stats_tile(bn: int, W: int, N: int, row_off: int, col_off: int,
+               itemsize: int, *addresses: int, fold: bool = False):
+    """(V, band, blocks) of the statistics kernel on a (bn, W) block at
+    (row_off, col_off) of an (N, N) field (K3: the whole field): V
+    columns a thread, ``band`` rows a block of STATS_THREADS threads.
+    The widest vector is 16 / itemsize columns (a float4 or double2)
+    where W and every address (the block, E and the halo rows) allow it,
+    else 1; :func:`_tile` sizes the rest from (bn, W) and that width.  The
+    offsets only have to place the block in the field: the tile, and with
+    it the summation order, is the same wherever the block lies, so a
+    member of a batched launch takes the single launch's and K7 on the
+    whole field K3's.  ``fold`` (K3's fold mode): the vector also needs
+    N/2 divisible by V (a thread's columns lie on one side of the fold),
+    else the one-column tile."""
+    _check_block(bn, W, N, row_off, col_off)
+    vec, band = _tile(bn, W, _widest_vec(W, itemsize, addresses))
+    if fold and (N // 2) % vec:
+        vec, band = _tile(bn, W, 1)
+    return vec, band, _stats_blocks(bn, W, vec, band)
+
+
+def _widest_vec(W: int, itemsize: int, addresses) -> int:
+    vec = 16 // itemsize
+    return 1 if W % vec or any(a % 16 for a in addresses) else vec
+
+
+def fixed_stats_tile(bn: int, W: int, itemsize: int, *addresses: int):
+    """(V, band, blocks) of the statistics kernel's fixed tile on a (bn,
+    W) block (:func:`stats_tile`'s widest vector, STATS_ROWS_X_VEC / V
+    rows): the tile it keeps wherever that gives STATS_MIN_BLOCKS blocks,
+    and the one every shape took before the refinement; the private
+    launches take it to time it beside the refined tile."""
+    vec = _widest_vec(W, itemsize, addresses)
+    band = STATS_ROWS_X_VEC // vec
+    return vec, band, _stats_blocks(bn, W, vec, band)
+
+
 def local_stats_grid(bn: int, W: int, N: int, row_off: int, col_off: int,
                      itemsize: int, *addresses: int):
     """(V, blocks) of the statistics kernel on a (bn, W) block at
-    (row_off, col_off) of an (N, N) field: V = 16 / itemsize columns a
-    thread (a float4 or double2) where W and every address (the block, E
-    and the halo rows) allow the vector, else 1; blocks of
-    STATS_THREADS * V columns and STATS_ROWS_X_VEC / V rows.  The offsets
-    only have to place the block in the field: the grid, and with it the
-    summation order, is the same wherever the block lies."""
-    _check_block(bn, W, N, row_off, col_off)
-    vec = 16 // itemsize
-    if W % vec or any(a % 16 for a in addresses):
-        vec = 1
-    return vec, _stats_blocks(bn, W, vec)
-
-
-def _stats_blocks(bn: int, W: int, vec: int) -> int:
-    cols, rows = STATS_THREADS * vec, STATS_ROWS_X_VEC // vec
-    return -(-W // cols) * -(-bn // rows)
+    (row_off, col_off) of an (N, N) field (:func:`stats_tile`)."""
+    vec, _, blocks = stats_tile(bn, W, N, row_off, col_off, itemsize,
+                                *addresses)
+    return vec, blocks
 
 
 def stats_grid(N: int, itemsize: int, *addresses: int, fold: bool = False):
-    """(V, blocks) of K3: the whole (N, N) field as one block; in the
-    fold mode the vector also needs N/2 divisible by V (a thread's
-    columns lie on one side of the fold)."""
-    vec, blocks = local_stats_grid(N, N, N, 0, 0, itemsize, *addresses)
-    if fold and (N // 2) % vec:
-        return 1, _stats_blocks(N, N, 1)
+    """(V, blocks) of K3: the whole (N, N) field as one block
+    (:func:`stats_tile`, ``fold`` its fold mode)."""
+    vec, _, blocks = stats_tile(N, N, N, 0, 0, itemsize, *addresses,
+                                fold=fold)
     return vec, blocks
 
 
@@ -419,15 +482,25 @@ def stats_sums(U, EnergieEut: Optional[torch.Tensor], A0, A1, *,
     if EnergieEut is not None and EnergieEut.shape != U.shape:
         raise ValueError("EnergieEut and U differ in shape")
     N = U.shape[0]
-    vec, nblocks = stats_grid(N, U.element_size(),
-                              *(t.data_ptr() for t in ops), fold=fold)
+    tile = stats_tile(N, N, N, 0, 0, U.element_size(),
+                      *(t.data_ptr() for t in ops), fold=fold)
+    return _stats_sums_launch(U, EnergieEut, A0, A1, tile, delx=delx, RT=RT,
+                              B=B, threshold=threshold, fold=fold)
+
+
+def _stats_sums_launch(U, EnergieEut, A0, A1, tile, *, delx, RT, B,
+                       threshold, fold=False):
+    """K3's launch with ``tile`` (V, band, blocks): :func:`stats_tile`'s
+    from :func:`stats_sums`, or :func:`fixed_stats_tile`'s to time it."""
+    N = U.shape[0]
+    vec, band, nblocks = tile
     partials = torch.empty((nblocks, 5), dtype=torch.float64,
                            device=U.device)
     sums = torch.empty((5,), dtype=torch.float64, device=U.device)
     _call('ch_stats', U.dtype, U.data_ptr(),
           None if EnergieEut is None else EnergieEut.data_ptr(), N,
           float(delx), float(RT), float(B), float(A0), float(A1),
-          float(threshold), partials.data_ptr(), nblocks, vec,
+          float(threshold), partials.data_ptr(), nblocks, vec, band,
           _ticket(U.device).data_ptr(), sums.data_ptr(), int(fold),
           _stream())
     launches['stats_sums'] += 1
@@ -540,16 +613,64 @@ def _slice_planes_launch(x, inv, n_slices: int):
     return out
 
 
+def slice_one_launch(R: int, n: int) -> bool:
+    """Whether K5 on R fields of n elements takes its one-launch path
+    (``slice_one_launch_kernel``: max, grid barrier, slices): where the
+    fields, R * n * 8 bytes, fit in SLICE_ONE_LAUNCH_BYTES, so that its
+    second read of them comes from L2.  A function of the shape alone:
+    the canonical R=16 N=512 batch (32 MiB), the single N=512 to 2048
+    fields and R <= 24 at N=512 take it, R=4 N=4096 keeps the two
+    launches."""
+    return R * n * 8 <= SLICE_ONE_LAUNCH_BYTES
+
+
+def _slice_scratch(device: torch.device, R: int) -> torch.Tensor:
+    """The one-launch path's scratch on ``device`` for the current
+    stream: the barrier's counters and R maxima, 0 between calls (the
+    kernel's last block resets them)."""
+    key = (device.index, _stream())
+    t = _SLICE_SCRATCH.get(key)
+    if t is None or t.numel() < R + 1:
+        t = _SLICE_SCRATCH[key] = torch.zeros(R + 1, dtype=torch.int64,
+                                              device=device)
+    return t
+
+
+def _slice_one_launch(x, R: int, n_slices: int):
+    """K5's one-launch path on R fields of x: (planes (n_slices, *x.shape),
+    scales (R,) float64)."""
+    scale = torch.empty((R,), dtype=torch.float64, device=x.device)
+    inv = torch.empty((R,), dtype=torch.float32, device=x.device)
+    out = torch.empty((n_slices,) + tuple(x.shape), dtype=torch.int8,
+                      device=x.device)
+    _call('ch_slice_one_launch', x.dtype, x.data_ptr(), x.numel() // R, R,
+          _slice_scratch(x.device, R).data_ptr(), scale.data_ptr(),
+          inv.data_ptr(), out.data_ptr(), n_slices, _stream())
+    return out, scale
+
+
 def slice_field(x, n_slices: int = MAX_SLICES):
-    """On the card: the scale and the planes by two kernel launches, with
-    no torch arithmetic between them (one count a call)."""
+    """On the card: the scale and the planes by one launch where the
+    field fits in L2 (:func:`slice_one_launch`), else by two kernel
+    launches, with no torch arithmetic between them (one count a
+    call; ``one_launch`` counts the first kind)."""
     _slice_args(x, n_slices, 2)
     if not _on_card(x):
         return slice_field_ref(x, n_slices)
-    scale, inv = _slice_scale_launch(x)
-    out = _slice_planes_launch(x, inv, n_slices)
+    if slice_one_launch(1, x.numel()):
+        out, scale = _slice_one_launch(x, 1, n_slices)
+        scale = scale.reshape(())
+        one_launch['slice_field'] += 1
+    else:
+        out, scale = _slice_two_launches(x, n_slices)
     launches['slice_field'] += 1
     return out, scale
+
+
+def _slice_two_launches(x, n_slices: int):
+    """K5's max and slice passes on one field: (planes, scale)."""
+    scale, inv = _slice_scale_launch(x)
+    return _slice_planes_launch(x, inv, n_slices), scale
 
 
 def _slice_args(x, n_slices: int, dim: int) -> None:
@@ -574,15 +695,31 @@ def slice_field_members_ref(x, n_slices: int = MAX_SLICES, amax=None):
 
 
 def slice_field_members(x, n_slices: int = MAX_SLICES):
-    """K5 on every member of an (R, rows, cols) float64 stack: one max
-    pass for all members (a ticket, a scale and a float32 inverse each,
-    kept on the card) and one slice pass (``slice_scale_kernel`` and
-    ``slice_kernel`` with member r on grid row r); one count a call.
+    """K5 on every member of an (R, rows, cols) float64 stack: where the
+    stack fits in L2 (:func:`slice_one_launch`), one launch for all
+    members; else one max pass for all members (a ticket, a scale and a
+    float32 inverse each, kept on the card) and one slice pass
+    (``slice_scale_kernel`` and ``slice_kernel`` with member r on grid
+    row r); one count a call (``one_launch`` counts the first kind).
     Member r's planes and scale are the single launch's on x[r], to the
     bit."""
     _slice_args(x, n_slices, 3)
     if not _on_card(x):
         return slice_field_members_ref(x, n_slices)
+    R = x.shape[0]
+    n = x[0].numel()
+    if slice_one_launch(R, n):
+        out, scale = _slice_one_launch(x, R, n_slices)
+        one_launch['slice_field_members'] += 1
+    else:
+        out, scale = _slice_members_two_launches(x, n_slices)
+    launches['slice_field_members'] += 1
+    return out, scale
+
+
+def _slice_members_two_launches(x, n_slices: int):
+    """K5_members' max pass for all members and its slice pass: (planes,
+    scales)."""
     R = x.shape[0]
     n = x[0].numel()
     scale = torch.empty((R,), dtype=torch.float64, device=x.device)
@@ -593,9 +730,7 @@ def slice_field_members(x, n_slices: int = MAX_SLICES):
           partials.data_ptr(), SLICE_MAX_BLOCKS,
           _ticket(x.device, R).data_ptr(), scale.data_ptr(), inv.data_ptr(),
           _stream())
-    out = _slice_members_planes_launch(x, inv, n_slices)
-    launches['slice_field_members'] += 1
-    return out, scale
+    return _slice_members_planes_launch(x, inv, n_slices), scale
 
 
 # ----------------------------------------------------------------------
@@ -937,7 +1072,7 @@ def local_band_sums(Ub, up_row, dn_row, lf_col, rt_col,
                                    A0, A1, row_off, col_off, N=N, delx=delx,
                                    RT=RT, B=B, threshold=threshold)
     rows = (Ub, up_row, dn_row) + (() if Eb is None else (Eb,))
-    vec, nblocks = local_stats_grid(bn, W, N, row_off, col_off,
+    vec, band, nblocks = stats_tile(bn, W, N, row_off, col_off,
                                     Ub.element_size(),
                                     *(t.data_ptr() for t in rows))
     partials = torch.empty((nblocks, 5), dtype=torch.float64,
@@ -948,7 +1083,7 @@ def local_band_sums(Ub, up_row, dn_row, lf_col, rt_col,
           None if Eb is None else Eb.data_ptr(), bn, W, N, int(row_off),
           int(col_off), float(delx), float(RT), float(B), float(A0),
           float(A1), float(threshold), partials.data_ptr(), nblocks, vec,
-          _ticket(Ub.device).data_ptr(), sums.data_ptr(), _stream())
+          band, _ticket(Ub.device).data_ptr(), sums.data_ptr(), _stream())
     launches['local_band_sums'] += 1
     return sums
 
@@ -1069,9 +1204,19 @@ def local_band_sums_members(Ub, up_row, dn_row, lf_col, rt_col,
             Ub, up_row, dn_row, lf_col, rt_col, Eb, A0s, A1s, row_off,
             col_off, N=N, delx=delx, RT=RT, B=B, threshold=threshold)
     rows = (Ub, up_row, dn_row) + (() if Eb is None else (Eb,))
-    vec, nblocks = local_stats_grid(bn, W, N, row_off, col_off,
-                                    Ub.element_size(),
-                                    *(t.data_ptr() for t in rows))
+    tile = stats_tile(bn, W, N, row_off, col_off, Ub.element_size(),
+                      *(t.data_ptr() for t in rows))
+    return _local_band_sums_members_launch(
+        Ub, up_row, dn_row, lf_col, rt_col, Eb, A0s, A1s, row_off, col_off,
+        tile, N=N, delx=delx, RT=RT, B=B, threshold=threshold)
+
+
+def _local_band_sums_members_launch(Ub, up_row, dn_row, lf_col, rt_col, Eb,
+                                    A0s, A1s, row_off, col_off, tile, *, N,
+                                    delx, RT, B, threshold):
+    """K7_members' launch with ``tile`` (as :func:`_stats_sums_launch`)."""
+    R, bn, W = Ub.shape
+    vec, band, nblocks = tile
     partials = torch.empty((R * nblocks, 5), dtype=torch.float64,
                            device=Ub.device)
     sums = torch.empty((R, 5), dtype=torch.float64, device=Ub.device)
@@ -1080,7 +1225,7 @@ def local_band_sums_members(Ub, up_row, dn_row, lf_col, rt_col,
           rt_col.data_ptr(), None if Eb is None else Eb.data_ptr(), bn, W, N,
           R, int(row_off), int(col_off), float(delx), float(RT), float(B),
           A0s.data_ptr(), A1s.data_ptr(), float(threshold),
-          partials.data_ptr(), nblocks, vec,
+          partials.data_ptr(), nblocks, vec, band,
           _ticket(Ub.device, R).data_ptr(), sums.data_ptr(), _stream())
     launches['local_band_sums_members'] += 1
     return sums
@@ -1473,15 +1618,25 @@ def stats_sums_members(U, EnergieEut: Optional[torch.Tensor], A0s, A1s, *,
                                       RT=RT, B=B, threshold=threshold,
                                       fold=fold)
     N = U.shape[1]
-    vec, nblocks = stats_grid(N, U.element_size(),
-                              *(t.data_ptr() for t in ops), fold=fold)
+    tile = stats_tile(N, N, N, 0, 0, U.element_size(),
+                      *(t.data_ptr() for t in ops), fold=fold)
+    return _stats_sums_members_launch(U, EnergieEut, A0s, A1s, tile,
+                                      delx=delx, RT=RT, B=B,
+                                      threshold=threshold, fold=fold)
+
+
+def _stats_sums_members_launch(U, EnergieEut, A0s, A1s, tile, *, delx, RT,
+                               B, threshold, fold=False):
+    """K3_members' launch with ``tile`` (as :func:`_stats_sums_launch`)."""
+    R, N = U.shape[0], U.shape[1]
+    vec, band, nblocks = tile
     partials = torch.empty((R * nblocks, 5), dtype=torch.float64,
                            device=U.device)
     sums = torch.empty((R, 5), dtype=torch.float64, device=U.device)
     _call('ch_stats_members', U.dtype, U.data_ptr(),
           None if EnergieEut is None else EnergieEut.data_ptr(), N, R,
           float(delx), float(RT), float(B), A0s.data_ptr(), A1s.data_ptr(),
-          float(threshold), partials.data_ptr(), nblocks, vec,
+          float(threshold), partials.data_ptr(), nblocks, vec, band,
           _ticket(U.device, R).data_ptr(), sums.data_ptr(), int(fold),
           _stream())
     launches['stats_sums_members'] += 1

@@ -712,6 +712,82 @@ def test_slice_members_kernel_gives_single_launch_bits(card, N, R):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_stats_members_at_the_canonical_batch_give_single_launch_bits(
+        card, dtype):
+    """K3_members at R=16 N=512 (the canonical UQ batch) on the refined
+    tile: member r = the single K3 on field r to the bit, the plain
+    version's tolerances, the same bits in repeated calls; K7 on the
+    whole field = K3."""
+    N, R = 512, 16
+    p = PHYS
+    U, A0s, A1s = _members(N, R, dtype, card, seed=16)
+    E = K.chemical_potential_members(U, p['RT'], p['BRT'], A0s, A1s)
+    kw = dict(delx=p['delx'], RT=p['RT'], B=p['B'],
+              threshold=p['threshold'])
+    tile = K.stats_tile(N, N, N, 0, 0, U.element_size(), U.data_ptr(),
+                        E.data_ptr())
+    fixed = K.fixed_stats_tile(N, N, U.element_size(), U.data_ptr(),
+                               E.data_ptr())
+    assert tile[2] > fixed[2]
+    assert tile[2] >= K.STATS_MIN_BLOCKS or tile[1] == K.STATS_MIN_BAND
+    K.reset_launches()
+    sums = K.stats_sums_members(U, E, A0s, A1s, **kw)
+    assert K.launches['stats_sums_members'] == 1
+    for _ in range(5):
+        assert torch.equal(K.stats_sums_members(U, E, A0s, A1s, **kw), sums)
+    for r in range(R):
+        a0, a1 = A0s[r].item(), A1s[r].item()
+        single = K.stats_sums(U[r].clone(), E[r].clone(), a0, a1, **kw)
+        assert torch.equal(sums[r], single), r
+        k7 = K.local_band_sums(U[r].clone(), *_halo(U[r], 0, 0, N, N),
+                               E[r].clone(), a0, a1, 0, 0, N=N, **kw)
+        assert torch.equal(k7, single), r
+    ref = K.stats_sums_members_ref(U, E, A0s, A1s, **kw)
+    assert torch.equal(sums[:, 3], ref[:, 3])
+    torch.testing.assert_close(sums, ref, rtol=_tol(dtype), atol=0)
+
+
+def _bits(t):
+    return t.reshape(-1).view(torch.int64)
+
+
+@pytest.mark.parametrize('kind', ['solver', 'nan', 'ulp'])
+@pytest.mark.parametrize('N,R', [(512, 16), (512, 1), (33, 3), (1000, 2)])
+def test_slice_one_launch_path_gives_the_plain_bits(card, N, R, kind):
+    """K5_members' one-launch path (and K5's at R=1): planes and scales
+    = the plain version's and the two launches', to the bit (a NaN
+    member's NaN scale too), member r = the single K5; one count a call,
+    taken by the one-launch path; the same bits again (the scratch is
+    back to 0)."""
+    assert K.slice_one_launch(R, N * N)
+    U = _members(N, R, torch.float64, card, seed=N + R)[0]
+    if R > 1:
+        U[1] *= 1e-3
+    if kind == 'nan':
+        U[0, N // 2, N // 3] = float('nan')
+    elif kind == 'ulp':
+        U[-1, N // 3, N // 2] = -np.nextafter(2.0 ** 8, np.inf)
+    for n in (4, 6):
+        K.reset_launches()
+        got, scale = K.slice_field_members(U, n)
+        assert K.launches['slice_field_members'] == 1
+        assert K.one_launch['slice_field_members'] == 1
+        want, wscale = K.slice_field_members_ref(U, n)
+        two, tscale = K._slice_members_two_launches(U, n)
+        assert torch.equal(got, want) and torch.equal(got, two)
+        assert torch.equal(_bits(scale), _bits(wscale))
+        assert torch.equal(_bits(scale), _bits(tscale))
+        for r in range(R):
+            s, sc = K.slice_field(U[r].clone(), n)
+            assert torch.equal(got[:, r], s)
+            assert torch.equal(_bits(scale[r]), _bits(sc))
+        again, ascale = K.slice_field_members(U, n)
+        assert torch.equal(again, got)
+        assert torch.equal(_bits(ascale), _bits(scale))
+    assert K.one_launch['slice_field'] == R
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('N,R,bn,bw', [(64, 3, 32, 32), (1000, 2, 500, 250),
                                        (66, 3, 33, 22)])
 def test_local_members_kernel_gives_single_launch_bits(card, dtype, N, R,

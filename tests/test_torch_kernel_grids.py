@@ -46,18 +46,20 @@ def interpret_mode():
     (2048, 2048, 4096, (2048, 0), 8, 0, (2, 4 * 64)),
     (4096, 1024, 4096, (0, 3072), 4, 0, (4, 1 * 256)),   # 1x4
     (1024, 4096, 4096, (1024, 0), 8, 0, (2, 8 * 32)),    # 4x1
-    (256, 256, 512, (256, 256), 4, 0, (4, 1 * 16)),
-    (64, 33, 97, (0, 64), 4, 0, (1, 1 * 1)),             # odd W: V=1
-    (64, 33, 97, (0, 64), 8, 0, (1, 1 * 1)),
-    (10, 6, 12, (2, 6), 4, 0, (1, 1)),                   # 6 % 4 != 0
-    (10, 6, 12, (2, 6), 8, 0, (2, 1)),                   # 6 % 2 == 0
+    (256, 256, 512, (256, 256), 4, 0, (1, 1 * 64)),      # refined: 4-row bands
+    (64, 33, 97, (0, 64), 4, 0, (1, 1 * 16)),            # odd W: V=1
+    (64, 33, 97, (0, 64), 8, 0, (1, 1 * 16)),
+    (10, 6, 12, (2, 6), 4, 0, (1, 3)),                   # 6 % 4 != 0
+    (10, 6, 12, (2, 6), 8, 0, (1, 3)),                   # V=1 spans W
     (2048, 2048, 4096, (0, 0), 4, 8, (1, 8 * 32)),       # unaligned halo row
     (2048, 2048, 4096, (0, 0), 8, 8, (1, 8 * 32)),
 ])
 def test_local_stats_grid_choices(bn, W, N, off, itemsize, addr, want):
     """V = 16 / itemsize where W and every address allow it, else 1; the
     blocks cover W in STATS_THREADS * V columns and bn in
-    STATS_ROWS_X_VEC / V rows."""
+    STATS_ROWS_X_VEC / V rows where that gives STATS_MIN_BLOCKS blocks;
+    below it the vector narrows while a narrower block still spans W and
+    the band halves down to STATS_MIN_BAND rows."""
     aligned = 1 << 20
     got = K.local_stats_grid(bn, W, N, *off, itemsize, aligned,
                              aligned + addr, aligned + 16 * W)

@@ -193,11 +193,11 @@ def test_wrappers_refuse_other_devices_and_mixed_inputs():
 @pytest.mark.parametrize('N,itemsize,addr,want', [
     (4096, 4, 0, (4, 4 * 256)),        # float4 columns, 16-row bands
     (4096, 8, 0, (2, 8 * 128)),        # double2 columns, 32-row bands
-    (1000, 4, 256, (4, 1 * 63)),
-    (1001, 4, 0, (1, 4 * 16)),         # no vector width divides 1001
-    (1001, 8, 0, (1, 4 * 16)),
+    (1000, 4, 256, (4, 1 * 250)),      # refined: 4-row bands
+    (1001, 4, 0, (1, 4 * 126)),        # no vector width divides 1001
+    (1001, 8, 0, (1, 4 * 126)),        # (refined: 8-row bands)
     (4096, 4, 4, (1, 16 * 64)),        # a field 4 B past a 16-B boundary
-    (2, 8, 0, (2, 1)),
+    (2, 8, 0, (1, 1)),                 # refined: one column spans N=2
 ])
 def test_stats_grid_depends_on_the_shape_alone(N, itemsize, addr, want):
     """K3's (vector width, blocks): fixed by N, the element size and the
