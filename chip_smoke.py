@@ -270,16 +270,17 @@ Phases (each raises on failure, so the script exits nonzero):
    writing the tables, each process the runs it owns; wall seconds;
    (e) phase 8 (c)'s checkpoint (the canonical run on a 2x2 world
    saving every 800 steps in chunks of 200: the file at step 1601, which
-   that run re-enters) restored on a new 2x2 world: stop 1674, phase 8
-   (c)'s rows to the bit, E within 1e-10 of phase 4's run.
+   that run re-enters) restored on (c)'s world, a new 2x2 world: stop
+   1674, phase 8 (c)'s rows to the bit, E within 1e-10 of phase 4's run.
 15. the pencil layout (``--transform split`` and ``ozaki`` under
    ``--mesh``: the field in column blocks, the spectral image in row
    blocks, one transpose all-to-all per 2-D transform), in one world of 4
    gloo ranks sharing the card (collectives staged through host memory:
    no scaling figure):
    (a) K5 sharded (``slice_field_sharded``, ``slice_field_members_sharded``:
-   the max pass's max-only mode, a world max of its bits, the scale by
-   ``slice_finish_kernel``, the slice pass) on the column and row blocks of
+   the max pass's max-only mode, a world max of its bits, the slice pass's
+   sharded mode, which forms the scale from it) on the column and row
+   blocks of
    N=4096 and N=1000 float64 fields, the max in one block only and one ulp
    above 2^8 in one block only, and on members' blocks: every rank's
    planes are K5's on the whole field restricted to its block and its
@@ -327,7 +328,8 @@ Phases (each raises on failure, so the script exits nonzero):
    E within 1e-10 of one device's ozaki run with the same pairs;
    (j) K5 sharded on every block of the 2x2 grid at N=4094 and N=1002 =
    K5 on the whole field restricted to the block, to the bit, and timed
-   on a block (the JSON line's row);
+   on a block (the JSON line's row), each launch alone, the forward's
+   column strip at a given max;
    (k) ``benchmarks/scaling.py`` on the world, ``--axis grid`` and
    ``ens`` at N=1024 float32 over 64 steps: its JSON line and keys;
    (l) ``benchmarks/rank_profile.py``: rank 0's ``torch.profiler`` trace
@@ -347,7 +349,8 @@ Phases (each raises on failure, so the script exits nonzero):
    field's block; K3's fold mode on the folded field against its plain
    version (K3's tolerances, the count exact) and against K3 on the
    natural field (the same bits where the fold keeps K3's vector width),
-   single and R=4 members, at N = 4096, 1000, 1002, 512; K6 on every
+   single and R=4 members, at N = 4096, 1000, 1002, 512, timed at N=4096
+   in turns with K3 on the natural field; K6 on every
    product shape of a solve at 'high' (N=4096 matmul, split levels 4,
    folded levels 5; R=4 N=512 ensembles), held as in 7 (a), a member
    stack member by member against K6 on the member; each timed at N=4096
@@ -416,6 +419,9 @@ import statistics
 import subprocess
 import sys
 import time
+
+from chsimpy_tpu_torch.benchmarks.roofline import (
+    INT32_CLOCK_HZ, OPS_PER_ELEM, bound_fields, slice_bound)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KAPPA = 0.00029891134208698706   # derived kappa_tilde of the default run
@@ -1677,41 +1683,9 @@ def routes_phase(dev, card, E64):
     return out
 
 
-# ----------------------------------------------------------------------
-# the least time the card could take for a kernel's work (bound_ms): the
-# larger of its bytes (each input read once, each output written once)
-# over the memory rate and its operations over the peak rate of their type
-# (NVIDIA H100 SXM data sheet, 700 W; float64 outside the tensor cores)
-# ----------------------------------------------------------------------
-
-HBM_BYTES_PER_S = 3.35e12
-# float32 and float64 outside the tensor cores; TF32 on them (dense);
-# 32-bit integer operations: 132 SMs x 64 lanes x 1.98 GHz (the H100
-# SXM's top SM clock)
-INT32_CLOCK_HZ = 1.98e9
-PEAK_OPS_PER_S = {'float32': 67e12, 'float64': 34e12, 'tf32': 495e12,
-                  'int32': 132 * 64 * INT32_CLOCK_HZ}
+# the least time the card could take for a kernel's work (bound_ms):
+# chsimpy_tpu_torch/benchmarks/roofline.py (imported at the top)
 TF32_PASSES = 3     # the GEMM's float32-class product: 3xTF32
-# operations per element, counting each arithmetic operation, comparison
-# and log as one
-OPS_PER_ELEM = {'chemical_potential': 13, 'spectral_update': 3,
-                # K12: leig, its square, CHeig, Seig, the update (5), and
-                # each thread's lam1, lam2 (2 divisions, a product)
-                'update_otf': 11,
-                'stats': 27, 'absdev_sum': 3, 'slice_setup': 6,
-                'slice_per_plane': 6, 'sobol_jitter': 6,
-                # 32-bit integer operations: threefry2x32's 20 rounds of
-                # add, rotate, xor and its 6 key injections, the counter
-                # and the float bits
-                'threefry_jitter': 80}
-
-
-def bound_fields(nbytes, ops, dtype):
-    """``ops`` at the peak rate of ``dtype`` (a PEAK_OPS_PER_S key)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
-    return {'bound_ms': max(t_bytes, t_ops),
-            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
 
 
 def mu_bytes_ops(U):
@@ -4491,13 +4465,13 @@ def ens_world_phase(card, work):
 
 def grid_ens_phase(card, work, E_single):
     """(c) grid ensembles and (e) the single run's checkpoint under
-    --mesh, on two (1, 2, 2) worlds of 4 ranks: R=4 N=512 float64 over
+    --mesh, on one (1, 2, 2) world of 4 ranks: R=4 N=512 float64 over
     256 steps (E within 1e-10 of one device's batch, the rows the same on
     every rank; K7_members on every step: the JSON line's count) and R=4
     N=4096 float32 full_sim over 32 steps (E within 1e-6 of one device's
     batch, mean(U) within 1e-6 of its start, ms per step iteration and
     each rank's peak memory); phase 8 (c)'s checkpoint (MESH_CKPT_STEP)
-    restored on the second world: the stop 1674 and phase 8 (c)'s rows
+    restored on that world: the stop 1674 and phase 8 (c)'s rows
     (that run re-entered at the same step) to the bit, E within 1e-10 of
     phase 4's run."""
     import numpy as np
@@ -4523,21 +4497,21 @@ def grid_ens_phase(card, work, E_single):
     torch.cuda.empty_cache()
 
     ck = KEPT['mesh_run']['ckpt']
-    first, s1 = _world((1, 2, 2), [
-        ('ensemble', {'params': p512, 'pairs': pairs, 'kappas': kappas,
-                      'steps': steps, 'return_U': False}),
-        ('imported', {})])
-    _no_jax('phase 14 (c)', first, 1)
     params, payload = checkpoint.load_checkpoint(ck, device='cuda')
     saved_at = payload['header']['computed_steps']
-    second, s2 = _world((1, 2, 2), [
+    # (c) and (e) in one world (a world's start costs ~10 s)
+    world, seconds = _world((1, 2, 2), [
+        ('ensemble', {'params': p512, 'pairs': pairs, 'kappas': kappas,
+                      'steps': steps, 'return_U': False}),
         ('solve', {'params': {'restore_file': ck, 'ntmax': int(1e6)},
                    'return_U': False}),
         ('ensemble', {'params': pbig, 'pairs': pairs, 'kappas': kappas,
-                      'steps': steps_b, 'return_U': False})])
+                      'steps': steps_b, 'return_U': False}),
+        ('imported', {})])
+    _no_jax('phase 14 (c)', world, 3)
 
     # (c) N=512
-    g512 = [r[0] for r in first]
+    g512 = [r[0] for r in world]
     same512 = all(all(np.array_equal(a, b) for a, b in
                       zip(g['timedata'], g512[0]['timedata']))
                   for g in g512)
@@ -4553,7 +4527,7 @@ def grid_ens_phase(card, work, E_single):
               and g['launches']['local_band_sums'] == 0,
               f"phase 14 (c) N={N}: launches {g['launches']}")
     # (c) N=4096
-    gbig = [r[1] for r in second]
+    gbig = [r[2] for r in world]
     samebig = all(all(np.array_equal(a, b) for a, b in
                       zip(g['timedata'], gbig[0]['timedata']))
                   for g in gbig)
@@ -4563,7 +4537,7 @@ def grid_ens_phase(card, work, E_single):
     ms_step = [g['seconds'] / (steps_b - 1) * 1e3 for g in gbig]
     peak_gb = [g['peak_bytes'] / 1e9 for g in gbig]
     # (e)
-    restored = [r[0] for r in second]
+    restored = [r[1] for r in world]
     same_ranks = all(np.array_equal(r['timedata'], restored[0]['timedata'])
                      for r in restored)
     rows_equal = np.array_equal(restored[0]['timedata'],
@@ -4591,7 +4565,7 @@ def grid_ens_phase(card, work, E_single):
                           'rows_equal_phase8_run': rows_equal,
                           'rows_same_on_every_rank': same_ranks,
                           'E_max_rel_vs_phase4': rel_single},
-           'world_seconds': [s1, s2], 'launches': lc}
+           'world_seconds': seconds, 'launches': lc}
     print(f"phase 14 (c) R={R} N={N} float64 {steps} steps on "
           f"{g512[0]['mesh']}: E vs one device {rel512:.3e}, rows the same "
           f"on every rank {same512}; R={Rb} N={Nb} float32 {steps_b} "
@@ -4605,7 +4579,8 @@ def grid_ens_phase(card, work, E_single):
           f"on a new world: stop {restored[0]['computed_steps']} "
           f"({restored[0]['stop_reason']}), rows = phase 8 (c)'s "
           f"{rows_equal}, the same on every rank {same_ranks}, E vs phase "
-          f"4 {rel_single:.3e}; worlds {s1:.1f} + {s2:.1f} s  ({card})",
+          f"4 {rel_single:.3e}; world (with (c)) {seconds:.1f} s  "
+          f"({card})",
           flush=True)
     check(same512 and rel512 <= 1e-10,
           f"phase 14 (c) N={N}: E {rel512:.3e}, ranks same {same512}")
@@ -4773,6 +4748,45 @@ class _OneRank:
     size = 1
 
 
+def sharded_slice_launch_ms(K, b, R, n):
+    """Device time of each launch of K5 sharded on R blocks b alone: the
+    max pass (max-only mode) and the slice pass (sharded mode)."""
+    import torch
+    world = K._slice_max_launch(b, R).view(torch.float64)
+    return {'max pass (max-only mode)': device_ms(
+                lambda: K._slice_max_launch(b, R)),
+            'slice pass (sharded mode)': device_ms(
+                lambda: K._slice_sharded_planes_launch(b, world, R, n))}
+
+
+def sharded_slice_row(K, b, members, n, plain, **info):
+    """K5 sharded on ``members`` blocks b (a one-rank grid: its world max
+    left out): the call, each launch alone, the plain version, the
+    bound."""
+    one = _OneRank()
+    if members > 1:
+        def call():
+            return K.slice_field_members_sharded(b, one, n)
+    else:
+        def call():
+            return K.slice_field_sharded(b, one, n)
+    got, sc = call()
+    row = {**info, 'n_slices': n, 'block': '%dx%d' % tuple(b.shape[-2:]),
+           **timed_row(call, plain),
+           'launch_ms': sharded_slice_launch_ms(K, b, members, n),
+           'library_ms': None, **slice_bound(b.numel(), n)}
+    row['bound_share'] = row['bound_ms'] / row['ms']
+    return row, got, sc
+
+
+def sharded_slice_text(r):
+    """The printed times of a sharded_slice_row."""
+    launches = ', '.join(f"{k} {v:.4f}" for k, v in r['launch_ms'].items())
+    return (f"{r['ms']:.4f} ms (one call {r['call_ms']:.4f}; {launches}) "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_share']:.0%})")
+
+
 def pencil_slice_timing(dev, card):
     """(a) K5 sharded timed on a rank's column block (4096, 1024) of an
     N=4096 float64 field, and on R=4 members' (512, 128) blocks: the call
@@ -4790,31 +4804,14 @@ def pencil_slice_timing(dev, card):
     x = torch.tensor(0.01 * (rng.random((N, N)) - 0.5), device=dev)
     b = x[:, :N // PENCIL_D].contiguous()
     amax = torch.abs(x).amax()
-    bits = K._slice_max_launch(b, 1)
-    _, inv = K._slice_finish_launch(bits)
-    row = {'name': 'slice_field_sharded', 'N': N, 'n_slices': n,
-           'block': '%dx%d' % tuple(b.shape),
-           **timed_row(lambda: K.slice_field_sharded(b, one, n),
-                       lambda: K.slice_field_ref(b, n, amax)),
-           'launch_ms': {
-               'max pass (max-only mode)': device_ms(
-                   lambda: K._slice_max_launch(b, 1)),
-               'slice_finish_kernel': device_ms(
-                   lambda: K._slice_finish_launch(bits)),
-               'slice_kernel': device_ms(
-                   lambda: K._slice_planes_launch(b, inv, n))},
-           'whole_field_K5_ms': device_ms(lambda: K.slice_field(x, n)),
-           'library_ms': None,
-           **bound_fields(b.numel() * (8 + n),
-                          (OPS_PER_ELEM['slice_setup']
-                           + OPS_PER_ELEM['slice_per_plane'] * n)
-                          * b.numel(), 'float64')}
-    got, sc = K.slice_field_sharded(b, one, n)
+    row, got, sc = sharded_slice_row(
+        K, b, 1, n, lambda: K.slice_field_ref(b, n, amax),
+        name='slice_field_sharded', N=N)
+    row['whole_field_K5_ms'] = device_ms(lambda: K.slice_field(x, n))
     want, wsc = K.slice_field_ref(b, n)
     torch.cuda.synchronize()
     row['max_abs_err'] = (got.int() - want.int()).abs().max().item()
     row['four_blocks_ms'] = PENCIL_D * row['ms']
-    row['bound_share'] = row['bound_ms'] / row['ms']
     check(row['max_abs_err'] == 0 and sc.item() == wsc.item(),
           f"K5 sharded on a one-rank grid: planes {row['max_abs_err']}, "
           f"scale {sc.item()} vs {wsc.item()}")
@@ -4823,35 +4820,22 @@ def pencil_slice_timing(dev, card):
     xm = torch.tensor(rng.standard_normal((R, Nm, Nm)), device=dev)
     bm = xm[..., :Nm // PENCIL_D].contiguous()
     am = torch.abs(xm).amax(dim=(1, 2))
-    got, sc = K.slice_field_members_sharded(bm, one, n)
+    row, got, sc = sharded_slice_row(
+        K, bm, R, n, lambda: K.slice_field_members_ref(bm, n, am),
+        name='slice_field_members_sharded', R=R, N=Nm)
     want, wsc = K.slice_field_members_ref(bm, n)
     torch.cuda.synchronize()
-    row = {'name': 'slice_field_members_sharded', 'R': R, 'N': Nm,
-           'n_slices': n, 'block': '%dx%d' % tuple(bm.shape[1:]),
-           'max_abs_err': (got.int() - want.int()).abs().max().item(),
-           **timed_row(lambda: K.slice_field_members_sharded(bm, one, n),
-                       lambda: K.slice_field_members_ref(bm, n, am)),
-           'single_launches_ms': device_ms(lambda: [
-               K.slice_field_sharded(bm[r], one, n) for r in range(R)]),
-           'library_ms': None,
-           **bound_fields(bm.numel() * (8 + n),
-                          (OPS_PER_ELEM['slice_setup']
-                           + OPS_PER_ELEM['slice_per_plane'] * n)
-                          * bm.numel(), 'float64')}
-    row['bound_share'] = row['bound_ms'] / row['ms']
+    row['max_abs_err'] = (got.int() - want.int()).abs().max().item()
+    row['single_launches_ms'] = device_ms(lambda: [
+        K.slice_field_sharded(bm[r], one, n) for r in range(R)])
     check(row['max_abs_err'] == 0 and torch.equal(sc, wsc),
           f"K5_members sharded on a one-rank grid: planes "
           f"{row['max_abs_err']}")
     rows.append(row)
     for r in rows:
-        launches = ', '.join(f"{k} {v:.4f}"
-                             for k, v in r.get('launch_ms', {}).items())
         print(f"kernel {r['name']} {r.get('R', 1)} x {r['block']} block(s) "
               f"of {r['N']}x{r['N']} float64, {r['n_slices']} slices: "
-              f"{r['ms']:.4f} ms (one call {r['call_ms']:.4f}"
-              + (f"; {launches}" if launches else '') + ") plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_share']:.0%})"
+              + sharded_slice_text(r)
               + (f"; 4 block calls {r['four_blocks_ms']:.4f} ms beside one "
                  f"whole-field K5 {r['whole_field_K5_ms']:.4f}"
                  if 'four_blocks_ms' in r else
@@ -5073,47 +5057,27 @@ def grid_slice_timing(dev, card):
         b = x[h:, :h].contiguous()
         strip = x[:, :h].contiguous()
         amax = torch.abs(x).amax()
-        bits = K._slice_max_launch(b, 1)
-        _, inv = K._slice_finish_launch(bits)
-        row = {'name': 'slice_field_sharded', 'N': N, 'n_slices': n,
-               'block': '%dx%d' % tuple(b.shape), 'layout': 'grid 2x2',
-               **timed_row(lambda: K.slice_field_sharded(b, one, n),
-                           lambda: K.slice_field_ref(b, n, amax)),
-               'strip_ms': device_ms(lambda: K.slice_field_sharded(
-                   strip, one, n, amax=amax)),
-               'launch_ms': {
-                   'max pass (max-only mode)': device_ms(
-                       lambda: K._slice_max_launch(b, 1)),
-                   'slice_finish_kernel': device_ms(
-                       lambda: K._slice_finish_launch(bits)),
-                   'slice_kernel': device_ms(
-                       lambda: K._slice_planes_launch(b, inv, n))},
-               'whole_field_K5_ms': device_ms(lambda: K.slice_field(x, n)),
-               'library_ms': None,
-               **bound_fields(b.numel() * (8 + n),
-                              (OPS_PER_ELEM['slice_setup']
-                               + OPS_PER_ELEM['slice_per_plane'] * n)
-                              * b.numel(), 'float64')}
-        got, sc = K.slice_field_sharded(b, one, n)
+        row, got, sc = sharded_slice_row(
+            K, b, 1, n, lambda: K.slice_field_ref(b, n, amax),
+            name='slice_field_sharded', N=N, layout='grid 2x2')
+        row['strip_ms'] = device_ms(lambda: K.slice_field_sharded(
+            strip, one, n, amax=amax))
+        row['whole_field_K5_ms'] = device_ms(lambda: K.slice_field(x, n))
         want, wsc = K.slice_field_ref(b, n)
         torch.cuda.synchronize()
         row['max_abs_err'] = (got.int() - want.int()).abs().max().item()
         row['four_blocks_ms'] = 4 * row['ms']
-        row['bound_share'] = row['bound_ms'] / row['ms']
         check(row['max_abs_err'] == 0 and sc.item() == wsc.item(),
               f"K5 sharded on a {row['block']} grid block: planes "
               f"{row['max_abs_err']}, scale {sc.item()} vs {wsc.item()}")
         rows.append(row)
-        launches = ', '.join(f"{k} {v:.4f}"
-                             for k, v in row['launch_ms'].items())
         print(f"phase 15 (j) kernel slice_field_sharded on a {row['block']}"
               f" block of {N}x{N} float64 (2x2 grid), {n} slices: "
-              f"{row['ms']:.4f} ms (one call {row['call_ms']:.4f}; "
-              f"{launches}; the forward's {N}x{h} strip at a given max "
-              f"{row['strip_ms']:.4f}) plain {row['plain_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_share']:.0%}); 4 block "
-              f"calls {row['four_blocks_ms']:.4f} ms beside one whole-field "
-              f"K5 {row['whole_field_K5_ms']:.4f}  ({card})", flush=True)
+              + sharded_slice_text(row)
+              + f"; the forward's {N}x{h} strip at a given max "
+              f"{row['strip_ms']:.4f} ms; 4 block calls "
+              f"{row['four_blocks_ms']:.4f} ms beside one whole-field K5 "
+              f"{row['whole_field_K5_ms']:.4f}  ({card})", flush=True)
     return rows
 
 
@@ -5897,22 +5861,36 @@ def fold_kernel_phase(dev, card):
             ok = ok and (torch.equal(mgot, K.stats_sums_members(
                 Us, Es, a0, a1, **skw)) or not same_grid)
             row['members'] = 'R=4: the natural K3_members bits'
-            if N == 4096:
-                row.update(timed_row(
-                    lambda: K.stats_sums(V, EV, cfg.A0, cfg.A1, fold=True,
-                                         **skw),
-                    lambda: K.stats_sums_ref(V, EV, cfg.A0, cfg.A1,
-                                             fold=True, **skw)),
+            if N == FOLD_REPORT[0]:
+                def fold():
+                    return K.stats_sums(V, EV, cfg.A0, cfg.A1, fold=True,
+                                        **skw)
+                # in turns with K3 on the natural field (natural, fold,
+                # fold, natural)
+                t = design_turns('16 (a)', fold, lambda: K.stats_sums(
+                    U, E, cfg.A0, cfg.A1, **skw))
+                row.update(
+                    ms=statistics.median(t['ms_turns']),
+                    call_ms=call_ms(fold), plain_ms=device_ms(
+                        lambda: K.stats_sums_ref(V, EV, cfg.A0, cfg.A1,
+                                                 fold=True, **skw)),
+                    fold_ms_turns=t['ms_turns'],
+                    natural_ms_turns=t['before_ms_turns'],
+                    natural_ms=t['before_ms'],
                     **kernel_bound('stats_sums', N, dname))
-                row['natural_ms'] = device_ms(
-                    lambda: K.stats_sums(U, E, cfg.A0, cfg.A1, **skw))
+                row['over_natural'] = row['ms'] / row['natural_ms']
+                row['bound_share'] = row['bound_ms'] / row['ms']
             rows.append(row)
             print(f"kernel stats_sums fold N={N} {dname}: rel "
                   f"{row['max_rel_err']:.3e} {'ok' if ok else 'FAIL'}" + (
-                      f"  kernel {row['ms']:.4f} ms (natural "
-                      f"{row['natural_ms']:.4f})  plain "
+                      f"  kernel {row['ms']:.4f} ms (one call "
+                      f"{row['call_ms']:.4f}; natural K3 "
+                      f"{row['natural_ms']:.4f}, {row['over_natural']:.3f}x"
+                      f"; turns natural / fold {row['natural_ms_turns']} / "
+                      f"{row['fold_ms_turns']})  plain "
                       f"{row['plain_ms']:.4f} ms  bound "
-                      f"{row['bound_ms']:.4f} ms" if 'ms' in row else '')
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                      f"{row['bound_share']:.0%})" if 'ms' in row else '')
                   + f"  ({card})", flush=True)
             check(ok, f"stats_sums fold N={N} {dname}")
     return rows
@@ -6782,9 +6760,9 @@ def summary_rows(detail):
             'shape': (f"{row.get('R', 1)} x {row['block']} float64 "
                       f"block(s) of {row['N']}x{row['N']} -> "
                       f"{row['n_slices']} int8 slices, world max left out"),
-            **({'launch_ms': row['launch_ms'],
-                'whole_field_K5_ms': row['whole_field_K5_ms']}
-               if 'launch_ms' in row else
+            'launch_ms': row['launch_ms'],
+            **({'whole_field_K5_ms': row['whole_field_K5_ms']}
+               if 'whole_field_K5_ms' in row else
                {'single_launches_ms': row['single_launches_ms']}),
             **({'strip_ms': row['strip_ms']} if grid else {}),
             'bound_share': row['bound_ms'] / row['ms']})
@@ -6828,6 +6806,7 @@ def knob_rows(kn):
              launches(512, 'split fold', 'stats_sums'),
              f"{FOLD_REPORT[0]}x{FOLD_REPORT[0]} {FOLD_REPORT[1]}, folded",
              {'natural_ms': fold['natural_ms'],
+              'over_natural': fold['over_natural'],
               'max_rel_err': fold['max_rel_err']}),
             ('matmul (solve)', gemm, REPLACES['matmul'] + ' (the solve\'s '
              'float32 products at Precision.HIGH, chsimpy_tpu/core/'

@@ -6,11 +6,16 @@ Static counts by pipe from ``cuobjdump -sass`` of the built library.
 
 For every instantiation of ``stats_kernel`` (K3, K3_members, K7,
 K7_members and the fold mode; float32 and float64, vector width V) the
-kernel's longest loop (one row of V columns a thread) is cut out of the
-SASS and its instructions counted by pipe: FP64, FP32, MUFU and
-conversions, with each pipe's time at its rate on an H100 SM for N=4096
-(132 SMs at 1.98 GHz, the rates of the CUDA C++ Programming Guide's
-throughput table for compute capability 9.0).
+kernel's row loops (one row of V columns a thread: one loop, two in the
+fold mode, whose bands on one side of N/2 step through their stored rows
+and whose band at the seam maps each row) are cut out of the SASS and
+their instructions counted by pipe: FP64, FP32, MUFU and conversions,
+with each pipe's time at its rate on an H100 SM for N=4096 (132 SMs at
+1.98 GHz, the rates of the CUDA C++ Programming Guide's throughput table
+for compute capability 9.0), beside the registers a thread takes
+(``cuobjdump -res-usage``: with 256 threads a block, 64 registers let 4
+blocks share an SM, 72 only 3).  The last lines set each fold
+instantiation beside the natural one of the same type and width.
 
 These are static counts: every instruction of the loop body counts once,
 predicated-off ones, the one-sided edge branches an interior element
@@ -18,7 +23,7 @@ never takes and the loop control included.  Only the copies of the true
 division beyond the two an interior element runs are taken out.  They
 bound what the compiled code issues from above, not what the function
 needs: the kernel's roofline bound stays its bytes and its arithmetic
-(``chip_smoke.py`` ``OPS_PER_ELEM``).  It needs the CUDA toolkit's
+(``benchmarks/roofline.py`` ``OPS_PER_ELEM``).  It needs the CUDA toolkit's
 ``cuobjdump`` and ``nvcc``, not a card.
 """
 
@@ -55,22 +60,38 @@ def _counts(lines) -> dict:
     return out
 
 
-def loop_counts(ins, vec: int):
-    """(per element, loop body): the static counts of the function's
-    longest loop (``ins``: (address, text) of its SASS) by pipe, and per
-    element.  The body holds one copy of the true division for each
-    branch of the one-sided differences; an interior element runs two a
-    column (its row and its column difference), so the per-element count
-    takes out the copies beyond 2 V, each counted from its reciprocal
-    (MUFU) to the end of its slow-path branch (the CALL that marks it and
-    the BSYNC after)."""
+def _loops(ins):
+    """(first, last) index of every loop of ``ins`` (a backward branch and
+    its target)."""
     at = {a: i for i, (a, _) in enumerate(ins)}
     loops = []
     for i, (a, t) in enumerate(ins):
         m = re.search(r'\bBRA\b.*?0x([0-9a-f]+)', t)
         if m and int(m.group(1), 16) < a and int(m.group(1), 16) in at:
             loops.append((at[int(m.group(1), 16)], i))
-    b, e = max(loops, key=lambda be: be[1] - be[0])
+    return loops
+
+
+def row_loops(ins):
+    """The (first, last) index of the function's row loops, in address
+    order: the longest loop and every other at least half its length
+    (the fold mode has two)."""
+    loops = _loops(ins)
+    longest = max(e - b for b, e in loops)
+    return sorted((b, e) for b, e in loops if 2 * (e - b) >= longest)
+
+
+def loop_counts(ins, vec: int, span=None):
+    """(per element, loop body): the static counts of one loop of the
+    function (``span``: its (first, last) index; by default the longest;
+    ``ins``: (address, text) of its SASS) by pipe, and per element.  The
+    body holds one copy of the true division for each branch of the
+    one-sided differences; an interior element runs two a column (its row
+    and its column difference), so the per-element count takes out the
+    copies beyond 2 V, each counted from its reciprocal (MUFU) to the end
+    of its slow-path branch (the CALL that marks it and the BSYNC
+    after)."""
+    b, e = span or max(_loops(ins), key=lambda be: be[1] - be[0])
     body = ins[b:e + 1]
     static = _counts(body)
     divs = []
@@ -86,13 +107,24 @@ def loop_counts(ins, vec: int):
     return per, static
 
 
+def registers(text: str) -> dict:
+    """Function name -> registers a thread, from ``cuobjdump -res-usage``
+    output."""
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r'Function (\S+?):?\s*\n\s*REG:(\d+)', text)}
+
+
 def stats_sass(lib_path: str) -> list:
     """One row for every instantiation of stats_kernel in the library."""
     cuobjdump = os.path.join(os.path.dirname(cuda_build.find_nvcc()),
                              'cuobjdump')
-    text = subprocess.run([cuobjdump, '-sass', lib_path],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
+
+    def run(flag):
+        return subprocess.run([cuobjdump, flag, lib_path],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+    text = run('-sass')
+    regs = registers(run('-res-usage'))
     rows = []
     for part in re.split(r'\n\s*Function : ', text)[1:]:
         name, body = part.split('\n', 1)
@@ -107,10 +139,32 @@ def stats_sass(lib_path: str) -> list:
         rows.append({
             'dtype': 'float32' if m.group(1) == 'f' else 'float64',
             'V': vec, 'halo': m.group(3) == '1', 'fold': m.group(4) == '1',
+            'registers': regs.get(name.strip()),
             'static_per_element': per, 'loop_body': static,
+            'row_loops_all_per_element': [
+                loop_counts(ins, vec, sp)[0]['all'] for sp in row_loops(ins)],
             'pipe_ms_at_4096': {p: per[p] / rate * clocks_ms
                                 for p, _, rate in PIPES}})
     return rows
+
+
+def fold_beside_natural(rows) -> list:
+    """For each fold instantiation, the natural K3 one of the same type
+    and width beside it: instructions an element of each row loop and
+    registers a thread."""
+    natural = {(r['dtype'], r['V']): r for r in rows
+               if not r['fold'] and not r['halo']}
+    out = []
+    for r in rows:
+        n = natural.get((r['dtype'], r['V'])) if r['fold'] else None
+        if n is not None:
+            out.append({'fold_beside_natural': f"{r['dtype']} V={r['V']}",
+                        'all_per_element': {
+                            'natural': n['row_loops_all_per_element'],
+                            'fold': r['row_loops_all_per_element']},
+                        'registers': {'natural': n['registers'],
+                                      'fold': r['registers']}})
+    return out
 
 
 def main(argv=None) -> int:
@@ -118,7 +172,8 @@ def main(argv=None) -> int:
         prog='python -m chsimpy_tpu_torch.benchmarks.stats_sass',
         description=__doc__.splitlines()[0])
     ap.parse_args(argv)
-    for row in stats_sass(cuda_build.build()['path']):
+    rows = stats_sass(cuda_build.build()['path'])
+    for row in rows + fold_beside_natural(rows):
         print(json.dumps(row), flush=True)
     return 0
 

@@ -239,8 +239,7 @@ update_otf_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
 // K3's fold mode (FOLD, never with HALO) takes the field in the level-1
 // folded layout of --fold-field (chsimpy_tpu/ops/dct.py fold1): natural
 // row r stored at row r for r < N/2, else at 3N/2-1-r, and the same for
-// columns.  The sweep walks the NATURAL rows and columns and reads every
-// value (U, E, the warp's edge values) through that map: a row is still
+// columns.  The sweep walks the NATURAL rows and columns: a row is still
 // one stored row, and a thread's V columns in the right half are V stored
 // columns in reverse order (one vector load, its lanes reversed; the
 // vector needs N/2 % V == 0).  The edges and the seams of the stored
@@ -248,10 +247,17 @@ update_otf_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
 // neighbours, and every term and every partial sum is K3's on the natural
 // field: where the fold keeps K3's vector width (N/2 % V == 0, every N
 // that is a multiple of 16) the sums are the natural field's to the bit;
-// otherwise the one-column grid's, within K3's tolerances.  The JAX package
-// refuses --fold-field with its Pallas kernels (chsimpy_tpu/core/
-// solver.py:78-83, 445-448; its XLA path regroups the sums instead);
-// here this mode is what lets the hand kernels run the folded layout.
+// otherwise the one-column grid's, within K3's tolerances.  What the fold
+// map costs is decided once, not per row: a thread's side of the column
+// fold (its stored columns and the warp's edge column) before the sweep;
+// for a band whose rows and look-ahead rows lie on one side of N/2, its
+// first stored row and the signed step to the next (the band at the seam
+// maps each row); and a reversed thread's lanes are swapped where a row
+// enters the sweep, not where it is loaded, so that the loads stay a row
+// ahead as in the natural sweep.  The JAX package refuses --fold-field
+// with its Pallas kernels (chsimpy_tpu/core/solver.py:78-83, 445-448; its
+// XLA path regroups the sums instead); here this mode is what lets the
+// hand kernels run the folded layout.
 template <typename T, int V>
 __device__ __forceinline__ void load_vec(const T* p, T (&v)[V]) {
   if constexpr (V == 4) {
@@ -267,6 +273,44 @@ __device__ __forceinline__ void load_vec(const T* p, T (&v)[V]) {
     v[0] = *p;
   }
 }
+
+// K3's terms of row GR of the field (the natural row in the fold mode) at
+// a thread's V columns, added to its sums (acc, count): U's rows GR-1, GR,
+// GR+1 (up, cur, dn), E's row GR (e, read where has_e), the values left
+// and right of the thread's columns; one-sided differences at the field's
+// edges.  The natural sweep and the fold's both expand it, so their terms,
+// and the fold's sums where it keeps K3's grid, are one code's.  A macro:
+// as a __forceinline__ function or a lambda the same terms changed the
+// natural instantiations' compiled loops (benchmarks/stats_sass.py, sm_90a:
+// float64 V=2 312.3 static instructions an element and 70 registers became
+// 314.3 / 72 and 316.8 / 64, float64 V=1 320.7 became 335.7 and 330.0,
+// float32 V=2 172.5 became 179.2 and 178.8); expanded, every
+// instantiation compiles to the loop it had with the terms written out.
+#define STATS_ROW_TERMS(GR)                                                   \
+  if (active) {                                                               \
+    _Pragma("unroll")                                                         \
+    for (int j = 0; j < V; ++j) {                                             \
+      const T u = cur[j];                                                     \
+      T dux;                                                                  \
+      if ((GR) == 0) dux = (dn[j] - u) / h;                                   \
+      else if ((GR) == N - 1) dux = (u - up[j]) / h;                          \
+      else dux = (dn[j] - up[j]) / h2;                                        \
+      const T l = j == 0 ? left : cur[j > 0 ? j - 1 : 0];                     \
+      const T rv = j == V - 1 ? right : cur[j < V - 1 ? j + 1 : 0];           \
+      T duy;                                                                  \
+      if (j == 0 && first_col) duy = (rv - u) / h;                            \
+      else if (j == V - 1 && last_col) duy = (u - l) / h;                     \
+      else duy = (rv - l) / h2;                                               \
+      const T uinv = T(1) - u;                                                \
+      const T integrand = RT * (u * (flog(u) - B) + uinv * flog(uinv))        \
+                          + (A0 + A1 * (uinv - u)) * u * uinv;                \
+      acc[0] += (double)integrand;                                            \
+      acc[1] += (double)(dux * dux + duy * duy);                              \
+      acc[2] += (double)u;                                                    \
+      count += u < threshold;                                                 \
+      if (has_e) acc[4] += (double)(e[j] * e[j]);                             \
+    }                                                                         \
+  }
 
 template <typename T, int V, bool HALO, bool FOLD>
 __global__ void __launch_bounds__(kThreads)
@@ -373,51 +417,102 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
   if (has_e) load_row(E, r0, e);
   T edge = load_edge(r0);
   T rt = HALO ? load_tail(r0) : T(0);
-  for (int r = r0; r < r1; ++r) {
-    T un[V], en[V];
-    load_row(U, below(below(r)), un);
-    if (has_e) load_row(E, below_in(r), en);
-    const T edge_n = load_edge(below_in(r));
-    const T rt_n = HALO ? load_tail(below_in(r)) : T(0);
-    T left = __shfl_up_sync(0xffffffffu, cur[V - 1], 1);
-    T right = __shfl_down_sync(0xffffffffu, cur[0], 1);
-    if (lane == 0) left = edge;
-    if (lane == 31) right = edge;
-    if (tail) right = rt;
-    const int gr = r + row_off;
-    if (active) {
+  if constexpr (!FOLD) {
+    for (int r = r0; r < r1; ++r) {
+      T un[V], en[V];
+      load_row(U, below(below(r)), un);
+      if (has_e) load_row(E, below_in(r), en);
+      const T edge_n = load_edge(below_in(r));
+      const T rt_n = HALO ? load_tail(below_in(r)) : T(0);
+      T left = __shfl_up_sync(0xffffffffu, cur[V - 1], 1);
+      T right = __shfl_down_sync(0xffffffffu, cur[0], 1);
+      if (lane == 0) left = edge;
+      if (lane == 31) right = edge;
+      if (tail) right = rt;
+      const int gr = r + row_off;
+      STATS_ROW_TERMS(gr)
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        const T u = cur[j];
-        T dux;
-        if (gr == 0) dux = (dn[j] - u) / h;
-        else if (gr == N - 1) dux = (u - up[j]) / h;
-        else dux = (dn[j] - up[j]) / h2;
-        const T l = j == 0 ? left : cur[j > 0 ? j - 1 : 0];
-        const T rv = j == V - 1 ? right : cur[j < V - 1 ? j + 1 : 0];
-        T duy;
-        if (j == 0 && first_col) duy = (rv - u) / h;
-        else if (j == V - 1 && last_col) duy = (u - l) / h;
-        else duy = (rv - l) / h2;
-        const T uinv = T(1) - u;
-        const T integrand = RT * (u * (flog(u) - B) + uinv * flog(uinv))
-                            + (A0 + A1 * (uinv - u)) * u * uinv;
-        acc[0] += (double)integrand;
-        acc[1] += (double)(dux * dux + duy * duy);
-        acc[2] += (double)u;
-        count += u < threshold;
-        if (has_e) acc[4] += (double)(e[j] * e[j]);
+        up[j] = cur[j];
+        cur[j] = dn[j];
+        dn[j] = un[j];
+        e[j] = en[j];
+      }
+      edge = edge_n;
+      rt = rt_n;
+    }
+  } else {
+    // K3's fold mode.  The loops load a row as stored (load_raw: a
+    // reversed thread's V values in reverse column order) and put it in
+    // natural order only where it enters the sweep (natural(), as dn and
+    // e move up): a swap at the load made the loop wait for each load at
+    // once and lose the row of look-ahead (0.1175 against the natural
+    // sweep's 0.0907 ms at N=4096 float32 on the H100).
+    auto natural = [&](T (&v)[V]) {
+      if (rev) {
+#pragma unroll
+        for (int j = 0; j < V / 2; ++j) {
+          const T t = v[j];
+          v[j] = v[V - 1 - j];
+          v[V - 1 - j] = t;
+        }
+      }
+    };
+    auto load_raw = [&](const T* row, T (&v)[V]) {
+      if (active) {
+        load_vec<T, V>(row + sc0, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] = T(0);
+      }
+    };
+    // row r's terms, then the rows move up one: un (U row r+2) and en (E
+    // row r+1), as loaded, become dn and e
+    auto sweep_row = [&](int r, T (&un)[V], T (&en)[V], T edge_n) {
+      T left = __shfl_up_sync(0xffffffffu, cur[V - 1], 1);
+      T right = __shfl_down_sync(0xffffffffu, cur[0], 1);
+      if (lane == 0) left = edge;
+      if (lane == 31) right = edge;
+      STATS_ROW_TERMS(r)
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        up[j] = cur[j];
+        cur[j] = dn[j];
+        dn[j] = un[j];
+        e[j] = en[j];
+      }
+      natural(dn);
+      natural(e);
+      edge = edge_n;
+    };
+    if (r0 >= half || r1 < half) {
+      // a band on one side of the seam with every row it loads (at N=4096
+      // every band of the fixed tile but the one that ends at N/2): its
+      // stored rows follow one another by one signed step, decided here
+      // once (down the stored rows in the upper half); o is the stored
+      // offset of row r+1 (E, the edge values), U's row r+2 one step on.
+      // The rows it loads past the band (U's r1 and r1+1, E's r1) lie in
+      // the field (stored rows down to N/2-2) and no row it sums reads
+      // them.
+      const long long step = r0 >= half ? -(long long)W : (long long)W;
+      long long o = (long long)frow(r0 + 1) * W;
+      for (int r = r0; r < r1; ++r) {
+        T un[V], en[V];
+        load_raw(U + o + step, un);
+        if (has_e) load_raw(E + o, en);
+        const T edge_n = edge_lane ? edge_base[o] : T(0);
+        o += step;
+        sweep_row(r, un, en, edge_n);
+      }
+    } else {
+      // the band at the seam: each row through the fold map
+      for (int r = r0; r < r1; ++r) {
+        T un[V], en[V];
+        load_raw(U + (long long)frow(below(below(r))) * W, un);
+        if (has_e) load_raw(E + (long long)frow(below_in(r)) * W, en);
+        sweep_row(r, un, en, load_edge(below_in(r)));
       }
     }
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      up[j] = cur[j];
-      cur[j] = dn[j];
-      dn[j] = un[j];
-      e[j] = en[j];
-    }
-    edge = edge_n;
-    rt = rt_n;
   }
   acc[3] = (double)count;
   block_sum<kNStats>(acc);
@@ -447,6 +542,7 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
     *ticket = 0u;
   }
 }
+#undef STATS_ROW_TERMS
 
 // K4 — sum |U - mean|, pass 1.  Replaces absdev_band_sums /
 // _absdev_band_kernel (pallas_kernels.py:261-273, 348-369).
@@ -519,10 +615,10 @@ row_absdev_kernel(const T* __restrict__ U, long long member_stride,
 // 2. slice_kernel: split x into float32 hi = rn(x) and lo = rn(x - hi) (the
 //    double subtraction is exact), scale both by inv (read from device
 //    memory), then run the fixed-point chain v *= 128; s = rint(v); v -= s
-//    in float32 on each.  rintf rounds half to even, as torch.round and
-//    jnp.round do.  The lo chain starts at slice 3 (lo * 128^3 / scale <
-//    1/2 rounds to 0 in the first three).  Plane k of out gets
-//    int8(s_hi + s_lo): the plain version's bits.
+//    in float32 on each, rounding half to even as torch.round and
+//    jnp.round do (slice_planes).  The lo chain starts at slice 3 (lo *
+//    128^3 / scale < 1/2 rounds to 0 in the first three).  Plane k of out
+//    gets int8(s_hi + s_lo): the plain version's bits.
 //
 // K5_members (the JAX ensemble vmaps B6, so each member has its own
 // scale): both kernels with member r on grid row r of an (R, ...) stack of
@@ -535,10 +631,15 @@ row_absdev_kernel(const T* __restrict__ U, long long member_stride,
 // package): the max pass in its max-only mode writes the block's max|x|
 // (its bits, one word a member) instead of the scale; the caller takes the
 // max of those words over the ranks (an all-reduce MAX: order-free, so
-// every rank gets the same bits), slice_finish_kernel turns it into scale
-// and inverse by the same formula (scale_from_max), and slice_kernel
-// follows.  A rank's planes are then the whole field's planes of its
-// block, to the bit, and its scale the whole field's.
+// every rank gets the same bits), and the slice pass in its sharded mode
+// (slice_kernel<true>) forms the scale and inverse from that max by the
+// same formula (scale_from_max) in every block, the block holding a
+// member's first tile writing its scale out.  A rank's planes are then the
+// whole field's planes of its block, to the bit, and its scale the whole
+// field's.  Two launches, one where the caller gives the world max.  Tried
+// on the H100 and left out, as slower: an L2 evict_last policy on the max
+// pass's loads, to keep a 33.5 MB block in L2 for the slice pass, and
+// evict_first on the slice pass's loads.
 //
 // Bound by device-memory bandwidth: the field is read by both launches
 // (8 bytes an element each; at N=4096 the 134 MB field exceeds the 50 MB
@@ -643,14 +744,6 @@ slice_scale_kernel(const double* __restrict__ x, long long n, bool vec,
   }
 }
 
-// K5 sharded's scale: R members' world max (bits) -> scale and inverse
-__global__ void slice_finish_kernel(const unsigned long long* __restrict__ amax,
-                                    int R, double* __restrict__ scale,
-                                    float* __restrict__ inv) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < R) scale_from_max(amax[r], scale + r, inv + r);
-}
-
 // A thread's kSliceElems values of one warp tile of K5's slice pass (the
 // up-to-kSliceWarpTile elements at src): element 2k+b of the thread lies
 // at 64k + 2 lane + b; valid: how many of the tile's elements exist (the
@@ -687,7 +780,17 @@ __device__ __forceinline__ void slice_split(const double (&v)[kSliceElems],
 // The planes of a thread's values of one warp tile (hi, lo in h, l, the
 // thread's elements as slice_load places them) into dst, plane p at
 // dst + p * plane_stride; full: 16-byte stores, the warp's bytes staged
-// through its stage.
+// through its stage.  The stores stream (st.global.cs: evict-first in L2,
+// the planes are not read again by this kernel).  rint(v) is (v + M) - M
+// with M = 1.5 * 2^23 (|v| <= 64 here, far below 2^22: the float sum
+// rounds v to an integer, half to even, as rintf and torch.round do), and
+// the integer is the low byte of the sum's bits (M's low byte is 0): two
+// float additions and an integer one in place of a rounding and a
+// conversion (FRND, F2I), both on the H100's 16-a-clock conversion pipe,
+// which held the slice pass (about 12 of them an element at 4 slices).
+// The planes are the rintf chain's, to the bit (a zero's sign aside,
+// which no plane keeps): a NaN value, whose conversion gave 0 in every
+// plane, starts the chain at 0.
 __device__ __forceinline__ void slice_planes(
     float (&h)[kSliceElems], float (&l)[kSliceElems], float inv,
     signed char* __restrict__ dst, long long plane_stride, long long valid,
@@ -695,25 +798,28 @@ __device__ __forceinline__ void slice_planes(
   const int lane = threadIdx.x & 31;
   const float inv_lo = inv * 2097152.0f;  // 128^3, exact: a power of two
   const int lo_skip = n_slices < 3 ? n_slices : 3;
+  const float M = 12582912.0f;            // 1.5 * 2^23
 #pragma unroll
   for (int e = 0; e < kSliceElems; ++e) {
     h[e] = h[e] * inv;
     l[e] = l[e] * inv_lo;
+    if (h[e] != h[e]) h[e] = l[e] = 0.0f;   // NaN x or scale: lo is NaN too
   }
   for (int p = 0; p < n_slices; ++p) {
     signed char s8[kSliceElems];
 #pragma unroll
     for (int e = 0; e < kSliceElems; ++e) {
       h[e] = h[e] * 128.0f;
-      float s = rintf(h[e]);
-      h[e] = h[e] - s;
+      const float hm = h[e] + M;
+      h[e] = h[e] - (hm - M);
+      unsigned q = __float_as_uint(hm);
       if (p >= lo_skip) {
         l[e] = l[e] * 128.0f;
-        const float t = rintf(l[e]);
-        l[e] = l[e] - t;
-        s = s + t;
+        const float lm = l[e] + M;
+        l[e] = l[e] - (lm - M);
+        q += __float_as_uint(lm);
       }
-      s8[e] = (signed char)(int)s;
+      s8[e] = (signed char)(q & 0xffu);
     }
     signed char* d = dst + (long long)p * plane_stride;
     if (full) {
@@ -728,22 +834,29 @@ __device__ __forceinline__ void slice_planes(
       __syncwarp();
       const uint4 q = *reinterpret_cast<const uint4*>(&stage[16 * lane]);
       __syncwarp();                      // read before the next plane writes
-      *reinterpret_cast<uint4*>(d + 16 * lane) = q;
+      __stcs(reinterpret_cast<uint4*>(d + 16 * lane), q);
     } else {
 #pragma unroll
       for (int e = 0; e < kSliceElems; ++e) {
         const int idx = 64 * (e / 2) + 2 * lane + (e % 2);
-        if (idx < valid) d[idx] = s8[e];
+        if (idx < valid) __stcs(d + idx, s8[e]);
       }
     }
   }
 }
 
+// SHARDED (K5 sharded's slice pass): each member's scale and inverse from
+// the bits of its world max (amax), formed by thread 0 of every block
+// while the block's loads are in flight; the block holding the member's
+// first tile writes the scale.  Else the inverses are read from inv_ptr.
+template <bool SHARDED>
 __global__ void __launch_bounds__(kThreads)
 slice_kernel(const double* __restrict__ x, const float* __restrict__ inv_ptr,
-             signed char* __restrict__ out, long long n, int n_slices,
-             bool vec) {
+             const unsigned long long* __restrict__ amax,
+             double* __restrict__ scale, signed char* __restrict__ out,
+             long long n, int n_slices, bool vec) {
   __shared__ __align__(16) unsigned char stage[kWarps][kSliceWarpTile];
+  __shared__ float inv_sh;
   // member r (blockIdx.y) of R (gridDim.y): its field and inverse; its
   // plane p at (p R + r) n of the (n_slices, R, n) output
   const long long r = blockIdx.y;
@@ -751,13 +864,28 @@ slice_kernel(const double* __restrict__ x, const float* __restrict__ inv_ptr,
   const long long tile =
       (long long)(gridDim.x - 1 - blockIdx.x) * kSliceBlockTile +
       (long long)warp * kSliceWarpTile;
-  if (tile >= n) return;                // the whole warp
+  if (!SHARDED && tile >= n) return;    // the whole warp
   const bool full = vec && tile + kSliceWarpTile <= n;
   double v[kSliceElems];
+  float inv;
+  if (SHARDED) {
+    // every thread reaches the barrier: a warp past the end loads nothing
+    if (tile < n) slice_load(x + r * n + tile, n - tile, full, v);
+    if (threadIdx.x == 0) {
+      double sc;
+      scale_from_max(amax[r], &sc, &inv_sh);
+      if (blockIdx.x == gridDim.x - 1) scale[r] = sc;
+    }
+    __syncthreads();
+    inv = inv_sh;
+    if (tile >= n) return;
+  } else {
+    slice_load(x + r * n + tile, n - tile, full, v);
+    inv = inv_ptr[r];
+  }
   float h[kSliceElems], l[kSliceElems];
-  slice_load(x + r * n + tile, n - tile, full, v);
   slice_split(v, h, l);
-  slice_planes(h, l, inv_ptr[r], out + r * n + tile, (long long)gridDim.y * n,
+  slice_planes(h, l, inv, out + r * n + tile, (long long)gridDim.y * n,
                n - tile, full, n_slices, stage[warp]);
 }
 
@@ -1280,28 +1408,27 @@ int launch_slice_scale(const void* x, long long n, int R, void* partials,
   return (int)cudaGetLastError();
 }
 
-// K5 sharded's finish: one thread a member
-int launch_slice_finish(const void* amax, int R, void* scale, void* inv,
-                        void* stream) {
-  if (bad_members(R)) return (int)cudaErrorInvalidValue;
-  slice_finish_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
-                        (cudaStream_t)stream>>>(
-      (const unsigned long long*)amax, R, (double*)scale, (float*)inv);
-  return (int)cudaGetLastError();
-}
-
-// K5's second launch on R fields of n elements with R inverses:
-// n_slices * R planes of n bytes into out, (n_slices, R, n)
-int launch_slice(const void* x, const void* inv, void* out, long long n,
-                 int R, int n_slices, void* stream) {
-  if (n <= 0 || n_slices < 1 || n_slices > 8 || bad_members(R))
+// K5's second launch on R fields of n elements: n_slices * R planes of n
+// bytes into out, (n_slices, R, n), with R inverses (inv), or (K5
+// sharded, amax given) with the scales and inverses of R world maxima,
+// the scales written to scale
+int launch_slice(const void* x, const void* inv, const void* amax,
+                 void* scale, void* out, long long n, int R, int n_slices,
+                 void* stream) {
+  if (n <= 0 || n_slices < 1 || n_slices > 8 || bad_members(R) ||
+      (amax == nullptr ? inv == nullptr : scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool vec = n % 16 == 0 && aligned16(x) && aligned16(out);
   const dim3 grid((unsigned int)((n + kSliceBlockTile - 1) / kSliceBlockTile),
                   R);
-  slice_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const double*)x, (const float*)inv, (signed char*)out, n, n_slices,
-      vec);
+  if (amax != nullptr)
+    slice_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const double*)x, nullptr, (const unsigned long long*)amax,
+        (double*)scale, (signed char*)out, n, n_slices, vec);
+  else
+    slice_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const double*)x, (const float*)inv, nullptr, nullptr,
+        (signed char*)out, n, n_slices, vec);
   return (int)cudaGetLastError();
 }
 
@@ -1619,7 +1746,8 @@ int ch_slice_scale_f64(const void* x, long long n, void* partials,
 }
 int ch_slice_f64(const void* x, const void* inv, void* out, long long n,
                  int n_slices, void* stream) {
-  return launch_slice(x, inv, out, n, 1, n_slices, stream);
+  return launch_slice(x, inv, nullptr, nullptr, out, n, 1, n_slices,
+                      stream);
 }
 // K5_members: R fields of n elements; partials R * max_blocks words,
 // ticket R counters, scale R doubles, inv R floats; out (n_slices, R, n)
@@ -1631,7 +1759,8 @@ int ch_slice_scale_members_f64(const void* x, long long n, int R,
 }
 int ch_slice_members_f64(const void* x, const void* inv, void* out,
                          long long n, int R, int n_slices, void* stream) {
-  return launch_slice(x, inv, out, n, R, n_slices, stream);
+  return launch_slice(x, inv, nullptr, nullptr, out, n, R, n_slices,
+                      stream);
 }
 // K5's one-launch path (slice_one_launch_kernel) on R fields of n
 // elements: scratch 1 + R words, 0 between calls (the kernel resets
@@ -1643,17 +1772,18 @@ int ch_slice_one_launch_f64(const void* x, long long n, int R,
                                  n_slices, stream);
 }
 // K5 sharded: the max pass of R fields of n elements into R words of
-// amax (their bits), then, from the world max of those words, R scales
-// and inverses; ch_slice / ch_slice_members take the inverses
+// amax (their bits), then, from the world max of those words, the slice
+// pass (ch_slice_sharded: R scales and the planes)
 int ch_slice_max_f64(const void* x, long long n, int R, void* partials,
                      int max_blocks, void* ticket, void* amax,
                      void* stream) {
   return launch_slice_scale(x, n, R, partials, max_blocks, ticket, nullptr,
                             nullptr, amax, stream);
 }
-int ch_slice_finish_f64(const void* amax, int R, void* scale, void* inv,
-                        void* stream) {
-  return launch_slice_finish(amax, R, scale, inv, stream);
+int ch_slice_sharded_f64(const void* x, const void* amax, void* scale,
+                         void* out, long long n, int R, int n_slices,
+                         void* stream) {
+  return launch_slice(x, nullptr, amax, scale, out, n, R, n_slices, stream);
 }
 
 // K9, in place on U

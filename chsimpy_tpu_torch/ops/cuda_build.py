@@ -62,7 +62,7 @@ _SIGNATURES = {
                                ('_f64',)),
     'ch_slice_members': ((_P, _P, _P, _LL, _I, _I, _P), ('_f64',)),
     'ch_slice_max': ((_P, _LL, _I, _P, _I, _P, _P, _P), ('_f64',)),
-    'ch_slice_finish': ((_P, _I, _P, _P, _P), ('_f64',)),
+    'ch_slice_sharded': ((_P, _P, _P, _P, _LL, _I, _I, _P), ('_f64',)),
     'ch_slice_one_launch': ((_P, _LL, _I, _P, _P, _P, _P, _I, _P),
                             ('_f64',)),
     'ch_sobol_jitter': ((_P, _I, _I, _P, _P, _P, _I, _I, _D, _P), _BOTH),

@@ -75,6 +75,12 @@ STATS_MIN_BAND = 4              # K3/K7: the refined tile's shortest band
 ABSDEV_ELEMS_PER_BLOCK = 8 * 256
 ABSDEV_MAX_BLOCKS = 4096
 SLICE_MAX_BLOCKS = 1024         # K5's max pass: blocks at most
+# K5 sharded's max pass on a rank's block: blocks at most (about two an SM
+# of the H100; the max is exact, so the grid changes no bit).  On the H100,
+# in turns (benchmarks/slice_paths.py --sharded): 0.0091 ms on a (4096,
+# 1024) and a 2047x2047 block against 0.0093-0.0095 on a whole field's
+# SLICE_MAX_BLOCKS; the same 0.0048 on R=4 (512, 128) blocks
+SLICE_SHARDED_MAX_BLOCKS = 256
 # K5's one-launch path: fields of at most this many bytes in all.  One
 # launch against two on the H100, one call (benchmarks/slice_paths.py):
 # 0.82-1.00 of the time at 32 MiB (R=16 N=512, R=4 N=1024, R=1 N=2048),
@@ -737,30 +743,33 @@ def _slice_members_two_launches(x, n_slices: int):
 # K5 sharded: K5 on a rank's block of a pencil-sharded field at the whole
 # field's scale (B6 on the JAX package's sharded ozaki route, where GSPMD
 # takes the max over the sharded field): the max pass's max-only mode,
-# the world max of its bits (``collectives.world_max``), the scale by the
-# same formula (``ch_slice_finish``), then K5's slice pass
+# the world max of its bits (``collectives.world_max``), then the slice
+# pass's sharded mode, which forms the scale from that max itself
 # ----------------------------------------------------------------------
 
 def _slice_max_launch(x, R: int):
     """K5 sharded's first launch: the max pass's max-only mode, the bits
     of max|x| of each of x's R fields ((R,) int64)."""
-    partials = torch.empty((R * SLICE_MAX_BLOCKS,), dtype=torch.int64,
-                           device=x.device)
+    partials = torch.empty((R * SLICE_SHARDED_MAX_BLOCKS,),
+                           dtype=torch.int64, device=x.device)
     bits = torch.empty((R,), dtype=torch.int64, device=x.device)
     _call('ch_slice_max', x.dtype, x.data_ptr(), x.numel() // R, R,
-          partials.data_ptr(), SLICE_MAX_BLOCKS,
+          partials.data_ptr(), SLICE_SHARDED_MAX_BLOCKS,
           _ticket(x.device, R).data_ptr(), bits.data_ptr(), _stream())
     return bits
 
 
-def _slice_finish_launch(bits):
-    """(scales (R,) float64, inverses (R,) float32) from max bits."""
-    R = bits.numel()
-    scale = torch.empty((R,), dtype=torch.float64, device=bits.device)
-    inv = torch.empty((R,), dtype=torch.float32, device=bits.device)
-    _call('ch_slice_finish', torch.float64, bits.data_ptr(), R,
-          scale.data_ptr(), inv.data_ptr(), _stream())
-    return scale, inv
+def _slice_sharded_planes_launch(x, bits, R: int, n_slices: int):
+    """K5 sharded's slice pass on R fields of x at the scales of ``bits``
+    (R world maxima, their float64 bits): (planes (n_slices, *x.shape),
+    scales (R,) float64)."""
+    scale = torch.empty((R,), dtype=torch.float64, device=x.device)
+    out = torch.empty((n_slices,) + tuple(x.shape), dtype=torch.int8,
+                      device=x.device)
+    _call('ch_slice_sharded', x.dtype, x.data_ptr(), bits.data_ptr(),
+          scale.data_ptr(), out.data_ptr(), x.numel() // R, R, n_slices,
+          _stream())
+    return out, scale
 
 
 def _slice_members_planes_launch(x, inv, n_slices: int):
@@ -788,18 +797,14 @@ def _slice_sharded(x, n_slices: int, mesh, R: int, also_max=None,
     world max of ``also_max``).  The max pass's words are the bits of
     non-negative doubles, so their max as float64 is their max as
     integers.  With ``amax`` (the world's max, R float64 values) the max
-    pass and its all-reduce are left out."""
+    pass and its all-reduce are left out: one launch."""
     also = None
     if amax is None:
         bits = _slice_max_launch(x, R).view(torch.float64)
         bits, also = _world_max(mesh, bits, also_max)
     else:
         bits = amax.reshape(-1).contiguous()
-    scale, inv = _slice_finish_launch(bits.view(torch.int64))
-    if x.dim() == 3:
-        planes = _slice_members_planes_launch(x, inv, n_slices)
-    else:
-        planes = _slice_planes_launch(x, inv, n_slices)
+    planes, scale = _slice_sharded_planes_launch(x, bits, R, n_slices)
     return planes, scale, also
 
 
@@ -815,12 +820,12 @@ def slice_field_sharded(x, mesh, n_slices: int = MAX_SLICES, also_max=None,
     """K5 sharded on this rank's block ``x`` of a field over the grid
     ``mesh`` (a collective: every rank calls it): the planes of the block
     and the scale, 0-d, each the whole field's K5 result to the bit.  On
-    the card three launches and one all-reduce MAX (one count a call).
+    the card two launches and one all-reduce MAX (one count a call).
     ``also_max`` (float64 on x's device) rides the same all-reduce: its
     world max comes back third.  ``amax``: the whole field's max|x| (0-d
     float64, the same on every rank), given by the caller, who took it
     in a collective of its own; then the call has no collective and no
-    max pass (two launches)."""
+    max pass (one launch)."""
     _slice_args(x, n_slices, 2)
     if amax is not None and also_max is not None:
         raise ValueError("also_max rides K5's own all-reduce, which a "

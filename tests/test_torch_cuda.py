@@ -896,9 +896,9 @@ def test_ensemble_on_card_matches_single_runs(card, transform):
 @pytest.mark.parametrize('N,D,R', [(64, 4, 0), (1000, 4, 0), (64, 4, 3),
                                    (40, 2, 2)])
 def test_slice_sharded_kernel_gives_whole_field_bits(card, layout, N, D, R):
-    """K5 sharded's three launches with the max of the blocks' words
-    taken on the card (the world max of D ranks): each block's planes are
-    K5's on the whole field restricted to the block, the scale the whole
+    """K5 sharded's two launches with the max of the blocks' words taken
+    on the card (the world max of D ranks): each block's planes are K5's
+    on the whole field restricted to the block, the scale the whole
     field's, to the bit; the max one ulp above 2^8 in one block only."""
     rng = np.random.default_rng(N + D + R)
     x = rng.standard_normal((max(R, 1), N, N))
@@ -913,14 +913,14 @@ def test_slice_sharded_kernel_gives_whole_field_bits(card, layout, N, D, R):
                else t[..., j * c:(j + 1) * c, :]).contiguous()
               for j in range(D)]
     bits = torch.stack([K._slice_max_launch(b, max(R, 1)) for b in blocks])
-    scale, inv = K._slice_finish_launch(bits.amax(dim=0))
+    world = bits.amax(dim=0)
     for j, b in enumerate(blocks):
-        planes = (K._slice_members_planes_launch(b, inv, 6) if R
-                  else K._slice_planes_launch(b, inv, 6))
+        planes, scale = K._slice_sharded_planes_launch(
+            b, world.view(torch.float64), max(R, 1), 6)
         want = (whole[..., :, j * c:(j + 1) * c] if layout == 'field'
                 else whole[..., j * c:(j + 1) * c, :])
         assert torch.equal(planes, want)
-    assert torch.equal(scale.reshape(wscale.shape), wscale)
+        assert torch.equal(scale.reshape(wscale.shape), wscale)
 
 
 def test_pencil_world_on_card_matches_cpu(card):
