@@ -17,7 +17,15 @@ Phases (each raises on failure, so the script exits nonzero):
    included); K3 also timed on the fixed tile in turns with its tile
    where the two differ (``design_turns``, ``kernels.fixed_stats_tile``),
    K4 beside ``torch.dist(U, mean, p=1)``; (b) K3 at N=1024 and 2048
-   likewise, at 2048 the fixed tile's bits;
+   likewise, at 2048 the fixed tile's bits; in (a) and (b) the
+   statistics kernel's body against its parent body (``prev=True``: the
+   true divisions, the edges decided per element) on the same tile: the
+   five sums to the bit, timed in turns (``body_turns``; so are K7 in
+   phase 8 (a), K3_members in 10 (a), K7_members in 14 (a) and the fold
+   in 16 (a)); (c) the body's division by h and 2h (``cdiv``) against
+   the true division for the fields' delx at N = 512-4096: float32 on
+   every finite float, float64 on 2e9 draws and the edges, no bit may
+   differ;
 4. the canonical default run (N=512, float64, uniform, seed 2023) through
    ``Simulator.solve``: it must stop at step 1674 and hold the golden
    anchors of tests/golden/default_n512_anchors.json; the kernel launch
@@ -138,7 +146,9 @@ Phases (each raises on failure, so the script exits nonzero):
    float64 and float32 and R=4 N=4096 float32 and float64, one count a
    call; device ms of the batched launch and of R single launches, the
    plain version's, and the bound; K3_members also on the fixed tile, in
-   turns with its tile;
+   turns with its tile; K4_members as the step runs it, with each
+   member's Ra (K11's body) in its second pass: its sums and Ra the bits
+   of K4_members and K11 launched apart, timed in turns with them;
    (b) the canonical UQ batch (R=16, N=512 float64, the JAX experiment's
    A factors from seed 85972, each member's kappa passed as ``kappas=``):
    every member's stop step equals the port's single run of the member on
@@ -191,10 +201,11 @@ Phases (each raises on failure, so the script exits nonzero):
    version, and the bound;
    (b) the canonical UQ batch of phase 10 (b) on the ozaki route (level-1
    fold) to every stop, then all 16 single ozaki runs to their stops
-   (four processes on the card side by side): every member's stop step
-   equals its single ozaki run's, E within 1e-10 at every row, and its
-   rows (Ra, a batched row mean, within 1e-12) and final U equal the
-   single run's to the bit; the stops equal phase 10 (b)'s matmul
+   (threads side by side, each run replaying its steps as a CUDA graph
+   on a stream of its own, ``_graph_solver``): every member's
+   stop step equals its single ozaki run's, E within 1e-10 at every row,
+   and its rows (Ra, a batched row mean, within 1e-12) and final U equal
+   the single run's to the bit; the stops equal phase 10 (b)'s matmul
    batch's; member-steps/s beside that matmul batch's; K5_members
    launched as often as the route implies, every call by its one-launch
    path, the single-field K5 never (the JSON line's K5_members count
@@ -248,8 +259,8 @@ Phases (each raises on failure, so the script exits nonzero):
    (``row_absdev_members``, each member's Ra, no Pallas counterpart)
    against its plain version (1e-12 / 1e-5) and member by member against
    its launch on the member alone (the same bits), R=16 N=512 float64
-   and R=4 N=4096 float32 and float64 (its count in the JSON line comes
-   from phase 10 (b)'s run);
+   and R=4 N=4096 float32 and float64; K4_members with Ra on (c)'s
+   blocks and gathered mid rows against K4_members and K11, in turns;
    (b) the canonical UQ batch of phase 10 (b) on an 'ens' world of 2
    ranks (``EnsembleMesh(2)``): every member's rows, U, stop, tau0 and
    t0 equal phase 10 (b)'s batch from this call, to the bit, on both
@@ -271,7 +282,10 @@ Phases (each raises on failure, so the script exits nonzero):
    (e) phase 8 (c)'s checkpoint (the canonical run on a 2x2 world
    saving every 800 steps in chunks of 200: the file at step 1601, which
    that run re-enters) restored on (c)'s world, a new 2x2 world: stop
-   1674, phase 8 (c)'s rows to the bit, E within 1e-10 of phase 4's run.
+   1674, phase 8 (c)'s rows to the bit, E within 1e-10 of phase 4's run;
+   in a full run (c) and (e) run in phase 15's world, whose shape is
+   (c)'s, and are checked there (``--phase 14`` gives them a world of
+   their own).
 15. the pencil layout (``--transform split`` and ``ozaki`` under
    ``--mesh``: the field in column blocks, the spectral image in row
    blocks, one transpose all-to-all per 2-D transform), in one world of 4
@@ -603,6 +617,56 @@ def turns_text(row):
             f"{row['before_ms_turns']} / {row['ms_turns']}")
 
 
+def body_turns(where, kern, prev):
+    """The statistics kernel's body (``kern``) against its parent body
+    (``prev``: the same launch, inputs and tile with ``prev=True``): the
+    five sums to the bit (a check), both timed in turns (design_turns):
+    'parent_body_same_bits', 'body_ms_turns', 'parent_body_ms_turns',
+    'parent_body_ms'."""
+    import torch
+    a, b = kern(), prev()
+    torch.cuda.synchronize()
+    same = same_bits(a, b)
+    check(same, f"{where}: the body's sums differ from the parent "
+                f"body's: {a.tolist()} / {b.tolist()}")
+    t = design_turns(where + ' body', kern, prev)
+    return {'parent_body_same_bits': same, 'body_ms_turns': t['ms_turns'],
+            'parent_body_ms_turns': t['before_ms_turns'],
+            'parent_body_ms': t['before_ms']}
+
+
+def fused_ra_turns(where, U, mean, rows, row):
+    """K4_members with Ra in its second pass (``absdev_ra_members``)
+    against the parent's two passes and K11 (``absdev_sum_members`` +
+    ``row_absdev_members``): PS sums and Ra to the bit (a check), timed in
+    turns (design_turns): 'fused_same_bits', 'ms_fused_turns',
+    'k4_k11_ms_turns', 'k4_k11_ms'."""
+    import torch
+    from chsimpy_tpu_torch.ops import kernels as K
+
+    def parent():
+        return (K.absdev_sum_members(U, mean),
+                K.row_absdev_members(rows, row))
+    ps, ra = K.absdev_ra_members(U, mean, rows, row)
+    ps0, ra0 = parent()
+    torch.cuda.synchronize()
+    same = same_bits(ps, ps0) and same_bits(ra, ra0)
+    check(same, f"{where}: the fused pass differs from K4 + K11")
+    t = design_turns(where + ' fused',
+                     lambda: K.absdev_ra_members(U, mean, rows, row), parent)
+    return {'fused_same_bits': same, 'ms_fused_turns': t['ms_turns'],
+            'k4_k11_ms_turns': t['before_ms_turns'],
+            'k4_k11_ms': t['before_ms']}
+
+
+def body_text(row):
+    """body_turns' figures for a printed line ('' where not timed)."""
+    if 'parent_body_ms' not in row:
+        return ''
+    return (f"; parent body {row['parent_body_ms']:.4f} ms, the same bits, "
+            f"turns {row['parent_body_ms_turns']} / {row['body_ms_turns']}")
+
+
 # ----------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ----------------------------------------------------------------------
@@ -704,12 +768,13 @@ def kernel_phase(dev, card):
                        **kernel_bound(name, N, dname)}
                 extra = ''
                 if name == 'stats_sums':
-                    row.update(stats_turns('3 (a)', kern, N, N, U, E,
-                                           lambda t: K._stats_sums_launch(
-                                               U, E, cfg.A0, cfg.A1, t,
-                                               **skw)))
+                    row.update(stats_turns(
+                        '3 (a)', kern, N, N, U, E,
+                        lambda t, prev=False: K._stats_sums_launch(
+                            U, E, cfg.A0, cfg.A1, t, prev=prev, **skw)))
                     extra = (f" (tile {row['tile']}, the fixed tile "
-                             f"{row['earlier_tile']}: {turns_text(row)})")
+                             f"{row['earlier_tile']}: {turns_text(row)}"
+                             f"{body_text(row)})")
                 elif name == 'absdev_sum':
                     # one PyTorch call for the same sum (at float32 torch
                     # sums in float32, K4 in float64)
@@ -728,14 +793,56 @@ def kernel_phase(dev, card):
                       flush=True)
                 check(ok, f"{name} N={N} {dtype}: error {err:.3e} "
                           f"outside {tol}")
-    return rows + stats_fields(dev, card)
+    return rows + stats_fields(dev, card) + cdiv_checks(card)
+
+
+# phase 3 (c): the fields whose h = delx (and 2h) the statistics body's
+# divisions are held at: the canonical run's, the goldens', N=4096 and
+# phase 3's; float64 draws per field
+CDIV_NS = (512, 1024, 2048, 4096, 1000, 1001, 1002, 4094)
+CDIV_DRAWS = 2_000_000_000
+
+
+def cdiv_checks(card):
+    """(c) the statistics body's division by h and 2h (``cdiv``: the
+    product by the reciprocal, corrected) against the true division on
+    the card (``kernels.cdiv_check``): float32 on every finite float,
+    float64 on CDIV_DRAWS draws and the edges (0, the subnormals, the
+    guard's ends, the largest double); no input may differ."""
+    import math
+    import torch
+    from chsimpy_tpu_torch import Parameters
+    from chsimpy_tpu_torch.derived import Derived
+    from chsimpy_tpu_torch.ops import kernels as K
+    t0 = time.perf_counter()
+    lo, hi = 2.0 ** -900, 2.0 ** 901
+    edges = [0.0, -0.0, 5e-324, -5e-324, 2.0 ** -1022, 1.7976931348623157e308,
+             -1.7976931348623157e308, lo, -lo, math.nextafter(lo, 0.0),
+             math.nextafter(hi, 0.0), hi, 1.0, -1.0]
+    rows = []
+    for N in CDIV_NS:
+        delx = Derived.from_params(Parameters(N=N, kappa_tilde=KAPPA)).delx
+        r32 = K.cdiv_check(delx, torch.float32)
+        r64 = K.cdiv_check(delx, torch.float64, n=CDIV_DRAWS, seed=N,
+                           edges=edges + [delx, 2 * delx, -3 * delx])
+        ok = not (r32['h'] or r32['h2'] or r64['h'] or r64['h2'])
+        rows.append({'name': 'cdiv', 'N': N, 'delx': delx, 'float32': r32,
+                     'float64': r64, 'ok': ok})
+        print(f"cdiv N={N} (h = {delx!r}, 2h): float32 {r32['checked']} "
+              f"inputs, {r32['h']} / {r32['h2']} differ; float64 "
+              f"{r64['checked']} inputs, {r64['h']} / {r64['h2']} differ  "
+              f"({card})", flush=True)
+        check(ok, f"cdiv N={N}: {r32} {r64}")
+    spent('3 (c) cdiv', t0)
+    return rows
 
 
 def stats_turns(where, kern, bn, W, U, E, launch):
     """The statistics kernel's tile on (bn, W) blocks U (and E) and the
     fixed tile it replaced: 'tile', 'earlier_tile' as (V, band, blocks);
     where they differ, ``kern`` timed in turns with ``launch`` on the
-    fixed tile (design_turns)."""
+    fixed tile (design_turns); and the body against the parent body on
+    the tile (``launch(tile, prev=True)``, body_turns)."""
     from chsimpy_tpu_torch.ops import kernels as K
     ptrs = (U.data_ptr(), E.data_ptr())
     tile = K.stats_tile(bn, W, max(bn, W), 0, 0, U.element_size(), *ptrs)
@@ -743,6 +850,7 @@ def stats_turns(where, kern, bn, W, U, E, launch):
     out = {'tile': list(tile), 'earlier_tile': list(earlier)}
     if tile != earlier:
         out.update(design_turns(where, kern, lambda: launch(earlier)))
+    out.update(body_turns(where, kern, lambda: launch(tile, prev=True)))
     return out
 
 
@@ -770,9 +878,9 @@ def stats_fields(dev, card):
             def kern():
                 return K.stats_sums(U, E, cfg.A0, cfg.A1, **skw)
 
-            def launch(tile):
+            def launch(tile, prev=False):
                 return K._stats_sums_launch(U, E, cfg.A0, cfg.A1, tile,
-                                            **skw)
+                                            prev=prev, **skw)
 
             got = kern()
             want = K.stats_sums_ref(U, E, cfg.A0, cfg.A1, **skw)
@@ -802,7 +910,8 @@ def stats_fields(dev, card):
             print(f"kernel stats_sums (b) N={N:5d} {dname:8s} "
                   f"rel={row['max_rel_err']:.3e} tile {row['tile']} (fixed "
                   f"{row['earlier_tile']}) {'ok' if ok else 'FAIL'}  kernel "
-                  f"{row['ms']:.4f} ms ({turns_text(row) or 'one design'})"
+                  f"{row['ms']:.4f} ms ({turns_text(row) or 'one design'}"
+                  f"{body_text(row)})"
                   f"  plain "
                   f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']}, {row['bound_share']:.0%})  ({card})",
@@ -1798,7 +1907,16 @@ def shard_kernel_phase(dev, card):
                                 j * bw)
                         got = K.local_band_sums(*args, **skw)
                         want = K.local_band_sums_ref(*args, **skw)
+                        tile = K.stats_tile(
+                            bn, bw, N, i * bn, j * bw, Ub.element_size(),
+                            *(t.data_ptr() for t in (Ub, *halo[:2], Eb)))
+                        prev = K._local_band_sums_launch(*args, tile,
+                                                         prev=True, **skw)
                         torch.cuda.synchronize()
+                        check(same_bits(got, prev),
+                              f"K7 N={N} {dname} {mx}x{my} block ({i}, "
+                              f"{j}): the body's sums differ from the "
+                              f"parent body's")
                         d = (got - want).abs()
                         err = max(err, d.max().item())
                         rel = max(rel, (d / want.abs()).max().item())
@@ -1835,6 +1953,13 @@ def shard_kernel_phase(dev, card):
                         lambda: K.local_band_sums_ref(*args, **skw)))
                     row.update(bound_fields(
                         *stats_bytes_ops(Ub), dname))
+                    tile = K.stats_tile(
+                        bn, bw, N, 0, 0, Ub.element_size(),
+                        *(t.data_ptr() for t in (Ub, *halo[:2], Eb)))
+                    row.update(body_turns(
+                        '8 (a)', lambda: K.local_band_sums(*args, **skw),
+                        lambda: K._local_band_sums_launch(
+                            *args, tile, prev=True, **skw)))
                     # (b) K8 on the same block: K1's kernel, the same bits
                     b8 = K.chemical_potential_sharded(
                         None, Ub, cfg.RT, cfg.BRT, cfg.A0, cfg.A1)
@@ -1866,8 +1991,8 @@ def shard_kernel_phase(dev, card):
                           flush=True)
                     check(same, f"K8 N={N} {dname}: bits differ from K1")
                 rows.append(row)
-                times = (f"  kernel {row['ms']:.4f} ms  plain "
-                         f"{row['plain_ms']:.4f} ms  bound "
+                times = (f"  kernel {row['ms']:.4f} ms{body_text(row)}  "
+                         f"plain {row['plain_ms']:.4f} ms  bound "
                          f"{row['bound_ms']:.4f} ms  ({card})"
                          if 'ms' in row else '')
                 print(f"kernel local_band_sums N={N} {dname} {mx}x{my}: "
@@ -2633,8 +2758,11 @@ def member_bound(name, R, N, dtype):
         return bound_fields(2 * R * n * s + R * (2 * 8 + 5 * 8),
                             OPS_PER_ELEM['stats'] * R * n, dtype)
     if name == 'absdev_sum_members':
-        return bound_fields(R * n * s + R * s + R * 8,
-                            OPS_PER_ELEM['absdev_sum'] * R * n, dtype)
+        # with each member's Ra in the second pass: one more row of N
+        # read, one more double written, 5 N operations (K11's)
+        return bound_fields(R * n * s + R * s + R * 8 + R * N * s + R * 8,
+                            OPS_PER_ELEM['absdev_sum'] * R * n + 5 * R * N,
+                            dtype)
     raise KeyError(name)
 
 
@@ -2706,9 +2834,11 @@ def member_kernel_phase(dev, card):
                 lambda: K.stats_sums_members(U, E, A0s, A1s, **skw),
                 lambda: K.stats_sums_members_ref(U, E, A0s, A1s, **skw),
                 lambda r: K.stats_sums(U[r], E[r], a0[r], a1[r], **skw)),
+            # the step's K4_members: each member's Ra (K11's body on row
+            # N/2+1) in its second pass
             'absdev_sum_members': (
-                lambda: K.absdev_sum_members(U, mean),
-                lambda: K.absdev_sum_members_ref(U, mean),
+                lambda: K.absdev_ra_members(U, mean, U, N // 2 + 1)[0],
+                lambda: K.absdev_ra_members_ref(U, mean, U, N // 2 + 1)[0],
                 lambda r: K.absdev_sum(U[r], mean[r])),
         }
         for name, (kern, ref, single) in cases.items():
@@ -2741,11 +2871,14 @@ def member_kernel_phase(dev, card):
                    'single_launches_ms': device_ms(
                        lambda: [single(r) for r in range(R)]),
                    **member_bound(name, R, N, dname)}
+            if name == 'absdev_sum_members':
+                row.update(fused_ra_turns('10 (a)', U, mean, U,
+                                          N // 2 + 1))
             if name == 'stats_sums_members':
                 row.update(stats_turns(
                     '10 (a)', kern, N, N, U, E,
-                    lambda t: K._stats_sums_members_launch(U, E, A0s, A1s, t,
-                                                           **skw)))
+                    lambda t, prev=False: K._stats_sums_members_launch(
+                        U, E, A0s, A1s, t, prev=prev, **skw)))
             row['bound_share'] = row['bound_ms'] / row['ms']
             rows.append(row)
             print(f"kernel {name:27s} R={R:2d} N={N:5d} {dname:8s} "
@@ -2758,7 +2891,11 @@ def member_kernel_phase(dev, card):
                   f" ({row['bound_by']}, {row['bound_share']:.0%})"
                   + (f"  tile {row['tile']} (the fixed tile "
                      f"{row['earlier_tile']}) {turns_text(row)}"
-                     if 'tile' in row else '') + f"  ({card})",
+                     + body_text(row) if 'tile' in row else '')
+                  + (f"  with Ra; K4 + K11 {row['k4_k11_ms']:.4f} ms, the "
+                     f"same bits, turns {row['k4_k11_ms_turns']} / "
+                     f"{row['ms_fused_turns']}" if 'k4_k11_ms' in row
+                     else '') + f"  ({card})",
                   flush=True)
             check(ok, f"{name} R={R} N={N} {dname}: error {err:.3e} "
                       f"outside {tol}, members equal {same}, {counted} "
@@ -2770,21 +2907,49 @@ def member_kernel_phase(dev, card):
     return rows
 
 
-def _single_member_run(p, A0, A1, kappa, steps=None, warm=0):
+def _graph_solver(params):
+    """A Solver whose chunks replay each ``STOP_POLL`` steps as one CUDA
+    graph (``core/stepper.py`` ``ChunkGraph``, the eager steps' bits; a
+    run on the card with no jitter and no mesh).  Only this script's
+    single runs of phase 10 (b) and 12 (b) take it, to spare the host
+    their launches; the launch counters grow at its capture only, and no
+    count is read over these runs."""
+    from chsimpy_tpu_torch.core.solver import Solver
+    from chsimpy_tpu_torch.core.stepper import (STOP_POLL, ChunkGraph,
+                                                run_chunk)
+
+    class GraphSolver(Solver):
+        graph = None
+
+        def _run_chunk(self, state, k):
+            if self.graph is None and k >= STOP_POLL:
+                self.graph = ChunkGraph(self.cfg, self._consts, state)
+            return run_chunk(self.cfg, self._consts, state, k,
+                             graph=self.graph)
+
+    check(params.mesh_shape is None, 'a CUDA graph run takes no mesh')
+    return GraphSolver(params)
+
+
+def _single_member_run(p, A0, A1, kappa, steps=None, warm=0,
+                       cuda_graph=False):
     """The port's single run of one member on the card: (solution,
-    steps/s of the solve after ``warm`` steps)."""
+    steps/s of the solve after ``warm`` steps); ``cuda_graph``: the steps
+    replayed as CUDA graphs (:func:`_graph_solver`, the same bits).  It
+    waits for its own stream only: runs of other threads may be capturing
+    graphs."""
     import torch
     from chsimpy_tpu_torch.core.solver import Solver
     q = p.deepcopy()
     q.A0_const, q.A1_const, q.kappa_tilde = float(A0), float(A1), kappa
-    s = Solver(q)
+    s = _graph_solver(q) if cuda_graph else Solver(q)
     s.prepare()
     if warm:
         s.solve_or_resume(warm)
-    torch.cuda.synchronize()
+    torch.cuda.current_stream().synchronize()
     t0 = time.perf_counter()
     sol = s.solve_or_resume(steps)
-    torch.cuda.synchronize()
+    torch.cuda.current_stream().synchronize()
     done = sol.computed_steps - (warm or 1)
     return sol, done / (time.perf_counter() - t0)
 
@@ -2829,7 +2994,9 @@ def canonical_batch(card):
     ``EnsembleSolver`` (the main path: its launch counts are the JSON
     line's): each member's stop step equals the port's single run of the
     member on the card, E within 1e-10 at every row; member-steps/s beside
-    the single runs' steps/s."""
+    a single run's steps/s (member 0, alone and eager; the other members'
+    single runs replayed as CUDA graphs side by side,
+    :func:`graph_single_runs`)."""
     import numpy as np
     import torch
     from chsimpy_tpu_torch import Parameters
@@ -2839,41 +3006,48 @@ def canonical_batch(card):
     ens, sols, rate_b, launches = canonical_ensemble()
     stops = [s.computed_steps for s in sols]
     iterations = max(stops) - 1
-    single_rates, E_rel = [], []
+    ref0, rate_1 = _single_member_run(p, *pairs[0], CANONICAL_KAPPAS[0])
+    singles, single_s = graph_single_runs(p, range(1, len(pairs)))
+    singles[0] = (ref0.timedata.data(), None,
+                  {'stop': ref0.computed_steps, 'reason': ref0.stop_reason})
+    E_rel = []
     for r, s in enumerate(sols):
-        ref, rate_1 = _single_member_run(p, *pairs[r], CANONICAL_KAPPAS[r])
-        single_rates.append(rate_1)
-        a, b = s.timedata.data(), ref.timedata.data()
-        check(s.computed_steps == ref.computed_steps
-              and s.stop_reason == ref.stop_reason == 'energy'
+        b, _, meta = singles[r]
+        a = s.timedata.data()
+        check(s.computed_steps == meta['stop']
+              and s.stop_reason == meta['reason'] == 'energy'
               and a.shape == b.shape,
               f"canonical batch member {r}: stop {s.computed_steps} "
-              f"({s.stop_reason}), single run {ref.computed_steps} "
-              f"({ref.stop_reason})")
+              f"({s.stop_reason}), single run {meta['stop']} "
+              f"({meta['reason']})")
         E_rel.append(float(np.max(np.abs(a[:, 1] / b[:, 1] - 1))))
         check(E_rel[-1] <= 1e-10, f"canonical batch member {r}: E "
                                   f"{E_rel[-1]:.3e} off its single run")
         check(bool(torch.isfinite(s.U).all()), f"member {r}: field")
     res = {'R': 16, 'N': 512, 'dtype': 'float64', 'stop_steps': stops,
            'member_steps_per_s': rate_b,
-           'single_steps_per_s': single_rates,
+           'single_steps_per_s': [rate_1],
+           'graph_single_runs_seconds': single_s,
            'E_max_rel_vs_single': E_rel, 'launches': launches,
            'iterations': iterations}
     print(f"canonical batch R=16 N=512 float64: stops {stops}; "
-          f"{rate_b:.1f} member-steps/s, single runs "
-          f"{min(single_rates):.1f}-{max(single_rates):.1f} steps/s; E vs "
-          f"single <= {max(E_rel):.3e}; launches {launches}  ({card})",
-          flush=True)
+          f"{rate_b:.1f} member-steps/s, member 0's single run "
+          f"{rate_1:.1f} steps/s (the other 15 as CUDA graphs in "
+          f"{single_s:.1f} s); E vs single <= {max(E_rel):.3e}; launches "
+          f"{launches}  ({card})", flush=True)
     for name, single in MEMBER_KERNELS.items():
         check(launches[name] >= iterations,
               f"canonical batch: {name} launched {launches[name]} times "
               f"in {iterations} step iterations")
         check(launches[single] == 0,
               f"canonical batch: the single-field {single} launched")
-    check(launches['row_absdev_members'] >= iterations,
+    # each member's Ra comes from K4_members' second pass
+    # (absdev_ra_members, counted as absdev_sum_members): K11 has no
+    # launch of its own
+    check(launches['row_absdev_members'] == 0,
           f"canonical batch: row_absdev_members launched "
-          f"{launches['row_absdev_members']} times in {iterations} step "
-          f"iterations")
+          f"{launches['row_absdev_members']} times (its body runs in "
+          f"absdev_sum_members' second pass)")
     del ens
     torch.cuda.empty_cache()
     return res
@@ -3410,11 +3584,6 @@ SLICE_MEMBER_SHAPES = ((16, 512), (4, 4096), (3, 1001), (2, 1000))
 SLICE_MEMBER_REPORT = (16, 512, 4)
 # and a NaN in member 0 (its scale NaN, its planes the plain version's)
 SLICE_NAN_SHAPES = ((16, 512), (3, 1001))
-# (b): the worker processes that run the 16 single ozaki runs to their
-# stops side by side (one alone runs ~56 steps/s at N=512, ~30 s to its
-# stop: one after another they would take 8 minutes, four side by side
-# ~2; eight side by side were no faster)
-OZ_SINGLE_PROCS = 4
 # (c): members, steps (a warm-up of ENS_WARM, then the timed window)
 OZ_ENS_4096 = (4, 64)
 # (e): the profiled field size
@@ -3564,72 +3733,48 @@ def _ozaki_params():
     return Parameters(no_gui=True, device='cuda', transform_backend='ozaki')
 
 
-def ozaki_single_worker(members, path):
-    """A worker of (b): the single ozaki runs of the canonical batch's
-    ``members`` to their stops, saved to ``path`` (.npz: each member's
-    rows, final U, stop, stop reason and steps/s)."""
-    import numpy as np
+def graph_single_runs(p, members):
+    """The single runs (Parameters ``p``) of the canonical batch's
+    ``members`` to their stops: {r: (rows, U, meta)} and the wall seconds.
+    Each run replays its steps as a CUDA graph (:func:`_graph_solver`,
+    the eager steps' bits) on a stream of its own, the runs in
+    threads of this process side by side: eagerly the host held an N=512
+    ozaki run to ~60-85 steps/s (four processes took ~2 minutes for the
+    16), replayed the card takes ~300 steps/s in all (processes
+    time-slice it, streams share it)."""
+    import threading
+    import torch
     pairs = canonical_pairs()
-    out = {}
-    for r in members:
-        sol, rate = _single_member_run(_ozaki_params(), *pairs[r],
-                                       CANONICAL_KAPPAS[r])
-        out[f'rows{r}'] = sol.timedata.data()
-        out[f'U{r}'] = sol.U.cpu().numpy()
-        out[f'meta{r}'] = np.array(json.dumps(
-            {'stop': sol.computed_steps, 'reason': sol.stop_reason,
-             'steps_per_s': rate}))
-    np.savez(path, **out)
-    return 0
+    runs, errors = {}, []
 
-
-def ozaki_single_runs(R, procs=OZ_SINGLE_PROCS, timeout=900):
-    """The single ozaki runs of the canonical batch's R members to their
-    stops, in ``procs`` processes on the card side by side (member r in
-    process r % procs): {r: (rows, U, meta)} and the wall seconds."""
-    import shutil
-    import tempfile
-    import numpy as np
-    work = tempfile.mkdtemp(prefix='chip_smoke_oz_single_')
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    jobs = []
+    def run(r):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                sol, rate = _single_member_run(
+                    p, *pairs[r], CANONICAL_KAPPAS[r], cuda_graph=True)
+                runs[r] = (sol.timedata.data(), sol.U.cpu().numpy(),
+                           {'stop': sol.computed_steps,
+                            'reason': sol.stop_reason,
+                            'steps_per_s': rate})
+        except BaseException as e:      # raised again below
+            errors.append(e)
     t0 = time.perf_counter()
-    try:
-        for w in range(procs):
-            path = os.path.join(work, f'w{w}.npz')
-            members = ','.join(str(r) for r in range(w, R, procs))
-            jobs.append((path, subprocess.Popen(
-                [sys.executable, os.path.join(ROOT, 'chip_smoke.py'),
-                 '--ozaki-singles', members, '--out', path], cwd=ROOT,
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        runs = {}
-        for path, proc in jobs:
-            left = max(1.0, timeout - (time.perf_counter() - t0))
-            log, _ = proc.communicate(timeout=left)
-            check(proc.returncode == 0, f"single ozaki worker exited "
-                                        f"{proc.returncode}:\n{log[-2000:]}")
-            with np.load(path) as z:
-                for key in z.files:
-                    if key.startswith('meta'):
-                        r = int(key[4:])
-                        runs[r] = (z[f'rows{r}'], z[f'U{r}'],
-                                   json.loads(str(z[key])))
-        return runs, time.perf_counter() - t0
-    finally:
-        for _, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        shutil.rmtree(work, ignore_errors=True)
+    threads = [threading.Thread(target=run, args=(r,)) for r in members]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return runs, time.perf_counter() - t0
 
 
 def ozaki_canonical_batch(card, matmul_batch):
     """(b) the canonical R=16 N=512 float64 batch on the ozaki route (the
     main path of this slice: the JSON line's K5_members count is read
     here) to every stop, then every member's single ozaki run to its stop
-    (OZ_SINGLE_PROCS processes side by side): the same stop step, E
-    within 1e-10 at every row, and beyond that the same rows (Ra aside: a
+    (threads side by side, :func:`graph_single_runs`): the same stop step,
+    E within 1e-10 at every row, and beyond that the same rows (Ra aside: a
     batched row mean, within 1e-12) and the same final U to the bit; the
     stops equal those of phase 10 (b)'s matmul batch (``matmul_batch``,
     run in the same call), whose member-steps/s stand beside the ozaki
@@ -3652,7 +3797,7 @@ def ozaki_canonical_batch(card, matmul_batch):
     del ens
     torch.cuda.empty_cache()
     # every member's single ozaki run to its stop
-    singles, single_s = ozaki_single_runs(len(pairs))
+    singles, single_s = graph_single_runs(_ozaki_params(), range(len(pairs)))
     check(sorted(singles) == list(range(len(pairs))),
           f"single ozaki runs of members {sorted(singles)}")
     E_rel, single_rates = [], []
@@ -3679,7 +3824,7 @@ def ozaki_canonical_batch(card, matmul_batch):
            'stop_steps': stops, 'member_steps_per_s': rate_oz,
            'matmul_member_steps_per_s': matmul_batch['member_steps_per_s'],
            'E_max_rel_vs_single': E_rel,
-           'single_procs': OZ_SINGLE_PROCS, 'single_runs_seconds': single_s,
+           'single_threads': len(pairs), 'single_runs_seconds': single_s,
            'single_steps_per_s_side_by_side': single_rates,
            'launches': launches, 'iterations': iterations,
            'slice_launches_implied': implied}
@@ -3688,8 +3833,8 @@ def ozaki_canonical_batch(card, matmul_batch):
           f"member-steps/s beside matmul's "
           f"{matmul_batch['member_steps_per_s']:.1f} (phase 10 (b)); every "
           f"member's rows and U = its single ozaki run's to the bit (E "
-          f"<= {max(E_rel):.3e}); 16 single runs in {OZ_SINGLE_PROCS} "
-          f"processes {single_s:.1f} s ({min(single_rates):.1f}-"
+          f"<= {max(E_rel):.3e}); 16 single runs as CUDA graphs in "
+          f"threads {single_s:.1f} s ({min(single_rates):.1f}-"
           f"{max(single_rates):.1f} steps/s each); launches {launches}  "
           f"({card})", flush=True)
     del sols
@@ -4283,8 +4428,9 @@ def local_members_kernel_phase(dev, card):
                    lambda: [single(r) for r in range(R)]),
                **local_members_bound(R, bn, bw, dname),
                **stats_turns('14 (a)', kern, bn, bw, Ub, Eb,
-                             lambda t: K._local_band_sums_members_launch(
-                                 *args, t, **skw))}
+                             lambda t, prev=False:
+                             K._local_band_sums_members_launch(
+                                 *args, t, prev=prev, **skw))}
         row['bound_share'] = row['bound_ms'] / row['ms']
         rows.append(row)
         print(f"kernel local_band_sums_members R={R} N={N} {dname} block "
@@ -4296,7 +4442,7 @@ def local_members_kernel_phase(dev, card):
               f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}, {row['bound_share']:.0%})  tile "
               f"{row['tile']} (the fixed tile {row['earlier_tile']}) "
-              f"{turns_text(row)}  ({card})",
+              f"{turns_text(row)}{body_text(row)}  ({card})",
               flush=True)
         check(ok, f"K7_members R={R} N={N} {dname}: rel {rel:.3e}, count "
                   f"exact {count_exact}, members equal {same}, {counted} "
@@ -4306,11 +4452,10 @@ def local_members_kernel_phase(dev, card):
     return rows
 
 
-# (a): (R, N, dtype) of K11 (each member's Ra); the JSON line's row is
-# the canonical batch's shape
+# (a): (R, N, dtype) of K11 (each member's Ra; on the main path its body
+# runs in K4_members' second pass, whose JSON row names what it replaces)
 ROW_ABSDEV_SHAPES = ((16, 512, 'float64'), (4, 4096, 'float32'),
                      (4, 4096, 'float64'))
-ROW_ABSDEV_REPORT = (16, 512, 'float64')
 ROW_ABSDEV_REPLACES = ('no Pallas counterpart: jnp.mean twice on the mid '
                        'row in chsimpy_tpu/core/stepper.py:473, vmapped '
                        'over the member axis (chsimpy_tpu/ensemble.py)')
@@ -4362,6 +4507,23 @@ def row_absdev_kernel_phase(dev, card):
               f"{row_out['bound_ms']:.5f} ms  ({card})", flush=True)
         check(ok, f"K11 R={R} N={N} {dname}: rel {rel:.3e}, members equal "
                   f"{same}, {counted} counts")
+    # the fused pass on (c)'s grid ensemble: a rank's (N/2, N/2) blocks
+    # with their members' mean and the gathered mid rows (R, 1, N)
+    R, N, steps = GRID_ENS_512
+    U = member_inputs(R, N, torch.float64, dev)[2]
+    Ub = U[:, :N // 2, :N // 2].contiguous()
+    mid = U[:, N // 2 + 1].contiguous().unsqueeze(1)
+    mean = (U.sum((1, 2)) / (N * N)).to(U.dtype)
+    row = {'name': 'absdev_ra_members', 'R': R, 'N': N, 'dtype': 'float64',
+           'mesh': '(1, 2, 2)', 'block': f'{N // 2}x{N // 2}',
+           **fused_ra_turns('14 (a)', Ub, mean, mid, 0)}
+    rows.append(row)
+    fused_ms = statistics.median(row['ms_fused_turns'])
+    print(f"kernel absdev_ra_members R={R} N={N} float64 on (c)'s "
+          f"{row['block']} blocks: {fused_ms:.4f} ms; K4 + K11 "
+          f"{row['k4_k11_ms']:.4f} ms, the same bits, turns "
+          f"{row['k4_k11_ms_turns']} / {row['ms_fused_turns']}  ({card})",
+          flush=True)
     return rows
 
 
@@ -4463,17 +4625,21 @@ def ens_world_phase(card, work):
     return out
 
 
-def grid_ens_phase(card, work, E_single):
+def grid_ens_phase(card, E_single):
     """(c) grid ensembles and (e) the single run's checkpoint under
-    --mesh, on one (1, 2, 2) world of 4 ranks: R=4 N=512 float64 over
-    256 steps (E within 1e-10 of one device's batch, the rows the same on
-    every rank; K7_members on every step: the JSON line's count) and R=4
-    N=4096 float32 full_sim over 32 steps (E within 1e-6 of one device's
-    batch, mean(U) within 1e-6 of its start, ms per step iteration and
-    each rank's peak memory); phase 8 (c)'s checkpoint (MESH_CKPT_STEP)
-    restored on that world: the stop 1674 and phase 8 (c)'s rows
-    (that run re-entered at the same step) to the bit, E within 1e-10 of
-    phase 4's run."""
+    --mesh, on one (1, 2, 2) world of 4 ranks (:func:`grid_ens_tasks`,
+    :func:`grid_ens_check`); in a full run the tasks run in phase 15's
+    world of the same shape instead (a world's start costs ~10-25 s)."""
+    tasks, ctx = grid_ens_tasks(E_single)
+    world, seconds = _world((1, 2, 2), tasks + [('imported', {})])
+    _no_jax('phase 14 (c)', world, 3)
+    return grid_ens_check(world, seconds, ctx, card)
+
+
+def grid_ens_tasks(E_single):
+    """(c) and (e)'s world tasks and what they are held to: one device's
+    batches from the same pairs, phase 8 (c)'s checkpoint, phase 4's
+    run."""
     import numpy as np
     import torch
     from chsimpy_tpu_torch import Parameters, checkpoint
@@ -4498,17 +4664,35 @@ def grid_ens_phase(card, work, E_single):
 
     ck = KEPT['mesh_run']['ckpt']
     params, payload = checkpoint.load_checkpoint(ck, device='cuda')
-    saved_at = payload['header']['computed_steps']
-    # (c) and (e) in one world (a world's start costs ~10 s)
-    world, seconds = _world((1, 2, 2), [
-        ('ensemble', {'params': p512, 'pairs': pairs, 'kappas': kappas,
-                      'steps': steps, 'return_U': False}),
-        ('solve', {'params': {'restore_file': ck, 'ntmax': int(1e6)},
-                   'return_U': False}),
-        ('ensemble', {'params': pbig, 'pairs': pairs, 'kappas': kappas,
-                      'steps': steps_b, 'return_U': False}),
-        ('imported', {})])
-    _no_jax('phase 14 (c)', world, 3)
+    tasks = [('ensemble', {'params': p512, 'pairs': pairs, 'kappas': kappas,
+                           'steps': steps, 'return_U': False}),
+             ('solve', {'params': {'restore_file': ck, 'ntmax': int(1e6)},
+                        'return_U': False}),
+             ('ensemble', {'params': pbig, 'pairs': pairs, 'kappas': kappas,
+                           'steps': steps_b, 'return_U': False})]
+    return tasks, {'E512': E512, 'Ebig': Ebig, 'U0_mean': U0_mean,
+                   'mesh_shape': params.mesh_shape,
+                   'saved_at': payload['header']['computed_steps'],
+                   'E_single': E_single}
+
+
+def grid_ens_check(world, seconds, ctx, card):
+    """(c) and (e) from the world's results (each rank's list, the tasks
+    of :func:`grid_ens_tasks` first): R=4 N=512 float64 over 256 steps (E
+    within 1e-10 of one device's batch, the rows the same on every rank;
+    K7_members on every step: the JSON line's count) and R=4 N=4096
+    float32 full_sim over 32 steps (E within 1e-6 of one device's batch,
+    mean(U) within 1e-6 of its start, ms per step iteration and each
+    rank's peak memory); phase 8 (c)'s checkpoint (MESH_CKPT_STEP)
+    restored on that world: the stop 1674 and phase 8 (c)'s rows (that
+    run re-entered at the same step) to the bit, E within 1e-10 of phase
+    4's run."""
+    import numpy as np
+    R, N, steps = GRID_ENS_512
+    Rb, Nb, steps_b = GRID_ENS_4096
+    E512, Ebig, U0_mean = ctx['E512'], ctx['Ebig'], ctx['U0_mean']
+    saved_at, E_single = ctx['saved_at'], ctx['E_single']
+    mesh_shape = ctx['mesh_shape']
 
     # (c) N=512
     g512 = [r[0] for r in world]
@@ -4524,7 +4708,8 @@ def grid_ens_phase(card, work, E_single):
     for g in g512:
         check(all(g['launches'][k] >= it512 for k in path)
               and g['launches']['stats_sums_members'] == 0
-              and g['launches']['local_band_sums'] == 0,
+              and g['launches']['local_band_sums'] == 0
+              and g['launches']['row_absdev_members'] == 0,
               f"phase 14 (c) N={N}: launches {g['launches']}")
     # (c) N=4096
     gbig = [r[2] for r in world]
@@ -4558,7 +4743,7 @@ def grid_ens_phase(card, work, E_single):
                      'U_mean_drift': drift, 'ms_per_step_iteration': ms_step,
                      'peak_GB_per_rank': peak_gb},
            'checkpoint': {'saved_at': saved_at,
-                          'mesh_shape': params.mesh_shape,
+                          'mesh_shape': mesh_shape,
                           'restored_computed_steps':
                               restored[0]['computed_steps'],
                           'stop_reason': restored[0]['stop_reason'],
@@ -4575,11 +4760,11 @@ def grid_ens_phase(card, work, E_single):
           + ', '.join(f'{m:.2f}' for m in peak_gb)
           + f" (4 ranks on one card, gloo)  ({card})", flush=True)
     print(f"phase 14 (e) phase 8 (c)'s canonical run on a 2x2 world, "
-          f"saved at {saved_at} (mesh_shape {params.mesh_shape}), restored "
+          f"saved at {saved_at} (mesh_shape {mesh_shape}), restored "
           f"on a new world: stop {restored[0]['computed_steps']} "
           f"({restored[0]['stop_reason']}), rows = phase 8 (c)'s "
           f"{rows_equal}, the same on every rank {same_ranks}, E vs phase "
-          f"4 {rel_single:.3e}; world (with (c)) {seconds:.1f} s  "
+          f"4 {rel_single:.3e}; the world's {seconds:.1f} s  "
           f"({card})",
           flush=True)
     check(same512 and rel512 <= 1e-10,
@@ -4588,9 +4773,9 @@ def grid_ens_phase(card, work, E_single):
           and all(g['U_finite'] for g in gbig),
           f"phase 14 (c) N={Nb}: E {relbig:.3e}, drift {drift:.3e}, ranks "
           f"same {samebig}")
-    check(saved_at == MESH_CKPT_STEP and tuple(params.mesh_shape) == (2, 2),
+    check(saved_at == MESH_CKPT_STEP and tuple(mesh_shape) == (2, 2),
           f"phase 14 (e): the file holds step {saved_at}, mesh "
-          f"{params.mesh_shape}")
+          f"{mesh_shape}")
     check(restored[0]['computed_steps'] == 1674
           and restored[0]['stop_reason'] == 'energy' and rows_equal
           and same_ranks and rel_single <= 1e-10,
@@ -4671,7 +4856,9 @@ def uq_two_processes(card, work):
     return out
 
 
-def distributed_phase(dev, card, E_single):
+def distributed_phase(dev, card, E_single, merged=False):
+    """Phase 14; ``merged`` (a full run): (c) and (e) are prepared here and
+    run in phase 15's world, which checks them (KEPT['grid_ens'])."""
     import shutil
     import tempfile
     out = {'kernels': local_members_kernel_phase(dev, card),
@@ -4682,7 +4869,10 @@ def distributed_phase(dev, card, E_single):
         out['ens_world'] = ens_world_phase(card, work)
         out['seconds_b'] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out['grid'] = grid_ens_phase(card, work, E_single)
+        if merged:
+            KEPT['grid_ens'] = grid_ens_tasks(E_single)
+        else:
+            out['grid'] = grid_ens_phase(card, E_single)
         out['seconds_c_e'] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out['experiment'] = uq_two_processes(card, os.path.join(work, 'uq'))
@@ -5208,10 +5398,15 @@ def pencil_phase(dev, card, refs):
     import threading
     ckpt = os.path.join(kept_dir(), 'pencil.npz')
     world = {}
+    tasks = pencil_world_tasks(ckpt)
+    # phase 14 (c) and (e) in a full run: the same (1, 2, 2) world
+    grid14 = KEPT.pop('grid_ens', None)
+    if grid14 is not None:
+        tasks[-1:-1] = [(('grid_ens', k), t) for k, t in enumerate(grid14[0])]
 
     def run():
         try:
-            world['out'] = run_pencil_world(pencil_world_tasks(ckpt))
+            world['out'] = run_pencil_world(tasks)
         except BaseException as e:      # raised again below
             world['error'] = e
 
@@ -5251,6 +5446,11 @@ def pencil_phase(dev, card, refs):
     out['task_seconds'] = task_seconds
     out['world_seconds'] = seconds
     _no_jax('phase 15', [[r] for r in res['imported']], 0)
+    if grid14 is not None:
+        ranks = len(res['imported'])
+        out['grid_ens'] = grid_ens_check(
+            [[res[('grid_ens', k)][r] for k in range(len(grid14[0]))]
+             for r in range(ranks)], seconds, grid14[1], card)
 
     # (a) K5 sharded in the world
     slices = []
@@ -5856,11 +6056,27 @@ def fold_kernel_phase(dev, card):
             Es = torch.stack([E, E, 2.0 * E, E])
             a0 = torch.full((R,), cfg.A0, dtype=torch.float64, device=dev)
             a1 = torch.full((R,), cfg.A1, dtype=torch.float64, device=dev)
-            mgot = K.stats_sums_members(dct_ops.fold1(Us), dct_ops.fold1(Es),
-                                        a0, a1, fold=True, **skw)
+            Vs, EVs = dct_ops.fold1(Us), dct_ops.fold1(Es)
+            mgot = K.stats_sums_members(Vs, EVs, a0, a1, fold=True, **skw)
             ok = ok and (torch.equal(mgot, K.stats_sums_members(
                 Us, Es, a0, a1, **skw)) or not same_grid)
             row['members'] = 'R=4: the natural K3_members bits'
+            # the body against the parent body, single and members
+            tile = K.stats_tile(N, N, N, 0, 0, V.element_size(),
+                                V.data_ptr(), EV.data_ptr(), fold=True)
+            mtile = K.stats_tile(N, N, N, 0, 0, V.element_size(),
+                                 Vs.data_ptr(), EVs.data_ptr(), fold=True)
+            check(same_bits(mgot, K._stats_sums_members_launch(
+                Vs, EVs, a0, a1, mtile, fold=True, prev=True, **skw)),
+                f"stats_sums fold members N={N} {dname}: the body's sums "
+                f"differ from the parent body's")
+            body = body_turns(
+                '16 (a)', lambda: K.stats_sums(V, EV, cfg.A0, cfg.A1,
+                                               fold=True, **skw),
+                lambda: K._stats_sums_launch(V, EV, cfg.A0, cfg.A1, tile,
+                                             fold=True, prev=True, **skw))
+            if N == FOLD_REPORT[0]:
+                row.update(body)
             if N == FOLD_REPORT[0]:
                 def fold():
                     return K.stats_sums(V, EV, cfg.A0, cfg.A1, fold=True,
@@ -5887,7 +6103,7 @@ def fold_kernel_phase(dev, card):
                       f"{row['call_ms']:.4f}; natural K3 "
                       f"{row['natural_ms']:.4f}, {row['over_natural']:.3f}x"
                       f"; turns natural / fold {row['natural_ms_turns']} / "
-                      f"{row['fold_ms_turns']})  plain "
+                      f"{row['fold_ms_turns']}{body_text(row)})  plain "
                       f"{row['plain_ms']:.4f} ms  bound "
                       f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
                       f"{row['bound_share']:.0%})" if 'ms' in row else '')
@@ -6575,7 +6791,8 @@ def gpu_clocks():
 
 # what a timed row says of the design it was timed beside (design_turns),
 # carried into the JSON line
-DESIGN_KEYS = ('before_ms', 'tile', 'earlier_tile')
+DESIGN_KEYS = ('before_ms', 'tile', 'earlier_tile', 'parent_body_ms',
+               'parent_body_same_bits', 'k4_k11_ms', 'fused_same_bits')
 
 
 def summary_rows(detail):
@@ -6658,10 +6875,13 @@ def summary_rows(detail):
         row = next(r for r in detail['ensemble']['member_kernels']
                    if r['name'] == name
                    and (r['R'], r['N'], r['dtype']) == MEMBER_REPORT)
+        fused = name == 'absdev_sum_members'
         rows.append({
             'name': name, 'route': 'cuda', 'source': SOURCE,
             'replaces': REPLACES[single] + ' (vmapped over the member '
-                                           'axis, chsimpy_tpu/ensemble.py)',
+                                           'axis, chsimpy_tpu/ensemble.py)'
+            + (', and in its second pass K11 (each member\'s Ra): '
+               + ROW_ABSDEV_REPLACES if fused else ''),
             'launches': detail['ensemble']['canonical']['launches'][name],
             'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
             'call_ms': row['call_ms'], 'plain_ms': row['plain_ms'],
@@ -6691,21 +6911,6 @@ def summary_rows(detail):
         'one_launch_launches': detail['ozaki_ensemble']['canonical'][
             'launches']['one_launch']['slice_field_members'],
         **{k: row[k] for k in DESIGN_KEYS if k in row},
-        'bound_share': row['bound_ms'] / row['ms']})
-    # K11 at the canonical batch's shape, counted on phase 10 (b)'s run
-    R, N, dtype = ROW_ABSDEV_REPORT
-    row = next(r for r in detail['distributed']['row_absdev']
-               if (r['R'], r['N'], r['dtype']) == ROW_ABSDEV_REPORT)
-    rows.append({
-        'name': 'row_absdev_members', 'route': 'cuda', 'source': SOURCE,
-        'replaces': ROW_ABSDEV_REPLACES,
-        'launches': detail['ensemble']['canonical']['launches'][
-            'row_absdev_members'],
-        'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
-        'call_ms': row['call_ms'], 'plain_ms': row['plain_ms'],
-        'library_ms': None, 'bound_ms': row['bound_ms'],
-        'bound_by': row['bound_by'], 'max_rel_err': row['max_rel_err'],
-        'shape': f"row {N // 2 + 1} of {R} members' {N}x{N} {dtype} fields",
         'bound_share': row['bound_ms'] / row['ms']})
     # K7_members on a 2x2 mesh's block, counted on phase 14 (c)'s grid
     # ensemble (rank 0)
@@ -6844,7 +7049,8 @@ def kernels_only(detail, dev, card, out_dir) -> int:
     detail['grid_blocks'] = grid_block_kernels(dev, card)
     detail['otf_kernels'] = otf_kernel_phase(dev, card)
     detail['fold_kernels'] = fold_kernel_phase(dev, card)
-    report = [r for r in detail['kernels'] if r['N'] == REPORT_SHAPE[0]]
+    report = [r for r in detail['kernels'] if r['N'] == REPORT_SHAPE[0]
+              and 'ms' in r]
     report += [r for r in detail['sobol_kernel'] if 'ms' in r
                and r['N'] == SOBOL_REPORT[0]]
     report += [r for r in detail['threefry_kernel'] if 'ms' in r]
@@ -6857,7 +7063,8 @@ def kernels_only(detail, dev, card, out_dir) -> int:
                and r['N'] == SHARD_REPORT[0]]
     report += detail['member_kernels']
     report += [r for r in detail['slice_members'] if 'ms' in r]
-    report += detail['local_members'] + detail['row_absdev']
+    report += detail['local_members'] + [r for r in detail['row_absdev']
+                                         if 'ms' in r]
     report += detail['pencil_slices'] + detail['grid_slices']
     report += [r for r in detail['otf_kernels'] + detail['fold_kernels']
                if 'ms' in r]
@@ -6933,8 +7140,6 @@ def main(argv=None) -> int:
                          '15: the canonical runs on split and ozaki, N=4096 '
                          'float64 matmul and float32 split; phase 16: the '
                          'canonical run of 4); no closing lines')
-    # a worker of phase 12 (b): single ozaki runs, saved to --out
-    ap.add_argument('--ozaki-singles', help=argparse.SUPPRESS)
     # a worker of phase 16 (b): knob runs, saved to --out
     ap.add_argument('--knob-runs', help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -6943,9 +7148,6 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA card", file=sys.stderr)
         return 1
-    if args.ozaki_singles:
-        return ozaki_single_worker(
-            [int(r) for r in args.ozaki_singles.split(',')], args.out)
     if args.knob_runs:
         return knob_worker([int(i) for i in args.knob_runs.split(',')],
                            args.out)
@@ -7021,13 +7223,15 @@ def _main(args, detail, dev, card, torch) -> int:
                                      detail['ensemble']['canonical'])
     detail['live'] = timed(13, live_phase, card)
     detail['distributed'] = timed(14, distributed_phase, dev, card,
-                                  detail['default_run']['E'])
+                                  detail['default_run']['E'], True)
     detail['pencil'] = timed(15, pencil_phase, dev, card, {
         'E_split_n512': detail['routes']['default_run']['split']['E'],
         'E_ozaki_n512': detail['ozaki']['default_run']['E'],
         'E_f64_4096': fm['E_f64_64_steps'],
         'E_split_f32_4096': KEPT['E_split_f32_4096'],
         'U0_mean_4096': fm['f32_mean_U_initial']})
+    # phase 14 (c) and (e), run and checked in phase 15's world
+    detail['distributed']['grid'] = detail['pencil'].pop('grid_ens')
     detail['knobs'] = timed(16, knobs_phase, dev, card,
                             detail['default_run']['E'],
                             fm['E_f64_64_steps'], detail)

@@ -5,22 +5,30 @@ Static counts by pipe from ``cuobjdump -sass`` of the built library.
     python -m chsimpy_tpu_torch.benchmarks.stats_sass
 
 For every instantiation of ``stats_kernel`` (K3, K3_members, K7,
-K7_members and the fold mode; float32 and float64, vector width V) the
-kernel's row loops (one row of V columns a thread: one loop, two in the
-fold mode, whose bands on one side of N/2 step through their stored rows
-and whose band at the seam maps each row) are cut out of the SASS and
-their instructions counted by pipe: FP64, FP32, MUFU and conversions,
+K7_members and the fold mode; float32 and float64, vector width V; the
+body, and the parent body it replaced: ``prev``) the kernel's row loops
+(one row of V columns a thread) are cut out of the SASS and their
+instructions counted by pipe: FP64, FP32, MUFU and conversions,
 with each pipe's time at its rate on an H100 SM for N=4096 (132 SMs at
 1.98 GHz, the rates of the CUDA C++ Programming Guide's throughput table
 for compute capability 9.0), beside the registers a thread takes
 (``cuobjdump -res-usage``: with 256 threads a block, 64 registers let 4
-blocks share an SM, 72 only 3).  The last lines set each fold
-instantiation beside the natural one of the same type and width.
+blocks share an SM, 72 only 3).  The parent body has one row loop (two
+in the fold mode, whose bands on one side of N/2 step through their
+stored rows and whose band at the seam maps each row); the body has the
+interior loop (no edge in its arithmetic, pointers stepped a row) and
+the loop over the block's last rows (the field's last row chosen per
+row), and the fold mode its stepped and seam loops; the field's first
+row and, in the fold, its last run outside the loops.  The last lines
+set each body beside the parent body of the same form, type and width,
+and each fold instantiation beside the natural one.
 
 These are static counts: every instruction of the loop body counts once,
 predicated-off ones, the one-sided edge branches an interior element
 never takes and the loop control included.  Only the copies of the true
-division beyond the two an interior element runs are taken out.  They
+division an interior element does not run are taken out: beyond the two
+of the parent body, and all of the body's (its float64 divisions run the
+true division only outside their range, its float32 ones never).  They
 bound what the compiled code issues from above, not what the function
 needs: the kernel's roofline bound stays its bytes and its arithmetic
 (``benchmarks/roofline.py`` ``OPS_PER_ELEM``).  It needs the CUDA toolkit's
@@ -81,16 +89,16 @@ def row_loops(ins):
     return sorted((b, e) for b, e in loops if 2 * (e - b) >= longest)
 
 
-def loop_counts(ins, vec: int, span=None):
+def loop_counts(ins, vec: int, span=None, runs: int = 2):
     """(per element, loop body): the static counts of one loop of the
     function (``span``: its (first, last) index; by default the longest;
     ``ins``: (address, text) of its SASS) by pipe, and per element.  The
-    body holds one copy of the true division for each branch of the
-    one-sided differences; an interior element runs two a column (its row
-    and its column difference), so the per-element count takes out the
-    copies beyond 2 V, each counted from its reciprocal (MUFU) to the end
-    of its slow-path branch (the CALL that marks it and the BSYNC
-    after)."""
+    parent body holds one copy of the true division for each branch of
+    the one-sided differences; an interior element runs ``runs`` a column
+    (the parent's: its row and its column difference; the body's: none),
+    so the per-element count takes out the copies beyond ``runs`` V, each
+    counted from its reciprocal (MUFU) to the end of its slow-path branch
+    (the CALL that marks it and the BSYNC after)."""
     b, e = span or max(_loops(ins), key=lambda be: be[1] - be[0])
     body = ins[b:e + 1]
     static = _counts(body)
@@ -101,9 +109,9 @@ def loop_counts(ins, vec: int, span=None):
             d1 = next(k for k in range(i, len(body))
                       if _opcode(body[k][1]) == 'BSYNC')
             divs.append(_counts(body[d0:d1 + 1]))
-    extra = len(divs) - 2 * vec
-    per = {p: (static[p] - extra * statistics.mean(d[p] for d in divs))
-           / vec for p in static}
+    extra = len(divs) - runs * vec
+    per = {p: (static[p] - (extra * statistics.mean(d[p] for d in divs)
+                            if extra else 0)) / vec for p in static}
     return per, static
 
 
@@ -128,37 +136,67 @@ def stats_sass(lib_path: str) -> list:
     rows = []
     for part in re.split(r'\n\s*Function : ', text)[1:]:
         name, body = part.split('\n', 1)
-        m = re.search(r'stats_kernelI([fd])Li(\d)ELb(\d)ELb(\d)E', name)
+        m = re.search(r'stats_kernelI([fd])Li(\d)ELb(\d)ELb(\d)ELb(\d)E',
+                      name)
         if not m:
             continue
         ins = [(int(a, 16), t.strip()) for a, t in re.findall(
             r'/\*([0-9a-f]{4,})\*/\s+([^;]*);', body)]
         vec = int(m.group(2))
-        per, static = loop_counts(ins, vec)
+        prev = m.group(5) == '1'
+        runs = 2 if prev else 0
+        per, static = loop_counts(ins, vec, runs=runs)
         clocks_ms = FIELD / (SMS * CLOCK_HZ) * 1e3
         rows.append({
             'dtype': 'float32' if m.group(1) == 'f' else 'float64',
             'V': vec, 'halo': m.group(3) == '1', 'fold': m.group(4) == '1',
-            'registers': regs.get(name.strip()),
+            'prev': prev, 'registers': regs.get(name.strip()),
             'static_per_element': per, 'loop_body': static,
+            'row_loops_per_element': [
+                loop_counts(ins, vec, sp, runs)[0] for sp in row_loops(ins)],
             'row_loops_all_per_element': [
-                loop_counts(ins, vec, sp)[0]['all'] for sp in row_loops(ins)],
+                loop_counts(ins, vec, sp, runs)[0]['all']
+                for sp in row_loops(ins)],
             'pipe_ms_at_4096': {p: per[p] / rate * clocks_ms
                                 for p, _, rate in PIPES}})
     return rows
+
+
+def body_beside_parent(rows) -> list:
+    """For each instantiation of the body, the parent body's of the same
+    form, type and width: instructions an element by pipe of each row
+    loop and registers a thread."""
+    parent = {(r['dtype'], r['V'], r['halo'], r['fold']): r for r in rows
+              if r['prev']}
+    out = []
+    for r in rows:
+        p = None if r['prev'] else parent.get(
+            (r['dtype'], r['V'], r['halo'], r['fold']))
+        if p is not None:
+            out.append({'body_beside_parent': (
+                            f"{r['dtype']} V={r['V']}"
+                            + ' halo' * r['halo'] + ' fold' * r['fold']),
+                        'per_element': {'parent': p['row_loops_per_element'],
+                                        'body': r['row_loops_per_element']},
+                        'registers': {'parent': p['registers'],
+                                      'body': r['registers']}})
+    return out
 
 
 def fold_beside_natural(rows) -> list:
     """For each fold instantiation, the natural K3 one of the same type
     and width beside it: instructions an element of each row loop and
     registers a thread."""
-    natural = {(r['dtype'], r['V']): r for r in rows
+    natural = {(r['dtype'], r['V'], r.get('prev', False)): r for r in rows
                if not r['fold'] and not r['halo']}
     out = []
     for r in rows:
-        n = natural.get((r['dtype'], r['V'])) if r['fold'] else None
+        n = (natural.get((r['dtype'], r['V'], r.get('prev', False)))
+             if r['fold'] else None)
         if n is not None:
-            out.append({'fold_beside_natural': f"{r['dtype']} V={r['V']}",
+            out.append({'fold_beside_natural': (
+                            f"{r['dtype']} V={r['V']}"
+                            + ' (parent body)' * r.get('prev', False)),
                         'all_per_element': {
                             'natural': n['row_loops_all_per_element'],
                             'fold': r['row_loops_all_per_element']},
@@ -173,7 +211,7 @@ def main(argv=None) -> int:
         description=__doc__.splitlines()[0])
     ap.parse_args(argv)
     rows = stats_sass(cuda_build.build()['path'])
-    for row in rows + fold_beside_natural(rows):
+    for row in rows + body_beside_parent(rows) + fold_beside_natural(rows):
         print(json.dumps(row), flush=True)
     return 0
 

@@ -592,8 +592,7 @@ class Solver:
             self._ckpt_last_saved = self.solution.computed_steps
         while n_iters > 0 and self.solution.stop_reason == 'None':
             k = min(n_iters, self.chunk_size)
-            state = run_chunk(self.cfg, self._consts, state, k, self.mesh,
-                              self._draw_jitter_buf(k))
+            state = self._run_chunk(state, k)
             n_iters -= k
             state = self._sync(state)
             if (ckpt and every and self.solution.computed_steps
@@ -610,6 +609,11 @@ class Solver:
         self._state = state
         self.solution.U = self.host_field(state.U)
         return self.solution
+
+    def _run_chunk(self, state: SolverState, k: int) -> SolverState:
+        """``k`` steps of the solve (:func:`~.stepper.run_chunk`)."""
+        return run_chunk(self.cfg, self._consts, state, k, self.mesh,
+                         self._draw_jitter_buf(k))
 
     def host_field(self, U: torch.Tensor) -> torch.Tensor:
         """The whole field of this rank's ``U`` in the natural layout

@@ -51,6 +51,7 @@ the steps the JAX package's loop runs.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -604,18 +605,28 @@ def _stopped(state: SolverState) -> bool:
 
 
 def run_chunk(cfg: StepConfig, consts, state: SolverState,
-              n_iters: int, mesh=None, jitter_buf=None) -> SolverState:
+              n_iters: int, mesh=None, jitter_buf=None,
+              graph: Optional['ChunkGraph'] = None) -> SolverState:
     """Up to ``n_iters`` steps, left every ``STOP_POLL`` steps once the
     run has stopped; steps after a stop leave the state unchanged (see
     the module docstring).  ``jitter_buf``: the
     ``stream`` mode's (n_iters, ...) slabs, step i taking slab i, or the
     ``static`` mode's one slab (``chsimpy_tpu/core/stepper.py:808-825``).
     The ``device`` mode's keys alternate between the two rows of a buffer
-    of the chunk by step parity: a step reads one and writes the other."""
+    of the chunk by step parity: a step reads one and writes the other.
+    ``graph``: a :class:`ChunkGraph` of this run, which replays each whole
+    ``STOP_POLL`` steps of the chunk (the rest run as they are)."""
+    i = 0
+    if graph is not None:
+        while n_iters - i >= STOP_POLL:
+            state = graph.replay(state)
+            i += STOP_POLL
+            if i < n_iters and _stopped(state):
+                return state
     keys = (torch.empty((2, 2), dtype=torch.int64,
                         device=state.rng_key.device)
             if cfg.jitter_mode == 'device' else None)
-    for i in range(n_iters):
+    for i in range(i, n_iters):
         slab = (jitter_buf[i] if cfg.jitter_mode == 'stream'
                 else jitter_buf)
         state = _step(cfg, consts, state, mesh, slab,
@@ -623,6 +634,69 @@ def run_chunk(cfg: StepConfig, consts, state: SolverState,
         if (i + 1) % STOP_POLL == 0 and i + 1 < n_iters and _stopped(state):
             break
     return state
+
+
+_CAPTURE_LOCK = threading.Lock()
+
+
+class ChunkGraph:
+    """``STOP_POLL`` steps of one single-device run, captured once as a
+    CUDA graph and replayed: the steps' launches (a few hundred a step on
+    the ozaki route at N=512) cost the host one replay, so a run the host
+    held back runs at the card's pace.  The kernels, their order and their
+    inputs are the steps' own: a replay gives the bits of ``STOP_POLL``
+    steps run one by one.  The graph reads and writes its own copy of the
+    state; :meth:`replay` copies the state in and returns fresh copies of
+    the result, on the current stream: runs on streams of their own (one
+    a thread) replay side by side on the card.  The capture runs on the
+    caller's stream (a stream of its own, kept with the graph, where that
+    is the default stream), and the kernels' tickets and scratch in the
+    graph are its own (``kernels.own_scratch``), kept as long as the
+    graph: torch hands out pooled streams round-robin, so counters keyed
+    by a stream could be shared with whatever later gets its handle.  One
+    capture at a time in a process, each confined to its thread (other
+    threads may go on launching and waiting on their own streams).  Runs
+    with jitter (host slabs, the device streams' key buffers) or a mesh
+    (collectives through the host) are not captured.  The kernels' launch
+    counts (``ops/kernels.launches``) grow at the capture only, not at a
+    replay: no entry point of the package replays one."""
+
+    def __init__(self, cfg: StepConfig, consts, state: SolverState):
+        if state.U.device.type != 'cuda' or cfg.jitter_mode != 'none':
+            raise ValueError(f"a CUDA graph takes a run on the card without "
+                             f"jitter, got {state.U.device}, jitter mode "
+                             f"{cfg.jitter_mode!r}")
+        dev = state.U.device
+        self._fields = [f.name for f in dataclasses.fields(SolverState)]
+        self._in = self._copy(state)
+        self._scratch: dict = {}
+        here = torch.cuda.current_stream(dev)
+        self._stream = (torch.cuda.Stream(device=dev)
+                        if here == torch.cuda.default_stream(dev) else here)
+        self._stream.wait_stream(here)
+        # a first step as the capture will run: the graph's own tickets
+        # and scratch and the libraries' handles are made here, outside it
+        with K.own_scratch(self._scratch), torch.cuda.stream(self._stream):
+            _step(cfg, consts, self._copy(state))
+        self._graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK, K.own_scratch(self._scratch), torch.cuda.graph(
+                self._graph, stream=self._stream,
+                capture_error_mode='thread_local'):
+            out = self._in
+            for _ in range(STOP_POLL):
+                out = _step(cfg, consts, out)
+        self._out = out
+        here.wait_stream(self._stream)
+
+    def _copy(self, state: SolverState) -> SolverState:
+        return SolverState(**{f: getattr(state, f).clone()
+                              for f in self._fields})
+
+    def replay(self, state: SolverState) -> SolverState:
+        for f in self._fields:
+            getattr(self._in, f).copy_(getattr(state, f))
+        self._graph.replay()
+        return self._copy(self._out)
 
 
 # ----------------------------------------------------------------------
@@ -679,8 +753,9 @@ def _members_stats(cfg: StepConfig, consts, U, EnergieEut=None,
                    mesh=None):
     """:func:`_stats` of every member, each an (R,) float64 tensor, from
     the batched K3 sums and the batched K4 with each member's mean; the
-    float64 finish in the single run's operations and order; Ra by K11
-    (the same bits for a member whatever the batch holds).  On a grid
+    float64 finish in the single run's operations and order; Ra by K11's
+    body in K4_members' second pass (the same bits for a member whatever
+    the batch holds).  On a grid
     mesh U holds the members' blocks (K7_members and K4_members, the same
     values on every rank; on the pencil layout their column blocks)."""
     mesh = field_mesh(cfg, mesh)
@@ -701,12 +776,12 @@ def _members_stats(cfg: StepConfig, consts, U, EnergieEut=None,
     SA = sums[:, 3] / n2
     L2 = torch.sqrt(sums[:, 4]) / n2
     meanU = (sums[:, 2] / n2).to(U.dtype)
-    PS = K.absdev_sum_members(U, meanU) / n2
     if cfg.fold_field:
-        Ra = K.row_absdev_members(_mid_row(cfg, U).unsqueeze(1), 0)
+        ps, Ra = K.absdev_ra_members(U, meanU,
+                                     _mid_row(cfg, U).unsqueeze(1), 0)
     else:
-        Ra = K.row_absdev_members(U, N // 2 + 1)
-    return E, E2, PS, L2, Ra, SA
+        ps, Ra = K.absdev_ra_members(U, meanU, U, N // 2 + 1)
+    return E, E2, ps / n2, L2, Ra, SA
 
 
 def prepare_members_row0(cfg: StepConfig, consts, U, mesh=None):

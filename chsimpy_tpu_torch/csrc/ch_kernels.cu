@@ -201,11 +201,16 @@ update_otf_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
 // banded operands; here the halo is read in place.
 //
 // Its byte bound: U and E read once, 134 MB per call at N=4096 f32 (33.6
-// MB on a 2048 x 2048 block).  Per element it also takes two logs, two true
-// divisions and four float64 conversions and adds, which on the H100 cost
-// about as much time as the bytes (K1, one log and one division per
-// element over the same bytes, runs nearer its bound).  A row sweep keeps
-// the bytes to one pass:
+// MB on a 2048 x 2048 block).  Per element it also takes two logs, two
+// divisions by the constants h and 2h and four float64 conversions and
+// adds, which on the H100 cost about as much time as the bytes (K1, one
+// log and one division per element over the same bytes, runs nearer its
+// bound); in float64 the two logs' FP64 instructions alone take longer
+// than the bytes.  The body (below the parent body it replaced, which is
+// kept as stats_kernel's PREV instantiation) divides by a product with the
+// reciprocal, corrected (cdiv, the true quotient's bits), and keeps the
+// field's edges out of the interior's arithmetic.  A row sweep keeps the
+// bytes to one pass:
 // * each thread owns V contiguous columns (a float4 in float32, a double2
 //   in float64; V=1 where W or an address does not allow the vector) and
 //   walks down a band of `band` rows with the rows above, at and below in
@@ -218,7 +223,9 @@ update_otf_kernel(const T* __restrict__ hat_U, const T* __restrict__ hat_E,
 //   block's left edge: lf_col), and under HALO the thread that holds column
 //   W-1 reads rt_col;
 // * the one-sided edges (global rows 0 and N-1, columns 0 and N-1) are
-//   decided per row and per thread, not per element;
+//   decided per row and per thread, not per element (in the body the
+//   field's first and last rows run outside the interior loop, and the
+//   first and last columns take themselves as the neighbour beyond);
 // * one launch: every block writes its five float64 sums to partials, and
 //   the last block to finish (an atomic ticket after __threadfence) adds
 //   all partials in a fixed order and resets the ticket to 0 for the next
@@ -312,8 +319,115 @@ __device__ __forceinline__ void load_vec(const T* p, T (&v)[V]) {
     }                                                                         \
   }
 
-template <typename T, int V, bool HALO, bool FOLD>
-__global__ void __launch_bounds__(kThreads)
+// The new body's divisions by the constants h and h2 = 2h (the parent
+// body above divides): c the divisor, y = 1/c rounded to nearest in
+// double, formed once a thread.  Each returns the true quotient's bits:
+// * float: RN((double)x * y) rounded to float.  The product is x/c (1 + e)
+//   with |e| <= 2^-52 (to first order: y's rounding and the product's).
+//   No float quotient x/c lies on a midpoint of two floats (x = m c with m
+//   of 25 significant bits, its last one set, needs more bits than x
+//   has; a subnormal midpoint k 2^-150, k odd, needs c >= 2), and none
+//   lies nearer one than 2^-49 |x/c| (2^-174 below 2^-126): farther than
+//   the product's error, so the product rounds to the float x/c rounds
+//   to, overflow included.  Two conversions and a DMUL against the true
+//   division's reciprocal iterations, range check and slow path.
+// * double: q0 = RN(x y) is x/c within 2 ulps; q1 = RN(q0 + r0 y), r0 =
+//   RN(x - q0 c) (one fma each), is x/c (1 + e) with |e| ~ 2^-104, so
+//   within one ulp; r1 = x - q1 c is then exact (the remainder of a
+//   quotient within one ulp, barring underflow), and by Markstein's
+//   theorem (IBM J. Res. Develop. 34 (1990), 111-119: y within half an
+//   ulp of 1/c, q1 within one ulp of x/c) q2 = RN(q1 + r1 y) is RN(x / c).
+//   Nothing over- or underflows for 2^-900 <= |x| < 2^901 and h in
+//   [2^-29, 2^29]; outside that range of |x| (x = 0 included) the true
+//   division runs.  A DMUL and four DFMA against the true division's
+//   MUFU.RCP64H, its iterations and range check.
+// Where h is outside these ranges (cdiv_range: h >= 2 in float) the body
+// passes y = 0, and cdiv takes the true division: a branch the same way
+// in every thread.  ch_cdiv_check holds both forms to the true division
+// on the card (float: every finite x; double: random and edge inputs).
+constexpr unsigned int kCdivLoHi = (1023u - 900u) << 20;  // |x| = 2^-900
+constexpr unsigned int kCdivHiHi = (1023u + 901u) << 20;  // |x| = 2^901
+
+template <typename T>
+__device__ __forceinline__ bool cdiv_range(T h) {
+  if constexpr (sizeof(T) == 4) return h > 0.0f && h < 2.0f;
+  else return h >= 0x1p-29 && h <= 0x1p29;
+}
+
+__device__ __forceinline__ float cdiv(float x, float c, double y) {
+  return y != 0.0 ? (float)((double)x * y) : x / c;
+}
+__device__ __forceinline__ double cdiv(double x, double c, double y) {
+  const unsigned int hx = (unsigned int)__double2hiint(x) & 0x7fffffffu;
+  if (y == 0.0 || hx - kCdivLoHi >= kCdivHiHi - kCdivLoHi) return x / c;
+  const double q0 = x * y;
+  const double q1 = __fma_rn(__fma_rn(-q0, c, x), y, q0);
+  return __fma_rn(__fma_rn(-q1, c, x), y, q1);
+}
+
+// The new body's terms of one row, STATS_ROW_TERMS' arithmetic operation
+// for operation: the row difference (XA) - (XB) over CX (YX its
+// reciprocal), chosen per row by the caller (the interior's (dn - up) /
+// h2 has no select); the column differences over h2, but the thread's
+// first element over cf and its last over cl (h at the field's first and
+// last column), whose neighbours left / right the step sets to the
+// element itself there; every division by cdiv.
+#define STATS_TERMS(XA, XB, CX, YX)                                           \
+  if (active) {                                                               \
+    _Pragma("unroll")                                                         \
+    for (int j = 0; j < V; ++j) {                                             \
+      const T u = cur[j];                                                     \
+      const T dux = cdiv((XA) - (XB), CX, YX);                                \
+      const T l = j == 0 ? left : cur[j > 0 ? j - 1 : 0];                     \
+      const T rv = j == V - 1 ? right : cur[j < V - 1 ? j + 1 : 0];           \
+      const T duy = j == 0 ? cdiv(rv - l, cf, yf)                             \
+                    : j == V - 1 ? cdiv(rv - l, cl, yl)                       \
+                    : cdiv(rv - l, h2, yh2);                                  \
+      const T uinv = T(1) - u;                                                \
+      const T integrand = RT * (u * (flog(u) - B) + uinv * flog(uinv))        \
+                          + (A0 + A1 * (uinv - u)) * u * uinv;                \
+      acc[0] += (double)integrand;                                            \
+      acc[1] += (double)(dux * dux + duy * duy);                              \
+      acc[2] += (double)u;                                                    \
+      count += u < threshold;                                                 \
+      if (has_e) acc[4] += (double)(e[j] * e[j]);                             \
+    }                                                                         \
+  }
+
+// One row of the new body's sweeps: NEXT loads U's row r+2 and E's row
+// r+1 into un / en and row r+1's edge and tail values into edge_n / rt_n;
+// the row's terms; the rows move up one.
+#define STATS_ROW_STEP(NEXT, XA, XB, CX, YX)                                  \
+  {                                                                           \
+    T un[V], en[V], edge_n, rt_n;                                             \
+    NEXT;                                                                     \
+    T left = __shfl_up_sync(0xffffffffu, cur[V - 1], 1);                      \
+    T right = __shfl_down_sync(0xffffffffu, cur[0], 1);                       \
+    if (lane == 0) left = first_col ? cur[0] : edge;                          \
+    if (lane == 31) right = edge;                                             \
+    if (tail) right = rt;                                                     \
+    if (last_col) right = cur[V - 1];                                         \
+    STATS_TERMS(XA, XB, CX, YX)                                               \
+    _Pragma("unroll")                                                         \
+    for (int j = 0; j < V; ++j) {                                             \
+      up[j] = cur[j];                                                         \
+      cur[j] = dn[j];                                                         \
+      dn[j] = un[j];                                                          \
+      e[j] = en[j];                                                           \
+    }                                                                         \
+    edge = edge_n;                                                            \
+    rt = rt_n;                                                                \
+  }
+
+// The statistics kernel: PREV the parent body, else the new one.  The
+// body is written in the kernel (behind a __forceinline__ function the
+// parent body compiled to other loops and registers).  Only the new
+// float64 body asks for 3 blocks an SM (at most 85 registers a thread,
+// against the 108-110 it took uncapped: two blocks an SM); the parent
+// body and the float32 body keep the compiler's choice (0: no minimum).
+template <typename T, int V, bool HALO, bool FOLD, bool PREV>
+__global__ void __launch_bounds__(kThreads,
+                                  !PREV && sizeof(T) == 8 ? 3 : 0)
 stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
              const T* __restrict__ up_row, const T* __restrict__ dn_row,
              const T* __restrict__ lf_col, const T* __restrict__ rt_col,
@@ -417,7 +531,7 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
   if (has_e) load_row(E, r0, e);
   T edge = load_edge(r0);
   T rt = HALO ? load_tail(r0) : T(0);
-  if constexpr (!FOLD) {
+  if constexpr (PREV && !FOLD) {
     for (int r = r0; r < r1; ++r) {
       T un[V], en[V];
       load_row(U, below(below(r)), un);
@@ -441,7 +555,7 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
       edge = edge_n;
       rt = rt_n;
     }
-  } else {
+  } else if constexpr (PREV) {
     // K3's fold mode.  The loops load a row as stored (load_raw: a
     // reversed thread's V values in reverse column order) and put it in
     // natural order only where it enters the sweep (natural(), as dn and
@@ -513,6 +627,134 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
         sweep_row(r, un, en, load_edge(below_in(r)));
       }
     }
+  } else {
+    // The new body: the parent's sweeps and terms with the edges taken
+    // out of the interior's arithmetic and the divisions by cdiv.  The
+    // field's first and last rows run on their own (their one-sided row
+    // differences chosen for the row); the first and last columns' column
+    // differences take the element itself as the neighbour (left / right)
+    // and h as the divisor, both decided once a thread.  The natural
+    // sweep's interior rows whose loads all lie in the block (U's r+2, E's
+    // and the edge values' r+1) step their pointers by one row.  The
+    // reciprocals are 0 where h is outside cdiv's range (its true
+    // division).
+    const bool fast = cdiv_range(h);
+    const double yh = fast ? 1.0 / (double)h : 0.0;
+    const double yh2 = fast ? 1.0 / (double)h2 : 0.0;
+    const bool h_first = first_col || (V == 1 && last_col);
+    const bool h_last = last_col || (V == 1 && first_col);
+    const T cf = h_first ? h : h2, cl = h_last ? h : h2;
+    const double yf = h_first ? yh : yh2, yl = h_last ? yh : yh2;
+    if constexpr (!FOLD) {
+      auto next_any = [&](int r, T (&un)[V], T (&en)[V], T& edge_n,
+                          T& rt_n) {
+        load_row(U, below(below(r)), un);
+        if (has_e) load_row(E, below_in(r), en);
+        edge_n = load_edge(below_in(r));
+        rt_n = HALO ? load_tail(below_in(r)) : T(0);
+      };
+      int r = r0;
+      if (r0 + row_off == 0) {            // the field's first row
+        STATS_ROW_STEP(next_any(r, un, en, edge_n, rt_n), dn[j], u, h, yh)
+        ++r;
+      }
+      const int rf = max(r, min(r1, bn - 2));
+      if (r < rf) {
+        const T* pu = U + c0 + (long long)(r + 2) * W;
+        const T* pe = (has_e ? E : U) + c0 + (long long)(r + 1) * W;
+        const T* pedge = edge_base + (long long)(r + 1) * edge_stride;
+        const T* prt = (HALO ? rt_col : U) + r + 1;
+        auto next_in = [&](T (&un)[V], T (&en)[V], T& edge_n, T& rt_n) {
+          if (active) {
+            load_vec<T, V>(pu, un);
+            if (has_e) load_vec<T, V>(pe, en);
+          } else {
+#pragma unroll
+            for (int j = 0; j < V; ++j) un[j] = en[j] = T(0);
+          }
+          edge_n = edge_lane ? *pedge : T(0);
+          rt_n = tail ? *prt : T(0);
+          pu += W;
+          pe += W;
+          pedge += edge_stride;
+          ++prt;
+        };
+        for (; r < rf; ++r)
+          STATS_ROW_STEP(next_in(un, en, edge_n, rt_n), dn[j], up[j], h2,
+                         yh2)
+      }
+      for (; r < r1; ++r) {               // the block's last rows
+        const bool bot = r + row_off == N - 1;
+        const T cx = bot ? h : h2;
+        const double yx = bot ? yh : yh2;
+        STATS_ROW_STEP(next_any(r, un, en, edge_n, rt_n), bot ? u : dn[j],
+                       up[j], cx, yx)
+      }
+    } else {
+      // the fold mode: the parent's two sweeps (stored rows loaded as
+      // stored, a reversed thread's lanes swapped where the row enters),
+      // the field's first and last natural rows on their own
+      auto natural = [&](T (&v)[V]) {
+        if (rev) {
+#pragma unroll
+          for (int j = 0; j < V / 2; ++j) {
+            const T t = v[j];
+            v[j] = v[V - 1 - j];
+            v[V - 1 - j] = t;
+          }
+        }
+      };
+      auto load_raw = [&](const T* row, T (&v)[V]) {
+        if (active) {
+          load_vec<T, V>(row + sc0, v);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) v[j] = T(0);
+        }
+      };
+      if (r0 >= half || r1 < half) {
+        const long long step = r0 >= half ? -(long long)W : (long long)W;
+        long long o = (long long)frow(r0 + 1) * W;
+        auto next_step = [&](T (&un)[V], T (&en)[V], T& edge_n, T& rt_n) {
+          load_raw(U + o + step, un);
+          if (has_e) load_raw(E + o, en);
+          edge_n = edge_lane ? edge_base[o] : T(0);
+          rt_n = T(0);
+          o += step;
+        };
+        int r = r0;
+        if (r0 == 0) {                    // the field's first row
+          STATS_ROW_STEP(next_step(un, en, edge_n, rt_n), dn[j], u, h, yh)
+          natural(dn);
+          natural(e);
+          ++r;
+        }
+        for (const int re = r1 == N ? N - 1 : r1; r < re; ++r) {
+          STATS_ROW_STEP(next_step(un, en, edge_n, rt_n), dn[j], up[j], h2,
+                         yh2)
+          natural(dn);
+          natural(e);
+        }
+        if (r < r1) {                     // the field's last row
+          STATS_ROW_STEP(next_step(un, en, edge_n, rt_n), u, up[j], h, yh)
+        }
+      } else {
+        // the band at the seam: each row through the fold map
+        for (int r = r0; r < r1; ++r) {
+          const bool top = r == 0, bot = r == N - 1;
+          const T cx = top || bot ? h : h2;
+          const double yx = top || bot ? yh : yh2;
+          STATS_ROW_STEP(
+              (load_raw(U + (long long)frow(below(below(r))) * W, un),
+               has_e ? load_raw(E + (long long)frow(below_in(r)) * W, en)
+                     : (void)0,
+               edge_n = load_edge(below_in(r)), rt_n = T(0)),
+              bot ? u : dn[j], top ? u : up[j], cx, yx)
+          natural(dn);
+          natural(e);
+        }
+      }
+    }
   }
   acc[3] = (double)count;
   block_sum<kNStats>(acc);
@@ -543,6 +785,116 @@ stats_kernel(const T* __restrict__ U, const T* __restrict__ E,
   }
 }
 #undef STATS_ROW_TERMS
+#undef STATS_TERMS
+#undef STATS_ROW_STEP
+
+// cdiv against the true division, for c = h and c = 2h (h = T(delx), as
+// in the statistics kernel): out[0], out[1] count the inputs where the bits
+// differ, out[2] the inputs checked (for each c), out[3] the smallest
+// pattern of |x| that differed (~0 if none).  float: every finite float x
+// (the grid strides over the 2^32 bit patterns); double: n draws of a
+// counter-based generator (splitmix64 from seed: any bit pattern, an
+// exponent across cdiv's range and past both its ends, differences of two
+// values in [0, 1), and values next to x = q c for a random q, so x / c
+// lands near a double or a midpoint) and the caller's edge inputs.
+__device__ __forceinline__ unsigned long long splitmix64(
+    unsigned long long z) {
+  z += 0x9e3779b97f4a7c15ull;
+  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
+  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
+  return z ^ (z >> 31);
+}
+
+__device__ __forceinline__ unsigned long long bits_of(float v) {
+  return __float_as_uint(v);
+}
+__device__ __forceinline__ unsigned long long bits_of(double v) {
+  return (unsigned long long)__double_as_longlong(v);
+}
+
+template <typename T>
+__device__ __forceinline__ void cdiv_check_one(T x, T h, T h2, double yh,
+                                               double yh2,
+                                               unsigned long long* out) {
+  const unsigned long long magnitude = sizeof(T) == 4 ? 0x7fffffffull
+                                                      : ~0ull >> 1;
+  const T a[2] = {cdiv(x, h, yh), cdiv(x, h2, yh2)};
+  const T b[2] = {x / h, x / h2};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (bits_of(a[k]) != bits_of(b[k])) {
+      atomicAdd(out + k, 1ull);
+      atomicMin(out + 3, bits_of(x) & magnitude);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+cdiv_check_f32_kernel(double delx, unsigned long long* __restrict__ out) {
+  const float h = float(delx), h2 = float(2.0 * delx);
+  const double yh = 1.0 / (double)h, yh2 = 1.0 / (double)h2;
+  unsigned long long checked = 0;
+  for (unsigned long long i = (unsigned long long)blockIdx.x * kThreads
+                              + threadIdx.x;
+       i < (1ull << 32); i += (unsigned long long)gridDim.x * kThreads) {
+    const float x = __uint_as_float((unsigned int)i);
+    if (!isfinite(x)) continue;
+    ++checked;
+    cdiv_check_one<float>(x, h, h2, yh, yh2, out);
+  }
+  atomicAdd(out + 2, checked);
+}
+
+__global__ void __launch_bounds__(kThreads)
+cdiv_check_f64_kernel(double delx, long long n, unsigned long long seed,
+                      const double* __restrict__ edges, int n_edges,
+                      unsigned long long* __restrict__ out) {
+  const double h = delx, h2 = 2.0 * delx;
+  const double yh = 1.0 / h, yh2 = 1.0 / h2;
+  unsigned long long checked = 0;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < n + n_edges; i += (long long)gridDim.x * kThreads) {
+    double x;
+    if (i >= n) {
+      x = edges[i - n];
+    } else {
+      const unsigned long long r1 = splitmix64(seed + 2 * i);
+      const unsigned long long r2 = splitmix64(seed + 2 * i + 1);
+      const unsigned long long sign = r2 & (1ull << 63);
+      const unsigned long long mant = r1 & ((1ull << 52) - 1);
+      switch ((r2 >> 60) & 3) {
+        case 0:                      // any bit pattern
+          x = __longlong_as_double((long long)r1);
+          break;
+        case 1: {                    // |x| from 2^-960 to 2^960
+          const long long ex = (long long)(r2 % 1921) - 960 + 1023;
+          x = __longlong_as_double(
+              (long long)(sign | (unsigned long long)ex << 52 | mant));
+          break;
+        }
+        case 2:                      // a difference of two values in [0, 1)
+          x = (double)(r1 >> 11) * 0x1p-53 - (double)(r2 >> 11) * 0x1p-53;
+          break;
+        default: {                   // x / c near a double or a midpoint
+          const long long eq = (long long)(r2 % 400) - 200 + 1023;
+          const double q = __longlong_as_double(
+              (long long)(sign | (unsigned long long)eq << 52 | mant));
+          const double c = (r2 >> 40) & 1 ? h2 : h;
+          const double half = (r2 >> 41) & 1 ? 0.5 : 0.0;
+          const double ulp = __longlong_as_double((eq - 52) << 52);
+          x = __fma_rn(half * ulp, c, q * c);
+          x = __longlong_as_double(__double_as_longlong(x)
+                                   + (long long)((r2 >> 42) & 7) - 3);
+          break;
+        }
+      }
+      if (!isfinite(x)) continue;
+    }
+    ++checked;
+    cdiv_check_one<double>(x, h, h2, yh, yh2, out);
+  }
+  atomicAdd(out + 2, checked);
+}
 
 // K4 — sum |U - mean|, pass 1.  Replaces absdev_band_sums /
 // _absdev_band_kernel (pallas_kernels.py:261-273, 348-369).
@@ -576,12 +928,13 @@ absdev_partials_kernel(const T* __restrict__ U, long long n,
 // W.  The order depends on W alone, so member r gives the same bits in a
 // launch of any member count (a torch reduction over the rows of an
 // (R, W) tensor splits a row across blocks by R: its bits depend on R).
-// The row of member r starts at r * member_stride + row_offset.
+// The row of member r starts at r * member_stride + row_offset.  The body
+// (row_absdev, a block's Ra of one row, in thread 0) also runs in K4's
+// second pass (reduce_columns_kernel), which takes each member's Ra beside
+// its sum where the step asks for both: no launch of its own there.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-row_absdev_kernel(const T* __restrict__ U, long long member_stride,
-                  long long row_offset, int W, double* __restrict__ out) {
-  const T* row = U + (long long)blockIdx.x * member_stride + row_offset;
+__device__ __forceinline__ double row_absdev(const T* __restrict__ row,
+                                             int W) {
   double acc[1] = {0.0};
   for (int c = threadIdx.x; c < W; c += kThreads) acc[0] += (double)row[c];
   block_sum<1>(acc);
@@ -593,7 +946,16 @@ row_absdev_kernel(const T* __restrict__ U, long long member_stride,
   for (int c = threadIdx.x; c < W; c += kThreads)
     acc[0] += (double)fabsT(row[c] - m);
   block_sum<1>(acc);
-  if (threadIdx.x == 0) out[blockIdx.x] = acc[0] / W;
+  return acc[0] / W;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+row_absdev_kernel(const T* __restrict__ U, long long member_stride,
+                  long long row_offset, int W, double* __restrict__ out) {
+  const double ra = row_absdev<T>(
+      U + (long long)blockIdx.x * member_stride + row_offset, W);
+  if (threadIdx.x == 0) out[blockIdx.x] = ra;
 }
 
 // K5 — float64 field -> int8 slices for the ozaki int8 transforms, scale
@@ -1193,18 +1555,27 @@ threefry_jitter_kernel(T* __restrict__ U, int bn, int W, long long N,
   *p = *p + jitter * centred;
 }
 
-// Pass 2 of K4: out[c] = sum over b of partials[b, c], one block, fixed
-// order.
+// Pass 2 of K4: out[c] = sum over b of partials[b, c], block c (one a
+// member), fixed order (the order of the single block that walked the
+// columns one after another before: the same bits).  Where rows is given,
+// block c then runs K11's body on member c's row (rows + c * member_stride
+// + row_offset, W values) and writes its Ra to ra[c]: the members' step
+// takes PS and Ra in K4's two launches.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 reduce_columns_kernel(const double* __restrict__ partials, int nrows,
-                      int ncols, double* __restrict__ out) {
-  for (int c = 0; c < ncols; ++c) {
-    double acc[1] = {0.0};
-    for (int b = threadIdx.x; b < nrows; b += kThreads)
-      acc[0] += partials[(long long)b * ncols + c];
-    block_sum<1>(acc);
-    if (threadIdx.x == 0) out[c] = acc[0];
-  }
+                      int ncols, double* __restrict__ out,
+                      const T* __restrict__ rows, long long member_stride,
+                      long long row_offset, int W, double* __restrict__ ra) {
+  const int c = blockIdx.x;
+  double acc[1] = {0.0};
+  for (int b = threadIdx.x; b < nrows; b += kThreads)
+    acc[0] += partials[(long long)b * ncols + c];
+  block_sum<1>(acc);
+  if (threadIdx.x == 0) out[c] = acc[0];
+  if (rows == nullptr) return;
+  const double r = row_absdev<T>(rows + c * member_stride + row_offset, W);
+  if (threadIdx.x == 0) ra[c] = r;
 }
 
 inline unsigned int elementwise_blocks(long long n) {
@@ -1264,7 +1635,7 @@ int launch_update_otf(const void* hat_U, const void* hat_E,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int V, bool HALO, bool FOLD>
+template <typename T, int V, bool HALO, bool FOLD, bool PREV>
 int launch_stats_v(const void* U, const void* E, const void* up,
                    const void* dn, const void* lf, const void* rt, int bn,
                    int W, int N, int row_off, int col_off, int R, int band,
@@ -1276,7 +1647,7 @@ int launch_stats_v(const void* U, const void* E, const void* up,
                   (bn + band - 1) / band, R);
   if ((long long)grid.x * grid.y != nblocks || grid.y > 65535)
     return (int)cudaErrorInvalidValue;
-  stats_kernel<T, V, HALO, FOLD><<<grid, kThreads, 0, s>>>(
+  stats_kernel<T, V, HALO, FOLD, PREV><<<grid, kThreads, 0, s>>>(
       (const T*)U, (const T*)E, (const T*)up, (const T*)dn, (const T*)lf,
       (const T*)rt, bn, W, N, row_off, col_off, band, delx, T(RT), T(B),
       T(A0), T(A1), (const double*)A0s, (const double*)A1s, T(threshold),
@@ -1301,7 +1672,8 @@ inline bool aligned16(const void* p) { return aligned(p, 16); }
 // nblocks: the grid of one member that the wrapper sized partials for (R *
 // nblocks rows); ticket: R counters; A0s / A1s: R doubles on the card, or
 // null (R = 1); FOLD: K3's fold mode (even N, a vector only where N/2 %
-// vec == 0)
+// vec == 0); prev: the parent body (stats_kernel's PREV), kept only to
+// time the new body beside it
 template <typename T, bool HALO, bool FOLD = false>
 int launch_stats(const void* U, const void* E, const void* up,
                  const void* dn, const void* lf, const void* rt, int bn,
@@ -1309,7 +1681,7 @@ int launch_stats(const void* U, const void* E, const void* up,
                  double RT, double B, double A0, double A1, const void* A0s,
                  const void* A1s, double threshold, void* partials,
                  int nblocks, int vec, int band, void* ticket, void* sums,
-                 void* stream) {
+                 int prev, void* stream) {
   if (bn < 1 || W < 1 || N < 2 || row_off < 0 || col_off < 0 ||
       row_off + bn > N || col_off + W > N || U == nullptr || band < 1 ||
       bad_members(R) || (R > 1 && (A0s == nullptr || A1s == nullptr)) ||
@@ -1330,7 +1702,10 @@ int launch_stats(const void* U, const void* E, const void* up,
       return (int)cudaErrorMisalignedAddress;
   }
 #define CH_STATS_LAUNCH(VV)                                                 \
-  return launch_stats_v<T, VV, HALO, FOLD>(                                 \
+  return prev ? launch_stats_v<T, VV, HALO, FOLD, true>(                  \
+      U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, band, delx, RT, \
+      B, A0, A1, A0s, A1s, threshold, partials, nblocks, ticket, sums, s)  \
+                : launch_stats_v<T, VV, HALO, FOLD, false>(                 \
       U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, band, delx, RT, \
       B, A0, A1, A0s, A1s, threshold, partials, nblocks, ticket, sums, s)
   if (vec == 1) CH_STATS_LAUNCH(1);
@@ -1347,32 +1722,39 @@ int launch_stats_field(const void* U, const void* E, int N, int R,
                        double A1, const void* A0s, const void* A1s,
                        double threshold, void* partials, int nblocks,
                        int vec, int band, void* ticket, void* sums, int fold,
-                       void* stream) {
+                       int prev, void* stream) {
   if (fold)
     return launch_stats<T, false, true>(
         U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, R, delx,
         RT, B, A0, A1, A0s, A1s, threshold, partials, nblocks, vec, band,
-        ticket, sums, stream);
+        ticket, sums, prev, stream);
   return launch_stats<T, false>(
       U, E, nullptr, nullptr, nullptr, nullptr, N, N, N, 0, 0, R, delx, RT,
       B, A0, A1, A0s, A1s, threshold, partials, nblocks, vec, band, ticket,
-      sums, stream);
+      sums, prev, stream);
 }
 
 // K4 on R fields of n elements with R means; partials: nblocks * R
-// doubles; sums: R doubles
+// doubles; sums: R doubles.  rows (or null): K11's rows of the R members
+// (member r's W values at r * member_stride + row_offset), their Ra to ra
+// (R doubles) in the second pass
 template <typename T>
 int launch_absdev(const void* U, long long n, int R, const void* mean,
-                  void* partials, int nblocks, void* sums, void* stream) {
-  if (n <= 0 || nblocks < 1 || bad_members(R))
+                  void* partials, int nblocks, void* sums, void* stream,
+                  const void* rows = nullptr, long long member_stride = 0,
+                  long long row_offset = 0, int W = 0, void* ra = nullptr) {
+  if (n <= 0 || nblocks < 1 || bad_members(R) ||
+      (rows != nullptr && (W < 1 || member_stride < 0 || row_offset < 0 ||
+                           ra == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   absdev_partials_kernel<T><<<dim3(nblocks, R), kThreads, 0, s>>>(
       (const T*)U, n, (const T*)mean, (double*)partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_columns_kernel<<<1, kThreads, 0, s>>>(
-      (const double*)partials, nblocks, R, (double*)sums);
+  reduce_columns_kernel<T><<<R, kThreads, 0, s>>>(
+      (const double*)partials, nblocks, R, (double*)sums, (const T*)rows,
+      member_stride, row_offset, W, (double*)ra);
   return (int)cudaGetLastError();
 }
 
@@ -1599,22 +1981,23 @@ int ch_update_otf_f64(const void* hat_U, const void* hat_E,
 }
 
 // ticket: an unsigned int that is 0 between calls (the kernel resets it);
-// fold: the field in the level-1 folded layout (K3's fold mode)
+// fold: the field in the level-1 folded layout (K3's fold mode); prev: the
+// parent body (the K3 and K7 entries all take it)
 int ch_stats_f32(const void* U, const void* E, int N, double delx, double RT,
                  double B, double A0, double A1, double threshold,
                  void* partials, int nblocks, int vec, int band, void* ticket,
-                 void* sums, int fold, void* stream) {
+                 void* sums, int fold, int prev, void* stream) {
   return launch_stats_field<float>(U, E, N, 1, delx, RT, B, A0, A1, nullptr,
                                  nullptr, threshold, partials, nblocks, vec,
-                                 band, ticket, sums, fold, stream);
+                                 band, ticket, sums, fold, prev, stream);
 }
 int ch_stats_f64(const void* U, const void* E, int N, double delx, double RT,
                  double B, double A0, double A1, double threshold,
                  void* partials, int nblocks, int vec, int band, void* ticket,
-                 void* sums, int fold, void* stream) {
+                 void* sums, int fold, int prev, void* stream) {
   return launch_stats_field<double>(U, E, N, 1, delx, RT, B, A0, A1, nullptr,
                                  nullptr, threshold, partials, nblocks, vec,
-                                 band, ticket, sums, fold, stream);
+                                 band, ticket, sums, fold, prev, stream);
 }
 // member-batched K3: R fields (N, N); nblocks: one member's grid; ticket:
 // R counters; sums: (R, 5)
@@ -1622,19 +2005,19 @@ int ch_stats_members_f32(const void* U, const void* E, int N, int R,
                          double delx, double RT, double B, const void* A0s,
                          const void* A1s, double threshold, void* partials,
                          int nblocks, int vec, int band, void* ticket,
-                         void* sums, int fold, void* stream) {
+                         void* sums, int fold, int prev, void* stream) {
   return launch_stats_field<float>(U, E, N, R, delx, RT, B, 0.0, 0.0, A0s,
                                  A1s, threshold, partials, nblocks, vec,
-                                 band, ticket, sums, fold, stream);
+                                 band, ticket, sums, fold, prev, stream);
 }
 int ch_stats_members_f64(const void* U, const void* E, int N, int R,
                          double delx, double RT, double B, const void* A0s,
                          const void* A1s, double threshold, void* partials,
                          int nblocks, int vec, int band, void* ticket,
-                         void* sums, int fold, void* stream) {
+                         void* sums, int fold, int prev, void* stream) {
   return launch_stats_field<double>(U, E, N, R, delx, RT, B, 0.0, 0.0, A0s,
                                  A1s, threshold, partials, nblocks, vec,
-                                 band, ticket, sums, fold, stream);
+                                 band, ticket, sums, fold, prev, stream);
 }
 
 // K7: one block of a grid-sharded field (the halo vectors beside it); the
@@ -1645,11 +2028,11 @@ int ch_local_stats_f32(const void* U, const void* up, const void* dn,
                        double RT, double B, double A0, double A1,
                        double threshold, void* partials, int nblocks,
                        int vec, int band, void* ticket, void* sums,
-                       void* stream) {
+                       int prev, void* stream) {
   return launch_stats<float, true>(
       U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, 1, delx, RT, B, A0,
       A1, nullptr, nullptr, threshold, partials, nblocks, vec, band, ticket,
-      sums, stream);
+      sums, prev, stream);
 }
 int ch_local_stats_f64(const void* U, const void* up, const void* dn,
                        const void* lf, const void* rt, const void* E, int bn,
@@ -1657,11 +2040,11 @@ int ch_local_stats_f64(const void* U, const void* up, const void* dn,
                        double RT, double B, double A0, double A1,
                        double threshold, void* partials, int nblocks,
                        int vec, int band, void* ticket, void* sums,
-                       void* stream) {
+                       int prev, void* stream) {
   return launch_stats<double, true>(
       U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, 1, delx, RT, B, A0,
       A1, nullptr, nullptr, threshold, partials, nblocks, vec, band, ticket,
-      sums, stream);
+      sums, prev, stream);
 }
 
 // K7_members: R members' blocks (R, bn, W) of grid-sharded fields, each
@@ -1676,11 +2059,11 @@ int ch_local_stats_members_f32(const void* U, const void* up,
                                const void* A0s, const void* A1s,
                                double threshold, void* partials, int nblocks,
                                int vec, int band, void* ticket, void* sums,
-                               void* stream) {
+                               int prev, void* stream) {
   return launch_stats<float, true>(
       U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, delx, RT, B, 0.0,
       0.0, A0s, A1s, threshold, partials, nblocks, vec, band, ticket, sums,
-      stream);
+      prev, stream);
 }
 int ch_local_stats_members_f64(const void* U, const void* up,
                                const void* dn, const void* lf,
@@ -1690,11 +2073,11 @@ int ch_local_stats_members_f64(const void* U, const void* up,
                                const void* A0s, const void* A1s,
                                double threshold, void* partials, int nblocks,
                                int vec, int band, void* ticket, void* sums,
-                               void* stream) {
+                               int prev, void* stream) {
   return launch_stats<double, true>(
       U, E, up, dn, lf, rt, bn, W, N, row_off, col_off, R, delx, RT, B, 0.0,
       0.0, A0s, A1s, threshold, partials, nblocks, vec, band, ticket, sums,
-      stream);
+      prev, stream);
 }
 
 int ch_absdev_f32(const void* U, long long n, const void* mean,
@@ -1720,6 +2103,45 @@ int ch_absdev_members_f64(const void* U, long long n, int R,
                           void* sums, void* stream) {
   return launch_absdev<double>(U, n, R, mean, partials, nblocks, sums,
                                stream);
+}
+
+// K4_members with each member's Ra in its second pass (K11's body): rows,
+// member_stride, row_offset, W as ch_row_absdev_members; ra: R doubles
+int ch_absdev_ra_members_f32(const void* U, long long n, int R,
+                             const void* mean, void* partials, int nblocks,
+                             void* sums, const void* rows,
+                             long long member_stride, long long row_offset,
+                             int W, void* ra, void* stream) {
+  return launch_absdev<float>(U, n, R, mean, partials, nblocks, sums, stream,
+                              rows, member_stride, row_offset, W, ra);
+}
+int ch_absdev_ra_members_f64(const void* U, long long n, int R,
+                             const void* mean, void* partials, int nblocks,
+                             void* sums, const void* rows,
+                             long long member_stride, long long row_offset,
+                             int W, void* ra, void* stream) {
+  return launch_absdev<double>(U, n, R, mean, partials, nblocks, sums,
+                               stream, rows, member_stride, row_offset, W,
+                               ra);
+}
+
+// cdiv (the statistics kernel's division by h and 2h) against the true
+// division (float: every finite x; double: n random draws and the edges);
+// out: 4 words, out[3] set to ~0 and the rest to 0 by the caller
+int ch_cdiv_check_f32(double delx, void* out, void* stream) {
+  cdiv_check_f32_kernel<<<132 * 8, kThreads, 0, (cudaStream_t)stream>>>(
+      delx, (unsigned long long*)out);
+  return (int)cudaGetLastError();
+}
+int ch_cdiv_check_random_f64(double delx, long long n, long long seed,
+                      const void* edges, int n_edges, void* out,
+                      void* stream) {
+  if (n < 0 || n_edges < 0 || (n_edges > 0 && edges == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cdiv_check_f64_kernel<<<132 * 8, kThreads, 0, (cudaStream_t)stream>>>(
+      delx, n, (unsigned long long)seed, (const double*)edges, n_edges,
+      (unsigned long long*)out);
+  return (int)cudaGetLastError();
 }
 
 int ch_row_absdev_members_f32(const void* U, int R, long long member_stride,

@@ -45,17 +45,22 @@ _SIGNATURES = {
     'ch_update_otf': ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _D,
                        _D, _P), _BOTH),
     'ch_stats': ((_P, _P, _I, _D, _D, _D, _D, _D, _D, _P, _I, _I, _I, _P,
-                  _P, _I, _P), _BOTH),
+                  _P, _I, _I, _P), _BOTH),
     'ch_stats_members': ((_P, _P, _I, _I, _D, _D, _D, _P, _P, _D, _P, _I,
-                          _I, _I, _P, _P, _I, _P), _BOTH),
+                          _I, _I, _P, _P, _I, _I, _P), _BOTH),
     'ch_local_stats': ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D,
-                        _D, _D, _D, _D, _P, _I, _I, _I, _P, _P, _P), _BOTH),
+                        _D, _D, _D, _D, _P, _I, _I, _I, _P, _P, _I, _P),
+                       _BOTH),
     'ch_local_stats_members': ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _D, _D, _D, _P, _P, _D, _P, _I, _I,
-                                _I, _P, _P, _P), _BOTH),
+                                _I, _P, _P, _I, _P), _BOTH),
+    'ch_cdiv_check': ((_D, _P, _P), ('_f32',)),
+    'ch_cdiv_check_random': ((_D, _LL, _LL, _P, _I, _P, _P), ('_f64',)),
     'ch_absdev': ((_P, _LL, _P, _P, _I, _P, _P), _BOTH),
     'ch_row_absdev_members': ((_P, _I, _LL, _LL, _I, _P, _P), _BOTH),
     'ch_absdev_members': ((_P, _LL, _I, _P, _P, _I, _P, _P), _BOTH),
+    'ch_absdev_ra_members': ((_P, _LL, _I, _P, _P, _I, _P, _P, _LL, _LL, _I,
+                              _P, _P), _BOTH),
     'ch_slice_scale': ((_P, _LL, _P, _I, _P, _P, _P, _P), ('_f64',)),
     'ch_slice': ((_P, _P, _P, _LL, _I, _P), ('_f64',)),
     'ch_slice_scale_members': ((_P, _LL, _I, _P, _I, _P, _P, _P, _P),

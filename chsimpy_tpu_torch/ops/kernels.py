@@ -19,8 +19,10 @@ and ``slice_field_members_sharded``), and K7 on the members' blocks of a
 grid ensemble (``local_band_sums_members``, B7 under ``vmap``; K1, K2 and
 K4 take the blocks as they are).  K11 (``row_absdev_members``) takes each
 member's Ra with an order that does not depend on the member count (no
-Pallas counterpart).  K12 (``update_otf``, ``update_otf_members``) is K2
-with its coefficient grids rebuilt in registers from the eigenvalue axis
+Pallas counterpart); the members' step runs its body in K4_members'
+second pass (``absdev_ra_members``).  K12 (``update_otf``,
+``update_otf_members``) is K2 with its coefficient grids rebuilt in
+registers from the eigenvalue axis
 (the JAX step's ``otf_coeffs``, fused by XLA there); K3 and K3_members
 take the field in the folded layout of ``fold_field`` (``fold=True``); K6
 takes a member axis and is the solve's float32 product at
@@ -41,6 +43,8 @@ float32 stop predicate rests on a float64 accumulation of float32 terms.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -94,6 +98,7 @@ SLICE_ONE_LAUNCH_BYTES = 48 << 20
 # K5's one-launch path, likewise
 _TICKETS: dict = {}
 _SLICE_SCRATCH: dict = {}
+_OWNER = threading.local()      # .scratch: own_scratch's dict, or None
 
 _SUFFIX = {torch.float32: '_f32', torch.float64: '_f64'}
 
@@ -456,12 +461,41 @@ def stats_grid(N: int, itemsize: int, *addresses: int, fold: bool = False):
     return vec, blocks
 
 
+@contextlib.contextmanager
+def own_scratch(owner: dict):
+    """Inside (in this thread): the tickets and the one-launch scratch
+    come from ``owner``, one buffer a device and size, never replaced, in
+    place of the current stream's.  Launches captured in a CUDA graph here
+    hold buffers that nothing else shares while ``owner`` lives."""
+    outer = getattr(_OWNER, 'scratch', None)
+    _OWNER.scratch = owner
+    try:
+        yield
+    finally:
+        _OWNER.scratch = outer
+
+
+def _owned(kind: str, device: torch.device, n: int, dtype):
+    """``own_scratch``'s buffer of ``n`` zeros, or None outside it."""
+    owner = getattr(_OWNER, 'scratch', None)
+    if owner is None:
+        return None
+    key = (kind, device.index, n)
+    if key not in owner:
+        owner[key] = torch.zeros(n, dtype=dtype, device=device)
+    return owner[key]
+
+
 def _ticket(device: torch.device, count: int = 1) -> torch.Tensor:
-    """The tickets of K3, K5 and K7 on ``device`` for the current stream:
-    at least ``count`` counters (a batched K3 takes one a member), each 0
-    between calls (each kernel's last block resets its own; kernels on one
-    stream never overlap, and a replaced buffer goes back to the stream's
-    allocator only behind the launches that use it)."""
+    """The tickets of K3, K5 and K7 on ``device`` for the current stream
+    (or ``own_scratch``'s): at least ``count`` counters (a batched K3
+    takes one a member), each 0 between calls (each kernel's last block
+    resets its own; kernels on one stream never overlap, and a replaced
+    buffer goes back to the stream's allocator only behind the launches
+    that use it)."""
+    t = _owned('ticket', device, max(count, 1), torch.int32)
+    if t is not None:
+        return t
     key = (device.index, _stream())
     t = _TICKETS.get(key)
     if t is None or t.numel() < count:
@@ -495,9 +529,12 @@ def stats_sums(U, EnergieEut: Optional[torch.Tensor], A0, A1, *,
 
 
 def _stats_sums_launch(U, EnergieEut, A0, A1, tile, *, delx, RT, B,
-                       threshold, fold=False):
+                       threshold, fold=False, prev=False):
     """K3's launch with ``tile`` (V, band, blocks): :func:`stats_tile`'s
-    from :func:`stats_sums`, or :func:`fixed_stats_tile`'s to time it."""
+    from :func:`stats_sums`, or :func:`fixed_stats_tile`'s to time it;
+    ``prev``: the kernel's parent body (the true divisions, the edges
+    decided per element), kept to time the body beside it (the same
+    bits)."""
     N = U.shape[0]
     vec, band, nblocks = tile
     partials = torch.empty((nblocks, 5), dtype=torch.float64,
@@ -508,7 +545,7 @@ def _stats_sums_launch(U, EnergieEut, A0, A1, tile, *, delx, RT, B,
           float(delx), float(RT), float(B), float(A0), float(A1),
           float(threshold), partials.data_ptr(), nblocks, vec, band,
           _ticket(U.device).data_ptr(), sums.data_ptr(), int(fold),
-          _stream())
+          int(prev), _stream())
     launches['stats_sums'] += 1
     return sums
 
@@ -632,8 +669,11 @@ def slice_one_launch(R: int, n: int) -> bool:
 
 def _slice_scratch(device: torch.device, R: int) -> torch.Tensor:
     """The one-launch path's scratch on ``device`` for the current
-    stream: the barrier's counters and R maxima, 0 between calls (the
-    kernel's last block resets them)."""
+    stream (or ``own_scratch``'s): the barrier's counters and R maxima, 0
+    between calls (the kernel's last block resets them)."""
+    t = _owned('slice', device, R + 1, torch.int64)
+    if t is not None:
+        return t
     key = (device.index, _stream())
     t = _SLICE_SCRATCH.get(key)
     if t is None or t.numel() < R + 1:
@@ -1077,9 +1117,20 @@ def local_band_sums(Ub, up_row, dn_row, lf_col, rt_col,
                                    A0, A1, row_off, col_off, N=N, delx=delx,
                                    RT=RT, B=B, threshold=threshold)
     rows = (Ub, up_row, dn_row) + (() if Eb is None else (Eb,))
-    vec, band, nblocks = stats_tile(bn, W, N, row_off, col_off,
-                                    Ub.element_size(),
-                                    *(t.data_ptr() for t in rows))
+    tile = stats_tile(bn, W, N, row_off, col_off, Ub.element_size(),
+                      *(t.data_ptr() for t in rows))
+    return _local_band_sums_launch(Ub, up_row, dn_row, lf_col, rt_col, Eb,
+                                   A0, A1, row_off, col_off, tile, N=N,
+                                   delx=delx, RT=RT, B=B,
+                                   threshold=threshold)
+
+
+def _local_band_sums_launch(Ub, up_row, dn_row, lf_col, rt_col, Eb, A0, A1,
+                            row_off, col_off, tile, *, N, delx, RT, B,
+                            threshold, prev=False):
+    """K7's launch with ``tile`` (as :func:`_stats_sums_launch`)."""
+    bn, W = Ub.shape
+    vec, band, nblocks = tile
     partials = torch.empty((nblocks, 5), dtype=torch.float64,
                            device=Ub.device)
     sums = torch.empty((5,), dtype=torch.float64, device=Ub.device)
@@ -1088,7 +1139,8 @@ def local_band_sums(Ub, up_row, dn_row, lf_col, rt_col,
           None if Eb is None else Eb.data_ptr(), bn, W, N, int(row_off),
           int(col_off), float(delx), float(RT), float(B), float(A0),
           float(A1), float(threshold), partials.data_ptr(), nblocks, vec,
-          band, _ticket(Ub.device).data_ptr(), sums.data_ptr(), _stream())
+          band, _ticket(Ub.device).data_ptr(), sums.data_ptr(), int(prev),
+          _stream())
     launches['local_band_sums'] += 1
     return sums
 
@@ -1218,7 +1270,7 @@ def local_band_sums_members(Ub, up_row, dn_row, lf_col, rt_col,
 
 def _local_band_sums_members_launch(Ub, up_row, dn_row, lf_col, rt_col, Eb,
                                     A0s, A1s, row_off, col_off, tile, *, N,
-                                    delx, RT, B, threshold):
+                                    delx, RT, B, threshold, prev=False):
     """K7_members' launch with ``tile`` (as :func:`_stats_sums_launch`)."""
     R, bn, W = Ub.shape
     vec, band, nblocks = tile
@@ -1231,7 +1283,8 @@ def _local_band_sums_members_launch(Ub, up_row, dn_row, lf_col, rt_col, Eb,
           R, int(row_off), int(col_off), float(delx), float(RT), float(B),
           A0s.data_ptr(), A1s.data_ptr(), float(threshold),
           partials.data_ptr(), nblocks, vec, band,
-          _ticket(Ub.device, R).data_ptr(), sums.data_ptr(), _stream())
+          _ticket(Ub.device, R).data_ptr(), sums.data_ptr(), int(prev),
+          _stream())
     launches['local_band_sums_members'] += 1
     return sums
 
@@ -1246,7 +1299,8 @@ def fused_stats_sharded_members(mesh, Ub, Eb: Optional[torch.Tensor], A0s,
     member's edges, K7_members on the blocks, one world gather of the R x
     (5 + W) partials and mid-row segments, rank-order sums per member,
     the float64 finish per member (``kappas`` (R,) float64), then
-    K4_members on the blocks with each member's global mean."""
+    K4_members on the blocks with each member's global mean, each
+    member's Ra from the gathered mid row in its second pass."""
     mx, my = mesh.shape
     R, bn, W = Ub.shape
     N = bn * mx
@@ -1276,9 +1330,8 @@ def fused_stats_sharded_members(mesh, Ub, Eb: Optional[torch.Tensor], A0s,
     SA = tot[:, 3] / n2
     L2 = torch.sqrt(tot[:, 4]) / n2
     meanU = (tot[:, 2] / n2).to(Ub.dtype)
-    ps = absdev_sum_members(Ub, meanU)
+    ps, Ra = absdev_ra_members(Ub, meanU, mid, 0)
     PS = coll.rank_sum(coll.gather_world(mesh, ps)) / n2
-    Ra = row_absdev_members(mid, 0)
     return E, E2, PS, L2, Ra, SA
 
 
@@ -1631,7 +1684,7 @@ def stats_sums_members(U, EnergieEut: Optional[torch.Tensor], A0s, A1s, *,
 
 
 def _stats_sums_members_launch(U, EnergieEut, A0s, A1s, tile, *, delx, RT,
-                               B, threshold, fold=False):
+                               B, threshold, fold=False, prev=False):
     """K3_members' launch with ``tile`` (as :func:`_stats_sums_launch`)."""
     R, N = U.shape[0], U.shape[1]
     vec, band, nblocks = tile
@@ -1643,7 +1696,7 @@ def _stats_sums_members_launch(U, EnergieEut, A0s, A1s, tile, *, delx, RT,
           float(delx), float(RT), float(B), A0s.data_ptr(), A1s.data_ptr(),
           float(threshold), partials.data_ptr(), nblocks, vec, band,
           _ticket(U.device, R).data_ptr(), sums.data_ptr(), int(fold),
-          _stream())
+          int(prev), _stream())
     launches['stats_sums_members'] += 1
     return sums
 
@@ -1653,21 +1706,87 @@ def absdev_sum_members_ref(U, mean):
     return (U - mean.reshape(-1, 1, 1)).abs().to(torch.float64).sum((-2, -1))
 
 
-def absdev_sum_members(U, mean):
-    """K4 on every member: one partials launch (member r on grid row r,
-    the single launch's blocks) and one reduce over the (blocks, R)
-    partials, column r in the single launch's order."""
-    R = _member_blocks(U)
-    _member_vector('mean', mean, R, U, U.dtype)
-    if not _on_card(U, mean):
-        return absdev_sum_members_ref(U, mean)
+def _absdev_members_buffers(U):
+    """(n, nblocks, partials, sums) of K4_members on an (R, ...) stack."""
+    R = U.shape[0]
     n = U.shape[1] * U.shape[2]
     nblocks = int(min(ABSDEV_MAX_BLOCKS,
                       max(1, -(-n // ABSDEV_ELEMS_PER_BLOCK))))
     partials = torch.empty((nblocks, R), dtype=torch.float64,
                            device=U.device)
-    out = torch.empty((R,), dtype=torch.float64, device=U.device)
+    sums = torch.empty((R,), dtype=torch.float64, device=U.device)
+    return n, nblocks, partials, sums
+
+
+def absdev_sum_members(U, mean):
+    """K4 on every member: one partials launch (member r on grid row r,
+    the single launch's blocks) and one reduce over the (blocks, R)
+    partials, block r taking column r in the single launch's order."""
+    R = _member_blocks(U)
+    _member_vector('mean', mean, R, U, U.dtype)
+    if not _on_card(U, mean):
+        return absdev_sum_members_ref(U, mean)
+    n, nblocks, partials, out = _absdev_members_buffers(U)
     _call('ch_absdev_members', U.dtype, U.data_ptr(), n, R, mean.data_ptr(),
           partials.data_ptr(), nblocks, out.data_ptr(), _stream())
     launches['absdev_sum_members'] += 1
     return out
+
+
+def absdev_ra_members_ref(U, mean, rows, row: int):
+    """(PS sums, Ra): :func:`absdev_sum_members_ref` of U and ``mean``,
+    :func:`row_absdev_members_ref` of ``rows`` at ``row``."""
+    return absdev_sum_members_ref(U, mean), row_absdev_members_ref(rows,
+                                                                   row)
+
+
+def absdev_ra_members(U, mean, rows, row: int):
+    """K4_members with each member's Ra: (Σ|U[r] − mean[r]|, Ra[r]) as two
+    (R,) float64 tensors, ``rows`` (R, H, W) holding member r's row
+    ``row`` (the members' fields, or their mid rows as (R, 1, W)).  The
+    two launches of :func:`absdev_sum_members`; in the second, block r
+    runs K11's body on member r's row after its column: the sums are
+    absdev_sum_members' bits and Ra row_absdev_members', and K11 has no
+    launch of its own.  One count in ``launches['absdev_sum_members']``
+    (the kernel is K4_members)."""
+    R = _member_blocks(U)
+    _member_vector('mean', mean, R, U, U.dtype)
+    if _member_blocks(rows) != R:
+        raise ValueError(f"rows hold {rows.shape[0]} members, U {R}")
+    _, H, W = rows.shape
+    if not 0 <= row < H:
+        raise ValueError(f"row {row} is not in [0, {H})")
+    if not _on_card(U, mean, rows):
+        return absdev_ra_members_ref(U, mean, rows, row)
+    n, nblocks, partials, out = _absdev_members_buffers(U)
+    ra = torch.empty((R,), dtype=torch.float64, device=U.device)
+    _call('ch_absdev_ra_members', U.dtype, U.data_ptr(), n, R,
+          mean.data_ptr(), partials.data_ptr(), nblocks, out.data_ptr(),
+          rows.data_ptr(), H * W, row * W, W, ra.data_ptr(), _stream())
+    launches['absdev_sum_members'] += 1
+    return out, ra
+
+
+def cdiv_check(delx: float, dtype: torch.dtype, n: int = 0, seed: int = 0,
+               edges=()) -> dict:
+    """The statistics kernel's divisions by h = delx and 2h (``cdiv`` in
+    ``csrc/ch_kernels.cu``: a product by the reciprocal, corrected) held
+    to the true division on the current card: float32 on every finite
+    float x; float64 on ``n`` draws from ``seed`` and the ``edges``.
+    {'h', 'h2': the inputs whose bits differ for each divisor, 'checked':
+    the inputs checked for each, 'first': the smallest bit pattern of |x|
+    that differed, or None}."""
+    dev = torch.device('cuda', torch.cuda.current_device())
+    out = torch.zeros(4, dtype=torch.int64, device=dev)
+    out[3] = -1
+    if dtype == torch.float32:
+        _call('ch_cdiv_check', dtype, float(delx), out.data_ptr(),
+              _stream())
+    else:
+        e = torch.tensor(list(edges), dtype=torch.float64, device=dev)
+        _call('ch_cdiv_check_random', dtype, float(delx), int(n), int(seed),
+              e.data_ptr() if len(edges) else None, len(edges),
+              out.data_ptr(), _stream())
+    h, h2, checked, first = out.tolist()
+    return {'h': h, 'h2': h2, 'checked': checked,
+            'first': None if first == -1 else first}

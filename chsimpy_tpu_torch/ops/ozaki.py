@@ -365,7 +365,7 @@ def _dc_add(Y, v):
 def _dc_zero(X):
     """A copy of X with [0, 0] of each field zeroed."""
     X = X.clone()
-    X[..., 0, 0] = 0
+    X[..., 0, 0].zero_()        # no host scalar: a CUDA graph captures it
     return X
 
 

@@ -1213,3 +1213,228 @@ def test_folded_solve_on_card_is_the_natural_solve(card):
         out[fold] = (sol.U, sol.timedata.data())
     assert torch.equal(out[True][0], out[False][0])
     assert np.array_equal(out[True][1][:, 1:3], out[False][1][:, 1:3])
+
+
+# ----------------------------------------------------------------------
+# the statistics kernel's body against its parent body, K11 in K4's
+# second pass, the body's division by the constants, the CUDA graph
+# ----------------------------------------------------------------------
+
+def _stats_case(kind, N, dtype, card, delx=PHYS['delx']):
+    """(body, parent body) of one statistics launch on the card: K3 on
+    the field, K3's fold mode on the folded field, K7 on block (1, 0) of
+    a 2x2 mesh, K3_members and K7_members (R=3)."""
+    from chsimpy_tpu_torch.ops import dct as dct_ops
+    kw = dict(delx=delx, RT=PHYS['RT'], B=PHYS['B'],
+              threshold=PHYS['threshold'])
+    A0, A1 = PHYS['A0'], PHYS['A1']
+    U = _field(N, dtype, card, seed=N)
+    E = K.chemical_potential_ref(U, PHYS['RT'], PHYS['BRT'], A0, A1)
+    if kind in ('K3', 'fold'):
+        fold = kind == 'fold'
+        if fold:
+            U, E = dct_ops.fold1(U), dct_ops.fold1(E)
+        tile = K.stats_tile(N, N, N, 0, 0, U.element_size(), U.data_ptr(),
+                            E.data_ptr(), fold=fold)
+        return (lambda: K.stats_sums(U, E, A0, A1, fold=fold, **kw),
+                lambda: K._stats_sums_launch(U, E, A0, A1, tile, fold=fold,
+                                             prev=True, **kw))
+    R = 3
+    Us = torch.stack([U, 1.0 - 0.5 * U, U * 0.999])
+    Es = torch.stack([E, 2.0 * E, E])
+    a0 = torch.full((R,), A0, dtype=torch.float64, device=card)
+    a1 = torch.full((R,), A1, dtype=torch.float64, device=card)
+    if kind == 'K3_members':
+        tile = K.stats_tile(N, N, N, 0, 0, U.element_size(), Us.data_ptr(),
+                            Es.data_ptr())
+        return (lambda: K.stats_sums_members(Us, Es, a0, a1, **kw),
+                lambda: K._stats_sums_members_launch(Us, Es, a0, a1, tile,
+                                                     prev=True, **kw))
+    bn = N // 2
+    r0, c0 = bn, 0
+    blk = (slice(None), slice(r0, r0 + bn), slice(c0, c0 + bn))
+    halo = (Us[:, r0 - 1, :bn], Us[:, min(r0 + bn, N - 1), :bn],
+            Us[:, r0:r0 + bn, 0], Us[:, r0:r0 + bn, bn])
+    halo = tuple(h.contiguous() for h in halo)
+    Ub, Eb = Us[blk].contiguous(), Es[blk].contiguous()
+    tile = K.stats_tile(bn, bn, N, r0, c0, U.element_size(),
+                        *(t.data_ptr() for t in (Ub, *halo[:2], Eb)))
+    if kind == 'K7':
+        one = (Ub[0], *(h[0] for h in halo), Eb[0], A0, A1, r0, c0)
+        return (lambda: K.local_band_sums(*one, N=N, **kw),
+                lambda: K._local_band_sums_launch(*one, tile, N=N,
+                                                  prev=True, **kw))
+    args = (Ub, *halo, Eb, a0, a1, r0, c0)
+    return (lambda: K.local_band_sums_members(*args, N=N, **kw),
+            lambda: K._local_band_sums_members_launch(*args, tile, N=N,
+                                                      prev=True, **kw))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('N', [64, 66, 1000, 1001])
+@pytest.mark.parametrize('kind', ['K3', 'fold', 'K7', 'K3_members',
+                                  'K7_members'])
+def test_stats_body_gives_the_parent_body_bits(card, kind, N, dtype):
+    """The body (edges out of the interior, cdiv for the divisions by h
+    and 2h) against the parent body on the same launch: the five sums of
+    every form to the bit (the fold of an odd N/2: its one-column
+    grid)."""
+    if kind == 'fold' and N % 2:
+        pytest.skip('the fold needs an even N')
+    body, parent = _stats_case(kind, N, dtype, card)
+    assert torch.equal(body().view(torch.int64),
+                       parent().view(torch.int64))
+
+
+@pytest.mark.parametrize('dtype,delx', [(torch.float32, 2.0),
+                                        (torch.float32, 3.0),
+                                        (torch.float64, 2.0 ** -30),
+                                        (torch.float64, 2.0 ** 30 + 1)])
+@pytest.mark.parametrize('kind', ['K3', 'fold', 'K7', 'K3_members',
+                                  'K7_members'])
+def test_stats_body_outside_cdiv_range_gives_the_parent_body_bits(
+        card, kind, dtype, delx):
+    """An h outside cdiv's range (h >= 2 in float32, outside [2^-29,
+    2^29] in float64): the body takes the true division, the parent
+    body's bits."""
+    body, parent = _stats_case(kind, 66, dtype, card, delx=delx)
+    assert torch.equal(body().view(torch.int64),
+                       parent().view(torch.int64))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('R,N', [(1, 64), (3, 1000), (16, 512)])
+def test_fused_ra_pass_is_k4_and_k11_on_the_card(card, R, N, dtype):
+    """K4_members with Ra in its second pass: the sums and Ra of
+    K4_members and K11 launched apart, to the bit, with the natural row
+    and a (R, 1, N) stack of mid rows; one count, as K4_members."""
+    g = torch.Generator(device=card).manual_seed(R + N)
+    U = 0.875 + 0.01 * torch.rand((R, N, N), generator=g, dtype=dtype,
+                                  device=card)
+    mean = (U.double().sum((1, 2)) / (N * N)).to(dtype)
+    mid = U[:, N // 2 + 1].contiguous().unsqueeze(1)
+    for rows, row in ((U, N // 2 + 1), (mid, 0)):
+        K.reset_launches()
+        ps, ra = K.absdev_ra_members(U, mean, rows, row)
+        assert K.launches['absdev_sum_members'] == 1
+        assert K.launches['row_absdev_members'] == 0
+        assert torch.equal(ps, K.absdev_sum_members(U, mean))
+        assert torch.equal(ra, K.row_absdev_members(rows, row))
+        ref_ps, ref_ra = K.absdev_ra_members_ref(U, mean, rows, row)
+        torch.testing.assert_close(ps, ref_ps, rtol=_tol(dtype), atol=0)
+        torch.testing.assert_close(ra, ref_ra, rtol=_tol(dtype), atol=0)
+
+
+@pytest.mark.parametrize('N', [512, 1024, 4096])
+def test_cdiv_gives_the_true_quotient_on_the_card(card, N):
+    """The body's division by h and 2h: float32 on every finite float,
+    float64 on 1e8 draws and the edges; no bit differs."""
+    delx = Derived.from_params(Parameters(N=N, kappa_tilde=KAPPA)).delx
+    r32 = K.cdiv_check(delx, torch.float32)
+    assert r32['checked'] == 2 ** 32 - 2 ** 24
+    r64 = K.cdiv_check(delx, torch.float64, n=100_000_000, seed=N,
+                       edges=[0.0, -0.0, 5e-324, 2.0 ** -900, 2.0 ** 901,
+                              1.7976931348623157e308, delx])
+    assert r64['checked'] > 99_000_000
+    assert (r32['h'], r32['h2'], r64['h'], r64['h2']) == (0, 0, 0, 0)
+
+
+def _graph_solver(p):
+    """A Solver whose chunks replay each STOP_POLL steps as a ChunkGraph."""
+    from chsimpy_tpu_torch.core.solver import Solver
+    from chsimpy_tpu_torch.core.stepper import (STOP_POLL, ChunkGraph,
+                                                run_chunk)
+
+    class GraphSolver(Solver):
+        graph = None
+
+        def _run_chunk(self, state, k):
+            if self.graph is None and k >= STOP_POLL:
+                self.graph = ChunkGraph(self.cfg, self._consts, state)
+            return run_chunk(self.cfg, self._consts, state, k,
+                             graph=self.graph)
+    return GraphSolver(p)
+
+
+def _graph_case_params(transform):
+    return Parameters(N=64, ntmax=300, kappa_tilde=KAPPA, no_gui=True,
+                      device='cuda', transform_backend=transform,
+                      chunk_size=100)
+
+
+@pytest.mark.parametrize('transform', ['matmul', 'ozaki'])
+def test_cuda_graph_run_is_the_eager_run(card, transform):
+    """A ChunkGraph replays STOP_POLL steps a graph: the rows, the stop
+    and the field of the eager run, to the bit."""
+    from chsimpy_tpu_torch.core.solver import Solver
+    sols = []
+    for make in (Solver, _graph_solver):
+        s = make(_graph_case_params(transform))
+        s.prepare()
+        sols.append(s.solve_or_resume())
+    a, b = sols
+    assert a.computed_steps == b.computed_steps == 300
+    assert np.array_equal(a.timedata.data(), b.timedata.data())
+    assert torch.equal(a.U, b.U)
+
+
+def test_concurrent_cuda_graph_runs_share_no_scratch(card):
+    """24 graph runs in threads side by side, each on a stream of its own
+    and capturing there; then 40 more pooled streams (past the 32 that
+    torch hands out round-robin, so the runs' handles come back) each
+    take larger tickets and one-launch scratch, replacing and freeing the
+    buffers keyed by their handles, and fill the freed memory; then the
+    24 runs go on, replaying their graphs side by side.  Each graph holds
+    its own tickets and scratch: every run gives the eager run's rows and
+    field to the bit."""
+    import threading
+    from chsimpy_tpu_torch.core.solver import Solver
+
+    def params():
+        # chunks of two graphs: every step but the first replayed, so the
+        # 24 runs share the host for their captures only
+        p = _graph_case_params('ozaki')
+        p.ntmax, p.chunk_size = 257, 128
+        return p
+    s = Solver(params())
+    s.prepare()
+    s.solve_or_resume()
+    ref = s.solve_or_resume(256)
+    streams = [torch.cuda.Stream() for _ in range(24)]
+    runs, out, errors = {}, {}, []
+
+    def run(i, steps):
+        try:
+            with torch.cuda.stream(streams[i]):
+                if i not in runs:
+                    runs[i] = _graph_solver(params())
+                    runs[i].prepare()
+                sol = runs[i].solve_or_resume(steps)
+                torch.cuda.current_stream().synchronize()
+                out[i] = (sol.computed_steps, sol.timedata.data(),
+                          sol.U.cpu())
+        except BaseException as e:      # raised again below
+            errors.append(e)
+
+    def side_by_side(steps):
+        threads = [threading.Thread(target=run, args=(i, steps))
+                   for i in range(24)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors, errors[0]
+    side_by_side(None)
+    assert all(r.graph is not None for r in runs.values())
+    for _ in range(40):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            K._ticket(card, 64)
+            K._slice_scratch(card, 64)
+            torch.full((4096,), 7, dtype=torch.int32, device=card)
+    torch.cuda.synchronize()
+    side_by_side(256)
+    assert sorted(out) == list(range(24))
+    for steps, rows, U in out.values():
+        assert steps == ref.computed_steps > 257
+        assert np.array_equal(rows, ref.timedata.data())
+        assert torch.equal(U, ref.U.cpu())
