@@ -2912,8 +2912,9 @@ def _graph_solver(params):
     graph (``core/stepper.py`` ``ChunkGraph``, the eager steps' bits; a
     run on the card with no jitter and no mesh).  Only this script's
     single runs of phase 10 (b) and 12 (b) take it, to spare the host
-    their launches; the launch counters grow at its capture only, and no
-    count is read over these runs."""
+    their launches; each replay adds its capture's launches to the launch
+    counters, as the eager steps would, and no count is read over these
+    runs."""
     from chsimpy_tpu_torch.core.solver import Solver
     from chsimpy_tpu_torch.core.stepper import (STOP_POLL, ChunkGraph,
                                                 run_chunk)

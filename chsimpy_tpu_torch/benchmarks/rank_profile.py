@@ -19,6 +19,10 @@ installed), which a trace does not need.  The trace is read into:
 * the host's operations by their own (self) time, the time in which
   each is the innermost one open (``top_host``).
 
+The port's spans (``tracing.py``: ``ch.step``, ``ch.dct2``, ``ch.sync``
+...) are host operations of the trace, so the gaps and the self time
+fall to them where no torch operation is open inside.
+
 The kernels' names are the CUDA functions' (``mu_kernel``,
 ``slice_kernel`` ...; ``ops/kernels.py`` says which wrapper launches
 each).  On the CPU there is no device activity: every interval is a gap.

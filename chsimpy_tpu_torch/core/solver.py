@@ -65,6 +65,7 @@ from ..parallel.sharding import (block_slices, gather_field, shard_consts,
 from ..rng import FieldGenerator
 from ..solution import Solution
 from ..timedata import TimeData
+from ..tracing import spanned
 from . import state as state_mod
 from .state import STOP_NAN, STOP_NONE, STOP_STRINGS, SolverState
 from .stepper import (StepConfig, entry_dct2, field_mesh, make_consts,
@@ -628,6 +629,7 @@ class Solver:
         fold is an involution); the identity unless fold_field."""
         return dct_ops.fold1(U) if self.cfg.fold_field else U
 
+    @spanned('ch.sync')
     def _sync(self, state: SolverState) -> SolverState:
         """Per-chunk host sync: pull rows, update host mirrors, map stop."""
         f64 = torch.float64

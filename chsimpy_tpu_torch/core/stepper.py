@@ -64,6 +64,7 @@ from ..ops import ozaki as ozaki_ops
 from ..ops.sobol import MASK32
 from ..parallel import collectives as coll
 from ..parallel.sharding import block_slices
+from ..tracing import span, spanned
 from .state import (STOP_ENERGY, STOP_NAN, STOP_NONE, STOP_TIME_LIMIT,
                     SolverState)
 
@@ -245,6 +246,7 @@ def field_mesh(cfg: StepConfig, mesh):
     return mesh.field_view if mesh is not None and cfg.pencil else mesh
 
 
+@spanned('ch.dct2')
 def dct2_route(cfg: StepConfig, consts, U, pairs=None, mesh=None,
                precision=None):
     """Forward 2-D DCT of the configured route (the ozaki routes with the
@@ -291,6 +293,7 @@ def dct2_route(cfg: StepConfig, consts, U, pairs=None, mesh=None,
                                 ozaki_ops.dct_scale(N), s1=s1, s2=s2)
 
 
+@spanned('ch.idct2')
 def idct2_route(cfg: StepConfig, consts, X, mesh=None):
     """Inverse 2-D DCT of the configured route (on the pencil layout from
     a row block to a column block; the ozaki inverse untrimmed, as the
@@ -332,6 +335,7 @@ def idct2_route(cfg: StepConfig, consts, X, mesh=None):
                                  ozaki_ops.dct_scale(N))
 
 
+@spanned('ch.mu')
 def _nonlinear_term(cfg: StepConfig, consts, U, mesh=None):
     """Shifted nonlinear chemical potential EnergieEut (kernel K1; K8 on
     a grid mesh's block)."""
@@ -342,6 +346,7 @@ def _nonlinear_term(cfg: StepConfig, consts, U, mesh=None):
                                 consts['A1'])
 
 
+@spanned('ch.stats')
 def _stats(cfg: StepConfig, consts, U, EnergieEut=None, mesh=None):
     """Energy functionals and field statistics from the five kernel sums
     (K3) and Σ|U − mean| (K4), finalized in float64 on the device as in
@@ -501,6 +506,7 @@ def _natural_cfg(cfg: StepConfig) -> StepConfig:
     return dataclasses.replace(cfg, fold_field=False)
 
 
+@spanned('ch.update')
 def _update(cfg: StepConfig, consts, hat_U, hat_E, Seig, CHeig, delt,
             mesh=None):
     """The spectral update: K2 with the stored (or rebuilt) grids, or K12
@@ -513,6 +519,7 @@ def _update(cfg: StepConfig, consts, hat_U, hat_E, Seig, CHeig, delt,
                         consts['kappa_tilde'], cfg.delx2, r0, c0)
 
 
+@spanned('ch.step')
 def _step(cfg: StepConfig, consts, s: SolverState, mesh=None, slab=None,
           key_out=None) -> SolverState:
     """One step.  ``slab``: this step's host jitter slab (``stream`` and
@@ -598,12 +605,14 @@ def _step(cfg: StepConfig, consts, s: SolverState, mesh=None, slab=None,
         rng_key=rng_key)
 
 
+@spanned('ch.poll')
 def _stopped(state: SolverState) -> bool:
     """True when the run (every member) has stopped: a host sync.  Every
     rank of a mesh holds the same flags, so all leave at the same step."""
     return bool((state.stop_reason != STOP_NONE).all())
 
 
+@spanned('ch.chunk')
 def run_chunk(cfg: StepConfig, consts, state: SolverState,
               n_iters: int, mesh=None, jitter_buf=None,
               graph: Optional['ChunkGraph'] = None) -> SolverState:
@@ -658,8 +667,12 @@ class ChunkGraph:
     threads may go on launching and waiting on their own streams).  Runs
     with jitter (host slabs, the device streams' key buffers) or a mesh
     (collectives through the host) are not captured.  The kernels' launch
-    counts (``ops/kernels.launches``) grow at the capture only, not at a
-    replay: no entry point of the package replays one."""
+    counts (``ops/kernels.launches``, ``one_launch``) grow at each replay
+    by what the capture counted, as ``STOP_POLL`` eager steps grow them;
+    the capture runs no kernel and counts in its own dicts
+    (``kernels.own_counts``, this thread's), so other threads' launches
+    and replays meanwhile count as ever.  No entry point of the package
+    replays a graph."""
 
     def __init__(self, cfg: StepConfig, consts, state: SolverState):
         if state.U.device.type != 'cuda' or cfg.jitter_mode != 'none':
@@ -679,9 +692,10 @@ class ChunkGraph:
         with K.own_scratch(self._scratch), torch.cuda.stream(self._stream):
             _step(cfg, consts, self._copy(state))
         self._graph = torch.cuda.CUDAGraph()
-        with _CAPTURE_LOCK, K.own_scratch(self._scratch), torch.cuda.graph(
-                self._graph, stream=self._stream,
-                capture_error_mode='thread_local'):
+        with _CAPTURE_LOCK, K.own_scratch(self._scratch), \
+                K.own_counts() as self._launched, torch.cuda.graph(
+                    self._graph, stream=self._stream,
+                    capture_error_mode='thread_local'):
             out = self._in
             for _ in range(STOP_POLL):
                 out = _step(cfg, consts, out)
@@ -696,6 +710,7 @@ class ChunkGraph:
         for f in self._fields:
             getattr(self._in, f).copy_(getattr(state, f))
         self._graph.replay()
+        K.add_counts(self._launched)
         return self._copy(self._out)
 
 
@@ -749,6 +764,7 @@ def make_members_consts(cfg: StepConfig, delt: float, A0s, A1s, kappas,
     return consts
 
 
+@spanned('ch.stats')
 def _members_stats(cfg: StepConfig, consts, U, EnergieEut=None,
                    mesh=None):
     """:func:`_stats` of every member, each an (R,) float64 tensor, from
@@ -826,6 +842,7 @@ def rebuilt_members_coefficients(cfg: StepConfig, consts, delt):
         delt.to(dtype).reshape(-1, 1, 1), cfg.delx2)
 
 
+@spanned('ch.step')
 def _members_step(cfg: StepConfig, consts, s: SolverState,
                   slab=None, mesh=None) -> SolverState:
     """One step of every member; ``slab`` is the step's host jitter slab
@@ -836,8 +853,9 @@ def _members_step(cfg: StepConfig, consts, s: SolverState,
     the stop."""
     f64 = torch.float64
     active = s.stop_reason == STOP_NONE
-    EnergieEut = K.chemical_potential_members(s.U, cfg.RT, cfg.BRT,
-                                              consts['A0'], consts['A1'])
+    with span('ch.mu'):
+        EnergieEut = K.chemical_potential_members(s.U, cfg.RT, cfg.BRT,
+                                                  consts['A0'], consts['A1'])
     if cfg.adaptive_time:
         delt = adapted_members_delt(cfg, s, EnergieEut, mesh)
         CHeig, Seig = ((None, None) if cfg.otf_coeffs
@@ -857,13 +875,14 @@ def _members_step(cfg: StepConfig, consts, s: SolverState,
 
     hat_E = dct2_route(cfg, consts, EnergieEut, cfg.ozaki_fwd_pairs, mesh,
                        cfg.fwd_precision)
-    if cfg.otf_coeffs:
-        r0, c0 = spectral_offsets(cfg, mesh)
-        hat_U = K.update_otf_members(s.hat_U, hat_E, consts['eaxis'], delt,
-                                     consts['kappa_tilde'], cfg.delx2, r0,
-                                     c0)
-    else:
-        hat_U = K.spectral_update_members(s.hat_U, hat_E, Seig, CHeig)
+    with span('ch.update'):
+        if cfg.otf_coeffs:
+            r0, c0 = spectral_offsets(cfg, mesh)
+            hat_U = K.update_otf_members(s.hat_U, hat_E, consts['eaxis'],
+                                         delt, consts['kappa_tilde'],
+                                         cfg.delx2, r0, c0)
+        else:
+            hat_U = K.spectral_update_members(s.hat_U, hat_E, Seig, CHeig)
     U = idct2_route(cfg, consts, hat_U, mesh)
     if cfg.jitter_mode in ('stream', 'static'):
         U = U + cfg.jitter * (2.0 * slab - 1.0)
@@ -908,6 +927,7 @@ def _members_step(cfg: StepConfig, consts, s: SolverState,
         rows=s.rows + go)
 
 
+@spanned('ch.chunk')
 def run_members_chunk(cfg: StepConfig, consts, state: SolverState,
                       n_iters: int, jitter_buf=None,
                       mesh=None) -> SolverState:

@@ -88,6 +88,7 @@ from .parallel.sharding import (block_slices, gather_field, gather_members,
 from .rng import FieldGenerator
 from .solution import Solution
 from .timedata import TimeData
+from .tracing import spanned
 
 
 def derive_member_constants(params: Parameters, A0: float, A1: float):
@@ -457,6 +458,7 @@ class EnsembleSolver:
         self._states = states
         return self.solutions()
 
+    @spanned('ch.sync')
     def _sync(self, states):
         """Per-chunk host sync: every member's new rows into its trace,
         the stop codes; NaN in a member raises.  Under a mesh the rows

@@ -34,7 +34,9 @@ takes a member axis and is the solve's float32 product at
   fallback;
 * adds one to ``launches[name]`` where it launches the kernel, and nowhere
   else (the CPU path does not count); K5 and K5_members also count in
-  ``one_launch`` the calls that took their one-launch path.
+  ``one_launch`` the calls that took their one-launch path.  A thread
+  inside :func:`own_counts` (a CUDA graph's capture) counts in its own
+  pair of dicts instead.
 
 The ``*_ref`` functions keep the JAX package's formulas and operation
 order.  Sums are returned as float64 tensors on the input's device: the
@@ -45,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from collections import defaultdict
 from typing import Optional
 
 import torch
@@ -98,7 +101,8 @@ SLICE_ONE_LAUNCH_BYTES = 48 << 20
 # K5's one-launch path, likewise
 _TICKETS: dict = {}
 _SLICE_SCRATCH: dict = {}
-_OWNER = threading.local()      # .scratch: own_scratch's dict, or None
+_OWNER = threading.local()      # .scratch: own_scratch's dict, or None;
+                                # .counts: own_counts' dicts, or None
 
 _SUFFIX = {torch.float32: '_f32', torch.float64: '_f64'}
 
@@ -107,6 +111,38 @@ def reset_launches() -> None:
     for counts in (launches, one_launch):
         for k in counts:
             counts[k] = 0
+
+
+@contextlib.contextmanager
+def own_counts():
+    """Inside (in this thread): the launches are counted in the two dicts
+    yielded, this thread's own ``launches`` and ``one_launch``, and not in
+    those.  A CUDA graph's capture, which launches nothing, keeps so what
+    each replay launches (:func:`add_counts`); other threads count as
+    ever, launches and replays alike."""
+    outer = getattr(_OWNER, 'counts', None)
+    own = (defaultdict(int), defaultdict(int))
+    _OWNER.counts = own
+    try:
+        yield own
+    finally:
+        _OWNER.counts = outer
+
+
+def add_counts(own) -> None:
+    """Add :func:`own_counts`' dicts to ``launches`` and ``one_launch``."""
+    for counts, add in zip((launches, one_launch), own):
+        for k, n in add.items():
+            counts[k] += n
+
+
+def _count(counts: dict, name: str) -> None:
+    """One launch of ``name`` in ``counts`` (``launches`` or
+    ``one_launch``), or in this thread's :func:`own_counts`."""
+    own = getattr(_OWNER, 'counts', None)
+    if own is not None:
+        counts = own[counts is one_launch]
+    counts[name] += 1
 
 
 def _cast(x: float, dtype: torch.dtype) -> float:
@@ -195,7 +231,7 @@ def chemical_potential(U, RT, BRT, A0, A1):
     if not _on_card(U):
         return chemical_potential_ref(U, RT, BRT, A0, A1)
     out = _launch_mu(U, RT, BRT, A0, A1)
-    launches['chemical_potential'] += 1
+    _count(launches, 'chemical_potential')
     return out
 
 
@@ -217,7 +253,7 @@ def spectral_update(hat_U, hat_E, Seig, CHeig):
     _call('ch_update', hat_U.dtype, hat_U.data_ptr(), hat_E.data_ptr(),
           Seig.data_ptr(), CHeig.data_ptr(), out.data_ptr(), hat_U.numel(),
           _stream())
-    launches['spectral_update'] += 1
+    _count(launches, 'spectral_update')
     return out
 
 
@@ -305,7 +341,7 @@ def update_otf(hat_U, hat_E, eaxis, delt, kappa, delx2, row_off: int = 0,
           eaxis.data_ptr(), out.data_ptr(), rows, cols, int(row_off),
           int(col_off), 1, delt.data_ptr(), 0, None, float(kappa),
           float(delx2), _stream())
-    launches['update_otf'] += 1
+    _count(launches, 'update_otf')
     return out
 
 
@@ -332,7 +368,7 @@ def update_otf_members(hat_U, hat_E, eaxis, delts, kappas, delx2,
           eaxis.data_ptr(), out.data_ptr(), rows, cols, int(row_off),
           int(col_off), R, delts.data_ptr(), int(delts.dim() > 0),
           kappas.data_ptr(), 0.0, float(delx2), _stream())
-    launches['update_otf_members'] += 1
+    _count(launches, 'update_otf_members')
     return out
 
 
@@ -546,7 +582,7 @@ def _stats_sums_launch(U, EnergieEut, A0, A1, tile, *, delx, RT, B,
           float(threshold), partials.data_ptr(), nblocks, vec, band,
           _ticket(U.device).data_ptr(), sums.data_ptr(), int(fold),
           int(prev), _stream())
-    launches['stats_sums'] += 1
+    _count(launches, 'stats_sums')
     return sums
 
 
@@ -571,7 +607,7 @@ def absdev_sum(U, mean):
     out = torch.empty((), dtype=torch.float64, device=U.device)
     _call('ch_absdev', U.dtype, U.data_ptr(), n, mean.data_ptr(),
           partials.data_ptr(), nblocks, out.data_ptr(), _stream())
-    launches['absdev_sum'] += 1
+    _count(launches, 'absdev_sum')
     return out
 
 
@@ -706,10 +742,10 @@ def slice_field(x, n_slices: int = MAX_SLICES):
     if slice_one_launch(1, x.numel()):
         out, scale = _slice_one_launch(x, 1, n_slices)
         scale = scale.reshape(())
-        one_launch['slice_field'] += 1
+        _count(one_launch, 'slice_field')
     else:
         out, scale = _slice_two_launches(x, n_slices)
-    launches['slice_field'] += 1
+    _count(launches, 'slice_field')
     return out, scale
 
 
@@ -756,10 +792,10 @@ def slice_field_members(x, n_slices: int = MAX_SLICES):
     n = x[0].numel()
     if slice_one_launch(R, n):
         out, scale = _slice_one_launch(x, R, n_slices)
-        one_launch['slice_field_members'] += 1
+        _count(one_launch, 'slice_field_members')
     else:
         out, scale = _slice_members_two_launches(x, n_slices)
-    launches['slice_field_members'] += 1
+    _count(launches, 'slice_field_members')
     return out, scale
 
 
@@ -878,7 +914,7 @@ def slice_field_sharded(x, mesh, n_slices: int = MAX_SLICES, also_max=None,
         out, scale, also = _slice_sharded(x, n_slices, mesh, 1, also_max,
                                           amax)
         scale = scale.reshape(())
-        launches['slice_field_sharded'] += 1
+        _count(launches, 'slice_field_sharded')
     return (out, scale) if also_max is None else (out, scale, also)
 
 
@@ -900,7 +936,7 @@ def slice_field_members_sharded(x, mesh, n_slices: int = MAX_SLICES,
     else:
         out, scale, also = _slice_sharded(x, n_slices, mesh, x.shape[0],
                                           also_max, amax)
-        launches['slice_field_members_sharded'] += 1
+        _count(launches, 'slice_field_members_sharded')
     return (out, scale) if also_max is None else (out, scale, also)
 
 
@@ -990,7 +1026,7 @@ def matmul(A, B):
         device=A.device)
     _call('ch_matmul', A.dtype, A.data_ptr(), ta, lda, sa, B.data_ptr(), tb,
           ldb, sb, out.data_ptr(), N, M, N, Kd, R, ws.data_ptr(), _stream())
-    launches['matmul'] += 1
+    _count(launches, 'matmul')
     return out
 
 
@@ -1141,7 +1177,7 @@ def _local_band_sums_launch(Ub, up_row, dn_row, lf_col, rt_col, Eb, A0, A1,
           float(A1), float(threshold), partials.data_ptr(), nblocks, vec,
           band, _ticket(Ub.device).data_ptr(), sums.data_ptr(), int(prev),
           _stream())
-    launches['local_band_sums'] += 1
+    _count(launches, 'local_band_sums')
     return sums
 
 
@@ -1200,7 +1236,7 @@ def chemical_potential_sharded(mesh, Ub, RT, BRT, A0, A1):
     if not _on_card(Ub):
         return chemical_potential_ref(Ub, RT, BRT, A0, A1)
     out = _launch_mu(Ub, RT, BRT, A0, A1)
-    launches['chemical_potential_sharded'] += 1
+    _count(launches, 'chemical_potential_sharded')
     return out
 
 
@@ -1285,7 +1321,7 @@ def _local_band_sums_members_launch(Ub, up_row, dn_row, lf_col, rt_col, Eb,
           partials.data_ptr(), nblocks, vec, band,
           _ticket(Ub.device, R).data_ptr(), sums.data_ptr(), int(prev),
           _stream())
-    launches['local_band_sums_members'] += 1
+    _count(launches, 'local_band_sums_members')
     return sums
 
 
@@ -1365,7 +1401,7 @@ def row_absdev_members(U, row: int):
     out = torch.empty((R,), dtype=torch.float64, device=U.device)
     _call('ch_row_absdev_members', U.dtype, U.data_ptr(), R, H * W, row * W,
           W, out.data_ptr(), _stream())
-    launches['row_absdev_members'] += 1
+    _count(launches, 'row_absdev_members')
     return out
 
 
@@ -1416,7 +1452,7 @@ def sobol_jitter(U, sv, shift, base, jitter, row_off: int = 0,
     _call('ch_sobol_jitter', U.dtype, U.data_ptr(), bn, W, sv.data_ptr(),
           shift.data_ptr(), base.data_ptr(), int(row_off), int(col_off),
           float(jitter), _stream())
-    launches['sobol_jitter'] += 1
+    _count(launches, 'sobol_jitter')
     return U
 
 
@@ -1531,7 +1567,7 @@ def threefry_jitter(U, key, key_out, jitter, N: int, row_off: int = 0,
     _call('ch_threefry_jitter', U.dtype, U.data_ptr(), bn, W, int(N),
           int(row_off), int(col_off), key.data_ptr(), key_out.data_ptr(),
           0 if go is None else go.data_ptr(), float(jitter), _stream())
-    launches['threefry_jitter'] += 1
+    _count(launches, 'threefry_jitter')
     return U
 
 
@@ -1594,7 +1630,7 @@ def chemical_potential_members(U, RT, BRT, A0s, A1s):
     _call('ch_mu_members', U.dtype, U.data_ptr(), out.data_ptr(),
           U.shape[1] * U.shape[2], R,
           float(RT), float(BRT), A0s.data_ptr(), A1s.data_ptr(), _stream())
-    launches['chemical_potential_members'] += 1
+    _count(launches, 'chemical_potential_members')
     return out
 
 
@@ -1627,7 +1663,7 @@ def spectral_update_members(hat_U, hat_E, Seig, CHeig):
     _call('ch_update_members', hat_U.dtype, hat_U.data_ptr(),
           hat_E.data_ptr(), Seig.data_ptr(), CHeig.data_ptr(), out.data_ptr(),
           shape[0] * shape[1], R, flags[0], flags[1], _stream())
-    launches['spectral_update_members'] += 1
+    _count(launches, 'spectral_update_members')
     return out
 
 
@@ -1697,7 +1733,7 @@ def _stats_sums_members_launch(U, EnergieEut, A0s, A1s, tile, *, delx, RT,
           float(threshold), partials.data_ptr(), nblocks, vec, band,
           _ticket(U.device, R).data_ptr(), sums.data_ptr(), int(fold),
           int(prev), _stream())
-    launches['stats_sums_members'] += 1
+    _count(launches, 'stats_sums_members')
     return sums
 
 
@@ -1729,7 +1765,7 @@ def absdev_sum_members(U, mean):
     n, nblocks, partials, out = _absdev_members_buffers(U)
     _call('ch_absdev_members', U.dtype, U.data_ptr(), n, R, mean.data_ptr(),
           partials.data_ptr(), nblocks, out.data_ptr(), _stream())
-    launches['absdev_sum_members'] += 1
+    _count(launches, 'absdev_sum_members')
     return out
 
 
@@ -1763,7 +1799,7 @@ def absdev_ra_members(U, mean, rows, row: int):
     _call('ch_absdev_ra_members', U.dtype, U.data_ptr(), n, R,
           mean.data_ptr(), partials.data_ptr(), nblocks, out.data_ptr(),
           rows.data_ptr(), H * W, row * W, W, ra.data_ptr(), _stream())
-    launches['absdev_sum_members'] += 1
+    _count(launches, 'absdev_sum_members')
     return out, ra
 
 

@@ -1438,3 +1438,126 @@ def test_concurrent_cuda_graph_runs_share_no_scratch(card):
         assert steps == ref.computed_steps > 257
         assert np.array_equal(rows, ref.timedata.data())
         assert torch.equal(U, ref.U.cpu())
+
+
+def _grown(fn):
+    """What ``fn()`` adds to ``launches`` and ``one_launch``: two dicts of
+    the counts that moved."""
+    before = (dict(K.launches), dict(K.one_launch))
+    fn()
+    torch.cuda.synchronize()
+    return [{k: c[k] - b[k] for k in c if c[k] != b[k]}
+            for c, b in zip((K.launches, K.one_launch), before)]
+
+
+@pytest.mark.parametrize('transform', ['matmul', 'ozaki'])
+def test_a_replayed_chunk_counts_the_launches_of_an_eager_chunk(
+        card, transform):
+    """The kernels' launch counts grow by the same over STOP_POLL eager
+    steps and over one replay of their ChunkGraph; the capture adds only
+    its eager first step."""
+    from chsimpy_tpu_torch.core.solver import Solver
+    from chsimpy_tpu_torch.core.stepper import (STOP_POLL, ChunkGraph,
+                                                run_chunk)
+    grown = _grown
+    s = Solver(_graph_case_params(transform))
+    s.prepare()
+    s.solve_or_resume(2)
+    state, graphs = s._state, []
+    eager = grown(lambda: run_chunk(s.cfg, s._consts, state, STOP_POLL))
+    capture = grown(lambda: graphs.append(
+        ChunkGraph(s.cfg, s._consts, state)))
+    replay = grown(lambda: run_chunk(s.cfg, s._consts, state, STOP_POLL,
+                                     graph=graphs[0]))
+    assert eager[0]['chemical_potential'] == STOP_POLL
+    assert replay == eager
+    assert capture == [{k: n // STOP_POLL for k, n in c.items()}
+                       for c in eager]
+
+
+def test_a_capture_counts_its_own_thread_s_launches_only(card):
+    """A ChunkGraph captured while another thread replays a graph and
+    steps eagerly: the capture counts its own steps' launches, no more,
+    and the counters grow by the other thread's replays and steps and the
+    capture's eager first step."""
+    import threading
+    import time
+
+    from chsimpy_tpu_torch.core.solver import Solver
+    from chsimpy_tpu_torch.core.stepper import (STOP_POLL, ChunkGraph,
+                                                run_chunk)
+    s = Solver(_graph_case_params('ozaki'))
+    s.prepare()
+    s.solve_or_resume(2)
+    state = s._state
+    eager = _grown(lambda: run_chunk(s.cfg, s._consts, state, STOP_POLL))
+    first = ChunkGraph(s.cfg, s._consts, state)
+    capturing, done, errors = threading.Event(), threading.Event(), []
+    rounds = {'before': 0, 'all': 0}
+
+    def replaying():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                while not done.is_set():
+                    run_chunk(s.cfg, s._consts, state, STOP_POLL,
+                              graph=first)
+                    run_chunk(s.cfg, s._consts, state, 1)
+                    rounds['all'] += 1
+                    if not capturing.is_set():
+                        rounds['before'] += 1
+                torch.cuda.current_stream().synchronize()
+        except BaseException as e:      # raised again below
+            errors.append(e)
+
+    def capture_beside():
+        t = threading.Thread(target=replaying)
+        t.start()
+        while rounds['all'] < 2 and t.is_alive():
+            time.sleep(1e-3)
+        capturing.set()
+        graphs.append(ChunkGraph(s.cfg, s._consts, state))
+        seen.append(rounds['all'])
+        done.set()
+        t.join(timeout=300)
+        assert not t.is_alive() and not errors, errors[:1]
+    graphs, seen = [], []
+    total = _grown(capture_beside)
+    one_step = [{k: n // STOP_POLL for k, n in c.items()} for c in eager]
+    assert [dict(c) for c in first._launched] == eager
+    assert [dict(c) for c in graphs[0]._launched] == eager
+    assert seen[0] > rounds['before'], 'no replay during the capture'
+    n = rounds['all']
+    assert total == [{k: n * (eager[i].get(k, 0) + one_step[i].get(k, 0))
+                      + one_step[i].get(k, 0)
+                      for k in set(eager[i]) | set(one_step[i])}
+                     for i in range(2)]
+
+
+def test_spans_on_the_card_are_host_events_only(card):
+    """Under a kineto session on the card the port's spans are host
+    events, none a device-side event or a user annotation, and the
+    ensemble's ``ch.step`` spans are K1_members' launches."""
+    from chsimpy_tpu_torch import material, tracing
+    from chsimpy_tpu_torch.ensemble import EnsembleSolver
+    p = Parameters(N=64, device='cuda', no_gui=True, kappa_tilde=KAPPA,
+                   full_sim=True, chunk_size=100)
+    A0, A1 = material.A0(923.15), material.A1(923.15)
+    e = EnsembleSolver(p, np.array([[A0, A1], [A0 * 1.004, A1 * 0.997]]),
+                       kappas=[KAPPA, KAPPA])
+    e.prepare()
+    before = K.launches['chemical_potential_members']
+    torch.cuda.synchronize()
+    with torch.autograd.profiler.profile(use_kineto=True,
+                                         use_device='cuda') as prof:
+        tracing.reset()
+        e.solve_or_resume(151)
+    got = tracing.summary()
+    tracing.reset()
+    steps = K.launches['chemical_potential_members'] - before
+    assert got['ch.step']['count'] == steps == 150
+    named = [ev for ev in prof.kineto_results.events()
+             if ev.name().startswith('ch.')]
+    assert named and all(
+        ev.device_type() == torch.autograd.DeviceType.CPU
+        and not ev.is_user_annotation() for ev in named)
+    assert {ev.name() for ev in named} == set(got)

@@ -96,7 +96,8 @@ def test_sysinfo_topology_without_psutil():
 def test_rank_profile_reads_a_solver_step():
     """``benchmarks/rank_profile.py`` on one CPU solver: no device
     activity, so the whole window is host gaps, given to the host's
-    operations (the ozaki route's int8 products among them)."""
+    operations (the ozaki route's int8 products among them) and to the
+    port's spans."""
     import torch
 
     import chsimpy_tpu_torch as ctt
@@ -114,6 +115,8 @@ def test_rank_profile_reads_a_solver_step():
     assert 'aten::_int_mm' in gaps
     assert sum(gaps.values()) <= out['window_ms'] * (1 + 1e-9)
     assert out['wall_ms_per_step'] > 0 and out['transform'] == 'ozaki'
+    named = set(gaps) | {k for k, _ in out['top_host']}
+    assert named & {'ch.step', 'ch.dct2'}
 
 
 def test_rank_profile_gives_each_gap_to_the_innermost_host_operation():
