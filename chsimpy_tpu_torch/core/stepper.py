@@ -625,13 +625,9 @@ def run_chunk(cfg: StepConfig, consts, state: SolverState,
     of the chunk by step parity: a step reads one and writes the other.
     ``graph``: a :class:`ChunkGraph` of this run, which replays each whole
     ``STOP_POLL`` steps of the chunk (the rest run as they are)."""
-    i = 0
-    if graph is not None:
-        while n_iters - i >= STOP_POLL:
-            state = graph.replay(state)
-            i += STOP_POLL
-            if i < n_iters and _stopped(state):
-                return state
+    state, i, stopped = _replayed(graph, state, n_iters)
+    if stopped:
+        return state
     keys = (torch.empty((2, 2), dtype=torch.int64,
                         device=state.rng_key.device)
             if cfg.jitter_mode == 'device' else None)
@@ -645,52 +641,100 @@ def run_chunk(cfg: StepConfig, consts, state: SolverState,
     return state
 
 
+def _replayed(graph: Optional['ChunkGraph'], state: SolverState,
+              n_iters: int):
+    """The whole ``STOP_POLL`` blocks of a chunk of ``n_iters`` steps,
+    each one replay of ``graph`` (None: none) followed by the poll the
+    step loop makes there: (state, steps run, True where the run has
+    stopped and the chunk is left)."""
+    i = 0
+    while graph is not None and n_iters - i >= STOP_POLL:
+        state = graph.replay(state)
+        i += STOP_POLL
+        if i < n_iters and _stopped(state):
+            return state, i, True
+    return state, i, False
+
+
 _CAPTURE_LOCK = threading.Lock()
+# .by_device: the stream this thread's captures run on where its current
+# stream is the default stream (no graph is captured there), one a device:
+# cuBLAS keeps a workspace of its own (32 MiB on the H100) for each stream
+# it runs on, so a new stream a graph would hold that much more memory
+_CAPTURE_STREAMS = threading.local()
+
+
+def _capture_stream(dev: torch.device):
+    streams = getattr(_CAPTURE_STREAMS, 'by_device', None)
+    if streams is None:
+        streams = _CAPTURE_STREAMS.by_device = {}
+    if dev.index not in streams:
+        streams[dev.index] = torch.cuda.Stream(device=dev)
+    return streams[dev.index]
+
+
+def graph_fits(cfg: StepConfig, device: torch.device) -> bool:
+    """True where :class:`ChunkGraph` takes a run: fields on the card and
+    no jitter (host slabs, the device streams' key buffers)."""
+    return device.type == 'cuda' and cfg.jitter_mode == 'none'
 
 
 class ChunkGraph:
-    """``STOP_POLL`` steps of one single-device run, captured once as a
-    CUDA graph and replayed: the steps' launches (a few hundred a step on
-    the ozaki route at N=512) cost the host one replay, so a run the host
-    held back runs at the card's pace.  The kernels, their order and their
-    inputs are the steps' own: a replay gives the bits of ``STOP_POLL``
-    steps run one by one.  The graph reads and writes its own copy of the
-    state; :meth:`replay` copies the state in and returns fresh copies of
-    the result, on the current stream: runs on streams of their own (one
-    a thread) replay side by side on the card.  The capture runs on the
-    caller's stream (a stream of its own, kept with the graph, where that
-    is the default stream), and the kernels' tickets and scratch in the
-    graph are its own (``kernels.own_scratch``), kept as long as the
-    graph: torch hands out pooled streams round-robin, so counters keyed
-    by a stream could be shared with whatever later gets its handle.  One
-    capture at a time in a process, each confined to its thread (other
-    threads may go on launching and waiting on their own streams).  Runs
-    with jitter (host slabs, the device streams' key buffers) or a mesh
-    (collectives through the host) are not captured.  The kernels' launch
-    counts (``ops/kernels.launches``, ``one_launch``) grow at each replay
-    by what the capture counted, as ``STOP_POLL`` eager steps grow them;
-    the capture runs no kernel and counts in its own dicts
-    (``kernels.own_counts``, this thread's), so other threads' launches
-    and replays meanwhile count as ever.  No entry point of the package
-    replays a graph."""
+    """``STOP_POLL`` steps of one run on one device, captured once as a
+    CUDA graph and replayed: the steps are :func:`_step` (a single run)
+    or, with ``members``, :func:`_members_step` (every member of a
+    batch).  The steps' launches (~52 device operations a step of a
+    float64 matmul batch, a few hundred on the ozaki route at N=512) cost
+    the host one replay, so a run the host held back runs at the card's
+    pace.  The kernels, their order and their inputs are the steps' own:
+    a replay gives the bits of ``STOP_POLL`` steps run one by one.  The
+    constants (``consts``: a batch's CHeig, A0, A1 and kappas among them)
+    are read where they lie at the capture, so a graph serves the solver
+    that holds them.  The
+    graph reads and writes its own copy of the state; :meth:`replay`
+    copies the state in and returns fresh copies of the result, on the
+    current stream: runs on streams of their own (one a thread) replay
+    side by side on the card.  The capture runs on the caller's stream
+    (the thread's capture stream where that is the default stream), and
+    the kernels' tickets and scratch in the graph are its own
+    (``kernels.own_scratch``), kept as long as the graph: torch hands out
+    pooled streams round-robin, so counters keyed by a stream could be
+    shared with whatever later gets its handle.  One capture at a time in
+    a process, each confined to its thread (other threads may go on
+    launching and waiting on their own streams).  Runs that
+    :func:`graph_fits` refuses, and runs on a mesh (collectives through
+    the host), are not captured.  The kernels' launch counts
+    (``ops/kernels.launches``, ``one_launch``) grow at each replay by
+    what the capture counted, as ``STOP_POLL`` eager steps grow them; the
+    capture counts in its own dicts (``kernels.own_counts``, this
+    thread's), so other threads' launches and replays meanwhile count as
+    ever; the eager first step before the capture advances no step and
+    counts nothing.  The spans ``ch.capture`` and ``ch.replay`` time the
+    construction and each replay.  ``ensemble.EnsembleSolver`` replays
+    one a batch; the single run's ``Solver`` steps eagerly."""
 
-    def __init__(self, cfg: StepConfig, consts, state: SolverState):
-        if state.U.device.type != 'cuda' or cfg.jitter_mode != 'none':
+    @spanned('ch.capture')
+    def __init__(self, cfg: StepConfig, consts, state: SolverState,
+                 members: bool = False):
+        if not graph_fits(cfg, state.U.device):
             raise ValueError(f"a CUDA graph takes a run on the card without "
                              f"jitter, got {state.U.device}, jitter mode "
                              f"{cfg.jitter_mode!r}")
+        step = _members_step if members else _step
         dev = state.U.device
         self._fields = [f.name for f in dataclasses.fields(SolverState)]
         self._in = self._copy(state)
         self._scratch: dict = {}
         here = torch.cuda.current_stream(dev)
-        self._stream = (torch.cuda.Stream(device=dev)
+        self._stream = (_capture_stream(dev)
                         if here == torch.cuda.default_stream(dev) else here)
         self._stream.wait_stream(here)
         # a first step as the capture will run: the graph's own tickets
         # and scratch and the libraries' handles are made here, outside it
-        with K.own_scratch(self._scratch), torch.cuda.stream(self._stream):
-            _step(cfg, consts, self._copy(state))
+        # (its launches counted apart and dropped: it advances no step)
+        with K.own_scratch(self._scratch), K.own_counts(), \
+                torch.cuda.stream(self._stream):
+            step(cfg, consts, self._copy(state))
         self._graph = torch.cuda.CUDAGraph()
         with _CAPTURE_LOCK, K.own_scratch(self._scratch), \
                 K.own_counts() as self._launched, torch.cuda.graph(
@@ -698,7 +742,7 @@ class ChunkGraph:
                     capture_error_mode='thread_local'):
             out = self._in
             for _ in range(STOP_POLL):
-                out = _step(cfg, consts, out)
+                out = step(cfg, consts, out)
         self._out = out
         here.wait_stream(self._stream)
 
@@ -706,6 +750,7 @@ class ChunkGraph:
         return SolverState(**{f: getattr(state, f).clone()
                               for f in self._fields})
 
+    @spanned('ch.replay')
     def replay(self, state: SolverState) -> SolverState:
         for f in self._fields:
             getattr(self._in, f).copy_(getattr(state, f))
@@ -929,12 +974,18 @@ def _members_step(cfg: StepConfig, consts, s: SolverState,
 
 @spanned('ch.chunk')
 def run_members_chunk(cfg: StepConfig, consts, state: SolverState,
-                      n_iters: int, jitter_buf=None,
-                      mesh=None) -> SolverState:
+                      n_iters: int, jitter_buf=None, mesh=None,
+                      graph: Optional[ChunkGraph] = None) -> SolverState:
     """Up to ``n_iters`` member-batched steps, left as :func:`run_chunk`
     leaves once every member has stopped (``jitter_buf`` as there;
-    ``mesh``: the grid of grid-sharded member fields, or None)."""
-    for i in range(n_iters):
+    ``mesh``: the grid of grid-sharded member fields, or None;
+    ``graph``: a :class:`ChunkGraph` of :func:`_members_step` on this
+    batch, which replays each whole ``STOP_POLL`` steps of the chunk, the
+    rest run as they are)."""
+    state, i, stopped = _replayed(graph, state, n_iters)
+    if stopped:
+        return state
+    for i in range(i, n_iters):
         slab = (jitter_buf[i] if cfg.jitter_mode == 'stream'
                 else jitter_buf)
         state = _members_step(cfg, consts, state, slab, mesh)

@@ -7,10 +7,13 @@ scalars (A0, A1 and the kappa_tilde each pair implies) are per-member (R,)
 tensors; per-member early stop freezes a stopped member while the others
 run on.  Each step launches each of K1-K4 once for all members
 (``ops/kernels.py`` ``*_members``); the DCTs are products (or FFTs)
-batched over the member axis.  On the float64 ozaki route each slicing
-is one K5_members call for all members (each member its own scale, as
-the JAX ensemble's ``vmap`` gives it) and each int8 product serves all
-members (``ops/ozaki.py``).
+batched over the member axis.  On the card, without jitter or a mesh,
+each whole ``STOP_POLL`` steps of a chunk replay a CUDA graph of the
+batch's step, captured once a batch (``core/stepper.py`` ``ChunkGraph``):
+the same launches, one from the host.  On the float64 ozaki route each
+slicing is one K5_members call for all members (each member its own
+scale, as the JAX ensemble's ``vmap`` gives it) and each int8 product
+serves all members (``ops/ozaki.py``).
 
 All members share the initial field (the reference re-uses the same seed
 for every run, ``experiment.py:87-89``) and, with per-step jitter, the host
@@ -75,9 +78,9 @@ from .core.solver import (_JITTER_BUF_BYTES, _resolve_rfold_levels,
                           resolve_ozaki_fwd_pairs, resolve_pencil,
                           resolve_transform)
 from .core.state import STOP_NAN, STOP_NONE, STOP_STRINGS, init_members_state
-from .core.stepper import (StepConfig, entry_dct2, field_mesh,
-                           make_members_consts, prepare_members_row0,
-                           run_members_chunk)
+from .core.stepper import (STOP_POLL, ChunkGraph, StepConfig, entry_dct2,
+                           field_mesh, graph_fits, make_members_consts,
+                           prepare_members_row0, run_members_chunk)
 from .derived import Derived
 from .device import resolve_device
 from .ops import dct as dct_ops
@@ -285,8 +288,19 @@ class EnsembleSolver:
         self.timedatas = [TimeData() for _ in range(self.R)]
         self._stop = np.zeros(self.R, dtype=np.int64)
         self._ckpt_extra = None
+        # the batch's CUDA graph of STOP_POLL steps (:meth:`_replays`),
+        # captured at its first chunk of that many steps and kept with the
+        # solver (its memory goes with it)
+        self._graph = None
 
     # ------------------------------------------------------------------
+    def _replays(self) -> bool:
+        """True where the chunks replay a :class:`ChunkGraph` of
+        ``STOP_POLL`` steps: a run the graph takes (``graph_fits``: on the
+        card, no jitter) without a mesh (collectives through the host).
+        Other runs launch every step from the host."""
+        return self.mesh is None and graph_fits(self.cfg, self.device)
+
     def _gather_host(self, *leaves) -> np.ndarray:
         """Per-member leaves of this rank's members, as one (len(leaves),
         R) float64 numpy array of every member (gathered over the ens
@@ -446,8 +460,12 @@ class EnsembleSolver:
         # same chunks, so the collectives meet
         while n_iters > 0 and np.any(self._stop == STOP_NONE):
             k = min(n_iters, self.chunk_size)
+            if self._graph is None and k >= STOP_POLL and self._replays():
+                self._graph = ChunkGraph(self.cfg, self._consts, states,
+                                         members=True)
             states = run_members_chunk(self.cfg, self._consts, states, k,
-                                       self._draw_jitter_buf(k), self._grid)
+                                       self._draw_jitter_buf(k), self._grid,
+                                       self._graph)
             n_iters -= k
             states = self._sync(states)
             # publish the state before the hook: it sees the solver as it

@@ -18,11 +18,15 @@ its child spans', nesting per thread) to its name's totals, which
 session closes adds nothing.
 
 The spans (``PERF.md`` §3 names what reads each): ``ch.chunk`` (one chunk
-of steps, graph replays included), ``ch.poll`` (the stop flag's host
-sync every ``STOP_POLL`` steps), ``ch.sync`` (the per-chunk host sync),
-``ch.step``, in it ``ch.mu`` (K1), ``ch.update`` (K2 / K12) and
-``ch.stats`` (K3, K4, the float64 finish), and ``ch.dct2`` / ``ch.idct2``
-(the transforms, the entry transform included).
+of steps, graph replays included), in it ``ch.replay`` (one replay of a
+CUDA graph of ``STOP_POLL`` steps, ``core/stepper.py`` ``ChunkGraph``),
+``ch.capture`` (a graph's construction: its eager first step and the
+capture of its steps, whose spans it holds), ``ch.poll`` (the stop flag's
+host sync every ``STOP_POLL`` steps), ``ch.sync`` (the per-chunk host
+sync), ``ch.step`` (a step launched from the host, or captured), in it
+``ch.mu`` (K1), ``ch.update`` (K2 / K12) and ``ch.stats`` (K3, K4, the
+float64 finish), and ``ch.dct2`` / ``ch.idct2`` (the transforms, the
+entry transform included).
 """
 
 from __future__ import annotations

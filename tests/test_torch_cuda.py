@@ -1454,8 +1454,8 @@ def _grown(fn):
 def test_a_replayed_chunk_counts_the_launches_of_an_eager_chunk(
         card, transform):
     """The kernels' launch counts grow by the same over STOP_POLL eager
-    steps and over one replay of their ChunkGraph; the capture adds only
-    its eager first step."""
+    steps and over one replay of their ChunkGraph; the capture, which
+    advances no step, adds nothing."""
     from chsimpy_tpu_torch.core.solver import Solver
     from chsimpy_tpu_torch.core.stepper import (STOP_POLL, ChunkGraph,
                                                 run_chunk)
@@ -1471,15 +1471,15 @@ def test_a_replayed_chunk_counts_the_launches_of_an_eager_chunk(
                                      graph=graphs[0]))
     assert eager[0]['chemical_potential'] == STOP_POLL
     assert replay == eager
-    assert capture == [{k: n // STOP_POLL for k, n in c.items()}
-                       for c in eager]
+    assert capture == [{}, {}]
 
 
 def test_a_capture_counts_its_own_thread_s_launches_only(card):
     """A ChunkGraph captured while another thread replays a graph and
     steps eagerly: the capture counts its own steps' launches, no more,
-    and the counters grow by the other thread's replays and steps and the
-    capture's eager first step."""
+    and the counters grow by the other thread's replays and steps only
+    (the capture's eager first step advances no step and counts
+    nothing)."""
     import threading
     import time
 
@@ -1528,7 +1528,6 @@ def test_a_capture_counts_its_own_thread_s_launches_only(card):
     assert seen[0] > rounds['before'], 'no replay during the capture'
     n = rounds['all']
     assert total == [{k: n * (eager[i].get(k, 0) + one_step[i].get(k, 0))
-                      + one_step[i].get(k, 0)
                       for k in set(eager[i]) | set(one_step[i])}
                      for i in range(2)]
 
@@ -1536,7 +1535,10 @@ def test_a_capture_counts_its_own_thread_s_launches_only(card):
 def test_spans_on_the_card_are_host_events_only(card):
     """Under a kineto session on the card the port's spans are host
     events, none a device-side event or a user annotation, and the
-    ensemble's ``ch.step`` spans are K1_members' launches."""
+    ensemble's ``ch.step`` spans are K1_members' launches (the chunk of
+    100 steps replays a graph of STOP_POLL steps, whose capture holds
+    their spans and whose eager first step is one more span, and no
+    launch counted)."""
     from chsimpy_tpu_torch import material, tracing
     from chsimpy_tpu_torch.ensemble import EnsembleSolver
     p = Parameters(N=64, device='cuda', no_gui=True, kappa_tilde=KAPPA,
@@ -1554,10 +1556,207 @@ def test_spans_on_the_card_are_host_events_only(card):
     got = tracing.summary()
     tracing.reset()
     steps = K.launches['chemical_potential_members'] - before
-    assert got['ch.step']['count'] == steps == 150
+    assert got['ch.step']['count'] == steps + 1 == 151
+    assert got['ch.capture']['count'] == got['ch.replay']['count'] == 1
     named = [ev for ev in prof.kineto_results.events()
              if ev.name().startswith('ch.')]
     assert named and all(
         ev.device_type() == torch.autograd.DeviceType.CPU
         and not ev.is_user_annotation() for ev in named)
     assert {ev.name() for ev in named} == set(got)
+
+
+# ----------------------------------------------------------------------
+# the ensemble's chunks replayed as CUDA graphs (EnsembleSolver on the
+# card without jitter or a mesh)
+# ----------------------------------------------------------------------
+
+def _uq_batch(R, **kw):
+    """A float64 matmul batch at N=64 whose members, their A-factors
+    spread over [0.995, 1.005], stop between steps ~160 and ~260."""
+    from chsimpy_tpu_torch import material
+    from chsimpy_tpu_torch.ensemble import EnsembleSolver
+    A0, A1 = material.A0(923.15), material.A1(923.15)
+    pairs = np.array([[A0 * f, A1 / f] for f in np.linspace(0.995, 1.005, R)])
+    p = Parameters(N=64, ntmax=600, no_gui=True, kappa_tilde=KAPPA,
+                   device='cuda', delt=1e-6, XXX=0.875, threshold=0.875,
+                   generator='uniform', chunk_size=128)
+    for k, v in kw.items():
+        setattr(p, k, v)
+    return EnsembleSolver(p, pairs, kappas=[KAPPA] * R)
+
+
+def _eager(monkeypatch):
+    """Every EnsembleSolver made from here on launches each step."""
+    from chsimpy_tpu_torch.ensemble import EnsembleSolver
+    monkeypatch.setattr(EnsembleSolver, '_replays', lambda self: False)
+
+
+def _batch_run(R, **kw):
+    """The solutions of a prepared ``_uq_batch`` run to its end, and the
+    solver."""
+    e = _uq_batch(R, **kw)
+    e.prepare()
+    return e.solve_or_resume(), e
+
+
+def _same_members(a, b):
+    for x, y in zip(a, b):
+        assert (x.computed_steps, x.tau0, x.t0, x.stop_reason) == \
+            (y.computed_steps, y.tau0, y.t0, y.stop_reason)
+        assert np.array_equal(x.timedata.data(), y.timedata.data())
+        assert torch.equal(x.U, y.U)
+
+
+@pytest.mark.parametrize('R,chunk', [(5, 100), (10, 128)])
+def test_a_replayed_ensemble_is_the_eager_ensemble(card, monkeypatch, R,
+                                                   chunk):
+    """A float64 matmul batch replaying a ChunkGraph of STOP_POLL
+    member steps gives the eager batch's rows, stops, tau0, step counts
+    and fields to the bit, through its members' stops (chunks of 100:
+    one replay and 36 eager steps; of 128: two replays with a poll
+    between)."""
+    replayed, e = _batch_run(R, chunk_size=chunk)
+    assert e._graph is not None
+    _eager(monkeypatch)
+    eager, e = _batch_run(R, chunk_size=chunk)
+    assert e._graph is None
+    stops = [s.computed_steps for s in eager]
+    assert all(s.stop_reason == 'energy' for s in eager)
+    assert min(stops) > 128 and len(set(stops)) > 1
+    _same_members(replayed, eager)
+
+
+@pytest.mark.parametrize('kw', [
+    dict(transform_backend='ozaki'),
+    dict(precision='float32', transform_backend='split'),
+    dict(precision='float32', transform_backend='split', fold_field=True),
+    dict(precision='float32', transform_backend='fft'),
+    dict(precision='float32', matmul_precision='high'),
+    dict(precision='float32', otf_coeffs=True),
+    dict(precision='float32', inv_band=16),
+    dict(adaptive_time=True, full_sim=True, ntmax=700),
+    dict(time_max=146.0, full_sim=True)], ids=str)
+def test_replayed_batches_on_the_other_paths_are_eager(card, monkeypatch,
+                                                       kw):
+    """The routes and knobs an EnsembleSolver on the card replays
+    besides the float64 matmul route (the adaptive step past step 500,
+    the time limit at step 150): the eager batch's bits."""
+    replayed, e = _batch_run(3, **kw)
+    assert e._graph is not None
+    _eager(monkeypatch)
+    eager, _ = _batch_run(3, **kw)
+    _same_members(replayed, eager)
+
+
+def test_a_replayed_members_chunk_counts_the_launches_of_an_eager_chunk(
+        card):
+    """The kernels' launch counts grow by the same over STOP_POLL eager
+    member steps and over one replay of their ChunkGraph; the capture,
+    which advances no step, adds nothing."""
+    from chsimpy_tpu_torch.core.stepper import (STOP_POLL, ChunkGraph,
+                                                run_members_chunk)
+    e = _uq_batch(5)
+    e.prepare()
+    e.solve_or_resume(2)
+    state, graphs = e._states, []
+    eager = _grown(lambda: run_members_chunk(e.cfg, e._consts, state,
+                                             STOP_POLL))
+    capture = _grown(lambda: graphs.append(
+        ChunkGraph(e.cfg, e._consts, state, members=True)))
+    replay = _grown(lambda: run_members_chunk(e.cfg, e._consts, state,
+                                              STOP_POLL, graph=graphs[0]))
+    assert eager[0]['chemical_potential_members'] == STOP_POLL
+    assert replay == eager
+    assert capture == [{}, {}]
+
+
+def test_a_replayed_ensemble_under_the_profiler(card, monkeypatch):
+    """Under a kineto session (the spans on) a replayed batch gives the
+    eager batch's bits; the spans count one capture and a replay for
+    each whole STOP_POLL steps of its chunks (300 steps in chunks of
+    128, 128 and 44: four), and its ``ch.step`` spans the capture's
+    steps, its eager first step and the 44 eager ones."""
+    from chsimpy_tpu_torch import tracing
+    from chsimpy_tpu_torch.core.stepper import STOP_POLL
+    kw = dict(full_sim=True, ntmax=301)
+    e = _uq_batch(5, **kw)
+    e.prepare()
+    k1 = K.launches['chemical_potential_members']
+    torch.cuda.synchronize()
+    with torch.autograd.profiler.profile(use_kineto=True,
+                                         use_device='cuda'):
+        tracing.reset()
+        traced = e.solve_or_resume()
+    got = tracing.summary()
+    tracing.reset()
+    assert got['ch.capture']['count'] == 1
+    assert got['ch.replay']['count'] == 4
+    assert got['ch.step']['count'] == 1 + STOP_POLL + 44
+    assert K.launches['chemical_potential_members'] - k1 == 300
+    _eager(monkeypatch)
+    eager, _ = _batch_run(5, **kw)
+    _same_members(traced, eager)
+
+
+def test_a_batch_s_graph_goes_with_its_solver(card):
+    """The memory a batch's graph holds goes with its solver: after each
+    of several replayed batches is dropped (no collection of cycles
+    between, as in the benchmark's window), the allocator holds what it
+    held before the first."""
+    import gc
+    for R in (10, 5):           # the widths' tickets, once
+        e = _uq_batch(R, full_sim=True, ntmax=130)
+        e.prepare()
+        e.solve_or_resume()
+        del e
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(card)
+    for R in (5, 10, 5, 10):
+        e = _uq_batch(R, full_sim=True, ntmax=130)
+        e.prepare()
+        e.solve_or_resume()
+        assert e._graph is not None
+        del e
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(card) == base
+
+
+def test_batches_in_threads_capture_on_streams_of_their_own(card,
+                                                             monkeypatch):
+    """Threads on the default stream capture on a stream of their own,
+    one a thread kept for its later captures: four threads replaying
+    batches side by side give the eager batch's bits, and none captured
+    on another's stream."""
+    import threading
+    from chsimpy_tpu_torch.core import stepper
+    kw = dict(full_sim=True, ntmax=260)
+    runs, errors = {}, []
+
+    def run(i):
+        try:
+            sols = []
+            for _ in range(2):
+                e = _uq_batch(5, **kw)
+                e.prepare()
+                sols.append(e.solve_or_resume())
+                sols.append(e._graph._stream)
+            runs[i] = sols
+        except BaseException as exc:    # raised again below
+            errors.append(exc)
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads) and not errors, errors[:1]
+    streams = [runs[i][1] for i in range(4)]
+    assert all(runs[i][3] is runs[i][1] for i in range(4))
+    assert len({s.cuda_stream for s in streams}) == 4
+    assert stepper._capture_stream(card) not in streams
+    _eager(monkeypatch)
+    eager, _ = _batch_run(5, **kw)
+    for i in range(4):
+        _same_members(runs[i][0], eager)
+        _same_members(runs[i][2], eager)

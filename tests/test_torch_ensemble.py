@@ -386,3 +386,122 @@ def test_chip_smoke_member_kappas_are_the_sympy_values():
         base = jmaterial.get_distance_common_tangent(
             R=p.R, T=p.temp, B=p.B, a0=float(A0), a1=float(A1), at=p.XXX)
         assert base / (0.1602564 * 64) ** 2 == kappa
+
+
+# ----------------------------------------------------------------------
+# the chunks' CUDA graphs: replayed only on the card without jitter or a
+# mesh; the replay loop and the solver's capture, with a stand-in graph
+# ----------------------------------------------------------------------
+
+def _replay_cases(tmp_path):
+    """(name, solver, its chunk's steps) of the runs that launch every
+    step: on the CPU, with host jitter, on an ens-only mesh (a world of
+    one gloo rank, open while the generator is)."""
+    from chsimpy_tpu_torch.parallel.mesh import EnsembleMesh
+    pairs = a_pairs()
+    yield 'cpu', EnsembleSolver(port_params(), pairs)
+    yield 'jitter', EnsembleSolver(port_params(generator='uniform',
+                                               jitter=0.01), pairs)
+    with _one_rank_world(tmp_path):
+        yield 'mesh', EnsembleSolver(port_params(), pairs,
+                                     mesh=EnsembleMesh(1, (1, 1), 'cpu'))
+
+
+def test_the_replay_rule_takes_the_card_without_jitter_or_mesh(
+        tmp_path, monkeypatch):
+    """``_replays`` is False on the CPU, and with host jitter or a mesh
+    also where the fields lay on the card."""
+    seen = []
+    for name, e in _replay_cases(tmp_path):
+        assert not e._replays(), name
+        monkeypatch.setattr(e, 'device', torch.device('cuda'))
+        assert e._replays() == (name == 'cpu'), name
+        seen.append(name)
+    assert seen == ['cpu', 'jitter', 'mesh']
+
+
+def test_runs_that_launch_each_step_make_no_graph(tmp_path, monkeypatch):
+    """On the CPU, with host jitter and on an ens-only mesh, a chunk of
+    more than STOP_POLL steps builds no ChunkGraph, and a profiler
+    session records no ``ch.capture`` or ``ch.replay``."""
+    from chsimpy_tpu_torch import ensemble, tracing
+
+    def refused(*args, **kwargs):
+        raise AssertionError('a graph was built')
+    monkeypatch.setattr(ensemble, 'ChunkGraph', refused)
+    for name, e in _replay_cases(tmp_path):
+        e.prepare()
+        with torch.autograd.profiler.profile(use_kineto=True):
+            tracing.reset()
+            e.solve_or_resume(tst.STOP_POLL + 6)
+        got = tracing.summary()
+        tracing.reset()
+        assert e._graph is None, name
+        assert got['ch.step']['count'] == tst.STOP_POLL + 5, name
+        assert not {'ch.capture', 'ch.replay'} & set(got), name
+
+
+class _EagerBlocks:
+    """A stand-in for ChunkGraph on the CPU: a replay runs its STOP_POLL
+    steps one by one."""
+    made = []
+
+    def __init__(self, cfg, consts, state, members=False):
+        assert members
+        self.cfg, self.consts, self.step = cfg, consts, tst._members_step
+        self.replays = 0
+        self.made.append((self, int(state.computed_steps.max())))
+
+    def replay(self, state):
+        self.replays += 1
+        for _ in range(tst.STOP_POLL):
+            state = self.step(self.cfg, self.consts, state)
+        return state
+
+
+@pytest.mark.parametrize('chunk', [100, 128, 64])
+def test_replayed_blocks_keep_the_eager_chunks_bits_and_polls(
+        monkeypatch, chunk):
+    """With a stand-in graph, a batch whose members stop at steps ~160-260
+    (N=64): the solver builds one graph, at its first chunk, and its
+    chunks replay each whole STOP_POLL steps, poll where the eager loop
+    polls and run the rest step by step: the eager batch's rows, stops
+    and fields to the bit, and its polls."""
+    from chsimpy_tpu_torch import ensemble, tracing
+    kw = dict(N=64, ntmax=600, delt=1e-6, XXX=0.875, threshold=0.875,
+              generator='uniform', full_sim=False, chunk_size=chunk)
+    pairs = np.array([[jmaterial.A0(923.15) * f, jmaterial.A1(923.15) / f]
+                      for f in np.linspace(0.995, 1.005, 4)])
+
+    def run():
+        e = EnsembleSolver(port_params(**kw), pairs)
+        e.prepare()
+        with torch.autograd.profiler.profile(use_kineto=True):
+            tracing.reset()
+            sols = e.solve_or_resume()
+        got = tracing.summary()
+        tracing.reset()
+        return e, sols, got
+    e0, eager, got0 = run()
+    monkeypatch.setattr(EnsembleSolver, '_replays', lambda self: True)
+    monkeypatch.setattr(ensemble, 'ChunkGraph', _EagerBlocks)
+    _EagerBlocks.made = []
+    e1, replayed, got1 = run()
+    assert [m[0] for m in _EagerBlocks.made] == [e1._graph]
+    assert _EagerBlocks.made[0][1] == 1
+    stops = [s.computed_steps for s in eager]
+    assert all(s.stop_reason == 'energy' for s in eager)
+    assert min(stops) > 128 and len(set(stops)) > 1
+    for a, b in zip(eager, replayed):
+        assert (a.computed_steps, a.tau0, a.t0) == \
+            (b.computed_steps, b.tau0, b.t0)
+        assert np.array_equal(a.timedata.data(), b.timedata.data())
+        assert torch.equal(a.U, b.U)
+    polls = [got.get('ch.poll', {}).get('count', 0) for got in (got0, got1)]
+    assert polls[0] == polls[1] and (polls[0] > 0) == (chunk > 64)
+    assert got1['ch.chunk']['count'] == got0['ch.chunk']['count']
+    # every whole block of a chunk replayed, the steps it left run one
+    # by one: the chunks' step iterations
+    iters = got0['ch.step']['count']
+    assert e1._graph.replays == iters // chunk * (chunk // tst.STOP_POLL) \
+        + (iters % chunk) // tst.STOP_POLL

@@ -243,3 +243,20 @@ def test_threads_keep_their_own_nesting(session):
     assert inner['self_ms'] == inner['total_ms']
     assert outer['self_ms'] == pytest.approx(
         outer['total_ms'] - inner['total_ms'], rel=1e-12)
+
+
+def test_the_graph_step_share_reads_the_replays(monkeypatch):
+    """The benchmark's ``graph_step_share.uq`` over a made-up summary:
+    each ``ch.replay`` STOP_POLL steps over the traced span's step
+    iterations; nothing where no replay was recorded or no step ran."""
+    from chbench.spec import Bench
+    read, unit = Bench().readers('uq512_f64.p_auto')['graph_step_share.uq']
+    assert unit == '%'
+    ctx = types.SimpleNamespace(steps=1025)
+    spans = {'ch.step': {'count': 65, 'total_ms': 9.0, 'self_ms': 3.0},
+             'ch.replay': {'count': 16, 'total_ms': 2.0, 'self_ms': 2.0}}
+    monkeypatch.setattr(tracing, 'summary', lambda: spans)
+    assert read(ctx) == pytest.approx(100.0 * 16 * STOP_POLL / 1025)
+    assert read(types.SimpleNamespace(steps=0)) is None
+    del spans['ch.replay']
+    assert read(ctx) is None
